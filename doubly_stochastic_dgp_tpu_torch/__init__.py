@@ -1,0 +1,28 @@
+"""doubly_stochastic_dgp_tpu_torch: the PyTorch/CUDA port of the
+doubly-stochastic deep GP package ``doubly_stochastic_dgp_tpu``.
+
+This slice covers the serving path of the Monte-Carlo DGP: RBF(+White)
+SVGP layers with identity/PCA skip connections, a Gaussian likelihood,
+the cached posterior and ``make_server``; the fused staged conditional
+runs as a hand-written CUDA kernel (``ops/cuda``).  It imports torch,
+numpy and scipy only — never jax or the JAX package.  Entry points run on
+the GPU unless the caller passes ``device='cpu'``.
+"""
+
+from .config import Config, resolve_device
+from .convert import load_reference_state
+from .data.datasets import SyntheticRegression
+from .models.dgp import DGP, DGPBase
+from .models.layers import SVGPLayer
+from .models.mean_functions import Identity, Linear, Zero
+from .models.posterior import CachedSVGPLayer, precompute
+from .ops.kernels import RBF, Sum, White
+from .ops.likelihoods import Gaussian
+from .serving import make_server
+
+__all__ = [
+    "Config", "resolve_device", "load_reference_state",
+    "SyntheticRegression", "DGP", "DGPBase", "SVGPLayer", "Identity",
+    "Linear", "Zero", "CachedSVGPLayer", "precompute", "RBF", "Sum",
+    "White", "Gaussian", "make_server",
+]

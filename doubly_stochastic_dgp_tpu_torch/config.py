@@ -1,0 +1,73 @@
+"""Numerics configuration and device resolution for the PyTorch port.
+
+Counterpart of ``doubly_stochastic_dgp_tpu/config.py``.  The JAX package
+keeps one process-global ``Config`` that model constructors snapshot at
+build time; here the ``Config`` is an explicit value handed to
+``DGP.build`` (no global state), and each layer snapshots the same
+fields.  Field names and defaults mirror the JAX ones so that a JAX
+model's settings carry over unchanged.
+
+Precision: every contraction in the port runs in full fp32 (or f64).
+TF32 is never enabled and ``torch.backends.cuda.matmul.allow_tf32`` /
+``torch.set_float32_matmul_precision`` are never touched.  The
+``precision`` field ('default' | 'mixed' | 'highest') is kept only so a
+JAX model's tier carries over; on the GPU every tier means fp32 until a
+measurement says a cheaper one is safe.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+__all__ = ["Config", "resolve_device"]
+
+_SOLVE_MODES = ("solve", "inverse")
+_PRECISIONS = ("default", "mixed", "mixed_g", "mixed_high", "highest")
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    dtype: torch.dtype = torch.float64
+    jitter: float = 1e-6
+    # 'solve' (triangular solves; not ported yet) | 'inverse' (staged
+    # inverse, sum-of-squares variance)
+    solve_mode: str = "solve"
+    # False | True: route every RBF(+White) SVGP conditional through the
+    # fused conditional kernel
+    use_pallas: bool = False
+    precision: str = "mixed"
+
+    def __post_init__(self):
+        if self.solve_mode not in _SOLVE_MODES:
+            raise ValueError(f"solve_mode must be one of {_SOLVE_MODES}; "
+                             f"got {self.solve_mode!r}")
+        if self.precision not in _PRECISIONS:
+            raise ValueError(f"precision must be one of {_PRECISIONS}; "
+                             f"got {self.precision!r}")
+        if self.use_pallas not in (False, True):
+            raise ValueError(
+                f"use_pallas={self.use_pallas!r}: only False/True are "
+                f"ported ('saved' is the training variant, ROADMAP B3)")
+        if self.dtype not in (torch.float32, torch.float64):
+            raise ValueError(f"dtype must be float32 or float64; got "
+                             f"{self.dtype}")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    another.  There is no silent CPU fallback: ``device=None`` without a
+    card raises."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available: the port's entry points run on the "
+                "GPU by default; pass device='cpu' explicitly to run on "
+                "the CPU")
+        return torch.device("cuda")
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device} requested but CUDA is not "
+                           f"available")
+    return device

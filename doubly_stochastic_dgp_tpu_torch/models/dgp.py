@@ -1,0 +1,125 @@
+"""Deep GP with the doubly-stochastic Monte-Carlo prediction surface.
+
+Counterpart of ``doubly_stochastic_dgp_tpu/models/dgp.py`` (``DGPBase``
+propagation and prediction, ``DGP.build``).  JAX splits one PRNG key per
+layer; here each layer draws its unit normals in order from one
+``torch.Generator`` on the model's device, so the two packages agree
+only through fixed draws (``zs``).  The ELBO is not ported yet.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Config, resolve_device
+from .initializations import init_layers_linear
+from .mean_functions import Zero
+
+__all__ = ["DGPBase", "DGP"]
+
+
+class DGPBase(nn.Module):
+    """A stack of layers, a likelihood and the training data buffers."""
+
+    def __init__(self, likelihood, layers, X, Y, num_samples=1,
+                 num_data=None):
+        super().__init__()
+        X = torch.as_tensor(X)
+        Y = torch.as_tensor(Y)
+        if X.shape[0] != Y.shape[0]:
+            raise ValueError(f"X and Y must have the same number of rows; "
+                             f"got X {tuple(X.shape)} vs Y {tuple(Y.shape)}")
+        self.likelihood = likelihood
+        self.layers = nn.ModuleList(layers)
+        self.register_buffer("X_data", X)
+        self.register_buffer("Y_data", Y)
+        self.num_samples = int(num_samples)
+        self.num_data = int(num_data or X.shape[0])
+
+    def _as_input(self, A):
+        return torch.as_tensor(A, dtype=self.X_data.dtype,
+                               device=self.X_data.device)
+
+    def propagate(self, X, generator=None, S=1, zs=None):
+        """Tile X to (S, N, D) and sample through every layer; returns
+        (Fs, Fmeans, Fvars), one entry per layer.  ``zs`` (one per layer,
+        broadcastable to (S, N, D_l)) replaces the random draws."""
+        X = self._as_input(X)
+        F = X[None].expand(S, *X.shape)
+        if zs is None:
+            zs = [None] * len(self.layers)
+        Fs, Fmeans, Fvars = [], [], []
+        for layer, z in zip(self.layers, zs):
+            F, Fmean, Fvar = layer.sample_from_conditional(
+                F, z=z, generator=generator)
+            Fs.append(F)
+            Fmeans.append(Fmean)
+            Fvars.append(Fvar)
+        return Fs, Fmeans, Fvars
+
+    def _predict(self, X, generator=None, S=1, zs=None):
+        _, Fmeans, Fvars = self.propagate(X, generator=generator, S=S,
+                                          zs=zs)
+        return Fmeans[-1], Fvars[-1]
+
+    def _default_generator(self, generator, zs):
+        if generator is None and zs is None:
+            generator = torch.Generator(device=self.X_data.device)
+            generator.manual_seed(0)
+        return generator
+
+    @torch.no_grad()
+    def predict_f(self, Xnew, S, generator=None, zs=None):
+        """Final-layer moments, (S, N, D) each."""
+        return self._predict(Xnew, self._default_generator(generator, zs),
+                             S, zs)
+
+    @torch.no_grad()
+    def predict_y(self, Xnew, S, generator=None, zs=None):
+        """Predictive y moments per sample, (S, N, D) each."""
+        Fmean, Fvar = self._predict(
+            Xnew, self._default_generator(generator, zs), S, zs)
+        return self.likelihood.predict_mean_and_var(Fmean, Fvar)
+
+    @torch.no_grad()
+    def predict_density(self, Xnew, Ynew, S, generator=None, zs=None):
+        """MC mixture predictive log density: logsumexp over the S
+        samples, (N, D)."""
+        Fmean, Fvar = self._predict(
+            Xnew, self._default_generator(generator, zs), S, zs)
+        l = self.likelihood.predict_density(Fmean, Fvar,
+                                            self._as_input(Ynew))
+        return torch.logsumexp(l - math.log(S), dim=0)
+
+
+class DGP(DGPBase):
+    """The paper's model: identity/PCA-initialized SVGP stack."""
+
+    @classmethod
+    def build(cls, X, Y, Z, kernels, likelihood, num_outputs=None,
+              mean_function=None, white=False, num_samples=1,
+              num_data=None, config=Config(), device=None):
+        """Build on the host in float64, then move to ``device`` (CUDA
+        unless given) in ``config.dtype``."""
+        device = resolve_device(device)
+        X = np.asarray(X)
+        Y = np.asarray(Y)
+        Z = np.asarray(Z)
+        if Z.ndim != 2 or Z.shape[1] != X.shape[1]:
+            raise ValueError(f"Z must be (M, D) with D = X's feature width "
+                             f"{X.shape[1]}; got {Z.shape}")
+        num_outputs = num_outputs or Y.shape[1]
+        if mean_function is None:
+            mean_function = Zero(num_outputs)
+        layers = init_layers_linear(X, Y, Z, kernels,
+                                    num_outputs=num_outputs,
+                                    mean_function=mean_function,
+                                    white=white, config=config)
+        model = cls(likelihood, layers, np.asarray(X, dtype=np.float64),
+                    np.asarray(Y, dtype=np.float64),
+                    num_samples=num_samples, num_data=num_data)
+        return model.to(device=device, dtype=config.dtype)

@@ -1,0 +1,229 @@
+"""The SVGP layer of the main path: multisample conditionals, sampling and
+the sparse conditional in its two diagonal forms.
+
+Counterpart of ``doubly_stochastic_dgp_tpu/models/layers.py``
+(``Layer``, ``_fusable_rbf``, the build-time host helpers and
+``SVGPLayer``).  ``conditional_ND`` has two branches, both diagonal:
+
+- the fused branch (``use_pallas=True`` and an RBF(+White) kernel):
+  staging factors LiT = Lu^{-T}, alpha = Li q_mu and W = Li SK Li^T are
+  formed here and the gram -> staging -> mean/var pipeline runs in the
+  fused conditional kernel (``ops/cuda/conditional.py``);
+- the staged-inverse branch (``solve_mode='inverse'``): G = Li Kuf with
+  the sum-of-squares variance Kff - colsum(G*G) + colsum(H*H), H = C^T G.
+
+Not ported yet (they raise): ``full_cov``, ``solve_mode='solve'``, input
+propagation and the KL term.
+"""
+
+from __future__ import annotations
+
+import copy
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..config import Config
+from ..ops.kernels import RBF, Sum, White
+from ..ops.linalg import add_jitter, inv_lower, reparameterize, safe_cholesky
+from ..ops.cuda.conditional import fused_conditional
+from ..utils.params import Param
+from .mean_functions import Zero
+
+__all__ = ["Layer", "SVGPLayer"]
+
+
+class Layer(nn.Module):
+    """Base layer: multisample conditional and reparameterized sampling.
+    Subclasses set ``jitter``, the sampling jitter."""
+
+    @property
+    def num_outputs(self):
+        raise NotImplementedError
+
+    def conditional_ND(self, X, full_cov=False):
+        raise NotImplementedError
+
+    def conditional_SND(self, X, full_cov=False):
+        """Diagonal conditional over X (S, N, D_in), flattened to one
+        (S*N, D_in) batch."""
+        if full_cov:
+            raise NotImplementedError("full_cov is not ported yet (ROADMAP)")
+        S, N, D = X.shape
+        mean, var = self.conditional_ND(X.reshape(S * N, D))
+        if var.shape[-1] == 1 and self.num_outputs > 1:
+            var = var.expand(S * N, self.num_outputs)
+        return (mean.reshape(S, N, self.num_outputs),
+                var.reshape(S, N, self.num_outputs))
+
+    def sample_from_conditional(self, X, z=None, generator=None):
+        """Conditional + reparameterized sample.  X: (S, N, D_in).  Give
+        either fixed unit normals ``z`` (broadcastable to (S, N, D_out)) or
+        a ``torch.Generator`` on X's device."""
+        mean, var = self.conditional_SND(X)
+        shape = (X.shape[0], X.shape[1], self.num_outputs)
+        if z is None:
+            if generator is None:
+                raise ValueError("need a generator when z is not given")
+            z = torch.randn(shape, generator=generator, dtype=mean.dtype,
+                            device=mean.device)
+        else:
+            z = torch.as_tensor(z, dtype=mean.dtype,
+                                device=mean.device).expand(shape)
+        return reparameterize(mean, var, z, self.jitter), mean, var
+
+
+def _fusable_rbf(kern):
+    """(rbf, total white variance) if the kernel is RBF or Sum(RBF,
+    White...), else None (the fused conditional covers only that
+    family)."""
+    if isinstance(kern, RBF):
+        return kern, None
+    if isinstance(kern, Sum):
+        rbf, white = None, None
+        for k in kern.kernels:
+            if isinstance(k, RBF) and rbf is None:
+                rbf = k
+            elif isinstance(k, White):
+                v = k.variance.value
+                white = v if white is None else white + v
+            else:
+                return None
+        if rbf is not None:
+            return rbf, white
+    return None
+
+
+def _host_gram(kern, Z):
+    """Build-time gram in float64 on the host, never on the card: an f32
+    gram there can leave the initial q_sqrt indefinite."""
+    host = copy.deepcopy(kern).to(device="cpu", dtype=torch.float64)
+    with torch.no_grad():
+        return host.K(torch.as_tensor(Z, dtype=torch.float64)).numpy()
+
+
+def _host_cholesky(K, jitter):
+    """numpy Cholesky with escalating jitter (build-time analogue of
+    ops.linalg.safe_cholesky)."""
+    M = K.shape[0]
+    for factor in (1.0, 1e2, 1e4, 1e6):
+        try:
+            return np.linalg.cholesky(K + np.eye(M) * (jitter * factor))
+        except np.linalg.LinAlgError:
+            continue
+    raise np.linalg.LinAlgError(
+        "gram not positive definite even with escalated jitter")
+
+
+def _init_q_sqrt(Z, kern, num_outputs, white, jitter):
+    """Identity init (white) or prior Cholesky init (non-white)."""
+    M = Z.shape[0]
+    if white:
+        return np.tile(np.eye(M)[None], [num_outputs, 1, 1])
+    Lu = _host_cholesky(_host_gram(kern, Z), jitter)
+    return np.tile(Lu[None], [num_outputs, 1, 1])
+
+
+class SVGPLayer(Layer):
+    """Sparse variational GP layer: kernel, inducing inputs Z (M, D_in),
+    q_mu (M, D_out), lower-triangular q_sqrt (D_out, M, M), mean function
+    and the whitening flag.  Numerics fields are snapshotted from
+    ``config``."""
+
+    def __init__(self, kern, Z, num_outputs, mean_function=None,
+                 white=False, input_prop_dim=None, config=Config()):
+        super().__init__()
+        if input_prop_dim is not None:
+            raise NotImplementedError(
+                "input propagation is not ported yet (ROADMAP)")
+        Z = np.asarray(Z, dtype=np.float64)
+        if Z.shape[1] != kern.input_dim:
+            raise ValueError(
+                f"SVGPLayer: kernel expects input_dim={kern.input_dim} but "
+                f"Z has shape {Z.shape}")
+        M = Z.shape[0]
+        self.kern = kern
+        self.mean_function = (Zero(num_outputs) if mean_function is None
+                              else mean_function)
+        self.num_outputs_ = int(num_outputs)
+        self.white = bool(white)
+        self.jitter = float(config.jitter)
+        self.solve_mode = config.solve_mode
+        self.use_pallas = config.use_pallas
+        self.precision = config.precision
+        self.Z = Param(Z)
+        self.q_mu = Param(np.zeros((M, num_outputs)))
+        self.q_sqrt = Param(_init_q_sqrt(Z, kern, num_outputs, white,
+                                         self.jitter), "triangular")
+
+    @property
+    def num_outputs(self):
+        return self.num_outputs_
+
+    @property
+    def num_inducing(self):
+        return self.Z.unconstrained.shape[0]
+
+    def _chol_Kuu(self):
+        K = self.kern.K(self.Z.value)
+        return add_jitter(K, self.jitter), safe_cholesky(K, self.jitter)
+
+    def _SK(self, Ku):
+        """q_sqrt q_sqrt^T - {I | Ku}: the (D, M, M) covariance core."""
+        I = torch.eye(self.num_inducing, dtype=Ku.dtype, device=Ku.device)
+        SK = -I[None] if self.white else -Ku[None]
+        q_sqrt = self.q_sqrt.value
+        return SK + torch.einsum("dij,dkj->dik", q_sqrt, q_sqrt)
+
+    def conditional_ND(self, X, full_cov=False):
+        """Diagonal sparse conditional at X (B, D_in): mean (B, D_out),
+        var (B, D_out)."""
+        if full_cov:
+            raise NotImplementedError("full_cov is not ported yet (ROADMAP)")
+        if self.use_pallas and _fusable_rbf(self.kern) is not None:
+            return self._conditional_fused(X)
+        if self.solve_mode != "inverse":
+            raise NotImplementedError(
+                "solve_mode='solve' is not ported yet (ROADMAP); use "
+                "'inverse' or use_pallas=True")
+        # staged inverse, sum-of-squares variance (JAX layers.py:337-409)
+        Kuf = self.kern.K(self.Z.value, X)                      # (M, B)
+        _, Lu = self._chol_Kuu()
+        Li = inv_lower(Lu)
+        G = Li @ Kuf                                            # (M, B)
+        if self.white:
+            alpha, C = self.q_mu.value, self.q_sqrt.value
+        else:
+            alpha = Li @ self.q_mu.value                        # (M, D)
+            C = torch.einsum("ij,djk->dik", Li, self.q_sqrt.value)
+        mean = G.T @ alpha                                      # (B, D)
+        resid = self.kern.Kdiag(X) - torch.sum(G * G, dim=0)    # (B,)
+        D_, M_, _ = C.shape
+        CT = C.transpose(-1, -2).reshape(D_ * M_, M_)
+        H = (CT @ G).reshape(D_, M_, G.shape[1])                # (D, M, B)
+        var = resid[:, None] + torch.sum(H * H, dim=1).T
+        var = torch.clamp(var, min=0.0)
+        return mean + self.mean_function(X), var
+
+    def _conditional_fused(self, X):
+        """Fused branch: stage LiT, alpha, W here (fp32 in the order of the
+        JAX code, so the f32 cancellation in SK and W matches), then one
+        fused kernel call for gram, staging, mean and variance."""
+        rbf, white_var = _fusable_rbf(self.kern)
+        Ku, Lu = self._chol_Kuu()
+        SK = self._SK(Ku)
+        Li = inv_lower(Lu)
+        if self.white:
+            alpha, W = self.q_mu.value, SK
+        else:
+            alpha = Li @ self.q_mu.value                        # (M, D)
+            W = (Li @ SK) @ Li.T                                # (D, M, M)
+        ls = rbf.lengthscales.value
+        kvar = rbf.variance.value
+        kdiag = kvar if white_var is None else kvar + white_var
+        mean, var = fused_conditional(
+            (X / ls).contiguous(), (self.Z.value / ls).contiguous(),
+            Li.T.contiguous(), alpha.contiguous(), W.contiguous(),
+            kvar, kdiag)
+        return mean + self.mean_function(X), var

@@ -1,0 +1,75 @@
+"""Constrained parameters: bijectors and the ``Param`` module.
+
+Counterpart of the bijector half of ``doubly_stochastic_dgp_tpu/
+utils/modules.py`` (``positive``/``positive_inverse``/``_tril`` and
+``Param``).  A ``Param`` holds the *unconstrained* tensor as an
+``nn.Parameter`` (``requires_grad`` = its ``trainable`` flag) and applies
+its bijector in ``.value``; the maps match the JAX ones exactly, so the
+same unconstrained arrays give the same constrained values.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+__all__ = ["Param", "positive", "positive_inverse", "BIJECTORS"]
+
+_SOFTPLUS_LOWER = 1e-6  # keeps positive params bounded away from zero
+
+
+def positive(u):
+    """softplus(u) + lower bound (softplus as logaddexp(u, 0), the JAX
+    formula, so large u are not cut at a threshold)."""
+    return torch.logaddexp(u, torch.zeros_like(u)) + _SOFTPLUS_LOWER
+
+
+def positive_inverse(v):
+    """Inverse of :func:`positive`.  Values at or below the floor are
+    clamped to a tiny positive offset instead of giving -inf/NaN."""
+    v = v - _SOFTPLUS_LOWER
+    v = torch.clamp(v, min=1e-20)
+    # softplus^-1(v) = log(expm1(v)) = v + log1p(-exp(-v))
+    return v + torch.log(-torch.expm1(-v))
+
+
+BIJECTORS = {
+    "identity": (lambda u: u, lambda v: v),
+    "positive": (positive, positive_inverse),
+    # full-matrix storage, strict upper triangle masked on the way out
+    "triangular": (torch.tril, torch.tril),
+}
+
+
+class Param(nn.Module):
+    """A constrained parameter: ``unconstrained`` is the stored tensor and
+    ``.value`` its bijector image."""
+
+    def __init__(self, value, bijector="identity", trainable=True,
+                 dtype=torch.float64):
+        super().__init__()
+        if bijector not in BIJECTORS:
+            raise ValueError(f"unknown bijector {bijector!r}")
+        self.bijector = bijector
+        value = torch.as_tensor(value, dtype=dtype)
+        self.unconstrained = nn.Parameter(BIJECTORS[bijector][1](value),
+                                          requires_grad=bool(trainable))
+
+    @property
+    def trainable(self) -> bool:
+        return self.unconstrained.requires_grad
+
+    @property
+    def value(self):
+        return BIJECTORS[self.bijector][0](self.unconstrained)
+
+    def set_value(self, value):
+        """Overwrite in place from a constrained value."""
+        with torch.no_grad():
+            self.unconstrained.copy_(BIJECTORS[self.bijector][1](
+                torch.as_tensor(value, dtype=self.unconstrained.dtype,
+                                device=self.unconstrained.device)))
+
+    def extra_repr(self):
+        return (f"{self.bijector}, shape={tuple(self.unconstrained.shape)}, "
+                f"trainable={self.trainable}")

@@ -1,0 +1,216 @@
+"""PyTorch port: module-by-module parity with the JAX package in float64
+on the CPU (bijectors, kernels, Cholesky with escalation, triangular
+inverse, mean functions, Gaussian likelihood, the SVGP conditional on
+both diagonal branches, the cached layer), plus the port's import and
+device rules.
+
+One test item that loops over its cases and names the failing case in
+every assertion message."""
+
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+from numpy.testing import assert_allclose
+
+import doubly_stochastic_dgp_tpu as dsd
+from doubly_stochastic_dgp_tpu.models import posterior as jposterior
+from doubly_stochastic_dgp_tpu.ops import linalg as jlinalg
+from doubly_stochastic_dgp_tpu.utils import modules as jmodules
+import doubly_stochastic_dgp_tpu_torch as port
+from doubly_stochastic_dgp_tpu_torch.models import posterior as tposterior
+from doubly_stochastic_dgp_tpu_torch.ops import linalg as tlinalg
+from doubly_stochastic_dgp_tpu_torch.utils import params as tparams
+
+RTOL, ATOL = 1e-8, 1e-10
+
+
+def _close(case, got, want):
+    got = got.detach().numpy() if isinstance(got, torch.Tensor) else got
+    assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL,
+                    err_msg=case)
+
+
+def _state(jax_tree):
+    return {jax.tree_util.keystr(p): np.asarray(v)
+            for p, v in jax.tree_util.tree_flatten_with_path(jax_tree)[0]}
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.float64))
+
+
+def _check_bijectors(rng):
+    u = np.concatenate([rng.randn(20) * 5, [-40.0, 0.0, 25.0, 60.0]])
+    _close("bijector positive", tparams.positive(_t(u)),
+           jmodules.positive(jnp.asarray(u)))
+    v = np.concatenate([np.exp(rng.randn(20)), [1e-6, 5e-7, 1e-3, 40.0]])
+    _close("bijector positive_inverse", tparams.positive_inverse(_t(v)),
+           jmodules.positive_inverse(jnp.asarray(v)))
+    _close("bijector positive round trip",
+           tparams.positive(tparams.positive_inverse(_t(v[:20]))), v[:20])
+    A = rng.randn(3, 5, 5)
+    for bij in ("identity", "positive", "triangular"):
+        val = np.abs(A) + 0.1 if bij == "positive" else A
+        jp = jmodules.Param.create(val, bijector=bij)
+        tp = tparams.Param(val, bij)
+        _close(f"Param[{bij}] unconstrained", tp.unconstrained,
+               jp.unconstrained)
+        _close(f"Param[{bij}] value", tp.value, jp.value)
+    assert not tparams.Param(1.0, trainable=False).trainable, "trainable flag"
+
+
+def _kernel_pair(D, white, ls=0.8, var=1.3):
+    jk = dsd.RBF.make(D, variance=var, lengthscales=ls)
+    tk = port.RBF(D, variance=var, lengthscales=ls)
+    if white:
+        jk = jk + dsd.White.make(D, variance=2e-6)
+        tk = tk + port.White(D, variance=2e-6)
+    return jk, port.load_reference_state(tk, _state(jk))
+
+
+def _check_kernels(rng):
+    X, X2 = rng.randn(17, 4), rng.randn(9, 4)
+    for white in (False, True):
+        jk, tk = _kernel_pair(4, white, ls=rng.uniform(0.5, 2.0, 4))
+        case = f"kernel RBF{'+White' if white else ''}"
+        _close(f"{case} K(X)", tk.K(_t(X)), jk.K(jnp.asarray(X)))
+        _close(f"{case} K(X, X2)", tk.K(_t(X), _t(X2)),
+               jk.K(jnp.asarray(X), jnp.asarray(X2)))
+        _close(f"{case} Kdiag", tk.Kdiag(_t(X)), jk.Kdiag(jnp.asarray(X)))
+
+
+def _check_linalg(rng):
+    Zh = rng.randn(12, 3)
+    K = np.exp(-0.5 * ((Zh[:, None] - Zh[None]) ** 2).sum(-1))
+    _close("safe_cholesky healthy", tlinalg.safe_cholesky(_t(K), 1e-6),
+           jlinalg.safe_cholesky(jnp.asarray(K), 1e-6))
+    # duplicated inducing rows: K is singular and the first rung fails
+    Z = rng.randn(6, 3)
+    Z = np.concatenate([Z, Z[:3]], 0)
+    Kd = np.exp(-0.5 * ((Z[:, None] - Z[None]) ** 2).sum(-1))
+    for j in (1e-16, 1e-18):
+        case = f"safe_cholesky escalation jitter={j}"
+        info = torch.linalg.cholesky_ex(_t(Kd) + j * torch.eye(9)).info
+        assert int(info) != 0, f"{case}: the first rung did not fail"
+        Lt = tlinalg.safe_cholesky(_t(Kd), j)
+        assert torch.isfinite(Lt).all(), f"{case}: non-finite factor"
+        _close(case, Lt, jlinalg.safe_cholesky(jnp.asarray(Kd), j))
+    # batched: only the singular element escalates
+    Kb = np.stack([Kd, K[:9, :9]])
+    _close("safe_cholesky batched per-element escalation",
+           tlinalg.safe_cholesky(_t(Kb), 1e-16),
+           jlinalg.safe_cholesky(jnp.asarray(Kb), 1e-16))
+    _close("add_jitter", tlinalg.add_jitter(_t(K), 1e-3),
+           jlinalg.add_jitter(jnp.asarray(K), 1e-3))
+    L = np.linalg.cholesky(K + 1e-6 * np.eye(12))
+    _close("inv_lower", tlinalg.inv_lower(_t(L)),
+           jlinalg.inv_lower(jnp.asarray(L)))
+    Lb = np.stack([L, np.linalg.cholesky(K + np.eye(12))])
+    _close("inv_lower batched", tlinalg.inv_lower(_t(Lb)),
+           jlinalg.inv_lower(jnp.asarray(Lb)))
+    mean, var, z = rng.randn(3, 4, 2), rng.randn(3, 4, 2), rng.randn(3, 4, 2)
+    _close("reparameterize diag",
+           tlinalg.reparameterize(_t(mean), _t(var), _t(z), 1e-6),
+           jlinalg.reparameterize(jnp.asarray(mean), jnp.asarray(var),
+                                  jnp.asarray(z), jitter=1e-6))
+
+
+def _check_mean_functions_and_likelihood(rng):
+    X = rng.randn(2, 7, 4)
+    W, b = rng.randn(4, 3), rng.randn(3)
+    jl = dsd.models.mean_functions.Linear.make(W, b)
+    tl = port.load_reference_state(port.Linear(np.zeros((4, 3))), _state(jl))
+    _close("mean function Linear", tl(_t(X)), jl(jnp.asarray(X)))
+    _close("mean function Identity", port.Identity()(_t(X)), X)
+    _close("mean function Zero", port.Zero(3)(_t(X)),
+           dsd.models.mean_functions.Zero(output_dim=3)(jnp.asarray(X)))
+    jg = dsd.Gaussian.make(0.07)
+    tg = port.load_reference_state(port.Gaussian(1.0), _state(jg))
+    Fm, Fv, Y = rng.randn(5, 6, 2), np.exp(rng.randn(5, 6, 2)), rng.randn(6, 2)
+    for got, want, what in zip(
+            tg.predict_mean_and_var(_t(Fm), _t(Fv)),
+            jg.predict_mean_and_var(jnp.asarray(Fm), jnp.asarray(Fv)),
+            ("mean", "var")):
+        _close(f"Gaussian predict_mean_and_var {what}", got, want)
+    _close("Gaussian predict_density",
+           tg.predict_density(_t(Fm), _t(Fv), _t(Y)),
+           jg.predict_density(jnp.asarray(Fm), jnp.asarray(Fv),
+                              jnp.asarray(Y)))
+
+
+def _layer_pair(rng, white, fused, kern_white):
+    M, D_in, D_out = 15, 3, 2
+    Z = rng.randn(M, D_in)
+    W = rng.randn(D_in, D_out)
+    jk, tk = _kernel_pair(D_in, kern_white, ls=rng.uniform(0.7, 1.5, D_in))
+    jl = dsd.SVGPLayer.make(
+        jk, Z, D_out, dsd.models.mean_functions.Linear.make(W),
+        white=white, jitter=1e-6, solve_mode="inverse", use_pallas=fused)
+    q_sqrt = np.tril(rng.randn(D_out, M, M) * 0.3) + np.eye(M) * 0.5
+    jl = jl.replace(q_mu=jl.q_mu.with_value(rng.randn(M, D_out)),
+                    q_sqrt=jl.q_sqrt.with_value(q_sqrt))
+    cfg = port.Config(jitter=1e-6, solve_mode="inverse", use_pallas=fused)
+    tl = port.SVGPLayer(tk, Z, D_out, port.Linear(np.zeros((D_in, D_out))),
+                        white=white, config=cfg)
+    return jl, port.load_reference_state(tl, _state(jl))
+
+
+def _check_layers(rng):
+    X = rng.randn(23, 3)
+    for fused in (True, False):
+        for white, kern_white in ((True, False), (False, True)):
+            case = (f"SVGPLayer {'fused' if fused else 'inverse'} "
+                    f"white={white} kernel={'RBF+White' if kern_white else 'RBF'}")
+            jl, tl = _layer_pair(rng, white, fused, kern_white)
+            for what, got, want in zip(("mean", "var"),
+                                       tl.conditional_ND(_t(X)),
+                                       jl.conditional_ND(jnp.asarray(X))):
+                _close(f"{case} {what}", got, want)
+            jc = jposterior._cache_svgp(jl)
+            tc = tposterior._cache_svgp(tl)
+            for what, got, want in zip(("mean", "var"),
+                                       tc.conditional_ND(_t(X)),
+                                       jc.conditional_ND(jnp.asarray(X))):
+                _close(f"CachedSVGPLayer from {case} {what}", got, want)
+
+
+def _check_import_and_device_rules():
+    code = ("import sys, doubly_stochastic_dgp_tpu_torch\n"
+            "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
+            "if m in sys.modules]\n"
+            "bad += [m for m in sys.modules if m.startswith(('jax.', "
+            "'doubly_stochastic_dgp_tpu.'))]\n"
+            "print(repr(bad))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, f"import rule: {out.stderr}"
+    assert out.stdout.strip() == "[]", (
+        f"import rule: the port imported {out.stdout.strip()}")
+    X = np.random.RandomState(1).randn(10, 2)
+    args = (X, X[:, :1], X[:4], [port.RBF(2)], port.Gaussian(0.1))
+    if torch.cuda.is_available():
+        model = port.DGP.build(*args, config=port.Config(
+            dtype=torch.float32))
+        assert model.X_data.device.type == "cuda", "device rule: not on CUDA"
+    else:
+        try:
+            port.DGP.build(*args)
+        except RuntimeError as e:
+            assert "CUDA" in str(e), f"device rule: {e}"
+        else:
+            raise AssertionError("device rule: DGP.build() without a device "
+                                 "did not raise although CUDA is absent")
+
+
+def test_modules_match_jax():
+    rng = np.random.RandomState(0)
+    _check_bijectors(rng)
+    _check_kernels(rng)
+    _check_linalg(rng)
+    _check_mean_functions_and_likelihood(rng)
+    _check_layers(rng)
+    _check_import_and_device_rules()
