@@ -1,12 +1,15 @@
 """doubly_stochastic_dgp_tpu_torch: the PyTorch/CUDA port of the
 doubly-stochastic deep GP package ``doubly_stochastic_dgp_tpu``.
 
-This slice covers the serving path of the Monte-Carlo DGP: RBF(+White)
-SVGP layers with identity/PCA skip connections, a Gaussian likelihood,
-the cached posterior and ``make_server``; the fused staged conditional
-runs as a hand-written CUDA kernel (``ops/cuda``).  It imports torch,
-numpy and scipy only — never jax or the JAX package.  Entry points run on
-the GPU unless the caller passes ``device='cpu'``.
+This package covers the training and serving paths of the Monte-Carlo
+DGP: RBF(+White) SVGP layers with identity/PCA skip connections, a
+Gaussian likelihood, the doubly-stochastic ELBO with the layers' KL
+terms, Adam training on on-device minibatches (``fit``), the regression
+metrics (``evaluate_regression``), the cached posterior and
+``make_server``.  The fused staged conditional runs as hand-written CUDA
+kernels, forward and backward, with a save-gram variant (``ops/cuda``).
+It imports torch, numpy and scipy only — never jax or the JAX package.
+Entry points run on the GPU unless the caller passes ``device='cpu'``.
 """
 
 from .config import Config, resolve_device
@@ -16,13 +19,17 @@ from .models.dgp import DGP, DGPBase
 from .models.layers import SVGPLayer
 from .models.mean_functions import Identity, Linear, Zero
 from .models.posterior import CachedSVGPLayer, precompute
+from .ops.cuda.conditional import fused_conditional, fused_conditional_saved
 from .ops.kernels import RBF, Sum, White
 from .ops.likelihoods import Gaussian
 from .serving import make_server
+from .training.loop import evaluate_regression, fit
+from .utils.params import log_prior
 
 __all__ = [
     "Config", "resolve_device", "load_reference_state",
     "SyntheticRegression", "DGP", "DGPBase", "SVGPLayer", "Identity",
-    "Linear", "Zero", "CachedSVGPLayer", "precompute", "RBF", "Sum",
-    "White", "Gaussian", "make_server",
+    "Linear", "Zero", "CachedSVGPLayer", "precompute", "fused_conditional",
+    "fused_conditional_saved", "RBF", "Sum", "White", "Gaussian",
+    "make_server", "evaluate_regression", "fit", "log_prior",
 ]

@@ -34,9 +34,10 @@ class Config:
     # 'solve' (triangular solves; not ported yet) | 'inverse' (staged
     # inverse, sum-of-squares variance)
     solve_mode: str = "solve"
-    # False | True: route every RBF(+White) SVGP conditional through the
-    # fused conditional kernel
-    use_pallas: bool = False
+    # False | True | 'saved': route every RBF(+White) SVGP conditional
+    # through the fused conditional kernels ('saved': the save-gram pair,
+    # whose backward reads the forward's gram instead of recomputing it)
+    use_pallas: bool | str = False
     precision: str = "mixed"
 
     def __post_init__(self):
@@ -46,10 +47,10 @@ class Config:
         if self.precision not in _PRECISIONS:
             raise ValueError(f"precision must be one of {_PRECISIONS}; "
                              f"got {self.precision!r}")
-        if self.use_pallas not in (False, True):
+        if self.use_pallas not in (False, True, "saved"):
             raise ValueError(
-                f"use_pallas={self.use_pallas!r}: only False/True are "
-                f"ported ('saved' is the training variant, ROADMAP B3)")
+                f"use_pallas={self.use_pallas!r}: only False, True and "
+                f"'saved' are ported")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64; got "
                              f"{self.dtype}")

@@ -1,8 +1,10 @@
 // Fused staged sparse-GP conditional (diagonal), forward, for sm_90a.
 //
 // Replaces the TPU kernel doubly_stochastic_dgp_tpu/ops/pallas/
-// conditional.py::_fused_forward (_fwd_kernel / _fwd_body).  Per row x of
-// the lengthscale-scaled batch Xs (B, Dx):
+// conditional.py::_fused_forward (_fwd_kernel / _fwd_body) and, as the
+// kSaveGram variant, its save_gram=True form (_fwd_kernel_sg), which also
+// writes the gram K (B, M) for the backward to read instead of
+// recomputing.  Per row x of the lengthscale-scaled batch Xs (B, Dx):
 //
 //   K(x)     = kvar * exp(-0.5 ||x - z_m||^2)           (M,)
 //   G(x)     = K(x) LiT                                 (M,)
@@ -33,64 +35,17 @@
 // near z and exp() amplifies the loss.  Ragged edges are masked here (no
 // padding of M to 128 and no one-hot lane masks, which were Mosaic
 // workarounds): the shared tiles are zero past column M, rows past B are
-// computed as zeros and not stored.  Row offsets are 64-bit.
+// computed as zeros and not stored.  Row offsets are 64-bit.  The saved
+// gram is the value staged through shared memory, so the saved variant's
+// mean and var equal the plain variant's bit for bit.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "fused_conditional.cuh"
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;            // columns per lane per chunk
-constexpr int kChunk = 32 * kCols;  // columns per warp per chunk
-constexpr int kMaxM = 512;
+using namespace fc;
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float comp(const float4& a, int k) {
-  return k == 0 ? a.x : k == 1 ? a.y : k == 2 ? a.z : a.w;
-}
-
-// acc[i][j] = sum_k A[i][k] * Bm[k][c0 + lane + 32 j] for the warp's RT
-// rows of A (shared, row stride Mp, zero past M) and the M x M matrix Bm
-// (global, row-major).
-template <int RT>
-__device__ __forceinline__ void rows_times_matrix(
-    const float* As, int Mp, const float* __restrict__ Bm, int M, int c0,
-    int lane, float (&acc)[RT][kCols]) {
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < M; k += 4) {
-    float b[4][kCols];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = c0 + lane + 32 * j;
-        const int kr = k + kk;
-        b[kk][j] = (kr < M && c < M) ? __ldg(Bm + (size_t)kr * M + c) : 0.f;
-      }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(As + i * Mp + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float av = comp(a, kk);
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(av, b[kk][j], acc[i][j]);
-      }
-    }
-  }
-}
-
-template <int RT>
+template <int RT, bool kSaveGram>
 __global__ void __launch_bounds__(kThreads)
 fused_conditional_fwd_kernel(const float* __restrict__ Xs,
                              const float* __restrict__ Zs,
@@ -100,11 +55,12 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
                              const float* __restrict__ scal,
                              float* __restrict__ mean,
                              float* __restrict__ var,
+                             float* __restrict__ Kout,
                              int64_t B, int M, int Dx, int Do) {
   constexpr int TB = RT * kWarps;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int Mp = (M + 3) & ~3;
+  const int Mp = padded(M);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   float* Kw = smem + (size_t)warp * RT * Mp;         // this warp's K rows
@@ -113,25 +69,10 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
   const float kvar = scal[0];
   const float kdiag = scal[1];
 
-  // 1. gram rows: K[i][m], zero past M and for rows past B
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
-    const int64_t r = row0 + i;
-    for (int m = lane; m < Mp; m += 32) {
-      float k = 0.f;
-      if (r < B && m < M) {
-        const float* x = Xs + r * Dx;
-        const float* z = Zs + (size_t)m * Dx;
-        float d2 = 0.f;
-        for (int d = 0; d < Dx; ++d) {
-          const float t = __ldg(x + d) - __ldg(z + d);
-          d2 = fmaf(t, t, d2);
-        }
-        k = kvar * expf(-0.5f * d2);
-      }
-      Kw[i * Mp + m] = k;
-    }
-  }
+  // 1. gram rows: K[i][m], zero past M and for rows past B (and to the
+  //    saved gram in the kSaveGram variant)
+  gram_rows<RT>(Xs, Zs, kvar, Kw, Mp, row0, B, M, Dx, lane,
+                kSaveGram ? Kout : nullptr);
   __syncwarp();
 
   // 2. staging: G = K LiT, kept in shared memory (zero past M)
@@ -186,44 +127,58 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
   }
 }
 
-template <int RT>
+template <int RT, bool kSaveGram>
 cudaError_t launch(const float* Xs, const float* Zs, const float* LiT,
                    const float* alpha, const float* W, const float* scal,
-                   float* mean, float* var, int64_t B, int M, int Dx,
-                   int Do, cudaStream_t stream) {
+                   float* mean, float* var, float* Kout, int64_t B, int M,
+                   int Dx, int Do, cudaStream_t stream) {
   constexpr int TB = RT * kWarps;
-  const int Mp = (M + 3) & ~3;
+  const int Mp = padded(M);
   const size_t smem = (size_t)2 * TB * Mp * sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_conditional_fwd_kernel<RT>,
+      fused_conditional_fwd_kernel<RT, kSaveGram>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const int64_t blocks = (B + TB - 1) / TB;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  fused_conditional_fwd_kernel<RT><<<(unsigned)blocks, kThreads, smem,
-                                     stream>>>(Xs, Zs, LiT, alpha, W, scal,
-                                               mean, var, B, M, Dx, Do);
+  fused_conditional_fwd_kernel<RT, kSaveGram>
+      <<<(unsigned)blocks, kThreads, smem, stream>>>(
+          Xs, Zs, LiT, alpha, W, scal, mean, var, Kout, B, M, Dx, Do);
   return cudaGetLastError();
+}
+
+template <bool kSaveGram>
+cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
+                        const float* alpha, const float* W,
+                        const float* scal, float* mean, float* var,
+                        float* Kout, int64_t B, int M, int Dx, int Do,
+                        cudaStream_t s) {
+  // 64 rows per block while the two tiles fit in 128 KB, else 32
+  if (padded(M) <= 256)
+    return launch<8, kSaveGram>(Xs, Zs, LiT, alpha, W, scal, mean, var,
+                                Kout, B, M, Dx, Do, s);
+  return launch<4, kSaveGram>(Xs, Zs, LiT, alpha, W, scal, mean, var, Kout,
+                              B, M, Dx, Do, s);
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Pointers are device pointers
 // to contiguous float32 tensors; scal holds (kvar, kdiag) on the device.
+// Kout is null, or the (B, M) gram to write (the save_gram variant).
 // Returns a cudaError_t code (0 = launched).
 extern "C" int fused_conditional_fwd(const float* Xs, const float* Zs,
                                      const float* LiT, const float* alpha,
                                      const float* W, const float* scal,
-                                     float* mean, float* var, int64_t B,
-                                     int M, int Dx, int Do, void* stream) {
+                                     float* mean, float* var, float* Kout,
+                                     int64_t B, int M, int Dx, int Do,
+                                     void* stream) {
   if (B <= 0 || M <= 0 || M > kMaxM || Dx <= 0 || Do <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int Mp = (M + 3) & ~3;
-  // 64 rows per block while the two tiles fit in 128 KB, else 32
-  if (Mp <= 256)
-    return (int)launch<8>(Xs, Zs, LiT, alpha, W, scal, mean, var, B, M, Dx,
-                          Do, s);
-  return (int)launch<4>(Xs, Zs, LiT, alpha, W, scal, mean, var, B, M, Dx, Do,
-                        s);
+  if (Kout != nullptr)
+    return (int)launch_rows<true>(Xs, Zs, LiT, alpha, W, scal, mean, var,
+                                  Kout, B, M, Dx, Do, s);
+  return (int)launch_rows<false>(Xs, Zs, LiT, alpha, W, scal, mean, var,
+                                 nullptr, B, M, Dx, Do, s);
 }

@@ -1,10 +1,11 @@
-"""Deep GP with the doubly-stochastic Monte-Carlo prediction surface.
+"""Deep GP with the doubly-stochastic Monte-Carlo ELBO and prediction
+surface.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/models/dgp.py`` (``DGPBase``
-propagation and prediction, ``DGP.build``).  JAX splits one PRNG key per
-layer; here each layer draws its unit normals in order from one
-``torch.Generator`` on the model's device, so the two packages agree
-only through fixed draws (``zs``).  The ELBO is not ported yet.
+propagation, the training objective and prediction, ``DGP.build``).  JAX
+splits one PRNG key per layer; here each layer draws its unit normals in
+order from one ``torch.Generator`` on the model's device, so the two
+packages agree only through fixed draws (``zs``).
 """
 
 from __future__ import annotations
@@ -65,6 +66,29 @@ class DGPBase(nn.Module):
         _, Fmeans, Fvars = self.propagate(X, generator=generator, S=S,
                                           zs=zs)
         return Fmeans[-1], Fvars[-1]
+
+    # -- training objective ---------------------------------------------------
+    def E_log_p_Y(self, X, Y, generator=None, zs=None):
+        """MC estimate of E_q[log p(y | f_L)] over ``num_samples`` draws,
+        averaged over the samples: (N, D)."""
+        Fmean, Fvar = self._predict(X, generator=generator,
+                                    S=self.num_samples, zs=zs)
+        var_exp = self.likelihood.variational_expectations(
+            Fmean, Fvar, self._as_input(Y))
+        return torch.mean(var_exp, dim=0)
+
+    def elbo(self, X=None, Y=None, generator=None, zs=None):
+        """The doubly-stochastic ELBO on the batch (X, Y) (default: the
+        stored training set): (num_data / batch) * sum E[log p] minus the
+        sum of the layers' KL terms."""
+        X = self.X_data if X is None else X
+        Y = self.Y_data if Y is None else Y
+        L = torch.sum(self.E_log_p_Y(X, Y, generator=generator, zs=zs))
+        KL = sum(layer.KL() for layer in self.layers)
+        return L * (self.num_data / X.shape[0]) - KL
+
+    def loss(self, X=None, Y=None, generator=None, zs=None):
+        return -self.elbo(X, Y, generator=generator, zs=zs)
 
     def _default_generator(self, generator, zs):
         if generator is None and zs is None:

@@ -1,5 +1,5 @@
-"""The SVGP layer of the main path: multisample conditionals, sampling and
-the sparse conditional in its two diagonal forms.
+"""The SVGP layer of the main path: multisample conditionals, sampling,
+the sparse conditional in its two diagonal forms and the KL term.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/models/layers.py``
 (``Layer``, ``_fusable_rbf``, the build-time host helpers and
@@ -8,12 +8,13 @@ Counterpart of ``doubly_stochastic_dgp_tpu/models/layers.py``
 - the fused branch (``use_pallas=True`` and an RBF(+White) kernel):
   staging factors LiT = Lu^{-T}, alpha = Li q_mu and W = Li SK Li^T are
   formed here and the gram -> staging -> mean/var pipeline runs in the
-  fused conditional kernel (``ops/cuda/conditional.py``);
+  fused conditional kernel (``ops/cuda/conditional.py``), forward and
+  backward; ``use_pallas='saved'`` takes its save-gram pair;
 - the staged-inverse branch (``solve_mode='inverse'``): G = Li Kuf with
   the sum-of-squares variance Kff - colsum(G*G) + colsum(H*H), H = C^T G.
 
-Not ported yet (they raise): ``full_cov``, ``solve_mode='solve'``, input
-propagation and the KL term.
+Not ported yet (they raise): ``full_cov``, ``solve_mode='solve'`` and
+input propagation.
 """
 
 from __future__ import annotations
@@ -26,8 +27,9 @@ from torch import nn
 
 from ..config import Config
 from ..ops.kernels import RBF, Sum, White
-from ..ops.linalg import add_jitter, inv_lower, reparameterize, safe_cholesky
-from ..ops.cuda.conditional import fused_conditional
+from ..ops.linalg import (add_jitter, gauss_kl_nonwhite, gauss_kl_white,
+                          inv_lower, reparameterize, safe_cholesky)
+from ..ops.cuda.conditional import fused_conditional, fused_conditional_saved
 from ..utils.params import Param
 from .mean_functions import Zero
 
@@ -222,8 +224,18 @@ class SVGPLayer(Layer):
         ls = rbf.lengthscales.value
         kvar = rbf.variance.value
         kdiag = kvar if white_var is None else kvar + white_var
-        mean, var = fused_conditional(
+        fc = (fused_conditional_saved if self.use_pallas == "saved"
+              else fused_conditional)
+        mean, var = fc(
             (X / ls).contiguous(), (self.Z.value / ls).contiguous(),
             Li.T.contiguous(), alpha.contiguous(), W.contiguous(),
             kvar, kdiag)
         return mean + self.mean_function(X), var
+
+    def KL(self):
+        """Analytic KL(q(u) || p(u)), summed over output dims."""
+        q_mu, q_sqrt = self.q_mu.value, self.q_sqrt.value
+        if self.white:
+            return gauss_kl_white(q_mu, q_sqrt)
+        _, Lu = self._chol_Kuu()
+        return gauss_kl_nonwhite(q_mu, q_sqrt, Lu)

@@ -2,10 +2,11 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/torch_kernels/<name>-<hash>.so`` at
-the root of the checkout, at first use; the hash covers the source and
-the flags, so an edited source is rebuilt and a stale library is never
-loaded.  Libraries are loaded with ``ctypes``.  Nothing here runs at
-import time, and nothing is built or loaded without an ``nvcc``.
+the root of the checkout, at first use; the hash covers the source, the
+shared headers (``csrc/*.cuh``) and the flags, so an edited source is
+rebuilt and a stale library is never loaded.  Libraries are loaded with
+``ctypes``.  Nothing here runs at import time, and nothing is built or
+loaded without an ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ __all__ = ["SOURCES", "build_all", "load_library"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("fused_conditional",)
+SOURCES = ("fused_conditional", "fused_conditional_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -42,8 +43,10 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -1,19 +1,22 @@
-"""Numerics core, forward only: jitter, jittered Cholesky with rung
-escalation, triangular inverse and the diagonal reparameterization.
+"""Numerics core: jitter, jittered Cholesky with rung escalation and its
+grad-safe backward, triangular inverse, the diagonal reparameterization
+and the Gaussian KL terms.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/ops/linalg.py``
-(``add_jitter``, ``safe_cholesky``, ``inv_lower``, ``reparameterize``).
-The JAX escalation tests the factor for NaN; ``torch.linalg.cholesky``
-raises on a non-positive-definite matrix instead, so the port uses
-``cholesky_ex`` and escalates when ``info != 0`` or the factor is not
-finite.  Reading ``info`` costs one host sync per call (ROADMAP queue).
+(``add_jitter``, ``safe_cholesky``, ``inv_lower``, ``reparameterize``,
+``gauss_kl_white``, ``gauss_kl_nonwhite``).  The JAX escalation tests the
+factor for NaN; ``torch.linalg.cholesky`` raises on a non-positive-definite
+matrix instead, so the port uses ``cholesky_ex`` and escalates when
+``info != 0`` or the factor is not finite.  Reading ``info`` costs one
+host sync per call (ROADMAP queue).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["add_jitter", "safe_cholesky", "inv_lower", "reparameterize"]
+__all__ = ["add_jitter", "safe_cholesky", "inv_lower", "reparameterize",
+           "gauss_kl_white", "gauss_kl_nonwhite"]
 
 
 def _eye_like(K):
@@ -25,14 +28,27 @@ def add_jitter(K, jitter):
     return K + jitter * _eye_like(K)
 
 
-def safe_cholesky(K, jitter):
-    """Cholesky of K + jitter*I, escalating to 1e2*jitter and 1e4*jitter
-    on failure.
+def _phi(X):
+    """Lower triangle with the diagonal halved (Murray 2016, eq. 8)."""
+    return torch.tril(X, -1) + 0.5 * torch.diag_embed(
+        torch.diagonal(X, dim1=-2, dim2=-1))
 
-    One factorization on the healthy path.  When any batch element fails,
-    every rung is factorized and each element takes its first rung that
-    succeeded, else the last rung — the JAX selection rule."""
-    j0 = float(jitter)
+
+def _chol_pullback(L, gL):
+    """Reverse-mode rule for L = cholesky(A), A symmetric (Murray 2016):
+    gA = 0.5 (Li^T phi(L^T gL) Li + transpose), the JAX ``_chol_pullback``
+    (symmetrized, so it agrees with any symmetric downstream use)."""
+    gL = torch.tril(gL)
+    mid = _phi(L.transpose(-1, -2) @ gL)
+    Li = inv_lower(L)
+    gA = Li.transpose(-1, -2) @ mid @ Li
+    return 0.5 * (gA + gA.transpose(-1, -2))
+
+
+def _select_rung(K, j0):
+    """One factorization on the healthy path.  When any batch element
+    fails, every rung is factorized and each element takes its first rung
+    that succeeded, else the last rung — the JAX selection rule."""
     I = _eye_like(K)
     L0, info0 = torch.linalg.cholesky_ex(K + j0 * I)
     ok0 = (info0 == 0) & torch.isfinite(L0).all(dim=-1).all(dim=-1)
@@ -49,6 +65,30 @@ def safe_cholesky(K, jitter):
     return sel
 
 
+class _SafeCholesky(torch.autograd.Function):
+    """Rung selection forward; the Cholesky pullback on the *selected*
+    factor backward, so a rejected rung's non-finite factor never sits on
+    the autograd path (a ``torch.where`` over the rungs would push
+    0 * NaN through the rejected rung's ``cholesky_ex`` backward)."""
+
+    @staticmethod
+    def forward(ctx, K, j0):
+        L = _select_rung(K, j0)
+        ctx.save_for_backward(L)
+        return L
+
+    @staticmethod
+    def backward(ctx, gL):
+        (L,) = ctx.saved_tensors
+        return _chol_pullback(L, gL), None
+
+
+def safe_cholesky(K, jitter):
+    """Cholesky of K + jitter*I, escalating to 1e2*jitter and 1e4*jitter
+    on failure; batched over leading dims, per-element rung choice."""
+    return _SafeCholesky.apply(K, float(jitter))
+
+
 def inv_lower(L):
     """Inverse of a lower-triangular matrix (batched over leading dims)."""
     eye = _eye_like(L).expand_as(L)
@@ -61,3 +101,30 @@ def reparameterize(mean, var, z, jitter):
     if var is None:
         return mean
     return mean + z * torch.sqrt(torch.clamp(var, min=0.0) + jitter)
+
+
+def _kl_common(q_mu, q_sqrt):
+    M, D = q_mu.shape
+    diag = torch.diagonal(q_sqrt, dim1=-2, dim2=-1)
+    return -0.5 * D * M - 0.5 * torch.sum(torch.log(diag ** 2))
+
+
+def gauss_kl_white(q_mu, q_sqrt):
+    """KL( N(q_mu, L L^T) || N(0, I) ), summed over output dims.
+    q_mu: (M, D); q_sqrt: (D, M, M) lower-triangular."""
+    return (_kl_common(q_mu, q_sqrt) + 0.5 * torch.sum(q_sqrt ** 2)
+            + 0.5 * torch.sum(q_mu ** 2))
+
+
+def gauss_kl_nonwhite(q_mu, q_sqrt, Lu):
+    """KL( N(q_mu, L L^T) || N(0, Ku) ) with Ku = Lu Lu^T (Lu lower)."""
+    D = q_mu.shape[1]
+    kl = _kl_common(q_mu, q_sqrt)
+    kl = kl + D * torch.sum(torch.log(torch.diagonal(Lu)))
+    # trace term || Lu^{-1} q_sqrt ||_F^2, batched over D
+    LiQ = torch.linalg.solve_triangular(Lu.expand_as(q_sqrt), q_sqrt,
+                                        upper=False)
+    kl = kl + 0.5 * torch.sum(LiQ ** 2)
+    # Mahalanobis term q_mu^T Ku^{-1} q_mu
+    Li_m = torch.linalg.solve_triangular(Lu, q_mu, upper=False)
+    return kl + 0.5 * torch.sum(Li_m ** 2)

@@ -5,15 +5,23 @@ utils/modules.py`` (``positive``/``positive_inverse``/``_tril`` and
 ``Param``).  A ``Param`` holds the *unconstrained* tensor as an
 ``nn.Parameter`` (``requires_grad`` = its ``trainable`` flag) and applies
 its bijector in ``.value``; the maps match the JAX ones exactly, so the
-same unconstrained arrays give the same constrained values.
+same unconstrained arrays give the same constrained values.  A ``Param``
+may carry a ``prior`` (``("gaussian", mu, sigma)`` on its constrained
+value), summed by :func:`log_prior` — the counterpart of the JAX
+``log_prior``.  Trainability is ``requires_grad``: the optimizer takes the
+parameters that require grad, as the JAX ``trainable_mask`` keeps frozen
+Params and buffers out of the update.
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
 
-__all__ = ["Param", "positive", "positive_inverse", "BIJECTORS"]
+__all__ = ["Param", "positive", "positive_inverse", "BIJECTORS",
+           "log_prior"]
 
 _SOFTPLUS_LOWER = 1e-6  # keeps positive params bounded away from zero
 
@@ -46,12 +54,18 @@ class Param(nn.Module):
     ``.value`` its bijector image."""
 
     def __init__(self, value, bijector="identity", trainable=True,
-                 dtype=torch.float64):
+                 dtype=torch.float64, prior=None):
         super().__init__()
         if bijector not in BIJECTORS:
             raise ValueError(f"unknown bijector {bijector!r}")
+        if prior is not None and prior[0] != "gaussian":
+            raise NotImplementedError(f"prior {prior[0]!r}")
         self.bijector = bijector
-        value = torch.as_tensor(value, dtype=dtype)
+        self.prior = None if prior is None else tuple(prior)
+        # a copy: as_tensor shares a float64 numpy array's memory, which
+        # would alias Params built from one array (the dim-matched layers'
+        # inducing points) and train them as one
+        value = torch.as_tensor(value, dtype=dtype).detach().clone()
         self.unconstrained = nn.Parameter(BIJECTORS[bijector][1](value),
                                           requires_grad=bool(trainable))
 
@@ -72,4 +86,20 @@ class Param(nn.Module):
 
     def extra_repr(self):
         return (f"{self.bijector}, shape={tuple(self.unconstrained.shape)}, "
-                f"trainable={self.trainable}")
+                f"trainable={self.trainable}, prior={self.prior}")
+
+
+def log_prior(module):
+    """Sum of prior log-densities over every ``Param`` in ``module`` that
+    carries a prior (a 0-dim tensor; 0 when none does)."""
+    p0 = next(module.parameters(), None)
+    total = torch.zeros((), dtype=torch.float64 if p0 is None else p0.dtype,
+                        device=None if p0 is None else p0.device)
+    for m in module.modules():
+        if isinstance(m, Param) and m.prior is not None:
+            _, mu, sigma = m.prior
+            v = m.value
+            total = total + torch.sum(
+                -0.5 * math.log(2 * math.pi * sigma ** 2)
+                - 0.5 * ((v - mu) / sigma) ** 2)
+    return total

@@ -1,23 +1,31 @@
-"""PyTorch port: the fused staged conditional's plain version against the
-JAX package's Pallas kernel (interpret mode on CPU) and its jnp reference,
-in float64.
+"""PyTorch port: the fused staged conditional's plain versions (forward,
+backward, save-gram pair) against the JAX package's Pallas kernels
+(interpret mode on CPU) and its jnp reference, in float64.
 
 One test item that loops over its cases and names the failing case in
-every assertion message.  On the CPU the port's wrapper takes the plain
-version (the CUDA kernel itself is checked against it on the card by
-``chip_smoke.py``), so the wrapper's launch counter must not move."""
+every assertion message.  On the CPU the port's wrappers and autograd
+Functions take the plain versions (the CUDA kernels themselves are
+checked against them on the card by ``chip_smoke.py``), so no launch
+counter may move."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 from numpy.testing import assert_allclose
 
 from doubly_stochastic_dgp_tpu.ops.pallas.conditional import (
-    fused_conditional as jax_fused_conditional, fused_conditional_reference)
+    fused_conditional as jax_fused_conditional, fused_conditional_reference,
+    fused_conditional_saved as jax_fused_conditional_saved)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
-    fused_conditional, fused_conditional_plain)
+    fused_conditional, fused_conditional_backward_plain,
+    fused_conditional_plain, fused_conditional_saved,
+    fused_conditional_saved_plain)
 
 RTOL, ATOL = 1e-9, 1e-11     # as tests/test_pallas_conditional.py
+# gradients: as the gradient tests of tests/test_pallas_conditional.py
+GRAD_RTOL, GRAD_ATOL = 1e-7, 1e-9
+GRAD_NAMES = ["dXs", "dZs", "dLiT", "dalpha", "dW", "dkvar", "dkdiag"]
 
 
 def _inputs(B, M, Do, Dx=8, seed=0, identity_lit=False, clamp=False):
@@ -44,8 +52,64 @@ CASES = [
 ]
 
 
+# the gradient cases of tests/test_pallas_conditional.py: one tile, several
+# tiles, and the variance clamp active (kdiag = -0.5)
+GRAD_CASES = [
+    ("grad_single_tile", dict(B=260, M=50, Do=3, Dx=5, seed=1), None),
+    ("grad_multi_tile", dict(B=1100, M=40, Do=2, Dx=4, seed=5), None),
+    ("grad_clamp_active", dict(B=200, M=30, Do=2, Dx=4, seed=3), -0.5),
+]
+
+
+def _check_gradients():
+    """The plain backward and the autograd Functions on the CPU against
+    jax.vjp through the interpret-mode Pallas backward kernels, for all
+    seven gradients, on the recompute and the save-gram variants."""
+    for name, kw, kdiag in GRAD_CASES:
+        args = list(_inputs(**kw))
+        if kdiag is not None:
+            args[6] = np.float64(kdiag)
+        rng = np.random.RandomState(kw["seed"] + 1)
+        gm, gv = rng.randn(kw["B"], kw["Do"]), rng.randn(kw["B"], kw["Do"])
+        targs = [torch.from_numpy(np.asarray(a)) for a in args]
+        tg = (torch.from_numpy(gm), torch.from_numpy(gv))
+        for variant, jfn, tfn in (
+                ("recompute", jax_fused_conditional, fused_conditional),
+                ("saved", jax_fused_conditional_saved,
+                 fused_conditional_saved)):
+            (jm, jv), vjp = jax.vjp(lambda *a: jfn(*a, True),
+                                    *[jnp.asarray(a) for a in args])
+            want = vjp((jnp.asarray(gm), jnp.asarray(gv)))
+            if kdiag is not None:
+                assert (np.asarray(jv) == 0).any() and (
+                    np.asarray(jv) > 0).any(), (
+                    f"{name}: the variance clamp is not active")
+            mean, var, K = fused_conditional_saved_plain(*targs)
+            plain = fused_conditional_backward_plain(
+                *targs, mean, var, *tg, K if variant == "saved" else None)
+            leaves = [t.clone().requires_grad_() for t in targs]
+            m, v = tfn(*leaves)
+            torch.autograd.backward((m, v), tg)
+            got = {"plain backward": plain,
+                   "autograd Function": [t.grad for t in leaves]}
+            for gname, grads in got.items():
+                for g, w, what in zip(grads, want, GRAD_NAMES):
+                    assert_allclose(
+                        g.numpy(), np.asarray(w), rtol=GRAD_RTOL,
+                        atol=GRAD_ATOL,
+                        err_msg=f"{name} {variant}: {gname} {what} vs "
+                                f"jax.vjp of the interpret-mode kernel")
+
+
+def _counts():
+    return (fused_conditional.launches, fused_conditional.backward_launches,
+            fused_conditional_saved.launches,
+            fused_conditional_saved.backward_launches)
+
+
 def test_fused_conditional_plain_matches_jax():
-    fused_conditional.launches = 0
+    for f in (fused_conditional, fused_conditional_saved):
+        f.launches = f.backward_launches = 0
     for name, kw in CASES:
         args = _inputs(**kw)
         jargs = [jnp.asarray(a) for a in args]
@@ -71,13 +135,17 @@ def test_fused_conditional_plain_matches_jax():
             v = ports["plain"][1].numpy()
             assert (v == 0).any() and (v > 0).any(), (
                 f"{name}: the variance clamp is not active")
-    assert fused_conditional.launches == 0, (
-        "the wrapper launched the CUDA kernel for CPU tensors")
+    _check_gradients()
+    assert _counts() == (0, 0, 0, 0), (
+        "the wrappers launched a CUDA kernel for CPU tensors")
 
-    # the CPU path stays autograd-able
+    # the CPU path stays autograd-able, and honours needs_input_grad
     targs = [torch.from_numpy(np.asarray(a)).requires_grad_()
              for a in _inputs(B=40, M=9, Do=2)]
+    targs[5].requires_grad_(False)
     mean, var = fused_conditional(*targs)
     (mean.sum() + var.sum()).backward()
+    assert targs[5].grad is None, "grad_on_cpu: kvar got a gradient"
     assert all(t.grad is not None and torch.isfinite(t.grad).all()
-               for t in targs), "grad_on_cpu: missing or non-finite grad"
+               for i, t in enumerate(targs) if i != 5), (
+        "grad_on_cpu: missing or non-finite grad")

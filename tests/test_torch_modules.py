@@ -1,7 +1,8 @@
 """PyTorch port: module-by-module parity with the JAX package in float64
-on the CPU (bijectors, kernels, Cholesky with escalation, triangular
-inverse, mean functions, Gaussian likelihood, the SVGP conditional on
-both diagonal branches, the cached layer), plus the port's import and
+on the CPU (bijectors and priors, kernels, Cholesky with escalation and
+its gradient, triangular inverse, the Gaussian KL terms, mean functions,
+Gaussian likelihood, the SVGP conditional on both diagonal branches with
+its KL term and gradients, the cached layer), plus the port's import and
 device rules.
 
 One test item that loops over its cases and names the failing case in
@@ -21,6 +22,7 @@ from doubly_stochastic_dgp_tpu.models import posterior as jposterior
 from doubly_stochastic_dgp_tpu.ops import linalg as jlinalg
 from doubly_stochastic_dgp_tpu.utils import modules as jmodules
 import doubly_stochastic_dgp_tpu_torch as port
+from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
 from doubly_stochastic_dgp_tpu_torch.models import posterior as tposterior
 from doubly_stochastic_dgp_tpu_torch.ops import linalg as tlinalg
 from doubly_stochastic_dgp_tpu_torch.utils import params as tparams
@@ -61,6 +63,16 @@ def _check_bijectors(rng):
                jp.unconstrained)
         _close(f"Param[{bij}] value", tp.value, jp.value)
     assert not tparams.Param(1.0, trainable=False).trainable, "trainable flag"
+    # a Gaussian prior on a constrained value: log density and gradient
+    val = np.abs(rng.randn(4)) + 0.2
+    jp = jmodules.Param.create(val, bijector="positive",
+                               prior=("gaussian", 0.5, 1.3))
+    tp = tparams.Param(val, "positive", prior=("gaussian", 0.5, 1.3))
+    lp = tparams.log_prior(torch.nn.ModuleList([tp, tparams.Param(val)]))
+    _close("log_prior gaussian", lp, jmodules.log_prior(jp))
+    lp.backward()
+    _close("log_prior gaussian grad", tp.unconstrained.grad,
+           jax.grad(lambda p: jmodules.log_prior(p))(jp).unconstrained)
 
 
 def _kernel_pair(D, white, ls=0.8, var=1.3):
@@ -104,6 +116,16 @@ def _check_linalg(rng):
     _close("safe_cholesky batched per-element escalation",
            tlinalg.safe_cholesky(_t(Kb), 1e-16),
            jlinalg.safe_cholesky(jnp.asarray(Kb), 1e-16))
+    # gradients: the pullback on the selected factor, finite where a
+    # rejected rung's factor is not
+    for case, A, j in (("healthy", K, 1e-6), ("escalated", Kd, 1e-16)):
+        case = f"safe_cholesky grad {case}"
+        R = rng.randn(*A.shape)
+        At = _t(A).requires_grad_()
+        (tlinalg.safe_cholesky(At, j) * _t(R)).sum().backward()
+        assert torch.isfinite(At.grad).all(), f"{case}: non-finite gradient"
+        _close(case, At.grad, jax.grad(lambda a: jnp.sum(
+            jlinalg.safe_cholesky(a, j) * R))(jnp.asarray(A)))
     _close("add_jitter", tlinalg.add_jitter(_t(K), 1e-3),
            jlinalg.add_jitter(jnp.asarray(K), 1e-3))
     L = np.linalg.cholesky(K + 1e-6 * np.eye(12))
@@ -112,6 +134,24 @@ def _check_linalg(rng):
     Lb = np.stack([L, np.linalg.cholesky(K + np.eye(12))])
     _close("inv_lower batched", tlinalg.inv_lower(_t(Lb)),
            jlinalg.inv_lower(jnp.asarray(Lb)))
+    # Gaussian KL terms, values and gradients
+    M_, D_ = 12, 3
+    q_mu = rng.randn(M_, D_)
+    q_sqrt = np.tril(rng.randn(D_, M_, M_) * 0.3) + np.eye(M_) * 0.7
+    for name, jfn, tfn, extra in (
+            ("gauss_kl_white", jlinalg.gauss_kl_white,
+             tlinalg.gauss_kl_white, ()),
+            ("gauss_kl_nonwhite", jlinalg.gauss_kl_nonwhite,
+             tlinalg.gauss_kl_nonwhite, (L,))):
+        arrays = (q_mu, q_sqrt) + extra
+        leaves = [_t(a).requires_grad_() for a in arrays]
+        kl = tfn(*leaves)
+        kl.backward()
+        _close(f"{name} value", kl, jfn(*map(jnp.asarray, arrays)))
+        jg = jax.grad(jfn, argnums=tuple(range(len(arrays))))(
+            *map(jnp.asarray, arrays))
+        for what, t, g in zip(("q_mu", "q_sqrt", "Lu"), leaves, jg):
+            _close(f"{name} grad {what}", t.grad, g)
     mean, var, z = rng.randn(3, 4, 2), rng.randn(3, 4, 2), rng.randn(3, 4, 2)
     _close("reparameterize diag",
            tlinalg.reparameterize(_t(mean), _t(var), _t(z), 1e-6),
@@ -140,6 +180,18 @@ def _check_mean_functions_and_likelihood(rng):
            tg.predict_density(_t(Fm), _t(Fv), _t(Y)),
            jg.predict_density(jnp.asarray(Fm), jnp.asarray(Fv),
                               jnp.asarray(Y)))
+    _close("Gaussian logp", tg.logp(_t(Fm), _t(Y)),
+           jg.logp(jnp.asarray(Fm), jnp.asarray(Y)))
+    ve = tg.variational_expectations(_t(Fm), _t(Fv), _t(Y))
+    _close("Gaussian variational_expectations", ve,
+           jg.variational_expectations(jnp.asarray(Fm), jnp.asarray(Fv),
+                                       jnp.asarray(Y)))
+    ve.sum().backward()
+    _close("Gaussian variational_expectations grad",
+           tg.variance.unconstrained.grad,
+           jax.grad(lambda g: jnp.sum(g.variational_expectations(
+               jnp.asarray(Fm), jnp.asarray(Fv), jnp.asarray(Y))))(
+               jg).variance.unconstrained)
 
 
 def _layer_pair(rng, white, fused, kern_white):
@@ -159,6 +211,26 @@ def _layer_pair(rng, white, fused, kern_white):
     return jl, port.load_reference_state(tl, _state(jl))
 
 
+def _check_layer_grads(case, jl, tl, X, rng):
+    """KL value, and the gradient of sum(mean R1) + sum(var R2) + KL with
+    respect to every parameter of the layer."""
+    _close(f"{case} KL", tl.KL(), jl.KL())
+    R1, R2 = rng.randn(X.shape[0], 2), rng.randn(X.shape[0], 2)
+
+    def jobj(layer):
+        m, v = layer.conditional_ND(jnp.asarray(X))
+        return jnp.sum(m * R1) + jnp.sum(v * R2) + layer.KL()
+
+    m, v = tl.conditional_ND(_t(X))
+    (torch.sum(m * _t(R1)) + torch.sum(v * _t(R2)) + tl.KL()).backward()
+    want = {_torch_key(jax.tree_util.keystr(p)): g for p, g in
+            jax.tree_util.tree_flatten_with_path(jax.grad(jobj)(jl))[0]}
+    params = dict(tl.named_parameters())
+    assert set(params) == set(want), f"{case}: parameter sets differ"
+    for name, p in params.items():
+        _close(f"{case} grad {name}", p.grad, want[name])
+
+
 def _check_layers(rng):
     X = rng.randn(23, 3)
     for fused in (True, False):
@@ -170,6 +242,7 @@ def _check_layers(rng):
                                        tl.conditional_ND(_t(X)),
                                        jl.conditional_ND(jnp.asarray(X))):
                 _close(f"{case} {what}", got, want)
+            _check_layer_grads(case, jl, tl, X, rng)
             jc = jposterior._cache_svgp(jl)
             tc = tposterior._cache_svgp(tl)
             for what, got, want in zip(("mean", "var"),

@@ -1,0 +1,261 @@
+"""PyTorch port: the serving and training paths of a 3-layer DGP against
+the JAX package in float64 on the CPU, and the port's server and ``fit``
+semantics.
+
+The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
+function is exercised; M=20) is built in JAX with ``use_pallas=True``
+and a randomised posterior, and carried over with
+``load_reference_state``.  Random streams differ between the packages,
+so the parity runs through fixed draws ``zs`` and fixed minibatch
+indices.  The JAX objective is assembled from the package's public
+pieces (``propagate``, ``variational_expectations``, ``KL``, the
+num_data / batch scale, ``log_prior``).  One test item that names the
+failing case in every assertion message."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import torch
+from jax.scipy.special import logsumexp
+from numpy.testing import assert_allclose
+
+import doubly_stochastic_dgp_tpu as dsd
+from doubly_stochastic_dgp_tpu.config import temp_config
+from doubly_stochastic_dgp_tpu.training.loop import (
+    evaluate_regression as jax_evaluate_regression)
+from doubly_stochastic_dgp_tpu.training.optim import masked_optimizer
+from doubly_stochastic_dgp_tpu.utils.modules import log_prior, trainable_mask
+import doubly_stochastic_dgp_tpu_torch as port
+from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
+from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
+    fused_conditional)
+from doubly_stochastic_dgp_tpu_torch.training.loop import make_sgd_train_step
+from doubly_stochastic_dgp_tpu_torch.training.optim import (
+    masked_optimizer as port_masked_optimizer)
+
+RTOL, ATOL = 1e-8, 1e-10
+S, N, D, M, H = 4, 30, 5, 20, 3
+BATCH, LR, STEPS = 30, 0.01, 20
+# 20 Adam steps in float64: optax and torch.optim.Adam evaluate the same
+# update in a different order, and Adam's normalization m / sqrt(v)
+# amplifies the rounding of near-zero gradients; measured maximum
+# relative deviation 1.5e-14 (loss) and 7.1e-11 (parameters)
+TRAJ_RTOL, TRAJ_ATOL = 1e-6, 1e-9
+
+
+def _jax_model(rng, X, Y):
+    Z = X[:M]
+    with temp_config(use_pallas=True, solve_mode="inverse", jitter=1e-6):
+        kernels = [dsd.RBF.make(D) + dsd.White.make(D, variance=2e-6),
+                   dsd.RBF.make(H, lengthscales=1.3)
+                   + dsd.White.make(H, variance=2e-6),
+                   dsd.RBF.make(H, variance=0.9)]
+        model = dsd.DGP.build(X, Y, Z, kernels, dsd.Gaussian.make(0.05))
+    layers = []
+    for layer in model.layers:
+        Mi, Do = layer.q_mu.value.shape
+        q_sqrt = np.tril(rng.randn(Do, Mi, Mi) * 0.2) + 0.3 * np.eye(Mi)
+        layers.append(layer.replace(
+            q_mu=layer.q_mu.with_value(rng.randn(Mi, Do)),
+            q_sqrt=layer.q_sqrt.with_value(q_sqrt)))
+    return model.replace(layers=layers)
+
+
+def _port_model(X, Y, jmodel):
+    kernels = [port.RBF(D) + port.White(D), port.RBF(H) + port.White(H),
+               port.RBF(H)]
+    cfg = port.Config(use_pallas=True, solve_mode="inverse", jitter=1e-6)
+    model = port.DGP.build(X, Y, X[:M], kernels, port.Gaussian(1.0),
+                           num_samples=S, config=cfg, device="cpu")
+    return port.load_reference_state(model, _flat(jmodel))
+
+
+def _flat(tree):
+    """{port parameter name: numpy array} of a JAX pytree."""
+    return {_torch_key(jax.tree_util.keystr(p)): np.asarray(v) for p, v in
+            jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _jax_loss(model, X, Y, zs):
+    """The negative ELBO plus log-prior from the JAX package's public
+    pieces, at fixed draws."""
+    _, Fmeans, Fvars = model.propagate(X, S=S, zs=zs)
+    var_exp = model.likelihood.variational_expectations(Fmeans[-1],
+                                                        Fvars[-1], Y)
+    L = jnp.sum(jnp.mean(var_exp, axis=0))
+    KL = sum(layer.KL() for layer in model.layers)
+    return -(L * (model.num_data / X.shape[0]) - KL + log_prior(model))
+
+
+def _draws(rng, n):
+    idx = rng.randint(0, n, BATCH)
+    return idx, [rng.randn(S, BATCH, d) for d in (H, H, 1)]
+
+
+def _check_training(rng, X, Y, jmodel):
+    """ELBO value and gradients at fixed draws, a 20-step Adam trajectory
+    against optax, a CPU fit, and fit's unported options."""
+    model = _port_model(X, Y, jmodel)
+    params = dict(model.named_parameters())
+    assert len({p.data_ptr() for p in params.values()}) == len(params), (
+        "parameters share storage")
+    trainable = {k for k, v in _flat(trainable_mask(jmodel)).items() if v}
+    assert trainable == {k for k, p in params.items() if p.requires_grad}, (
+        "trainable parameters differ from the JAX trainable_mask")
+
+    loss_and_grads = jax.jit(jax.value_and_grad(_jax_loss))
+
+    def jax_at(m, idx, zs):
+        return loss_and_grads(m, jnp.asarray(X[idx]), jnp.asarray(Y[idx]),
+                              [jnp.asarray(z) for z in zs])
+
+    idx, zs = _draws(rng, X.shape[0])
+    jloss, jgrads = jax_at(jmodel, idx, zs)
+    loss = model.loss(X[idx], Y[idx], zs=zs) - port.log_prior(model)
+    loss.backward()
+    _close("ELBO at fixed draws", loss, jloss)
+    jgrads = _flat(jgrads)
+    for name in sorted(trainable):
+        _close(f"ELBO gradient {name}", params[name].grad, jgrads[name])
+
+    # 20 Adam steps with the same minibatches and draws
+    model = _port_model(X, Y, jmodel)
+    step = make_sgd_train_step(port_masked_optimizer(model, LR), BATCH)
+    tx = masked_optimizer(optax.adam(LR), jmodel)
+    opt_state = tx.init(jmodel)
+    jm = jmodel
+    for t in range(STEPS):
+        idx, zs = _draws(rng, X.shape[0])
+        jl, grads = jax_at(jm, idx, zs)
+        updates, opt_state = tx.update(grads, opt_state, jm)
+        jm = optax.apply_updates(jm, updates)
+        tl = step(model, idx=torch.as_tensor(idx), zs=zs)
+        assert_allclose(tl.numpy(), np.asarray(jl), rtol=TRAJ_RTOL,
+                        atol=TRAJ_ATOL, err_msg=f"Adam trajectory loss, "
+                                                f"step {t}")
+    want = _flat(jm)
+    for name, p in model.named_parameters():
+        assert_allclose(p.detach().numpy(), want[name], rtol=TRAJ_RTOL,
+                        atol=TRAJ_ATOL, err_msg=f"Adam trajectory {name} "
+                                                f"after {STEPS} steps")
+
+    # fit on the CPU: whole chunks, a history entry per log_every
+    model, hist = port.fit(_port_model(X, Y, jmodel), iterations=20,
+                           batch_size=BATCH, seed=3, log_every=10)
+    assert [h["iter"] for h in hist] == [10, 20], f"fit history {hist}"
+    assert all(np.isfinite(h["loss"]) for h in hist), f"fit loss {hist}"
+    for kw in (dict(natgrad_gamma=0.1), dict(ckpt_dir="ckpt"),
+               dict(reject_nonfinite=True)):
+        try:
+            port.fit(model, iterations=1, **kw)
+        except NotImplementedError as e:
+            assert "ROADMAP" in str(e), f"fit({kw}): {e}"
+        else:
+            raise AssertionError(f"fit({kw}) did not raise")
+
+
+def _check_evaluate_regression(rng, X, Y, Xt, Yt):
+    """A 1-layer DGP, whose predictions do not depend on the draws: the
+    port's evaluate_regression equals the JAX one."""
+    with temp_config(use_pallas=True, solve_mode="inverse", jitter=1e-6):
+        jm = dsd.DGP.build(X, Y, X[:M], [dsd.RBF.make(D, lengthscales=1.3)],
+                           dsd.Gaussian.make(0.1))
+    layer = jm.layers[0]
+    jm = jm.replace(layers=[layer.replace(
+        q_mu=layer.q_mu.with_value(rng.randn(M, 1)),
+        q_sqrt=layer.q_sqrt.with_value(
+            np.tril(rng.randn(1, M, M) * 0.2) + 0.3 * np.eye(M)))])
+    cfg = port.Config(use_pallas=True, solve_mode="inverse", jitter=1e-6)
+    tm = port.DGP.build(X, Y, X[:M], [port.RBF(D)], port.Gaussian(1.0),
+                        config=cfg, device="cpu")
+    port.load_reference_state(tm, _flat(jm))
+    kw = dict(S=5, batch_size=16, seed=2)
+    want = jax_evaluate_regression(jm, Xt, Yt, 1.7, **kw)
+    got = port.evaluate_regression(tm, Xt, Yt, 1.7, **kw)
+    for key in ("rmse", "nll", "loglik"):
+        assert_allclose(got[key], want[key], rtol=RTOL, atol=ATOL,
+                        err_msg=f"evaluate_regression {key}")
+
+
+def _close(case, got, want):
+    assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
+                    atol=ATOL, err_msg=case)
+
+
+def test_paths_match_jax():
+    fused_conditional.launches = fused_conditional.backward_launches = 0
+    rng = np.random.RandomState(0)
+    X, Y = rng.randn(60, D), rng.randn(60, 1)
+    Xt, Yt = rng.randn(N, D), rng.randn(N, 1)
+    jmodel = _jax_model(rng, X, Y)
+    model = _port_model(X, Y, jmodel)
+    assert isinstance(model.layers[0].mean_function, port.Linear), (
+        "setup: the narrowing layer has no PCA Linear mean function")
+
+    # propagate with the same fixed draws: every layer's F, mean, var
+    zs = [rng.randn(S, N, d) for d in (H, H, 1)]
+    jF, jm, jv = jmodel.propagate(jnp.asarray(Xt), S=S,
+                                  zs=[jnp.asarray(z) for z in zs])
+    tF, tm, tv = model.propagate(Xt, S=S, zs=zs)
+    for l in range(3):
+        for what, got, want in (("F", tF, jF), ("mean", tm, jm),
+                                ("var", tv, jv)):
+            _close(f"propagate layer {l} {what}", got[l], want[l])
+
+    # predict_y moments and the predict_density logsumexp at those draws
+    jy = jmodel.likelihood.predict_mean_and_var(jm[-1], jv[-1])
+    ty = model.predict_y(Xt, S=S, zs=zs)
+    for what, got, want in zip(("mean", "var"), ty, jy):
+        _close(f"predict_y {what}", got, want)
+    jl = jmodel.likelihood.predict_density(jm[-1], jv[-1], jnp.asarray(Yt))
+    jd = logsumexp(jl - jnp.log(S), axis=0)
+    _close("predict_density", model.predict_density(Xt, Yt, S=S, zs=zs), jd)
+
+    # the port's server: live (fused branch) vs cached at one seed
+    live = port.make_server(model, S=S, precompute=False)
+    cached = port.make_server(model, S=S, precompute=True)
+    for what, a, b in zip(("mean", "var"), live(Xt, seed=11),
+                          cached(Xt, seed=11)):
+        assert_allclose(a.numpy(), b.numpy(), rtol=RTOL, atol=ATOL,
+                        err_msg=f"live vs cached server {what}")
+    d_live = port.make_server(model, S=S, precompute=False,
+                              method="predict_density")(Xt, Yt, seed=11)
+    assert d_live.shape == (N, 1), f"density server shape {d_live.shape}"
+
+    # bucket padding keeps the request's rows: a 7-row request padded to
+    # the 8-row bucket equals the unbucketed server on the padded input
+    bucketed = port.make_server(model, S=S, precompute=False,
+                                batch_buckets=(8, 16))
+    plain = port.make_server(model, S=S, precompute=False)
+    Xp = np.concatenate([Xt[:7], np.zeros((1, D))])
+    for what, a, b in zip(("mean", "var"), bucketed(Xt[:7], seed=5),
+                          plain(Xp, seed=5)):
+        assert a.shape == (S, 7, 1), f"bucket padding {what} shape {a.shape}"
+        assert torch.equal(a, b[:, :7]), f"bucket padding {what} rows"
+
+    # a 30-row request spans two top-bucket chunks; each chunk draws from
+    # the seed derived from (seed, chunk index)
+    a = bucketed(Xt, seed=5)
+    first = plain(Xt[:16], seed=port.serving.derive_seed(5, 0))
+    second = plain(np.concatenate([Xt[16:], np.zeros((2, D))]),
+                   seed=port.serving.derive_seed(5, 1))
+    assert a[0].shape == (S, N, 1), f"chunked shape {a[0].shape}"
+    assert torch.equal(a[0], torch.cat([first[0], second[0][:, :14]], 1)), (
+        "chunked request: rows differ from per-chunk calls")
+
+    # pinned seeds reproduce bit for bit; unpinned requests differ
+    for name, serve in (("live", live), ("cached", cached),
+                        ("bucketed", bucketed)):
+        r1, r2 = serve(Xt, seed=3), serve(Xt, seed=3)
+        assert all(torch.equal(p, q) for p, q in zip(r1, r2)), (
+            f"{name}: pinned seed not reproducible")
+        u1, u2 = serve(Xt), serve(Xt)
+        assert not torch.equal(u1[0], u2[0]), (
+            f"{name}: successive unpinned requests drew the same samples")
+        assert all(torch.isfinite(t).all() for t in r1), f"{name}: non-finite"
+
+    _check_training(rng, X, Y, jmodel)
+    _check_evaluate_regression(rng, X, Y, Xt, Yt)
+    assert (fused_conditional.launches, fused_conditional.backward_launches
+            ) == (0, 0), "a CUDA kernel was launched for CPU tensors"
