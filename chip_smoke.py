@@ -56,12 +56,47 @@ Phases, each of which raises on a failed check:
    turns;
 8. a training step's wall time, its host syncs (counted in torch's sync
    debug mode) and a torch.profiler breakdown of its device time: busy,
-   idle share, device ops, top device ops.
+   idle share, device ops, top device ops;
+9. the collapsed DGPs at full width, each built on the card with its
+   ``build`` (float32, jitter 1e-5, ``solve_mode='inverse'``; Z by
+   k-means, seed 0, as the JAX bench): ``damianou_large`` (DGPDamianou,
+   RBF(8) -> RBF(2), M=256, the 7372-row training split) and
+   ``collapsed_L2`` (DGPCollapsed, RBF(8) x 2, M=100, the first 1500 rows,
+   inner SVGP layer on the fused conditional kernel).  With the launch
+   counts set to 0, each evaluates its bound and serves predict_y and
+   predict_density on the 820 test rows at S=100 with fixed draws; raises
+   unless psi2_core launched once per bound and per prediction (and the
+   fused conditional once per bound and twice per prediction for
+   DGPCollapsed).  The same on the plain psi2 route (``psi2_impl='xla'``,
+   no psi2 launch) and in float64 on the plain route on the card; raises
+   if a value is not finite, the kernel route's error against float64
+   (bound, predictions) is above 2x the plain route's, or the kernel
+   route differs from the plain route in float32 by more than 1e-2 on
+   the bound or 5e-2 of scale on the predictions (at the fixed draws, and
+   at S=100 draws from one seeded generator on both routes).  Prints the jitter ladder's
+   escalations per route, two witnesses of where damianou_large's float32
+   error comes from (``solve_mode='solve'``; float64 with psi2 alone in
+   float32), and checks that the bound's backward raises
+   NotImplementedError on the kernel route (ROADMAP B5);
+10. the kernel route's refusals on the card (M=513 and float64 raise,
+   with no launch; ``'xla'`` runs), then the psi2 kernel against its
+   plain version on the operands the two
+   models pass it (captured from ``_rbf_cross_psi2``), a ragged N, D=12
+   (Z from shared memory), M=512 and a clamp-active case, in float32 and
+   float64; raises if it differs from the plain float32 version by more
+   than 1e-4 of the output scale, is more than 2x as far from float64 as
+   the plain float32 version, or gives other bits on a repeat launch.
+   Prints the error of the expf variant beside the __expf one in use;
+11. timings with CUDA events (median of 30): the psi2 kernel, its plain
+   version and its bound at both path shapes; one bound evaluation and
+   one 820-row S=100 predict_y request per model and route; and a
+   torch.profiler breakdown of each on the kernel route.
 
-It prints a ``{"kernels": [...]}`` line (four records: forward, backward,
-save-gram forward, save-gram backward), the card's name and power limit,
-and as its last line ``{"ok": true, "device": {...}}``.  Without CUDA, or
-without the package beside it, it exits non-zero and prints no result.
+It prints a ``{"kernels": [...]}`` line (five records: forward, backward,
+save-gram forward, save-gram backward, psi2 forward), the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Without CUDA, or without the package beside it, it exits non-zero and
+prints no result.
 """
 
 import argparse
@@ -79,33 +114,45 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from doubly_stochastic_dgp_tpu_torch import (  # noqa: E402
-    DGP, RBF, Config, Gaussian, SyntheticRegression, White,
-    evaluate_regression, fit, make_server, precompute)
-from doubly_stochastic_dgp_tpu_torch.ops.cuda import build  # noqa: E402
+    DGP, RBF, Config, DGPCollapsed, DGPDamianou, Gaussian,
+    SyntheticRegression, White, evaluate_regression, fit, make_server,
+    precompute)
+from doubly_stochastic_dgp_tpu_torch.ops import psi_stats  # noqa: E402
+from doubly_stochastic_dgp_tpu_torch.ops.cuda import build, psi2  # noqa: E402
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (  # noqa: E402
     flops, flops_bwd, fused_conditional, fused_conditional_backward,
     fused_conditional_backward_plain, fused_conditional_forward,
     fused_conditional_plain, fused_conditional_saved,
     fused_conditional_saved_plain)
+from doubly_stochastic_dgp_tpu_torch.ops.linalg import (  # noqa: E402
+    safe_cholesky_ladder)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 FP32_PEAK = 67e12          # FLOP/s, fp32 outside the tensor cores
 HBM_RATE = 3.35e12         # bytes/s
+# exp results/s of the SFUs: 132 SMs x 16 a clock (the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0: exp2 and
+# the other transcendentals) x the 1.98 GHz boost clock
+SFU_EXP_RATE = 132 * 16 * 1.98e9
 LAYERS, M, S = 5, 100, 100
 BUCKETS = (128, 512, 1000)
 # training: S=10 samples, minibatch 1000, so 10,000 rows per layer a step
 TRAIN_S, BATCH, TRAIN_STEPS = 10, 1000, 300
 # (name, source, the TPU kernel it replaces, the launch counter's owner and
 # attribute)
+_COND = "doubly_stochastic_dgp_tpu/ops/pallas/conditional.py"
 KERNELS = (
-    ("fused_conditional", "fused_conditional.cu", 206, fused_conditional,
-     "launches"),
-    ("fused_conditional_backward", "fused_conditional_bwd.cu", 390,
-     fused_conditional, "backward_launches"),
-    ("fused_conditional_saved", "fused_conditional.cu", 166,
+    ("fused_conditional", "fused_conditional.cu", f"{_COND}:206",
+     fused_conditional, "launches"),
+    ("fused_conditional_backward", "fused_conditional_bwd.cu",
+     f"{_COND}:390", fused_conditional, "backward_launches"),
+    ("fused_conditional_saved", "fused_conditional.cu", f"{_COND}:166",
      fused_conditional_saved, "launches"),
-    ("fused_conditional_saved_backward", "fused_conditional_bwd.cu", 239,
-     fused_conditional_saved, "backward_launches"),
+    ("fused_conditional_saved_backward", "fused_conditional_bwd.cu",
+     f"{_COND}:239", fused_conditional_saved, "backward_launches"),
+    ("psi2_core_forward", "psi2.cu",
+     "doubly_stochastic_dgp_tpu/ops/pallas/psi2.py:240", psi2.psi2_core,
+     "launches"),
 )
 KERNEL_NAMES = [k[0] for k in KERNELS]
 # kernel vs plain float32 on the same inputs: both are float32 with
@@ -115,6 +162,13 @@ KERNEL_VS_PLAIN_RTOL = 1e-4
 # the live float32 path on the card vs the port's float64 CPU path on a
 # small request (5 layers of float32 staging and cancellation)
 F32_PATH_ATOL = 5e-3
+# the collapsed models' psi2 kernel route vs their plain psi2 route, both
+# float32 on the same parameters and draws (bound relative to its
+# magnitude, predictions relative to each output's scale).  The routes
+# differ only in psi2's rounding, which damianou_large's (M, M) algebra
+# amplifies: on an H100 the gaps there were 3.7e-3 (bound) and 1.3e-2
+# (predictions), while a wrong psi2 moves both by O(1)
+ROUTE_GAP_RTOL = {"bound": 1e-2, "predictions": 5e-2}
 
 
 def check(cond, msg):
@@ -745,6 +799,424 @@ def phase_training_profile(model, seed, card):
             "idle_share": 1 - busy / wall, "host_syncs": syncs}
 
 
+# ---------------------------------------------------------------------------
+# phases 9-11: the collapsed DGPs and the psi2 kernel
+# ---------------------------------------------------------------------------
+
+COLLAPSED = ("damianou_large", "collapsed_L2")
+# (psi2, fused conditional) launches at L=2 per bound and per prediction:
+# DGPDamianou's hidden layer is its one layer on Gaussian inputs; a
+# DGPCollapsed prediction propagates the training rows (the collapsed
+# layer's inputs) and the test rows through the inner SVGP layer
+EXPECTED = {"damianou_large": {"bound": (1, 0), "predict": (1, 0)},
+            "collapsed_L2": {"bound": (1, 1), "predict": (1, 2)}}
+# (dtype, psi2_impl, use_pallas) of each route: the plain route differs
+# from the kernel route in psi2 only; float64 takes the plain versions of
+# both kernels (the CUDA kernels take float32)
+ROUTES = {"kernel": (torch.float32, "auto", True),
+          "plain": (torch.float32, "xla", True),
+          "f64": (torch.float64, "xla", False)}
+
+
+def collapsed_models(data, seed):
+    """Builders of the two configurations (the JAX bench's build_damianou
+    at the damianou_large row and build_collapsed at collapsed_L2; Z by
+    scipy's kmeans2, seed 0), and their fixed draws for the test rows."""
+    from scipy.cluster.vq import kmeans2
+    X, Y = data["X"], data["Y"]
+    Z256 = kmeans2(X, 256, minit="points", seed=0)[0]
+    Z100 = kmeans2(X[:1500], 100, minit="points", seed=0)[0]
+    rng = np.random.RandomState(seed + 5)
+    n = len(data["Xs"])
+
+    def build(name, dtype, impl, use_pallas, solve_mode="inverse"):
+        cfg = Config(dtype=dtype, jitter=1e-5, solve_mode=solve_mode,
+                     use_pallas=use_pallas, psi2_impl=impl)
+        if name == "damianou_large":
+            return DGPDamianou.build(X, Y, Z256, [RBF(8), RBF(2)],
+                                     Gaussian(0.05), config=cfg,
+                                     device="cuda")
+        return DGPCollapsed.build(X[:1500], Y[:1500], Z100,
+                                  [RBF(8), RBF(8)], Gaussian(0.05),
+                                  config=cfg, device="cuda")
+
+    # DGPCollapsed hands one zs to the training-row and the test-row
+    # propagation (the JAX semantics), so its draws broadcast over both
+    zs = {"damianou_large": [rng.randn(S, n, d) for d in (2, 1)],
+          "collapsed_L2": [rng.randn(1, 1, d) for d in (8, 1)]}
+    return build, zs
+
+
+def counted(fn):
+    """(result, (psi2, fused conditional) launches of the call)."""
+    before = (psi2.psi2_core.launches, fused_conditional.launches)
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    return out, (psi2.psi2_core.launches - before[0],
+                 fused_conditional.launches - before[1])
+
+
+def evaluate_route(name, route, model, data, zs, counts=None):
+    """Bound, predict_y and predict_density at fixed draws; checks the
+    launches of each call (EXPECTED on the kernel route, no psi2 launch on
+    the plain route, none at all in float64) and collects them in
+    ``counts``."""
+    Xs, Ys = data["Xs"], data["Ys"]
+    calls = {"bound": lambda: model.elbo(),
+             "predict_y": lambda: model.predict_y(Xs, S=S, zs=zs),
+             "predict_density": lambda: model.predict_density(Xs, Ys, S=S,
+                                                              zs=zs)}
+    out = {}
+    for call, fn in calls.items():
+        out[call], n = counted(fn)
+        want = EXPECTED[name]["bound" if call == "bound" else "predict"]
+        want = {"kernel": want, "plain": (0, want[1]), "f64": (0, 0)}[route]
+        check(n == want, f"{name} {route} route {call}: (psi2, "
+                         f"fused_conditional) launches {n} != {want}")
+        if counts is not None:
+            counts[call] = n
+    check(bool(torch.isfinite(out["bound"])), f"{name}: bound not finite")
+    preds = (*out["predict_y"], out["predict_density"])
+    for t in preds:
+        check(bool(torch.isfinite(t).all()), f"{name}: prediction not "
+                                             f"finite")
+    return out["bound"], preds
+
+
+def pred_err(preds, refs):
+    """Worst max abs difference of the outputs, each relative to its
+    reference's scale (at least 1)."""
+    return max((p.double() - r.double()).abs().max().item()
+               / max(r.abs().max().item(), 1.0) for p, r in zip(preds, refs))
+
+
+def generator_predictions(model, data, seed):
+    """predict_y and predict_density on the test rows at S=100, each
+    drawn from a CUDA generator seeded with ``seed``."""
+    gen = torch.Generator(device="cuda")
+    with torch.no_grad():
+        gen.manual_seed(seed)
+        mean, var = model.predict_y(data["Xs"], S=S, generator=gen)
+        gen.manual_seed(seed)
+        dens = model.predict_density(data["Xs"], data["Ys"], S=S,
+                                     generator=gen)
+    return mean, var, dens
+
+
+def f32_witnesses(build, model, data, zs, b64, p64):
+    """Two variants that split the float32 error of damianou_large: the
+    plain psi2 route in float32 with solve_mode='solve' (no explicit Kuu^-1
+    or B^-1), and the float64 model whose psi2 data sum alone runs in
+    float32 through the kernel (so psi2's float32 rounding is all that
+    differs from float64).  Returns {variant: (bound err, predictions err,
+    ladder escalations)}."""
+    out = {}
+    kernel = psi_stats.psi2_core
+
+    def f32_psi2(*args):
+        return kernel(*[a.float().contiguous() for a in args]).double()
+
+    for variant in ("f32 solve_mode=solve", "f64, f32 psi2"):
+        if variant.startswith("f32"):
+            m = build("damianou_large", torch.float32, "xla", True, "solve")
+        else:
+            m = build("damianou_large", torch.float64, "auto", False)
+            psi_stats.psi2_core = f32_psi2
+        m.load_state_dict(model.state_dict())
+        safe_cholesky_ladder.escalations = 0
+        try:
+            with torch.no_grad():
+                b = m.elbo()
+                preds = (*m.predict_y(data["Xs"], S=S, zs=zs),
+                         m.predict_density(data["Xs"], data["Ys"], S=S,
+                                           zs=zs))
+        finally:
+            psi_stats.psi2_core = kernel
+        check(bool(torch.isfinite(b)) and all(
+            bool(torch.isfinite(t).all()) for t in preds),
+            f"damianou_large {variant}: not finite")
+        out[variant] = (abs(b.item() - b64.item()) / abs(b64.item()),
+                        pred_err(preds, p64),
+                        safe_cholesky_ladder.escalations)
+        print(f"collapsed damianou_large witness {variant}: bound "
+              f"{b.item():.6f}, rel err vs f64 {out[variant][0]:.3e}; "
+              f"predictions worst err {out[variant][1]:.3e} of scale; "
+              f"ladder escalations {out[variant][2]}", flush=True)
+    return out
+
+
+def capture_psi2_operands(model):
+    """The (U, V, w, logdet, Z) that the model's bound hands psi2_core
+    (the launch is not counted)."""
+    got = []
+    inner = psi_stats.psi2_core
+    n = psi2.psi2_core.launches
+
+    def record(*args):
+        got.append([a.detach().clone() for a in args])
+        return inner(*args)
+
+    psi_stats.psi2_core = record
+    try:
+        with torch.no_grad():
+            model.elbo()
+    finally:
+        psi_stats.psi2_core = inner
+        psi2.psi2_core.launches = n
+    check(len(got) == 1, f"the bound called psi2_core {len(got)} times")
+    return got[0]
+
+
+def phase_collapsed(seed, card):
+    """The main path of this phase: both models on the kernel route with
+    the launch counts at 0, then the plain route and float64 (plain
+    route) on the same parameters; the kernel route's errors against
+    float64 within 2x the plain route's."""
+    data = SyntheticRegression(N=8192, D=8).get_data(split=0)
+    build, zs = collapsed_models(data, seed)
+    out = {"data": data, "build": build, "models": {}, "operands": {},
+           "launches": {}}
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    for name in COLLAPSED:
+        model = build(name, *ROUTES["kernel"])
+        counts = {}
+        evaluate_route(name, "kernel", model, data, zs[name], counts)
+        print(f"collapsed {name}: (psi2_core, fused_conditional) launches "
+              f"per call {counts} [{card}]", flush=True)
+        out["models"][name] = {"kernel": model}
+        out["launches"][name] = counts
+    main_counts = launch_counts()
+    for name in COLLAPSED:
+        model = out["models"][name]["kernel"]
+        escal, results = {}, {}
+        for route in ("kernel", "plain", "f64"):
+            m = model
+            if route != "kernel":
+                m = build(name, *ROUTES[route])
+                m.load_state_dict(model.state_dict())
+                out["models"][name][route] = m
+            safe_cholesky_ladder.escalations = 0
+            results[route] = evaluate_route(name, route, m, data, zs[name])
+            escal[route] = safe_cholesky_ladder.escalations
+        b64, p64 = results["f64"]
+        errs = {}
+        for route in ("kernel", "plain"):
+            b, preds = results[route]
+            eb = abs(b.item() - b64.item()) / abs(b64.item())
+            ep = pred_err(preds, p64)
+            errs[route] = (eb, ep)
+            print(f"collapsed {name} {route} route (f32): bound "
+                  f"{b.item():.6f} vs f64 {b64.item():.6f} (rel err "
+                  f"{eb:.3e}); predict_y mean/var and predict_density on "
+                  f"{len(data['Xs'])} rows, S={S}, fixed draws: worst err "
+                  f"{ep:.3e} of scale", flush=True)
+        print(f"collapsed {name}: safe_cholesky_ladder escalations per "
+              f"route (bound + 2 predictions): {escal}", flush=True)
+        for i, what in enumerate(("bound", "predictions")):
+            check(errs["kernel"][i] <= 2.0 * errs["plain"][i],
+                  f"{name} {what}: kernel route error vs f64 "
+                  f"{errs['kernel'][i]} > 2x the plain route's "
+                  f"{errs['plain'][i]}")
+        # kernel route vs plain route in float32: at the fixed draws, and
+        # at S=100 draws from one seeded generator (DGPCollapsed's fixed
+        # draws are one draw shared by all samples and rows)
+        (bk, pk), (bp, pp) = results["kernel"], results["plain"]
+        gap = {"bound": abs(bk.item() - bp.item()) / abs(bp.item()),
+               "predictions fixed draws": pred_err(pk, pp),
+               "predictions generator": pred_err(
+                   generator_predictions(model, data, seed + 7),
+                   generator_predictions(out["models"][name]["plain"],
+                                         data, seed + 7))}
+        print(f"collapsed {name}: kernel route vs plain route (f32), "
+              f"relative to each output's scale: {gap}", flush=True)
+        for what, e in gap.items():
+            tol = ROUTE_GAP_RTOL[what.split()[0]]
+            check(e <= tol, f"{name} {what}: kernel route vs plain route "
+                            f"{e} > {tol}")
+        witness = (f32_witnesses(build, model, data, zs[name], b64, p64)
+                   if name == "damianou_large" else None)
+        # the psi2 backward is not ported: the kernel route refuses it
+        refused = ""
+        try:
+            model.elbo().backward()
+        except NotImplementedError as e:
+            refused = str(e)
+        check("B5" in refused, f"{name}: the kernel route's backward did "
+                               f"not refuse (ROADMAP B5): {refused!r}")
+        out["operands"][name] = capture_psi2_operands(model)
+        out[name] = {"errors": errs, "escalations": escal,
+                     "route_gap": gap, "witness": witness,
+                     "bound": results["kernel"][0].item(),
+                     "bound_f64": b64.item()}
+    out["main_counts"] = main_counts
+    return out
+
+
+def psi2_inputs(N, M_, D, seed, clamp=False):
+    """float64 operands on the card in the psi2 contract (w >= 0)."""
+    rng = np.random.RandomState(seed)
+    U = rng.randn(N, M_) * 0.5 - 0.2 + (1.0 if clamp else 0.0)
+    arrays = (U, rng.randn(N, M_) * 0.5 - 0.2, rng.rand(N, D),
+              rng.randn(N, 1) * 0.3, rng.randn(M_, D) * 0.5)
+    return [torch.tensor(a, dtype=torch.float64, device="cuda")
+            for a in arrays]
+
+
+def check_psi2_refusals(seed):
+    """On a CUDA tensor the kernel route ('auto', 'pallas') launches or
+    raises: outside the kernel's limits (M=513) and in float64,
+    psi_statistics raises and launches nothing; 'xla' takes the plain
+    route there."""
+    rng = np.random.RandomState(seed)
+    n = psi2.psi2_core.launches
+    for dtype, M_, err in ((torch.float32, psi2.MAX_M + 1, ValueError),
+                           (torch.float64, 16, TypeError)):
+        kern = RBF(2).to(device="cuda", dtype=dtype)
+        mu, Sv, Z = (torch.tensor(a, dtype=dtype, device="cuda") for a in
+                     (rng.randn(64, 2), rng.rand(64, 2) * 0.1,
+                      rng.randn(M_, 2)))
+        with torch.no_grad():
+            for impl in ("auto", "pallas"):
+                raised = None
+                try:
+                    psi_stats.psi_statistics(kern, mu, Sv, Z, impl)
+                except err as e:
+                    raised = e
+                check(raised is not None, f"psi_statistics {impl} on CUDA "
+                                          f"{dtype}, M={M_}: did not raise")
+            plain = psi_stats.psi_statistics(kern, mu, Sv, Z, "xla")[2]
+        check(plain.shape == (M_, M_) and bool(torch.isfinite(plain).all()),
+              f"psi_statistics xla on CUDA {dtype}, M={M_}")
+    check(psi2.psi2_core.launches == n, "a refused psi2 call launched")
+    print(f"psi2 kernel route on CUDA: raises at M={psi2.MAX_M + 1} and in "
+          f"float64 ('auto' and 'pallas'), no launch; 'xla' runs the plain "
+          f"route", flush=True)
+
+
+def phase_psi2_kernel(seed, operands):
+    """psi2 kernel vs its plain version (float32) and float64, on the
+    models' operands and the edge cases; bit-identical repeats.  Returns
+    the worst errors (the launches here are not counted)."""
+    counts = launch_counts()
+    check_psi2_refusals(seed)
+    cases = [(name, [t.double() for t in operands[name]])
+             for name in COLLAPSED]
+    cases += [("ragged_N1301_M100", psi2_inputs(1301, 100, 3, seed)),
+              ("D12_shared_Z", psi2_inputs(500, 64, 12, seed + 1)),
+              ("M512", psi2_inputs(2000, 512, 2, seed + 2)),
+              ("clamp_active", psi2_inputs(300, 37, 2, seed + 3, True))]
+    worst = [0.0] * 4
+    for case, a64 in cases:
+        a32 = [t.float().contiguous() for t in a64]
+        if case == "clamp_active":
+            U, V, w, _, Z = a64
+            pre = (U[:, :, None] + V[:, None, :]
+                   - torch.einsum("nd,ad,bd->nab", w, Z, Z))
+            check(bool((pre > 0).any() and (pre < 0).any()),
+                  "psi2 clamp_active: the clamp is not active")
+        with torch.no_grad():
+            fwd = lambda: (psi2.psi2_core_forward(*a32),)  # noqa: E731
+            got = fwd()
+            torch.cuda.synchronize()
+            plain = (psi2.psi2_core_plain(*a32),)
+            ref = (psi2.psi2_core_plain(*a64),)
+            errs = compare(got, plain, ref, joint_scale=True)
+            hold("psi2_core_forward", case, errs)
+            check_repeat("psi2_core_forward", case, fwd, got)
+            other = psi2.psi2_core_forward(*a32,
+                                           fast_exp=not psi2.FAST_EXP)
+            e_other = compare((other,), plain, ref, joint_scale=True)[2]
+        N, M_ = a32[0].shape
+        print(f"kernel psi2_core_forward {case} (N={N}, M={M_}, D="
+              f"{a32[4].shape[1]}): exp variant in use "
+              f"{'__expf' if psi2.FAST_EXP else 'expf'}; the other's error "
+              f"vs f64 {e_other:.3e} of scale", flush=True)
+        worst = list(map(max, worst, errs))
+    set_launch_counts(counts)
+    return worst
+
+
+def psi2_bound_ms(N, M_, D):
+    """The least time of one call: its bytes (U, V, w, logdet, Z read
+    once, the (M, M) output written once) over the HBM rate, its fp32
+    flops over the fp32 peak, and its exps over the SFU exp rate."""
+    n_bytes = 4 * (2 * N * M_ + N * D + N + M_ * D + M_ * M_)
+    times = {"bytes": n_bytes / HBM_RATE,
+             "operations": max(psi2.flops(N, M_, D) / FP32_PEAK,
+                               psi2.terms(N, M_) / SFU_EXP_RATE)}
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def phase_collapsed_timings(collapsed, card):
+    """psi2 kernel and plain version at both path shapes (CUDA-event
+    medians of 30), one bound evaluation and one 820-row S=100 predict_y
+    request per model and route (medians of 10), and a torch.profiler
+    breakdown of the kernel route's bound and request."""
+    from torch.profiler import ProfilerActivity, profile
+    counts = launch_counts()
+    shapes, paths = [], {}
+    Xs = collapsed["data"]["Xs"]
+    for name in COLLAPSED:
+        a32 = [t.contiguous() for t in collapsed["operands"][name]]
+        N, M_ = a32[0].shape
+        D = a32[4].shape[1]
+        with torch.no_grad():
+            k_ms = event_ms(lambda: psi2.psi2_core_forward(*a32))
+            p_ms = event_ms(lambda: psi2.psi2_core_plain(*a32))
+        b_ms, b_by = psi2_bound_ms(N, M_, D)
+        shapes.append({"config": name, "N": N, "M": M_, "D": D, "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "exps_M": psi2.terms(N, M_) / 1e6,
+                       "gflop": psi2.flops(N, M_, D) / 1e9})
+        print(f"timing psi2_core_forward {name} N={N} M={M_} D={D}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}; {psi2.terms(N, M_) / 1e6:.1f} M exps at "
+              f"{SFU_EXP_RATE / 1e12:.2f} T/s, "
+              f"{psi2.flops(N, M_, D) / 1e9:.3f} GFLOP), library call: none "
+              f"[{card}]", flush=True)
+        paths[name] = {}
+        for route in ("kernel", "plain"):
+            model = collapsed["models"][name][route]
+            gen = torch.Generator(device="cuda")
+            gen.manual_seed(1)
+            with torch.no_grad():
+                bound_ms = event_ms(lambda: model.elbo(), reps=10)
+                req_ms = event_ms(lambda: model.predict_y(
+                    Xs, S=S, generator=gen), reps=10)
+            paths[name][route] = {"bound_ms": bound_ms, "predict_ms": req_ms}
+            print(f"timing {name} {route} route: bound {bound_ms:.3f} ms, "
+                  f"{len(Xs)}-row S={S} predict_y {req_ms:.3f} ms (CUDA "
+                  f"events, median of 10) [{card}]", flush=True)
+        model = collapsed["models"][name]["kernel"]
+        gen = torch.Generator(device="cuda")
+        for what, fn in (("bound", lambda: model.elbo()),
+                         ("predict_y", lambda: model.predict_y(
+                             Xs, S=S, generator=gen))):
+            with torch.no_grad(), profile(activities=[
+                    ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / 3
+            found = device_breakdown(prof, 3)
+            if found is None:
+                print(f"profile {name} {what}: device time not measured",
+                      flush=True)
+                continue
+            busy, ops, top = found
+            paths[name]["kernel"][f"{what}_busy_ms"] = busy
+            print(f"profile {name} {what} (kernel route): device busy "
+                  f"{busy:.3f} ms in {ops:.0f} device ops of {wall:.3f} ms "
+                  f"wall under the profiler (idle share "
+                  f"{1 - busy / wall:.2f}); top device ops: {top}",
+                  flush=True)
+    set_launch_counts(counts)
+    return shapes, paths
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -774,16 +1246,23 @@ def main():
     train_shapes = phase_training_timings(args.seed, card)
     rates = phase_steps_per_s(args.seed, card)
     step = phase_training_profile(model, args.seed, card)
+    del model
+    collapsed = phase_collapsed(args.seed, card)
+    errs["psi2_core_forward"] = phase_psi2_kernel(args.seed,
+                                                  collapsed["operands"])
+    psi2_shapes, collapsed_paths = phase_collapsed_timings(collapsed, card)
+    train_shapes["psi2_core_forward"] = psi2_shapes
+    launches["psi2_core_forward"] = collapsed["main_counts"][
+        "psi2_core_forward"]
 
     records = []
-    for name, src, line, _, _ in KERNELS:
+    for name, src, replaces, _, _ in KERNELS:
         main_shape = train_shapes[name][0]
         abs_err, rel, rel_k, rel_p = errs[name]
         rec = {
             "name": name, "route": "cuda",
             "source": f"doubly_stochastic_dgp_tpu_torch/csrc/{src}",
-            "replaces":
-                f"doubly_stochastic_dgp_tpu/ops/pallas/conditional.py:{line}",
+            "replaces": replaces,
             "launches": launches[name], "max_abs_err": abs_err,
             "max_rel_err": rel, "max_rel_err_vs_f64": rel_k,
             "plain_max_rel_err_vs_f64": rel_p,
@@ -801,7 +1280,10 @@ def main():
                       "training_step": step,
                       "training_grad_rel_err": grad_worst,
                       "test_metrics": metrics,
-                      "fit_bit_identical": same, "card": card}))
+                      "fit_bit_identical": same,
+                      "collapsed": {n: collapsed[n] for n in COLLAPSED},
+                      "collapsed_launches_per_call": collapsed["launches"],
+                      "collapsed_paths": collapsed_paths, "card": card}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,12 @@ DGP: RBF(+White) SVGP layers with identity/PCA skip connections, a
 Gaussian likelihood, the doubly-stochastic ELBO with the layers' KL
 terms, Adam training on on-device minibatches (``fit``), the regression
 metrics (``evaluate_regression``), the cached posterior and
-``make_server``.  The fused staged conditional runs as hand-written CUDA
-kernels, forward and backward, with a save-gram variant (``ops/cuda``).
+``make_server``; and the bound and predictions of the collapsed DGPs
+(``DGPCollapsed``, ``DGPDamianou``: collapsed ``SGPRLayer``s and RBF psi
+statistics), which ``fit`` does not train yet.  The fused staged
+conditional runs as hand-written CUDA kernels, forward and backward, with
+a save-gram variant, and the psi2 data sum as a CUDA forward kernel
+(``ops/cuda``).
 It imports torch, numpy and scipy only — never jax or the JAX package.
 Entry points run on the GPU unless the caller passes ``device='cpu'``.
 """
@@ -15,11 +19,14 @@ Entry points run on the GPU unless the caller passes ``device='cpu'``.
 from .config import Config, resolve_device
 from .convert import load_reference_state
 from .data.datasets import SyntheticRegression
+from .models.damianou import DGPDamianou
 from .models.dgp import DGP, DGPBase
-from .models.layers import SVGPLayer
+from .models.layers import SGPRLayer, SVGPLayer
+from .models.zoo import DGPCollapsed
 from .models.mean_functions import Identity, Linear, Zero
 from .models.posterior import CachedSVGPLayer, precompute
 from .ops.cuda.conditional import fused_conditional, fused_conditional_saved
+from .ops.cuda.psi2 import psi2_core
 from .ops.kernels import RBF, Sum, White
 from .ops.likelihoods import Gaussian
 from .serving import make_server
@@ -28,8 +35,9 @@ from .utils.params import log_prior
 
 __all__ = [
     "Config", "resolve_device", "load_reference_state",
-    "SyntheticRegression", "DGP", "DGPBase", "SVGPLayer", "Identity",
-    "Linear", "Zero", "CachedSVGPLayer", "precompute", "fused_conditional",
-    "fused_conditional_saved", "RBF", "Sum", "White", "Gaussian",
-    "make_server", "evaluate_regression", "fit", "log_prior",
+    "SyntheticRegression", "DGP", "DGPBase", "DGPCollapsed", "DGPDamianou",
+    "SVGPLayer", "SGPRLayer", "Identity", "Linear", "Zero",
+    "CachedSVGPLayer", "precompute", "fused_conditional",
+    "fused_conditional_saved", "psi2_core", "RBF", "Sum", "White",
+    "Gaussian", "make_server", "evaluate_regression", "fit", "log_prior",
 ]

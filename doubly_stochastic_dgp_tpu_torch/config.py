@@ -24,6 +24,7 @@ import torch
 __all__ = ["Config", "resolve_device"]
 
 _SOLVE_MODES = ("solve", "inverse")
+_PSI2_IMPLS = ("auto", "pallas", "xla")
 _PRECISIONS = ("default", "mixed", "mixed_g", "mixed_high", "highest")
 
 
@@ -39,6 +40,15 @@ class Config:
     # whose backward reads the forward's gram instead of recomputing it)
     use_pallas: bool | str = False
     precision: str = "mixed"
+    # 'auto' | 'pallas' | 'xla': the route of the RBF psi2 data sum
+    # (ops/psi_stats.py), with the JAX field's names.  'auto' and
+    # 'pallas' are both the kernel route, ops/cuda/psi2.py: on a CUDA
+    # tensor the kernel, which takes float32, M <= 512 and 1 <= D <= 32
+    # and raises otherwise; on a CPU tensor its plain version.  'xla' is
+    # the plain blocked torch path on any device.  The JAX 'auto' gates
+    # (PSI2_KERNEL_MIN_M/MAX_D) are TPU profitability measurements and do
+    # not carry over.
+    psi2_impl: str = "auto"
 
     def __post_init__(self):
         if self.solve_mode not in _SOLVE_MODES:
@@ -51,6 +61,9 @@ class Config:
             raise ValueError(
                 f"use_pallas={self.use_pallas!r}: only False, True and "
                 f"'saved' are ported")
+        if self.psi2_impl not in _PSI2_IMPLS:
+            raise ValueError(f"psi2_impl must be one of {_PSI2_IMPLS}; "
+                             f"got {self.psi2_impl!r}")
         if self.dtype not in (torch.float32, torch.float64):
             raise ValueError(f"dtype must be float32 or float64; got "
                              f"{self.dtype}")

@@ -3,7 +3,11 @@
 ``state`` maps the JAX model's pytree key paths, as
 ``jax.tree_util.keystr`` prints them (``.layers[0].q_mu.unconstrained``),
 to numpy arrays of ``Param.unconstrained`` values and buffers.  The port
-only sees numpy: the caller does the flattening on the JAX side.
+only sees numpy: the caller does the flattening on the JAX side.  Any
+model whose parameter and buffer names follow the JAX fields is covered:
+``DGP``, ``DGPCollapsed`` (SVGP layers and an ``SGPRLayer``'s ``Z`` and
+``kern``) and ``DGPDamianou`` (also ``h_mean[l]``, ``h_var[l]`` and
+``noise[l]``).
 """
 
 from __future__ import annotations

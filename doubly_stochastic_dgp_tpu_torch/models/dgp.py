@@ -26,6 +26,11 @@ __all__ = ["DGPBase", "DGP"]
 class DGPBase(nn.Module):
     """A stack of layers, a likelihood and the training data buffers."""
 
+    # True on models whose objective is evaluated on the whole stored
+    # training set (the collapsed bounds are not sums of per-datum terms):
+    # the trainer rejects a minibatch size for them
+    full_batch_bound = False
+
     def __init__(self, likelihood, layers, X, Y, num_samples=1,
                  num_data=None):
         super().__init__()
@@ -49,12 +54,15 @@ class DGPBase(nn.Module):
         """Tile X to (S, N, D) and sample through every layer; returns
         (Fs, Fmeans, Fvars), one entry per layer.  ``zs`` (one per layer,
         broadcastable to (S, N, D_l)) replaces the random draws."""
+        return self._propagate_layers(self.layers, X, generator, S, zs)
+
+    def _propagate_layers(self, layers, X, generator, S, zs):
         X = self._as_input(X)
         F = X[None].expand(S, *X.shape)
         if zs is None:
-            zs = [None] * len(self.layers)
+            zs = [None] * len(layers)
         Fs, Fmeans, Fvars = [], [], []
-        for layer, z in zip(self.layers, zs):
+        for layer, z in zip(layers, zs):
             F, Fmean, Fvar = layer.sample_from_conditional(
                 F, z=z, generator=generator)
             Fs.append(F)

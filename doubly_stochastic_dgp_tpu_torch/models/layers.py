@@ -15,11 +15,19 @@ Counterpart of ``doubly_stochastic_dgp_tpu/models/layers.py``
 
 Not ported yet (they raise): ``full_cov``, ``solve_mode='solve'`` and
 input propagation.
+
+The collapsed final layer of ``DGPCollapsed`` and every layer of
+``DGPDamianou`` is ``SGPRLayer`` (the JAX ``CollapsedLayer`` /
+``SGPRLayer``): the Titsias bound with certain inputs, or with Gaussian
+inputs through the psi statistics (``ops/psi_stats.py``, whose RBF psi2
+data sum runs in the psi2 kernel), and its diagonal predictive
+conditional.  ``GPRLayer`` is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
 
 import copy
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -28,12 +36,15 @@ from torch import nn
 from ..config import Config
 from ..ops.kernels import RBF, Sum, White
 from ..ops.linalg import (add_jitter, gauss_kl_nonwhite, gauss_kl_white,
-                          inv_lower, reparameterize, safe_cholesky)
+                          inv_lower, reparameterize, safe_cholesky,
+                          safe_cholesky_ladder, tri_solve)
 from ..ops.cuda.conditional import fused_conditional, fused_conditional_saved
+from ..ops.psi_stats import psi_statistics
 from ..utils.params import Param
 from .mean_functions import Zero
 
-__all__ = ["Layer", "SVGPLayer"]
+__all__ = ["Layer", "SVGPLayer", "CollapsedData", "CollapsedLayer",
+           "SGPRLayer"]
 
 
 class Layer(nn.Module):
@@ -239,3 +250,155 @@ class SVGPLayer(Layer):
             return gauss_kl_white(q_mu, q_sqrt)
         _, Lu = self._chol_Kuu()
         return gauss_kl_nonwhite(q_mu, q_sqrt, Lu)
+
+
+class CollapsedData(NamedTuple):
+    """The data a collapsed layer is collapsed on: inputs N(X_mean,
+    diag(X_var)) (X_var None: certain inputs), targets Y and the noise
+    variance."""
+    X_mean: torch.Tensor
+    X_var: Optional[torch.Tensor]
+    Y: torch.Tensor
+    lik_variance: torch.Tensor
+
+
+class CollapsedLayer(Layer):
+    """A layer whose output GP is integrated out analytically.  The data
+    it is collapsed on is passed explicitly: ``set_data`` returns a
+    shallow view of the layer whose ``data`` holds it (the view shares
+    the layer's parameters and submodules, so gradients reach them; a
+    deep copy would not)."""
+
+    data = None
+
+    def set_data(self, X_mean, X_var, Y, lik_variance):
+        view = copy.copy(self)
+        view.data = CollapsedData(X_mean, X_var, Y, lik_variance)
+        return view
+
+    def build_likelihood(self):
+        raise NotImplementedError
+
+
+class SGPRLayer(CollapsedLayer):
+    """Collapsed sparse (Titsias) layer with inducing inputs Z (M, D_in),
+    on certain inputs (``X_var`` None) or on Gaussian inputs N(X_mean,
+    diag(X_var)) through the psi statistics.  Numerics fields
+    (``jitter``, ``solve_mode``, ``psi2_impl``) are snapshotted from
+    ``config``."""
+
+    # In float32 the bound's +-||Y||^2 / (2 sigma^2)-scale terms lose all
+    # significance once sigma^2 drops below ~1e-4 (the B-solve error grows
+    # like cond(B) eps ~ eps / sigma^2, and an optimizer then chases the
+    # positive bias); the float32 bound clamps the variance it uses here,
+    # which also zeroes the runaway gradient direction at the floor.
+    F32_VARIANCE_FLOOR = 1e-4
+
+    def __init__(self, kern, Z, num_outputs, mean_function, config=Config()):
+        super().__init__()
+        Z = np.asarray(Z, dtype=np.float64)
+        if Z.shape[1] != kern.input_dim:
+            raise ValueError(
+                f"SGPRLayer: kernel expects input_dim={kern.input_dim} but "
+                f"Z has shape {Z.shape}")
+        self.kern = kern
+        self.Z = Param(Z)
+        self.mean_function = mean_function
+        self.num_outputs_ = int(num_outputs)
+        self.jitter = float(config.jitter)
+        self.solve_mode = config.solve_mode
+        self.psi2_impl = config.psi2_impl
+
+    @property
+    def num_outputs(self):
+        return self.num_outputs_
+
+    def _bound_variance(self):
+        v = self.data.lik_variance
+        if v.dtype == torch.float32:
+            return torch.clamp(v, min=self.F32_VARIANCE_FLOOR)
+        return v
+
+    def _common(self):
+        """The factorization pieces of the bound: (L, A, AAT, LB, c and
+        err) on certain inputs, (L, A, AAT, LB, c and psi0) through the
+        psi statistics on Gaussian inputs.  Every contraction is full
+        fp32 (or f64): a reduced-precision B = I + L^-1 psi2 L^-T /
+        sigma^2 goes indefinite at scale.  LB uses the 0.0-first relative
+        jitter ladder: B >= I by construction, so a failure is rounding
+        garbage, and the float64 path stays exact."""
+        Z = self.Z.value
+        M = Z.shape[0]
+        variance = self._bound_variance()
+        sigma = torch.sqrt(variance)
+        mode = self.solve_mode
+        I = torch.eye(M, dtype=Z.dtype, device=Z.device)
+        X_mean, X_var, Y, _ = self.data
+        L = safe_cholesky(self.kern.K(Z), self.jitter)
+        if X_var is None:
+            err = Y - self.mean_function(X_mean)
+            Kuf = self.kern.K(Z, X_mean)
+            A = tri_solve(L, Kuf, lower=True, mode=mode) / sigma
+            AAT = A @ A.T
+            LB = safe_cholesky_ladder(AAT + I)
+            c = tri_solve(LB, A @ err, lower=True, mode=mode) / sigma
+            return dict(L=L, A=A, AAT=AAT, LB=LB, c=c, err=err)
+        psi0, psi1, psi2s = psi_statistics(self.kern, X_mean, X_var, Z,
+                                           self.psi2_impl)
+        A = tri_solve(L, psi1.T, lower=True, mode=mode) / sigma
+        tmp = tri_solve(L, psi2s, lower=True, mode=mode)
+        AAT = tri_solve(L, tmp.T, lower=True, mode=mode) / variance
+        # exact symmetry before the Cholesky (the two sequential solves
+        # are not numerically symmetric).  Do NOT put jitter on psi2 and
+        # refactor: eps I on psi2 leaks through L^-1 (psi2 + eps I) L^-T as
+        # eps tr(Kuu^-1) / sigma^2 into the trace term and *raises* the
+        # bound invalidly; jitter on B only grows log|B|, which lowers it.
+        AAT = 0.5 * (AAT + AAT.T)
+        LB = safe_cholesky_ladder(AAT + I)
+        c = tri_solve(LB, A @ Y, lower=True, mode=mode) / sigma
+        return dict(L=L, A=A, AAT=AAT, LB=LB, c=c, psi0=psi0)
+
+    def build_likelihood(self, cm=None):
+        """The collapsed bound.  ``cm``: a precomputed ``_common()``, for
+        callers that also need its pieces (``DGPDamianou.elbo``)."""
+        variance = self._bound_variance()
+        X_mean, X_var, Y, _ = self.data
+        num_data, output_dim = Y.shape
+        cm = self._common() if cm is None else cm
+        LB, c, AAT = cm["LB"], cm["c"], cm["AAT"]
+        if X_var is None:
+            err = cm["err"]
+            Kdiag = self.kern.Kdiag(X_mean)
+            bound = -0.5 * num_data * output_dim * np.log(2 * np.pi)
+            bound = bound - output_dim * torch.sum(torch.log(
+                torch.diagonal(LB)))
+            bound = bound - 0.5 * num_data * output_dim * torch.log(variance)
+            bound = bound - 0.5 * torch.sum(err ** 2) / variance
+            bound = bound + 0.5 * torch.sum(c ** 2)
+            bound = bound - 0.5 * output_dim * torch.sum(Kdiag) / variance
+            return bound + 0.5 * output_dim * torch.sum(torch.diagonal(AAT))
+        psi0 = cm["psi0"]
+        log_det_B = 2.0 * torch.sum(torch.log(torch.diagonal(LB)))
+        bound = -0.5 * Y.numel() * torch.log(2 * np.pi * variance)
+        bound = bound - 0.5 * output_dim * log_det_B
+        bound = bound - 0.5 * torch.sum(Y ** 2) / variance
+        bound = bound + 0.5 * torch.sum(c ** 2)
+        return bound - 0.5 * output_dim * (torch.sum(psi0) / variance
+                                           - torch.sum(torch.diagonal(AAT)))
+
+    def conditional_ND(self, X, full_cov=False):
+        """Diagonal predictive conditional at X (B, D_in): mean and var
+        (B, D_Y)."""
+        if full_cov:
+            raise NotImplementedError("full_cov is not ported yet (ROADMAP)")
+        cm = self._common()
+        L, LB, c = cm["L"], cm["LB"], cm["c"]
+        tmp1 = tri_solve(L, self.kern.K(self.Z.value, X), lower=True,
+                         mode=self.solve_mode)
+        tmp2 = tri_solve(LB, tmp1, lower=True, mode=self.solve_mode)
+        mean = tmp2.T @ c
+        # clamp float32 cancellation noise at zero (the SVGP policy)
+        var = torch.clamp(self.kern.Kdiag(X) + torch.sum(tmp2 ** 2, dim=0)
+                          - torch.sum(tmp1 ** 2, dim=0), min=0.0)
+        var = var[:, None].expand(-1, self.data.Y.shape[1])
+        return mean + self.mean_function(X), var

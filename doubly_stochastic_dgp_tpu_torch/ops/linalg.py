@@ -1,10 +1,11 @@
-"""Numerics core: jitter, jittered Cholesky with rung escalation and its
-grad-safe backward, triangular inverse, the diagonal reparameterization
-and the Gaussian KL terms.
+"""Numerics core: jitter, jittered Cholesky with rung escalation (absolute
+and the relative ladder) and its grad-safe backward, triangular inverse
+and solves, the diagonal reparameterization and the Gaussian KL terms.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/ops/linalg.py``
-(``add_jitter``, ``safe_cholesky``, ``inv_lower``, ``reparameterize``,
-``gauss_kl_white``, ``gauss_kl_nonwhite``).  The JAX escalation tests the
+(``add_jitter``, ``safe_cholesky``, ``safe_cholesky_ladder``,
+``inv_lower``, ``tri_solve``, ``reparameterize``, ``gauss_kl_white``,
+``gauss_kl_nonwhite``).  The JAX escalation tests the
 factor for NaN; ``torch.linalg.cholesky`` raises on a non-positive-definite
 matrix instead, so the port uses ``cholesky_ex`` and escalates when
 ``info != 0`` or the factor is not finite.  Reading ``info`` costs one
@@ -15,8 +16,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["add_jitter", "safe_cholesky", "inv_lower", "reparameterize",
-           "gauss_kl_white", "gauss_kl_nonwhite"]
+__all__ = ["add_jitter", "safe_cholesky", "safe_cholesky_ladder",
+           "inv_lower", "tri_solve", "reparameterize", "gauss_kl_white",
+           "gauss_kl_nonwhite"]
 
 
 def _eye_like(K):
@@ -45,54 +47,106 @@ def _chol_pullback(L, gL):
     return 0.5 * (gA + gA.transpose(-1, -2))
 
 
-def _select_rung(K, j0):
+def _chol_ok(K):
+    L, info = torch.linalg.cholesky_ex(K)
+    return L, (info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1)
+
+
+def _select_rung(K, jitters, relative):
     """One factorization on the healthy path.  When any batch element
     fails, every rung is factorized and each element takes its first rung
-    that succeeded, else the last rung — the JAX selection rule."""
+    that succeeded, else the last rung — the JAX selection rule.  Rung j
+    adds j I, or (j * mean(diag K)) I when ``relative``; a rung of exactly
+    0.0 adds nothing.  Returns the factor and whether the first rung
+    failed anywhere."""
     I = _eye_like(K)
-    L0, info0 = torch.linalg.cholesky_ex(K + j0 * I)
-    ok0 = (info0 == 0) & torch.isfinite(L0).all(dim=-1).all(dim=-1)
+
+    def rung(j):
+        if j == 0.0:
+            return K
+        if relative:
+            j = j * torch.diagonal(K, dim1=-2, dim2=-1).mean(-1)[..., None,
+                                                                 None]
+        return K + j * I
+
+    L0, ok0 = _chol_ok(rung(jitters[0]))
     if bool(ok0.all()):
-        return L0
+        return L0, False
     Ls, oks = [L0], [ok0]
-    for j in (1e2 * j0, 1e4 * j0):
-        L, info = torch.linalg.cholesky_ex(K + j * I)
+    for j in jitters[1:]:
+        L, ok = _chol_ok(rung(j))
         Ls.append(L)
-        oks.append((info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1))
+        oks.append(ok)
     sel = Ls[-1]
     for L, ok in zip(reversed(Ls[:-1]), reversed(oks[:-1])):
         sel = torch.where(ok[..., None, None], L, sel)
-    return sel
+    return sel, True
 
 
 class _SafeCholesky(torch.autograd.Function):
     """Rung selection forward; the Cholesky pullback on the *selected*
     factor backward, so a rejected rung's non-finite factor never sits on
     the autograd path (a ``torch.where`` over the rungs would push
-    0 * NaN through the rejected rung's ``cholesky_ex`` backward)."""
+    0 * NaN through the rejected rung's ``cholesky_ex`` backward).
+    ``relative`` scales the rungs by the mean diagonal of each batch
+    element."""
 
     @staticmethod
-    def forward(ctx, K, j0):
-        L = _select_rung(K, j0)
+    def forward(ctx, K, jitters, relative):
+        L, escalated = _select_rung(K, jitters, relative)
+        if escalated and relative:
+            safe_cholesky_ladder.escalations += 1
         ctx.save_for_backward(L)
         return L
 
     @staticmethod
     def backward(ctx, gL):
         (L,) = ctx.saved_tensors
-        return _chol_pullback(L, gL), None
+        return _chol_pullback(L, gL), None, None
 
 
 def safe_cholesky(K, jitter):
     """Cholesky of K + jitter*I, escalating to 1e2*jitter and 1e4*jitter
     on failure; batched over leading dims, per-element rung choice."""
-    return _SafeCholesky.apply(K, float(jitter))
+    j0 = float(jitter)
+    return _SafeCholesky.apply(K, (j0, 1e2 * j0, 1e4 * j0), False)
+
+
+def safe_cholesky_ladder(K, jitters=(0.0, 1e-7, 1e-5, 1e-3, 1e-1, 1.0,
+                                     1e1, 1e3)):
+    """Cholesky with a *relative* jitter ladder, for matrices that are PSD
+    by construction (the collapsed bound's B = I + AA^T), where a failure
+    is floating-point garbage that scales with the matrix: rung j adds
+    j * mean(diag K) I.  The first rung is 0.0, so a healthy matrix gets
+    exactly ``torch.linalg.cholesky(K)``.  The deep rungs (up to 1e3) are
+    the net for float32 B at the damianou_large shape, where whether the
+    factorization of B squeaks through can turn on psi2's last ulp (the
+    JAX docstring records it); jitter on B only lowers the bound.  Same
+    per-element selection and grad-safe backward as :func:`safe_cholesky`.
+    ``safe_cholesky_ladder.escalations`` counts the calls whose first rung
+    failed."""
+    return _SafeCholesky.apply(K, tuple(float(j) for j in jitters), True)
+
+
+safe_cholesky_ladder.escalations = 0
 
 
 def inv_lower(L):
     """Inverse of a lower-triangular matrix (batched over leading dims)."""
     eye = _eye_like(L).expand_as(L)
     return torch.linalg.solve_triangular(L, eye, upper=False)
+
+
+def tri_solve(L, B, lower=True, trans=False, mode="solve"):
+    """Solve op(L) X = B for triangular L, op(L) = L^T when ``trans``:
+    ``mode='solve'`` by triangular substitution, ``'inverse'`` by forming
+    the triangular inverse once and multiplying (the JAX ``tri_solve``)."""
+    if mode == "inverse":
+        Li = inv_lower(L) if lower else inv_lower(L.mT).mT
+        return (Li.mT if trans else Li) @ B
+    if trans:
+        return torch.linalg.solve_triangular(L.mT, B, upper=lower)
+    return torch.linalg.solve_triangular(L, B, upper=not lower)
 
 
 def reparameterize(mean, var, z, jitter):

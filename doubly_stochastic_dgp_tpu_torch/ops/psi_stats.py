@@ -1,0 +1,180 @@
+"""Closed-form kernel expectations (psi statistics) for RBF kernels under
+diagonal-Gaussian inputs x_n ~ N(mu_n, diag(S_n)):
+
+    psi0[n]     = E[k(x_n, x_n)]
+    psi1[n, m]  = E[k(x_n, z_m)]
+    psi2[m, m'] = sum_n E[k(x_n, z_m) k(x_n, z_m')]
+
+Counterpart of ``doubly_stochastic_dgp_tpu/ops/psi_stats.py`` for RBF and
+for ``Sum`` of RBFs and Whites (with the RBF x RBF cross terms).  The RBF
+psi2 data sum stages the one-sided quadratics U, V, the widths w and
+logdet as (N, M) / (N, D) arrays and takes one of two routes
+(``Config.psi2_impl``, carried by the layer): 'auto' and 'pallas' are
+the kernel route, ``ops.cuda.psi2.psi2_core`` (on a CUDA tensor the CUDA
+kernel, which launches or raises; on a CPU tensor its plain version);
+'xla' is the plain route, which forms the (block, M, M) terms in row
+blocks on any device.  Every contraction is a plain fp32/f64 matmul:
+the port never enables TF32, which is the JAX package's HIGHEST-precision
+contract here.
+The Linear kernel's psi statistics are not ported yet (ROADMAP A10).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .cuda.psi2 import psi2_core
+from .kernels import RBF, Sum, White
+
+__all__ = ["psi_statistics"]
+
+# Rows per block of the plain psi2 data sum, and the element budget of one
+# (block, M, M) transient (the JAX PSI2_BLOCK_ROWS / PSI2_BLOCK_ELEMS)
+PSI2_BLOCK_ROWS = 8192
+PSI2_BLOCK_ELEMS = 8192 * 100 * 100
+
+
+def _psi2_block_rows(M):
+    return min(PSI2_BLOCK_ROWS, max(128, PSI2_BLOCK_ELEMS // (M * M)))
+
+
+def _blocked_data_sum(block_fn, N, out_shape, dtype, device):
+    """Sum ``block_fn(rows) -> out_shape`` over slices of the N data rows,
+    so the per-row intermediates stay O(block * ...) as N grows."""
+    block = _psi2_block_rows(out_shape[0])
+    if N <= block:
+        return block_fn(slice(0, N))
+    out = torch.zeros(out_shape, dtype=dtype, device=device)
+    for n0 in range(0, N, block):
+        out = out + block_fn(slice(n0, n0 + block))
+    return out
+
+
+def _z_center(Z):
+    """Common per-dimension shift for the rank-separated quadratics, which
+    are exactly invariant under mu -> mu - c, Z -> Z - c; centring on the
+    inducing points anchors the mu^2 - 2 mu z + z^2 expansion where the
+    psi mass lives.  Detached: d(out)/dc is 0 analytically."""
+    return torch.mean(Z, dim=0).detach()
+
+
+def _sep_quad(mu, inv, Z):
+    """-0.5 sum_d (mu_nd - z_md)^2 inv_nd, rank-separated into two
+    matmuls; mathematically <= 0, clamped so that expansion cancellation
+    cannot push exp past 1.  mu and Z come centred by a common shift."""
+    t_mu2 = torch.sum(mu ** 2 * inv, dim=-1)                     # (B,)
+    return torch.clamp(
+        -0.5 * (t_mu2[:, None] - 2.0 * (mu * inv) @ Z.T
+                + inv @ (Z ** 2).T), max=0.0)                    # (B, M)
+
+
+def _rbf_cross_psi2(ka, kb, mu, S, Z, psi2_impl):
+    """sum_n E[k_a(x_n, z_m) k_b(x_n, z_m')] for two (ARD) RBF kernels,
+    (M, M).  The product of the two per-dimension Gaussians in x has width
+    h = ab/(a+b) (a, b the squared lengthscales) and centre c = beta z +
+    alpha z' (alpha = a/(a+b), beta = b/(a+b)), times exp(-(z-z')^2 /
+    (2(a+b))); E_x of what is left is sqrt(h/(h+s)) exp(-(mu-c)^2 /
+    (2(h+s))).  With a == b it is the single-RBF psi2."""
+    va = ka.variance.value
+    vb = kb.variance.value
+    a = ka.lengthscales.value ** 2 + torch.zeros_like(mu[0])     # (D,)
+    b = kb.lengthscales.value ** 2 + torch.zeros_like(mu[0])     # (D,)
+    h = a * b / (a + b)
+    zz = Z[:, None, :] - Z[None, :, :]                           # (M, M, D)
+    log_zz = -0.5 * torch.sum(zz ** 2 / (a + b), dim=-1)         # (M, M)
+    alpha = a / (a + b)
+    beta = b / (a + b)
+    c = _z_center(Z)
+    Z = Z - c
+    mu = mu - c
+    M = Z.shape[0]
+    # the one-sided quadratic halves Uq, Vq (N, M), the widths wq (N, D)
+    # and logdet (N, 1): with c = beta z_a + alpha z_b, (mu - c)^2
+    # separates so that only sum_d wq_nd z_ad z_bd is a true three-way term
+    denom = h + S                                                # (N, D)
+    logdet = 0.5 * torch.sum(torch.log(h) - torch.log(denom), dim=-1,
+                             keepdim=True)                       # (N, 1)
+    inv = 1.0 / denom
+    t_mu2 = torch.sum(mu ** 2 * inv, dim=-1)                     # (N,)
+    P1 = (mu * inv * beta) @ Z.T                                 # (N, M)
+    P2 = (mu * inv * alpha) @ Z.T
+    Q1 = (inv * beta ** 2) @ (Z ** 2).T
+    Q2 = (inv * alpha ** 2) @ (Z ** 2).T
+    Uq = -0.5 * (t_mu2[:, None] - 2.0 * P1 + Q1)
+    Vq = -0.5 * (Q2 - 2.0 * P2)
+    wq = inv * alpha * beta
+    if psi2_impl != "xla":
+        # the kernel assembles, exponentiates and sums the (N, M, M) terms
+        # (on a CUDA tensor it launches or raises; there is no fallback)
+        T = psi2_core(Uq.contiguous(), Vq.contiguous(), wq.contiguous(),
+                      logdet.contiguous(), Z.contiguous())       # (M, M)
+        return va * vb * torch.exp(log_zz) * T
+
+    def block_sum(rows):
+        """The plain route's sum over one row block: the three-way term as
+        one batched matmul, the rest as rank-1 broadcasts."""
+        Zw = Z[None, :, :] * wq[rows][:, None, :]                # (B, M, D)
+        R = torch.matmul(Zw, Z.T)                                # (B, M, M)
+        # mathematically <= 0; clamp float32 cancellation noise
+        quad = torch.clamp(Uq[rows][:, :, None] + Vq[rows][:, None, :] - R,
+                           max=0.0)
+        psi2_n = va * vb * torch.exp(
+            logdet[rows][:, :, None] + log_zz[None, :, :] + quad)
+        return torch.sum(psi2_n, dim=0)
+
+    return _blocked_data_sum(block_sum, mu.shape[0], (M, M), mu.dtype,
+                             mu.device)
+
+
+def _rbf_psi(kern, mu, S, Z, psi2_impl):
+    """psi0 (N,), psi1 (N, M), psi2 summed over n (M, M)."""
+    var = kern.variance.value
+    ls2 = kern.lengthscales.value ** 2                           # (D,)
+    N = mu.shape[0]
+    psi0 = torch.ones(N, dtype=mu.dtype, device=mu.device) * var
+    logdet1 = -0.5 * torch.sum(torch.log1p(S / ls2), dim=-1)     # (N,)
+    c = _z_center(Z)
+    psi1 = var * torch.exp(logdet1[:, None]
+                           + _sep_quad(mu - c, 1.0 / (ls2 + S), Z - c))
+    psi2 = _rbf_cross_psi2(kern, kern, mu, S, Z, psi2_impl)
+    return psi0, psi1, psi2
+
+
+def _flatten(k):
+    if isinstance(k, Sum):
+        return [c for part in k.kernels for c in _flatten(part)]
+    return [k]
+
+
+def psi_statistics(kern, mu, S, Z, psi2_impl="auto"):
+    """(psi0, psi1, psi2) for an RBF kernel or a Sum of RBFs and Whites,
+    with the psi2 cross terms of every pair of RBFs.  A White adds its
+    variance to psi0 only (its cross-covariance vanishes in
+    expectation)."""
+    if isinstance(kern, RBF):
+        return _rbf_psi(kern, mu, S, Z, psi2_impl)
+    if not isinstance(kern, Sum):
+        raise NotImplementedError(
+            f"psi statistics for {type(kern).__name__} are not ported "
+            f"(the Linear kernel's wait for ROADMAP A10)")
+    N, M = mu.shape[0], Z.shape[0]
+    psi0 = torch.zeros(N, dtype=mu.dtype, device=mu.device)
+    psi1 = torch.zeros(N, M, dtype=mu.dtype, device=mu.device)
+    psi2 = torch.zeros(M, M, dtype=mu.dtype, device=mu.device)
+    rbfs = []
+    for k in _flatten(kern):
+        if isinstance(k, White):
+            psi0 = psi0 + k.variance.value
+        elif isinstance(k, RBF):
+            p0, p1, p2 = _rbf_psi(k, mu, S, Z, psi2_impl)
+            psi0, psi1, psi2 = psi0 + p0, psi1 + p1, psi2 + p2
+            rbfs.append(k)
+        else:
+            raise NotImplementedError(
+                f"psi statistics for {type(k).__name__} in a Sum are not "
+                f"ported (the Linear kernel's wait for ROADMAP A10)")
+    for i in range(len(rbfs)):
+        for j in range(i + 1, len(rbfs)):
+            C = _rbf_cross_psi2(rbfs[i], rbfs[j], mu, S, Z, psi2_impl)
+            psi2 = psi2 + C + C.T
+    return psi0, psi1, psi2

@@ -11,7 +11,10 @@ cross to the host.  Random streams differ from the JAX package's; the
 step takes explicit ``idx`` and ``zs`` to pin them.
 
 Not ported yet (``fit`` raises): the natural-gradient steps (ROADMAP A11),
-checkpoints and the reject-nonfinite guard (ROADMAP A7).
+checkpoints, the reject-nonfinite guard (ROADMAP A7) and training the
+models with a full-batch bound (the collapsed family: the psi2 backward
+kernel, ROADMAP B5, and the guard, which the JAX ``fit`` turns on for
+them).
 """
 
 from __future__ import annotations
@@ -26,13 +29,28 @@ from ..serving import derive_seed
 from ..utils.params import log_prior
 from .optim import masked_optimizer
 
-__all__ = ["make_sgd_train_step", "fit", "evaluate_regression"]
+__all__ = ["check_minibatchable", "make_sgd_train_step", "fit",
+           "evaluate_regression"]
 
 
 def _objective(model, X, Y, generator, zs):
     # MAP objective: the parameters' log-priors join the bound (the DGP
     # has none, so log_prior is 0), as in GPflow 1.x's Model.objective
     return -(model.elbo(X, Y, generator=generator, zs=zs) + log_prior(model))
+
+
+def check_minibatchable(model, batch_size):
+    """Raise when a minibatch size is given for a model whose bound is
+    evaluated on the whole stored training set (``full_batch_bound``: the
+    collapsed family).  Its ``elbo(X, Y)`` ignores the batch, so every
+    "minibatch" step would silently cost a full-batch step."""
+    if batch_size is not None and model.full_batch_bound:
+        raise ValueError(
+            f"batch_size={batch_size} was requested, but "
+            f"{type(model).__name__}'s objective is a full-batch bound (it "
+            f"is evaluated on the entire stored training set and is not a "
+            f"sum of per-datum terms); drop batch_size= or use a "
+            f"minibatchable model (DGP)")
 
 
 def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
@@ -47,6 +65,7 @@ def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
     array per layer) fixes them."""
 
     def step(model, generator=None, idx=None, zs=None):
+        check_minibatchable(model, batch_size)
         X, Y = model.X_data, model.Y_data
         N = X.shape[0]
         if idx is None and batch_size is not None and batch_size < N:
@@ -81,7 +100,15 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
     one ``torch.Generator`` on the model's device seeded with ``seed``.
 
     ``natgrad_gamma``, ``ckpt_dir`` and ``reject_nonfinite=True`` are not
-    ported yet and raise."""
+    ported yet and raise, and so does a model with a full-batch bound
+    (after ``check_minibatchable``)."""
+    check_minibatchable(model, batch_size)
+    if model.full_batch_bound:
+        raise NotImplementedError(
+            f"fit({type(model).__name__}): training a full-batch-bound "
+            f"model needs the psi2 backward kernel (ROADMAP B5) and the "
+            f"reject-nonfinite guard that the JAX fit turns on for such "
+            f"models (ROADMAP A7, guarded_scan); neither is ported yet")
     if natgrad_gamma is not None:
         raise NotImplementedError(
             "fit(natgrad_gamma=...): natural-gradient steps are not ported "

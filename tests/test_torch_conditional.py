@@ -1,6 +1,7 @@
 """PyTorch port: the fused staged conditional's plain versions (forward,
-backward, save-gram pair) against the JAX package's Pallas kernels
-(interpret mode on CPU) and its jnp reference, in float64.
+backward, save-gram pair) and the psi2 data sum's plain version against
+the JAX package's Pallas kernels (interpret mode on CPU) and its jnp
+references, in float64.
 
 One test item that loops over its cases and names the failing case in
 every assertion message.  On the CPU the port's wrappers and autograd
@@ -17,6 +18,9 @@ from numpy.testing import assert_allclose
 from doubly_stochastic_dgp_tpu.ops.pallas.conditional import (
     fused_conditional as jax_fused_conditional, fused_conditional_reference,
     fused_conditional_saved as jax_fused_conditional_saved)
+from doubly_stochastic_dgp_tpu.ops.pallas.psi2 import (
+    psi2_core as jax_psi2_core, psi2_core_pallas_fwd, psi2_core_reference)
+from doubly_stochastic_dgp_tpu_torch.ops.cuda import psi2 as tpsi2
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     fused_conditional, fused_conditional_backward_plain,
     fused_conditional_plain, fused_conditional_saved,
@@ -104,12 +108,109 @@ def _check_gradients():
 def _counts():
     return (fused_conditional.launches, fused_conditional.backward_launches,
             fused_conditional_saved.launches,
-            fused_conditional_saved.backward_launches)
+            fused_conditional_saved.backward_launches,
+            tpsi2.psi2_core.launches)
+
+
+def _psi2_inputs(N, M, D, seed=0, spread=0.5, clamp=False):
+    """The cases of tests/test_pallas_psi2.py, in float64; ``clamp``
+    shifts U up so that min(pre, 0) is active for part of the terms."""
+    rng = np.random.RandomState(seed)
+    U = rng.randn(N, M) * spread - 0.2 + (1.0 if clamp else 0.0)
+    V = rng.randn(N, M) * spread - 0.2
+    return (U, V, rng.rand(N, D), rng.randn(N, 1) * 0.3,
+            rng.randn(M, D) * 0.5)
+
+
+# ragged N (not a multiple of the kernel's 32-row step), M not a multiple
+# of its 64-wide tile, D above the register-held range, the clamp active
+PSI2_CASES = [
+    ("N130_M9_D1", dict(N=130, M=9, D=1)),
+    ("N301_M100_D2", dict(N=301, M=100, D=2, seed=1)),
+    ("N70_M66_D12", dict(N=70, M=66, D=12, seed=2)),
+    ("clamp_active", dict(N=90, M=37, D=2, seed=3, clamp=True)),
+]
+PSI2_GRAD_CASES = ("N70_M66_D12", "clamp_active")
+
+
+def _check_psi2_limits():
+    """The kernel's operand checks, which the wrapper makes before every
+    launch (no fallback): M > 512, D outside 1..32, a non-float32 or a
+    non-contiguous operand raise; N is not limited."""
+    def args(N=40, M=8, D=2, dtype=torch.float32):
+        return [torch.zeros(shape, dtype=dtype) for shape in
+                ((N, M), (N, M), (N, D), (N, 1), (M, D))]
+
+    assert tpsi2._check(*args(N=10 ** 5)) == (10 ** 5, 8, 2), "large N"
+    bad = args()
+    bad[1] = torch.zeros(8, 40).T
+    for case, a, err in (("M=513", args(M=tpsi2.MAX_M + 1), ValueError),
+                         ("D=33", args(D=tpsi2.MAX_D + 1), ValueError),
+                         ("D=0", args(D=0), ValueError),
+                         ("float64", args(dtype=torch.float64), TypeError),
+                         ("non-contiguous V", bad, ValueError)):
+        try:
+            tpsi2._check(*a)
+        except err:
+            continue
+        raise AssertionError(f"psi2_core kernel checks: {case} did not "
+                             f"raise {err.__name__}")
+
+
+def _check_psi2():
+    """psi2_core_plain, the forward wrapper and the autograd Function on
+    the CPU against the JAX reference, the interpret-mode Pallas forward
+    and the JAX psi2_core; the Function's CPU gradient against jax.grad
+    of the reference (for the cases named in PSI2_GRAD_CASES); the plain
+    version's row blocking (shrunk so that a small N spans several
+    blocks)."""
+    for name, kw in PSI2_CASES:
+        args = _psi2_inputs(**kw)
+        jargs = [jnp.asarray(a) for a in args]
+        targs = [torch.from_numpy(a) for a in args]
+        refs = {"psi2_core_reference": psi2_core_reference(*jargs),
+                "interpret-mode Pallas forward":
+                    psi2_core_pallas_fwd(*jargs, True),
+                "JAX psi2_core": jax_psi2_core(*jargs, True)}
+        leaves = [t.clone().requires_grad_() for t in targs]
+        ports = {"plain": tpsi2.psi2_core_plain(*targs),
+                 "forward wrapper on CPU": tpsi2.psi2_core_forward(*targs),
+                 "autograd Function on CPU": tpsi2.psi2_core(*leaves)}
+        blocked = tpsi2._block_rows
+        tpsi2._block_rows = lambda M: 16
+        try:
+            ports["plain, 16-row blocks"] = tpsi2.psi2_core_plain(*targs)
+        finally:
+            tpsi2._block_rows = blocked
+        pre = (args[0][:, :, None] + args[1][:, None, :]
+               - np.einsum("nd,ad,bd->nab", args[2], args[4], args[4]))
+        if kw.get("clamp"):
+            assert (pre > 0).any() and (pre < 0).any(), (
+                f"psi2 {name}: the clamp is not active")
+        for pname, got in ports.items():
+            assert got.dtype == torch.float64, f"psi2 {name}: {pname} dtype"
+            for rname, want in refs.items():
+                assert_allclose(got.detach().numpy(), np.asarray(want),
+                                rtol=RTOL, atol=ATOL,
+                                err_msg=f"psi2 {name}: {pname} vs {rname}")
+        if name not in PSI2_GRAD_CASES:
+            continue
+        g = np.random.RandomState(kw.get("seed", 0) + 9).randn(
+            kw["M"], kw["M"])
+        ports["autograd Function on CPU"].backward(torch.from_numpy(g))
+        want = jax.grad(lambda *a: jnp.sum(g * psi2_core_reference(*a)),
+                        argnums=(0, 1, 2, 3, 4))(*jargs)
+        for t, w, what in zip(leaves, want, ("U", "V", "w", "logdet", "Z")):
+            assert_allclose(t.grad.numpy(), np.asarray(w), rtol=GRAD_RTOL,
+                            atol=GRAD_ATOL,
+                            err_msg=f"psi2 {name}: grad {what} vs jax.grad "
+                                    f"of psi2_core_reference")
 
 
 def test_fused_conditional_plain_matches_jax():
     for f in (fused_conditional, fused_conditional_saved):
         f.launches = f.backward_launches = 0
+    tpsi2.psi2_core.launches = 0
     for name, kw in CASES:
         args = _inputs(**kw)
         jargs = [jnp.asarray(a) for a in args]
@@ -136,7 +237,9 @@ def test_fused_conditional_plain_matches_jax():
             assert (v == 0).any() and (v > 0).any(), (
                 f"{name}: the variance clamp is not active")
     _check_gradients()
-    assert _counts() == (0, 0, 0, 0), (
+    _check_psi2_limits()
+    _check_psi2()
+    assert _counts() == (0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 
     # the CPU path stays autograd-able, and honours needs_input_grad

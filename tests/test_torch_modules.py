@@ -1,8 +1,10 @@
 """PyTorch port: module-by-module parity with the JAX package in float64
 on the CPU (bijectors and priors, kernels, Cholesky with escalation and
-its gradient, triangular inverse, the Gaussian KL terms, mean functions,
-Gaussian likelihood, the SVGP conditional on both diagonal branches with
-its KL term and gradients, the cached layer), plus the port's import and
+its gradient, the relative jitter ladder, triangular inverse and solves,
+the Gaussian KL terms, mean functions, Gaussian likelihood, the SVGP
+conditional on both diagonal branches with its KL term and gradients, the
+cached layer, the RBF psi statistics on both psi2 routes, the collapsed
+SGPR layer on certain and Gaussian inputs), plus the port's import and
 device rules.
 
 One test item that loops over its cases and names the failing case in
@@ -18,13 +20,19 @@ import torch
 from numpy.testing import assert_allclose
 
 import doubly_stochastic_dgp_tpu as dsd
+from doubly_stochastic_dgp_tpu.config import temp_config
 from doubly_stochastic_dgp_tpu.models import posterior as jposterior
+from doubly_stochastic_dgp_tpu.models.layers import SGPRLayer as JSGPRLayer
 from doubly_stochastic_dgp_tpu.ops import linalg as jlinalg
+from doubly_stochastic_dgp_tpu.ops.psi_stats import (
+    psi_statistics as jax_psi_statistics)
 from doubly_stochastic_dgp_tpu.utils import modules as jmodules
 import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
 from doubly_stochastic_dgp_tpu_torch.models import posterior as tposterior
 from doubly_stochastic_dgp_tpu_torch.ops import linalg as tlinalg
+from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
+from doubly_stochastic_dgp_tpu_torch.ops.psi_stats import psi_statistics
 from doubly_stochastic_dgp_tpu_torch.utils import params as tparams
 
 RTOL, ATOL = 1e-8, 1e-10
@@ -159,6 +167,129 @@ def _check_linalg(rng):
                                   jnp.asarray(z), jitter=1e-6))
 
 
+def _check_ladder_and_solves(rng):
+    """safe_cholesky_ladder: exactly torch.linalg.cholesky when healthy,
+    per-element escalation with a finite gradient when not; tri_solve in
+    both modes."""
+    Zh = rng.randn(10, 3)
+    K = np.exp(-0.5 * ((Zh[:, None] - Zh[None]) ** 2).sum(-1)) + np.eye(10)
+    ladder = tlinalg.safe_cholesky_ladder
+    ladder.escalations = 0
+    assert torch.equal(ladder(_t(K)), torch.linalg.cholesky(_t(K))), (
+        "safe_cholesky_ladder healthy: not bit-identical to cholesky")
+    assert ladder.escalations == 0, "safe_cholesky_ladder healthy escalated"
+    # a slightly indefinite matrix fails the 0.0 rung; in a batch, only
+    # that element escalates
+    Kb = K - (np.linalg.eigvalsh(K)[0] + 1e-9) * np.eye(10)
+    for case, A in (("escalated", Kb), ("batched", np.stack([Kb, K]))):
+        case = f"safe_cholesky_ladder {case}"
+        R = rng.randn(*A.shape)
+        At = _t(A).requires_grad_()
+        L = ladder(At)
+        (L * _t(R)).sum().backward()
+        assert torch.isfinite(At.grad).all(), f"{case}: non-finite gradient"
+        _close(case, L, jlinalg.safe_cholesky_ladder(jnp.asarray(A)))
+        _close(f"{case} grad", At.grad, jax.grad(lambda a: jnp.sum(
+            jlinalg.safe_cholesky_ladder(a) * R))(jnp.asarray(A)))
+    assert ladder.escalations == 2, (
+        f"safe_cholesky_ladder escalations {ladder.escalations} != 2")
+    L = np.linalg.cholesky(K)
+    B = rng.randn(10, 4)
+    for mode in ("solve", "inverse"):
+        for lower, T in ((True, L), (False, L.T)):
+            for trans in (False, True):
+                _close(f"tri_solve mode={mode} lower={lower} trans={trans}",
+                       tlinalg.tri_solve(_t(T), _t(B), lower=lower,
+                                         trans=trans, mode=mode),
+                       jlinalg.tri_solve(jnp.asarray(T), jnp.asarray(B),
+                                         lower=lower, trans=trans,
+                                         mode=mode))
+
+
+def _psi_kernels(D, rng):
+    """(name, JAX kernel, port kernel) for RBF and Sum(RBF, RBF, White)."""
+    ls1, ls2 = rng.uniform(0.6, 1.6, D), rng.uniform(0.6, 1.6, D)
+    j1 = dsd.RBF.make(D, variance=1.3, lengthscales=ls1)
+    jsum = (dsd.RBF.make(D, variance=0.7, lengthscales=ls1)
+            + dsd.RBF.make(D, variance=1.1, lengthscales=ls2)
+            + dsd.White.make(D, variance=1e-3))
+    tsum = (port.RBF(D, lengthscales=ls1) + port.RBF(D, lengthscales=ls2)
+            + port.White(D))
+    return [("RBF", j1, port.load_reference_state(port.RBF(D), _state(j1))),
+            ("Sum(RBF, RBF, White)", jsum,
+             port.load_reference_state(tsum, _state(jsum)))]
+
+
+def _check_psi_statistics(rng):
+    """psi0/psi1/psi2 on the plain route ('xla') and the psi2 kernel route
+    ('auto' and 'pallas': on the CPU the kernel's plain version), with Z
+    and the inputs centred far from zero."""
+    N, M, D = 41, 13, 3
+    for centre in (4.0,):
+        mu = rng.randn(N, D) + centre
+        Sv = np.exp(rng.randn(N, D)) * 0.1
+        Z = rng.randn(M, D) + centre
+        for kname, jk, tk in _psi_kernels(D, rng):
+            want = jax_psi_statistics(jk, jnp.asarray(mu), jnp.asarray(Sv),
+                                      jnp.asarray(Z))
+            for impl in ("xla", "auto", "pallas"):
+                got = psi_statistics(tk, _t(mu), _t(Sv), _t(Z), impl)
+                for what, g, w in zip(("psi0", "psi1", "psi2"), got, want):
+                    _close(f"psi_statistics {kname} centre={centre} "
+                           f"psi2_impl={impl} {what}", g, w)
+
+
+def _check_sgpr_layer(rng):
+    """SGPRLayer's bound and diagonal conditional on certain inputs and on
+    Gaussian inputs, both solve modes and psi2 routes, and the bound's
+    gradient (certain: every parameter; Gaussian: also the inputs)."""
+    N, M, D, Dy = 35, 11, 3, 2
+    Z, mu = rng.randn(M, D), rng.randn(N, D)
+    Sv, Y = np.exp(rng.randn(N, D)) * 0.1, rng.randn(N, Dy)
+    Xs = rng.randn(9, D)
+    jk = dsd.RBF.make(D, variance=1.2, lengthscales=rng.uniform(0.7, 1.5, D))
+    Wm = rng.randn(D, Dy)
+    for mode, impl, uncertain in (("solve", "xla", False),
+                                  ("inverse", "pallas", True)):
+        case = (f"SGPRLayer {'Gaussian' if uncertain else 'certain'} inputs "
+                f"solve_mode={mode} psi2_impl={impl}")
+        jmf = dsd.models.mean_functions.Linear.make(Wm)
+        jl = JSGPRLayer.make(jk, Z, Dy, jmf, jitter=1e-6, solve_mode=mode)
+        cfg = port.Config(jitter=1e-6, solve_mode=mode, psi2_impl=impl)
+        tl = port.load_reference_state(port.SGPRLayer(
+            port.RBF(D), Z, Dy, port.Linear(np.zeros((D, Dy))), config=cfg),
+            _state(jl))
+        Svar = Sv if uncertain else None
+        jdata = (jnp.asarray(mu), None if Svar is None else jnp.asarray(Svar),
+                 jnp.asarray(Y), jnp.asarray(0.07))
+        tmu = _t(mu).requires_grad_()
+        tdata = (tmu, None if Svar is None else _t(Svar), _t(Y), _t(0.07))
+
+        @jax.jit
+        def jax_side(layer, m):
+            def bound(layer, m):
+                return layer.set_data(m, *jdata[1:]).build_likelihood()
+            view = layer.set_data(m, *jdata[1:])
+            return (bound(layer, m), view.conditional_ND(jnp.asarray(Xs)),
+                    jax.grad(bound, argnums=(0, 1))(layer, m))
+
+        jbound, jcond, (jgrad, jgmu) = jax_side(jl, jdata[0])
+        tview = tl.set_data(*tdata)
+        bound = tview.build_likelihood()
+        _close(f"{case} bound", bound, jbound)
+        for what, got, want in zip(("mean", "var"),
+                                   tview.conditional_ND(_t(Xs)), jcond):
+            _close(f"{case} conditional {what}", got, want)
+        bound.backward()
+        want = {_torch_key(jax.tree_util.keystr(p)): g for p, g in
+                jax.tree_util.tree_flatten_with_path(jgrad)[0]}
+        for name, p in tl.named_parameters():
+            # the Gaussian-input bound does not use the mean function
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            _close(f"{case} bound grad {name}", g, want[name])
+        _close(f"{case} bound grad X_mean", tmu.grad, jgmu)
+
+
 def _check_mean_functions_and_likelihood(rng):
     X = rng.randn(2, 7, 4)
     W, b = rng.randn(4, 3), rng.randn(3)
@@ -253,6 +384,10 @@ def _check_layers(rng):
 
 def _check_import_and_device_rules():
     code = ("import sys, doubly_stochastic_dgp_tpu_torch\n"
+            "import doubly_stochastic_dgp_tpu_torch.ops.psi_stats\n"
+            "import doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.zoo\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.damianou\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
@@ -265,18 +400,20 @@ def _check_import_and_device_rules():
         f"import rule: the port imported {out.stdout.strip()}")
     X = np.random.RandomState(1).randn(10, 2)
     args = (X, X[:, :1], X[:4], [port.RBF(2)], port.Gaussian(0.1))
-    if torch.cuda.is_available():
-        model = port.DGP.build(*args, config=port.Config(
-            dtype=torch.float32))
-        assert model.X_data.device.type == "cuda", "device rule: not on CUDA"
-    else:
+    for cls in (port.DGP, port.DGPCollapsed, port.DGPDamianou):
+        if torch.cuda.is_available():
+            model = cls.build(*args, config=port.Config(dtype=torch.float32))
+            assert model.X_data.device.type == "cuda", (
+                f"device rule: {cls.__name__} not on CUDA")
+            continue
         try:
-            port.DGP.build(*args)
+            cls.build(*args)
         except RuntimeError as e:
-            assert "CUDA" in str(e), f"device rule: {e}"
+            assert "CUDA" in str(e), f"device rule: {cls.__name__}: {e}"
         else:
-            raise AssertionError("device rule: DGP.build() without a device "
-                                 "did not raise although CUDA is absent")
+            raise AssertionError(f"device rule: {cls.__name__}.build() "
+                                 f"without a device did not raise although "
+                                 f"CUDA is absent")
 
 
 def test_modules_match_jax():
@@ -284,6 +421,11 @@ def test_modules_match_jax():
     _check_bijectors(rng)
     _check_kernels(rng)
     _check_linalg(rng)
+    _check_ladder_and_solves(rng)
     _check_mean_functions_and_likelihood(rng)
     _check_layers(rng)
+    psi2_core.launches = 0
+    _check_psi_statistics(rng)
+    _check_sgpr_layer(rng)
+    assert psi2_core.launches == 0, "psi2_core launched for CPU tensors"
     _check_import_and_device_rules()

@@ -1,6 +1,7 @@
-"""PyTorch port: the serving and training paths of a 3-layer DGP against
-the JAX package in float64 on the CPU, and the port's server and ``fit``
-semantics.
+"""PyTorch port: the serving and training paths of a 3-layer DGP, and the
+bound and predictions of the collapsed DGPs (DGPDamianou, DGPCollapsed),
+against the JAX package in float64 on the CPU, and the port's server and
+``fit`` semantics.
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -22,6 +23,7 @@ from numpy.testing import assert_allclose
 
 import doubly_stochastic_dgp_tpu as dsd
 from doubly_stochastic_dgp_tpu.config import temp_config
+from doubly_stochastic_dgp_tpu.models.layers import SGPRLayer as JSGPRLayer
 from doubly_stochastic_dgp_tpu.training.loop import (
     evaluate_regression as jax_evaluate_regression)
 from doubly_stochastic_dgp_tpu.training.optim import masked_optimizer
@@ -30,6 +32,7 @@ import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     fused_conditional)
+from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
 from doubly_stochastic_dgp_tpu_torch.training.loop import make_sgd_train_step
 from doubly_stochastic_dgp_tpu_torch.training.optim import (
     masked_optimizer as port_masked_optimizer)
@@ -178,6 +181,109 @@ def _check_evaluate_regression(rng, X, Y, Xt, Yt):
                         err_msg=f"evaluate_regression {key}")
 
 
+def _collapsed_models(rng):
+    """The two collapsed DGPs at L=2, built in JAX with a posterior moved
+    off its initialization, with their port builders and draws for 9 test
+    rows: hidden
+    width 2 for DGPDamianou, the inner SVGP layer on the fused branch for
+    DGPCollapsed.  DGPCollapsed hands one ``zs`` to the training-data and
+    to the test propagation, so its draws broadcast over both row
+    counts."""
+    Nc, Dc, Mc, Hc = 40, 3, 12, 2
+    X = rng.randn(Nc, Dc)
+    Y = np.sin(X[:, :1]) + 0.1 * rng.randn(Nc, 1)
+    with temp_config(jitter=1e-6, solve_mode="inverse", use_pallas=True):
+        jd = dsd.DGPDamianou.build(
+            X, Y, X[:Mc], [dsd.RBF.make(Dc), dsd.RBF.make(Hc, lengthscales=1.3)],
+            dsd.Gaussian.make(0.05))
+        jd = jd.replace(
+            h_var=[p.with_value(np.exp(rng.randn(Nc, Hc)) * 0.05)
+                   for p in jd.h_var],
+            h_mean=[p.with_value(p.value + 0.3 * rng.randn(Nc, Hc))
+                    for p in jd.h_mean])
+        layers = dsd.init_layers_linear(
+            X, Y, X[:Mc], [dsd.RBF.make(Dc),
+                           dsd.RBF.make(Dc, lengthscales=1.2)], num_outputs=1)
+        top = layers[-1]
+        inner = layers[0].replace(q_mu=layers[0].q_mu.with_value(
+            rng.randn(Mc, Dc) * 0.3))
+        jc = dsd.DGPCollapsed.make(X, Y, dsd.Gaussian.make(0.05), [
+            inner, JSGPRLayer.make(top.kern, np.asarray(top.Z.value), 1,
+                                   top.mean_function)])
+
+    def build_damianou(cfg):
+        return port.DGPDamianou.build(X, Y, X[:Mc], [port.RBF(Dc),
+                                                     port.RBF(Hc)],
+                                      port.Gaussian(1.0), config=cfg,
+                                      device="cpu")
+
+    def build_collapsed(cfg):
+        return port.DGPCollapsed.build(X, Y, X[:Mc], [port.RBF(Dc),
+                                                      port.RBF(Dc)],
+                                       port.Gaussian(1.0), config=cfg,
+                                       device="cpu")
+
+    return [("DGPDamianou", jd, build_damianou,
+             [rng.randn(S, 9, d) for d in (Hc, 1)]),
+            ("DGPCollapsed", jc, build_collapsed,
+             [rng.randn(1, 1, d) for d in (Dc, 1)])]
+
+
+def _check_collapsed(rng, Xt, Yt):
+    """The collapsed bound, predict_y and predict_density at fixed draws
+    on both psi2 routes ('xla': the plain path; 'auto': the kernel route,
+    whose psi2 on the CPU is the kernel's plain version), the
+    bound's gradient on the plain path against jax.grad, and the
+    trainer's refusals for full-batch bounds."""
+    Xt, Yt = Xt[:9, :3], Yt[:9]
+    for name, jm, build, zs in _collapsed_models(rng):
+        @jax.jit
+        def jax_side(m):
+            _, means, vars_ = m.propagate(jnp.asarray(Xt), S=S,
+                                          zs=[jnp.asarray(z) for z in zs])
+            y = m.likelihood.predict_mean_and_var(means[-1], vars_[-1])
+            dens = logsumexp(m.likelihood.predict_density(
+                means[-1], vars_[-1], jnp.asarray(Yt)) - jnp.log(S), axis=0)
+            return m.elbo(), jax.grad(lambda mm: mm.elbo())(m), y, dens
+
+        jbound, jgrads, jy, jdens = jax_side(jm)
+        jgrads = _flat(jgrads)
+        for impl in ("xla", "auto"):
+            case = f"{name} psi2_impl={impl}"
+            cfg = port.Config(jitter=1e-6, solve_mode="inverse",
+                              use_pallas=True, psi2_impl=impl)
+            model = port.load_reference_state(build(cfg), _flat(jm))
+            bound = model.elbo()
+            _close(f"{case} bound", bound, jbound)
+            for what, got, want in zip(("mean", "var"),
+                                       model.predict_y(Xt, S=S, zs=zs), jy):
+                _close(f"{case} predict_y {what}", got, want)
+            _close(f"{case} predict_density",
+                   model.predict_density(Xt, Yt, S=S, zs=zs), jdens)
+            if impl == "xla":
+                bound.backward()
+                for pname, p in model.named_parameters():
+                    g = torch.zeros_like(p) if p.grad is None else p.grad
+                    _close(f"{case} bound gradient {pname}", g,
+                           jgrads[pname])
+        for kw, err in ((dict(batch_size=10), ValueError),
+                        (dict(), NotImplementedError)):
+            try:
+                port.fit(model, iterations=1, **kw)
+            except err as e:
+                assert err is ValueError or "ROADMAP" in str(e), (
+                    f"{name}: fit({kw}): {e}")
+            else:
+                raise AssertionError(f"{name}: fit({kw}) did not raise")
+        step = make_sgd_train_step(port_masked_optimizer(model, LR), 10)
+        try:
+            step(model)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name}: a minibatch step did not raise")
+
+
 def _close(case, got, want):
     assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                     atol=ATOL, err_msg=case)
@@ -257,5 +363,8 @@ def test_paths_match_jax():
 
     _check_training(rng, X, Y, jmodel)
     _check_evaluate_regression(rng, X, Y, Xt, Yt)
-    assert (fused_conditional.launches, fused_conditional.backward_launches
-            ) == (0, 0), "a CUDA kernel was launched for CPU tensors"
+    psi2_core.launches = 0
+    _check_collapsed(rng, Xt, Yt)
+    assert (fused_conditional.launches, fused_conditional.backward_launches,
+            psi2_core.launches) == (0, 0, 0), (
+        "a CUDA kernel was launched for CPU tensors")
