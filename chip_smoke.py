@@ -76,8 +76,7 @@ Phases, each of which raises on a failed check:
    at S=100 draws from one seeded generator on both routes).  Prints the jitter ladder's
    escalations per route, two witnesses of where damianou_large's float32
    error comes from (``solve_mode='solve'``; float64 with psi2 alone in
-   float32), and checks that the bound's backward raises
-   NotImplementedError on the kernel route (ROADMAP B5);
+   float32);
 10. the kernel route's refusals on the card (M=513 and float64 raise,
    with no launch; ``'xla'`` runs), then the psi2 kernel against its
    plain version on the operands the two
@@ -90,11 +89,47 @@ Phases, each of which raises on a failed check:
 11. timings with CUDA events (median of 30): the psi2 kernel, its plain
    version and its bound at both path shapes; one bound evaluation and
    one 820-row S=100 predict_y request per model and route; and a
-   torch.profiler breakdown of each on the kernel route.
+   torch.profiler breakdown of each on the kernel route;
+12. the psi2 backward kernel against its plain version, with a seeded
+   dense cotangent, on phase 10's cases plus exact ties (pre == 0 on some
+   rows: nothing may pass the gate there) and a row with logdet = -1e30
+   (exactly 0 everywhere, no NaN): raises if a gradient tensor differs from
+   the plain float32 backward by more than 1e-4 of its scale, is more than
+   2x as far from the float64 plain backward as the plain float32 backward
+   is, or changes bits on a repeat launch; and its refusals (float64,
+   M=513, a cotangent of another shape or not contiguous raise, with no
+   launch).  Prints a witness of the gate's discontinuity (the M=512 case
+   before its U is shifted away from pre = 0);
+13. the bound's gradient on the card at both collapsed cells: float32 on
+   the kernel route (psi2 forward and backward kernels, and for
+   DGPCollapsed the fused conditional pair) and on the plain route
+   (``psi2_impl='xla'``, ``use_pallas=False``) against the port's float64
+   CPU path on the same parameters and draws.  Raises unless every
+   gradient is finite, one bound and its backward launched each kernel
+   once, and at collapsed_L2 the kernel route's worst relative error per
+   parameter tensor is within 2x the plain route's (damianou_large's
+   float32 bound is known to be unusable, so its errors are printed only);
+14. training the collapsed DGPs at full width with ``fit`` (no batch size;
+   the reject-nonfinite guard on by ``fit``'s own rule, chunks of 10
+   steps): ``collapsed_L2`` for 200 steps on the kernel route, with the
+   launch counts set to 0 just before (raises unless the loss is finite
+   and lower at the end, psi2 forward and fused conditional forward
+   launched once a step plus once a chunk for the guard's verification
+   forward, psi2 backward and fused conditional backward once a step, and
+   ``evaluate_regression`` is finite), the same fit on the plain psi2
+   route, and ``damianou_large`` for 100 steps on the kernel route (raises
+   unless the final loss and every parameter are finite; prints the
+   rejected steps) and 20 on the plain route (for its rate);
+15. timings: the psi2 backward kernel, its plain version and its bound at
+   both cells' shapes (CUDA events, median of 30); the fits' steps/s per
+   route (``fit``'s own per-chunk rate, median); and per model one guarded
+   chunk of 8 training steps: host syncs a step and a torch.profiler
+   breakdown (device busy, device ops, idle share, top device ops).
 
-It prints a ``{"kernels": [...]}`` line (five records: forward, backward,
-save-gram forward, save-gram backward, psi2 forward), the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+It prints a ``{"kernels": [...]}`` line (six records: forward, backward,
+save-gram forward, save-gram backward, psi2 forward, psi2 backward), the
+card's name and power limit, and as its last line ``{"ok": true,
+"device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 """
@@ -153,6 +188,9 @@ KERNELS = (
     ("psi2_core_forward", "psi2.cu",
      "doubly_stochastic_dgp_tpu/ops/pallas/psi2.py:240", psi2.psi2_core,
      "launches"),
+    ("psi2_core_backward", "psi2_bwd.cu",
+     "doubly_stochastic_dgp_tpu/ops/pallas/psi2.py:305", psi2.psi2_core,
+     "backward_launches"),
 )
 KERNEL_NAMES = [k[0] for k in KERNELS]
 # kernel vs plain float32 on the same inputs: both are float32 with
@@ -565,13 +603,17 @@ def run_fit(model, steps, seed):
     return hist, launch_counts()
 
 
+def named_grads(model):
+    return {n: p.grad.detach().double().cpu()
+            for n, p in model.named_parameters()
+            if p.requires_grad and p.grad is not None}
+
+
 def loss_grads(model, idx, zs):
     model.zero_grad(set_to_none=True)
     loss = model.loss(model.X_data[idx], model.Y_data[idx], zs=zs)
     loss.backward()
-    return loss.item(), {n: p.grad.detach().double().cpu()
-                         for n, p in model.named_parameters()
-                         if p.requires_grad}
+    return loss.item(), named_grads(model)
 
 
 def check_gradient(model, seed):
@@ -829,16 +871,17 @@ def collapsed_models(data, seed):
     rng = np.random.RandomState(seed + 5)
     n = len(data["Xs"])
 
-    def build(name, dtype, impl, use_pallas, solve_mode="inverse"):
+    def build(name, dtype, impl, use_pallas, solve_mode="inverse",
+              device="cuda"):
         cfg = Config(dtype=dtype, jitter=1e-5, solve_mode=solve_mode,
                      use_pallas=use_pallas, psi2_impl=impl)
         if name == "damianou_large":
             return DGPDamianou.build(X, Y, Z256, [RBF(8), RBF(2)],
                                      Gaussian(0.05), config=cfg,
-                                     device="cuda")
+                                     device=device)
         return DGPCollapsed.build(X[:1500], Y[:1500], Z100,
                                   [RBF(8), RBF(8)], Gaussian(0.05),
-                                  config=cfg, device="cuda")
+                                  config=cfg, device=device)
 
     # DGPCollapsed hands one zs to the training-row and the test-row
     # propagation (the JAX semantics), so its draws broadcast over both
@@ -975,8 +1018,8 @@ def phase_collapsed(seed, card):
     float64 within 2x the plain route's."""
     data = SyntheticRegression(N=8192, D=8).get_data(split=0)
     build, zs = collapsed_models(data, seed)
-    out = {"data": data, "build": build, "models": {}, "operands": {},
-           "launches": {}}
+    out = {"data": data, "build": build, "zs": zs, "models": {},
+           "operands": {}, "launches": {}}
     set_launch_counts({n: 0 for n in KERNEL_NAMES})
     for name in COLLAPSED:
         model = build(name, *ROUTES["kernel"])
@@ -1036,14 +1079,6 @@ def phase_collapsed(seed, card):
                             f"{e} > {tol}")
         witness = (f32_witnesses(build, model, data, zs[name], b64, p64)
                    if name == "damianou_large" else None)
-        # the psi2 backward is not ported: the kernel route refuses it
-        refused = ""
-        try:
-            model.elbo().backward()
-        except NotImplementedError as e:
-            refused = str(e)
-        check("B5" in refused, f"{name}: the kernel route's backward did "
-                               f"not refuse (ROADMAP B5): {refused!r}")
         out["operands"][name] = capture_psi2_operands(model)
         out[name] = {"errors": errs, "escalations": escal,
                      "route_gap": gap, "witness": witness,
@@ -1137,13 +1172,16 @@ def phase_psi2_kernel(seed, operands):
     return worst
 
 
-def psi2_bound_ms(N, M_, D):
+def psi2_bound_ms(N, M_, D, backward=False):
     """The least time of one call: its bytes (U, V, w, logdet, Z read
-    once, the (M, M) output written once) over the HBM rate, its fp32
-    flops over the fp32 peak, and its exps over the SFU exp rate."""
-    n_bytes = 4 * (2 * N * M_ + N * D + N + M_ * D + M_ * M_)
+    once, the (M, M) output written once; the backward also reads g and
+    writes a gradient of the size of each input) over the HBM rate, its
+    fp32 flops over the fp32 peak, and its exps over the SFU exp rate."""
+    inputs = 2 * N * M_ + N * D + N + M_ * D
+    n_bytes = 4 * (2 * inputs + M_ * M_ if backward else inputs + M_ * M_)
+    n_flops = (psi2.backward_flops if backward else psi2.flops)(N, M_, D)
     times = {"bytes": n_bytes / HBM_RATE,
-             "operations": max(psi2.flops(N, M_, D) / FP32_PEAK,
+             "operations": max(n_flops / FP32_PEAK,
                                psi2.terms(N, M_) / SFU_EXP_RATE)}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
@@ -1217,6 +1255,389 @@ def phase_collapsed_timings(collapsed, card):
     return shapes, paths
 
 
+# ---------------------------------------------------------------------------
+# phases 12-15: the psi2 backward kernel and training the collapsed DGPs
+# ---------------------------------------------------------------------------
+
+PSI2_GRADS = ("gU", "gV", "gw", "glogdet", "gZ")
+# fit's chunk (the guard's verification forward runs once a chunk)
+COLLAPSED_FIT = {"collapsed_L2": 200, "damianou_large": 100}
+FIT_CHUNK = 10
+
+
+def check_psi2_backward_refusals(seed):
+    """On CUDA tensors the backward wrapper launches or raises: float64,
+    M=513, a cotangent of another shape or not contiguous raise, and
+    nothing launches."""
+    n = psi2.psi2_core.backward_launches
+
+    def args(M_=16, dtype=torch.float32):
+        a = [t.to(dtype) for t in psi2_inputs(40, M_, 2, seed)]
+        return a + [torch.ones(M_, M_, dtype=dtype, device="cuda")]
+
+    wrong_shape = args()
+    wrong_shape[5] = wrong_shape[5][:, :15].contiguous()
+    strided = args()
+    strided[5] = torch.ones(16, 32, device="cuda")[:, ::2]
+    for case, a, err in (("float64", args(dtype=torch.float64), TypeError),
+                         (f"M={psi2.MAX_M + 1}", args(psi2.MAX_M + 1),
+                          ValueError),
+                         ("g of another shape", wrong_shape, ValueError),
+                         ("non-contiguous g", strided, ValueError)):
+        raised = None
+        try:
+            psi2.psi2_core_backward(*a)
+        except err as e:
+            raised = e
+        check(raised is not None, f"psi2_core_backward on CUDA, {case}: did "
+                                  f"not raise {err.__name__}")
+    check(psi2.psi2_core.backward_launches == n,
+          "a refused psi2 backward call launched")
+    print("psi2 backward kernel on CUDA: raises in float64, at M="
+          f"{psi2.MAX_M + 1}, on a cotangent of another shape or not "
+          "contiguous; no launch", flush=True)
+
+
+def gate_witness(seed):
+    """Prints what the unshifted M512 case shows: the gate pre < 0 drops or
+    keeps whole terms, so two float32 versions can differ from float64 (and
+    from each other) by a term where pre lies within rounding of 0.  Counts
+    the terms whose gate differs from float64's for the plain version's
+    pre (rounded products) and for the kernels' (FMAs, emulated in
+    float64), and each version's worst gradient error.  Holds nothing."""
+    a64 = psi2_inputs(2000, 512, 2, seed + 2)
+    g64 = torch.tensor(np.random.RandomState(seed + 11).randn(512, 512),
+                       dtype=torch.float64, device="cuda")
+    a32 = [t.float().contiguous() for t in a64 + [g64]]
+    U, V, w, _, Z = a32[:5]
+    flips = {"plain": 0, "fma": 0}
+    for n0 in range(0, U.shape[0], 250):
+        sl = slice(n0, n0 + 250)
+        open64 = psi2._pre(a64[0][sl], a64[1][sl], a64[2][sl], a64[4]) < 0
+        fma = U[sl][:, :, None] + V[sl][:, None, :]
+        for d in range(Z.shape[1]):
+            wz = (w[sl, d:d + 1] * Z[:, d][None, :]).double()
+            fma = (fma.double() - wz[:, :, None]
+                   * Z[:, d].double()[None, None, :]).float()
+        flips["plain"] += int(((psi2._pre(U[sl], V[sl], w[sl], Z) < 0)
+                               != open64).sum())
+        flips["fma"] += int(((fma < 0) != open64).sum())
+    with torch.no_grad():
+        got = psi2.psi2_core_backward(*a32)
+        plain = psi2.psi2_core_backward_plain(*a32)
+        ref = psi2.psi2_core_backward_plain(*a64, g64)
+    _, _, e_k, e_p = compare(got, plain, ref, joint_scale=False)
+    print(f"psi2 backward gate witness (M512 unshifted, {psi2.terms(2000, 512)}"
+          f" terms): terms whose gate differs from float64's: plain pre "
+          f"{flips['plain']}, FMA pre {flips['fma']}; worst gradient error "
+          f"vs f64 of scale: kernel {e_k:.3e}, plain f32 {e_p:.3e}",
+          flush=True)
+
+
+def phase_psi2_backward_kernel(seed, operands):
+    """psi2 backward kernel vs its plain version (float32) and float64 per
+    gradient tensor, on the models' operands and the edge cases, with a
+    seeded dense cotangent; bit-identical repeats.  Returns the worst
+    errors (the launches here are not counted)."""
+    counts = launch_counts()
+    check_psi2_backward_refusals(seed)
+    tie = psi2_inputs(200, 40, 2, seed + 4)
+    for t in tie[:3]:
+        t[:70] = 0.0                    # U = V = 0, w = 0: pre == 0 exactly
+    dead = psi2_inputs(150, 70, 3, seed + 5)
+    dead[3][11] = -1e30                 # the JAX kernels' padding rows
+    # the gate pre < 0 is not continuous: a term within float32 rounding of
+    # 0 may pass in one float32 version and not in another (the kernel
+    # forms pre with FMAs, the plain version with rounded products), which
+    # moves a gradient entry by a whole term.  Of M512's 524 M terms a few
+    # would lie that close (gate_witness prints them), so its U is shifted:
+    # the clamp stays active on some 1e-5 of the terms, and none is expected
+    # within rounding of 0
+    gate_witness(seed)
+    m512 = psi2_inputs(2000, 512, 2, seed + 2)
+    m512[0] -= 2.5
+    cases = [(name, [t.double() for t in operands[name]])
+             for name in COLLAPSED]
+    cases += [("ragged_N1301_M100", psi2_inputs(1301, 100, 3, seed)),
+              ("D12_shared_Z", psi2_inputs(500, 64, 12, seed + 1)),
+              ("M512", m512),
+              ("clamp_active", psi2_inputs(300, 37, 2, seed + 3, True)),
+              ("exact_tie", tie), ("logdet_-1e30_row", dead)]
+    worst = [0.0] * 4
+    for case, a64 in cases:
+        M_ = a64[0].shape[1]
+        g64 = torch.tensor(np.random.RandomState(seed + 11).randn(M_, M_),
+                           dtype=torch.float64, device="cuda")
+        a64 = a64 + [g64]
+        a32 = [t.float().contiguous() for t in a64]
+        if case in ("M512", "clamp_active"):
+            pre = psi2._pre(*a64[:3], a64[4])
+            check(bool((pre > 0).any() and (pre < 0).any()),
+                  f"psi2 backward {case}: the clamp is not active")
+            del pre
+        with torch.no_grad():
+            bwd = lambda: psi2.psi2_core_backward(*a32)  # noqa: E731
+            got = bwd()
+            torch.cuda.synchronize()
+            plain = psi2.psi2_core_backward_plain(*a32)
+            ref = psi2.psi2_core_backward_plain(*a64)
+        errs = compare(got, plain, ref, joint_scale=False)
+        hold("psi2_core_backward", case, errs)
+        check_repeat("psi2_core_backward", case, bwd, got)
+        per = ", ".join(
+            f"{n} {(g.double() - r).abs().max().item() / max(r.abs().max().item(), 1.0):.2e}"
+            f"/{(p.double() - r).abs().max().item() / max(r.abs().max().item(), 1.0):.2e}"
+            for n, g, p, r in zip(PSI2_GRADS, got, plain, ref))
+        print(f"kernel psi2_core_backward {case} (N={a32[0].shape[0]}, M="
+              f"{M_}, D={a32[4].shape[1]}): error vs f64 of scale, "
+              f"kernel/plain: {per}", flush=True)
+        if case == "exact_tie":
+            check(not any(bool(t[:70].any()) for t in got[:3]),
+                  "psi2 backward exact_tie: a tied row passed the gate")
+            want = g64.sum() * torch.exp(a64[3][:70])
+            check(bool(((got[3][:70].double() - want).abs()
+                        <= 1e-4 * want.abs().max()).all()),
+                  "psi2 backward exact_tie: glogdet of the tied rows")
+        if case == "logdet_-1e30_row":
+            check(all(bool((t[11] == 0).all()) for t in got[:4]),
+                  "psi2 backward: the logdet = -1e30 row is not exactly 0")
+        worst = list(map(max, worst, errs))
+    set_launch_counts(counts)
+    return worst
+
+
+def phase_collapsed_gradient(collapsed, card):
+    """The bound's gradient at both cells: float32 on the card through the
+    kernels and on the plain route against the port's float64 CPU path (the
+    kernels' plain versions) on the same parameters and draws; per
+    parameter tensor max |g - g64| / max |g64|."""
+    build, zs = collapsed["build"], collapsed["zs"]
+    routes = {"kernel f32": ROUTES["kernel"],
+              "plain f32": (torch.float32, "xla", False)}
+    want = {"damianou_large": (1, 1, 0, 0), "collapsed_L2": (1, 1, 1, 1)}
+    out = {}
+    for name in COLLAPSED:
+        base = collapsed["models"][name]["kernel"]
+        ref = build(name, torch.float64, "auto", False, device="cpu")
+        ref.load_state_dict(base.state_dict())
+        t0 = time.perf_counter()
+        l64 = ref.loss(zs=zs[name])
+        l64.backward()
+        g64 = named_grads(ref)
+        cpu_s = time.perf_counter() - t0
+        worst = {}
+        for route, spec in routes.items():
+            m = base
+            if route != "kernel f32":
+                m = build(name, *spec)
+                m.load_state_dict(base.state_dict())
+            m.zero_grad(set_to_none=True)
+            set_launch_counts({n: 0 for n in KERNEL_NAMES})
+            loss = m.loss(zs=zs[name])
+            loss.backward()
+            torch.cuda.synchronize()
+            c = launch_counts()
+            got = (c["psi2_core_forward"], c["psi2_core_backward"],
+                   c["fused_conditional"], c["fused_conditional_backward"])
+            check(got == (want[name] if route == "kernel f32"
+                          else (0, 0, 0, 0)),
+                  f"{name} {route}: (psi2 fwd, psi2 bwd, fused fwd, fused "
+                  f"bwd) launches {got}")
+            grads = named_grads(m)
+            check(set(grads) == set(g64), f"{name} {route}: gradients reach "
+                  f"{sorted(grads)}, float64 {sorted(g64)}")
+            check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
+                  f"{name} bound gradient ({route}) not finite")
+            errs = {p: ((g - g64[p]).abs().max()
+                        / g64[p].abs().max().clamp_min(1e-30)).item()
+                    for p, g in grads.items()}
+            worst[route] = max(errs.values())
+            top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
+            print(f"collapsed gradient {name} {route} vs f64 on the CPU "
+                  f"({cpu_s:.1f} s): loss {loss.item():.6f} vs "
+                  f"{l64.item():.6f}; worst relative error over "
+                  f"{len(errs)} tensors {worst[route]:.3e} ("
+                  + ", ".join(f"{p} {e:.2e}" for p, e in top)
+                  + f"); launches {got} [{card}]", flush=True)
+            m.zero_grad(set_to_none=True)
+        if name == "collapsed_L2":
+            check(worst["kernel f32"] <= 2.0 * worst["plain f32"],
+                  f"{name}: bound gradient through the kernels "
+                  f"{worst['kernel f32']} > 2x the plain route's "
+                  f"{worst['plain f32']}")
+        out[name] = worst
+    return out
+
+
+def collapsed_fit(model, steps, seed):
+    """fit() on a collapsed model (no batch size, the guard by fit's own
+    rule), the launch counts set to 0 just before and read just after."""
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    _, hist = fit(model, iterations=steps, learning_rate=0.01, seed=seed,
+                  log_every=FIT_CHUNK)
+    torch.cuda.synchronize()
+    return hist, launch_counts()
+
+
+def phase_collapsed_training(collapsed, seed, card):
+    """Both cells trained by fit from the build state: the kernel route
+    with its launch counts per step, the plain psi2 route beside it."""
+    build, data = collapsed["build"], collapsed["data"]
+    out, main_counts = {}, {}
+    for name in COLLAPSED[::-1]:
+        steps = COLLAPSED_FIT[name]
+        out[name] = {}
+        for route in ("kernel", "plain"):
+            n = steps if route == "kernel" or name == "collapsed_L2" else 20
+            model = build(name, *ROUTES[route])
+            hist, c = collapsed_fit(model, n, seed)
+            losses = [h["loss"] for h in hist]
+            rates = [h["iters_per_sec"] for h in hist[1:]]
+            rejected = hist[-1]["rejected"]
+            params_ok = all(bool(torch.isfinite(p).all())
+                            for p in model.parameters())
+            print(f"collapsed training {name} {route} route: fit {n} steps "
+                  f"(guard on, chunks of {FIT_CHUNK}): loss {losses[0]:.3f} "
+                  f"(steps 1-{FIT_CHUNK}) -> {losses[-1]:.3f} (last "
+                  f"{FIT_CHUNK}); rejected steps {rejected}; steps/s median "
+                  f"of {len(rates)} chunks {statistics.median(rates):.2f} "
+                  f"({min(rates):.2f}-{max(rates):.2f}); launches "
+                  + ", ".join(f"{k} {v}" for k, v in c.items() if v)
+                  + f" [{card}]", flush=True)
+            check("rejected" in hist[0], f"{name}: fit did not turn the "
+                                         f"guard on")
+            check(np.isfinite(losses[-1]) and params_ok,
+                  f"{name} {route}: the fit ended non-finite")
+            out[name][route] = {"steps": n, "loss_first": losses[0],
+                                "loss_last": losses[-1],
+                                "rejected": rejected,
+                                "steps_per_s": statistics.median(rates)}
+            if route == "plain":
+                check(c["psi2_core_forward"] == c["psi2_core_backward"] == 0,
+                      f"{name}: the plain psi2 route launched {c}")
+                continue
+            main_counts[name] = c
+            chunks = n // FIT_CHUNK
+            fused = (n + chunks, n) if name == "collapsed_L2" else (0, 0)
+            want = {"psi2_core_forward": n + chunks, "psi2_core_backward": n,
+                    "fused_conditional": fused[0],
+                    "fused_conditional_backward": fused[1]}
+            check(all(c[k] == v for k, v in want.items()),
+                  f"{name}: launches {c} != {want} ({n} steps, {chunks} "
+                  f"verification forwards)")
+            if name == "collapsed_L2":
+                check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                      f"{name}: training loss did not fall: {losses}")
+                metrics = evaluate_regression(
+                    model, data["Xs"], data["Ys"], data["Y_std"], S=100,
+                    seed=seed)
+                print(f"collapsed training {name}: evaluate_regression on "
+                      f"the {len(data['Xs'])}-row test split, S=100: rmse "
+                      f"{metrics['rmse']:.6f}, loglik "
+                      f"{metrics['loglik']:.6f}", flush=True)
+                check(np.isfinite(metrics["rmse"])
+                      and np.isfinite(metrics["loglik"]),
+                      f"{name}: test metrics not finite")
+                out[name]["test_metrics"] = metrics
+    return out, main_counts
+
+
+def phase_psi2_backward_timings(collapsed, card):
+    """The backward kernel, its plain version and its bound at both cells'
+    psi2 operands (CUDA-event medians of 30)."""
+    counts = launch_counts()
+    shapes = []
+    for name in COLLAPSED:
+        a32 = [t.contiguous() for t in collapsed["operands"][name]]
+        N, M_ = a32[0].shape
+        D = a32[4].shape[1]
+        a32.append(torch.tensor(np.random.RandomState(3).randn(M_, M_),
+                                dtype=torch.float32, device="cuda"))
+        with torch.no_grad():
+            k_ms = event_ms(lambda: psi2.psi2_core_backward(*a32))
+            p_ms = event_ms(lambda: psi2.psi2_core_backward_plain(*a32),
+                            reps=10)
+        b_ms, b_by = psi2_bound_ms(N, M_, D, backward=True)
+        shapes.append({"config": name, "N": N, "M": M_, "D": D, "ms": k_ms,
+                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "exps_M": psi2.terms(N, M_) / 1e6,
+                       "gflop": psi2.backward_flops(N, M_, D) / 1e9})
+        print(f"timing psi2_core_backward {name} N={N} M={M_} D={D}: kernel "
+              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 10), bound "
+              f"{b_ms:.4f} ms ({b_by}; "
+              f"{psi2.backward_flops(N, M_, D) / 1e9:.3f} GFLOP at "
+              f"{FP32_PEAK / 1e12:.0f} TFLOP/s, {psi2.terms(N, M_) / 1e6:.1f}"
+              f" M exps at {SFU_EXP_RATE / 1e12:.2f} T/s), library call: "
+              f"none [{card}]", flush=True)
+    set_launch_counts(counts)
+    return shapes
+
+
+def phase_collapsed_step_profile(collapsed, seed, card):
+    """Per model, on the kernel route: a guarded chunk of 8 training steps
+    (and its verification forward), per step: wall (median of 5 chunks),
+    host syncs (torch's sync debug mode) and a torch.profiler breakdown."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from doubly_stochastic_dgp_tpu_torch.training.loop import (
+        make_scan_train_step)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        masked_optimizer)
+    counts = launch_counts()
+    out, steps = {}, 8
+    for name in COLLAPSED:
+        model = collapsed["build"](name, *ROUTES["kernel"])
+        chunk = make_scan_train_step(masked_optimizer(model, 0.01),
+                                     inner_steps=steps,
+                                     reject_nonfinite=True)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        times = []
+        for i in range(6):
+            t0 = time.perf_counter()
+            chunk(model, generator=gen)
+            torch.cuda.synchronize()
+            if i:
+                times.append(1e3 * (time.perf_counter() - t0) / steps)
+        wall = statistics.median(times)
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            chunk(model, generator=gen)
+        torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        syncs = sum("synchroniz" in str(w.message) for w in caught) / steps
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            chunk(model, generator=gen)
+            torch.cuda.synchronize()
+            prof_wall = 1e3 * (time.perf_counter() - t0) / steps
+        found = device_breakdown(prof, steps)
+        print(f"timing collapsed training step {name} (kernel route, guarded "
+              f"chunk of {steps} steps + 1 verification forward), per step: "
+              f"wall median {wall:.3f} ms over 5 chunks (all: "
+              f"{', '.join(f'{t:.3f}' for t in times)}); host syncs "
+              f"{syncs:.2f}; rejected so far {chunk.rejected} [{card}]",
+              flush=True)
+        out[name] = {"step_ms": wall, "host_syncs": syncs, "busy_ms": None}
+        if found is None:
+            print(f"profile collapsed training step {name}: device time not "
+                  f"measured", flush=True)
+            continue
+        busy, ops, top = found
+        print(f"profile collapsed training step {name}: device busy "
+              f"{busy:.3f} ms in {ops:.0f} device ops a step; wall "
+              f"{prof_wall:.3f} ms under the profiler, {wall:.3f} ms without "
+              f"(idle share {1 - busy / wall:.2f} of the unprofiled wall); "
+              f"top device ops: {top}", flush=True)
+        out[name].update(busy_ms=busy, device_ops=ops,
+                         idle_share=1 - busy / wall)
+    set_launch_counts(counts)
+    return out
+
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -1254,6 +1675,16 @@ def main():
     train_shapes["psi2_core_forward"] = psi2_shapes
     launches["psi2_core_forward"] = collapsed["main_counts"][
         "psi2_core_forward"]
+    errs["psi2_core_backward"] = phase_psi2_backward_kernel(
+        args.seed, collapsed["operands"])
+    collapsed_grads = phase_collapsed_gradient(collapsed, card)
+    collapsed_fits, fit_counts = phase_collapsed_training(collapsed,
+                                                          args.seed, card)
+    train_shapes["psi2_core_backward"] = phase_psi2_backward_timings(
+        collapsed, card)
+    collapsed_steps = phase_collapsed_step_profile(collapsed, args.seed, card)
+    launches["psi2_core_backward"] = sum(
+        c["psi2_core_backward"] for c in fit_counts.values())
 
     records = []
     for name, src, replaces, _, _ in KERNELS:
@@ -1283,7 +1714,12 @@ def main():
                       "fit_bit_identical": same,
                       "collapsed": {n: collapsed[n] for n in COLLAPSED},
                       "collapsed_launches_per_call": collapsed["launches"],
-                      "collapsed_paths": collapsed_paths, "card": card}))
+                      "collapsed_paths": collapsed_paths,
+                      "collapsed_grad_rel_err": collapsed_grads,
+                      "collapsed_fits": collapsed_fits,
+                      "collapsed_fit_launches": fit_counts,
+                      "collapsed_training_step": collapsed_steps,
+                      "card": card}))
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,11 +6,12 @@ DGP: RBF(+White) SVGP layers with identity/PCA skip connections, a
 Gaussian likelihood, the doubly-stochastic ELBO with the layers' KL
 terms, Adam training on on-device minibatches (``fit``), the regression
 metrics (``evaluate_regression``), the cached posterior and
-``make_server``; and the bound and predictions of the collapsed DGPs
-(``DGPCollapsed``, ``DGPDamianou``: collapsed ``SGPRLayer``s and RBF psi
-statistics), which ``fit`` does not train yet.  The fused staged
-conditional runs as hand-written CUDA kernels, forward and backward, with
-a save-gram variant, and the psi2 data sum as a CUDA forward kernel
+``make_server``; and the collapsed DGPs (``DGPCollapsed``,
+``DGPDamianou``: collapsed ``SGPRLayer``s and RBF psi statistics): their
+bound, their predictions, and their training by ``fit`` on the whole
+training set under the reject-nonfinite guard.  The fused staged
+conditional and the psi2 data sum run as hand-written CUDA kernels,
+forward and backward, the conditional also with a save-gram variant
 (``ops/cuda``).
 It imports torch, numpy and scipy only — never jax or the JAX package.
 Entry points run on the GPU unless the caller passes ``device='cpu'``.

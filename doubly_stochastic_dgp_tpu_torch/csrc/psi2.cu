@@ -41,24 +41,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "psi2_common.cuh"
+
 namespace {
+
+using psi2::exp_;
+using psi2::kahan_add;
+using psi2::kMaxD;
+using psi2::kMaxM;
 
 constexpr int kSide = 16;               // threads per tile side
 constexpr int kThreads = kSide * kSide;
 constexpr int kPer = 4;                 // a's and b's per thread
 constexpr int kTile = kSide * kPer;     // 64
 constexpr int kRows = 32;               // rows staged per step
-constexpr int kMaxD = 32;
-constexpr int kMaxM = 512;
-
-template <bool kFastExp>
-__device__ __forceinline__ float exp_(float x) {
-  if constexpr (kFastExp) {
-    return __expf(x);
-  } else {
-    return expf(x);
-  }
-}
 
 // DT > 0: D == DT, the thread's Z values held in registers.
 // DT == 0: any D <= kMaxD, Z read from shared memory.
@@ -176,12 +172,8 @@ psi2_fwd_kernel(const float* __restrict__ U, const float* __restrict__ V,
 #pragma unroll
     for (int i = 0; i < kPer; ++i)
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const float y = s[i][j] - comp[i][j];
-        const float t = acc[i][j] + y;
-        comp[i][j] = (t - acc[i][j]) - y;
-        acc[i][j] = t;
-      }
+      for (int j = 0; j < kPer; ++j)
+        kahan_add(acc[i][j], comp[i][j], s[i][j]);
   }
 
   float* out = part + (size_t)blockIdx.y * M * M;
@@ -203,12 +195,7 @@ __global__ void psi2_sum_chunks_kernel(const float* __restrict__ part,
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= MM) return;
   float s = 0.f, comp = 0.f;
-  for (int c = 0; c < chunks; ++c) {
-    const float y = part[c * MM + i] - comp;
-    const float t = s + y;
-    comp = (t - s) - y;
-    s = t;
-  }
+  for (int c = 0; c < chunks; ++c) kahan_add(s, comp, part[c * MM + i]);
   out[i] = s;
 }
 

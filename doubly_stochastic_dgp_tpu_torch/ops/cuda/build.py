@@ -24,7 +24,8 @@ __all__ = ["SOURCES", "build_all", "load_library"]
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCES = ("fused_conditional", "fused_conditional_bwd", "psi2")
+SOURCES = ("fused_conditional", "fused_conditional_bwd", "psi2",
+           "psi2_bwd")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,22 +1,33 @@
-"""psi2 data-sum forward: the CUDA kernel, its plain PyTorch version and
-the autograd Function around them.
+"""psi2 data sum, forward and backward: the CUDA kernels, their plain
+PyTorch versions and the autograd Function around them.
 
-Replaces the TPU kernel ``doubly_stochastic_dgp_tpu/ops/pallas/psi2.py::
-_psi2_core_fwd_call`` (``_fwd_kernel``) with ``csrc/psi2.cu``.  For U, V
-(N, M), w (N, D) with w >= 0, logdet (N, 1) and Z (M, D):
+Replaces the TPU kernels ``doubly_stochastic_dgp_tpu/ops/pallas/psi2.py::
+_psi2_core_fwd_call`` (``_fwd_kernel``) with ``csrc/psi2.cu`` and
+``_psi2_core_bwd_call`` (``_bwd_kernel``, ``_bwd_kernel_mxu``) with
+``csrc/psi2_bwd.cu``.  For U, V (N, M), w (N, D) with w >= 0, logdet
+(N, 1) and Z (M, D):
 
-    out[a, b] = sum_n exp(min(U[n,a] + V[n,b] - sum_d w[n,d] Z[a,d] Z[b,d], 0)
-                          + logdet[n])                              (M, M)
+    pre[n, a, b] = U[n,a] + V[n,b] - sum_d w[n,d] Z[a,d] Z[b,d]
+    out[a, b] = sum_n exp(min(pre, 0) + logdet[n])                  (M, M)
 
-What bounds it on an H100: operations (one exp and 4 + 2D flops per (n, a,
-b) term, see :func:`terms` and :func:`flops`), so the kernel keeps the
-(N, M, M) block out of memory, one row at a time in registers, and adds
-its row chunks' partial outputs in a fixed order (deterministic).
+and for a cotangent g (M, M), with ge = g[a,b] exp(min(pre, 0) + logdet[n])
+and P = ge where pre < 0, else 0 (at an exact tie pre == 0 the clamp takes
+the whole cotangent: the convention of the JAX kernels, which the JAX
+``psi2_core`` always differentiates through):
 
-Routing: a CPU tensor takes the plain version, which stays autograd-able;
-a CUDA tensor launches the kernel or raises — there is no fallback.  The
-kernel's backward is not ported yet: on CUDA the Function's backward
-raises (ROADMAP B5).  ``psi2_core.launches`` counts kernel launches.
+    gU[n,a] = sum_b P,   gV[n,b] = sum_a P,   glogdet[n] = sum_ab ge,
+    gw[n,d] = -sum_ab P Z[a,d] Z[b,d],
+    gZ[c,d] = -sum_n w[n,d] (sum_b P[n,c,b] Z[b,d] + sum_a P[n,a,c] Z[a,d]).
+
+What bounds them on an H100: operations (one exp per (n, a, b) term and
+4 + 2D flops forward, 8 + 6D backward; see :func:`terms`, :func:`flops`
+and :func:`backward_flops`), so the kernels keep the (N, M, M) block out
+of memory: the backward recomputes the exponentials.  Both add their
+partial sums in a fixed order (deterministic).
+
+Routing: a CPU tensor takes the plain versions; a CUDA tensor launches the
+kernels or raises: there is no fallback.  ``psi2_core.launches`` counts the
+forward kernel's launches, ``psi2_core.backward_launches`` the backward's.
 """
 
 from __future__ import annotations
@@ -26,8 +37,9 @@ import functools
 
 import torch
 
-__all__ = ["psi2_core", "psi2_core_forward", "psi2_core_plain", "terms",
-           "flops", "MAX_M", "MAX_D"]
+__all__ = ["psi2_core", "psi2_core_forward", "psi2_core_plain",
+           "psi2_core_backward", "psi2_core_backward_plain", "terms", "flops",
+           "backward_flops", "MAX_M", "MAX_D"]
 
 # the kernel's limits (the JAX kernel's _MAX_M, _MAX_D); N is not limited:
 # the kernel streams rows and stages nothing of size N
@@ -35,6 +47,7 @@ MAX_M = 512
 MAX_D = 32
 FAST_EXP = True      # __expf in the kernel (see PERF.md for the choice)
 _ROWS, _TILE, _BLOCKS_PER_SM = 32, 64, 4   # as in csrc/psi2.cu
+_BWD_OWN, _BWD_GROUP_D = 64, 8              # as in csrc/psi2_bwd.cu
 
 
 def _block_rows(M):
@@ -43,19 +56,22 @@ def _block_rows(M):
     return max(128, (8192 * 100 * 100) // (M * M) // 8 * 8)
 
 
+def _pre(Ub, Vb, wb, Z):
+    """(B, M, M) clamp argument of a row block: U + V, then the d terms."""
+    pre = Ub[:, :, None] + Vb[:, None, :]
+    for d in range(Z.shape[1]):
+        zd = Z[:, d][None, :]                                    # (1, M)
+        pre = pre - (wb[:, d:d + 1] * zd)[:, :, None] * zd[:, None, :]
+    return pre
+
+
 def psi2_core_plain(U, V, w, logdet, Z):
     """Plain PyTorch version: a blocked mirror of the JAX
-    ``_xla_blocked_core`` (same block rows and d-loop arithmetic);
-    autograd-able."""
+    ``_xla_blocked_core`` (same block rows and d-loop arithmetic)."""
     N, M = U.shape
-    D = Z.shape[1]
 
     def block(Ub, Vb, wb, ldb):
-        pre = Ub[:, :, None] + Vb[:, None, :]
-        for d in range(D):
-            zd = Z[:, d][None, :]                                # (1, M)
-            pre = pre - (wb[:, d:d + 1] * zd)[:, :, None] * zd[:, None, :]
-        return torch.sum(torch.exp(torch.clamp(pre, max=0.0)
+        return torch.sum(torch.exp(torch.clamp(_pre(Ub, Vb, wb, Z), max=0.0)
                                    + ldb[:, :, None]), dim=0)
 
     rows = _block_rows(M)
@@ -68,6 +84,34 @@ def psi2_core_plain(U, V, w, logdet, Z):
     return out
 
 
+def psi2_core_backward_plain(U, V, w, logdet, Z, g):
+    """Plain PyTorch version of the backward, blocked over rows like
+    :func:`psi2_core_plain`: (gU, gV, gw, glogdet, gZ) for the cotangent g
+    (M, M), with the ``pre < 0`` gate.  Any dtype."""
+    N, M = U.shape
+    gU, gV = torch.empty_like(U), torch.empty_like(V)
+    gw, glogdet = torch.empty_like(w), torch.empty_like(logdet)
+    gZ = torch.zeros_like(Z)
+    rows = _block_rows(M)
+    for n0 in range(0, max(N, 1), rows):
+        sl = slice(n0, n0 + rows)
+        pre = _pre(U[sl], V[sl], w[sl], Z)
+        ge = g[None, :, :] * torch.exp(torch.clamp(pre, max=0.0)
+                                       + logdet[sl][:, :, None])
+        P = torch.where(pre < 0.0, ge, torch.zeros_like(ge))
+        gU[sl] = P.sum(dim=2)
+        gV[sl] = P.sum(dim=1)
+        glogdet[sl] = ge.sum(dim=(1, 2))[:, None]
+        for d in range(Z.shape[1]):
+            # per-d products and sums, as the JAX ``_bwd_kernel`` forms them
+            zd = Z[:, d]
+            s_a = (P * zd[None, None, :]).sum(dim=2)             # by a
+            s_b = (P * zd[None, :, None]).sum(dim=1)             # by b
+            gw[sl, d] = -(s_a * zd[None, :]).sum(dim=1)
+            gZ[:, d] -= (w[sl, d:d + 1] * (s_a + s_b)).sum(dim=0)
+    return gU, gV, gw, glogdet, gZ
+
+
 def terms(N, M):
     """(n, a, b) terms of one call: each is one exp."""
     return N * M * M
@@ -78,6 +122,15 @@ def flops(N, M, D):
     multiply-adds, the clamp, + logdet and the sum (an FMA counts as
     two)."""
     return terms(N, M) * (4 + 2 * D)
+
+
+def backward_flops(N, M, D):
+    """fp32 flops of one backward call besides the exps.  Per (n, a, b)
+    term: pre, the clamp and + logdet as forward (3 + 2D), g e, the gate,
+    the three sums gU, gV and glogdet (3), and a multiply-add per d for
+    each of sum_b P Z[b,d] and sum_a P Z[a,d] (4D): 8 + 6D.  Per (n, a, d):
+    the gw and gZ products and sums (5)."""
+    return terms(N, M) * (8 + 6 * D) + 5 * N * M * D
 
 
 def _chunks(N, M, sms):
@@ -101,22 +154,37 @@ def _fwd_fn():
     return fn
 
 
-def _check(U, V, w, logdet, Z):
+@functools.cache
+def _bwd_fns():
+    from .build import load_library
+    lib = load_library("psi2_bwd")
+    fn = lib.psi2_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.psi2_bwd_rows_step.argtypes = [ctypes.c_int]
+    lib.psi2_bwd_rows_step.restype = ctypes.c_int
+    return fn, lib.psi2_bwd_rows_step
+
+
+def _check(U, V, w, logdet, Z, g=None):
     N, M = U.shape
     D = Z.shape[1] if Z.ndim == 2 else -1
     if (V.shape != (N, M) or w.shape != (N, D) or logdet.shape != (N, 1)
-            or Z.shape != (M, D)):
+            or Z.shape != (M, D) or (g is not None and g.shape != (M, M))):
         raise ValueError(
             f"psi2_core: inconsistent shapes U {tuple(U.shape)}, V "
             f"{tuple(V.shape)}, w {tuple(w.shape)}, logdet "
-            f"{tuple(logdet.shape)}, Z {tuple(Z.shape)}")
+            f"{tuple(logdet.shape)}, Z {tuple(Z.shape)}"
+            + ("" if g is None else f", g {tuple(g.shape)}"))
     if M > MAX_M or not 1 <= D <= MAX_D:
         raise ValueError(f"psi2_core: M={M}, D={D} outside the kernel's "
                          f"limits M <= {MAX_M}, 1 <= D <= {MAX_D} "
                          f"(Config.psi2_impl='xla' takes the plain psi2 "
                          f"route)")
     for name, t in (("U", U), ("V", V), ("w", w), ("logdet", logdet),
-                    ("Z", Z)):
+                    ("Z", Z)) + (() if g is None else (("g", g),)):
         if t.device != U.device:
             raise ValueError(f"psi2_core: {name} is on {t.device}, U on "
                              f"{U.device}")
@@ -162,10 +230,53 @@ def psi2_core_forward(U, V, w, logdet, Z, fast_exp=FAST_EXP):
     return _forward_kernel(U, V, w, logdet, Z, fast_exp)
 
 
+def _backward_kernel(U, V, w, logdet, Z, g):
+    N, M, D = _check(U, V, w, logdet, Z, g)
+    gU, gV = torch.empty_like(U), torch.empty_like(V)
+    gw, glogdet = torch.empty_like(w), torch.empty_like(logdet)
+    gZ = torch.empty_like(Z)
+    if N == 0:
+        return gU, gV, gw, glogdet, gZ.zero_()
+    fn, rows_step = _bwd_fns()
+    sms = torch.cuda.get_device_properties(U.device).multi_processor_count
+    # (own tiles x row chunks x d groups) blocks a pass: about four per SM,
+    # and no more chunks than row steps
+    tiles = -(-M // _BWD_OWN)
+    groups = 1 if D <= _BWD_GROUP_D else -(-D // _BWD_GROUP_D)
+    steps = -(-N // rows_step(D))
+    per = -(-steps // max(1, _BLOCKS_PER_SM * sms // (tiles * groups)))
+    chunks = -(-steps // per)
+    scratch = torch.empty(tiles * N * (1 + D) + 2 * chunks * M * D,
+                          dtype=torch.float32, device=U.device)
+    with torch.cuda.device(U.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(U.data_ptr(), V.data_ptr(), w.data_ptr(), logdet.data_ptr(),
+                 Z.data_ptr(), g.data_ptr(), gU.data_ptr(), gV.data_ptr(),
+                 gw.data_ptr(), glogdet.data_ptr(), gZ.data_ptr(),
+                 scratch.data_ptr(), N, M, D, chunks, stream)
+    if err != 0:
+        raise RuntimeError(f"psi2_core backward: kernel launch failed with "
+                           f"CUDA error {err}")
+    psi2_core.backward_launches += 1
+    return gU, gV, gw, glogdet, gZ
+
+
+def psi2_core_backward(U, V, w, logdet, Z, g):
+    """(gU, gV, gw, glogdet, gZ) for the cotangent g (M, M): the plain
+    version for CPU tensors, the kernel for CUDA tensors, which raises on
+    what it does not take (float64, M > 512, D outside 1..32, a
+    non-contiguous operand, mixed devices)."""
+    if U.device.type == "cpu":
+        return psi2_core_backward_plain(U, V, w, logdet, Z, g)
+    if U.device.type != "cuda":
+        raise ValueError(f"psi2_core: unsupported device {U.device}")
+    return _backward_kernel(U, V, w, logdet, Z, g)
+
+
 class _Psi2Core(torch.autograd.Function):
-    """Forward: the plain version on the CPU, the kernel on CUDA.
-    Backward: on the CPU the gradient of the plain version; on CUDA not
-    ported yet (ROADMAP B5), so it raises."""
+    """Forward and backward: the plain versions on the CPU, the kernels on
+    CUDA.  The backward computes all five gradients and hands back those
+    of the inputs that need one."""
 
     @staticmethod
     def forward(ctx, U, V, w, logdet, Z):
@@ -174,15 +285,9 @@ class _Psi2Core(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        inputs = ctx.saved_tensors
-        if inputs[0].device.type != "cpu":
-            raise NotImplementedError(
-                "psi2_core backward on CUDA: the psi2 backward kernel is not "
-                "ported yet (ROADMAP B5)")
-        with torch.enable_grad():
-            leaves = [t.detach().requires_grad_() for t in inputs]
-            out = psi2_core_plain(*leaves)
-            return torch.autograd.grad(out, leaves, g, allow_unused=True)
+        grads = psi2_core_backward(*ctx.saved_tensors, g.contiguous())
+        return tuple(gr if need else None
+                     for gr, need in zip(grads, ctx.needs_input_grad))
 
 
 def psi2_core(U, V, w, logdet, Z):
@@ -192,3 +297,4 @@ def psi2_core(U, V, w, logdet, Z):
 
 
 psi2_core.launches = 0
+psi2_core.backward_launches = 0

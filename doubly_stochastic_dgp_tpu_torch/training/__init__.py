@@ -1,1 +1,2 @@
-"""Training: the masked Adam optimizer, the SGD step, fit and evaluation."""
+"""Training: the Adam optimizer, the SGD step, the reject-nonfinite guard,
+fit and evaluation."""

@@ -1,25 +1,30 @@
-"""Training loop: on-device minibatches, the Adam step, ``fit`` and the
-regression metrics.
+"""Training loop: on-device minibatches, the Adam step, the reject-nonfinite
+guard, ``fit`` and the regression metrics.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/training/loop.py``
-(``make_sgd_train_step``, ``fit``, ``evaluate_regression``).  PyTorch runs
-eagerly, so there is no program to compile: a step is one forward and one
-backward through the model and one optimizer update.  Minibatch indices
-are drawn with replacement on the model's device from a
-``torch.Generator`` there, and the batch is gathered there, so no data
-cross to the host.  Random streams differ from the JAX package's; the
-step takes explicit ``idx`` and ``zs`` to pin them.
+(``make_sgd_train_step``, ``guarded_scan``, ``make_scan_train_step``,
+``fit``, ``evaluate_regression``).  PyTorch runs eagerly, so there is no
+program to compile: a step is one forward and one backward through the
+model and one optimizer update, and a chunk of steps (the JAX ``lax.scan``)
+is a Python loop.  Minibatch indices are drawn with replacement on the
+model's device from a ``torch.Generator`` there, and the batch is gathered
+there, so no data cross to the host.  Random streams differ from the JAX
+package's; the step takes explicit ``idx`` and ``zs`` to pin them.
 
-Not ported yet (``fit`` raises): the natural-gradient steps (ROADMAP A11),
-checkpoints, the reject-nonfinite guard (ROADMAP A7) and training the
-models with a full-batch bound (the collapsed family: the psi2 backward
-kernel, ROADMAP B5, and the guard, which the JAX ``fit`` turns on for
-them).
+The guard (:func:`guarded_scan`) decides on the host whether a step is
+accepted: one host sync a step, which reads the loss and one flag, and no
+``where`` over the parameters (a rejected candidate is dropped, so nothing
+non-finite can leak into the state).
+
+Not ported yet (``fit`` raises): the natural-gradient steps (ROADMAP A11)
+and checkpoints (ROADMAP A7).
 """
 
 from __future__ import annotations
 
+import math
 import time
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -29,8 +34,18 @@ from ..serving import derive_seed
 from ..utils.params import log_prior
 from .optim import masked_optimizer
 
-__all__ = ["check_minibatchable", "make_sgd_train_step", "fit",
-           "evaluate_regression"]
+__all__ = ["check_minibatchable", "make_sgd_train_step", "guarded_scan",
+           "make_scan_train_step", "fit", "evaluate_regression"]
+
+# The guard's trust scale: halved on a rejected step, down to 2^-12, and
+# recovered by 2^(1/16) on an accepted one, up to exactly 1.0 (clamped by
+# min, so a trajectory that is never rejected applies its updates scaled by
+# exactly 1.0: the same bits).  On a deterministic full-batch objective a
+# plain skip-and-retry would replay the same non-finite step for ever; the
+# smaller scaled update from the rolled-back state is the way out.
+_GUARD_SCALE_MIN = 2.0 ** -12
+_GUARD_SCALE_RECOVER = 2.0 ** (1.0 / 16.0)
+_GUARD_MIN_CHUNK = 8
 
 
 def _objective(model, X, Y, generator, zs):
@@ -53,6 +68,23 @@ def check_minibatchable(model, batch_size):
             f"minibatchable model (DGP)")
 
 
+def _minibatch_loss(model, batch_size, generator, idx=None, zs=None):
+    """The objective on a minibatch: ``idx`` if given, else ``batch_size``
+    indices (when below the number of stored rows) drawn uniformly with
+    replacement from ``generator``, which then also draws the samples
+    unless ``zs`` fixes them."""
+    check_minibatchable(model, batch_size)
+    X, Y = model.X_data, model.Y_data
+    N = X.shape[0]
+    if idx is None and batch_size is not None and batch_size < N:
+        idx = torch.randint(0, N, (batch_size,), generator=generator,
+                            device=X.device)
+    if idx is not None:
+        idx = torch.as_tensor(idx, device=X.device)
+        X, Y = X[idx], Y[idx]
+    return _objective(model, X, Y, generator, zs)
+
+
 def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
     """Step ``step(model, generator=None, idx=None, zs=None) -> loss``:
     one Adam update of ``model`` in place on the negative ELBO of a
@@ -65,22 +97,131 @@ def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
     array per layer) fixes them."""
 
     def step(model, generator=None, idx=None, zs=None):
-        check_minibatchable(model, batch_size)
-        X, Y = model.X_data, model.Y_data
-        N = X.shape[0]
-        if idx is None and batch_size is not None and batch_size < N:
-            idx = torch.randint(0, N, (batch_size,), generator=generator,
-                                device=X.device)
-        if idx is not None:
-            idx = torch.as_tensor(idx, device=X.device)
-            X, Y = X[idx], Y[idx]
-        optimizer.zero_grad(set_to_none=True)
-        loss = _objective(model, X, Y, generator, zs)
+        optimizer.zero_grad()
+        loss = _minibatch_loss(model, batch_size, generator, idx, zs)
         loss.backward()
         optimizer.step()
         return loss.detach()
 
     return step
+
+
+def _all_finite(loss, tensors):
+    """0-dim bool tensor: ``loss`` and every entry of ``tensors`` finite."""
+    flat = torch.cat([loss.reshape(1)] + [t.reshape(-1) for t in tensors])
+    return torch.isfinite(flat).all()
+
+
+@torch.no_grad()
+def guarded_scan(loss_and_grads, loss_only, tx, params, opt_state, keys):
+    """The reject-nonfinite optimization core: the JAX ``guarded_scan``
+    with its semantics, a chunk of ``len(keys) - 1`` steps as a Python
+    loop.
+
+    ``params`` is the list of parameter tensors, updated in place;
+    ``loss_and_grads(params, key) -> (loss, grads)`` and
+    ``loss_only(params, key) -> loss`` evaluate the objective at their
+    current values (``grads`` in the order of ``params``); ``tx`` yields
+    the update as a value (``tx.update(grads, state) -> (updates,
+    state)``, :class:`~.optim.Adam`); the last key drives the verification
+    forward after the chunk.  Returns (opt_state, nanmean of the reported
+    losses, number of rollbacks: rejected steps and a failed verification).
+
+    A step evaluates loss and gradients at the current state, scales the
+    Adam update by the trust scale and forms the candidate; it is accepted
+    iff the loss, every gradient and every candidate parameter are finite.
+    Accept: the state becomes the candidate, and ``prev`` the state before
+    this update.  Reject: the state goes back to ``prev`` (one step
+    delayed: this undoes the previous accepted update, the one that walked
+    into the non-finite region), ``prev`` stays.  The scale goes to
+    min(1, scale 2^(1/16)) on accept and max(2^-12, scale / 2) on reject,
+    in the parameters' dtype.  A step reports its loss if finite, else the
+    last finite one.  After the chunk one more forward: if it is not
+    finite, the state goes back to ``prev``, so a chunk never hands on a
+    state that was not verified."""
+    dt = np.dtype(str(params[0].dtype).replace("torch.", "")).type
+    one, half = dt(1.0), dt(0.5)
+    recover, floor = dt(_GUARD_SCALE_RECOVER), dt(_GUARD_SCALE_MIN)
+    prev = [p.clone() for p in params]
+    prev_opt = opt_state
+    scale, last_loss = one, math.nan
+    losses, rejected = [], 0
+    for key in keys[:-1]:
+        with torch.enable_grad():
+            loss, grads = loss_and_grads(params, key)
+        updates, new_opt = tx.update(grads, opt_state)
+        if scale != one:
+            torch._foreach_mul_(updates, float(scale))
+        cand = torch._foreach_add(params, updates)
+        # the one host sync of the step: the loss and the accept flag
+        flag = _all_finite(loss.detach(), list(grads) + list(cand))
+        loss_value, ok = torch.stack(
+            [loss.detach(), flag.to(loss.dtype)]).tolist()
+        if ok:
+            torch._foreach_copy_(prev, params)
+            torch._foreach_copy_(params, cand)
+            prev_opt, opt_state = opt_state, new_opt
+            scale = min(one, dt(scale * recover))
+        else:
+            torch._foreach_copy_(params, prev)
+            opt_state = prev_opt
+            scale = max(floor, dt(scale * half))
+            rejected += 1
+        if math.isfinite(loss_value):
+            last_loss = loss_value
+        losses.append(last_loss)
+    if not bool(torch.isfinite(loss_only(params, keys[-1]))):
+        torch._foreach_copy_(params, prev)
+        opt_state = prev_opt
+        rejected += 1
+    finite = [l for l in losses if not math.isnan(l)]
+    mean = sum(finite) / len(finite) if finite else math.nan
+    return opt_state, mean, rejected
+
+
+def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
+                         inner_steps: int = 10,
+                         reject_nonfinite: bool = False):
+    """Chunk ``chunk(model, generator=None) -> loss``: ``inner_steps``
+    Adam steps of ``model`` in place, and their mean loss (a 0-dim tensor,
+    no host sync).
+
+    ``reject_nonfinite=True`` bounds the trajectory with
+    :func:`guarded_scan`: a step whose loss, gradient or candidate is not
+    finite rolls back to the state before the previous update and halves
+    a trust scale; the chunk ends with a verification forward, and its
+    loss is the nanmean of the last finite losses (a float).  A chunk that
+    is never rejected takes exactly the unguarded steps.  The scale starts
+    at 1.0 in every chunk, so its halving works only within a chunk: use
+    ``inner_steps`` >= 8 with the guard (``fit`` does).  The chunk's
+    rejections are added to ``chunk.rejected``."""
+    step = make_sgd_train_step(optimizer, batch_size)
+
+    def plain_chunk(model, generator=None):
+        return torch.stack([step(model, generator=generator)
+                            for _ in range(inner_steps)]).mean()
+
+    if not reject_nonfinite:
+        return plain_chunk
+
+    def guarded_chunk(model, generator=None):
+        def loss_only(params, key):
+            return _minibatch_loss(model, batch_size, generator)
+
+        def loss_and_grads(params, key):
+            optimizer.zero_grad()
+            loss = loss_only(params, key)
+            loss.backward()
+            return loss, optimizer.grads()
+
+        optimizer.state, loss, rejected = guarded_scan(
+            loss_and_grads, loss_only, optimizer, optimizer.params,
+            optimizer.state, range(inner_steps + 1))
+        guarded_chunk.rejected += rejected
+        return loss
+
+    guarded_chunk.rejected = 0
+    return guarded_chunk
 
 
 def fit(model, iterations: int, learning_rate: float = 0.01,
@@ -99,16 +240,17 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
     cb(step, model, loss, stats).  The minibatches and samples come from
     one ``torch.Generator`` on the model's device seeded with ``seed``.
 
-    ``natgrad_gamma``, ``ckpt_dir`` and ``reject_nonfinite=True`` are not
-    ported yet and raise, and so does a model with a full-batch bound
-    (after ``check_minibatchable``)."""
+    ``reject_nonfinite`` bounds the trajectory with the rollback and
+    trust-scale guard (:func:`make_scan_train_step`); the history then
+    also counts the rejected steps so far ("rejected") and its loss is the
+    chunk's nanmean.  The default ``None`` turns the guard on for models
+    with a full-batch bound (the collapsed family), whose float32 bounds
+    can sit one rounding away from an indefinite matrix; ``False`` forces
+    the plain step.  With the guard on, a chunk below 8 steps is raised to
+    8 with a warning.
+
+    ``natgrad_gamma`` and ``ckpt_dir`` are not ported yet and raise."""
     check_minibatchable(model, batch_size)
-    if model.full_batch_bound:
-        raise NotImplementedError(
-            f"fit({type(model).__name__}): training a full-batch-bound "
-            f"model needs the psi2 backward kernel (ROADMAP B5) and the "
-            f"reject-nonfinite guard that the JAX fit turns on for such "
-            f"models (ROADMAP A7, guarded_scan); neither is ported yet")
     if natgrad_gamma is not None:
         raise NotImplementedError(
             "fit(natgrad_gamma=...): natural-gradient steps are not ported "
@@ -117,13 +259,21 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
         raise NotImplementedError(
             "fit(ckpt_dir=...): checkpoints are not ported yet (ROADMAP A7, "
             "training/checkpoint.py)")
-    if reject_nonfinite:
-        raise NotImplementedError(
-            "fit(reject_nonfinite=True): the trajectory guard is not ported "
-            "yet (ROADMAP A7, guarded_scan)")
+    if reject_nonfinite is None:
+        reject_nonfinite = bool(model.full_batch_bound)
     chunk = max(1, min(10, log_every) if scan_steps is None else scan_steps)
-    step = make_sgd_train_step(masked_optimizer(model, learning_rate),
-                               batch_size)
+    if reject_nonfinite and chunk < _GUARD_MIN_CHUNK:
+        # the trust scale starts at 1.0 in every chunk, so in a short chunk
+        # a deterministic bound can replay the same accept, non-finite,
+        # rollback cycle for ever; 8 steps let it shrink to 2^-7
+        warnings.warn(
+            f"reject_nonfinite guard: raising scan_steps from {chunk} to "
+            f"{_GUARD_MIN_CHUNK} (the trust scale needs room within a "
+            f"chunk; pass reject_nonfinite=False to keep scan_steps={chunk})")
+        chunk = _GUARD_MIN_CHUNK
+    run_chunk = make_scan_train_step(
+        masked_optimizer(model, learning_rate), batch_size,
+        inner_steps=chunk, reject_nonfinite=reject_nonfinite)
     generator = torch.Generator(device=model.X_data.device)
     generator.manual_seed(seed)
 
@@ -131,15 +281,17 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
     t0 = time.perf_counter()
     last_t, last_i, done = t0, 0, 0
     while done < iterations:
-        losses = [step(model, generator=generator) for _ in range(chunk)]
+        loss = run_chunk(model, generator=generator)
         done += chunk
         if done % log_every < chunk or done >= iterations:
-            loss = float(torch.stack(losses).mean())
+            loss = float(loss)
             now = time.perf_counter()
             rate = (done - last_i) / max(now - last_t, 1e-9)
             last_t, last_i = now, done
             stats = {"iter": done, "loss": loss, "iters_per_sec": rate,
                      "elapsed": now - t0}
+            if reject_nonfinite:
+                stats["rejected"] = run_chunk.rejected
             history.append(stats)
             for cb in callbacks:
                 cb(done, model, loss, stats)

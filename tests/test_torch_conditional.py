@@ -1,7 +1,7 @@
 """PyTorch port: the fused staged conditional's plain versions (forward,
-backward, save-gram pair) and the psi2 data sum's plain version against
-the JAX package's Pallas kernels (interpret mode on CPU) and its jnp
-references, in float64.
+backward, save-gram pair) and the psi2 data sum's plain versions (forward
+and backward) against the JAX package's Pallas kernels (interpret mode on
+CPU) and its jnp references, in float64.
 
 One test item that loops over its cases and names the failing case in
 every assertion message.  On the CPU the port's wrappers and autograd
@@ -18,8 +18,10 @@ from numpy.testing import assert_allclose
 from doubly_stochastic_dgp_tpu.ops.pallas.conditional import (
     fused_conditional as jax_fused_conditional, fused_conditional_reference,
     fused_conditional_saved as jax_fused_conditional_saved)
+from doubly_stochastic_dgp_tpu.ops.pallas import psi2 as jpsi2
 from doubly_stochastic_dgp_tpu.ops.pallas.psi2 import (
-    psi2_core as jax_psi2_core, psi2_core_pallas_fwd, psi2_core_reference)
+    _psi2_core_bwd_call, psi2_core as jax_psi2_core, psi2_core_pallas_fwd,
+    psi2_core_reference)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import psi2 as tpsi2
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     fused_conditional, fused_conditional_backward_plain,
@@ -109,7 +111,7 @@ def _counts():
     return (fused_conditional.launches, fused_conditional.backward_launches,
             fused_conditional_saved.launches,
             fused_conditional_saved.backward_launches,
-            tpsi2.psi2_core.launches)
+            tpsi2.psi2_core.launches, tpsi2.psi2_core.backward_launches)
 
 
 def _psi2_inputs(N, M, D, seed=0, spread=0.5, clamp=False):
@@ -142,13 +144,20 @@ def _check_psi2_limits():
                 ((N, M), (N, M), (N, D), (N, 1), (M, D))]
 
     assert tpsi2._check(*args(N=10 ** 5)) == (10 ** 5, 8, 2), "large N"
+    g = torch.zeros(8, 8)
+    assert tpsi2._check(*args(), g) == (40, 8, 2), "with a cotangent"
     bad = args()
     bad[1] = torch.zeros(8, 40).T
     for case, a, err in (("M=513", args(M=tpsi2.MAX_M + 1), ValueError),
                          ("D=33", args(D=tpsi2.MAX_D + 1), ValueError),
                          ("D=0", args(D=0), ValueError),
                          ("float64", args(dtype=torch.float64), TypeError),
-                         ("non-contiguous V", bad, ValueError)):
+                         ("non-contiguous V", bad, ValueError),
+                         ("g of another shape", args() + [g[:, :7]],
+                          ValueError),
+                         ("non-contiguous g", args() + [torch.zeros(
+                             8, 16)[:, ::2]], ValueError),
+                         ("float64 g", args() + [g.double()], TypeError)):
         try:
             tpsi2._check(*a)
         except err:
@@ -207,10 +216,105 @@ def _check_psi2():
                                     f"of psi2_core_reference")
 
 
+# the backward's cases: those of tests/test_pallas_psi2.py (N=41, M=12,
+# D=2; a ragged N over several 16-row blocks; D=12; every term clamped),
+# and exact ties pre == 0 on part of the terms
+PSI2_BWD_CASES = ("N41_M12_D2", "ragged_blocks_N70_M9_D3", "N50_M20_D12",
+                  "fully_clamped", "exact_tie")
+PSI2_BWD_SCALE_TOL = 1e-9   # of each gradient tensor's scale, float64
+GRADS = ("gU", "gV", "gw", "glogdet", "gZ")
+
+
+def _psi2_bwd_inputs(case):
+    if case == "fully_clamped":
+        N, M, D = 16, 6, 2
+        Z = np.random.RandomState(3).randn(M, D)
+        return (np.full((N, M), 3.0), np.full((N, M), 2.0), np.zeros((N, D)),
+                np.full((N, 1), -0.5), Z), np.ones((M, M))
+    if case == "exact_tie":
+        # rows 0-9: U = V = 0 and w = 0, so pre == 0 exactly
+        args = [a.copy() for a in _psi2_inputs(24, 7, 2, seed=5)]
+        for a in args[:3]:
+            a[:10] = 0.0
+    else:
+        N, M, D = {"N41_M12_D2": (41, 12, 2),
+                   "ragged_blocks_N70_M9_D3": (70, 9, 3),
+                   "N50_M20_D12": (50, 20, 12)}[case]
+        args = _psi2_inputs(N, M, D, seed=len(case))
+    M = args[4].shape[0]
+    return tuple(args), np.random.RandomState(7).randn(M, M)
+
+
+def _check_psi2_backward():
+    """psi2_core_backward_plain, the backward wrapper and the Function's
+    gradient on the CPU against both interpret-mode Pallas backward kernels
+    and (two cases) jax.grad of the JAX psi2_core, which takes the kernel
+    backward; the plain backward's row blocking."""
+    for case in PSI2_BWD_CASES:
+        args, g = _psi2_bwd_inputs(case)
+        jargs = [jnp.asarray(a) for a in args]
+        targs = [torch.from_numpy(a) for a in args]
+        tg = torch.from_numpy(g)
+        blocks = (jpsi2._block_rows, tpsi2._block_rows)
+        if case.startswith("ragged"):
+            jpsi2._block_rows = tpsi2._block_rows = lambda M: 16
+        try:
+            refs = {f"interpret-mode Pallas backward ({impl})":
+                    _psi2_core_bwd_call(*jargs, jnp.asarray(g),
+                                        interpret=True, bwd_impl=impl)
+                    for impl in ("vpu", "mxu")}
+            if case in ("N41_M12_D2", "exact_tie"):
+                refs["jax.grad of psi2_core"] = jax.grad(
+                    lambda *a: jnp.sum(g * jax_psi2_core(*a, True)),
+                    argnums=(0, 1, 2, 3, 4))(*jargs)
+            leaves = [t.clone().requires_grad_() for t in targs]
+            tpsi2.psi2_core(*leaves).backward(tg)
+            ports = {"plain backward":
+                     tpsi2.psi2_core_backward_plain(*targs, tg),
+                     "backward wrapper on CPU":
+                     tpsi2.psi2_core_backward(*targs, tg),
+                     "autograd Function on CPU": [t.grad for t in leaves]}
+        finally:
+            jpsi2._block_rows, tpsi2._block_rows = blocks
+        for pname, got in ports.items():
+            for rname, want in refs.items():
+                for gt, w, what in zip(got, want, GRADS):
+                    w = np.asarray(w)
+                    assert w.dtype == np.float64, f"{rname} dtype {w.dtype}"
+                    scale = max(np.abs(w).max(), 1.0)
+                    assert_allclose(
+                        gt.numpy() / scale, w / scale, rtol=0,
+                        atol=PSI2_BWD_SCALE_TOL,
+                        err_msg=f"psi2 backward {case}: {pname} {what} vs "
+                                f"{rname}")
+        gU, gV, gw, glogdet, gZ = (t.numpy() for t in ports["plain backward"])
+        if case == "fully_clamped":
+            assert not (gU.any() or gV.any() or gw.any() or gZ.any()), (
+                f"psi2 backward {case}: a gated gradient is not exactly 0")
+            assert_allclose(glogdet, np.full((16, 1), 36 * np.exp(-0.5)),
+                            rtol=1e-12, err_msg=f"psi2 backward {case}: "
+                                                f"glogdet")
+        if case == "exact_tie":
+            # the tied rows pass nothing to U, V, w (and nothing of theirs
+            # to Z), and all of g e to logdet
+            assert not (gU[:10].any() or gV[:10].any() or gw[:10].any()), (
+                f"psi2 backward {case}: a tied row's gated gradient is not "
+                f"exactly 0")
+            assert_allclose(glogdet[:10], g.sum() * np.exp(args[3][:10]),
+                            rtol=1e-12, err_msg=f"psi2 backward {case}: "
+                                                f"glogdet of the tied rows")
+    # the Function hands back only the gradients that are needed
+    leaves = [t.clone().requires_grad_() for t in targs]
+    leaves[2].requires_grad_(False)
+    tpsi2.psi2_core(*leaves).backward(tg)
+    assert leaves[2].grad is None and leaves[4].grad is not None, (
+        "psi2 Function: needs_input_grad not honoured")
+
+
 def test_fused_conditional_plain_matches_jax():
     for f in (fused_conditional, fused_conditional_saved):
         f.launches = f.backward_launches = 0
-    tpsi2.psi2_core.launches = 0
+    tpsi2.psi2_core.launches = tpsi2.psi2_core.backward_launches = 0
     for name, kw in CASES:
         args = _inputs(**kw)
         jargs = [jnp.asarray(a) for a in args]
@@ -239,7 +343,8 @@ def test_fused_conditional_plain_matches_jax():
     _check_gradients()
     _check_psi2_limits()
     _check_psi2()
-    assert _counts() == (0, 0, 0, 0, 0), (
+    _check_psi2_backward()
+    assert _counts() == (0, 0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 
     # the CPU path stays autograd-able, and honours needs_input_grad

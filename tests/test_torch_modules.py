@@ -3,15 +3,18 @@ on the CPU (bijectors and priors, kernels, Cholesky with escalation and
 its gradient, the relative jitter ladder, triangular inverse and solves,
 the Gaussian KL terms, mean functions, Gaussian likelihood, the SVGP
 conditional on both diagonal branches with its KL term and gradients, the
-cached layer, the RBF psi statistics on both psi2 routes, the collapsed
+cached layer, the RBF psi statistics and their gradients on both psi2
+routes, the collapsed
 SGPR layer on certain and Gaussian inputs), plus the port's import and
 device rules.
 
 One test item that loops over its cases and names the failing case in
 every assertion message."""
 
+import re
 import subprocess
 import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -237,6 +240,37 @@ def _check_psi_statistics(rng):
                 for what, g, w in zip(("psi0", "psi1", "psi2"), got, want):
                     _close(f"psi_statistics {kname} centre={centre} "
                            f"psi2_impl={impl} {what}", g, w)
+            _check_psi_gradients(f"psi_statistics {kname}", jk, tk, mu, Sv,
+                                 Z, rng.randn(N, M), rng.randn(M, M))
+
+
+def _check_psi_gradients(case, jk, tk, mu, Sv, Z, R1, R2):
+    """Gradients of sum(psi1 R1) + sum(psi2 R2) reach mu, S, Z and every
+    kernel hyperparameter alike on the plain route ('xla': autograd
+    through the blocked sum) and on the kernel route ('auto': the psi2
+    Function, whose backward on the CPU is the kernel's plain version),
+    and equal jax.grad's."""
+    def jobj(k, m, s, z):
+        _, p1, p2 = jax_psi_statistics(k, m, s, z)
+        return jnp.sum(p1 * R1) + jnp.sum(p2 * R2)
+
+    jgk, *jg = jax.grad(jobj, argnums=(0, 1, 2, 3))(
+        jk, jnp.asarray(mu), jnp.asarray(Sv), jnp.asarray(Z))
+    jgk = {_torch_key(jax.tree_util.keystr(p)): g for p, g in
+           jax.tree_util.tree_flatten_with_path(jgk)[0]}
+    before = psi2_core.backward_launches
+    for impl in ("xla", "auto"):
+        leaves = [_t(a).requires_grad_() for a in (mu, Sv, Z)]
+        tk.zero_grad(set_to_none=True)
+        _, p1, p2 = psi_statistics(tk, *leaves, impl)
+        (torch.sum(p1 * _t(R1)) + torch.sum(p2 * _t(R2))).backward()
+        for what, t, w in zip(("mu", "S", "Z"), leaves, jg):
+            _close(f"{case} psi2_impl={impl} grad {what}", t.grad, w)
+        for name, p in tk.named_parameters():
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            _close(f"{case} psi2_impl={impl} grad {name}", g, jgk[name])
+    assert psi2_core.backward_launches == before, (
+        f"{case}: the psi2 backward kernel launched for CPU tensors")
 
 
 def _check_sgpr_layer(rng):
@@ -388,6 +422,10 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2\n"
             "import doubly_stochastic_dgp_tpu_torch.models.zoo\n"
             "import doubly_stochastic_dgp_tpu_torch.models.damianou\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.layers\n"
+            "import doubly_stochastic_dgp_tpu_torch.ops.cuda.build\n"
+            "import doubly_stochastic_dgp_tpu_torch.training.loop\n"
+            "import doubly_stochastic_dgp_tpu_torch.training.optim\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
@@ -398,6 +436,10 @@ def _check_import_and_device_rules():
     assert out.returncode == 0, f"import rule: {out.stderr}"
     assert out.stdout.strip() == "[]", (
         f"import rule: the port imported {out.stdout.strip()}")
+    smoke = (Path(__file__).resolve().parents[1] / "chip_smoke.py").read_text()
+    found = re.findall(r"^\s*(?:import|from)\s+(jax|doubly_stochastic_dgp_tpu)"
+                       r"(?:[\s.]|$)", smoke, flags=re.M)
+    assert not found, f"import rule: chip_smoke.py imports {found}"
     X = np.random.RandomState(1).randn(10, 2)
     args = (X, X[:, :1], X[:4], [port.RBF(2)], port.Gaussian(0.1))
     for cls in (port.DGP, port.DGPCollapsed, port.DGPDamianou):

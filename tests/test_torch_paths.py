@@ -1,7 +1,8 @@
 """PyTorch port: the serving and training paths of a 3-layer DGP, and the
 bound and predictions of the collapsed DGPs (DGPDamianou, DGPCollapsed),
-against the JAX package in float64 on the CPU, and the port's server and
-``fit`` semantics.
+against the JAX package in float64 on the CPU, the port's server and
+``fit`` semantics, and the reject-nonfinite guard against the JAX
+``guarded_scan`` and ``fit``.
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -12,6 +13,8 @@ indices.  The JAX objective is assembled from the package's public
 pieces (``propagate``, ``variational_expectations``, ``KL``, the
 num_data / batch scale, ``log_prior``).  One test item that names the
 failing case in every assertion message."""
+
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -25,7 +28,8 @@ import doubly_stochastic_dgp_tpu as dsd
 from doubly_stochastic_dgp_tpu.config import temp_config
 from doubly_stochastic_dgp_tpu.models.layers import SGPRLayer as JSGPRLayer
 from doubly_stochastic_dgp_tpu.training.loop import (
-    evaluate_regression as jax_evaluate_regression)
+    evaluate_regression as jax_evaluate_regression, fit as jax_fit,
+    guarded_scan as jax_guarded_scan)
 from doubly_stochastic_dgp_tpu.training.optim import masked_optimizer
 from doubly_stochastic_dgp_tpu.utils.modules import log_prior, trainable_mask
 import doubly_stochastic_dgp_tpu_torch as port
@@ -33,9 +37,10 @@ from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     fused_conditional)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
-from doubly_stochastic_dgp_tpu_torch.training.loop import make_sgd_train_step
+from doubly_stochastic_dgp_tpu_torch.training.loop import (
+    guarded_scan, make_scan_train_step, make_sgd_train_step)
 from doubly_stochastic_dgp_tpu_torch.training.optim import (
-    masked_optimizer as port_masked_optimizer)
+    Adam, AdamState, masked_optimizer as port_masked_optimizer)
 
 RTOL, ATOL = 1e-8, 1e-10
 S, N, D, M, H = 4, 30, 5, 20, 3
@@ -148,14 +153,19 @@ def _check_training(rng, X, Y, jmodel):
                            batch_size=BATCH, seed=3, log_every=10)
     assert [h["iter"] for h in hist] == [10, 20], f"fit history {hist}"
     assert all(np.isfinite(h["loss"]) for h in hist), f"fit loss {hist}"
-    for kw in (dict(natgrad_gamma=0.1), dict(ckpt_dir="ckpt"),
-               dict(reject_nonfinite=True)):
+    for kw in (dict(natgrad_gamma=0.1), dict(ckpt_dir="ckpt")):
         try:
             port.fit(model, iterations=1, **kw)
         except NotImplementedError as e:
             assert "ROADMAP" in str(e), f"fit({kw}): {e}"
         else:
             raise AssertionError(f"fit({kw}) did not raise")
+    # the guard works for the DGP too, and is off for it by default
+    assert "rejected" not in hist[0], "fit(DGP): the guard is on by default"
+    model, hist = port.fit(model, iterations=10, batch_size=BATCH, seed=3,
+                           log_every=10, reject_nonfinite=True)
+    assert [h["iter"] for h in hist] == [10] and hist[0]["rejected"] == 0 \
+        and np.isfinite(hist[0]["loss"]), f"fit(DGP, guard on) {hist}"
 
 
 def _check_evaluate_regression(rng, X, Y, Xt, Yt):
@@ -234,7 +244,7 @@ def _check_collapsed(rng, Xt, Yt):
     on both psi2 routes ('xla': the plain path; 'auto': the kernel route,
     whose psi2 on the CPU is the kernel's plain version), the
     bound's gradient on the plain path against jax.grad, and the
-    trainer's refusals for full-batch bounds."""
+    trainer's refusal of a minibatch for full-batch bounds."""
     Xt, Yt = Xt[:9, :3], Yt[:9]
     for name, jm, build, zs in _collapsed_models(rng):
         @jax.jit
@@ -266,15 +276,12 @@ def _check_collapsed(rng, Xt, Yt):
                     g = torch.zeros_like(p) if p.grad is None else p.grad
                     _close(f"{case} bound gradient {pname}", g,
                            jgrads[pname])
-        for kw, err in ((dict(batch_size=10), ValueError),
-                        (dict(), NotImplementedError)):
-            try:
-                port.fit(model, iterations=1, **kw)
-            except err as e:
-                assert err is ValueError or "ROADMAP" in str(e), (
-                    f"{name}: fit({kw}): {e}")
-            else:
-                raise AssertionError(f"{name}: fit({kw}) did not raise")
+        try:
+            port.fit(model, iterations=1, batch_size=10)
+        except ValueError:
+            pass
+        else:
+            raise AssertionError(f"{name}: fit(batch_size=10) did not raise")
         step = make_sgd_train_step(port_masked_optimizer(model, LR), 10)
         try:
             step(model)
@@ -282,6 +289,167 @@ def _check_collapsed(rng, Xt, Yt):
             pass
         else:
             raise AssertionError(f"{name}: a minibatch step did not raise")
+        _check_collapsed_fit(name, jm, build)
+
+
+GUARD_STEPS = 40
+# scripted objectives for the guard: (name, steps whose loss is NaN, steps
+# whose gradient of "a" is NaN, overflow).  Step GUARD_STEPS is the chunk's
+# verification forward.  "overflow": one parameter at 1.7e308 pushed up by
+# updates of 1e307, so candidates overflow although loss and gradients are
+# finite.
+GUARD_SCRIPTS = [
+    ("no rejection", (), (), False),
+    ("one rejection mid-chunk", (17,), (), False),
+    ("two in a row, then 35 accepted (scale back to 1.0)", (), (3, 4), False),
+    ("rejection at the first step", (0,), (), False),
+    ("a non-finite gradient after a non-finite loss", (9,), (10, 20), False),
+    ("non-finite verification forward", (GUARD_STEPS,), (), False),
+    ("every step rejected", tuple(range(GUARD_STEPS + 1)), (), False),
+    ("overflowing candidates", (), (), True),
+]
+
+
+@jax.jit
+def _jax_guard_chunk(params, opt_state, lr, lin, quad, bad_loss, bad_grad):
+    """One chunk of the JAX guarded_scan on the scripted objective
+    sum(lin p) + 0.5 sum(quad (p - 1)^2)."""
+    def base(p):
+        return sum(jnp.sum(lin[k] * p[k])
+                   + 0.5 * jnp.sum(quad[k] * (p[k] - 1.0) ** 2) for k in p)
+
+    def loss_only(p, k):
+        return jnp.where(bad_loss[k], jnp.nan, base(p))
+
+    def loss_and_grads(p, k):
+        grads = jax.grad(base)(p)
+        grads = {**grads, "a": jnp.where(bad_grad[k], jnp.nan, grads["a"])}
+        return loss_only(p, k), grads
+
+    return jax_guarded_scan(loss_and_grads, loss_only, optax.adam(lr), params,
+                            opt_state, jnp.arange(GUARD_STEPS + 1))
+
+
+def _check_guard(rng):
+    """The port's guarded_scan against the JAX guarded_scan on the scripted
+    objectives, two chunks in a row (the second starts from the first's
+    parameters and Adam state): parameters, Adam moments and count, and
+    the reported nanmean."""
+    names = ("a", "b")
+    for script, nan_loss, nan_grad, overflow in GUARD_SCRIPTS:
+        p0 = {"a": rng.randn(3), "b": rng.randn(2, 2)}
+        lin = {k: np.zeros_like(v) for k, v in p0.items()}
+        quad = {"a": np.array([1.0, 4.0, 0.3]), "b": np.full((2, 2), 2.0)}
+        lr = 0.1
+        if overflow:
+            p0["a"] = np.array([1.7e308, 1.0, -1.0])
+            lin["a"] = np.array([-1.0, 0.0, 0.0])
+            quad = {k: np.zeros_like(v) for k, v in p0.items()}
+            lr = 1e307
+        bad_loss = np.zeros(GUARD_STEPS + 1, bool)
+        bad_grad = np.zeros(GUARD_STEPS + 1, bool)
+        bad_loss[list(nan_loss)] = True
+        bad_grad[list(nan_grad)] = True
+
+        def base(params):
+            return sum(torch.sum(torch.from_numpy(lin[k]) * p)
+                       + 0.5 * torch.sum(torch.from_numpy(quad[k])
+                                         * (p - 1.0) ** 2)
+                       for k, p in zip(names, params))
+
+        def loss_only(params, k):
+            return (torch.tensor(np.nan, dtype=torch.float64) if bad_loss[k]
+                    else base(params))
+
+        def loss_and_grads(params, k):
+            leaves = [p.detach().requires_grad_() for p in params]
+            grads = list(torch.autograd.grad(base(leaves), leaves))
+            if bad_grad[k]:
+                grads[0] = torch.full_like(grads[0], np.nan)
+            return loss_only(params, k), grads
+
+        jp = {k: jnp.asarray(v) for k, v in p0.items()}
+        jstate = optax.adam(lr).init(jp)
+        tp = [torch.from_numpy(p0[k].copy()) for k in names]
+        tx = Adam(tp, lr=lr)
+        tstate = tx.init()
+        rejected = 0
+        for chunk in range(2):
+            case = f"guard [{script}] chunk {chunk}"
+            jp, jstate, jloss = _jax_guard_chunk(
+                jp, jstate, lr, lin, quad, bad_loss, bad_grad)
+            tstate, tloss, r = guarded_scan(
+                loss_and_grads, loss_only, tx, tp, tstate,
+                range(GUARD_STEPS + 1))
+            rejected += r
+            assert_allclose(tloss, float(jloss), rtol=1e-9, equal_nan=True,
+                            err_msg=f"{case}: reported loss")
+            assert tstate.count == int(jstate[0].count), f"{case}: Adam count"
+            for k, p, mu, nu in zip(names, tp, tstate.mu, tstate.nu):
+                for what, got, want in (("parameter", p, jp[k]),
+                                        ("Adam mu", mu, jstate[0].mu[k]),
+                                        ("Adam nu", nu, jstate[0].nu[k])):
+                    assert_allclose(got.numpy(), np.asarray(want), rtol=1e-9,
+                                    atol=0, err_msg=f"{case}: {what} {k}")
+        assert all(torch.isfinite(p).all() for p in tp), (
+            f"guard [{script}]: non-finite parameters")
+        clean = script == "no rejection"
+        assert (rejected == 0) == clean, (
+            f"guard [{script}]: {rejected} rejected steps")
+        if script == "every step rejected":
+            assert rejected == 2 * (GUARD_STEPS + 1) and np.isnan(tloss) and all(
+                np.array_equal(p.numpy(), p0[k]) for k, p in zip(names, tp)
+            ), f"guard [{script}]: the state moved"
+
+
+def _check_collapsed_fit(name, jm, build):
+    """fit on a collapsed model: the guard on by fit's own rule.  A chunk
+    that is never rejected takes bit for bit the unguarded steps;
+    DGPDamianou (whose bound draws nothing) tracks the JAX fit;
+    DGPCollapsed trains to a finite, lower loss."""
+    cfg = port.Config(jitter=1e-6, solve_mode="inverse", use_pallas=True)
+
+    def fresh():
+        return port.load_reference_state(build(cfg), _flat(jm))
+
+    kw = dict(iterations=16, learning_rate=LR, scan_steps=8, log_every=8)
+    model, hist = port.fit(fresh(), **kw)
+    assert [h["iter"] for h in hist] == [8, 16] and all(
+        h["rejected"] == 0 for h in hist), f"{name}: fit history {hist}"
+    losses = [h["loss"] for h in hist]
+    assert np.isfinite(losses).all() and losses[1] < losses[0], (
+        f"{name}: fit loss {losses}")
+    if name != "DGPDamianou":
+        return
+    # two guarded chunks of 8 against 16 unguarded steps, bit for bit
+    plain = fresh()
+    step = make_sgd_train_step(port_masked_optimizer(plain, LR))
+    for _ in range(16):
+        step(plain)
+    for (pname, p), q in zip(model.named_parameters(), plain.parameters()):
+        assert torch.equal(p, q), (
+            f"{name}: a never-rejected guarded fit differs from the "
+            f"unguarded steps in {pname}")
+    guarded = make_scan_train_step(port_masked_optimizer(fresh(), LR),
+                                   inner_steps=8, reject_nonfinite=True)
+    assert guarded.rejected == 0, f"{name}: rejection counter"
+    _, off = port.fit(fresh(), reject_nonfinite=False, **kw)
+    assert "rejected" not in off[0], f"{name}: reject_nonfinite=False"
+    assert_allclose([h["loss"] for h in off], losses, rtol=1e-12,
+                    err_msg=f"{name}: fit with reject_nonfinite=False")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        _, short = port.fit(fresh(), iterations=8, learning_rate=LR,
+                            scan_steps=2)
+    assert any("raising scan_steps" in str(w.message) for w in caught), (
+        f"{name}: no 'raising scan_steps' warning at scan_steps=2")
+    assert_allclose(short[0]["loss"], losses[0], rtol=1e-12,
+                    err_msg=f"{name}: scan_steps=2 raised to 8")
+    with temp_config(jitter=1e-6, solve_mode="inverse", use_pallas=True):
+        _, jhist = jax_fit(jm, 16, learning_rate=LR, scan_steps=8,
+                           log_every=8)
+    assert_allclose(losses, [h["loss"] for h in jhist], rtol=1e-6,
+                    err_msg=f"{name}: fit history against the JAX fit")
 
 
 def _close(case, got, want):
@@ -362,6 +530,7 @@ def test_paths_match_jax():
         assert all(torch.isfinite(t).all() for t in r1), f"{name}: non-finite"
 
     _check_training(rng, X, Y, jmodel)
+    _check_guard(rng)
     _check_evaluate_regression(rng, X, Y, Xt, Yt)
     psi2_core.launches = 0
     _check_collapsed(rng, Xt, Yt)
