@@ -48,7 +48,8 @@ Phases, each of which raises on a failed check:
    ``evaluate_regression`` on the test split (raises unless RMSE and
    loglik are finite); 60 ``fit`` steps under ``use_pallas='saved'``
    (raises unless finite and 5 save-gram launches of each kind a step)
-   and under ``False`` (raises if any kernel launched); and whether two
+   and under ``False`` (raises if a kernel other than rbf_gram launched,
+   or rbf_gram other than 3 times a layer a step); and whether two
    20-step fits from one seed agree bit for bit (printed);
 7. timings with CUDA events (median of 30): each kernel and its plain
    version at the training shapes, with its bound; training steps/s of
@@ -124,17 +125,48 @@ Phases, each of which raises on a failed check:
    both cells' shapes (CUDA events, median of 30); the fits' steps/s per
    route (``fit``'s own per-chunk rate, median); and per model one guarded
    chunk of 8 training steps: host syncs a step and a torch.profiler
-   breakdown (device busy, device ops, idle share, top device ops).
+   breakdown (device busy, device ops, idle share, top device ops);
+16. (run right after phase 1) the rbf_gram kernel, which every RBF gram on
+   the card goes through, against its plain version and float64 at the
+   cells' Kuf shapes (M=100 x B=10,000 and 100,000, M=256 x N=7372 at D=8
+   and 2, M=100 x N=1500), ragged sizes and the square K(X, X) at M=100 and
+   B=200, in float32 and float64: raises if it differs from the plain
+   version by more than 1e-4 of scale, (float32) is more than 2x as far
+   from float64 as the plain float32 version, changes bits on a repeat, if
+   K(X, X) is not bitwise symmetric with its diagonal exactly var, or if
+   the backward through the Function differs from autograd through the
+   plain version by more than 1e-4 of scale per gradient tensor; its
+   refusals raise with no launch; CUDA-event and profiler times beside the
+   bound and the plain version's;
+17. the slice's main path, the DGP under the default numerics
+   (solve_mode='solve', use_pallas=False): the headline model built with
+   ``Config(dtype=float32, jitter=1e-5)``, fit for 100 steps with the
+   launch counts at 0 (raises unless rbf_gram launched 15 times a step,
+   3 a layer, nothing else launched, and the loss is finite and falls),
+   then with ``Config()`` itself (float64) for 20 steps (finite),
+   ``evaluate_regression``, and the ELBO gradient against the float64 CPU
+   path through the kernel and through the plain gram (inside
+   ``gram.plain_on_card()``, which only this script enters): raises unless
+   the kernel's worst error is within 2x the plain gram's;
+18. steps/s of fit on the solve route beside the inverse route, in turns,
+   and a profiled solve-route step;
+19. full covariances of the trained model at 200 test rows, S=10, fixed
+   draws: predict_f_full_cov and predict_all_layers_full_cov against the
+   float64 CPU path (layer 0 within 5e-3; every layer within 2x the plain
+   gram's error), the first layer's diagonal against the diagonal route,
+   every (N, N) slice symmetric, latencies; and predict_f_full_cov of
+   DGPCollapsed at collapsed_L2 (finite, symmetric).
 
-It prints a ``{"kernels": [...]}`` line (six records: forward, backward,
-save-gram forward, save-gram backward, psi2 forward, psi2 backward), the
-card's name and power limit, and as its last line ``{"ok": true,
-"device": {...}}``.
+It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
+save-gram forward, save-gram backward, psi2 forward, psi2 backward,
+rbf_gram), the card's name and power limit, and as its last line
+``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import statistics
@@ -153,7 +185,8 @@ from doubly_stochastic_dgp_tpu_torch import (  # noqa: E402
     SyntheticRegression, White, evaluate_regression, fit, make_server,
     precompute)
 from doubly_stochastic_dgp_tpu_torch.ops import psi_stats  # noqa: E402
-from doubly_stochastic_dgp_tpu_torch.ops.cuda import build, psi2  # noqa: E402
+from doubly_stochastic_dgp_tpu_torch.ops.cuda import (  # noqa: E402
+    build, gram, psi2)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (  # noqa: E402
     flops, flops_bwd, fused_conditional, fused_conditional_backward,
     fused_conditional_backward_plain, fused_conditional_forward,
@@ -164,6 +197,7 @@ from doubly_stochastic_dgp_tpu_torch.ops.linalg import (  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 FP32_PEAK = 67e12          # FLOP/s, fp32 outside the tensor cores
+FP64_PEAK = 34e12          # FLOP/s, fp64 outside the tensor cores
 HBM_RATE = 3.35e12         # bytes/s
 # exp results/s of the SFUs: 132 SMs x 16 a clock (the CUDA C++
 # Programming Guide's throughput table, compute capability 9.0: exp2 and
@@ -191,6 +225,9 @@ KERNELS = (
     ("psi2_core_backward", "psi2_bwd.cu",
      "doubly_stochastic_dgp_tpu/ops/pallas/psi2.py:305", psi2.psi2_core,
      "backward_launches"),
+    ("rbf_gram", "rbf_gram.cu",
+     "doubly_stochastic_dgp_tpu/ops/pallas/gram.py:67", gram.rbf_gram,
+     "launches"),
 )
 KERNEL_NAMES = [k[0] for k in KERNELS]
 # kernel vs plain float32 on the same inputs: both are float32 with
@@ -390,18 +427,19 @@ def phase_kernels(seed):
 # ---------------------------------------------------------------------------
 
 def build_model(seed, device="cuda", dtype=torch.float32, use_pallas=True,
-                num_samples=1, random_posterior=True):
+                num_samples=1, random_posterior=True, config=None):
     """The headline model (bench.py's build_regression at BASELINE.json's
     width) on kin8nm-shaped synthetic data; Z is a seeded random subset
-    of X."""
+    of X.  Numerics: ``config``, else float32 or float64, jitter 1e-5,
+    ``solve_mode='inverse'`` and ``use_pallas``."""
     data = SyntheticRegression(N=8192, D=8).get_data(split=0)
     X, Y = data["X"], data["Y"]
     rng = np.random.RandomState(seed)
     Z = X[rng.choice(X.shape[0], M, replace=False)]
     kernels = [RBF(8) + White(8, variance=2e-6, trainable=False)
                for _ in range(LAYERS - 1)] + [RBF(8)]
-    cfg = Config(dtype=dtype, jitter=1e-5, solve_mode="inverse",
-                 use_pallas=use_pallas)
+    cfg = config or Config(dtype=dtype, jitter=1e-5, solve_mode="inverse",
+                           use_pallas=use_pallas)
     model = DGP.build(X, Y, Z, kernels, Gaussian(0.05), config=cfg,
                       num_samples=num_samples, device=device)
     # near-deterministic inner layers (reference run_regression.py)
@@ -616,40 +654,50 @@ def loss_grads(model, idx, zs):
     return loss.item(), named_grads(model)
 
 
-def check_gradient(model, seed):
-    """The ELBO gradient of the float32 card paths at a fixed minibatch
-    and fixed draws against the port's float64 CPU path: per parameter
-    tensor, max |g - g64| / max |g64|; the kernel path's worst must be
-    within 2x the plain (use_pallas=False) float32 path's worst."""
-    state = model.state_dict()
-    models = {"kernel f32": model}
-    for name, kw in (("plain f32", dict(use_pallas=False)),
-                     ("f64 cpu", dict(device="cpu", dtype=torch.float64))):
-        m, _ = build_model(seed, num_samples=TRAIN_S, random_posterior=False,
-                           **kw)
-        m.load_state_dict(state)
-        models[name] = m
+def gradient_errors(label, runs, ref, seed):
+    """The ELBO gradient of each float32 card run {name: (model, context
+    it runs in)} at a fixed minibatch and fixed draws against the float64
+    CPU model ``ref`` (the same parameters): per parameter tensor, max |g -
+    g64| / max |g64|.  Returns {name: worst over the tensors}."""
     rng = np.random.RandomState(seed + 3)
-    idx = rng.randint(0, model.X_data.shape[0], BATCH)
+    idx = rng.randint(0, ref.X_data.shape[0], BATCH)
     zs = [rng.randn(TRAIN_S, BATCH, d) for d in (8,) * (LAYERS - 1) + (1,)]
-    out = {name: loss_grads(m, torch.as_tensor(idx, device=m.X_data.device),
-                            zs) for name, m in models.items()}
-    l64, g64 = out.pop("f64 cpu")
+    l64, g64 = loss_grads(ref, torch.as_tensor(idx), zs)
     worst = {}
-    for name, (loss, grads) in out.items():
+    for name, (m, context) in runs.items():
+        with context:
+            loss, grads = loss_grads(
+                m, torch.as_tensor(idx, device=m.X_data.device), zs)
         check(all(bool(torch.isfinite(g).all()) for g in grads.values()),
-              f"ELBO gradient ({name}) not finite")
+              f"ELBO gradient ({label} {name}) not finite")
         errs = {p: ((g - g64[p]).abs().max()
                     / g64[p].abs().max().clamp_min(1e-30)).item()
                 for p, g in grads.items()}
         worst[name] = max(errs.values())
         top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
-        print(f"training gradient {name} vs f64 (batch {BATCH}, S="
+        print(f"{label} gradient {name} vs f64 (batch {BATCH}, S="
               f"{TRAIN_S}, fixed draws): loss {loss:.6f} vs {l64:.6f}; "
               f"worst relative error over {len(errs)} tensors "
               f"{worst[name]:.3e} ("
               + ", ".join(f"{p} {e:.2e}" for p, e in top) + ")",
               flush=True)
+    return worst
+
+
+def check_gradient(model, seed):
+    """The ELBO gradient of the float32 card paths against the port's
+    float64 CPU path: the kernel path's worst relative error must be
+    within 2x the plain (use_pallas=False) float32 path's worst."""
+    state = model.state_dict()
+    runs = {"kernel f32": (model, contextlib.nullcontext())}
+    for name, kw in (("plain f32", dict(use_pallas=False)),
+                     ("f64 cpu", dict(device="cpu", dtype=torch.float64))):
+        m, _ = build_model(seed, num_samples=TRAIN_S, random_posterior=False,
+                           **kw)
+        m.load_state_dict(state)
+        runs[name] = (m, contextlib.nullcontext())
+    ref, _ = runs.pop("f64 cpu")
+    worst = gradient_errors("training", runs, ref, seed)
     check(worst["kernel f32"] <= 2.0 * worst["plain f32"],
           f"ELBO gradient through the kernels {worst['kernel f32']} > 2x "
           f"the plain float32 path's {worst['plain f32']}")
@@ -699,7 +747,11 @@ def phase_training(seed):
                   and c["fused_conditional_saved_backward"] == LAYERS * 60,
                   f"saved launches {c} != {LAYERS} a step")
         else:
-            check(not any(c.values()), f"use_pallas=False launched {c}")
+            check(not any(k for n, k in c.items() if n != "rbf_gram"),
+                  f"use_pallas=False launched {c}")
+            check(c["rbf_gram"] == 3 * LAYERS * 60,
+                  f"use_pallas=False: rbf_gram launches {c['rbf_gram']} != "
+                  f"3 a layer a step (Kuf, Kuu, the KL's Kuu)")
 
     runs = []
     for _ in range(2):
@@ -716,27 +768,31 @@ def phase_training(seed):
     return model, launches, grad_worst, metrics, same
 
 
-def phase_steps_per_s(seed, card):
-    """Training steps/s of ``fit`` for each route, measured in turns (3
-    rounds of a 30-step fit per route) so that the shared host's load
-    falls alike on all three: the median of the 10-step chunk rates,
+def steps_per_s(models, seed, card, label):
+    """Training steps/s of ``fit`` for each {route: model}, measured in
+    turns (3 rounds of a 30-step fit per route) so that the shared host's
+    load falls alike on all: the median of the 10-step chunk rates,
     leaving out each fit's first chunk (optimizer set-up)."""
-    routes = (True, "saved", False)
-    models = {r: build_model(seed, num_samples=TRAIN_S,
-                             random_posterior=False, use_pallas=r)[0]
-              for r in routes}
-    samples = {r: [] for r in routes}
+    samples = {r: [] for r in models}
     for i in range(3):
-        for r in routes:
-            hist, _ = run_fit(models[r], 30, seed + i)
+        for r, m in models.items():
+            hist, _ = run_fit(m, 30, seed + i)
             samples[r] += [h["iters_per_sec"] for h in hist[1:]]
-    rates = {str(r): statistics.median(v) for r, v in samples.items()}
-    print("training steps/s of fit (median of 6 ten-step chunks, in turns; "
+    rates = {r: statistics.median(v) for r, v in samples.items()}
+    print(f"{label} steps/s of fit (median of 6 ten-step chunks, in turns; "
           "range): " + ", ".join(
-              f"use_pallas={r!r} {rates[str(r)]:.2f} ({min(v):.2f}-"
-              f"{max(v):.2f})" for r, v in samples.items())
-          + f" [{card}]", flush=True)
+              f"{r} {rates[r]:.2f} ({min(v):.2f}-{max(v):.2f})"
+              for r, v in samples.items()) + f" [{card}]", flush=True)
     return rates
+
+
+def phase_steps_per_s(seed, card):
+    """Steps/s of the three use_pallas routes, in turns."""
+    models = {f"use_pallas={r!r}": build_model(
+        seed, num_samples=TRAIN_S, random_posterior=False, use_pallas=r)[0]
+        for r in (True, "saved", False)}
+    rates = steps_per_s(models, seed, card, "training")
+    return {r.split("=")[1].strip("'"): v for r, v in rates.items()}
 
 
 def phase_training_timings(seed, card):
@@ -786,7 +842,7 @@ def phase_training_timings(seed, card):
     return shapes
 
 
-def phase_training_profile(model, seed, card):
+def phase_training_profile(model, seed, card, route="use_pallas=True"):
     """One training step's device time by kernel (mean of 5 profiled
     steps) against the unprofiled step wall time (median of 20)."""
     from torch.profiler import ProfilerActivity, profile
@@ -825,15 +881,16 @@ def phase_training_profile(model, seed, card):
         torch.cuda.synchronize()
         prof_wall = 1e3 * (time.perf_counter() - t0) / 5
     found = device_breakdown(prof, 5)
-    print(f"timing training step (use_pallas=True, batch {BATCH}, S="
+    print(f"timing training step ({route}, batch {BATCH}, S="
           f"{TRAIN_S}), synchronized each step: median {wall:.3f} ms over "
           f"20 (all: {', '.join(f'{t:.3f}' for t in times)}) [{card}]",
           flush=True)
     if found is None:
-        print("profile training step: device time not measured", flush=True)
+        print(f"profile training step ({route}): device time not measured",
+              flush=True)
         return {"step_ms": wall, "busy_ms": None, "host_syncs": syncs}
     busy, ops, top = found
-    print(f"profile training step: device busy {busy:.3f} ms in {ops:.0f} "
+    print(f"profile training step ({route}): device busy {busy:.3f} ms in {ops:.0f} "
           f"device ops; wall {prof_wall:.3f} ms under the profiler, "
           f"{wall:.3f} ms without (idle share {1 - busy / wall:.2f} of the "
           f"unprofiled wall); top device ops: {top}", flush=True)
@@ -854,7 +911,8 @@ EXPECTED = {"damianou_large": {"bound": (1, 0), "predict": (1, 0)},
             "collapsed_L2": {"bound": (1, 1), "predict": (1, 2)}}
 # (dtype, psi2_impl, use_pallas) of each route: the plain route differs
 # from the kernel route in psi2 only; float64 takes the plain versions of
-# both kernels (the CUDA kernels take float32)
+# psi2 and the fused conditional (their kernels take float32) and the
+# float64 rbf_gram kernel
 ROUTES = {"kernel": (torch.float32, "auto", True),
           "plain": (torch.float32, "xla", True),
           "f64": (torch.float64, "xla", False)}
@@ -1637,6 +1695,471 @@ def phase_collapsed_step_profile(collapsed, seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 16-19: the rbf_gram kernel; the DGP under the default numerics
+# (solve_mode='solve') and its full-covariance predictions
+# ---------------------------------------------------------------------------
+
+# (case, rows N, columns M, D): the cells' Kuf grams K(Z, X), M inducing
+# rows against the batch (training B=10,000; serving 100,000;
+# damianou_large's 7372 rows at both widths; collapsed_L2's 1500), ragged
+# sizes (one with two 16-dim chunks), and the square K(X, X) at M=100 and
+# at the full-covariance batch (M None: X against itself)
+GRAM_CASES = [("Kuf_M100_B10000_D8", 100, 10000, 8),
+              ("Kuf_M100_B100000_D8", 100, 100000, 8),
+              ("Kuf_M256_N7372_D8", 256, 7372, 8),
+              ("Kuf_M256_N7372_D2", 256, 7372, 2),
+              ("Kuf_M100_N1500_D8", 100, 1500, 8),
+              ("ragged_N77_M1301_D3", 77, 1301, 3),
+              ("ragged_N1000_M33_D19", 1000, 33, 19),
+              ("square_M100_D8", 100, None, 8),
+              ("square_B200_D8", 200, None, 8)]
+GRAM_TIMED = 5                      # the first five cases are timed
+GRAM_NAMES = ("dX", "dZ", "dls", "dvar")
+SOLVE_STEPS, SOLVE_F64_STEPS = 100, 20
+# rbf_gram launches a layer a step on the solve and inverse routes: Kuf
+# and Kuu in the conditional, and Kuu again in the KL term
+GRAMS_PER_LAYER_STEP = 3
+FULL_COV_N = 200
+# float32 full-covariance sampling: from layer 1 on, the error of the
+# samples against float64 grows about tenfold a layer on both gram routes
+# (the float32 Cholesky of the (200, 200) covariances; the diagonal route
+# stays flat; PERF.md §6), so layer 0 is held to F32_PATH_ATOL and every
+# layer to 2x the plain gram's error
+# float32 roundoff: the first layer's full-covariance diagonal against the
+# diagonal route (the same products summed in another order), and the
+# asymmetry of A^T (SK A); both relative to the variance's scale
+FULL_COV_DIAG_RTOL = 1e-5
+FULL_COV_SYM_RTOL = 1e-4
+
+
+def gram_inputs(N, M_, D, seed):
+    """float64 (X, Z, lengthscales, variance) on the card: unit-normal
+    rows, ARD lengthscales in [0.8, 2], variance 1.3; Z is X when M_ is
+    None (the square gram)."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(N, D)
+    Z = X if M_ is None else rng.randn(M_, D)
+    arrays = (X, Z, rng.uniform(0.8, 2.0, D), np.float64(1.3))
+    out = [torch.tensor(a, dtype=torch.float64, device="cuda")
+           for a in arrays]
+    if M_ is None:
+        out[1] = out[0]
+    return out
+
+
+def check_gram_refusals():
+    """On CUDA tensors the kernel wrapper launches or raises: a
+    non-contiguous operand, mixed or unsupported dtypes, a CPU operand, a
+    variance of two values, and (the Function) float64 lengthscales on
+    float32 inputs raise, and nothing launches."""
+    n = gram.rbf_gram.launches
+    X = torch.randn(64, 3, device="cuda")
+    Z = torch.randn(40, 3, device="cuda")
+    v = torch.tensor(1.3, device="cuda")
+    k = gram.rbf_gram_kernel
+    cases = (
+        ("non-contiguous Xs",
+         lambda: k(torch.randn(3, 64, device="cuda").T, Z, v), ValueError),
+        ("float64 Zs with float32 Xs", lambda: k(X, Z.double(), v),
+         TypeError),
+        ("float64 variance", lambda: k(X, Z, v.double()), TypeError),
+        ("float16", lambda: k(X.half(), Z.half(), v.half()), TypeError),
+        ("CPU Xs", lambda: k(X.cpu(), Z, v), ValueError),
+        ("two-element variance", lambda: k(X, Z, torch.ones(2, device="cuda")),
+         ValueError),
+        ("rbf_gram, float64 lengthscales on float32 X",
+         lambda: gram.rbf_gram(X, Z, torch.ones(3, dtype=torch.float64,
+                                                device="cuda"), v),
+         TypeError))
+    for case, fn, err in cases:
+        raised = None
+        try:
+            fn()
+        except err as e:
+            raised = e
+        check(raised is not None, f"rbf_gram on CUDA, {case}: did not raise "
+                                  f"{err.__name__}")
+    check(gram.rbf_gram.launches == n, "a refused rbf_gram call launched")
+    print("rbf_gram kernel on CUDA: raises on a non-contiguous operand, "
+          "mixed dtypes, float16, a CPU operand, a two-element variance and "
+          "(the Function) float64 lengthscales on float32 inputs; no launch",
+          flush=True)
+
+
+def gram_grads(fn, X, Z, ls, v, g, square):
+    """Gradients of sum(fn(X, Z, ls, v) * g) in X, Z (not for the square
+    gram, whose Z is X), ls and v."""
+    leaves = [t.detach().clone().requires_grad_() for t in (X, Z, ls, v)]
+    if square:
+        leaves[1] = leaves[0]
+    torch.autograd.backward(fn(*leaves), g)
+    return [t.grad for i, t in enumerate(leaves) if not (square and i == 1)]
+
+
+def gram_bound_ms(N, M_, D, dtype):
+    """The least time of one call: its bytes (X, Z, lengthscales,
+    variance read once, K written once) over the HBM rate, or its
+    operations: in float32 the flops over the fp32 peak and the exps over
+    the SFU exp rate; in float64 the flops, the exps' fp64 instructions
+    included, over the fp64 peak."""
+    item = torch.finfo(dtype).bits // 8
+    times = {"bytes": gram.bytes_moved(N, M_, D, item) / HBM_RATE}
+    if dtype == torch.float32:
+        times["operations"] = max(gram.flops(N, M_, D) / FP32_PEAK,
+                                  gram.exps(N, M_) / SFU_EXP_RATE)
+    else:
+        times["operations"] = (gram.flops(N, M_, D) + gram.F64_EXP_FLOPS
+                               * gram.exps(N, M_)) / FP64_PEAK
+    by = max(times, key=times.get)
+    return 1e3 * times[by], by
+
+
+def device_ms(fn, name, n=20):
+    """Device time of one launch of the kernel whose name holds ``name``:
+    torch.profiler over n calls (the CUDA-event times of a small kernel
+    also hold the host's time between the events)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages()
+             if e.device_type.name == "CUDA" and name in e.key]
+    if not found:
+        return None
+    return sum(e.self_device_time_total for e in found) / (1e3 * n)
+
+
+def sass_fp64_opcodes():
+    """fp64 opcode counts of the float64 kernel's SASS (cuobjdump), the
+    source of gram.F64_EXP_FLOPS; None where cuobjdump is missing."""
+    exe = "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(exe):
+        return None
+    lib = build._target("rbf_gram")
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=120).stdout
+    counts, inside = {}, False
+    for line in out.splitlines():
+        if "Function :" in line:
+            inside = "rbf_gram_kernelIdLb0E" in line
+        elif inside and "/*" in line and ";" in line:
+            op = line.split("*/")[1].strip().split()[0]
+            if op.startswith("@"):
+                op = line.split("*/")[1].strip().split()[1]
+            op = op.split(".")[0]
+            if op in ("DADD", "DFMA", "DMUL", "DSETP", "MUFU"):
+                counts[op] = counts.get(op, 0) + 1
+    return counts
+
+
+def phase_gram_kernel(seed, card):
+    """rbf_gram against its plain version (same dtype) and against the
+    float64 plain version, in float32 and float64; repeats bit-identical;
+    the square gram bitwise symmetric with its diagonal exactly var; the
+    backward through the Function against autograd through the plain
+    version per gradient tensor; timings at the cells' shapes.  Returns
+    the float32 worst errors and the timed shapes (launches here are not
+    counted)."""
+    counts = launch_counts()
+    check_gram_refusals()
+    worst, shapes = [0.0] * 4, []
+    for i, (case, N, M_, D) in enumerate(GRAM_CASES):
+        square = M_ is None
+        a64 = gram_inputs(N, M_, D, seed + i)
+        Mc = N if square else M_
+        g64 = torch.tensor(np.random.RandomState(seed + 50 + i).randn(N, Mc),
+                           dtype=torch.float64, device="cuda")
+        for dtype in (torch.float32, torch.float64):
+            tag = f"{case} {str(dtype).split('.')[1]}"
+            X, Z, ls, v = (t.to(dtype) for t in a64)
+            if square:
+                Z = X
+            with torch.no_grad():
+                fwd = lambda: (gram.rbf_gram(X, Z, ls, v),)  # noqa: E731
+                got = fwd()
+                torch.cuda.synchronize()
+                plain = (gram.rbf_gram_plain(X, Z, ls, v),)
+                ref = (gram.rbf_gram_plain(*a64),)
+                errs = compare(got, plain, ref, joint_scale=True)
+                check_repeat("rbf_gram", tag, fwd, got)
+            if dtype == torch.float32:
+                hold("rbf_gram", tag, errs)
+                worst = list(map(max, worst, errs))
+                with torch.no_grad():
+                    other = gram.rbf_gram_kernel(
+                        (X / ls).contiguous(), (Z / ls).contiguous(), v,
+                        fast_exp=not gram.FAST_EXP)
+                e_other = compare((other,), plain, ref, joint_scale=True)[2]
+                print(f"kernel rbf_gram {tag}: exp variant in use "
+                      f"{'__expf' if gram.FAST_EXP else 'expf'}; the other's "
+                      f"error vs f64 {e_other:.3e} of scale", flush=True)
+            else:
+                print(f"kernel rbf_gram {tag}: |kernel-plain| {errs[0]:.3e} "
+                      f"({errs[1]:.3e} of scale)", flush=True)
+                check(errs[1] <= KERNEL_VS_PLAIN_RTOL,
+                      f"rbf_gram {tag}: kernel vs plain {errs[1]} > "
+                      f"{KERNEL_VS_PLAIN_RTOL} of the output scale")
+            if square:
+                K = got[0]
+                check(torch.equal(K, K.T), f"rbf_gram {tag}: K(X, X) is not "
+                                           f"bitwise symmetric")
+                check(bool((torch.diagonal(K) == v).all()),
+                      f"rbf_gram {tag}: the diagonal is not exactly var")
+            g = g64.to(dtype)
+            kg = gram_grads(gram.rbf_gram, X, Z, ls, v, g, square)
+            pg = gram_grads(gram.rbf_gram_plain, X, Z, ls, v, g, square)
+            rg = gram_grads(gram.rbf_gram_plain, *a64, g64, square)
+            b_errs = compare(kg, pg, rg, joint_scale=False)
+            names = [n for n in GRAM_NAMES if not (square and n == "dZ")]
+            per = ", ".join(
+                f"{n} {(k.double() - r).abs().max().item() / max(r.abs().max().item(), 1.0):.2e}"
+                f"/{(p.double() - r).abs().max().item() / max(r.abs().max().item(), 1.0):.2e}"
+                for n, k, p, r in zip(names, kg, pg, rg))
+            print(f"kernel rbf_gram backward {tag}: |Function-plain| "
+                  f"{b_errs[1]:.3e} of scale; error vs f64 of scale, "
+                  f"Function/plain: {per}", flush=True)
+            check(b_errs[1] <= KERNEL_VS_PLAIN_RTOL,
+                  f"rbf_gram backward {tag}: Function vs plain autograd "
+                  f"{b_errs[1]} > {KERNEL_VS_PLAIN_RTOL} of scale")
+            if i >= GRAM_TIMED:
+                continue
+            Xs, Zs = (X / ls).contiguous(), (Z / ls).contiguous()
+            with torch.no_grad():
+                k_ms = event_ms(lambda: gram.rbf_gram_kernel(Xs, Zs, v))
+                f_ms = event_ms(lambda: gram.rbf_gram(X, Z, ls, v))
+                p_ms = event_ms(lambda: gram.rbf_gram_plain(X, Z, ls, v))
+                d_ms = device_ms(lambda: gram.rbf_gram_kernel(Xs, Zs, v),
+                                 "rbf_gram_kernel")
+            b_ms, b_by = gram_bound_ms(N, Mc, D, dtype)
+            shapes.append({"case": case, "dtype": str(dtype), "N": N,
+                           "M": Mc, "D": D, "ms": k_ms, "device_ms": d_ms,
+                           "function_ms": f_ms, "plain_ms": p_ms,
+                           "bound_ms": b_ms, "bound_by": b_by})
+            d_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+            print(f"timing rbf_gram {tag}: kernel {k_ms:.4f} ms (device time "
+                  f"a launch under torch.profiler {d_txt}; with the "
+                  f"lengthscale scaling {f_ms:.4f} ms), plain {p_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms ({b_by}), library call: none "
+                  f"[{card}]", flush=True)
+    ops = sass_fp64_opcodes()
+    print(f"rbf_gram float64 kernel SASS opcode counts: {ops}", flush=True)
+    set_launch_counts(counts)
+    return worst, shapes
+
+
+@contextlib.contextmanager
+def plain_gram():
+    """gram.plain_on_card(), checked: rbf_gram launches nothing inside."""
+    n = gram.rbf_gram.launches
+    with gram.plain_on_card():
+        yield
+    check(gram.rbf_gram.launches == n, "plain_on_card() launched rbf_gram")
+
+
+def solve_config(dtype):
+    """The default numerics: Config() itself in float64; in float32 the
+    same with jitter 1e-5 (solve_mode='solve', use_pallas=False)."""
+    if dtype == torch.float64:
+        return Config()
+    return Config(dtype=torch.float32, jitter=1e-5)
+
+
+def phase_solve_dgp(seed, card):
+    """The slice's main path: the headline model under the default
+    numerics, fit in float32 (and in float64 with Config() itself), with
+    its rbf_gram launches a step; evaluate_regression; the ELBO gradient
+    through the kernel against the plain gram."""
+    model, data = build_model(seed, num_samples=TRAIN_S,
+                              random_posterior=False,
+                              config=solve_config(torch.float32))
+    hist, counts = run_fit(model, SOLVE_STEPS, seed)
+    losses = [h["loss"] for h in hist]
+    want = GRAMS_PER_LAYER_STEP * LAYERS * SOLVE_STEPS
+    rate = statistics.median(h["iters_per_sec"] for h in hist[1:])
+    print(f"solve route float32 (Config(dtype=float32, jitter=1e-5), "
+          f"solve_mode='solve'): fit {SOLVE_STEPS} Adam steps, batch {BATCH}"
+          f", S={TRAIN_S}: loss {losses[0]:.3f} (steps 1-10) -> "
+          f"{losses[-1]:.3f} (last 10); steps/s median of the chunks after "
+          f"the first {rate:.2f}; rbf_gram launches {counts['rbf_gram']}"
+          f" = {counts['rbf_gram'] / SOLVE_STEPS:.0f} a step (expected "
+          f"{GRAMS_PER_LAYER_STEP} a layer: Kuf, Kuu, the KL's Kuu); all: "
+          f"{counts} [{card}]", flush=True)
+    check(counts["rbf_gram"] == want,
+          f"solve route: rbf_gram launches {counts['rbf_gram']} != {want}")
+    check(not any(c for n, c in counts.items() if n != "rbf_gram"),
+          f"solve route launched another kernel: {counts}")
+    check(all(np.isfinite(losses)), "solve route: loss not finite")
+    check(losses[-1] < losses[0], f"solve route: loss did not fall {losses}")
+
+    m64, _ = build_model(seed, num_samples=TRAIN_S, random_posterior=False,
+                         config=solve_config(torch.float64))
+    h64, c64 = run_fit(m64, SOLVE_F64_STEPS, seed)
+    print(f"solve route float64 (Config()): fit {SOLVE_F64_STEPS} steps: "
+          f"loss {h64[0]['loss']:.3f} -> {h64[-1]['loss']:.3f}; steps/s of "
+          f"the second chunk {h64[-1]['iters_per_sec']:.2f}; rbf_gram "
+          f"launches {c64['rbf_gram']} [{card}]", flush=True)
+    check(all(np.isfinite([h["loss"] for h in h64])),
+          "solve route float64: loss not finite")
+    check(c64["rbf_gram"] == GRAMS_PER_LAYER_STEP * LAYERS * SOLVE_F64_STEPS,
+          f"solve route float64: rbf_gram launches {c64['rbf_gram']}")
+    del m64
+
+    metrics = evaluate_regression(model, data["Xs"], data["Ys"],
+                                  data["Y_std"], S=100, seed=seed)
+    print(f"solve route evaluate_regression on the {len(data['Xs'])}-row "
+          f"test split, S=100: rmse {metrics['rmse']:.6f}, loglik "
+          f"{metrics['loglik']:.6f}", flush=True)
+    check(np.isfinite(metrics["rmse"]) and np.isfinite(metrics["loglik"]),
+          "solve route: test metrics not finite")
+
+    ref, _ = build_model(seed, device="cpu", num_samples=TRAIN_S,
+                         random_posterior=False,
+                         config=Config(dtype=torch.float64, jitter=1e-5))
+    ref.load_state_dict(model.state_dict())
+    print("solve route gradient: the plain-gram reference runs inside "
+          "gram.plain_on_card() (rbf_gram's plain version on the card; set "
+          "by chip_smoke.py only)", flush=True)
+    worst = gradient_errors(
+        "solve route", {"kernel f32": (model, contextlib.nullcontext()),
+                        "plain gram f32": (model, plain_gram())},
+        ref, seed)
+    check(worst["kernel f32"] <= 2.0 * worst["plain gram f32"],
+          f"solve route ELBO gradient through rbf_gram {worst['kernel f32']}"
+          f" > 2x the plain gram's {worst['plain gram f32']}")
+    return model, data, {"losses": [losses[0], losses[-1]],
+                         "f64_losses": [h64[0]["loss"], h64[-1]["loss"]],
+                         "launches_per_step": counts["rbf_gram"]
+                         / SOLVE_STEPS, "test_metrics": metrics,
+                         "grad_rel_err": worst}, counts["rbf_gram"]
+
+
+def phase_solve_timings(model, seed, card):
+    """steps/s of fit on the solve route beside the inverse route (both
+    float32, use_pallas=False, in turns), and a profiled solve-route
+    step."""
+    models = {"solve": build_model(seed, num_samples=TRAIN_S,
+                                   random_posterior=False,
+                                   config=solve_config(torch.float32))[0],
+              "inverse": build_model(seed, num_samples=TRAIN_S,
+                                     random_posterior=False,
+                                     use_pallas=False)[0]}
+    rates = steps_per_s(models, seed, card, "solve vs inverse route")
+    del models
+    step = phase_training_profile(model, seed, card,
+                                  route="solve_mode='solve'")
+    return rates, step
+
+
+def max_diff(a, b):
+    return max((x.double().cpu() - y.double().cpu()).abs().max().item()
+               for x, y in zip(a, b))
+
+
+def asymmetry(var):
+    """max |V - V^T| over the (N, N) slices of var (S, N, N, D), relative
+    to the variance's scale."""
+    return ((var - var.transpose(1, 2)).abs().max()
+            / var.abs().max().clamp_min(1.0)).item()
+
+
+def layer_errors(got, ref):
+    """Per layer, max |d| over F, mean and var of two propagations."""
+    return [max_diff(g, r) for g, r in zip(zip(*got), zip(*ref))]
+
+
+def phase_full_cov(model, data, seed, card):
+    """predict_f_full_cov and predict_all_layers_full_cov of the trained
+    float32 solve-route model at 200 test rows, S=10, fixed draws, against
+    the float64 CPU path, through the kernel and through the plain gram
+    (2x rule), layer 0 also absolutely; the diagonal route's errors beside
+    them; the first layer's diagonal against the diagonal route; every
+    (N, N) slice symmetric; then DGPCollapsed at collapsed_L2."""
+    xs = data["Xs"][:FULL_COV_N]
+    rng = np.random.RandomState(seed + 13)
+    zs = [rng.randn(TRAIN_S, FULL_COV_N, d)
+          for d in (8,) * (LAYERS - 1) + (1,)]
+    ref, _ = build_model(seed, device="cpu", num_samples=TRAIN_S,
+                         random_posterior=False,
+                         config=Config(dtype=torch.float64, jitter=1e-5))
+    ref.load_state_dict(model.state_dict())
+    times = {}
+    for what, fn in (("predict_f_full_cov", model.predict_f_full_cov),
+                     ("predict_all_layers_full_cov",
+                      model.predict_all_layers_full_cov)):
+        runs = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn(xs, S=TRAIN_S, zs=zs)
+            torch.cuda.synchronize()
+            runs.append(1e3 * (time.perf_counter() - t0))
+        times[what] = statistics.median(runs)
+    fm, fv = model.predict_f_full_cov(xs, S=TRAIN_S, zs=zs)
+    full = model.predict_all_layers_full_cov(xs, S=TRAIN_S, zs=zs)
+    with plain_gram():
+        pfull = model.predict_all_layers_full_cov(xs, S=TRAIN_S, zs=zs)
+    rm, rv = ref.predict_f_full_cov(xs, S=TRAIN_S, zs=zs)
+    rfull = ref.predict_all_layers_full_cov(xs, S=TRAIN_S, zs=zs)
+    diag = model.predict_all_layers(xs, S=TRAIN_S, zs=zs)
+    rdiag = ref.predict_all_layers(xs, S=TRAIN_S, zs=zs)
+    for t in (fm, fv, *full[0], *full[1], *full[2]):
+        check(bool(torch.isfinite(t).all()), "full-cov output not finite")
+    check(tuple(fv.shape) == (TRAIN_S, FULL_COV_N, FULL_COV_N, 1),
+          f"predict_f_full_cov var shape {tuple(fv.shape)}")
+    errs = {"kernel": layer_errors(full, rfull),
+            "plain gram": layer_errors(pfull, rfull),
+            "diagonal route": layer_errors(diag, rdiag)}
+    d_f = max_diff((fm, fv), (rm, rv))
+    diag0 = torch.diagonal(full[2][0], dim1=1, dim2=2).transpose(1, 2)
+    e_diag = ((diag0 - diag[2][0]).abs().max()
+              / diag[2][0].abs().max().clamp_min(1.0)).item()
+    asym = max(asymmetry(v) for v in full[2])
+    print(f"full cov solve route f32 ({FULL_COV_N} test rows, S={TRAIN_S}, "
+          f"fixed draws) vs the f64 CPU path, max |d| over F, mean, var per "
+          f"layer: " + "; ".join(f"{k} " + ", ".join(f"{e:.2e}" for e in v)
+                                  for k, v in errs.items())
+          + f"; predict_f_full_cov {d_f:.3e}; layer 0 diagonal vs the "
+          f"diagonal route {e_diag:.3e} of scale; worst asymmetry "
+          f"{asym:.3e} of scale; latency predict_f_full_cov "
+          f"{times['predict_f_full_cov']:.3f} ms, predict_all_layers_full_cov"
+          f" {times['predict_all_layers_full_cov']:.3f} ms (median of 5) "
+          f"[{card}]", flush=True)
+    check(errs["kernel"][0] <= F32_PATH_ATOL,
+          f"full cov layer 0 f32 vs f64: {errs['kernel'][0]} > "
+          f"{F32_PATH_ATOL}")
+    check(max(errs["kernel"]) <= 2.0 * max(errs["plain gram"]),
+          f"full cov through rbf_gram {max(errs['kernel'])} > 2x the plain "
+          f"gram's {max(errs['plain gram'])}")
+    check(e_diag <= FULL_COV_DIAG_RTOL,
+          f"full cov layer 0 diagonal vs the diagonal route {e_diag} > "
+          f"{FULL_COV_DIAG_RTOL}")
+    check(asym <= FULL_COV_SYM_RTOL,
+          f"full cov asymmetry {asym} > {FULL_COV_SYM_RTOL}")
+
+    build, _ = collapsed_models(SyntheticRegression(N=8192, D=8).get_data(
+        split=0), seed)
+    cm = build("collapsed_L2", *ROUTES["kernel"])
+    t0 = time.perf_counter()
+    cmean, cvar = cm.predict_f_full_cov(xs, S=TRAIN_S)
+    torch.cuda.synchronize()
+    c_ms = 1e3 * (time.perf_counter() - t0)
+    c_asym = asymmetry(cvar)
+    print(f"full cov collapsed_L2 (DGPCollapsed, kernel route) "
+          f"predict_f_full_cov, {FULL_COV_N} rows, S={TRAIN_S}: var "
+          f"{tuple(cvar.shape)}, asymmetry {c_asym:.3e} of scale, "
+          f"{c_ms:.3f} ms (first call) [{card}]", flush=True)
+    check(bool(torch.isfinite(cmean).all() and torch.isfinite(cvar).all()),
+          "collapsed_L2 full cov not finite")
+    check(c_asym <= FULL_COV_SYM_RTOL,
+          f"collapsed_L2 full cov asymmetry {c_asym}")
+    return {"layer_errors_vs_f64": errs, "predict_f_full_cov_vs_f64": d_f,
+            "diag_rel_err": e_diag,
+            "asymmetry": asym, "latency_ms": times,
+            "collapsed_L2_ms": c_ms, "collapsed_L2_asymmetry": c_asym}
+
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1657,21 +2180,41 @@ def main():
         print(f"built {name}.cu:\n{out.strip()[-1500:]}", flush=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
 
+    def lap(phase):
+        print(f"phase {phase} done at {time.perf_counter() - t0:.1f} s",
+              flush=True)
+
     errs = phase_kernels(args.seed)
+    lap(1)
+    errs["rbf_gram"], gram_shapes = phase_gram_kernel(args.seed, card)
+    lap(16)
     live, cached, requests, serving_launches = phase_serving(args.seed)
     serving_shapes, latency = phase_timings(args.seed, live, cached,
                                             requests)
     phase_profile(live, cached, requests)
     del live, cached
+    lap("2-5")
     model, launches, grad_worst, metrics, same = phase_training(args.seed)
     train_shapes = phase_training_timings(args.seed, card)
     rates = phase_steps_per_s(args.seed, card)
     step = phase_training_profile(model, args.seed, card)
     del model
+    lap("6-8")
+    train_shapes["rbf_gram"] = gram_shapes
+    solve_model, solve_data, solve, launches["rbf_gram"] = phase_solve_dgp(
+        args.seed, card)
+    lap(17)
+    solve["steps_per_s"], solve["step"] = phase_solve_timings(
+        solve_model, args.seed, card)
+    lap(18)
+    full_cov = phase_full_cov(solve_model, solve_data, args.seed, card)
+    del solve_model
+    lap(19)
     collapsed = phase_collapsed(args.seed, card)
     errs["psi2_core_forward"] = phase_psi2_kernel(args.seed,
                                                   collapsed["operands"])
     psi2_shapes, collapsed_paths = phase_collapsed_timings(collapsed, card)
+    lap("9-11")
     train_shapes["psi2_core_forward"] = psi2_shapes
     launches["psi2_core_forward"] = collapsed["main_counts"][
         "psi2_core_forward"]
@@ -1683,6 +2226,7 @@ def main():
     train_shapes["psi2_core_backward"] = phase_psi2_backward_timings(
         collapsed, card)
     collapsed_steps = phase_collapsed_step_profile(collapsed, args.seed, card)
+    lap("12-15")
     launches["psi2_core_backward"] = sum(
         c["psi2_core_backward"] for c in fit_counts.values())
 
@@ -1719,6 +2263,7 @@ def main():
                       "collapsed_fits": collapsed_fits,
                       "collapsed_fit_launches": fit_counts,
                       "collapsed_training_step": collapsed_steps,
+                      "solve_route": solve, "full_cov": full_cov,
                       "card": card}))
     print(json.dumps({"kernels": records}))
     print(card)

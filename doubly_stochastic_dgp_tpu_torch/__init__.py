@@ -2,16 +2,18 @@
 doubly-stochastic deep GP package ``doubly_stochastic_dgp_tpu``.
 
 This package covers the training and serving paths of the Monte-Carlo
-DGP: RBF(+White) SVGP layers with identity/PCA skip connections, a
-Gaussian likelihood, the doubly-stochastic ELBO with the layers' KL
-terms, Adam training on on-device minibatches (``fit``), the regression
-metrics (``evaluate_regression``), the cached posterior and
-``make_server``; and the collapsed DGPs (``DGPCollapsed``,
+DGP: RBF(+White) SVGP layers with identity/PCA skip connections under
+every ``Config`` numerics mode, a Gaussian likelihood, the
+doubly-stochastic ELBO with the layers' KL terms, Adam training on
+on-device minibatches (``fit``), diagonal and full-covariance
+predictions, the regression metrics (``evaluate_regression``), the cached
+posterior and ``make_server``; and the collapsed DGPs (``DGPCollapsed``,
 ``DGPDamianou``: collapsed ``SGPRLayer``s and RBF psi statistics): their
 bound, their predictions, and their training by ``fit`` on the whole
 training set under the reject-nonfinite guard.  The fused staged
 conditional and the psi2 data sum run as hand-written CUDA kernels,
-forward and backward, the conditional also with a save-gram variant
+forward and backward, the conditional also with a save-gram variant, and
+every RBF gram on the card runs in the ``rbf_gram`` kernel
 (``ops/cuda``).
 It imports torch, numpy and scipy only — never jax or the JAX package.
 Entry points run on the GPU unless the caller passes ``device='cpu'``.

@@ -32,8 +32,9 @@ _PRECISIONS = ("default", "mixed", "mixed_g", "mixed_high", "highest")
 class Config:
     dtype: torch.dtype = torch.float64
     jitter: float = 1e-6
-    # 'solve' (triangular solves; not ported yet) | 'inverse' (staged
-    # inverse, sum-of-squares variance)
+    # 'solve' (triangular solves) | 'inverse' (staged inverse,
+    # sum-of-squares variance; diagonal only, full covariances take the
+    # solves)
     solve_mode: str = "solve"
     # False | True | 'saved': route every RBF(+White) SVGP conditional
     # through the fused conditional kernels ('saved': the save-gram pair,
@@ -49,6 +50,11 @@ class Config:
     # (PSI2_KERNEL_MIN_M/MAX_D) are TPU profitability measurements and do
     # not carry over.
     psi2_impl: str = "auto"
+    # recompute each layer's conditional in the backward pass
+    # (torch.utils.checkpoint in DGPBase.propagate) instead of keeping its
+    # (S*B, M)-class intermediates: about one more forward of work for
+    # less memory; the same values and gradients
+    remat: bool = False
 
     def __post_init__(self):
         if self.solve_mode not in _SOLVE_MODES:

@@ -136,10 +136,11 @@ class DGPDamianou(DGPBase):
             total = total + g
         return total
 
-    def propagate(self, X, generator=None, S=1, zs=None):
+    def propagate(self, X, generator=None, S=1, zs=None, full_cov=False):
         """Sample new points through the layers' collapsed posteriors.
         Inner layers add their noise variance sigma_l^2 (the next layer
-        consumes H_l = f_l + eps_l); the top layer returns the noiseless f
+        consumes H_l = f_l + eps_l; with ``full_cov`` on the diagonal of
+        each (N, N) block); the top layer returns the noiseless f
         posterior (``predict_y`` adds the likelihood's variance)."""
         layers = self._data_layers()
         L = len(layers)
@@ -149,9 +150,15 @@ class DGPDamianou(DGPBase):
             zs = [None] * L
         Fs, Fmeans, Fvars = [], [], []
         for l, (layer, z) in enumerate(zip(layers, zs)):
-            mean, var = layer.conditional_SND(F)
+            mean, var = layer.conditional_SND(F, full_cov=full_cov)
             if l < L - 1:
-                var = var + self.noise[l].value
+                noise = self.noise[l].value
+                if full_cov:                    # (S, N, N, D) diagonal
+                    N = var.shape[1]
+                    noise = noise * torch.eye(N, dtype=var.dtype,
+                                              device=var.device)[None, :, :,
+                                                                 None]
+                var = var + noise
             if z is None:
                 if generator is None:
                     raise ValueError("need a generator when z is not given")
@@ -160,7 +167,7 @@ class DGPDamianou(DGPBase):
             else:
                 z = torch.as_tensor(z, dtype=mean.dtype,
                                     device=mean.device).expand(mean.shape)
-            F = reparameterize(mean, var, z, layer.jitter)
+            F = reparameterize(mean, var, z, layer.jitter, full_cov=full_cov)
             Fs.append(F)
             Fmeans.append(mean)
             Fvars.append(var)

@@ -5,7 +5,11 @@ Counterpart of ``doubly_stochastic_dgp_tpu/models/dgp.py`` (``DGPBase``
 propagation, the training objective and prediction, ``DGP.build``).  JAX
 splits one PRNG key per layer; here each layer draws its unit normals in
 order from one ``torch.Generator`` on the model's device, so the two
-packages agree only through fixed draws (``zs``).
+packages agree only through fixed draws (``zs``).  With ``remat`` (a
+build-time snapshot of ``Config.remat``) each layer's conditional is
+recomputed in the backward pass (``torch.utils.checkpoint``) instead of
+keeping its intermediates; the layer's normals are drawn before the
+checkpointed call, so values and gradients are the same bits as without.
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config, resolve_device
 from .initializations import init_layers_linear
@@ -32,7 +37,7 @@ class DGPBase(nn.Module):
     full_batch_bound = False
 
     def __init__(self, likelihood, layers, X, Y, num_samples=1,
-                 num_data=None):
+                 num_data=None, remat=False):
         super().__init__()
         X = torch.as_tensor(X)
         Y = torch.as_tensor(Y)
@@ -45,34 +50,47 @@ class DGPBase(nn.Module):
         self.register_buffer("Y_data", Y)
         self.num_samples = int(num_samples)
         self.num_data = int(num_data or X.shape[0])
+        self.remat = bool(remat)
 
     def _as_input(self, A):
         return torch.as_tensor(A, dtype=self.X_data.dtype,
                                device=self.X_data.device)
 
-    def propagate(self, X, generator=None, S=1, zs=None):
+    def propagate(self, X, generator=None, S=1, zs=None, full_cov=False):
         """Tile X to (S, N, D) and sample through every layer; returns
-        (Fs, Fmeans, Fvars), one entry per layer.  ``zs`` (one per layer,
+        (Fs, Fmeans, Fvars), one entry per layer, each variance (S, N,
+        D_l), or (S, N, N, D_l) with ``full_cov``.  ``zs`` (one per layer,
         broadcastable to (S, N, D_l)) replaces the random draws."""
-        return self._propagate_layers(self.layers, X, generator, S, zs)
+        return self._propagate_layers(self.layers, X, generator, S, zs,
+                                      full_cov)
 
-    def _propagate_layers(self, layers, X, generator, S, zs):
+    def _propagate_layers(self, layers, X, generator, S, zs,
+                          full_cov=False):
         X = self._as_input(X)
         F = X[None].expand(S, *X.shape)
         if zs is None:
             zs = [None] * len(layers)
+        remat = self.remat and torch.is_grad_enabled()
         Fs, Fmeans, Fvars = [], [], []
         for layer, z in zip(layers, zs):
-            F, Fmean, Fvar = layer.sample_from_conditional(
-                F, z=z, generator=generator)
+            if remat:
+                # draw before the checkpointed call: its recompute restores
+                # the global RNG, not ``generator``
+                z = layer.draw_z(F, generator) if z is None else z
+                F, Fmean, Fvar = checkpoint(
+                    layer.sample_from_conditional, F, z, None, full_cov,
+                    use_reentrant=False)
+            else:
+                F, Fmean, Fvar = layer.sample_from_conditional(
+                    F, z=z, generator=generator, full_cov=full_cov)
             Fs.append(F)
             Fmeans.append(Fmean)
             Fvars.append(Fvar)
         return Fs, Fmeans, Fvars
 
-    def _predict(self, X, generator=None, S=1, zs=None):
+    def _predict(self, X, generator=None, S=1, zs=None, full_cov=False):
         _, Fmeans, Fvars = self.propagate(X, generator=generator, S=S,
-                                          zs=zs)
+                                          zs=zs, full_cov=full_cov)
         return Fmeans[-1], Fvars[-1]
 
     # -- training objective ---------------------------------------------------
@@ -111,11 +129,37 @@ class DGPBase(nn.Module):
                              S, zs)
 
     @torch.no_grad()
+    def predict_f_full_cov(self, Xnew, S, generator=None, zs=None):
+        """Final-layer mean (S, N, D) and covariance (S, N, N, D)."""
+        return self._predict(Xnew, self._default_generator(generator, zs),
+                             S, zs, full_cov=True)
+
+    @torch.no_grad()
+    def predict_all_layers(self, Xnew, S, generator=None, zs=None):
+        """(Fs, Fmeans, Fvars) of every layer, diagonal variances."""
+        return self.propagate(Xnew, self._default_generator(generator, zs),
+                              S, zs)
+
+    @torch.no_grad()
+    def predict_all_layers_full_cov(self, Xnew, S, generator=None, zs=None):
+        """(Fs, Fmeans, Fvars) of every layer, full covariances."""
+        return self.propagate(Xnew, self._default_generator(generator, zs),
+                              S, zs, full_cov=True)
+
+    # per-sample y-space hooks: the likelihood's by default; a model whose
+    # final-layer outputs are not one-to-one with the targets overrides them
+    def sample_predict_y(self, Fmean, Fvar):
+        return self.likelihood.predict_mean_and_var(Fmean, Fvar)
+
+    def sample_log_densities(self, Fmean, Fvar, Ynew):
+        return self.likelihood.predict_density(Fmean, Fvar, Ynew)
+
+    @torch.no_grad()
     def predict_y(self, Xnew, S, generator=None, zs=None):
         """Predictive y moments per sample, (S, N, D) each."""
         Fmean, Fvar = self._predict(
             Xnew, self._default_generator(generator, zs), S, zs)
-        return self.likelihood.predict_mean_and_var(Fmean, Fvar)
+        return self.sample_predict_y(Fmean, Fvar)
 
     @torch.no_grad()
     def predict_density(self, Xnew, Ynew, S, generator=None, zs=None):
@@ -123,8 +167,7 @@ class DGPBase(nn.Module):
         samples, (N, D)."""
         Fmean, Fvar = self._predict(
             Xnew, self._default_generator(generator, zs), S, zs)
-        l = self.likelihood.predict_density(Fmean, Fvar,
-                                            self._as_input(Ynew))
+        l = self.sample_log_densities(Fmean, Fvar, self._as_input(Ynew))
         return torch.logsumexp(l - math.log(S), dim=0)
 
 
@@ -153,5 +196,6 @@ class DGP(DGPBase):
                                     white=white, config=config)
         model = cls(likelihood, layers, np.asarray(X, dtype=np.float64),
                     np.asarray(Y, dtype=np.float64),
-                    num_samples=num_samples, num_data=num_data)
+                    num_samples=num_samples, num_data=num_data,
+                    remat=config.remat)
         return model.to(device=device, dtype=config.dtype)

@@ -1,20 +1,26 @@
 """The SVGP layer of the main path: multisample conditionals, sampling,
-the sparse conditional in its two diagonal forms and the KL term.
+the sparse conditional on its three branches (diagonal and full
+covariance) and the KL term.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/models/layers.py``
 (``Layer``, ``_fusable_rbf``, the build-time host helpers and
-``SVGPLayer``).  ``conditional_ND`` has two branches, both diagonal:
+``SVGPLayer``).  ``conditional_ND`` has three branches:
 
-- the fused branch (``use_pallas=True`` and an RBF(+White) kernel):
-  staging factors LiT = Lu^{-T}, alpha = Li q_mu and W = Li SK Li^T are
-  formed here and the gram -> staging -> mean/var pipeline runs in the
-  fused conditional kernel (``ops/cuda/conditional.py``), forward and
-  backward; ``use_pallas='saved'`` takes its save-gram pair;
-- the staged-inverse branch (``solve_mode='inverse'``): G = Li Kuf with
-  the sum-of-squares variance Kff - colsum(G*G) + colsum(H*H), H = C^T G.
+- the fused branch (``use_pallas=True``, an RBF(+White) kernel and the
+  diagonal): staging factors LiT = Lu^{-T}, alpha = Li q_mu and W = Li SK
+  Li^T are formed here and the gram -> staging -> mean/var pipeline runs
+  in the fused conditional kernel (``ops/cuda/conditional.py``), forward
+  and backward; ``use_pallas='saved'`` takes its save-gram pair;
+- the staged-inverse branch (``solve_mode='inverse'``, diagonal): G = Li
+  Kuf with the sum-of-squares variance Kff - colsum(G*G) + colsum(H*H),
+  H = C^T G;
+- the solve branch (``solve_mode='solve'``, and every full covariance):
+  A = Lu^{-1} Kuf (then Lu^{-T} A unless white) by triangular solves,
+  mean A^T q_mu and variance Kff + A^T SK A, the diagonal clamped at 0.
 
-Not ported yet (they raise): ``full_cov``, ``solve_mode='solve'`` and
-input propagation.
+On a CUDA tensor every RBF gram here (Kuu, Kuf, the full-covariance Kff)
+is the ``rbf_gram`` kernel.  Not ported yet (it raises): input
+propagation.
 
 The collapsed final layer of ``DGPCollapsed`` and every layer of
 ``DGPDamianou`` is ``SGPRLayer`` (the JAX ``CollapsedLayer`` /
@@ -56,35 +62,57 @@ class Layer(nn.Module):
         raise NotImplementedError
 
     def conditional_ND(self, X, full_cov=False):
+        """Mean (B, D_out) and variance (B, D_out), or (B, B, D_out) with
+        ``full_cov``, at X (B, D_in)."""
         raise NotImplementedError
 
+    def KL(self):
+        """0: a layer without an inducing posterior adds no KL term."""
+        t = next(self.parameters(), None)
+        return torch.zeros((), dtype=torch.float64 if t is None else t.dtype,
+                           device=None if t is None else t.device)
+
     def conditional_SND(self, X, full_cov=False):
-        """Diagonal conditional over X (S, N, D_in), flattened to one
-        (S*N, D_in) batch."""
-        if full_cov:
-            raise NotImplementedError("full_cov is not ported yet (ROADMAP)")
+        """Conditional over X (S, N, D_in), independent over S.  Diagonal:
+        one flattened (S*N, D_in) batch; ``full_cov``: one conditional per
+        sample, var (S, N, N, D_out)."""
         S, N, D = X.shape
+        if full_cov:
+            outs = [self.conditional_ND(x, full_cov=True) for x in X]
+            mean = torch.stack([m for m, _ in outs])
+            var = torch.stack([v for _, v in outs])
+            if var.shape[-1] == 1 and self.num_outputs > 1:
+                var = var.expand(S, N, N, self.num_outputs)
+            return mean, var
         mean, var = self.conditional_ND(X.reshape(S * N, D))
         if var.shape[-1] == 1 and self.num_outputs > 1:
             var = var.expand(S * N, self.num_outputs)
         return (mean.reshape(S, N, self.num_outputs),
                 var.reshape(S, N, self.num_outputs))
 
-    def sample_from_conditional(self, X, z=None, generator=None):
+    def draw_z(self, X, generator):
+        """The unit normals a sample at X (S, N, D_in) draws from
+        ``generator``: (S, N, D_out) in X's dtype, on X's device."""
+        if generator is None:
+            raise ValueError("need a generator when z is not given")
+        return torch.randn((X.shape[0], X.shape[1], self.num_outputs),
+                           generator=generator, dtype=X.dtype,
+                           device=X.device)
+
+    def sample_from_conditional(self, X, z=None, generator=None,
+                                full_cov=False):
         """Conditional + reparameterized sample.  X: (S, N, D_in).  Give
         either fixed unit normals ``z`` (broadcastable to (S, N, D_out)) or
         a ``torch.Generator`` on X's device."""
-        mean, var = self.conditional_SND(X)
+        mean, var = self.conditional_SND(X, full_cov=full_cov)
         shape = (X.shape[0], X.shape[1], self.num_outputs)
         if z is None:
-            if generator is None:
-                raise ValueError("need a generator when z is not given")
-            z = torch.randn(shape, generator=generator, dtype=mean.dtype,
-                            device=mean.device)
+            z = self.draw_z(X, generator)
         else:
             z = torch.as_tensor(z, dtype=mean.dtype,
                                 device=mean.device).expand(shape)
-        return reparameterize(mean, var, z, self.jitter), mean, var
+        return (reparameterize(mean, var, z, self.jitter, full_cov=full_cov),
+                mean, var)
 
 
 def _fusable_rbf(kern):
@@ -190,18 +218,15 @@ class SVGPLayer(Layer):
         return SK + torch.einsum("dij,dkj->dik", q_sqrt, q_sqrt)
 
     def conditional_ND(self, X, full_cov=False):
-        """Diagonal sparse conditional at X (B, D_in): mean (B, D_out),
-        var (B, D_out)."""
-        if full_cov:
-            raise NotImplementedError("full_cov is not ported yet (ROADMAP)")
-        if self.use_pallas and _fusable_rbf(self.kern) is not None:
+        """Sparse conditional at X (B, D_in): mean (B, D_out), var (B,
+        D_out), or (B, B, D_out) with ``full_cov``."""
+        if (self.use_pallas and not full_cov
+                and _fusable_rbf(self.kern) is not None):
             return self._conditional_fused(X)
-        if self.solve_mode != "inverse":
-            raise NotImplementedError(
-                "solve_mode='solve' is not ported yet (ROADMAP); use "
-                "'inverse' or use_pallas=True")
-        # staged inverse, sum-of-squares variance (JAX layers.py:337-409)
         Kuf = self.kern.K(self.Z.value, X)                      # (M, B)
+        if self.solve_mode == "solve" or full_cov:
+            return self._conditional_solve(X, Kuf, full_cov)
+        # staged inverse, sum-of-squares variance (JAX layers.py:337-409)
         _, Lu = self._chol_Kuu()
         Li = inv_lower(Lu)
         G = Li @ Kuf                                            # (M, B)
@@ -217,6 +242,26 @@ class SVGPLayer(Layer):
         H = (CT @ G).reshape(D_, M_, G.shape[1])                # (D, M, B)
         var = resid[:, None] + torch.sum(H * H, dim=1).T
         var = torch.clamp(var, min=0.0)
+        return mean + self.mean_function(X), var
+
+    def _conditional_solve(self, X, Kuf, full_cov):
+        """Triangular-solve branch (JAX layers.py:411-431): A = Lu^{-1}
+        Kuf, then Lu^{-T} A unless white; var = Kff + A^T SK A."""
+        Ku, Lu = self._chol_Kuu()
+        SK = self._SK(Ku)
+        A = tri_solve(Lu, Kuf, lower=True, mode=self.solve_mode)
+        if not self.white:
+            A = tri_solve(Lu, A, lower=True, trans=True,
+                          mode=self.solve_mode)                 # Ku^{-1} Kuf
+        mean = A.T @ self.q_mu.value                            # (B, D)
+        B = torch.einsum("dij,jb->dib", SK, A)                  # (D, M, B)
+        if full_cov:
+            delta = torch.einsum("ib,dic->dbc", A, B)           # (D, B, B)
+            var = (self.kern.K(X)[None] + delta).permute(1, 2, 0)
+        else:
+            delta = torch.einsum("ib,dib->db", A, B)            # (D, B)
+            # clamp float32 cancellation noise (Kff ~ Qff) at zero
+            var = torch.clamp((self.kern.Kdiag(X)[None] + delta).T, min=0.0)
         return mean + self.mean_function(X), var
 
     def _conditional_fused(self, X):
@@ -387,18 +432,22 @@ class SGPRLayer(CollapsedLayer):
                                            - torch.sum(torch.diagonal(AAT)))
 
     def conditional_ND(self, X, full_cov=False):
-        """Diagonal predictive conditional at X (B, D_in): mean and var
-        (B, D_Y)."""
-        if full_cov:
-            raise NotImplementedError("full_cov is not ported yet (ROADMAP)")
+        """Predictive conditional at X (B, D_in): mean (B, D_Y) and var
+        (B, D_Y), or (B, B, D_Y) with ``full_cov``."""
         cm = self._common()
         L, LB, c = cm["L"], cm["LB"], cm["c"]
         tmp1 = tri_solve(L, self.kern.K(self.Z.value, X), lower=True,
                          mode=self.solve_mode)
         tmp2 = tri_solve(LB, tmp1, lower=True, mode=self.solve_mode)
         mean = tmp2.T @ c
-        # clamp float32 cancellation noise at zero (the SVGP policy)
-        var = torch.clamp(self.kern.Kdiag(X) + torch.sum(tmp2 ** 2, dim=0)
-                          - torch.sum(tmp1 ** 2, dim=0), min=0.0)
-        var = var[:, None].expand(-1, self.data.Y.shape[1])
+        D_Y = self.data.Y.shape[1]
+        if full_cov:
+            var = self.kern.K(X) + tmp2.T @ tmp2 - tmp1.T @ tmp1
+            var = var[:, :, None].expand(-1, -1, D_Y)
+        else:
+            # clamp float32 cancellation noise at zero (the SVGP policy)
+            var = torch.clamp(self.kern.Kdiag(X)
+                              + torch.sum(tmp2 ** 2, dim=0)
+                              - torch.sum(tmp1 ** 2, dim=0), min=0.0)
+            var = var[:, None].expand(-1, D_Y)
         return mean + self.mean_function(X), var

@@ -1,16 +1,17 @@
 """Precomputed-posterior (serving) cache for SVGP layers.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/models/posterior.py``
-(``CachedSVGPLayer`` diagonal path, ``_cache_svgp`` and the Monte-Carlo
-family branch of ``precompute``).  At serving time the parameters are
-frozen, so the staging factors
+(``CachedSVGPLayer``, ``_cache_svgp`` and the Monte-Carlo family branch
+of ``precompute``).  At serving time the parameters are frozen, so the
+staging factors
 
     Li = Lu^{-1},  alpha = Li q_mu (q_mu if white),  C = Li q_sqrt (q_sqrt)
 
-are computed once, and a prediction needs only the cross gram and
-matmuls: G = Li Kuf, mean = G^T alpha + m(X),
-var = Kff - colsum(G*G) + colsum(H*H) with H = C^T G — the same
-sum-of-squares form as the live ``solve_mode='inverse'`` branch.
+are computed once, and a prediction needs only the grams and matmuls:
+G = Li Kuf, mean = G^T alpha + m(X), var = Kff - colsum(G*G) +
+colsum(H*H) with H = C^T G — the same sum-of-squares form as the live
+``solve_mode='inverse'`` branch — or, with ``full_cov``, K(X) - G^T G +
+H^T H per output.
 """
 
 from __future__ import annotations
@@ -46,12 +47,21 @@ class CachedSVGPLayer(Layer):
     def num_outputs(self):
         return self.num_outputs_
 
+    def KL(self):
+        raise NotImplementedError(
+            "CachedSVGPLayer is prediction-only: the staging factors are "
+            "a frozen snapshot of (Z, kern, q_mu, q_sqrt).  Train the "
+            "original model and re-run precompute().")
+
     def conditional_ND(self, X, full_cov=False):
-        if full_cov:
-            raise NotImplementedError("full_cov is not ported yet (ROADMAP)")
         Kuf = self.kern.K(self.Z, X)                            # (M, B)
         G = self.Li @ Kuf                                       # (M, B)
         mean = G.T @ self.alpha                                 # (B, D)
+        if full_cov:
+            cov = self.kern.K(X) - G.T @ G                      # (B, B)
+            H = torch.einsum("dim,ib->dmb", self.C, G)          # (D, M, B)
+            var = cov[None] + torch.einsum("dmb,dmc->dbc", H, H)
+            return mean + self.mean_function(X), var.permute(1, 2, 0)
         resid = self.kern.Kdiag(X) - torch.sum(G * G, dim=0)    # (B,)
         D_, M_, _ = self.C.shape
         CT = self.C.transpose(-1, -2).reshape(D_ * M_, M_)

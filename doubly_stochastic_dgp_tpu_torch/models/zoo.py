@@ -46,16 +46,18 @@ class DGPCollapsed(DGPBase):
         layers[-1] = SGPRLayer(top.kern, top.Z.value.detach().numpy(),
                                num_outputs, top.mean_function, config=config)
         model = cls(likelihood, layers, X, Y, num_samples=num_samples,
-                    num_data=num_data)
+                    num_data=num_data, remat=config.remat)
         return model.to(device=device, dtype=config.dtype)
 
-    def inner_layers_propagate(self, X, generator=None, S=1, zs=None):
+    def inner_layers_propagate(self, X, generator=None, S=1, zs=None,
+                               full_cov=False):
         """Propagate through ``layers[:-1]``; with a single layer, the
         identity with zero variance."""
         if len(self.layers) == 1:
             sX = self._as_input(X)[None].expand(S, *X.shape)
             return [sX], [sX], [torch.zeros_like(sX)]
-        return self._propagate_layers(self.layers[:-1], X, generator, S, zs)
+        return self._propagate_layers(self.layers[:-1], X, generator, S, zs,
+                                      full_cov)
 
     def _collapsed_last_layer(self, generator=None, zs=None):
         """The collapsed layer carrying the inner propagation of the
@@ -66,13 +68,14 @@ class DGPCollapsed(DGPBase):
         return self.layers[-1].set_data(ms[-1][0], vs[-1][0], self.Y_data,
                                         self.likelihood.variance.value)
 
-    def propagate(self, X, generator=None, S=1, zs=None):
-        """As ``DGPBase.propagate``, through the collapsed layer.  ``zs``
-        serves both the training-data propagation and this one, as in the
-        JAX package, so it must broadcast over both row counts."""
+    def propagate(self, X, generator=None, S=1, zs=None, full_cov=False):
+        """As ``DGPBase.propagate``, through the collapsed layer (whose
+        inputs, the training rows' propagation, are always diagonal).
+        ``zs`` serves both the training-data propagation and this one, as
+        in the JAX package, so it must broadcast over both row counts."""
         last = self._collapsed_last_layer(generator, zs)
         return self._propagate_layers(list(self.layers[:-1]) + [last], X,
-                                      generator, S, zs)
+                                      generator, S, zs, full_cov)
 
     def elbo(self, X=None, Y=None, generator=None, zs=None):
         """The collapsed bound less the inner layers' KL terms, always on

@@ -1,0 +1,220 @@
+"""RBF gram: the CUDA kernel, its plain PyTorch version and the autograd
+Function around them.
+
+Replaces the TPU kernel ``doubly_stochastic_dgp_tpu/ops/pallas/gram.py::
+_gram_pallas_call`` (``_gram_kernel``) with ``csrc/rbf_gram.cu``; the
+Function is the counterpart of the JAX ``rbf_gram`` with its
+``_fwd``/``_bwd``.  For X (N, D), Z (M, D), lengthscales (D,) or a scalar
+and a scalar variance, in float32 or float64:
+
+    K[n, m] = var exp(-0.5 sum_d ((X[n,d] - Z[m,d]) / ls_d)^2)      (N, M)
+
+The kernel takes X and Z already divided by the lengthscales, as the TPU
+kernel does, and forms the distance as the direct sum of squared
+differences, so K(X, X) is bitwise symmetric with its diagonal exactly
+var; the plain version keeps the JAX form ||x||^2 + ||z||^2 - 2 x.z
+clipped at 0 (:func:`square_dist`), which ``RBF.K`` computes on the CPU.
+What bounds the kernel on an H100: bytes, the (N, M) output (see
+:func:`bytes_moved`, :func:`flops`, :func:`exps`).  The backward is the
+JAX ``_bwd`` closed form on the saved K, as torch ops on either device:
+it sits outside the Pallas kernel in JAX too.
+
+Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises: there is no fallback.  ``rbf_gram.launches`` counts the
+kernel's launches.  Inside :func:`plain_on_card` CUDA tensors take the
+plain version: a reference for measurements, which the package itself
+never enters.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+
+import torch
+
+__all__ = ["rbf_gram", "rbf_gram_kernel", "rbf_gram_plain", "square_dist",
+           "plain_on_card", "flops", "exps", "bytes_moved", "FAST_EXP",
+           "F64_EXP_FLOPS"]
+
+# expf in the float32 kernel (__expf when True; see PERF.md for the choice)
+FAST_EXP = False
+# fp64 flops of one exp in the float64 kernel, where exp is not an SFU op
+# but fp64 instructions: 13 DFMA, 1 DADD and 1 DMUL an exp in the SASS of
+# the sm_90a build with CUDA 12 (chip_smoke.py prints the kernel's fp64
+# opcode counts: 180 DFMA, 132 DADD, 12 DMUL for 4 outputs a thread, of
+# which the distance loop takes 128 DFMA and 128 DADD, the -0.5 scale and
+# the variance 8 DMUL)
+F64_EXP_FLOPS = 28
+
+
+def square_dist(X, X2):
+    """Pairwise squared Euclidean distance ||x||^2 + ||z||^2 - 2 x.z,
+    clipped at 0 (the JAX form; X2 None: X against itself)."""
+    Xs = torch.sum(X ** 2, dim=-1, keepdim=True)              # (N, 1)
+    if X2 is None:
+        d = Xs + Xs.T - 2.0 * (X @ X.T)
+    else:
+        X2s = torch.sum(X2 ** 2, dim=-1, keepdim=True)        # (M, 1)
+        d = Xs + X2s.T - 2.0 * (X @ X2.T)
+    return torch.clamp(d, min=0.0)
+
+
+def rbf_gram_plain(X, Z, lengthscales, variance):
+    """Plain PyTorch version: the expression of ``RBF.K`` on the CPU."""
+    return variance * torch.exp(-0.5 * square_dist(X / lengthscales,
+                                                   Z / lengthscales))
+
+
+def flops(N, M, D):
+    """Flops of one call besides the exps: per output D differences and D
+    FMAs (3D), the -0.5 scale and the variance (2).  In float64 each exp
+    adds ``F64_EXP_FLOPS``."""
+    return N * M * (3 * D + 2)
+
+
+def exps(N, M):
+    """exps of one call: one per output."""
+    return N * M
+
+
+def bytes_moved(N, M, D, itemsize):
+    """Bytes one call must move: X, Z, the lengthscales and the variance
+    read once, the (N, M) output written once."""
+    return itemsize * ((N + M + 1) * D + 1 + N * M)
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """CUDA tensors take the plain version while inside."""
+    rbf_gram.plain_on_card = True
+    try:
+        yield
+    finally:
+        rbf_gram.plain_on_card = False
+
+
+@functools.cache
+def _fns():
+    from .build import load_library
+    lib = load_library("rbf_gram")
+    f32, f64 = lib.rbf_gram_f32, lib.rbf_gram_f64
+    f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
+                                            ctypes.c_int, ctypes.c_int,
+                                            ctypes.c_void_p]
+    f64.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
+                                            ctypes.c_int, ctypes.c_void_p]
+    f32.restype = f64.restype = ctypes.c_int
+    return f32, f64
+
+
+def rbf_gram_kernel(Xs, Zs, variance, fast_exp=FAST_EXP):
+    """var exp(-0.5 ||x - z||^2) for the lengthscale-scaled Xs (N, D), Zs
+    (M, D) and a one-element ``variance``, all CUDA tensors of one dtype,
+    float32 or float64, with Xs and Zs contiguous; raises on anything
+    else, before any launch.  ``fast_exp``: __expf in float32."""
+    if Xs.ndim != 2 or Zs.ndim != 2 or Xs.shape[1] != Zs.shape[1]:
+        raise ValueError(f"rbf_gram: Xs {tuple(Xs.shape)} and Zs "
+                         f"{tuple(Zs.shape)} must be (N, D) and (M, D)")
+    if variance.numel() != 1:
+        raise ValueError(f"rbf_gram: variance must hold one value; got "
+                         f"shape {tuple(variance.shape)}")
+    for name, t in (("Xs", Xs), ("Zs", Zs), ("variance", variance)):
+        if t.device.type != "cuda" or t.device != Xs.device:
+            raise ValueError(f"rbf_gram: {name} is on {t.device}; the kernel "
+                             f"takes CUDA tensors on one device")
+        if t.dtype not in (torch.float32, torch.float64) \
+                or t.dtype != Xs.dtype:
+            raise TypeError(f"rbf_gram: {name} is {t.dtype}; the kernel "
+                            f"takes float32 or float64, one dtype for all")
+    for name, t in (("Xs", Xs), ("Zs", Zs)):
+        if not t.is_contiguous():
+            raise ValueError(f"rbf_gram: {name} must be contiguous")
+    (N, D), M = Xs.shape, Zs.shape[0]
+    K = torch.empty(N, M, dtype=Xs.dtype, device=Xs.device)
+    if N == 0 or M == 0:
+        return K
+    var = variance.detach().reshape(1)
+    f32, f64 = _fns()
+    with torch.cuda.device(Xs.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        if Xs.dtype == torch.float32:
+            err = f32(Xs.data_ptr(), Zs.data_ptr(), var.data_ptr(),
+                      K.data_ptr(), N, M, D, int(fast_exp), stream)
+        else:
+            err = f64(Xs.data_ptr(), Zs.data_ptr(), var.data_ptr(),
+                      K.data_ptr(), N, M, D, stream)
+    if err != 0:
+        raise RuntimeError(f"rbf_gram: kernel launch failed with CUDA error "
+                           f"{err}")
+    rbf_gram.launches += 1
+    return K
+
+
+def _forward(X, Z, lengthscales, variance):
+    if X.device.type == "cpu" or (X.device.type == "cuda"
+                                  and rbf_gram.plain_on_card):
+        return rbf_gram_plain(X, Z, lengthscales, variance)
+    if X.device.type != "cuda":
+        raise ValueError(f"rbf_gram: unsupported device {X.device}")
+    return rbf_gram_kernel((X / lengthscales).contiguous(),
+                           (Z / lengthscales).contiguous(), variance)
+
+
+class _RBFGram(torch.autograd.Function):
+    """Forward: the plain version on the CPU, the kernel on CUDA.
+    Backward: the JAX ``_bwd`` on the saved K, on either device."""
+
+    @staticmethod
+    def forward(ctx, X, Z, lengthscales, variance):
+        K = _forward(X, Z, lengthscales, variance)
+        ctx.save_for_backward(X, Z, lengthscales, variance, K)
+        return K
+
+    @staticmethod
+    def backward(ctx, g):
+        X, Z, ls, var, K = ctx.saved_tensors
+        W = g * K                                           # (N, M)
+        inv2 = 1.0 / (ls * ls)
+        rowsum = torch.sum(W, dim=1, keepdim=True)          # (N, 1)
+        colsum = torch.sum(W, dim=0, keepdim=True)          # (1, M)
+        WZ = W @ Z                                          # (N, D)
+        dX = -(X * rowsum - WZ) * inv2
+        dZ = -(Z * colsum.T - W.T @ X) * inv2
+        # sum_nm W_nm (x_nd - z_md)^2 / ls_d^3 as three contractions
+        x2 = torch.sum((X * X).T * rowsum.T, dim=1)         # (D,)
+        z2 = torch.sum((Z * Z).T * colsum, dim=1)           # (D,)
+        xz = torch.sum(X * WZ, dim=0)                       # (D,)
+        dls = (x2 + z2 - 2.0 * xz) / ls ** 3
+        if ls.ndim == 0:                                    # not ARD
+            dls = torch.sum(dls)
+        dvar = torch.sum(W) / var
+        return tuple(gr if need else None for gr, need in
+                     zip((dX, dZ, dls, dvar), ctx.needs_input_grad))
+
+
+def rbf_gram(X, Z, lengthscales, variance):
+    """var exp(-0.5 ||(x - z) / ls||^2), (N, M), differentiable in all
+    four inputs; the counterpart of the JAX ``rbf_gram``.  The four are
+    tensors of one dtype on one device; ``lengthscales`` is (D,) or a
+    scalar, ``variance`` a scalar."""
+    if X.ndim != 2 or Z.ndim != 2 or X.shape[1] != Z.shape[1]:
+        raise ValueError(f"rbf_gram: X {tuple(X.shape)} and Z "
+                         f"{tuple(Z.shape)} must be (N, D) and (M, D)")
+    if lengthscales.ndim > 1 or (lengthscales.ndim == 1
+                                 and lengthscales.shape[0] != X.shape[1]):
+        raise ValueError(f"rbf_gram: lengthscales of shape "
+                         f"{tuple(lengthscales.shape)} for D={X.shape[1]}")
+    for name, t in (("Z", Z), ("lengthscales", lengthscales),
+                    ("variance", variance)):
+        if t.dtype != X.dtype:
+            raise TypeError(f"rbf_gram: {name} is {t.dtype}, X {X.dtype}")
+        if t.device != X.device:
+            raise ValueError(f"rbf_gram: {name} is on {t.device}, X on "
+                             f"{X.device}")
+    return _RBFGram.apply(X, Z, lengthscales, variance)
+
+
+rbf_gram.launches = 0
+rbf_gram.plain_on_card = False

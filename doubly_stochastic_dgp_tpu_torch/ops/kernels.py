@@ -1,10 +1,12 @@
 """Kernels of the main path: RBF (ARD), White and their Sum.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/ops/kernels.py``
-(``Kernel``, ``Stationary``, ``RBF``, ``White``, ``Sum``).  The squared
-distance keeps the JAX form ||x||^2 + ||z||^2 - 2 x.z clipped at 0; its
-cross term is a plain fp32/f64 matmul (the port never enables TF32, so
-it is as accurate as the JAX HIGHEST-precision cross term).
+(``Kernel``, ``Stationary``, ``RBF``, ``White``, ``Sum``).  On a CUDA
+tensor ``RBF.K`` is the ``rbf_gram`` kernel (``ops/cuda/gram.py``), in
+float32 and float64.  On the CPU the squared distance keeps the JAX form
+||x||^2 + ||z||^2 - 2 x.z clipped at 0; its cross term is a plain
+fp32/f64 matmul (the port never enables TF32, so it is as accurate as the
+JAX HIGHEST-precision cross term).
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from ..utils.params import Param
+from .cuda.gram import rbf_gram, square_dist
 
 __all__ = ["Kernel", "Stationary", "RBF", "White", "Sum"]
 
@@ -34,17 +37,6 @@ class Kernel(nn.Module):
         return Sum([self, other])
 
 
-def _square_dist(X, X2):
-    """Pairwise squared Euclidean distance, clipped at 0."""
-    Xs = torch.sum(X ** 2, dim=-1, keepdim=True)              # (N, 1)
-    if X2 is None:
-        d = Xs + Xs.T - 2.0 * (X @ X.T)
-    else:
-        X2s = torch.sum(X2 ** 2, dim=-1, keepdim=True)        # (M, 1)
-        d = Xs + X2s.T - 2.0 * (X @ X2.T)
-    return torch.clamp(d, min=0.0)
-
-
 class Stationary(Kernel):
     """Stationary kernel with ARD lengthscales and a variance."""
 
@@ -60,7 +52,7 @@ class Stationary(Kernel):
 
     def scaled_square_dist(self, X, X2=None):
         ls = self.lengthscales.value
-        return _square_dist(X / ls, None if X2 is None else X2 / ls)
+        return square_dist(X / ls, None if X2 is None else X2 / ls)
 
     @staticmethod
     def _shape_fn(r2):
@@ -79,6 +71,15 @@ class RBF(Stationary):
     @staticmethod
     def _shape_fn(r2):
         return torch.exp(-0.5 * r2)
+
+    def K(self, X, X2=None):
+        """On a CUDA tensor the ``rbf_gram`` kernel (``X2`` None as
+        ``rbf_gram(X, X)``, so that autograd sums both operands'
+        gradients); on the CPU the plain expression."""
+        if X.device.type == "cuda":
+            return rbf_gram(X, X if X2 is None else X2,
+                            self.lengthscales.value, self.variance.value)
+        return super().K(X, X2)
 
 
 class White(Kernel):

@@ -1,6 +1,7 @@
 """Numerics core: jitter, jittered Cholesky with rung escalation (absolute
 and the relative ladder) and its grad-safe backward, triangular inverse
-and solves, the diagonal reparameterization and the Gaussian KL terms.
+and solves, the diagonal and full-covariance reparameterization and the
+Gaussian KL terms.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/ops/linalg.py``
 (``add_jitter``, ``safe_cholesky``, ``safe_cholesky_ladder``,
@@ -149,12 +150,24 @@ def tri_solve(L, B, lower=True, trans=False, mode="solve"):
     return torch.linalg.solve_triangular(L, B, upper=not lower)
 
 
-def reparameterize(mean, var, z, jitter):
-    """Diagonal reparameterization mean + z * sqrt(max(var, 0) + jitter)
-    (the clamp absorbs float32 cancellation in Kff - Qff)."""
+def reparameterize(mean, var, z, jitter, full_cov=False):
+    """Reparameterized sample from mean (S, N, D) and unit normals z (S, N,
+    D).  Diagonal: mean + z * sqrt(max(var, 0) + jitter), var (S, N, D)
+    (the clamp absorbs float32 cancellation in Kff - Qff).  ``full_cov``:
+    var (S, N, N, D), mean + chol(var + jitter I) z batched over (S, D),
+    D-major; where a factorization fails, its samples are NaN, as in the
+    JAX package (``cholesky_ex``, no host read)."""
     if var is None:
         return mean
-    return mean + z * torch.sqrt(torch.clamp(var, min=0.0) + jitter)
+    if not full_cov:
+        return mean + z * torch.sqrt(torch.clamp(var, min=0.0) + jitter)
+    var_sdnn = var.permute(0, 3, 1, 2)                   # (S, D, N, N)
+    chol, info = torch.linalg.cholesky_ex(add_jitter(var_sdnn, jitter))
+    chol = torch.where((info != 0)[..., None, None],
+                       torch.full_like(chol, float("nan")), chol)
+    f = mean.transpose(1, 2) + torch.einsum("sdnm,sdm->sdn", chol,
+                                            z.transpose(1, 2))
+    return f.transpose(1, 2)                             # (S, N, D)
 
 
 def _kl_common(q_mu, q_sqrt):

@@ -1,7 +1,9 @@
 """PyTorch port: the fused staged conditional's plain versions (forward,
-backward, save-gram pair) and the psi2 data sum's plain versions (forward
-and backward) against the JAX package's Pallas kernels (interpret mode on
-CPU) and its jnp references, in float64.
+backward, save-gram pair), the psi2 data sum's plain versions (forward
+and backward) and the RBF gram's Function (plain forward, closed-form
+backward) against the JAX package's Pallas kernels (interpret mode on
+CPU) and its jnp references, in float64 (the gram's forward also in
+float32, as the JAX gram tests).
 
 One test item that loops over its cases and names the failing case in
 every assertion message.  On the CPU the port's wrappers and autograd
@@ -18,10 +20,13 @@ from numpy.testing import assert_allclose
 from doubly_stochastic_dgp_tpu.ops.pallas.conditional import (
     fused_conditional as jax_fused_conditional, fused_conditional_reference,
     fused_conditional_saved as jax_fused_conditional_saved)
+import doubly_stochastic_dgp_tpu as dsd
 from doubly_stochastic_dgp_tpu.ops.pallas import psi2 as jpsi2
+from doubly_stochastic_dgp_tpu.ops.pallas.gram import rbf_gram as jax_rbf_gram
 from doubly_stochastic_dgp_tpu.ops.pallas.psi2 import (
     _psi2_core_bwd_call, psi2_core as jax_psi2_core, psi2_core_pallas_fwd,
     psi2_core_reference)
+from doubly_stochastic_dgp_tpu_torch.ops.cuda import gram as tgram
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import psi2 as tpsi2
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     fused_conditional, fused_conditional_backward_plain,
@@ -111,7 +116,8 @@ def _counts():
     return (fused_conditional.launches, fused_conditional.backward_launches,
             fused_conditional_saved.launches,
             fused_conditional_saved.backward_launches,
-            tpsi2.psi2_core.launches, tpsi2.psi2_core.backward_launches)
+            tpsi2.psi2_core.launches, tpsi2.psi2_core.backward_launches,
+            tgram.rbf_gram.launches)
 
 
 def _psi2_inputs(N, M, D, seed=0, spread=0.5, clamp=False):
@@ -311,10 +317,93 @@ def _check_psi2_backward():
         "psi2 Function: needs_input_grad not honoured")
 
 
+# the tolerances of tests/test_pallas_gram.py: forward in float32, the
+# gradients in float64
+GRAM_RTOL, GRAM_ATOL = 2e-5, 2e-6
+GRAM_GRAD_RTOL, GRAM_GRAD_ATOL = 1e-6, 1e-9
+
+
+def _gram_grads(fn, arrays, G, square=False):
+    """Gradients of sum(fn(X, Z, ls, var) * G) in float64 torch; with
+    ``square`` Z is X (one leaf, both operands' gradients summed)."""
+    leaves = [torch.tensor(np.asarray(a, dtype=np.float64),
+                           requires_grad=True) for a in arrays]
+    if square:
+        leaves[1] = leaves[0]
+    (fn(*leaves) * torch.from_numpy(G)).sum().backward()
+    return [t.grad for i, t in enumerate(leaves) if not (square and i == 1)]
+
+
+def _check_rbf_gram():
+    """The port's rbf_gram on CPU tensors against the interpret-mode Pallas
+    rbf_gram (forward in float32; its jax.grad in float64, also with a
+    scalar lengthscale, whose gradient is the sum of the ARD ones), and
+    rbf_gram(X, X) against the JAX RBF.K(X) with its gradient."""
+    for N, M, D in ((64, 48, 8), (300, 130, 3)):
+        case = f"rbf_gram forward float32 N={N} M={M} D={D}"
+        rng = np.random.RandomState(0)
+        X = rng.randn(N, D).astype(np.float32)
+        Z = rng.randn(M, D).astype(np.float32)
+        ls = (rng.rand(D) + 0.5).astype(np.float32)
+        want = jax_rbf_gram(jnp.asarray(X), jnp.asarray(Z), jnp.asarray(ls),
+                            jnp.float32(1.7), True)
+        got = tgram.rbf_gram(torch.from_numpy(X), torch.from_numpy(Z),
+                             torch.from_numpy(ls),
+                             torch.tensor(1.7, dtype=torch.float32))
+        assert got.dtype == torch.float32, f"{case}: dtype {got.dtype}"
+        assert_allclose(got.numpy(), np.asarray(want), rtol=GRAM_RTOL,
+                        atol=GRAM_ATOL, err_msg=f"{case} vs the "
+                                                f"interpret-mode kernel")
+    rng = np.random.RandomState(1)
+    N, M, D = 72, 40, 4
+    arrays = (rng.randn(N, D), rng.randn(M, D), rng.rand(D) + 0.5,
+              np.float64(1.3))
+    G = rng.randn(N, M)
+    want = jax.grad(lambda *a: jnp.sum(jax_rbf_gram(*a, True) * G),
+                    argnums=(0, 1, 2, 3))(*map(jnp.asarray, arrays))
+    got = _gram_grads(tgram.rbf_gram, arrays, G)
+    for name, g, w in zip(("dX", "dZ", "dls", "dvar"), got, want):
+        assert_allclose(g.numpy(), np.asarray(w), rtol=GRAM_GRAD_RTOL,
+                        atol=GRAM_GRAD_ATOL,
+                        err_msg=f"rbf_gram gradient {name} (72, 40, 4) vs "
+                                f"jax.grad of the interpret-mode kernel")
+    scalar = _gram_grads(tgram.rbf_gram, (arrays[0], arrays[1],
+                                          np.float64(0.9), arrays[3]), G)
+    want = jax.grad(lambda *a: jnp.sum(jax_rbf_gram(*a, True) * G),
+                    argnums=2)(*map(jnp.asarray, (arrays[0], arrays[1],
+                                                  np.full(D, 0.9),
+                                                  arrays[3])))
+    assert_allclose(scalar[2].numpy(), np.sum(np.asarray(want)),
+                    rtol=GRAM_GRAD_RTOL, atol=GRAM_GRAD_ATOL,
+                    err_msg="rbf_gram gradient dls, scalar lengthscale")
+    assert scalar[2].shape == (), "rbf_gram scalar lengthscale: dls shape"
+    # rbf_gram(X, X), the route of RBF.K(X) on the card
+    X, ls, var = rng.randn(30, 3), rng.rand(3) + 0.5, 1.3
+    G = rng.randn(30, 30)
+
+    def jk(X, ls, var):
+        return dsd.RBF.make(3, variance=var, lengthscales=ls).K(X)
+
+    args = (jnp.asarray(X), jnp.asarray(ls), jnp.asarray(var))
+    want_K = jk(*args)
+    want = jax.grad(lambda *a: jnp.sum(jk(*a) * G), argnums=(0, 1, 2))(*args)
+    got_K = tgram.rbf_gram(*(torch.tensor(np.asarray(a, dtype=np.float64))
+                             for a in (X, X, ls, var)))
+    assert_allclose(got_K.numpy(), np.asarray(want_K), rtol=RTOL, atol=ATOL,
+                    err_msg="rbf_gram(X, X) vs the JAX RBF.K(X)")
+    got = _gram_grads(tgram.rbf_gram, (X, X, ls, var), G, square=True)
+    for name, g, w in zip(("dX", "dls", "dvar"), got, want):
+        assert_allclose(g.numpy(), np.asarray(w), rtol=GRAM_GRAD_RTOL,
+                        atol=GRAM_GRAD_ATOL,
+                        err_msg=f"rbf_gram(X, X) gradient {name} vs "
+                                f"jax.grad of the JAX RBF.K(X)")
+
+
 def test_fused_conditional_plain_matches_jax():
     for f in (fused_conditional, fused_conditional_saved):
         f.launches = f.backward_launches = 0
     tpsi2.psi2_core.launches = tpsi2.psi2_core.backward_launches = 0
+    tgram.rbf_gram.launches = 0
     for name, kw in CASES:
         args = _inputs(**kw)
         jargs = [jnp.asarray(a) for a in args]
@@ -344,7 +433,8 @@ def test_fused_conditional_plain_matches_jax():
     _check_psi2_limits()
     _check_psi2()
     _check_psi2_backward()
-    assert _counts() == (0, 0, 0, 0, 0, 0), (
+    _check_rbf_gram()
+    assert _counts() == (0, 0, 0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 
     # the CPU path stays autograd-able, and honours needs_input_grad

@@ -1,12 +1,13 @@
 """PyTorch port: module-by-module parity with the JAX package in float64
 on the CPU (bijectors and priors, kernels, Cholesky with escalation and
 its gradient, the relative jitter ladder, triangular inverse and solves,
-the Gaussian KL terms, mean functions, Gaussian likelihood, the SVGP
-conditional on both diagonal branches with its KL term and gradients, the
-cached layer, the RBF psi statistics and their gradients on both psi2
-routes, the collapsed
-SGPR layer on certain and Gaussian inputs), plus the port's import and
-device rules.
+the diagonal and full-covariance reparameterization, the Gaussian KL
+terms, mean functions, Gaussian likelihood, the SVGP conditional on its
+fused, staged-inverse and solve branches, diagonal and full-covariance,
+with its KL term and gradients, the cached layer (also full-covariance,
+and its KL refusal), the RBF psi statistics and their gradients on both
+psi2 routes, the collapsed SGPR layer on certain and Gaussian inputs,
+diagonal and full-covariance), plus the port's import and device rules.
 
 One test item that loops over its cases and names the failing case in
 every assertion message."""
@@ -168,6 +169,24 @@ def _check_linalg(rng):
            tlinalg.reparameterize(_t(mean), _t(var), _t(z), 1e-6),
            jlinalg.reparameterize(jnp.asarray(mean), jnp.asarray(var),
                                   jnp.asarray(z), jitter=1e-6))
+    # full covariance (S, N, N, D); the factor of (s=1, d=0) fails, and its
+    # samples are NaN in both packages (own stream: the cases after this
+    # keep their draws)
+    rng = np.random.RandomState(7)
+    A = rng.randn(3, 2, 5, 5)
+    cov = np.einsum("sdij,sdkj->sdik", A, A) + 0.1 * np.eye(5)
+    cov[1, 0] = -np.eye(5)
+    cov = np.transpose(cov, (0, 2, 3, 1))                       # (S, N, N, D)
+    mean, z = rng.randn(3, 5, 2), rng.randn(3, 5, 2)
+    got = tlinalg.reparameterize(_t(mean), _t(cov), _t(z), 1e-6,
+                                 full_cov=True)
+    _close("reparameterize full_cov (one failed factor -> NaN)", got,
+           jlinalg.reparameterize(jnp.asarray(mean), jnp.asarray(cov),
+                                  jnp.asarray(z), full_cov=True,
+                                  jitter=1e-6))
+    nan = torch.isnan(got)
+    assert nan[1, :, 0].all() and nan.sum() == 5, (
+        "reparameterize full_cov: NaN outside the failed factor's samples")
 
 
 def _check_ladder_and_solves(rng):
@@ -305,15 +324,23 @@ def _check_sgpr_layer(rng):
                 return layer.set_data(m, *jdata[1:]).build_likelihood()
             view = layer.set_data(m, *jdata[1:])
             return (bound(layer, m), view.conditional_ND(jnp.asarray(Xs)),
+                    view.conditional_ND(jnp.asarray(Xs), full_cov=True),
                     jax.grad(bound, argnums=(0, 1))(layer, m))
 
-        jbound, jcond, (jgrad, jgmu) = jax_side(jl, jdata[0])
+        jbound, jcond, jfull, (jgrad, jgmu) = jax_side(jl, jdata[0])
         tview = tl.set_data(*tdata)
         bound = tview.build_likelihood()
         _close(f"{case} bound", bound, jbound)
         for what, got, want in zip(("mean", "var"),
                                    tview.conditional_ND(_t(Xs)), jcond):
             _close(f"{case} conditional {what}", got, want)
+        for what, got, want in zip(
+                ("mean", "var"), tview.conditional_ND(_t(Xs), full_cov=True),
+                jfull):
+            _close(f"{case} full_cov conditional {what}", got, want)
+        kl = tl.KL()
+        assert kl.item() == 0.0 and kl.dtype == torch.float64, (
+            f"{case}: Layer.KL() is {kl!r}, not 0 in the model's dtype")
         bound.backward()
         want = {_torch_key(jax.tree_util.keystr(p)): g for p, g in
                 jax.tree_util.tree_flatten_with_path(jgrad)[0]}
@@ -359,61 +386,92 @@ def _check_mean_functions_and_likelihood(rng):
                jg).variance.unconstrained)
 
 
-def _layer_pair(rng, white, fused, kern_white):
-    M, D_in, D_out = 15, 3, 2
+def _layer_pair(rng, white, fused, kern_white, mode="inverse", M=15):
+    D_in, D_out = 3, 2
     Z = rng.randn(M, D_in)
     W = rng.randn(D_in, D_out)
     jk, tk = _kernel_pair(D_in, kern_white, ls=rng.uniform(0.7, 1.5, D_in))
     jl = dsd.SVGPLayer.make(
         jk, Z, D_out, dsd.models.mean_functions.Linear.make(W),
-        white=white, jitter=1e-6, solve_mode="inverse", use_pallas=fused)
+        white=white, jitter=1e-6, solve_mode=mode, use_pallas=fused)
     q_sqrt = np.tril(rng.randn(D_out, M, M) * 0.3) + np.eye(M) * 0.5
     jl = jl.replace(q_mu=jl.q_mu.with_value(rng.randn(M, D_out)),
                     q_sqrt=jl.q_sqrt.with_value(q_sqrt))
-    cfg = port.Config(jitter=1e-6, solve_mode="inverse", use_pallas=fused)
+    cfg = port.Config(jitter=1e-6, solve_mode=mode, use_pallas=fused)
     tl = port.SVGPLayer(tk, Z, D_out, port.Linear(np.zeros((D_in, D_out))),
                         white=white, config=cfg)
     return jl, port.load_reference_state(tl, _state(jl))
 
 
-def _check_layer_grads(case, jl, tl, X, rng):
-    """KL value, and the gradient of sum(mean R1) + sum(var R2) + KL with
-    respect to every parameter of the layer."""
-    _close(f"{case} KL", tl.KL(), jl.KL())
-    R1, R2 = rng.randn(X.shape[0], 2), rng.randn(X.shape[0], 2)
+def _check_layer(case, jl, tl, X, rng, full_cov=False):
+    """Mean, var, KL, and the gradient of sum(mean R1) + sum(var R2) + KL
+    with respect to every parameter of the layer, against one jitted JAX
+    oracle."""
+    B = X.shape[0]
+    R1 = rng.randn(B, 2)
+    R2 = rng.randn(B, B, 2) if full_cov else rng.randn(B, 2)
 
     def jobj(layer):
-        m, v = layer.conditional_ND(jnp.asarray(X))
+        m, v = layer.conditional_ND(jnp.asarray(X), full_cov=full_cov)
         return jnp.sum(m * R1) + jnp.sum(v * R2) + layer.KL()
 
-    m, v = tl.conditional_ND(_t(X))
+    @jax.jit
+    def oracle(layer):
+        return (layer.conditional_ND(jnp.asarray(X), full_cov=full_cov),
+                layer.KL(), jax.grad(jobj)(layer))
+
+    (jm, jv), jkl, jgrad = oracle(jl)
+    m, v = tl.conditional_ND(_t(X), full_cov=full_cov)
+    _close(f"{case} mean", m, jm)
+    _close(f"{case} var", v, jv)
+    _close(f"{case} KL", tl.KL(), jkl)
     (torch.sum(m * _t(R1)) + torch.sum(v * _t(R2)) + tl.KL()).backward()
     want = {_torch_key(jax.tree_util.keystr(p)): g for p, g in
-            jax.tree_util.tree_flatten_with_path(jax.grad(jobj)(jl))[0]}
+            jax.tree_util.tree_flatten_with_path(jgrad)[0]}
     params = dict(tl.named_parameters())
     assert set(params) == set(want), f"{case}: parameter sets differ"
     for name, p in params.items():
         _close(f"{case} grad {name}", p.grad, want[name])
 
 
+# (branch, solve_mode, use_pallas, full_cov): the fused and staged-inverse
+# diagonal branches, the solve branch diagonal and full-covariance, and the
+# full covariance under solve_mode='inverse' (which takes the solves)
+LAYER_BRANCHES = [("fused", "inverse", True, False),
+                  ("inverse", "inverse", False, False),
+                  ("solve", "solve", False, False),
+                  ("solve full_cov", "solve", False, True),
+                  ("inverse full_cov", "inverse", False, True)]
+
+
 def _check_layers(rng):
     X = rng.randn(23, 3)
-    for fused in (True, False):
+    for branch, mode, fused, full_cov in LAYER_BRANCHES:
         for white, kern_white in ((True, False), (False, True)):
-            case = (f"SVGPLayer {'fused' if fused else 'inverse'} "
-                    f"white={white} kernel={'RBF+White' if kern_white else 'RBF'}")
-            jl, tl = _layer_pair(rng, white, fused, kern_white)
-            for what, got, want in zip(("mean", "var"),
-                                       tl.conditional_ND(_t(X)),
-                                       jl.conditional_ND(jnp.asarray(X))):
-                _close(f"{case} {what}", got, want)
-            _check_layer_grads(case, jl, tl, X, rng)
+            case = (f"SVGPLayer {branch} white={white} "
+                    f"kernel={'RBF+White' if kern_white else 'RBF'}")
+            jl, tl = _layer_pair(rng, white, fused, kern_white, mode,
+                                 M=15 if branch in ("fused", "inverse")
+                                 else 12)
+            _check_layer(case, jl, tl, X, rng, full_cov)
+            if mode == "solve" and white:
+                continue            # the cache does not depend on the mode
             jc = jposterior._cache_svgp(jl)
             tc = tposterior._cache_svgp(tl)
-            for what, got, want in zip(("mean", "var"),
-                                       tc.conditional_ND(_t(X)),
-                                       jc.conditional_ND(jnp.asarray(X))):
+            for what, got, want in zip(
+                    ("mean", "var"), tc.conditional_ND(_t(X), full_cov),
+                    jc.conditional_ND(jnp.asarray(X), full_cov)):
                 _close(f"CachedSVGPLayer from {case} {what}", got, want)
+    try:
+        jc.KL()
+    except NotImplementedError as e:
+        want = str(e)
+    try:
+        tc.KL()
+    except NotImplementedError as e:
+        assert str(e) == want, f"CachedSVGPLayer.KL message: {e}"
+    else:
+        raise AssertionError("CachedSVGPLayer.KL did not raise")
 
 
 def _check_import_and_device_rules():

@@ -1,8 +1,10 @@
-"""PyTorch port: the serving and training paths of a 3-layer DGP, and the
-bound and predictions of the collapsed DGPs (DGPDamianou, DGPCollapsed),
-against the JAX package in float64 on the CPU, the port's server and
-``fit`` semantics, and the reject-nonfinite guard against the JAX
-``guarded_scan`` and ``fit``.
+"""PyTorch port: the serving and training paths of a 3-layer DGP (also
+under the default ``Config()``, ``solve_mode='solve'``, with its
+full-covariance predictions and ``remat``), and the bound and predictions
+of the collapsed DGPs (DGPDamianou, DGPCollapsed, also their
+full-covariance propagation), against the JAX package in float64 on the
+CPU, the port's server and ``fit`` semantics, and the reject-nonfinite
+guard against the JAX ``guarded_scan`` and ``fit``.
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -52,9 +54,15 @@ BATCH, LR, STEPS = 30, 0.01, 20
 TRAJ_RTOL, TRAJ_ATOL = 1e-6, 1e-9
 
 
-def _jax_model(rng, X, Y):
+# the numerics the paths are built with, in both packages, unless a case
+# says otherwise (the default Config() is solve_mode='solve', use_pallas
+# False, jitter 1e-6, as the JAX default config)
+FUSED = dict(use_pallas=True, solve_mode="inverse", jitter=1e-6)
+
+
+def _jax_model(rng, X, Y, numerics=FUSED):
     Z = X[:M]
-    with temp_config(use_pallas=True, solve_mode="inverse", jitter=1e-6):
+    with temp_config(**numerics):
         kernels = [dsd.RBF.make(D) + dsd.White.make(D, variance=2e-6),
                    dsd.RBF.make(H, lengthscales=1.3)
                    + dsd.White.make(H, variance=2e-6),
@@ -70,10 +78,9 @@ def _jax_model(rng, X, Y):
     return model.replace(layers=layers)
 
 
-def _port_model(X, Y, jmodel):
+def _port_model(X, Y, jmodel, cfg=port.Config(**FUSED)):
     kernels = [port.RBF(D) + port.White(D), port.RBF(H) + port.White(H),
                port.RBF(H)]
-    cfg = port.Config(use_pallas=True, solve_mode="inverse", jitter=1e-6)
     model = port.DGP.build(X, Y, X[:M], kernels, port.Gaussian(1.0),
                            num_samples=S, config=cfg, device="cpu")
     return port.load_reference_state(model, _flat(jmodel))
@@ -101,6 +108,54 @@ def _draws(rng, n):
     return idx, [rng.randn(S, BATCH, d) for d in (H, H, 1)]
 
 
+_jax_loss_and_grads = jax.jit(jax.value_and_grad(_jax_loss))
+
+
+def _check_objective(case, rng, X, Y, jmodel, cfg, steps):
+    """ELBO value and gradients at fixed draws, and a ``steps``-step Adam
+    trajectory against optax, of the port model built with ``cfg`` from
+    ``jmodel``."""
+    model = _port_model(X, Y, jmodel, cfg)
+    params = dict(model.named_parameters())
+    trainable = {k for k, v in _flat(trainable_mask(jmodel)).items() if v}
+
+    def jax_at(m, idx, zs):
+        return _jax_loss_and_grads(m, jnp.asarray(X[idx]),
+                                   jnp.asarray(Y[idx]),
+                                   [jnp.asarray(z) for z in zs])
+
+    idx, zs = _draws(rng, X.shape[0])
+    jloss, jgrads = jax_at(jmodel, idx, zs)
+    loss = model.loss(X[idx], Y[idx], zs=zs) - port.log_prior(model)
+    loss.backward()
+    _close(f"{case}ELBO at fixed draws", loss, jloss)
+    jgrads = _flat(jgrads)
+    for name in sorted(trainable):
+        _close(f"{case}ELBO gradient {name}", params[name].grad,
+               jgrads[name])
+
+    # Adam steps with the same minibatches and draws
+    model = _port_model(X, Y, jmodel, cfg)
+    step = make_sgd_train_step(port_masked_optimizer(model, LR), BATCH)
+    tx = masked_optimizer(optax.adam(LR), jmodel)
+    opt_state = tx.init(jmodel)
+    jm = jmodel
+    for t in range(steps):
+        idx, zs = _draws(rng, X.shape[0])
+        jl, grads = jax_at(jm, idx, zs)
+        updates, opt_state = tx.update(grads, opt_state, jm)
+        jm = optax.apply_updates(jm, updates)
+        tl = step(model, idx=torch.as_tensor(idx), zs=zs)
+        assert_allclose(tl.numpy(), np.asarray(jl), rtol=TRAJ_RTOL,
+                        atol=TRAJ_ATOL, err_msg=f"{case}Adam trajectory "
+                                                f"loss, step {t}")
+    want = _flat(jm)
+    for name, p in model.named_parameters():
+        assert_allclose(p.detach().numpy(), want[name], rtol=TRAJ_RTOL,
+                        atol=TRAJ_ATOL, err_msg=f"{case}Adam trajectory "
+                                                f"{name} after {steps} steps")
+
+
 def _check_training(rng, X, Y, jmodel):
     """ELBO value and gradients at fixed draws, a 20-step Adam trajectory
     against optax, a CPU fit, and fit's unported options."""
@@ -111,42 +166,7 @@ def _check_training(rng, X, Y, jmodel):
     trainable = {k for k, v in _flat(trainable_mask(jmodel)).items() if v}
     assert trainable == {k for k, p in params.items() if p.requires_grad}, (
         "trainable parameters differ from the JAX trainable_mask")
-
-    loss_and_grads = jax.jit(jax.value_and_grad(_jax_loss))
-
-    def jax_at(m, idx, zs):
-        return loss_and_grads(m, jnp.asarray(X[idx]), jnp.asarray(Y[idx]),
-                              [jnp.asarray(z) for z in zs])
-
-    idx, zs = _draws(rng, X.shape[0])
-    jloss, jgrads = jax_at(jmodel, idx, zs)
-    loss = model.loss(X[idx], Y[idx], zs=zs) - port.log_prior(model)
-    loss.backward()
-    _close("ELBO at fixed draws", loss, jloss)
-    jgrads = _flat(jgrads)
-    for name in sorted(trainable):
-        _close(f"ELBO gradient {name}", params[name].grad, jgrads[name])
-
-    # 20 Adam steps with the same minibatches and draws
-    model = _port_model(X, Y, jmodel)
-    step = make_sgd_train_step(port_masked_optimizer(model, LR), BATCH)
-    tx = masked_optimizer(optax.adam(LR), jmodel)
-    opt_state = tx.init(jmodel)
-    jm = jmodel
-    for t in range(STEPS):
-        idx, zs = _draws(rng, X.shape[0])
-        jl, grads = jax_at(jm, idx, zs)
-        updates, opt_state = tx.update(grads, opt_state, jm)
-        jm = optax.apply_updates(jm, updates)
-        tl = step(model, idx=torch.as_tensor(idx), zs=zs)
-        assert_allclose(tl.numpy(), np.asarray(jl), rtol=TRAJ_RTOL,
-                        atol=TRAJ_ATOL, err_msg=f"Adam trajectory loss, "
-                                                f"step {t}")
-    want = _flat(jm)
-    for name, p in model.named_parameters():
-        assert_allclose(p.detach().numpy(), want[name], rtol=TRAJ_RTOL,
-                        atol=TRAJ_ATOL, err_msg=f"Adam trajectory {name} "
-                                                f"after {STEPS} steps")
+    _check_objective("", rng, X, Y, jmodel, port.Config(**FUSED), STEPS)
 
     # fit on the CPU: whole chunks, a history entry per log_every
     model, hist = port.fit(_port_model(X, Y, jmodel), iterations=20,
@@ -166,6 +186,66 @@ def _check_training(rng, X, Y, jmodel):
                            log_every=10, reject_nonfinite=True)
     assert [h["iter"] for h in hist] == [10] and hist[0]["rejected"] == 0 \
         and np.isfinite(hist[0]["loss"]), f"fit(DGP, guard on) {hist}"
+
+
+def _check_default_config(rng, X, Y, Xt, Yt):
+    """The DGP under the default numerics of both packages (the port's
+    ``Config()``: float64, jitter 1e-6, solve_mode='solve', use_pallas
+    False): ELBO and gradient at fixed draws and 5 Adam steps against JAX;
+    predict_all_layers (diagonal and full covariance) and
+    predict_f_full_cov at fixed draws against the JAX propagate;
+    ``remat=True`` bit for bit the values and gradients of ``remat=False``
+    with one seeded generator; and the cached model's ELBO refused with
+    the reference's message."""
+    jmodel = _jax_model(rng, X, Y, numerics={})
+    _check_objective("default Config(): ", rng, X, Y, jmodel, port.Config(),
+                     5)
+    model = _port_model(X, Y, jmodel, port.Config())
+    zs = [rng.randn(S, N, d) for d in (H, H, 1)]
+    jax_side = jax.jit(lambda m, x, z: (m.propagate(x, S=S, zs=z),
+                                        m.propagate(x, S=S, zs=z,
+                                                    full_cov=True)))
+    wants = jax_side(jmodel, jnp.asarray(Xt), [jnp.asarray(z) for z in zs])
+    for full_cov, want in zip((False, True), wants):
+        got = (model.predict_all_layers_full_cov(Xt, S=S, zs=zs) if full_cov
+               else model.predict_all_layers(Xt, S=S, zs=zs))
+        for l in range(3):
+            for what, g, w in zip(("F", "mean", "var"), got, want):
+                _close(f"default Config(): predict_all_layers"
+                       f"{'_full_cov' if full_cov else ''} layer {l} {what}",
+                       g[l], w[l])
+    for what, g, w in zip(("mean", "var"),
+                          model.predict_f_full_cov(Xt, S=S, zs=zs),
+                          (want[1][-1], want[2][-1])):
+        assert g.shape == w.shape, f"predict_f_full_cov {what} {g.shape}"
+        _close(f"default Config(): predict_f_full_cov {what}", g, w)
+
+    runs = []
+    for remat in (False, True):
+        m = _port_model(X, Y, jmodel, port.Config(remat=remat))
+        assert m.remat is remat, f"remat={remat}: not snapshotted"
+        gen = torch.Generator()
+        gen.manual_seed(7)
+        loss = m.loss(generator=gen)
+        loss.backward()
+        runs.append((loss, [p.grad for p in m.parameters()]))
+    (l0, g0), (l1, g1) = runs
+    assert torch.equal(l0, l1), "remat=True: the loss differs in its bits"
+    assert all(a is None and b is None or torch.equal(a, b)
+               for a, b in zip(g0, g1)), (
+        "remat=True: a gradient differs in its bits")
+
+    try:
+        dsd.precompute(jmodel).layers[0].KL()
+    except NotImplementedError as e:
+        want_msg = str(e)
+    try:
+        port.precompute(model).elbo(X, Y, zs=[rng.randn(S, 60, d)
+                                              for d in (H, H, 1)])
+    except NotImplementedError as e:
+        assert str(e) == want_msg, f"precompute(model).elbo(): {e}"
+    else:
+        raise AssertionError("precompute(model).elbo() did not raise")
 
 
 def _check_evaluate_regression(rng, X, Y, Xt, Yt):
@@ -257,6 +337,9 @@ def _check_collapsed(rng, Xt, Yt):
             return m.elbo(), jax.grad(lambda mm: mm.elbo())(m), y, dens
 
         jbound, jgrads, jy, jdens = jax_side(jm)
+        jfull = jax.jit(lambda m: m.propagate(
+            jnp.asarray(Xt), S=S, full_cov=True,
+            zs=[jnp.asarray(z) for z in zs]))(jm)
         jgrads = _flat(jgrads)
         for impl in ("xla", "auto"):
             case = f"{name} psi2_impl={impl}"
@@ -271,6 +354,11 @@ def _check_collapsed(rng, Xt, Yt):
             _close(f"{case} predict_density",
                    model.predict_density(Xt, Yt, S=S, zs=zs), jdens)
             if impl == "xla":
+                got = model.propagate(Xt, S=S, zs=zs, full_cov=True)
+                for l in range(2):
+                    for what, g, w in zip(("F", "mean", "var"), got, jfull):
+                        _close(f"{case} propagate full_cov layer {l} {what}",
+                               g[l], w[l])
                 bound.backward()
                 for pname, p in model.named_parameters():
                     g = torch.zeros_like(p) if p.grad is None else p.grad
@@ -530,6 +618,8 @@ def test_paths_match_jax():
         assert all(torch.isfinite(t).all() for t in r1), f"{name}: non-finite"
 
     _check_training(rng, X, Y, jmodel)
+    # its own stream, so that the cases after it keep their draws
+    _check_default_config(np.random.RandomState(6), X, Y, Xt, Yt)
     _check_guard(rng)
     _check_evaluate_regression(rng, X, Y, Xt, Yt)
     psi2_core.launches = 0
