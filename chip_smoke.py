@@ -13,13 +13,20 @@ Phases, each of which raises on a failed check:
    forward and save-gram backward) against its plain PyTorch version at
    the serving path's per-layer shapes (B=100,000), the training path's
    (B=10,000, M=100, Dx=8, Do=8 and 1), a ragged multi-tile, a
-   clamp-active and an M=512 shape, in float32, both also held against
-   the plain version in float64 on the same inputs.  Raises if a kernel
-   fails to launch, gives a non-finite value, differs from the plain
-   float32 version by more than 1e-4 of the output scale (per gradient
-   tensor for the backward), is more than 2x as far from float64 as the
-   plain float32 version, gives different bits on a repeat launch, or
-   (save-gram forward) differs from the forward's mean and var;
+   clamp-active and an M=512 shape, and the edges of the tiling (B=1, one
+   row past a 40-row block and past a 16-row reduction slice, Do=13, M=1),
+   in float32, both
+   also held against the plain version in float64 on the same inputs.
+   Raises if a kernel fails to launch, gives a non-finite value, differs
+   from the plain float32 version by more than 1e-4 of the output scale
+   (per gradient tensor for the backward), is more than 2x as far from
+   float64 as the plain float32 version, gives different bits on a repeat
+   launch, or (save-gram forward) differs from the forward's mean and
+   var.  Prints the forward's error against float64 under each precision
+   design (fp32 FFMA, the kernel; 3xTF32 with per-k-step fp32 sums; 3xTF32
+   chained in the tensor core) beside the plain version's, and the
+   backward's launch plan at the training shape and at M=512 (raises if
+   its slice-partial scratch is above 8 MB or depends on B);
 2. the serving path, live: a 5-layer DGP at the headline width
    (kin8nm-shaped synthetic data, N=8192 and D=8, M=100, RBF+White
    inner kernels, Gaussian likelihood 0.05, S=100) built with
@@ -31,9 +38,13 @@ Phases, each of which raises on a failed check:
    small input at fixed draws;
 3. the cached server (``precompute=True``) on the same requests, and its
    distance from the live server at the same seeds;
-4. timings with CUDA events (median of 30 launches): the forward kernel
-   at the serving shapes, its plain version, its bound; per-request
-   latency of the live and the cached servers;
+4. timings: the forward kernel at the serving shapes with CUDA events
+   (median of 30 launches) and its device time under torch.profiler, its
+   plain version, its bound against the fp32 FFMA peak and with its
+   products at the 3xTF32 rate, and a GEMM yardstick (torch.matmul of
+   its dominant product, (B x M) by (M x Do M), which does not compute
+   the same function); per-request latency of the live and the cached
+   servers;
 5. a torch.profiler breakdown of a request's device time by kernel;
 6. the training path, live: the headline model with S=10 samples
    (``DGP.build`` on the card, ``use_pallas=True``) trained by ``fit`` for
@@ -51,8 +62,11 @@ Phases, each of which raises on a failed check:
    and under ``False`` (raises if a kernel other than rbf_gram launched,
    or rbf_gram other than 3 times a layer a step); and whether two
    20-step fits from one seed agree bit for bit (printed);
-7. timings with CUDA events (median of 30): each kernel and its plain
-   version at the training shapes, with its bound; training steps/s of
+7. timings as in phase 4: each fused kernel and its plain version at the
+   training shapes, with its device time, bounds and GEMM yardstick
+   (every kernel's record carries ``device_ms`` and
+   ``gemm_yardstick_ms``; psi2's yardstick is (M x N) by (N x M),
+   rbf_gram's (N x D) by (D x M)); training steps/s of
    ``fit`` for ``use_pallas=True``, ``'saved'`` and ``False``, measured in
    turns;
 8. a training step's wall time, its host syncs (counted in torch's sync
@@ -149,7 +163,8 @@ Phases, each of which raises on a failed check:
    ``gram.plain_on_card()``, which only this script enters): raises unless
    the kernel's worst error is within 2x the plain gram's;
 18. steps/s of fit on the solve route beside the inverse route, in turns,
-   and a profiled solve-route step;
+   a profiled step of each, and the device busy a step of the three
+   routes (use_pallas=True, use_pallas=False, solve) side by side;
 19. full covariances of the trained model at 200 test rows, S=10, fixed
    draws: predict_f_full_cov and predict_all_layers_full_cov against the
    float64 CPU path (layer 0 within 5e-3; every layer within 2x the plain
@@ -167,6 +182,7 @@ prints no result.
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import statistics
@@ -187,17 +203,21 @@ from doubly_stochastic_dgp_tpu_torch import (  # noqa: E402
 from doubly_stochastic_dgp_tpu_torch.ops import psi_stats  # noqa: E402
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import (  # noqa: E402
     build, gram, psi2)
+from doubly_stochastic_dgp_tpu_torch.ops.cuda import (  # noqa: E402
+    conditional)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (  # noqa: E402
-    flops, flops_bwd, fused_conditional, fused_conditional_backward,
-    fused_conditional_backward_plain, fused_conditional_forward,
-    fused_conditional_plain, fused_conditional_saved,
-    fused_conditional_saved_plain)
+    backward_plan, flops, flops_bwd, forward_plan, fused_conditional,
+    fused_conditional_backward, fused_conditional_backward_plain,
+    fused_conditional_forward, fused_conditional_plain,
+    fused_conditional_saved, fused_conditional_saved_plain)
 from doubly_stochastic_dgp_tpu_torch.ops.linalg import (  # noqa: E402
     safe_cholesky_ladder)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 FP32_PEAK = 67e12          # FLOP/s, fp32 outside the tensor cores
 FP64_PEAK = 34e12          # FLOP/s, fp64 outside the tensor cores
+TF32_PEAK = 495e12         # FLOP/s, TF32 on the tensor cores; 3xTF32 takes
+                           # three products for each fp32-accurate one
 HBM_RATE = 3.35e12         # bytes/s
 # exp results/s of the SFUs: 132 SMs x 16 a clock (the CUDA C++
 # Programming Guide's throughput table, compute capability 9.0: exp2 and
@@ -230,6 +250,18 @@ KERNELS = (
      "launches"),
 )
 KERNEL_NAMES = [k[0] for k in KERNELS]
+# the device kernels of each record's launch, as torch.profiler names them
+DEVICE_KERNELS = {
+    "fused_conditional": ("fused_conditional_fwd_kernel",),
+    "fused_conditional_saved": ("fused_conditional_fwd_kernel",),
+    "fused_conditional_backward": ("fused_conditional_bwd",
+                                   "sum_slices_kernel"),
+    "fused_conditional_saved_backward": ("fused_conditional_bwd",
+                                         "sum_slices_kernel"),
+    "psi2_core_forward": ("psi2_fwd_kernel", "psi2_sum_chunks_kernel"),
+    "psi2_core_backward": ("psi2_bwd_kernel", "psi2_bwd_finish_kernel"),
+    "rbf_gram": ("rbf_gram_kernel",),
+}
 # kernel vs plain float32 on the same inputs: both are float32 with
 # different summation orders, so they may differ by float32 roundoff
 # amplified by the staged products; relative to the output scale
@@ -355,7 +387,61 @@ KERNEL_CASES = [("serving_Do8", 100000, M, 8, 8, False),
                 ("clamp_active", 4000, 50, 5, 3, True),
                 ("M512", 513, 512, 3, 2, False),
                 ("training_Do8", TRAIN_S * BATCH, M, 8, 8, False),
-                ("training_Do1", TRAIN_S * BATCH, M, 8, 1, False)]
+                ("training_Do1", TRAIN_S * BATCH, M, 8, 1, False),
+                # the edges of the tiling: one row; one row past a 40-row
+                # block (M=100) and past a 16-row reduction slice; Do not a
+                # power of two; M=1
+                ("B1", 1, M, 8, 8, False),
+                ("block40_plus_1", 41, M, 8, 8, False),
+                ("slice16_plus_1", 17, M, 8, 8, False),
+                ("Do13", 2000, M, 8, 13, False),
+                ("M1", 300, 1, 4, 2, False)]
+# the forward's precision designs (fused_conditional.cu), all held against
+# float64 on phase 1's cases: the kernel's fp32 FFMA and the two 3xTF32
+# tensor-core designs it was chosen over
+PRECISIONS = {"fp32 FFMA (the kernel)": conditional.DESIGN_FFMA,
+              "3xTF32, per-k-step fp32 sums": conditional.DESIGN_3XTF32,
+              "3xTF32, sums chained in the tensor core":
+                  conditional.DESIGN_3XTF32_CHAINED}
+
+
+def precision_comparison(case, args, plain, ref):
+    """The forward's error against float64 under each precision design
+    (relative to the output scale, the forward's rule), beside the plain
+    float32 version's; returns {design: error}."""
+    kvar, kdiag = conditional._scalars(args[5], args[6], args[0])
+    errs = {}
+    for name, design in PRECISIONS.items():
+        m, v, _ = conditional._forward_kernel(*args[:5], kvar, kdiag, False,
+                                              design)
+        errs[name] = compare((m, v), plain, ref, joint_scale=True)[2]
+    errs["plain float32"] = compare(plain, plain, ref, joint_scale=True)[2]
+    print(f"precision fused_conditional {case}: error vs f64 of scale: "
+          + "; ".join(f"{d} {e:.3e}" for d, e in errs.items())
+          + " (gate: <= 2x plain)", flush=True)
+    return errs
+
+
+def print_backward_plans():
+    """The backward's launch plan at the training shape and at M=512:
+    its slice-partial scratch must stay within 8 MB whatever B is."""
+    for B, M_, Dx, Do in ((TRAIN_S * BATCH, M, 8, 8), (513, 512, 3, 2)):
+        plan = backward_plan(B, M_, Dx, Do, torch.cuda.get_device_properties(
+            0).multi_processor_count)
+        big = backward_plan(1000 * B, M_, Dx, Do,
+                            torch.cuda.get_device_properties(
+                                0).multi_processor_count)
+        mb = 4 * plan["scratch_floats"] / 1e6
+        print(f"backward plan B={B} M={M_} Dx={Dx} Do={Do}: row pass "
+              f"{plan['row_blocks']} blocks of {plan['tb']} rows; reduction "
+              f"{plan['nslices']} slices of {plan['rows_per_slice']} rows, "
+              f"tiles {plan['tile']} x {plan['tile']}, "
+              f"{plan['reduce_blocks']} blocks; scratch {mb:.3f} MB (at "
+              f"1000 B: {4 * big['scratch_floats'] / 1e6:.3f} MB); row "
+              f"panels {4 * plan['panel_floats'] / 1e6:.3f} MB", flush=True)
+        check(mb <= 8.0 and big["scratch_floats"] == plan["scratch_floats"],
+              f"backward scratch {mb} MB at B={B} M={M_}: above 8 MB or "
+              f"dependent on B")
 
 
 def phase_kernels(seed):
@@ -364,6 +450,7 @@ def phase_kernels(seed):
     forward must equal the forward.  Returns the worst errors per kernel
     (these launches are not the main path's and are not counted)."""
     worst = {n: [0.0] * 4 for n in KERNEL_NAMES}
+    precision = {}
     counts = launch_counts()
     for case, B, M_, Dx, Do, clamp in KERNEL_CASES:
         args = conditional_inputs(B, M_, Dx, Do, seed, clamp)
@@ -384,6 +471,8 @@ def phase_kernels(seed):
                       f"{case}: the variance clamp is not active")
             worst["fused_conditional"] = list(
                 map(max, worst["fused_conditional"], errs))
+            precision[case] = precision_comparison(case, args, (pm, pv),
+                                                   (rm, rv))
 
             saved = lambda: fused_conditional_forward(  # noqa: E731
                 *args, save_gram=True)
@@ -418,8 +507,9 @@ def phase_kernels(seed):
                 check_repeat(name, case, bwd, kg)
                 worst[name] = list(map(max, worst[name], errs))
         del args, a64, gm, gv, pK, rK, sK
+    print_backward_plans()
     set_launch_counts(counts)
-    return worst
+    return worst, precision
 
 
 # ---------------------------------------------------------------------------
@@ -547,29 +637,65 @@ def bound_ms(B, M_, Dx, Do, backward=False, saved=False):
     floats += B * M_ if saved else 0
     t_ops = n_flops / FP32_PEAK
     t_bytes = 4 * floats / HBM_RATE
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                      else "bytes")
+    # the second bound of a tensor-core design: the GEMM-shaped products
+    # (G = K LiT, the variance's G W_d, and in the backward dG, dK, dW and
+    # dLiT) as 3xTF32 on the tensor cores, the rest as fp32 FFMA (the
+    # kernels are FFMA throughout, so the first bound is theirs)
+    n_gemm = 2 * B * M_ * M_ * ((Do + 2) + (Do + 1) if backward else Do + 1)
+    t_tc = n_gemm / (TF32_PEAK / 3) + (n_flops - n_gemm) / FP32_PEAK
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes",
+            1e3 * max(t_tc, t_bytes))
 
 
-def phase_timings(seed, live, cached, requests):
+def gemm_yardstick_ms(rows, inner, cols):
+    """CUDA-event time of one float32 torch.matmul (rows x inner) by
+    (inner x cols): a yardstick of the kernel's dominant product, not a
+    library call that computes the kernel's function."""
+    a = torch.randn(rows, inner, device="cuda")
+    b = torch.randn(inner, cols, device="cuda")
+    return event_ms(lambda: torch.matmul(a, b))
+
+
+def fused_row_timing(name, kern, plain, B, M_, Dx, Do, backward, saved,
+                     card, what="timing"):
+    """One fused-conditional row: event, device, plain and GEMM-yardstick
+    times beside both bounds; returns the record's shape entry."""
+    k_ms = event_ms(kern)
+    d_ms = device_ms(kern, DEVICE_KERNELS[name])
+    p_ms = event_ms(plain)
+    y_ms = gemm_yardstick_ms(B, M_, Do * M_)
+    b_ms, b_by, tc_ms = bound_ms(B, M_, Dx, Do, backward, saved)
+    gflop = (flops_bwd(B, M_, Dx, Do, saved) if backward
+             else flops(B, M_, Dx, Do)) / 1e9
+    d_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+    print(f"{what} {name} B={B} M={M_} Dx={Dx} Do={Do}: kernel {k_ms:.4f} "
+          f"ms (device time {d_txt}), plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by}; {gflop:.3f} GFLOP at "
+          f"{FP32_PEAK / 1e12:.0f} TFLOP/s fp32) / {tc_ms:.4f} ms with the "
+          f"products at {TF32_PEAK / 3e12:.0f} TFLOP/s (3xTF32), GEMM "
+          f"yardstick (torch.matmul ({B} x {M_}) by ({M_} x {Do * M_}), "
+          f"not this function) {y_ms:.4f} ms, library call: none [{card}]",
+          flush=True)
+    return {"B": B, "M": M_, "Dx": Dx, "Do": Do, "ms": k_ms,
+            "device_ms": d_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "bound_tc_ms": tc_ms,
+            "gemm_yardstick_ms": y_ms, "gflop": gflop}
+
+
+def phase_timings(seed, live, cached, requests, card):
     shapes = []
     for Do in (8, 1):
         B, Dx = S * BUCKETS[-1], 8
         args = conditional_inputs(B, M, Dx, Do, seed)
         counts = launch_counts()
         with torch.no_grad():
-            k_ms = event_ms(lambda: fused_conditional(*args))
-            p_ms = event_ms(lambda: fused_conditional_plain(*args))
+            shapes.append(fused_row_timing(
+                "fused_conditional", lambda: fused_conditional(*args),
+                lambda: fused_conditional_plain(*args), B, M, Dx, Do, False,
+                False, card))
         set_launch_counts(counts)
-        b_ms, b_by = bound_ms(B, M, Dx, Do)
-        shapes.append({"B": B, "M": M, "Dx": Dx, "Do": Do, "ms": k_ms,
-                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "gflop": flops(B, M, Dx, Do) / 1e9})
-        print(f"timing fused_conditional B={B} M={M} Dx={Dx} Do={Do}: "
-              f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by}; {flops(B, M, Dx, Do) / 1e9:.2f} "
-              f"GFLOP at {FP32_PEAK / 1e12:.0f} TFLOP/s fp32), library "
-              f"call: none", flush=True)
+        del args
     latency = {}
     _, x1000 = requests[1]
     for name, serve in (("live", live), ("cached", cached)):
@@ -825,19 +951,8 @@ def phase_training_timings(seed, card):
                         *args, km, kv, gm, gv, kK), True, True),
             }
             for name, (kern, plain, backward, saved) in calls.items():
-                k_ms = event_ms(kern)
-                p_ms = event_ms(plain)
-                b_ms, b_by = bound_ms(B, M, Dx, Do, backward, saved)
-                gflop = (flops_bwd(B, M, Dx, Do, saved) if backward
-                         else flops(B, M, Dx, Do)) / 1e9
-                shapes[name].append({
-                    "B": B, "M": M, "Dx": Dx, "Do": Do, "ms": k_ms,
-                    "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                    "gflop": gflop})
-                print(f"timing {name} B={B} M={M} Dx={Dx} Do={Do}: kernel "
-                      f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound "
-                      f"{b_ms:.4f} ms ({b_by}; {gflop:.3f} GFLOP), library "
-                      f"call: none [{card}]", flush=True)
+                shapes[name].append(fused_row_timing(
+                    name, kern, plain, B, M, Dx, Do, backward, saved, card))
     set_launch_counts(counts)
     return shapes
 
@@ -1260,14 +1375,20 @@ def phase_collapsed_timings(collapsed, card):
         D = a32[4].shape[1]
         with torch.no_grad():
             k_ms = event_ms(lambda: psi2.psi2_core_forward(*a32))
+            d_ms = device_ms(lambda: psi2.psi2_core_forward(*a32),
+                             DEVICE_KERNELS["psi2_core_forward"])
             p_ms = event_ms(lambda: psi2.psi2_core_plain(*a32))
+        y_ms = gemm_yardstick_ms(M_, N, M_)
         b_ms, b_by = psi2_bound_ms(N, M_, D)
         shapes.append({"config": name, "N": N, "M": M_, "D": D, "ms": k_ms,
-                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "exps_M": psi2.terms(N, M_) / 1e6,
+                       "device_ms": d_ms, "plain_ms": p_ms,
+                       "gemm_yardstick_ms": y_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "exps_M": psi2.terms(N, M_) / 1e6,
                        "gflop": psi2.flops(N, M_, D) / 1e9})
         print(f"timing psi2_core_forward {name} N={N} M={M_} D={D}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"{k_ms:.4f} ms (device time {d_ms}), plain {p_ms:.4f} ms, "
+              f"GEMM yardstick (torch.matmul ({M_} x {N}) by ({N} x {M_}), "
+              f"not this function) {y_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}; {psi2.terms(N, M_) / 1e6:.1f} M exps at "
               f"{SFU_EXP_RATE / 1e12:.2f} T/s, "
               f"{psi2.flops(N, M_, D) / 1e9:.3f} GFLOP), library call: none "
@@ -1613,15 +1734,21 @@ def phase_psi2_backward_timings(collapsed, card):
                                 dtype=torch.float32, device="cuda"))
         with torch.no_grad():
             k_ms = event_ms(lambda: psi2.psi2_core_backward(*a32))
+            d_ms = device_ms(lambda: psi2.psi2_core_backward(*a32),
+                             DEVICE_KERNELS["psi2_core_backward"])
             p_ms = event_ms(lambda: psi2.psi2_core_backward_plain(*a32),
                             reps=10)
+        y_ms = gemm_yardstick_ms(M_, N, M_)
         b_ms, b_by = psi2_bound_ms(N, M_, D, backward=True)
         shapes.append({"config": name, "N": N, "M": M_, "D": D, "ms": k_ms,
-                       "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "exps_M": psi2.terms(N, M_) / 1e6,
+                       "device_ms": d_ms, "plain_ms": p_ms,
+                       "gemm_yardstick_ms": y_ms, "bound_ms": b_ms,
+                       "bound_by": b_by, "exps_M": psi2.terms(N, M_) / 1e6,
                        "gflop": psi2.backward_flops(N, M_, D) / 1e9})
         print(f"timing psi2_core_backward {name} N={N} M={M_} D={D}: kernel "
-              f"{k_ms:.4f} ms, plain {p_ms:.4f} ms (median of 10), bound "
+              f"{k_ms:.4f} ms (device time {d_ms}), plain {p_ms:.4f} ms "
+              f"(median of 10), GEMM yardstick (torch.matmul ({M_} x {N}) "
+              f"by ({N} x {M_}), not this function) {y_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}; "
               f"{psi2.backward_flops(N, M_, D) / 1e9:.3f} GFLOP at "
               f"{FP32_PEAK / 1e12:.0f} TFLOP/s, {psi2.terms(N, M_) / 1e6:.1f}"
@@ -1816,9 +1943,11 @@ def gram_bound_ms(N, M_, D, dtype):
 
 
 def device_ms(fn, name, n=20):
-    """Device time of one launch of the kernel whose name holds ``name``:
-    torch.profiler over n calls (the CUDA-event times of a small kernel
-    also hold the host's time between the events)."""
+    """Device time of one call of ``fn`` in the kernels whose names hold
+    ``name`` (or one of the names in a tuple): torch.profiler over n calls
+    (the CUDA-event times of a small kernel also hold the host's time
+    between the events)."""
+    names = (name,) if isinstance(name, str) else tuple(name)
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1827,7 +1956,8 @@ def device_ms(fn, name, n=20):
             fn()
         torch.cuda.synchronize()
     found = [e for e in prof.key_averages()
-             if e.device_type.name == "CUDA" and name in e.key]
+             if e.device_type.name == "CUDA"
+             and any(n in e.key for n in names)]
     if not found:
         return None
     return sum(e.self_device_time_total for e in found) / (1e3 * n)
@@ -1933,17 +2063,21 @@ def phase_gram_kernel(seed, card):
                 f_ms = event_ms(lambda: gram.rbf_gram(X, Z, ls, v))
                 p_ms = event_ms(lambda: gram.rbf_gram_plain(X, Z, ls, v))
                 d_ms = device_ms(lambda: gram.rbf_gram_kernel(Xs, Zs, v),
-                                 "rbf_gram_kernel")
+                                 DEVICE_KERNELS["rbf_gram"])
+            y_ms = gemm_yardstick_ms(N, D, Mc)
             b_ms, b_by = gram_bound_ms(N, Mc, D, dtype)
             shapes.append({"case": case, "dtype": str(dtype), "N": N,
                            "M": Mc, "D": D, "ms": k_ms, "device_ms": d_ms,
                            "function_ms": f_ms, "plain_ms": p_ms,
+                           "gemm_yardstick_ms": y_ms,
                            "bound_ms": b_ms, "bound_by": b_by})
             d_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
             print(f"timing rbf_gram {tag}: kernel {k_ms:.4f} ms (device time "
                   f"a launch under torch.profiler {d_txt}; with the "
                   f"lengthscale scaling {f_ms:.4f} ms), plain {p_ms:.4f} ms, "
-                  f"bound {b_ms:.4f} ms ({b_by}), library call: none "
+                  f"bound {b_ms:.4f} ms ({b_by}), GEMM yardstick "
+                  f"(torch.matmul ({N} x {D}) by ({D} x {Mc}) float32, not "
+                  f"this function) {y_ms:.4f} ms, library call: none "
                   f"[{card}]", flush=True)
     ops = sass_fp64_opcodes()
     print(f"rbf_gram float64 kernel SASS opcode counts: {ops}", flush=True)
@@ -2039,8 +2173,8 @@ def phase_solve_dgp(seed, card):
 
 def phase_solve_timings(model, seed, card):
     """steps/s of fit on the solve route beside the inverse route (both
-    float32, use_pallas=False, in turns), and a profiled solve-route
-    step."""
+    float32, use_pallas=False, in turns), and a profiled step of each (the
+    inverse route's on its freshly built model)."""
     models = {"solve": build_model(seed, num_samples=TRAIN_S,
                                    random_posterior=False,
                                    config=solve_config(torch.float32))[0],
@@ -2048,10 +2182,12 @@ def phase_solve_timings(model, seed, card):
                                      random_posterior=False,
                                      use_pallas=False)[0]}
     rates = steps_per_s(models, seed, card, "solve vs inverse route")
+    inverse = phase_training_profile(models["inverse"], seed, card,
+                                     route="use_pallas=False")
     del models
     step = phase_training_profile(model, seed, card,
                                   route="solve_mode='solve'")
-    return rates, step
+    return rates, step, inverse
 
 
 def max_diff(a, b):
@@ -2161,6 +2297,43 @@ def phase_full_cov(model, data, seed, card):
             "collapsed_L2_ms": c_ms, "collapsed_L2_asymmetry": c_asym}
 
 
+def print_kernel_resources(name, out):
+    """Registers, shared memory and spills of each kernel in one source,
+    as ``nvcc -Xptxas -v`` reported them (one line a kernel)."""
+    kernel = None
+    for line in out.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1]
+        elif kernel and ("spill" in line or "registers" in line):
+            print(f"ptxas {name}.cu {kernel[:96]}: {line.strip()}",
+                  flush=True)
+
+
+def print_occupancy():
+    """Resident blocks an SM of the fused conditional's kernels on this
+    card, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them for
+    the launches at M=100 (the cells) and M=512 (the cap)."""
+    fwd = build.load_library("fused_conditional")
+    fwd.fused_conditional_fwd_occupancy.argtypes = [ctypes.c_int] * 2
+    bwd = build.load_library("fused_conditional_bwd")
+    bwd.fused_conditional_bwd_occupancy.argtypes = [ctypes.c_int] * 5
+    for M_, Do in ((M, 8), (512, 2)):
+        plan = backward_plan(TRAIN_S * BATCH, M_, 8, Do)
+        occ = {"forward": fwd.fused_conditional_fwd_occupancy(M_, 0),
+               "forward saved": fwd.fused_conditional_fwd_occupancy(M_, 1),
+               "backward rows": bwd.fused_conditional_bwd_occupancy(
+                   0, M_, Do, 0, 0),
+               "backward rows saved": bwd.fused_conditional_bwd_occupancy(
+                   1, M_, Do, 0, 0),
+               "backward reduction": bwd.fused_conditional_bwd_occupancy(
+                   2, M_, Do, plan["tile"], plan["reduce_threads"])}
+        print(f"occupancy M={M_} Do={Do}: resident blocks an SM "
+              + ", ".join(f"{k} {v}" for k, v in occ.items())
+              + f" (row kernels {forward_plan(1, M_)['tb']} rows and 256 "
+              f"threads a block; reduction {plan['reduce_threads']} "
+              f"threads)", flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -2177,20 +2350,24 @@ def main():
     check(tf32 is False, "TF32 matmuls are enabled")
     t0 = time.perf_counter()
     for name, out in build.build_all().items():
-        print(f"built {name}.cu:\n{out.strip()[-1500:]}", flush=True)
+        if name.startswith("fused_conditional"):
+            print_kernel_resources(name, out)
+        else:
+            print(f"built {name}.cu:\n{out.strip()[-1500:]}", flush=True)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
+    print_occupancy()
 
     def lap(phase):
         print(f"phase {phase} done at {time.perf_counter() - t0:.1f} s",
               flush=True)
 
-    errs = phase_kernels(args.seed)
+    errs, precision = phase_kernels(args.seed)
     lap(1)
     errs["rbf_gram"], gram_shapes = phase_gram_kernel(args.seed, card)
     lap(16)
     live, cached, requests, serving_launches = phase_serving(args.seed)
     serving_shapes, latency = phase_timings(args.seed, live, cached,
-                                            requests)
+                                            requests, card)
     phase_profile(live, cached, requests)
     del live, cached
     lap("2-5")
@@ -2204,8 +2381,15 @@ def main():
     solve_model, solve_data, solve, launches["rbf_gram"] = phase_solve_dgp(
         args.seed, card)
     lap(17)
-    solve["steps_per_s"], solve["step"] = phase_solve_timings(
+    solve["steps_per_s"], solve["step"], inverse_step = phase_solve_timings(
         solve_model, args.seed, card)
+    busy = {"use_pallas=True": step.get("busy_ms"),
+            "use_pallas=False": inverse_step.get("busy_ms"),
+            "solve_mode='solve'": solve["step"].get("busy_ms")}
+    print("device busy a training step by route (torch.profiler, mean of "
+          "5): " + ", ".join(f"{r} {b if b is None else round(b, 3)} ms"
+                            for r, b in busy.items())
+          + f" [{card}]", flush=True)
     lap(18)
     full_cov = phase_full_cov(solve_model, solve_data, args.seed, card)
     del solve_model
@@ -2244,6 +2428,8 @@ def main():
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound_ms"],
             "bound_by": main_shape["bound_by"], "library_ms": None,
+            "device_ms": main_shape["device_ms"],
+            "gemm_yardstick_ms": main_shape["gemm_yardstick_ms"],
             "shapes": train_shapes[name],
         }
         if name == "fused_conditional":
@@ -2253,6 +2439,7 @@ def main():
     print(json.dumps({"serving_request_ms": latency,
                       "training_steps_per_s": rates,
                       "training_step": step,
+                      "training_step_inverse_route": inverse_step,
                       "training_grad_rel_err": grad_worst,
                       "test_metrics": metrics,
                       "fit_bit_identical": same,
@@ -2264,6 +2451,7 @@ def main():
                       "collapsed_fit_launches": fit_counts,
                       "collapsed_training_step": collapsed_steps,
                       "solve_route": solve, "full_cov": full_cov,
+                      "fused_forward_precision": precision,
                       "card": card}))
     print(json.dumps({"kernels": records}))
     print(card)

@@ -11,33 +11,35 @@
 //   mean_d   = G(x) . alpha[:, d]                       (Do,)
 //   var_d    = max(kdiag + G(x) . (G(x) W_d), 0)        (Do,)
 //
-// What bounds it on an H100: operations.  Per row it does about
-// 2*M*Dx (gram) + 2*M^2 (staging) + 2*M*Do (mean) + Do*(2*M^2 + 2*M)
-// (variance) flops against reading Dx floats and writing 2*Do floats;
-// at M = 100, Do = 8 that is ~180 kflop per 72 bytes, far above the
-// card's ~20 flop/byte fp32 ridge.  The operands Zs, LiT, alpha and W
-// are shared by every row (under 0.4 MB at M = 100, Do = 8) and stay in
-// L2/L1.
+// What bounds it on an H100: operations.  Per row about 2 M Dx (gram) +
+// 2 M^2 (staging) + 2 M Do (mean) + Do (2 M^2 + 2 M) (variance) flops
+// against Dx floats read and 2 Do written; at M = 100, Do = 8 ~180 kflop
+// per 72 bytes.  Nearly all of it is two GEMM-shaped products: (B x M)
+// (M x M) for G and (B x M)(M x Do M) for the variance, whose epilogue
+// takes each row's dot with G, so T = G W_d never leaves the registers.
 //
-// Design.  One block owns TB = 8*RT rows; each of its 8 warps owns RT
-// rows end to end (gram, staging, mean and every var_d), so the warps
-// never wait on each other.  The K and G tiles of the warp's rows live in
-// shared memory for the whole d sweep: G is computed once and reused for
-// the mean and all Do variances, as the TPU kernel kept G in VMEM
-// across its d grid axis.  The two (rows x M) by (M x M) products run as
-// register-tiled fp32 FFMA: each lane accumulates RT rows x 4 columns,
-// reading the row operand from shared memory as float4 broadcasts and the
-// matrix operand from global memory in coalesced 32-lane rows.  No TF32,
-// no tensor cores: the contract is fp32-accurate (the JAX kernel pins
-// HIGHEST precision).  The squared distance is the direct sum of squared
-// differences, as in fused_conditional_reference: it has no cancellation,
-// where the expansion ||x||^2 + ||z||^2 - 2 x.z loses digits when x is
-// near z and exp() amplifies the loss.  Ragged edges are masked here (no
-// padding of M to 128 and no one-hot lane masks, which were Mosaic
-// workarounds): the shared tiles are zero past column M, rows past B are
-// computed as zeros and not stored.  Row offsets are 64-bit.  The saved
-// gram is the value staged through shared memory, so the saved variant's
-// mean and var equal the plain variant's bit for bit.
+// Design.  A block owns TB rows (40 at M = 100), each thread a 4 x 4
+// register tile of the (TB x M) products (fused_conditional.cuh).  K is
+// built in shared memory (one thread an entry), then LiT, W_0, ...,
+// W_{Do-1} stream through a 4-stage cp.async ring of 8-row k-slices (zero
+// past M) as one continuous stream, so the copies of the next matrix
+// overlap the products of this one and every operand is read once a
+// block.  G replaces K in shared memory and is the A operand of every W_d
+// product.  Each thread folds its tile of T into per-row partials, which
+// meet in shared memory and are added in column order, so the result is
+// deterministic.  The mean is G . alpha as four interleaved FFMA chains a
+// thread and output (one chain of M terms was 2x further from float64
+// than the plain version at M = 37).  The products are fp32 FFMA chains
+// in k order, as a plain fp32 GEMM: the 3xTF32 tensor-core designs (kept
+// below as fused_conditional_fwd_3xtf32 for the precision comparison that
+// chip_smoke.py prints) were up to 4x further from float64 than the plain
+// float32 version on the H100, past the contract's 2x (PERF.md §6);
+// plain TF32 is never used (the JAX kernel pins HIGHEST precision).  The
+// squared distance is the direct sum of squared differences.  Ragged
+// edges: M is padded with zeros in shared memory only; rows past B are
+// zeros and not stored.  The saved gram is
+// the value staged in shared memory, so the save-gram variant's mean and
+// var equal the plain variant's bit for bit.
 
 #include "fused_conditional.cuh"
 
@@ -45,140 +47,408 @@ namespace {
 
 using namespace fc;
 
-template <int RT, bool kSaveGram>
-__global__ void __launch_bounds__(kThreads)
+__host__ __device__ inline size_t smem_floats(int M) {
+  const int TB = block_rows(M), CG = col_groups(M);
+  return (size_t)k_rows(M) * TB + (size_t)kStages * kKS * 4 * CG +
+         (size_t)2 * TB * CG;
+}
+
+template <bool kSaveGram>
+__global__ void __launch_bounds__(kThreads, 3)
 fused_conditional_fwd_kernel(const float* __restrict__ Xs,
                              const float* __restrict__ Zs,
                              const float* __restrict__ LiT,
                              const float* __restrict__ alpha,
                              const float* __restrict__ W,
-                             const float* __restrict__ scal,
+                             const float* __restrict__ kvar_p,
+                             const float* __restrict__ kdiag_p,
                              float* __restrict__ mean,
                              float* __restrict__ var,
                              float* __restrict__ Kout,
                              int64_t B, int M, int Dx, int Do) {
-  constexpr int TB = RT * kWarps;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  const int Mp = padded(M);
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float* Kw = smem + (size_t)warp * RT * Mp;         // this warp's K rows
-  float* Gw = smem + (size_t)(TB + warp * RT) * Mp;  // this warp's G rows
-  const int64_t row0 = (int64_t)blockIdx.x * TB + (int64_t)warp * RT;
-  const float kvar = scal[0];
-  const float kdiag = scal[1];
+  const int CG = col_groups(M), RG = row_groups(M), TB = 4 * RG;
+  const int P4 = 4 * CG, P = k_rows(M), SF = kKS * P4;
+  float* A = smem;                              // P x TB: K, then G
+  float* ring = A + (size_t)P * TB;             // kStages x kKS x P4
+  float* vpart = ring + (size_t)kStages * SF;   // [2][TB][CG]
+  const int tid = threadIdx.x;
+  const bool active = tid < RG * CG;
+  const int lr = (tid / CG) * 4, lc = (tid % CG) * 4;  // tile's row, column
+  const int64_t row0 = (int64_t)blockIdx.x * TB;
+  const int nks = P / kKS, total = (Do + 1) * nks;
+  const float kvar = *kvar_p, kdiag = *kdiag_p;
+  const SliceLoader loader(P4, (M & 3) == 0, tid, kThreads);
 
-  // 1. gram rows: K[i][m], zero past M and for rows past B (and to the
-  //    saved gram in the kSaveGram variant)
-  gram_rows<RT>(Xs, Zs, kvar, Kw, Mp, row0, B, M, Dx, lane,
-                kSaveGram ? Kout : nullptr);
-  __syncwarp();
+  auto issue = [&](int s) {
+    const int mat = s / nks, ks = s - mat * nks;
+    const float* Bm = mat == 0 ? LiT : W + (size_t)(mat - 1) * M * M;
+    loader.copy(ring + (size_t)(s % kStages) * SF, P4, Bm, M, ks * kKS, M,
+                M);
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();
+  }
 
-  // 2. staging: G = K LiT, kept in shared memory (zero past M)
-  float acc[RT][kCols];
-  for (int c0 = 0; c0 < Mp; c0 += kChunk) {
-    rows_times_matrix<RT>(Kw, Mp, LiT, M, c0, lane, acc);
+  // the gram rows (and the saved gram), while the first slices arrive
+  gram_rows(Xs, Zs, kvar, A, TB, P, row0, B, M, Dx,
+            kSaveGram ? Kout : nullptr, M, M, tid, kThreads);
+
+  // var_d = max(kdiag + the sum of row i's CG partials, 0): four
+  // interleaved chains added pairwise, in column order
+  auto finish_var = [&](int d) {
+    const float* vp = vpart + (size_t)(d & 1) * TB * CG;
+    for (int i = tid; i < TB; i += kThreads) {
+      const int64_t r = row0 + i;
+      float q[4] = {0.f, 0.f, 0.f, 0.f};
+      int c = 0;
+      for (; c + 4 <= CG; c += 4)
 #pragma unroll
-    for (int i = 0; i < RT; ++i)
+        for (int u = 0; u < 4; ++u) q[u] += vp[i * CG + c + u];
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = c0 + lane + 32 * j;
-        if (c < Mp) Gw[i * Mp + c] = acc[i][j];
+      for (int u = 0; u < 3; ++u)
+        if (c + u < CG) q[u] += vp[i * CG + c + u];
+      if (r < B)
+        var[r * Do + d] = fmaxf(kdiag + ((q[0] + q[1]) + (q[2] + q[3])), 0.f);
+    }
+  };
+
+  float acc[4][4];
+  zero(acc);
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait_ring();
+    __syncthreads();  // slice s is in; slice s - 1's buffer is free
+    if (s + kStages - 1 < total) issue(s + kStages - 1);
+    cp_async_commit();
+    const int mat = s / nks, ks = s - mat * nks;
+    if (ks == 0 && mat >= 2) finish_var(mat - 2);
+    if (active)
+      ffma_slice(acc, A + (size_t)ks * kKS * TB + lr, TB,
+                 ring + (size_t)(s % kStages) * SF + lc, P4,
+                 min(kKS, M - ks * kKS));
+    if (ks != nks - 1) continue;
+    if (mat == 0) {
+      // G = K LiT replaces K (every thread is done reading K)
+      __syncthreads();
+      if (active)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<float4*>(A + (size_t)(lc + j) * TB + lr) =
+              make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+    } else if (active) {
+      // var_d's partials: each row's dot of its T_d columns with G
+      float pr[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float4 g =
+            *reinterpret_cast<const float4*>(A + (size_t)(lc + j) * TB + lr);
+        pr[0] = fmaf(acc[0][j], g.x, pr[0]);
+        pr[1] = fmaf(acc[1][j], g.y, pr[1]);
+        pr[2] = fmaf(acc[2][j], g.z, pr[2]);
+        pr[3] = fmaf(acc[3][j], g.w, pr[3]);
       }
+      float* vp = vpart + (size_t)((mat - 1) & 1) * TB * CG;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) vp[(lr + i) * CG + lc / 4] = pr[i];
+    }
+    zero(acc);
   }
-  __syncwarp();
+  cp_async_wait_all();
+  __syncthreads();
+  finish_var(Do - 1);
 
-  // 3. mean_d = G . alpha[:, d]
-  for (int d = 0; d < Do; ++d) {
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      float s = 0.f;
-      for (int n = lane; n < M; n += 32)
-        s = fmaf(Gw[i * Mp + n], __ldg(alpha + (size_t)n * Do + d), s);
-      s = warp_sum(s);
-      const int64_t r = row0 + i;
-      if (lane == 0 && r < B) mean[r * Do + d] = s;
-    }
-  }
-
-  // 4. var_d = max(kdiag + G . (G W_d), 0)
-  for (int d = 0; d < Do; ++d) {
-    const float* Wd = W + (size_t)d * M * M;
-    float part[RT];
-#pragma unroll
-    for (int i = 0; i < RT; ++i) part[i] = 0.f;
-    for (int c0 = 0; c0 < M; c0 += kChunk) {
-      rows_times_matrix<RT>(Gw, Mp, Wd, M, c0, lane, acc);
-#pragma unroll
-      for (int i = 0; i < RT; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const int c = c0 + lane + 32 * j;
-          if (c < M) part[i] = fmaf(acc[i][j], Gw[i * Mp + c], part[i]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const float s = warp_sum(part[i]);
-      const int64_t r = row0 + i;
-      if (lane == 0 && r < B) var[r * Do + d] = fmaxf(kdiag + s, 0.f);
-    }
+  // mean_d = G . alpha[:, d], one thread an output
+  for (int e = tid; e < TB * Do; e += kThreads) {
+    const int i = e / Do, d = e - i * Do;
+    const int64_t r = row0 + i;
+    if (r < B) mean[r * Do + d] = dot4(A + i, TB, alpha + d, Do, M);
   }
 }
 
-template <int RT, bool kSaveGram>
-cudaError_t launch(const float* Xs, const float* Zs, const float* LiT,
-                   const float* alpha, const float* W, const float* scal,
-                   float* mean, float* var, float* Kout, int64_t B, int M,
-                   int Dx, int Do, cudaStream_t stream) {
-  constexpr int TB = RT * kWarps;
-  const int Mp = padded(M);
-  const size_t smem = (size_t)2 * TB * Mp * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_conditional_fwd_kernel<RT, kSaveGram>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+// ----------------------------------------------------------------------------
+// The 3xTF32 tensor-core designs, for the precision comparison only.
+//
+// mma.sync.m16n8k8 in TF32 keeps 10 mantissa bits, so each operand x is
+// split as hi = tf32(x), lo = tf32(x - hi) and a product taken as lo_a
+// hi_b + hi_a lo_b + hi_a hi_b (lo_a lo_b dropped).  kChain chains every
+// k-step's three products in the tensor core's accumulator; kPromote
+// starts each k-step's from zero and adds it to an fp32 register sum.  A
+// block of 8 warps owns 32 rows, two m16 tiles, each over 4 warps that
+// split its columns.  Fragments (PTX ISA, m16n8k8 .tf32), g = lane / 4,
+// t = lane % 4: a0 = A[g][t], a1 = A[g+8][t], a2 = A[g][t+4], a3 =
+// A[g+8][t+4]; b0 = B[t][g], b1 = B[t+4][g]; c0 = C[g][2t], c1 =
+// C[g][2t+1], c2 = C[g+8][2t], c3 = C[g+8][2t+1].  The mean is the FFMA
+// dot of the kernel above, so the comparison isolates the products.
+// ----------------------------------------------------------------------------
+
+constexpr int kChain = 0, kPromote = 1;
+constexpr int kCmpThreads = 256, kCmpNT = 16;
+constexpr int kRows = 32;  // rows a block
+
+// columns (and k rows) of the tiles: M rounded up to 16
+__host__ __device__ inline int p16(int M) { return round_up(M, 16); }
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <int kPrec>
+__device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], float b0,
+                                     float b1) {
+  uint32_t bh[2], bl[2];
+  split(b0, bh[0], bl[0]);
+  split(b1, bh[1], bl[1]);
+  if (kPrec == kChain) {
+    mma_tf32(acc, al, bh);
+    mma_tf32(acc, ah, bl);
+    mma_tf32(acc, ah, bh);
+  } else {
+    float d[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(d, al, bh);
+    mma_tf32(d, ah, bl);
+    mma_tf32(d, ah, bh);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[i] += d[i];
+  }
+}
+
+__host__ __device__ inline size_t cmp_smem_floats(int M) {
+  return (size_t)p16(M) * kRows + (size_t)kStages * kKS * p16(M) +
+         2 * 8 * kRows;
+}
+
+template <int kPrec>
+__global__ void __launch_bounds__(kCmpThreads)
+fused_conditional_fwd_3xtf32(const float* __restrict__ Xs,
+                             const float* __restrict__ Zs,
+                             const float* __restrict__ LiT,
+                             const float* __restrict__ alpha,
+                             const float* __restrict__ W,
+                             const float* __restrict__ kvar_p,
+                             const float* __restrict__ kdiag_p,
+                             float* __restrict__ mean,
+                             float* __restrict__ var, int64_t B, int M,
+                             int Dx, int Do) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int P = p16(M), stages = kStages, SF = kKS * P;
+  float* Gs = smem;                             // P x 32, k-major: K, G
+  float* ring = Gs + (size_t)P * kRows;
+  float* vpart = ring + (size_t)stages * SF;    // [2][8][32]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int mr = (warp >> 2) * 16, nq = warp & 3;  // m16 tile, column part
+  const int ntiles = P / 8, ntw = (ntiles + 3) / 4, nt0 = nq * ntw;
+  const int nt_end = min(ntiles, nt0 + ntw);
+  const int64_t row0 = (int64_t)blockIdx.x * kRows;
+  const int nks = P / kKS, total = (Do + 1) * nks;
+  const float kvar = *kvar_p, kdiag = *kdiag_p;
+  const SliceLoader loader(P, (M & 3) == 0, tid, kCmpThreads);
+
+  auto issue = [&](int s) {
+    const int mat = s / nks, ks = s - mat * nks;
+    const float* Bm = mat == 0 ? LiT : W + (size_t)(mat - 1) * M * M;
+    loader.copy(ring + (size_t)(s % stages) * SF, P, Bm, M, ks * kKS, M, M);
+  };
+  for (int s = 0; s < stages - 1; ++s) {
+    if (s < total) issue(s);
+    cp_async_commit();
+  }
+  gram_rows(Xs, Zs, kvar, Gs, kRows, P, row0, B, M, Dx, nullptr, 0, 0, tid,
+            kCmpThreads);
+
+  auto finish_var = [&](int d) {
+    for (int i = tid; i < kRows; i += kCmpThreads) {
+      const int64_t r = row0 + i;
+      const int h0 = (i / 16) * 4;  // the four warps of row i's m16 tile
+      float s = 0.f;
+      for (int h = 0; h < 4; ++h)
+        s += vpart[((d & 1) * 8 + h0 + h) * kRows + i];
+      if (r < B) var[r * Do + d] = fmaxf(kdiag + s, 0.f);
+    }
+  };
+
+  float acc[kCmpNT][4];
+#pragma unroll
+  for (int j = 0; j < kCmpNT; ++j)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+  for (int s = 0; s < total; ++s) {
+    cp_async_wait_ring();
+    __syncthreads();
+    if (s + stages - 1 < total) issue(s + stages - 1);
+    cp_async_commit();
+    const int mat = s / nks, ks = s - mat * nks;
+    if (ks == 0 && mat >= 2) finish_var(mat - 2);
+    const float* As = Gs + (size_t)ks * kKS * kRows + mr;
+    const float* Bs = ring + (size_t)(s % stages) * SF;
+#pragma unroll
+    for (int k0 = 0; k0 < kKS; k0 += 8) {
+      uint32_t ah[4], al[4];
+      split(As[(k0 + t) * kRows + g], ah[0], al[0]);
+      split(As[(k0 + t) * kRows + g + 8], ah[1], al[1]);
+      split(As[(k0 + t + 4) * kRows + g], ah[2], al[2]);
+      split(As[(k0 + t + 4) * kRows + g + 8], ah[3], al[3]);
+#pragma unroll
+      for (int j = 0; j < kCmpNT; ++j) {
+        if (nt0 + j >= nt_end) break;
+        const int n = (nt0 + j) * 8 + g;
+        mma3<kPrec>(acc[j], ah, al, Bs[(k0 + t) * P + n],
+                    Bs[(k0 + t + 4) * P + n]);
+      }
+    }
+    if (ks != nks - 1) continue;
+    if (mat == 0) __syncthreads();  // G replaces K: every warp is done
+    float p0 = 0.f, p8 = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCmpNT; ++j) {
+      if (nt0 + j < nt_end) {
+        const int c = (nt0 + j) * 8 + 2 * t;
+        float* g0 = Gs + mr + g;
+        if (mat == 0) {
+          g0[c * kRows] = acc[j][0];
+          g0[(c + 1) * kRows] = acc[j][1];
+          g0[c * kRows + 8] = acc[j][2];
+          g0[(c + 1) * kRows + 8] = acc[j][3];
+        } else {
+          p0 = fmaf(acc[j][0], g0[c * kRows], p0);
+          p0 = fmaf(acc[j][1], g0[(c + 1) * kRows], p0);
+          p8 = fmaf(acc[j][2], g0[c * kRows + 8], p8);
+          p8 = fmaf(acc[j][3], g0[(c + 1) * kRows + 8], p8);
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) acc[j][q] = 0.f;
+    }
+    if (mat > 0) {
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 1);
+      p8 += __shfl_xor_sync(0xffffffffu, p8, 1);
+      p0 += __shfl_xor_sync(0xffffffffu, p0, 2);
+      p8 += __shfl_xor_sync(0xffffffffu, p8, 2);
+      if (t == 0) {
+        float* vp = vpart + (((mat - 1) & 1) * 8 + warp) * kRows + mr + g;
+        vp[0] = p0;
+        vp[8] = p8;
+      }
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  finish_var(Do - 1);
+  for (int e = tid; e < kRows * Do; e += kCmpThreads) {
+    const int i = e / Do, d = e - i * Do;
+    const int64_t r = row0 + i;
+    if (r < B) mean[r * Do + d] = dot4(Gs + i, kRows, alpha + d, Do, M);
+  }
+}
+
+unsigned long long g_smem_set[4] = {0, 0, 0, 0};
+
+template <bool kSaveGram>
+cudaError_t launch_fwd(const float* Xs, const float* Zs, const float* LiT,
+                       const float* alpha, const float* W, const float* kvar,
+                       const float* kdiag, float* mean, float* var,
+                       float* Kout, int64_t B, int M, int Dx, int Do,
+                       cudaStream_t stream) {
+  auto* kernel = fused_conditional_fwd_kernel<kSaveGram>;
+  cudaError_t err = allow_smem(kernel, g_smem_set[kSaveGram ? 1 : 0]);
   if (err != cudaSuccess) return err;
-  const int64_t blocks = (B + TB - 1) / TB;
+  const int64_t blocks = (B + block_rows(M) - 1) / block_rows(M);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  fused_conditional_fwd_kernel<RT, kSaveGram>
-      <<<(unsigned)blocks, kThreads, smem, stream>>>(
-          Xs, Zs, LiT, alpha, W, scal, mean, var, Kout, B, M, Dx, Do);
+  kernel<<<(unsigned)blocks, kThreads, smem_floats(M) * sizeof(float),
+           stream>>>(Xs, Zs, LiT, alpha, W, kvar, kdiag, mean, var, Kout, B,
+                     M, Dx, Do);
   return cudaGetLastError();
 }
 
-template <bool kSaveGram>
-cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
-                        const float* alpha, const float* W,
-                        const float* scal, float* mean, float* var,
-                        float* Kout, int64_t B, int M, int Dx, int Do,
-                        cudaStream_t s) {
-  // 64 rows per block while the two tiles fit in 128 KB, else 32
-  if (padded(M) <= 256)
-    return launch<8, kSaveGram>(Xs, Zs, LiT, alpha, W, scal, mean, var,
-                                Kout, B, M, Dx, Do, s);
-  return launch<4, kSaveGram>(Xs, Zs, LiT, alpha, W, scal, mean, var, Kout,
-                              B, M, Dx, Do, s);
+template <int kPrec>
+cudaError_t launch_cmp(const float* Xs, const float* Zs, const float* LiT,
+                       const float* alpha, const float* W, const float* kvar,
+                       const float* kdiag, float* mean, float* var, int64_t B,
+                       int M, int Dx, int Do, cudaStream_t stream) {
+  auto* kernel = fused_conditional_fwd_3xtf32<kPrec>;
+  cudaError_t err = allow_smem(kernel, g_smem_set[2 + kPrec]);
+  if (err != cudaSuccess) return err;
+  const int64_t blocks = (B + kRows - 1) / kRows;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, kCmpThreads, cmp_smem_floats(M) * sizeof(float),
+           stream>>>(Xs, Zs, LiT, alpha, W, kvar, kdiag, mean, var, B, M, Dx,
+                     Do);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Pointers are device pointers
-// to contiguous float32 tensors; scal holds (kvar, kdiag) on the device.
-// Kout is null, or the (B, M) gram to write (the save_gram variant).
+// to contiguous float32 tensors; kvar and kdiag are 0-dim tensors on the
+// device.  Kout is null, or the (B, M) gram to write (the save-gram
+// variant).  design 0 is the kernel (fp32 FFMA); 1 and 2 are the 3xTF32
+// comparison designs (per-k-step fp32 sums, chained sums; no saved gram).
 // Returns a cudaError_t code (0 = launched).
 extern "C" int fused_conditional_fwd(const float* Xs, const float* Zs,
                                      const float* LiT, const float* alpha,
-                                     const float* W, const float* scal,
-                                     float* mean, float* var, float* Kout,
-                                     int64_t B, int M, int Dx, int Do,
+                                     const float* W, const float* kvar,
+                                     const float* kdiag, float* mean,
+                                     float* var, float* Kout, int64_t B,
+                                     int M, int Dx, int Do, int design,
                                      void* stream) {
   if (B <= 0 || M <= 0 || M > kMaxM || Dx <= 0 || Do <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Kout != nullptr)
-    return (int)launch_rows<true>(Xs, Zs, LiT, alpha, W, scal, mean, var,
-                                  Kout, B, M, Dx, Do, s);
-  return (int)launch_rows<false>(Xs, Zs, LiT, alpha, W, scal, mean, var,
-                                 nullptr, B, M, Dx, Do, s);
+  if (design == 0)
+    return Kout != nullptr
+               ? (int)launch_fwd<true>(Xs, Zs, LiT, alpha, W, kvar, kdiag,
+                                       mean, var, Kout, B, M, Dx, Do, s)
+               : (int)launch_fwd<false>(Xs, Zs, LiT, alpha, W, kvar, kdiag,
+                                        mean, var, nullptr, B, M, Dx, Do, s);
+  if (Kout != nullptr || cmp_smem_floats(M) * sizeof(float) > 232448)
+    return (int)cudaErrorInvalidValue;
+  if (design == 1)
+    return (int)launch_cmp<kPromote>(Xs, Zs, LiT, alpha, W, kvar, kdiag,
+                                     mean, var, B, M, Dx, Do, s);
+  if (design == 2)
+    return (int)launch_cmp<kChain>(Xs, Zs, LiT, alpha, W, kvar, kdiag, mean,
+                                   var, B, M, Dx, Do, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Resident blocks an SM of the forward kernel at this M (the occupancy
+// its launches get), or -1 on an error.
+extern "C" int fused_conditional_fwd_occupancy(int M, int save_gram) {
+  if (M <= 0 || M > kMaxM) return -1;
+  int n = 0;
+  const size_t smem = smem_floats(M) * sizeof(float);
+  cudaError_t err;
+  if (save_gram) {
+    err = allow_smem(fused_conditional_fwd_kernel<true>, g_smem_set[1]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fused_conditional_fwd_kernel<true>, kThreads, smem);
+  } else {
+    err = allow_smem(fused_conditional_fwd_kernel<false>, g_smem_set[0]);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &n, fused_conditional_fwd_kernel<false>, kThreads, smem);
+  }
+  return err == cudaSuccess ? n : -1;
 }

@@ -1,9 +1,23 @@
 // Device helpers shared by the fused conditional's forward
-// (fused_conditional.cu) and backward (fused_conditional_bwd.cu) kernels.
+// (fused_conditional.cu) and backward (fused_conditional_bwd.cu) kernels:
+// the block geometry, the cp.async ring that streams the M x M operands
+// through shared memory in k-slices, the gram rows and the register-tiled
+// fp32 FFMA step.
 //
-// Both kernels give each of a block's 8 warps RT rows of the batch and
-// keep (rows x M) tiles in shared memory with row stride Mp = M rounded
-// up to 4 (for float4 reads), zero past column M.
+// Geometry of the row kernels.  A (rows x M) by (M x M) product is cut
+// into 4 x 4 register tiles: CG = ceil(M / 4) column groups and RG row
+// groups, one tile a thread (thread t: row group t / CG, column group
+// t % CG), so a block of kThreads threads owns TB = 4 RG rows with RG =
+// kThreads / CG (at most 32): 40 rows at M = 100 (250 of 256 threads
+// busy), 8 at M = 512.  Many small tiles keep many warps on every SM at
+// the training shape (B = 10,000: 250 blocks of 8 warps), which hides the
+// latency of the loads and barriers; 8 x 8 tiles halve the shared-memory
+// reads per FFMA but leave a third as many warps, and measured slower
+// (PERF.md §6).  The A operand (K, G or dG rows) lives in shared
+// memory k-major, A[k][row] (row stride TB), so a thread reads its 4 rows
+// at one k as one float4; the B slices are row-major, B[k][n] (row stride
+// P4 = 4 CG), one float4 per thread and k.  k rows are padded to whole
+// 16-row slices, columns to P4, with zeros.
 
 #pragma once
 
@@ -12,86 +26,280 @@
 
 namespace fc {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kCols = 4;            // columns per lane per chunk
-constexpr int kChunk = 32 * kCols;  // columns per warp per chunk
 constexpr int kMaxM = 512;
+constexpr int kThreads = 256;   // threads of a row-kernel block
+constexpr int kKS = 16;         // k rows of a streamed slice
+constexpr int kStages = 4;      // slices in flight in the ring
+constexpr int kMaxRG = 32;      // row groups a block at most
 
-__host__ __device__ __forceinline__ int padded(int M) { return (M + 3) & ~3; }
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__host__ __device__ __forceinline__ int round_up(int x, int m) {
+  return (x + m - 1) / m * m;
+}
+__host__ __device__ __forceinline__ int col_groups(int M) {
+  return (M + 3) / 4;
+}
+__host__ __device__ __forceinline__ int row_groups(int M) {
+  const int rg = kThreads / col_groups(M);
+  return rg < kMaxRG ? rg : kMaxRG;
+}
+// rows a row-kernel block
+__host__ __device__ __forceinline__ int block_rows(int M) {
+  return 4 * row_groups(M);
+}
+// k rows of the A tiles: M rounded up to whole slices
+__host__ __device__ __forceinline__ int k_rows(int M) {
+  return round_up(M, kKS);
 }
 
-__device__ __forceinline__ float comp(const float4& a, int k) {
-  return k == 0 ? a.x : k == 1 ? a.y : k == 2 ? a.z : a.w;
+// ----------------------------------------------------------------------------
+// cp.async with zero fill (src_bytes = 0 writes zeros and reads nothing;
+// the caller then passes a valid address all the same)
+// ----------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// acc[i][j] = sum_k A[i][k] * Bm[k][c0 + lane + 32 j] for the warp's RT
-// rows of A (shared, row stride Mp, zero past M) and the M x M matrix Bm
-// (global, row-major).
-template <int RT>
-__device__ __forceinline__ void rows_times_matrix(
-    const float* As, int Mp, const float* __restrict__ Bm, int M, int c0,
-    int lane, float (&acc)[RT][kCols]) {
-#pragma unroll
-  for (int i = 0; i < RT; ++i)
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) acc[i][j] = 0.f;
-  for (int k = 0; k < M; k += 4) {
-    float b[4][kCols];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int c = c0 + lane + 32 * j;
-        const int kr = k + kk;
-        b[kk][j] = (kr < M && c < M) ? __ldg(Bm + (size_t)kr * M + c) : 0.f;
-      }
-#pragma unroll
-    for (int i = 0; i < RT; ++i) {
-      const float4 a = *reinterpret_cast<const float4*>(As + i * Mp + k);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const float av = comp(a, kk);
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) acc[i][j] = fmaf(av, b[kk][j], acc[i][j]);
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until slice s of the ring is in (at most kStages - 2 newer groups
+// pending)
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// A thread's share of copying kKS-row slices of a row-major matrix into
+// shared memory: the chunks e = tid, tid + nthreads, ... of the slice's
+// kKS x (width / q) chunks of q floats (q = 4 with 16-byte copies, else
+// 1), walked without a division per chunk.  copy() fills dst[kk][n] (row
+// stride width) from rows k0 + kk of src (row stride ld), zero where the
+// row is not below rows_valid or the column not below cols_valid.
+struct SliceLoader {
+  int q, per_row, kk0, c0, dkk, dc, nchunks, tid, nthreads;
+
+  __device__ __forceinline__ SliceLoader(int width, bool vec, int tid_,
+                                         int nthreads_)
+      : tid(tid_), nthreads(nthreads_) {
+    q = vec ? 4 : 1;
+    per_row = width / q;
+    nchunks = kKS * per_row;
+    kk0 = tid / per_row;
+    c0 = (tid - kk0 * per_row) * q;
+    dkk = nthreads / per_row;
+    dc = (nthreads - dkk * per_row) * q;
+  }
+
+  __device__ __forceinline__ void copy(float* dst, int width,
+                                       const float* src, int64_t ld,
+                                       int64_t k0, int64_t rows_valid,
+                                       int cols_valid) const {
+    int kk = kk0, c = c0;
+    for (int e = tid; e < nchunks; e += nthreads) {
+      const int64_t k = k0 + kk;
+      const bool ok = k < rows_valid && c < cols_valid;
+      const float* s = ok ? src + k * ld + c : src;
+      if (q == 4)
+        cp_async16(dst + kk * width + c, s, ok);
+      else
+        cp_async4(dst + kk * width + c, s, ok);
+      kk += dkk;
+      c += dc;
+      if (c >= per_row * q) {
+        c -= per_row * q;
+        ++kk;
       }
     }
   }
+};
+
+// Columns k0 .. k0+kKS-1 of the M x M row-major matrix Bm, transposed on
+// the way: dst[kk][n] = Bm[n][k0 + kk] (row stride width), zero past M.  A
+// slice of Bm^T read in place (no transposed copy of Bm); the global reads
+// are 64-byte runs of one row, the shared writes strided.
+__device__ __forceinline__ void load_slice_t(float* dst, const float* Bm,
+                                             int M, int k0, int width,
+                                             int tid, int nthreads) {
+  for (int e = tid; e < kKS * width; e += nthreads) {
+    const int n = e / kKS, kk = e - n * kKS, k = k0 + kk;
+    const bool ok = n < M && k < M;
+    cp_async4(dst + kk * width + n, ok ? Bm + (size_t)n * M + k : Bm, ok);
+  }
 }
 
-// The warp's RT gram rows K[i][m] = kvar exp(-0.5 ||x_r - z_m||^2) into
-// Kw (zero past M and for rows past B), as the direct sum of squared
-// differences.  With Kout, each computed entry is also stored to the
-// (B, M) gram in global memory: exactly the value staged here.
-template <int RT>
+// ----------------------------------------------------------------------------
+// the register-tiled FFMA step
+// ----------------------------------------------------------------------------
+
+template <int R, int C>
+__device__ __forceinline__ void zero(float (&acc)[R][C]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = 0.f;
+}
+
+// acc[i][j] += sum over the slice's nk (<= kKS) k of A[k][i] B[k][j],
+// i < R, j < C (R, C = 4 or 8): a k-major strip of A at a (row stride sa)
+// and a row-major strip of B at b (row stride sb), 16-byte aligned; FFMA
+// chains in k order.  A whole slice is unrolled with the next k's
+// operands loaded before this k's FFMAs, so their shared-memory latency
+// hides behind the FFMAs; a partial last slice (the rows past M) takes a
+// plain loop.
+template <int R, int C>
+__device__ __forceinline__ void ffma_k(float (&acc)[R][C], const float* a,
+                                       const float* b) {
+  float ar[R], br[C];
+#pragma unroll
+  for (int i = 0; i < R; i += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(a + i);
+    ar[i] = v.x; ar[i + 1] = v.y; ar[i + 2] = v.z; ar[i + 3] = v.w;
+  }
+#pragma unroll
+  for (int j = 0; j < C; j += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(b + j);
+    br[j] = v.x; br[j + 1] = v.y; br[j + 2] = v.z; br[j + 3] = v.w;
+  }
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+}
+
+template <int R, int C>
+__device__ __forceinline__ void ffma_slice(float (&acc)[R][C], const float* a,
+                                           int sa, const float* b, int sb,
+                                           int nk) {
+  if (nk < kKS) {
+    for (int k = 0; k < nk; ++k) ffma_k(acc, a + k * sa, b + k * sb);
+    return;
+  }
+  float4 av[R / 4], bv[C / 4];
+#pragma unroll
+  for (int i = 0; i < R / 4; ++i)
+    av[i] = *reinterpret_cast<const float4*>(a + 4 * i);
+#pragma unroll
+  for (int j = 0; j < C / 4; ++j)
+    bv[j] = *reinterpret_cast<const float4*>(b + 4 * j);
+#pragma unroll
+  for (int k = 0; k < kKS; ++k) {
+    float ar[R], br[C];
+#pragma unroll
+    for (int i = 0; i < R / 4; ++i) {
+      ar[4 * i] = av[i].x; ar[4 * i + 1] = av[i].y;
+      ar[4 * i + 2] = av[i].z; ar[4 * i + 3] = av[i].w;
+    }
+#pragma unroll
+    for (int j = 0; j < C / 4; ++j) {
+      br[4 * j] = bv[j].x; br[4 * j + 1] = bv[j].y;
+      br[4 * j + 2] = bv[j].z; br[4 * j + 3] = bv[j].w;
+    }
+    if (k + 1 < kKS) {
+#pragma unroll
+      for (int i = 0; i < R / 4; ++i)
+        av[i] = *reinterpret_cast<const float4*>(a + (k + 1) * sa + 4 * i);
+#pragma unroll
+      for (int j = 0; j < C / 4; ++j)
+        bv[j] = *reinterpret_cast<const float4*>(b + (k + 1) * sb + 4 * j);
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int j = 0; j < C; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
+  }
+}
+
+// sum_{n < len} x[n * sx] y[n * sy] as four interleaved FFMA chains added
+// pairwise (shorter chains: less rounding and less latency)
+__device__ __forceinline__ float dot4(const float* x, int sx, const float* y,
+                                      int sy, int len) {
+  float s[4] = {0.f, 0.f, 0.f, 0.f};
+  int n = 0;
+  for (; n + 4 <= len; n += 4)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      s[u] = fmaf(x[(n + u) * sx], __ldg(y + (size_t)(n + u) * sy), s[u]);
+#pragma unroll
+  for (int u = 0; u < 3; ++u)
+    if (n + u < len)
+      s[u] = fmaf(x[(n + u) * sx], __ldg(y + (size_t)(n + u) * sy), s[u]);
+  return (s[0] + s[1]) + (s[2] + s[3]);
+}
+
+// ----------------------------------------------------------------------------
+// gram rows
+// ----------------------------------------------------------------------------
+
+// The block's `rows` gram rows into Ks, k-major: Ks[m * rows + i] = kvar
+// exp(-0.5 ||x_r - z_m||^2), zero for m in [M, P) and for rows past
+// B, as the direct sum of squared differences (no cancellation, where the
+// expansion ||x||^2 + ||z||^2 - 2 x.z loses digits that exp amplifies),
+// d ascending.  With Kout (row stride ldk), each computed entry is also
+// stored to global memory for m < ncols_out (zeros past M): exactly the
+// value staged here.
 __device__ __forceinline__ void gram_rows(
     const float* __restrict__ Xs, const float* __restrict__ Zs, float kvar,
-    float* Kw, int Mp, int64_t row0, int64_t B, int M, int Dx, int lane,
-    float* __restrict__ Kout) {
-#pragma unroll
-  for (int i = 0; i < RT; ++i) {
+    float* Ks, int rows, int P, int64_t row0, int64_t B, int M, int Dx,
+    float* __restrict__ Kout, int ldk, int ncols_out, int tid,
+    int nthreads) {
+  for (int e = tid; e < rows * P; e += nthreads) {
+    const int i = e / P, m = e - i * P;
     const int64_t r = row0 + i;
-    for (int m = lane; m < Mp; m += 32) {
-      float k = 0.f;
-      if (r < B && m < M) {
-        const float* x = Xs + r * Dx;
-        const float* z = Zs + (size_t)m * Dx;
-        float d2 = 0.f;
-        for (int d = 0; d < Dx; ++d) {
-          const float t = __ldg(x + d) - __ldg(z + d);
-          d2 = fmaf(t, t, d2);
-        }
-        k = kvar * expf(-0.5f * d2);
-        if (Kout != nullptr) Kout[r * M + m] = k;
+    float k = 0.f;
+    if (r < B && m < M) {
+      const float* x = Xs + r * Dx;
+      const float* z = Zs + (size_t)m * Dx;
+      float d2 = 0.f;
+      for (int d = 0; d < Dx; ++d) {
+        const float u = __ldg(x + d) - __ldg(z + d);
+        d2 = fmaf(u, u, d2);
       }
-      Kw[i * Mp + m] = k;
+      k = kvar * expf(-0.5f * d2);
     }
+    Ks[m * rows + i] = k;
+    if (Kout != nullptr && r < B && m < ncols_out) Kout[r * ldk + m] = k;
   }
+}
+
+// Lets a kernel use up to 227 KB of dynamic shared memory, with the SM's
+// carveout at its largest share (so that several blocks fit), once per
+// device.
+template <typename F>
+__host__ inline cudaError_t allow_smem(F* kernel,
+                                       unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = 1ull << (dev & 63);
+  if (done & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             232448);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+        (int)cudaSharedmemCarveoutMaxShared);
+  if (err == cudaSuccess) done |= bit;
+  return err;
 }
 
 }  // namespace fc

@@ -16,11 +16,18 @@ Per row x of the lengthscale-scaled batch:
     mean = G alpha                   (Do,)     var_d = max(kdiag + G.(G W_d), 0)
 
 W is symmetric (W = Li SK Li^T), so d var_d / dG = 2 G W_d, as in the JAX
-backward.  What bounds both on an H100: operations (see :func:`flops`,
-:func:`flops_bwd`), so both run as register-tiled fp32 FFMA with K and G
-kept in shared memory; the backward sums its row reductions (dW, dLiT,
-dalpha, dZ) per block into scratch and then over blocks in a fixed order,
-so it is deterministic.  dkvar and dkdiag come from the saved forward
+backward; the kernels read W_d as given, row-major (W_d, not W_d^T, which
+differ at the rounding level).  What bounds both on an H100: operations
+(see :func:`flops`, :func:`flops_bwd`), nearly all in GEMM-shaped
+products, which both run as register-tiled fp32 FFMA (fp32-accurate: the
+3xTF32 tensor-core designs missed the float64 gate, and plain TF32 is
+never used), streaming LiT and W_d through shared memory.  The forward
+also exposes those 3xTF32 designs (``design``) for the precision
+comparison that ``chip_smoke.py`` prints.  The backward is two passes: a
+row pass (dX and the row panels G, dG, Gd, K) and a reduction over fixed
+row slices (dW, dLiT, dalpha, dZ) whose partials are added in slice
+order, so it is deterministic and its scratch is bounded independently of
+B (:func:`backward_plan`).  dkvar and dkdiag come from the saved forward
 outputs (``_scalar_grads``, as in the JAX package).
 
 Routing: a CPU tensor takes the plain versions (forward and backward); a
@@ -41,7 +48,8 @@ import torch
 __all__ = ["fused_conditional", "fused_conditional_saved",
            "fused_conditional_forward", "fused_conditional_backward",
            "fused_conditional_plain", "fused_conditional_saved_plain",
-           "fused_conditional_backward_plain", "flops", "flops_bwd", "MAX_M"]
+           "fused_conditional_backward_plain", "forward_plan",
+           "backward_plan", "flops", "flops_bwd", "MAX_M"]
 
 MAX_M = 512   # the JAX kernel's cap (conditional.py pallas_profitable)
 
@@ -135,8 +143,7 @@ def fused_conditional_backward(Xs, Zs, LiT, alpha, W, kvar, kdiag, mean,
         return fused_conditional_backward_plain(
             Xs, Zs, LiT, alpha, W, kvar, kdiag, mean, var, gm, gv, K)
     gv_eff = _mask(var, gv)
-    return (*_backward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, gm,
-                              gv_eff, K),
+    return (*_backward_kernel(Xs, Zs, LiT, alpha, W, kvar, gm, gv_eff, K),
             *_scalar_grads(gm, gv_eff, mean, var, kvar, kdiag))
 
 
@@ -159,34 +166,112 @@ def flops_bwd(B, M, Dx, Do, saved=False):
 
 
 # ---------------------------------------------------------------------------
+# launch plans (plain Python: the CPU tests reach them)
+# ---------------------------------------------------------------------------
+
+SMEM_MAX = 232448              # bytes of shared memory a block may use
+SCRATCH_MAX_BYTES = 8_000_000  # the backward's slice partials, whatever B
+# fused_conditional.cuh / fused_conditional_bwd.cu: threads of a row-kernel
+# block, row groups a block at most, k rows of a streamed slice, slices in
+# the rings
+_THREADS, _MAX_RG, _KS, _STAGES = 256, 32, 16, 4
+
+
+def _round_up(x, m):
+    return -(-x // m) * m
+
+
+def _row_geometry(M):
+    """(rows a block, column groups, row groups, k rows) of the row
+    kernels: one 4 x 4 register tile a thread over ceil(M / 4) column
+    groups, as many row groups as 256 threads allow (at most 32); k rows
+    padded to whole 16-row slices."""
+    cg = -(-M // 4)
+    rg = min(_THREADS // cg, _MAX_RG)
+    return 4 * rg, cg, rg, _round_up(M, _KS)
+
+
+def forward_plan(B, M):
+    """The forward kernel's launch: rows a block ``tb``, ``blocks``, busy
+    threads of the 256 a block, and shared memory a block ``smem_bytes``
+    (``fused_conditional.cu``'s smem_floats)."""
+    tb, cg, rg, P = _row_geometry(M)
+    smem = 4 * (P * tb + _STAGES * _KS * 4 * cg + 2 * tb * cg)
+    return {"tb": tb, "blocks": -(-B // tb), "busy_threads": rg * cg,
+            "smem_bytes": smem}
+
+
+def backward_plan(B, M, Dx, Do, sms=132, saved=False):
+    """The backward's launch plan.
+
+    Row pass: ``tb``, ``row_blocks``, ``smem_bytes`` as the forward's.  It
+    writes the row panels G, dG, Gd and (unless ``saved``) K, each (B, P)
+    with P = M rounded up to 4: ``panel_floats``.  Reduction: dW_d and
+    dLiT on square output tiles of ``tile`` = min(M rounded up to 8, 128)
+    columns, one block a tile and row slice (``reduce_threads``: an 8 x 8
+    register tile a thread), plus ceil(M / 32) blocks a slice for dalpha
+    and dZ; ``nslices`` slices of ``rows_per_slice`` rows.  With more than
+    one slice, each writes its partial outputs (``out_floats`` E) to the
+    scratch and a last kernel adds them in slice order: ``scratch_floats``
+    = nslices x E (0 for one slice), at most SCRATCH_MAX_BYTES and
+    independent of B.  Slices: two output-tile blocks an SM, as far as the
+    scratch allows."""
+    tb, cg, _, P = _row_geometry(M)
+    smem = 4 * (2 * P * tb + _STAGES * _KS * 4 * cg + 2 * tb * Do)
+    if smem > SMEM_MAX:
+        raise ValueError(f"fused_conditional backward: M={M}, Do={Do} needs "
+                         f"{smem} bytes of shared memory a block, above "
+                         f"{SMEM_MAX}")
+    tile = min(_round_up(M, 8), 128)
+    rthreads = 32 * -(-((tile // 8) ** 2) // 32)
+    tiles = (Do + 1) * (-(-M // tile)) ** 2
+    E = Do * M * M + M * M + M * Do + M * Dx
+    nslices = max(1, min(2 * sms // tiles, SCRATCH_MAX_BYTES // (4 * E)))
+    rows_per_slice = _round_up(max(-(-B // nslices), 1), _KS)
+    return {"tb": tb, "row_blocks": -(-B // tb), "smem_bytes": smem,
+            "tile": tile, "reduce_threads": rthreads,
+            "reduce_smem_bytes": 4 * _STAGES * (2 * _KS * tile + _KS),
+            "nslices": nslices, "rows_per_slice": rows_per_slice,
+            "reduce_blocks": nslices * (tiles + -(-M // 32)),
+            "out_floats": E,
+            "scratch_floats": nslices * E if nslices > 1 else 0,
+            "panel_floats": (3 if saved else 4) * B * 4 * cg}
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels
 # ---------------------------------------------------------------------------
+
+# the forward's designs (fused_conditional.cu): the kernel (fp32 FFMA) and
+# the two 3xTF32 tensor-core designs kept for the precision comparison
+DESIGN_FFMA, DESIGN_3XTF32, DESIGN_3XTF32_CHAINED = 0, 1, 2
+
 
 @functools.cache
 def _fwd_fn():
     from .build import load_library
     fn = load_library("fused_conditional").fused_conditional_fwd
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [
+        ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 @functools.cache
-def _bwd_fns():
+def _bwd_fn():
     from .build import load_library
-    lib = load_library("fused_conditional_bwd")
-    scratch = lib.fused_conditional_bwd_scratch
-    scratch.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int]
-    scratch.restype = ctypes.c_int64
-    fn = lib.fused_conditional_bwd
+    fn = load_library("fused_conditional_bwd").fused_conditional_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return scratch, fn
+    return fn
+
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _on_cpu(Xs):
@@ -200,8 +285,8 @@ def _on_cpu(Xs):
 
 def _check(Xs, Zs, LiT, alpha, W, *rows):
     """Shapes, device, dtype and contiguity of the kernels' operands;
-    ``rows`` are (name, tensor, columns) of further (B, columns) operands.
-    Returns (B, M, Dx, Do)."""
+    ``rows`` are (name, tensor, shape) of further operands.  Returns (B,
+    M, Dx, Do)."""
     B, Dx = Xs.shape
     M = Zs.shape[0]
     Do = alpha.shape[1] if alpha.ndim == 2 else -1
@@ -214,10 +299,10 @@ def _check(Xs, Zs, LiT, alpha, W, *rows):
     if M > MAX_M:
         raise ValueError(f"fused_conditional: M={M} exceeds the kernel's "
                          f"cap of {MAX_M} inducing points")
-    for name, t, cols in rows:
-        if tuple(t.shape) != (B, cols):
+    for name, t, shape in rows:
+        if tuple(t.shape) != shape:
             raise ValueError(f"fused_conditional: {name} has shape "
-                             f"{tuple(t.shape)}, expected {(B, cols)}")
+                             f"{tuple(t.shape)}, expected {shape}")
     named = [("Xs", Xs), ("Zs", Zs), ("LiT", LiT), ("alpha", alpha),
              ("W", W)] + [(name, t) for name, t, _ in rows]
     for name, t in named:
@@ -238,20 +323,20 @@ def _scalars(kvar, kdiag, like):
             torch.as_tensor(kdiag, dtype=like.dtype, device=like.device))
 
 
-def _scal(kvar, kdiag, like):
-    return torch.stack([kvar.detach(), kdiag.detach()]).to(
-        device=like.device, dtype=torch.float32).contiguous()
-
-
 def _raise_on(err, what):
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error "
                            f"{err}")
 
 
-def _forward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, save_gram):
-    B, M, Dx, Do = _check(Xs, Zs, LiT, alpha, W)
-    scal = _scal(kvar, kdiag, Xs)
+def _forward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, save_gram,
+                    design=DESIGN_FFMA):
+    """The forward kernel; kvar and kdiag are read on the device (0-dim
+    float32 tensors beside Xs).  ``design`` other than DESIGN_FFMA selects
+    a 3xTF32 comparison design (chip_smoke.py's precision check; no saved
+    gram)."""
+    B, M, Dx, Do = _check(Xs, Zs, LiT, alpha, W, ("kvar", kvar, ()),
+                          ("kdiag", kdiag, ()))
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=Xs.device)
     mean, var = new(B, Do), new(B, Do)
@@ -261,21 +346,22 @@ def _forward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, save_gram):
     with torch.cuda.device(Xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fwd_fn()(Xs.data_ptr(), Zs.data_ptr(), LiT.data_ptr(),
-                        alpha.data_ptr(), W.data_ptr(), scal.data_ptr(),
-                        mean.data_ptr(), var.data_ptr(),
-                        None if K is None else K.data_ptr(),
-                        B, M, Dx, Do, stream)
+                        alpha.data_ptr(), W.data_ptr(), kvar.data_ptr(),
+                        kdiag.data_ptr(), mean.data_ptr(), var.data_ptr(),
+                        None if K is None else K.data_ptr(), B, M, Dx, Do,
+                        design, stream)
     _raise_on(err, "fused_conditional forward")
     (fused_conditional_saved if save_gram else fused_conditional
      ).launches += 1
     return mean, var, K
 
 
-def _backward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, gm, gv_eff, K):
+def _backward_kernel(Xs, Zs, LiT, alpha, W, kvar, gm, gv_eff, K):
     gm, gv_eff = gm.contiguous(), gv_eff.contiguous()
-    Do, M = alpha.shape[-1], Zs.shape[0]
-    rows = [("gm", gm, Do), ("gv", gv_eff, Do)] + (
-        [] if K is None else [("K", K, M)])
+    B, M, Dx, Do = Xs.shape[0], Zs.shape[0], Xs.shape[1], alpha.shape[-1]
+    rows = [("kvar", kvar, ()), ("gm", gm, (B, Do)), ("gv", gv_eff, (B, Do))]
+    if K is not None:
+        rows.append(("K", K, (B, M)))
     B, M, Dx, Do = _check(Xs, Zs, LiT, alpha, W, *rows)
     new = functools.partial(torch.empty, dtype=torch.float32,
                             device=Xs.device)
@@ -285,22 +371,21 @@ def _backward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, gm, gv_eff, K):
     if B == 0:
         out.zero_()
     else:
-        scratch_floats, fn = _bwd_fns()
-        LiTT = LiT.t().contiguous()
-        scal = _scal(kvar, kdiag, Xs)
+        plan = backward_plan(B, M, Dx, Do, _sm_count(Xs.device),
+                             saved=K is not None)
+        panels = new(plan["panel_floats"])
+        part = new(plan["scratch_floats"]) if plan["nslices"] > 1 else None
         with torch.cuda.device(Xs.device):
-            n = scratch_floats(B, M, Dx, Do)
-            if n <= 0:
-                raise ValueError(f"fused_conditional backward: shape B={B} "
-                                 f"M={M} Dx={Dx} Do={Do} is not supported")
-            scratch = new(n)
             stream = torch.cuda.current_stream().cuda_stream
-            err = fn(Xs.data_ptr(), Zs.data_ptr(), LiT.data_ptr(),
-                     LiTT.data_ptr(), alpha.data_ptr(), W.data_ptr(),
-                     scal.data_ptr(), gm.data_ptr(), gv_eff.data_ptr(),
-                     None if K is None else K.data_ptr(), dXs.data_ptr(),
-                     out.data_ptr(), scratch.data_ptr(), n, B, M, Dx, Do,
-                     stream)
+            err = _bwd_fn()(
+                Xs.data_ptr(), Zs.data_ptr(), LiT.data_ptr(),
+                alpha.data_ptr(), W.data_ptr(), kvar.data_ptr(),
+                gm.data_ptr(), gv_eff.data_ptr(),
+                None if K is None else K.data_ptr(), dXs.data_ptr(),
+                out.data_ptr(), panels.data_ptr(),
+                None if part is None else part.data_ptr(), B, M, Dx, Do,
+                plan["nslices"], plan["rows_per_slice"], plan["tile"],
+                plan["reduce_threads"], stream)
         _raise_on(err, "fused_conditional backward")
         (fused_conditional if K is None else fused_conditional_saved
          ).backward_launches += 1

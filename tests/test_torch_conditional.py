@@ -6,7 +6,8 @@ CPU) and its jnp references, in float64 (the gram's forward also in
 float32, as the JAX gram tests).
 
 One test item that loops over its cases and names the failing case in
-every assertion message.  On the CPU the port's wrappers and autograd
+every assertion message; it also checks the CUDA kernels' launch plans,
+which are plain Python (``forward_plan``, ``backward_plan``).  On the CPU the port's wrappers and autograd
 Functions take the plain versions (the CUDA kernels themselves are
 checked against them on the card by ``chip_smoke.py``), so no launch
 counter may move."""
@@ -28,10 +29,11 @@ from doubly_stochastic_dgp_tpu.ops.pallas.psi2 import (
     psi2_core_reference)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import gram as tgram
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import psi2 as tpsi2
+from doubly_stochastic_dgp_tpu_torch.ops.cuda import conditional as tcond
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
-    fused_conditional, fused_conditional_backward_plain,
-    fused_conditional_plain, fused_conditional_saved,
-    fused_conditional_saved_plain)
+    backward_plan, forward_plan, fused_conditional,
+    fused_conditional_backward_plain, fused_conditional_plain,
+    fused_conditional_saved, fused_conditional_saved_plain)
 
 RTOL, ATOL = 1e-9, 1e-11     # as tests/test_pallas_conditional.py
 # gradients: as the gradient tests of tests/test_pallas_conditional.py
@@ -110,6 +112,104 @@ def _check_gradients():
                         atol=GRAD_ATOL,
                         err_msg=f"{name} {variant}: {gname} {what} vs "
                                 f"jax.vjp of the interpret-mode kernel")
+
+
+# (B, M, Dx, Do) the kernels' launch plans are checked at: the training
+# and serving shapes, M=512, M=1, a ragged M, Do=13, one row, and one row
+# past a 40-row block (M=100) and past a 16-row reduction slice
+PLAN_SHAPES = [(10000, 100, 8, 8), (100000, 100, 8, 8), (10000, 100, 8, 1),
+               (513, 512, 3, 2), (513, 512, 3, 8), (300, 1, 4, 2),
+               (1300, 37, 8, 3), (2000, 100, 8, 13), (1, 100, 8, 8),
+               (41, 100, 8, 8), (17, 100, 8, 8)]
+SCRATCH_MAX = 8_000_000   # bytes of the backward's slice partials
+
+
+def _covered_once(n, starts, width):
+    """Rows 0 .. n-1 each lie in exactly one of the row ranges
+    [start, start + width)."""
+    hits = np.zeros(n, dtype=int)
+    for s in starts:
+        hits[s:s + width] += 1
+    return bool((hits == 1).all())
+
+
+def _check_plans():
+    """The launch plans of the forward and backward kernels (plain Python,
+    handed to the kernels): every row in one row-pass block and one
+    reduction slice; every output entry of dW, dLiT, dalpha and dZ written
+    once a slice, by one reduction block and one 8 x 8 thread tile of it
+    (the kernel's decoding of its block and thread indices, replayed);
+    shared memory within a block's 227 KB; the backward's slice-partial
+    scratch within 8 MB and independent of B."""
+    for B, M, Dx, Do in PLAN_SHAPES:
+        case = f"plan B={B} M={M} Dx={Dx} Do={Do}"
+        fp = forward_plan(B, M)
+        bp = backward_plan(B, M, Dx, Do)
+        P, P4 = -(-M // 8) * 8, -(-M // 4) * 4
+        tb = fp["tb"]
+        # 4 x 4 register tiles: tb / 4 row groups x P4 / 4 column groups,
+        # one a thread of 256
+        assert tb == bp["tb"] and tb % 4 == 0 and (
+            fp["busy_threads"] == (tb // 4) * (P4 // 4) <= 256), (
+            f"{case}: {tb} rows, {fp['busy_threads']} threads")
+        for name, smem in (("forward", fp["smem_bytes"]),
+                           ("backward row pass", bp["smem_bytes"]),
+                           ("reduction", bp["reduce_smem_bytes"])):
+            assert smem <= tcond.SMEM_MAX, f"{case}: {name} smem {smem}"
+        for name, blocks in (("forward", fp["blocks"]),
+                             ("backward row pass", bp["row_blocks"])):
+            assert _covered_once(B, range(0, blocks * tb, tb), tb), (
+                f"{case}: {name}: a row not in exactly one block")
+            assert (blocks - 1) * tb < B, f"{case}: {name}: empty block"
+        rps, ns_ = bp["rows_per_slice"], bp["nslices"]
+        assert rps % 16 == 0 and _covered_once(
+            B, range(0, ns_ * rps, rps), rps), (
+            f"{case}: reduction: a row not in exactly one slice")
+        T, rthreads = bp["tile"], bp["reduce_threads"]
+        assert T % 8 == 0 and T == min(P, 128), f"{case}: tile {T}"
+        assert rthreads % 32 == 0 and (
+            rthreads - 32 < (T // 8) ** 2 <= rthreads <= 256), (
+            f"{case}: {rthreads} threads for {(T // 8) ** 2} tiles")
+        # the reduction kernel's decoding: per slice, (Do + 1) tiles of
+        # ceil(M / T)^2, then ceil(M / 32) column chunks; in a tile,
+        # thread t owns rows (t % (T / 8)) * 8 and columns (t // (T / 8)) * 8
+        nt = -(-M // T)
+        jobs = (Do + 1) * nt * nt + -(-M // 32)
+        assert bp["reduce_blocks"] == ns_ * jobs, f"{case}: reduce blocks"
+        hits = np.zeros((Do + 1, nt * T, nt * T), dtype=int)
+        small = np.zeros(M, dtype=int)
+        tg = T // 8
+        for job in range(jobs):
+            if job >= (Do + 1) * nt * nt:
+                m0 = (job - (Do + 1) * nt * nt) * 32
+                small[m0:m0 + 32] += 1
+                continue
+            q, tile = divmod(job, nt * nt)
+            m0, n0 = (tile // nt) * T, (tile % nt) * T
+            for t in range(tg * tg):
+                r0, c0 = m0 + (t % tg) * 8, n0 + (t // tg) * 8
+                hits[q, r0:r0 + 8, c0:c0 + 8] += 1
+        assert (hits[:, :M, :M] == 1).all() and (small == 1).all(), (
+            f"{case}: an output entry not written once a slice")
+        E = Do * M * M + M * M + M * Do + M * Dx
+        assert bp["out_floats"] == E, f"{case}: output floats"
+        assert bp["scratch_floats"] == (ns_ * E if ns_ > 1 else 0), (
+            f"{case}: scratch floats")
+        assert 4 * bp["scratch_floats"] <= SCRATCH_MAX, (
+            f"{case}: scratch {4 * bp['scratch_floats']} bytes > 8 MB")
+        for other in (1, 7 * B, 1000 * B):
+            assert backward_plan(other, M, Dx, Do)["scratch_floats"] == bp[
+                "scratch_floats"], f"{case}: scratch depends on B ({other})"
+        assert bp["panel_floats"] == 4 * B * P4, f"{case}: row panels"
+        assert backward_plan(B, M, Dx, Do, saved=True)["panel_floats"] == (
+            3 * B * P4), f"{case}: saved variant's row panels"
+    try:
+        backward_plan(100, 512, 3, 4000)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("backward_plan: M=512, Do=4000 does not fit a "
+                             "block's shared memory and must raise")
 
 
 def _counts():
@@ -430,6 +530,7 @@ def test_fused_conditional_plain_matches_jax():
             assert (v == 0).any() and (v > 0).any(), (
                 f"{name}: the variance clamp is not active")
     _check_gradients()
+    _check_plans()
     _check_psi2_limits()
     _check_psi2()
     _check_psi2_backward()
