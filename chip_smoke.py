@@ -8,7 +8,11 @@ Phases, each of which raises on a failed check:
 
 0. the card's name and power limit (nvidia-smi), TF32 off, and a build of
    every CUDA kernel from the sources in this checkout (one nvcc per
-   source, all started together); raises if a build fails;
+   source, all started together); raises if a build fails.  Prints each
+   kernel's registers and spills (ptxas), resident blocks an SM, and the
+   psi2 backward's launch plan at both collapsed cells and at (2000, 512,
+   2) (raises if its gZ scratch is above 32 MB at N or at 1000 N, or if
+   fewer blocks fit an SM than the plan counts on);
 1. every kernel (the fused conditional's forward, backward, save-gram
    forward and save-gram backward) against its plain PyTorch version at
    the serving path's per-layer shapes (B=100,000), the training path's
@@ -262,6 +266,15 @@ DEVICE_KERNELS = {
     "psi2_core_backward": ("psi2_bwd_kernel", "psi2_bwd_finish_kernel"),
     "rbf_gram": ("rbf_gram_kernel",),
 }
+# device ms a launch of the two redesigned kernels' earlier designs (two
+# passes over the terms; lengthscales divided out by separate device ops),
+# from this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section
+# 6), printed beside this run's
+EARLIER_DEVICE_MS = {
+    ("psi2_core_backward", "damianou_large"): "0.9711-1.0036",
+    ("psi2_core_backward", "collapsed_L2"): "0.1081-0.1115",
+    ("rbf_gram", "Kuf_M100_B10000_D8 float32"): "0.0061-0.0064",
+    ("rbf_gram", "Kuf_M100_B100000_D8 float32"): "0.0481"}
 # kernel vs plain float32 on the same inputs: both are float32 with
 # different summation orders, so they may differ by float32 roundoff
 # amplified by the staged products; relative to the output scale
@@ -1745,8 +1758,10 @@ def phase_psi2_backward_timings(collapsed, card):
                        "gemm_yardstick_ms": y_ms, "bound_ms": b_ms,
                        "bound_by": b_by, "exps_M": psi2.terms(N, M_) / 1e6,
                        "gflop": psi2.backward_flops(N, M_, D) / 1e9})
+        before = EARLIER_DEVICE_MS[("psi2_core_backward", name)]
         print(f"timing psi2_core_backward {name} N={N} M={M_} D={D}: kernel "
-              f"{k_ms:.4f} ms (device time {d_ms}), plain {p_ms:.4f} ms "
+              f"{k_ms:.4f} ms (device time {d_ms}; the earlier design's "
+              f"{before} ms), plain {p_ms:.4f} ms "
               f"(median of 10), GEMM yardstick (torch.matmul ({M_} x {N}) "
               f"by ({N} x {M_}), not this function) {y_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by}; "
@@ -1883,18 +1898,21 @@ def check_gram_refusals():
     n = gram.rbf_gram.launches
     X = torch.randn(64, 3, device="cuda")
     Z = torch.randn(40, 3, device="cuda")
+    ls = torch.tensor(0.9, device="cuda")
     v = torch.tensor(1.3, device="cuda")
     k = gram.rbf_gram_kernel
     cases = (
-        ("non-contiguous Xs",
-         lambda: k(torch.randn(3, 64, device="cuda").T, Z, v), ValueError),
-        ("float64 Zs with float32 Xs", lambda: k(X, Z.double(), v),
-         TypeError),
-        ("float64 variance", lambda: k(X, Z, v.double()), TypeError),
-        ("float16", lambda: k(X.half(), Z.half(), v.half()), TypeError),
-        ("CPU Xs", lambda: k(X.cpu(), Z, v), ValueError),
-        ("two-element variance", lambda: k(X, Z, torch.ones(2, device="cuda")),
+        ("non-contiguous X",
+         lambda: k(torch.randn(3, 64, device="cuda").T, Z, ls, v),
          ValueError),
+        ("float64 Z with float32 X", lambda: k(X, Z.double(), ls, v),
+         TypeError),
+        ("float64 variance", lambda: k(X, Z, ls, v.double()), TypeError),
+        ("float16", lambda: k(X.half(), Z.half(), ls.half(), v.half()),
+         TypeError),
+        ("CPU X", lambda: k(X.cpu(), Z, ls, v), ValueError),
+        ("two-element variance",
+         lambda: k(X, Z, ls, torch.ones(2, device="cuda")), ValueError),
         ("rbf_gram, float64 lengthscales on float32 X",
          lambda: gram.rbf_gram(X, Z, torch.ones(3, dtype=torch.float64,
                                                 device="cuda"), v),
@@ -1964,8 +1982,8 @@ def device_ms(fn, name, n=20):
 
 
 def sass_fp64_opcodes():
-    """fp64 opcode counts of the float64 kernel's SASS (cuobjdump), the
-    source of gram.F64_EXP_FLOPS; None where cuobjdump is missing."""
+    """fp64 opcode counts of the D = 8 float64 kernel's SASS (cuobjdump),
+    the source of gram.F64_EXP_FLOPS; None where cuobjdump is missing."""
     exe = "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(exe):
         return None
@@ -1975,7 +1993,7 @@ def sass_fp64_opcodes():
     counts, inside = {}, False
     for line in out.splitlines():
         if "Function :" in line:
-            inside = "rbf_gram_kernelIdLb0E" in line
+            inside = "rbf_gram_kernelIdLi8ELb0E" in line
         elif inside and "/*" in line and ";" in line:
             op = line.split("*/")[1].strip().split()[0]
             if op.startswith("@"):
@@ -2020,9 +2038,8 @@ def phase_gram_kernel(seed, card):
                 hold("rbf_gram", tag, errs)
                 worst = list(map(max, worst, errs))
                 with torch.no_grad():
-                    other = gram.rbf_gram_kernel(
-                        (X / ls).contiguous(), (Z / ls).contiguous(), v,
-                        fast_exp=not gram.FAST_EXP)
+                    other = gram.rbf_gram_kernel(X, Z, ls, v,
+                                                 fast_exp=not gram.FAST_EXP)
                 e_other = compare((other,), plain, ref, joint_scale=True)[2]
                 print(f"kernel rbf_gram {tag}: exp variant in use "
                       f"{'__expf' if gram.FAST_EXP else 'expf'}; the other's "
@@ -2057,12 +2074,11 @@ def phase_gram_kernel(seed, card):
                   f"{b_errs[1]} > {KERNEL_VS_PLAIN_RTOL} of scale")
             if i >= GRAM_TIMED:
                 continue
-            Xs, Zs = (X / ls).contiguous(), (Z / ls).contiguous()
             with torch.no_grad():
-                k_ms = event_ms(lambda: gram.rbf_gram_kernel(Xs, Zs, v))
+                k_ms = event_ms(lambda: gram.rbf_gram_kernel(X, Z, ls, v))
                 f_ms = event_ms(lambda: gram.rbf_gram(X, Z, ls, v))
                 p_ms = event_ms(lambda: gram.rbf_gram_plain(X, Z, ls, v))
-                d_ms = device_ms(lambda: gram.rbf_gram_kernel(Xs, Zs, v),
+                d_ms = device_ms(lambda: gram.rbf_gram_kernel(X, Z, ls, v),
                                  DEVICE_KERNELS["rbf_gram"])
             y_ms = gemm_yardstick_ms(N, D, Mc)
             b_ms, b_by = gram_bound_ms(N, Mc, D, dtype)
@@ -2072,9 +2088,13 @@ def phase_gram_kernel(seed, card):
                            "gemm_yardstick_ms": y_ms,
                            "bound_ms": b_ms, "bound_by": b_by})
             d_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+            before = EARLIER_DEVICE_MS.get(("rbf_gram", tag))
             print(f"timing rbf_gram {tag}: kernel {k_ms:.4f} ms (device time "
-                  f"a launch under torch.profiler {d_txt}; with the "
-                  f"lengthscale scaling {f_ms:.4f} ms), plain {p_ms:.4f} ms, "
+                  f"a launch under torch.profiler {d_txt}"
+                  + ("" if before is None else
+                     f"; the earlier design's {before} ms")
+                  + f"; through the autograd Function {f_ms:.4f} ms), plain "
+                  f"{p_ms:.4f} ms, "
                   f"bound {b_ms:.4f} ms ({b_by}), GEMM yardstick "
                   f"(torch.matmul ({N} x {D}) by ({D} x {Mc}) float32, not "
                   f"this function) {y_ms:.4f} ms, library call: none "
@@ -2312,7 +2332,8 @@ def print_kernel_resources(name, out):
 def print_occupancy():
     """Resident blocks an SM of the fused conditional's kernels on this
     card, as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives them for
-    the launches at M=100 (the cells) and M=512 (the cap)."""
+    the launches at M=100 (the cells) and M=512 (the cap); then the psi2
+    backward's and rbf_gram's (see print_psi2_backward_plans)."""
     fwd = build.load_library("fused_conditional")
     fwd.fused_conditional_fwd_occupancy.argtypes = [ctypes.c_int] * 2
     bwd = build.load_library("fused_conditional_bwd")
@@ -2332,6 +2353,46 @@ def print_occupancy():
               + f" (row kernels {forward_plan(1, M_)['tb']} rows and 256 "
               f"threads a block; reduction {plan['reduce_threads']} "
               f"threads)", flush=True)
+    lib = build.load_library("rbf_gram")
+    lib.rbf_gram_occupancy.argtypes = [ctypes.c_int] * 2
+    print("occupancy rbf_gram D=8: resident blocks an SM float32 "
+          f"{lib.rbf_gram_occupancy(0, 8)}, float64 "
+          f"{lib.rbf_gram_occupancy(1, 8)} (128 threads a block)", flush=True)
+    print_psi2_backward_plans()
+
+
+# (N, M, D) of the psi2 backward's plan printout: both cells and the cap
+PSI2_PLAN_SHAPES = ((7372, 256, 2), (1500, 100, 8), (2000, 512, 2))
+PSI2_SCRATCH_MAX = 32_000_000      # bytes of gZ partials, whatever N
+
+
+def print_psi2_backward_plans():
+    """The psi2 backward's launch plan at both cells' shapes and at
+    (2000, 512, 2): rows a chunk, chunks, blocks, shared memory, resident
+    blocks an SM and the gZ scratch, also at 1000 N; raises if the scratch
+    is above 32 MB."""
+    lib = build.load_library("psi2_bwd")
+    lib.psi2_bwd_occupancy.argtypes = [ctypes.c_int] * 3
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N, M_, D in PSI2_PLAN_SHAPES:
+        plan = psi2.backward_plan(N, M_, D, sms)
+        mb = 4 * plan["scratch_floats"] / 1e6
+        big = 4 * psi2.backward_plan(1000 * N, M_, D, sms)[
+            "scratch_floats"] / 1e6
+        occ = lib.psi2_bwd_occupancy(M_, D, plan["rows_per_chunk"])
+        print(f"psi2 backward plan N={N} M={M_} D={D}: {plan['chunks']} "
+              f"chunks of {plan['rows_per_chunk']} rows on {plan['grid']} "
+              f"blocks x {plan['groups']}, {plan['sub_tiles']} sub-tiles of "
+              f"{16 * plan['a_per_thread']} x 64, "
+              f"{plan['smem_bytes']} B shared memory a block, resident "
+              f"blocks an SM {occ} (planned {plan['blocks_per_sm']}); gZ "
+              f"scratch {mb:.3f} MB (at {1000 * N} rows: {big:.3f} MB)",
+              flush=True)
+        check(max(mb, big) * 1e6 <= PSI2_SCRATCH_MAX,
+              f"psi2 backward scratch {max(mb, big)} MB above 32 MB")
+        check(occ >= plan["blocks_per_sm"],
+              f"psi2 backward: {occ} resident blocks an SM, planned "
+              f"{plan['blocks_per_sm']}")
 
 
 def main():
@@ -2350,10 +2411,7 @@ def main():
     check(tf32 is False, "TF32 matmuls are enabled")
     t0 = time.perf_counter()
     for name, out in build.build_all().items():
-        if name.startswith("fused_conditional"):
-            print_kernel_resources(name, out)
-        else:
-            print(f"built {name}.cu:\n{out.strip()[-1500:]}", flush=True)
+        print_kernel_resources(name, out)
     print(f"kernel build: {time.perf_counter() - t0:.1f} s", flush=True)
     print_occupancy()
 

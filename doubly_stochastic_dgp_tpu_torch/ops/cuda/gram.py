@@ -9,11 +9,13 @@ and a scalar variance, in float32 or float64:
 
     K[n, m] = var exp(-0.5 sum_d ((X[n,d] - Z[m,d]) / ls_d)^2)      (N, M)
 
-The kernel takes X and Z already divided by the lengthscales, as the TPU
-kernel does, and forms the distance as the direct sum of squared
-differences, so K(X, X) is bitwise symmetric with its diagonal exactly
-var; the plain version keeps the JAX form ||x||^2 + ||z||^2 - 2 x.z
-clipped at 0 (:func:`square_dist`), which ``RBF.K`` computes on the CPU.
+The kernel takes X, Z, the lengthscales and the variance as given and
+divides each operand by the lengthscales itself, as the JAX ``rbf_gram``
+does before its TPU kernel, so the wrapper launches no other device op;
+the distance is the direct sum of squared differences, so K(X, X) is
+bitwise symmetric with its diagonal exactly var.  The plain version keeps
+the JAX form ||x||^2 + ||z||^2 - 2 x.z clipped at 0 (:func:`square_dist`),
+which ``RBF.K`` computes on the CPU.
 What bounds the kernel on an H100: bytes, the (N, M) output (see
 :func:`bytes_moved`, :func:`flops`, :func:`exps`).  The backward is the
 JAX ``_bwd`` closed form on the saved K, as torch ops on either device:
@@ -35,17 +37,15 @@ import functools
 import torch
 
 __all__ = ["rbf_gram", "rbf_gram_kernel", "rbf_gram_plain", "square_dist",
-           "plain_on_card", "flops", "exps", "bytes_moved", "FAST_EXP",
-           "F64_EXP_FLOPS"]
+           "plain_on_card", "flops", "exps", "bytes_moved",
+           "FAST_EXP", "F64_EXP_FLOPS"]
 
 # expf in the float32 kernel (__expf when True; see PERF.md for the choice)
 FAST_EXP = False
 # fp64 flops of one exp in the float64 kernel, where exp is not an SFU op
-# but fp64 instructions: 13 DFMA, 1 DADD and 1 DMUL an exp in the SASS of
-# the sm_90a build with CUDA 12 (chip_smoke.py prints the kernel's fp64
-# opcode counts: 180 DFMA, 132 DADD, 12 DMUL for 4 outputs a thread, of
-# which the distance loop takes 128 DFMA and 128 DADD, the -0.5 scale and
-# the variance 8 DMUL)
+# but fp64 instructions: 13 DFMA, 1 DADD and 1 DMUL an exp, counted in the
+# SASS of the sm_90a build with CUDA 12 (chip_smoke.py prints the fp64
+# opcode counts of the D = 8 float64 kernel)
 F64_EXP_FLOPS = 28
 
 
@@ -69,8 +69,9 @@ def rbf_gram_plain(X, Z, lengthscales, variance):
 
 def flops(N, M, D):
     """Flops of one call besides the exps: per output D differences and D
-    FMAs (3D), the -0.5 scale and the variance (2).  In float64 each exp
-    adds ``F64_EXP_FLOPS``."""
+    FMAs (3D), the -0.5 scale and the variance (2); the divisions by the
+    lengthscales are per row and per column.  In float64 each exp adds
+    ``F64_EXP_FLOPS``."""
     return N * M * (3 * D + 2)
 
 
@@ -100,56 +101,88 @@ def _fns():
     from .build import load_library
     lib = load_library("rbf_gram")
     f32, f64 = lib.rbf_gram_f32, lib.rbf_gram_f64
-    f32.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
-                                            ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p]
-    f64.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64, ctypes.c_int64,
-                                            ctypes.c_int, ctypes.c_void_p]
+    args = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+    f32.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
+    f64.argtypes = args + [ctypes.c_void_p]
     f32.restype = f64.restype = ctypes.c_int
     return f32, f64
 
 
-def rbf_gram_kernel(Xs, Zs, variance, fast_exp=FAST_EXP):
-    """var exp(-0.5 ||x - z||^2) for the lengthscale-scaled Xs (N, D), Zs
-    (M, D) and a one-element ``variance``, all CUDA tensors of one dtype,
-    float32 or float64, with Xs and Zs contiguous; raises on anything
-    else, before any launch.  ``fast_exp``: __expf in float32."""
-    if Xs.ndim != 2 or Zs.ndim != 2 or Xs.shape[1] != Zs.shape[1]:
-        raise ValueError(f"rbf_gram: Xs {tuple(Xs.shape)} and Zs "
-                         f"{tuple(Zs.shape)} must be (N, D) and (M, D)")
-    if variance.numel() != 1:
-        raise ValueError(f"rbf_gram: variance must hold one value; got "
-                         f"shape {tuple(variance.shape)}")
-    for name, t in (("Xs", Xs), ("Zs", Zs), ("variance", variance)):
-        if t.device.type != "cuda" or t.device != Xs.device:
-            raise ValueError(f"rbf_gram: {name} is on {t.device}; the kernel "
-                             f"takes CUDA tensors on one device")
-        if t.dtype not in (torch.float32, torch.float64) \
-                or t.dtype != Xs.dtype:
-            raise TypeError(f"rbf_gram: {name} is {t.dtype}; the kernel "
-                            f"takes float32 or float64, one dtype for all")
-    for name, t in (("Xs", Xs), ("Zs", Zs)):
-        if not t.is_contiguous():
-            raise ValueError(f"rbf_gram: {name} must be contiguous")
-    (N, D), M = Xs.shape, Zs.shape[0]
-    K = torch.empty(N, M, dtype=Xs.dtype, device=Xs.device)
+def _kernel_args(X, Z, lengthscales):
+    """(N, M, D, ls_stride) of a launch: the kernel reads lengthscale d at
+    element d * ls_stride of ``lengthscales`` (stride 0 for a scalar, so
+    one value serves every d without a device op)."""
+    (N, D), M = X.shape, Z.shape[0]
+    return N, M, D, lengthscales.stride(0) if lengthscales.ndim else 0
+
+
+def _launch(X, Z, lengthscales, variance, fast_exp):
+    """The launch, for operands already checked: X, Z contiguous CUDA
+    tensors of one dtype, float32 or float64, lengthscales (D,) or a
+    scalar and a one-element variance of that dtype on that device."""
+    N, M, D, ls_stride = _kernel_args(X, Z, lengthscales)
+    K = torch.empty(N, M, dtype=X.dtype, device=X.device)
     if N == 0 or M == 0:
         return K
-    var = variance.detach().reshape(1)
     f32, f64 = _fns()
-    with torch.cuda.device(Xs.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        if Xs.dtype == torch.float32:
-            err = f32(Xs.data_ptr(), Zs.data_ptr(), var.data_ptr(),
-                      K.data_ptr(), N, M, D, int(fast_exp), stream)
-        else:
-            err = f64(Xs.data_ptr(), Zs.data_ptr(), var.data_ptr(),
-                      K.data_ptr(), N, M, D, stream)
+    index = X.device.index
+    args = (X.data_ptr(), Z.data_ptr(), lengthscales.data_ptr(), ls_stride,
+            variance.data_ptr(), K.data_ptr(), N, M, D)
+
+    def launch():
+        stream = torch._C._cuda_getCurrentRawStream(index)
+        return (f32(*args, int(fast_exp), stream)
+                if X.dtype == torch.float32 else f64(*args, stream))
+
+    # the kernel launches on the current device: enter X's only if needed
+    if index == torch.cuda.current_device():
+        err = launch()
+    else:
+        with torch.cuda.device(index):
+            err = launch()
     if err != 0:
         raise RuntimeError(f"rbf_gram: kernel launch failed with CUDA error "
                            f"{err}")
     rbf_gram.launches += 1
     return K
+
+
+def _check_kernel_dtype(name, t):
+    if t.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"rbf_gram: {name} is {t.dtype}; the kernel takes "
+                        f"float32 or float64, one dtype for all")
+
+
+def rbf_gram_kernel(X, Z, lengthscales, variance, fast_exp=FAST_EXP):
+    """var exp(-0.5 ||(x - z) / ls||^2) for X (N, D), Z (M, D), the
+    lengthscales (D,) or a scalar and a one-element ``variance``, all CUDA
+    tensors of one dtype, float32 or float64, on one device, with X and Z
+    contiguous; raises on anything else, before any launch.
+    ``fast_exp``: __expf in float32."""
+    if X.ndim != 2 or Z.ndim != 2 or X.shape[1] != Z.shape[1]:
+        raise ValueError(f"rbf_gram: X {tuple(X.shape)} and Z "
+                         f"{tuple(Z.shape)} must be (N, D) and (M, D)")
+    if lengthscales.ndim > 1 or (lengthscales.ndim == 1
+                                 and lengthscales.shape[0] != X.shape[1]):
+        raise ValueError(f"rbf_gram: lengthscales of shape "
+                         f"{tuple(lengthscales.shape)} for D={X.shape[1]}")
+    if variance.numel() != 1:
+        raise ValueError(f"rbf_gram: variance must hold one value; got "
+                         f"shape {tuple(variance.shape)}")
+    for name, t in (("X", X), ("Z", Z), ("lengthscales", lengthscales),
+                    ("variance", variance)):
+        if t.device.type != "cuda" or t.device != X.device:
+            raise ValueError(f"rbf_gram: {name} is on {t.device}; the kernel "
+                             f"takes CUDA tensors on one device")
+        _check_kernel_dtype(name, t)
+        if t.dtype != X.dtype:
+            raise TypeError(f"rbf_gram: {name} is {t.dtype}, X {X.dtype}; "
+                            f"the kernel takes one dtype for all")
+    for name, t in (("X", X), ("Z", Z)):
+        if not t.is_contiguous():
+            raise ValueError(f"rbf_gram: {name} must be contiguous")
+    return _launch(X, Z, lengthscales, variance, fast_exp)
 
 
 def _forward(X, Z, lengthscales, variance):
@@ -158,8 +191,14 @@ def _forward(X, Z, lengthscales, variance):
         return rbf_gram_plain(X, Z, lengthscales, variance)
     if X.device.type != "cuda":
         raise ValueError(f"rbf_gram: unsupported device {X.device}")
-    return rbf_gram_kernel((X / lengthscales).contiguous(),
-                           (Z / lengthscales).contiguous(), variance)
+    # rbf_gram checked the shapes, dtypes and devices; what is left is the
+    # kernel's own: its dtypes, one variance value, contiguous rows
+    _check_kernel_dtype("X", X)
+    if variance.numel() != 1:
+        raise ValueError(f"rbf_gram: variance must hold one value; got "
+                         f"shape {tuple(variance.shape)}")
+    return _launch(X.contiguous(), Z.contiguous(), lengthscales, variance,
+                   FAST_EXP)
 
 
 class _RBFGram(torch.autograd.Function):

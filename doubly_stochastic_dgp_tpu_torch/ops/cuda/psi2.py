@@ -39,7 +39,7 @@ import torch
 
 __all__ = ["psi2_core", "psi2_core_forward", "psi2_core_plain",
            "psi2_core_backward", "psi2_core_backward_plain", "terms", "flops",
-           "backward_flops", "MAX_M", "MAX_D"]
+           "backward_flops", "backward_plan", "MAX_M", "MAX_D"]
 
 # the kernel's limits (the JAX kernel's _MAX_M, _MAX_D); N is not limited:
 # the kernel streams rows and stages nothing of size N
@@ -47,7 +47,12 @@ MAX_M = 512
 MAX_D = 32
 FAST_EXP = True      # __expf in the kernel (see PERF.md for the choice)
 _ROWS, _TILE, _BLOCKS_PER_SM = 32, 64, 4   # as in csrc/psi2.cu
-_BWD_OWN, _BWD_GROUP_D = 64, 8              # as in csrc/psi2_bwd.cu
+# csrc/psi2_bwd.cu's tiling, mirrored by backward_plan: threads a block
+# (16 x 16), b's a sub-tile, rows a step, d's of gw and Q a block when
+# D > 8, the row stride of the per-thread partials; shared memory a block
+# may use, and an SM's (less 1 KB a block that the card reserves)
+_BWD_THREADS, _BWD_SUB_B, _BWD_RS, _BWD_GROUP_D, _BWD_PAD = 256, 64, 4, 8, 17
+SMEM_MAX, _SMEM_SM, _SMEM_RESERVED = 232448, 233472, 1024
 
 
 def _block_rows(M):
@@ -143,6 +148,67 @@ def _chunks(N, M, sms):
     return -(-steps // per)
 
 
+def _bwd_geometry(D):
+    """(D template, a's a thread, d's of gw and Q a block, blocks an SM)
+    of csrc/psi2_bwd.cu at this D."""
+    dt = D if D <= 8 else 0
+    return (dt, 4 if 1 <= dt <= 4 else 2, dt if dt else _BWD_GROUP_D,
+            2 if 1 <= dt <= 2 else 1)
+
+
+def _bwd_smem_floats(M, D, rc):
+    """Shared memory of a backward block in floats: csrc/psi2_bwd.cu's
+    smem_floats, term for term."""
+    dt, ta, ds, _ = _bwd_geometry(D)
+    sa, sb = 16 * ta, _BWD_SUB_B
+    return (2 * rc * M + rc * (1 + ds) + 2 * M * ds
+            + _BWD_RS * sa * _BWD_PAD + _BWD_RS * sb * _BWD_PAD
+            + _BWD_RS * (1 + ds) * _BWD_THREADS
+            + 2 * _BWD_RS * (sa + sb + D + 1)
+            + (D * (sa + sb) if dt == 0 else 0))
+
+
+def backward_plan(N, M, D, sms=132):
+    """The backward kernel's launch plan.
+
+    A block owns ``rows_per_chunk`` rows (a multiple of 4) and all M x M
+    terms of them, walked in ``sub_tiles`` sub-tiles of 16
+    ``a_per_thread`` a's x 64 b's; its shared memory holds the chunk's gU
+    and gV sums, so ``rows_per_chunk`` is what fits beside the fixed part
+    in the SM's share of a block (``blocks_per_sm`` blocks an SM: two up to
+    D = 2, else one).  The rows are cut into ``chunks`` chunks of about
+    equal size, as many as give every block slot one a wave; ``grid``
+    blocks (at most the slots) take chunks i, i + grid, ...; ``groups``
+    blocks along y split the d's of gw and Q when D > 8.  Each block
+    writes its gZ sums (M x D) to the scratch: ``scratch_floats`` = grid x
+    M x D, whatever N."""
+    dt, ta, ds, per_sm = _bwd_geometry(D)
+    budget = min(SMEM_MAX, _SMEM_SM // per_sm - _SMEM_RESERVED)
+    per_row = 2 * M + 1 + ds
+    rc_max = ((budget // 4 - _bwd_smem_floats(M, D, 0)) // per_row
+              // _BWD_RS * _BWD_RS)
+    if rc_max < _BWD_RS:
+        raise ValueError(f"psi2_core backward: M={M}, D={D} leaves no room "
+                         f"for a chunk in a block's shared memory")
+    slots = sms * per_sm
+    waves = -(-N // (slots * rc_max))
+    rc = -(-max(1, -(-N // (slots * waves))) // _BWD_RS) * _BWD_RS
+    chunks = -(-N // rc)
+    grid = min(chunks, slots)
+    return {"dt": dt, "a_per_thread": ta, "d_group": ds,
+            "blocks_per_sm": per_sm,
+            "groups": 1 if dt else -(-D // _BWD_GROUP_D),
+            "sub_tiles": -(-M // (16 * ta)) * -(-M // _BWD_SUB_B),
+            "rows_per_chunk": rc, "chunks": chunks, "grid": grid,
+            "smem_bytes": 4 * _bwd_smem_floats(M, D, rc),
+            "scratch_floats": grid * M * D}
+
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 @functools.cache
 def _fwd_fn():
     from .build import load_library
@@ -155,17 +221,14 @@ def _fwd_fn():
 
 
 @functools.cache
-def _bwd_fns():
+def _bwd_fn():
     from .build import load_library
-    lib = load_library("psi2_bwd")
-    fn = lib.psi2_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int64, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_int,
-                                            ctypes.c_void_p]
+    fn = load_library("psi2_bwd").psi2_bwd
+    fn.argtypes = [ctypes.c_void_p] * 12 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    lib.psi2_bwd_rows_step.argtypes = [ctypes.c_int]
-    lib.psi2_bwd_rows_step.restype = ctypes.c_int
-    return fn, lib.psi2_bwd_rows_step
+    return fn
 
 
 def _check(U, V, w, logdet, Z, g=None):
@@ -202,8 +265,7 @@ def _forward_kernel(U, V, w, logdet, Z, fast_exp):
     out = torch.empty(M, M, dtype=torch.float32, device=U.device)
     if N == 0:
         return out.zero_()
-    sms = torch.cuda.get_device_properties(U.device).multi_processor_count
-    chunks = _chunks(N, M, sms)
+    chunks = _chunks(N, M, _sm_count(U.device))
     scratch = (torch.empty(chunks * M * M, dtype=torch.float32,
                            device=U.device) if chunks > 1 else None)
     with torch.cuda.device(U.device):
@@ -237,23 +299,18 @@ def _backward_kernel(U, V, w, logdet, Z, g):
     gZ = torch.empty_like(Z)
     if N == 0:
         return gU, gV, gw, glogdet, gZ.zero_()
-    fn, rows_step = _bwd_fns()
-    sms = torch.cuda.get_device_properties(U.device).multi_processor_count
-    # (own tiles x row chunks x d groups) blocks a pass: about four per SM,
-    # and no more chunks than row steps
-    tiles = -(-M // _BWD_OWN)
-    groups = 1 if D <= _BWD_GROUP_D else -(-D // _BWD_GROUP_D)
-    steps = -(-N // rows_step(D))
-    per = -(-steps // max(1, _BLOCKS_PER_SM * sms // (tiles * groups)))
-    chunks = -(-steps // per)
-    scratch = torch.empty(tiles * N * (1 + D) + 2 * chunks * M * D,
-                          dtype=torch.float32, device=U.device)
+    plan = backward_plan(N, M, D, _sm_count(U.device))
+    scratch = torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                          device=U.device)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = fn(U.data_ptr(), V.data_ptr(), w.data_ptr(), logdet.data_ptr(),
-                 Z.data_ptr(), g.data_ptr(), gU.data_ptr(), gV.data_ptr(),
-                 gw.data_ptr(), glogdet.data_ptr(), gZ.data_ptr(),
-                 scratch.data_ptr(), N, M, D, chunks, stream)
+        err = _bwd_fn()(U.data_ptr(), V.data_ptr(), w.data_ptr(),
+                        logdet.data_ptr(),
+                        Z.data_ptr(), g.data_ptr(), gU.data_ptr(),
+                        gV.data_ptr(), gw.data_ptr(), glogdet.data_ptr(),
+                        gZ.data_ptr(), scratch.data_ptr(), N, M, D,
+                        plan["rows_per_chunk"], plan["chunks"], plan["grid"],
+                        plan["smem_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"psi2_core backward: kernel launch failed with "
                            f"CUDA error {err}")

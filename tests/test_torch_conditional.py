@@ -417,6 +417,106 @@ def _check_psi2_backward():
         "psi2 Function: needs_input_grad not honoured")
 
 
+# (N, M, D) the psi2 backward's launch plan is checked at: both cells'
+# shapes, M=512, ragged sizes, D above 8 (d groups), one row, and N far
+# beyond one wave
+PSI2_PLAN_SHAPES = [(7372, 256, 2), (1500, 100, 8), (2000, 512, 2),
+                    (1301, 100, 3), (500, 64, 12), (300, 37, 2), (1, 1, 1),
+                    (2000, 512, 32), (10 ** 6, 256, 2)]
+PSI2_SCRATCH_MAX = 32_000_000   # bytes of the backward's gZ partials
+
+
+def _check_psi2_backward_plan():
+    """The psi2 backward's launch plan (plain Python, handed to the
+    kernel): every row in exactly one chunk, each block's chunks within
+    one of each other, every (a, b) term in exactly one sub-tile (the
+    kernel's decoding replayed), shared memory within a block's 227 KB,
+    d groups covering D, and the gZ scratch within 32 MB and independent
+    of N."""
+    for N, M, D in PSI2_PLAN_SHAPES:
+        case = f"psi2 backward plan N={N} M={M} D={D}"
+        p = tpsi2.backward_plan(N, M, D)
+        rc, chunks, grid = p["rows_per_chunk"], p["chunks"], p["grid"]
+        assert rc % 4 == 0 and (chunks - 1) * rc < N <= chunks * rc, (
+            f"{case}: {chunks} chunks of {rc} rows")
+        if N <= 10 ** 4:
+            assert _covered_once(N, range(0, chunks * rc, rc), rc), (
+                f"{case}: a row not in exactly one chunk")
+        per_block = [len(range(b, chunks, grid)) for b in range(grid)]
+        per_sm = p["blocks_per_sm"]
+        assert per_sm == (2 if D <= 2 else 1) and grid <= 132 * per_sm and (
+            max(per_block) - min(per_block) <= 1 and min(per_block) >= 1), (
+            f"{case}: chunks a block {per_block}")
+        sa = 16 * p["a_per_thread"]
+        assert sa == (64 if D <= 4 else 32), f"{case}: tile"
+        tan, tbn = -(-M // sa), -(-M // 64)
+        assert p["sub_tiles"] == tan * tbn, f"{case}: sub-tiles"
+        hits = np.zeros((tan * sa, tbn * 64), dtype=int)
+        for st in range(p["sub_tiles"]):
+            a0, b0 = (st // tbn) * sa, (st % tbn) * 64
+            hits[a0:a0 + sa, b0:b0 + 64] += 1
+        assert (hits[:M, :M] == 1).all(), f"{case}: a term not in one tile"
+        assert p["groups"] * p["d_group"] >= D and (
+            (p["groups"] - 1) * p["d_group"] < D), f"{case}: d groups"
+        assert p["smem_bytes"] == 4 * tpsi2._bwd_smem_floats(M, D, rc) <= (
+            min(tpsi2.SMEM_MAX, 233472 // per_sm - 1024)), (
+            f"{case}: smem {p['smem_bytes']}")
+        assert p["scratch_floats"] == grid * M * D and (
+            4 * p["scratch_floats"] <= PSI2_SCRATCH_MAX), f"{case}: scratch"
+        for other in (1000 * N, 10 ** 7):
+            assert 4 * tpsi2.backward_plan(other, M, D)[
+                "scratch_floats"] <= 4 * 264 * M * D <= PSI2_SCRATCH_MAX, (
+                f"{case}: scratch at N={other}")
+
+
+def _onepass_backward(args, g, plan):
+    """The psi2 backward as the kernel takes it, in float64 numpy: per
+    chunk of the plan, P once for each term; gU, gV, glogdet and gw from
+    it per row; Q_d = sum_n w[n,d] P over the chunk's rows and the
+    chunk's share of gZ = -sum_b Z[b,d] (Q_d[c,b] + Q_d[b,c]), the shares
+    added in chunk order."""
+    U, V, w, logdet, Z = args
+    N = U.shape[0]
+    rc = plan["rows_per_chunk"]
+    pre = (U[:, :, None] + V[:, None, :]
+           - np.einsum("nd,ad,bd->nab", w, Z, Z))
+    ge = g[None] * np.exp(np.minimum(pre, 0.0) + logdet[:, :, None])
+    P = np.where(pre < 0.0, ge, 0.0)
+    gZ = np.zeros_like(Z)
+    for n0 in range(0, plan["chunks"] * rc, rc):
+        sl = slice(n0, min(n0 + rc, N))
+        Q = np.einsum("nd,nab->dab", w[sl], P[sl])
+        gZ -= (np.einsum("bd,dcb->cd", Z, Q) + np.einsum("ad,dac->cd", Z, Q))
+    return (P.sum(axis=2), P.sum(axis=1),
+            -np.einsum("nab,ad,bd->nd", P, Z, Z), ge.sum(axis=(1, 2))[:, None],
+            gZ)
+
+
+def _check_psi2_onepass():
+    """The one-pass algebra (gZ through Q, the plan's chunks) against
+    jax.grad of the JAX psi2_core (interpret-mode kernel backward), in
+    float64, on a multi-chunk case and the exact-tie case."""
+    for case in ("multi_chunk_N90_M20_D2", "exact_tie"):
+        if case == "exact_tie":
+            args, g = _psi2_bwd_inputs(case)
+        else:
+            args = _psi2_inputs(90, 20, 2, seed=11)
+            g = np.random.RandomState(12).randn(20, 20)
+        N, M = args[0].shape
+        plan = tpsi2.backward_plan(N, M, args[4].shape[1], sms=4)
+        assert plan["chunks"] > 1, f"psi2 one-pass {case}: one chunk"
+        got = _onepass_backward(args, g, plan)
+        want = jax.grad(lambda *a: jnp.sum(g * jax_psi2_core(*a, True)),
+                        argnums=(0, 1, 2, 3, 4))(*map(jnp.asarray, args))
+        for gt, w, what in zip(got, want, GRADS):
+            w = np.asarray(w)
+            scale = max(np.abs(w).max(), 1.0)
+            assert_allclose(gt / scale, w / scale, rtol=0,
+                            atol=PSI2_BWD_SCALE_TOL,
+                            err_msg=f"psi2 one-pass {case}: {what} vs "
+                                    f"jax.grad of the JAX psi2_core")
+
+
 # the tolerances of tests/test_pallas_gram.py: forward in float32, the
 # gradients in float64
 GRAM_RTOL, GRAM_ATOL = 2e-5, 2e-6
@@ -499,6 +599,36 @@ def _check_rbf_gram():
                                 f"jax.grad of the JAX RBF.K(X)")
 
 
+def _check_gram_args():
+    """rbf_gram's host-side launch arguments, on CPU tensors: the
+    lengthscale stride the kernel reads with (0 for a scalar, 1 for a
+    vector, a view's own stride), so no divide or copy is launched; the
+    kernel's arithmetic on them, x / ls[d * stride] - z / ls[d * stride]
+    squared and summed, emulated in float64 against the interpret-mode
+    Pallas rbf_gram."""
+    rng = np.random.RandomState(21)
+    X, Z, ard, var = rng.randn(50, 3), rng.randn(33, 3), rng.rand(3) + 0.5, 1.3
+    backing = torch.from_numpy(np.stack([ard, np.zeros(3)], axis=1).ravel())
+    cases = {"scalar": (torch.tensor(0.9, dtype=torch.float64),
+                        np.full(3, 0.9), 0),
+             "ARD": (torch.from_numpy(ard), ard, 1),
+             "ARD, strided view": (backing[::2], ard, 2)}
+    tX, tZ = torch.from_numpy(X), torch.from_numpy(Z)
+    for name, (ls, ls_np, stride) in cases.items():
+        N, M, D, got_stride = tgram._kernel_args(tX, tZ, ls)
+        assert (N, M, D, got_stride) == (50, 33, 3, stride), (
+            f"rbf_gram args {name}: {(N, M, D, got_stride)}")
+        read = ls.as_strided((D,), (got_stride,)).numpy()
+        assert (read == ls_np).all(), f"rbf_gram args {name}: {read}"
+        t = (X / read)[:, None, :] - (Z / read)[None, :, :]
+        K = var * np.exp(-0.5 * np.sum(t * t, axis=-1))
+        want = jax_rbf_gram(jnp.asarray(X), jnp.asarray(Z),
+                            jnp.asarray(ls_np), jnp.float64(var), True)
+        assert_allclose(K, np.asarray(want), rtol=RTOL, atol=ATOL,
+                        err_msg=f"rbf_gram args {name}: the kernel's "
+                                f"arithmetic vs the interpret-mode kernel")
+
+
 def test_fused_conditional_plain_matches_jax():
     for f in (fused_conditional, fused_conditional_saved):
         f.launches = f.backward_launches = 0
@@ -534,7 +664,10 @@ def test_fused_conditional_plain_matches_jax():
     _check_psi2_limits()
     _check_psi2()
     _check_psi2_backward()
+    _check_psi2_backward_plan()
+    _check_psi2_onepass()
     _check_rbf_gram()
+    _check_gram_args()
     assert _counts() == (0, 0, 0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 
