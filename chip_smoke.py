@@ -36,8 +36,9 @@ Phases, each of which raises on a failed check:
    inner kernels, Gaussian likelihood 0.05, S=100) built with
    ``DGP.build`` on the card and served by ``make_server(precompute=
    False, batch_buckets=(128, 512, 1000))``: three requests (the 820-row
-   test split, 1000 rows, 1300 rows in two chunks), with launch counts,
-   shapes, finiteness, pinned-seed reproducibility, and agreement of the
+   test split, 1000 rows, 1300 rows in two chunks), with launch counts
+   (the counters from before the server is built: its captures; the
+   profiler: the requests' replays), shapes, finiteness, pinned-seed reproducibility, and agreement of the
    live and cached float32 paths with the port's float64 CPU path on a
    small input at fixed draws;
 3. the cached server (``precompute=True``) on the same requests, and its
@@ -52,19 +53,21 @@ Phases, each of which raises on a failed check:
 5. a torch.profiler breakdown of a request's device time by kernel;
 6. the training path, live: the headline model with S=10 samples
    (``DGP.build`` on the card, ``use_pallas=True``) trained by ``fit`` for
-   300 Adam steps at minibatch 1000 (10,000 rows per layer a step).
-   Raises unless every step launched exactly 5 forward and 5 backward
-   kernels, and the loss is finite and lower at the end than at the
-   start.  Then the ELBO gradient at a fixed minibatch and fixed draws on
+   300 Adam steps at minibatch 1000 (10,000 rows per layer a step),
+   each chunk of 10 one replay of a captured CUDA graph.  Raises unless
+   the counters show 5 forward and 5 backward launches a step in the
+   capture's eager warm-up chunk and in the capture, and none in a replay,
+   the profiler shows 5 of each a step in a replayed chunk, and the loss
+   is finite and lower at the end than at the start.  Then the ELBO gradient at a fixed minibatch and fixed draws on
    the card, in float32 through the kernels and through the plain
    (``use_pallas=False``) path, against the port's float64 CPU path;
    raises if a gradient is not finite or the kernel path's worst
    relative error per parameter tensor is above 2x the plain path's.
    ``evaluate_regression`` on the test split (raises unless RMSE and
    loglik are finite); 60 ``fit`` steps under ``use_pallas='saved'``
-   (raises unless finite and 5 save-gram launches of each kind a step)
-   and under ``False`` (raises if a kernel other than rbf_gram launched,
-   or rbf_gram other than 3 times a layer a step); and whether two
+   (raises unless finite and 5 save-gram launches of each kind a step,
+   counted as above) and under ``False`` (raises if a kernel other than
+   rbf_gram launched, or rbf_gram other than 3 times a layer a step); and whether two
    20-step fits from one seed agree bit for bit (printed);
 7. timings as in phase 4: each fused kernel and its plain version at the
    training shapes, with its device time, bounds and GEMM yardstick
@@ -73,9 +76,10 @@ Phases, each of which raises on a failed check:
    rbf_gram's (N x D) by (D x M)); training steps/s of
    ``fit`` for ``use_pallas=True``, ``'saved'`` and ``False``, measured in
    turns;
-8. a training step's wall time, its host syncs (counted in torch's sync
-   debug mode) and a torch.profiler breakdown of its device time: busy,
-   idle share, device ops, top device ops;
+8. an eager training step's wall time, its host syncs (counted in
+   torch's sync debug mode; raises unless 0) and a torch.profiler
+   breakdown of its device time: busy, idle share, device ops, top
+   device ops;
 9. the collapsed DGPs at full width, each built on the card with its
    ``build`` (float32, jitter 1e-5, ``solve_mode='inverse'``; Z by
    k-means, seed 0, as the JAX bench): ``damianou_large`` (DGPDamianou,
@@ -134,7 +138,9 @@ Phases, each of which raises on a failed check:
    launch counts set to 0 just before (raises unless the loss is finite
    and lower at the end, psi2 forward and fused conditional forward
    launched once a step plus once a chunk for the guard's verification
-   forward, psi2 backward and fused conditional backward once a step, and
+   forward, psi2 backward and fused conditional backward once a step, in
+   the warm-up and capture chunks by the counters and in a replayed chunk
+   by the profiler, and
    ``evaluate_regression`` is finite), the same fit on the plain psi2
    route, and ``damianou_large`` for 100 steps on the kernel route (raises
    unless the final loss and every parameter are finite; prints the
@@ -142,8 +148,9 @@ Phases, each of which raises on a failed check:
 15. timings: the psi2 backward kernel, its plain version and its bound at
    both cells' shapes (CUDA events, median of 30); the fits' steps/s per
    route (``fit``'s own per-chunk rate, median); and per model one guarded
-   chunk of 8 training steps: host syncs a step and a torch.profiler
-   breakdown (device busy, device ops, idle share, top device ops);
+   chunk of 8 training steps, graphed: host syncs a step and a
+   torch.profiler breakdown (device busy, device ops, idle share, top
+   device ops);
 16. (run right after phase 1) the rbf_gram kernel, which every RBF gram on
    the card goes through, against its plain version and float64 at the
    cells' Kuf shapes (M=100 x B=10,000 and 100,000, M=256 x N=7372 at D=8
@@ -160,7 +167,8 @@ Phases, each of which raises on a failed check:
    (solve_mode='solve', use_pallas=False): the headline model built with
    ``Config(dtype=float32, jitter=1e-5)``, fit for 100 steps with the
    launch counts at 0 (raises unless rbf_gram launched 15 times a step,
-   3 a layer, nothing else launched, and the loss is finite and falls),
+   3 a layer, in the warm-up and capture chunks by the counters and in a
+   replayed chunk by the profiler, nothing else launched, and the loss is finite and falls),
    then with ``Config()`` itself (float64) for 20 steps (finite),
    ``evaluate_regression``, and the ELBO gradient against the float64 CPU
    path through the kernel and through the plain gram (inside
@@ -174,7 +182,37 @@ Phases, each of which raises on a failed check:
    float64 CPU path (layer 0 within 5e-3; every layer within 2x the plain
    gram's error), the first layer's diagonal against the diagonal route,
    every (N, N) slice symmetric, latencies; and predict_f_full_cov of
-   DGPCollapsed at collapsed_L2 (finite, symmetric).
+   DGPCollapsed at collapsed_L2 (finite, symmetric);
+20. the one-program dispatch (after phase 15): the sync-free Cholesky
+   rung selection's device time (every rung in one batched
+   ``cholesky_ex``) beside one factorization and one call a rung, each
+   captured in a CUDA graph and timed over its replays with CUDA events
+   (the profiler's sum beside it), and whether its first rung keeps
+   ``torch.linalg.cholesky``'s bits; then on
+   four routes (the headline DGP with ``use_pallas=True`` and on the
+   solve route, damianou_large and collapsed_L2 with fit's guard) 100
+   ``fit`` steps graphed and inside ``graphs.eager_on_card()`` from one
+   seed (raises unless the parameters agree bit for bit or within 1e-4
+   of each tensor's scale), then 6 chunks of 10 steps of each in turns:
+   steps/s (median), every replay under
+   ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), a
+   profiled chunk of each (device busy, device ops, idle share and each
+   kernel's launches a step; profiled again if the profiler saw no device
+   time, and raises if it never does; raises unless the graphed idle
+   share is below the eager one, and unless each kernel's launches a step
+   in the graphed replay, by the profiler, equal the eager chunk's by the
+   counters, and a replay ticks no counter) and the graph's memory pool;
+21. a guarded chunk of the headline DGP with 5 NaN training rows for one
+   chunk of three, graphed and eager: raises unless it rejects steps,
+   keeps a finite state, recovers in the next chunk, and graphed equals
+   eager bit for bit;
+22. 1000-row S=100 requests to the live and cached servers, graphed and
+   eager in turns: latency (median of 7), pinned seeds bit for bit
+   between the two (raises otherwise), replays under sync debug 'error',
+   the graph pool the server's buckets share;
+23. ``fit`` for 20 steps with ``ckpt_dir``, a fresh model resumed from the
+   checkpoint to 40, against 40 straight steps: raises unless bit for
+   bit.
 
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
@@ -231,6 +269,14 @@ LAYERS, M, S = 5, 100, 100
 BUCKETS = (128, 512, 1000)
 # training: S=10 samples, minibatch 1000, so 10,000 rows per layer a step
 TRAIN_S, BATCH, TRAIN_STEPS = 10, 1000, 300
+# fit's chunk of steps (log_every here), one replay of a captured graph
+FIT_CHUNK = 10
+# on the card fit captures its chunk as a CUDA graph: an eager warm-up
+# chunk, run from a snapshot that it restores (no step, but real
+# launches), then the capture, whose launches go into the graph.  The
+# counters count both chunks' launches and nothing of the replays, which
+# run no wrapper; the profiler counts a replay's kernels (LAUNCH_MARKER)
+FIT_CAPTURE_CHUNKS = 2
 # (name, source, the TPU kernel it replaces, the launch counter's owner and
 # attribute)
 _COND = "doubly_stochastic_dgp_tpu/ops/pallas/conditional.py"
@@ -265,6 +311,18 @@ DEVICE_KERNELS = {
     "psi2_core_forward": ("psi2_fwd_kernel", "psi2_sum_chunks_kernel"),
     "psi2_core_backward": ("psi2_bwd_kernel", "psi2_bwd_finish_kernel"),
     "rbf_gram": ("rbf_gram_kernel",),
+}
+# the device kernel that one launch of each record's wrapper runs once, as
+# torch.profiler names it: what a graph replay's launches are counted by
+LAUNCH_MARKER = {
+    "fused_conditional": "fused_conditional_fwd_kernel<false>",
+    "fused_conditional_saved": "fused_conditional_fwd_kernel<true>",
+    "fused_conditional_backward": "fused_conditional_bwd_rows_kernel<false>",
+    "fused_conditional_saved_backward":
+        "fused_conditional_bwd_rows_kernel<true>",
+    "psi2_core_forward": "psi2_fwd_kernel",
+    "psi2_core_backward": "psi2_bwd_kernel",
+    "rbf_gram": "rbf_gram_kernel",
 }
 # device ms a launch of the two redesigned kernels' earlier designs (two
 # passes over the terms; lengthscales divided out by separate device ops),
@@ -312,6 +370,39 @@ def launch_counts():
 def set_launch_counts(counts):
     for name, _, _, owner, attr in KERNELS:
         setattr(owner, attr, counts[name])
+
+
+def device_launches(prof):
+    """{record: its launches in a torch.profiler profile}: the device
+    kernels named by its LAUNCH_MARKER, a graph replay's included."""
+    events = [e for e in prof.key_averages()
+              if e.device_type.name == "CUDA"]
+    return {name: sum(e.count for e in events if marker in e.key)
+            for name, marker in LAUNCH_MARKER.items()}
+
+
+class ProfiledChunk:
+    """A ``fit`` callback that profiles the chunk between its first two
+    calls (log boundaries), on the card one replay of the captured chunk:
+    ``launches`` is then :func:`device_launches` of that chunk.  ``fit``
+    reads the loss (a host sync) before it calls back, so the chunk's
+    device work has ended by then."""
+
+    def __init__(self):
+        self.prof, self.launches, self.calls = None, None, 0
+
+    def __call__(self, step, model, loss, stats):
+        from torch.profiler import ProfilerActivity, profile
+        self.calls += 1
+        if self.calls == 1:
+            self.prof = profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA])
+            self.prof.start()
+        elif self.calls == 2:
+            torch.cuda.synchronize()
+            self.prof.stop()
+            self.launches = device_launches(self.prof)
+            self.prof = None
 
 
 def event_ms(fn, reps=30):
@@ -566,19 +657,35 @@ def phase_serving(seed):
     X = data["X"]
     requests = [(101, data["Xs"]), (102, X[:1000]), (103, X[1000:2300])]
     chunks = sum(-(-len(x) // BUCKETS[-1]) for _, x in requests)
-    live = make_server(model, S=S, precompute=False, batch_buckets=BUCKETS)
+    from torch.profiler import ProfilerActivity, profile
 
-    fused_conditional.launches = 0
-    t0 = time.perf_counter()
-    outs = serve_all(live, requests)
-    first_s = time.perf_counter() - t0
-    launches = fused_conditional.launches
+    # building the server captures each bucket's request: an eager
+    # warm-up and the capture, each a launch a layer on the counters; the
+    # requests replay graphs, which the profiler counts
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    live = make_server(model, S=S, precompute=False, batch_buckets=BUCKETS)
+    built = fused_conditional.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        outs = serve_all(live, requests)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+    launches = device_launches(prof)["fused_conditional"]
     print(f"serving live: 3 requests ({[len(x) for _, x in requests]} rows,"
-          f" {chunks} chunks) in {first_s:.3f} s; fused_conditional "
-          f"launches {launches} (expected {LAYERS} layers x {chunks} "
-          f"chunks)", flush=True)
+          f" {chunks} chunks) in {first_s:.3f} s under the profiler; "
+          f"fused_conditional launches: building the server {built} "
+          f"(counters; expected 2 x {LAYERS} layers x {len(BUCKETS)} "
+          f"buckets), the requests {launches} (profiler; expected {LAYERS} "
+          f"layers x {chunks} chunks), the counters after the requests "
+          f"{fused_conditional.launches}", flush=True)
+    check(built == 2 * LAYERS * len(BUCKETS),
+          f"building the server: launches {built} != 2 x {LAYERS} x "
+          f"{len(BUCKETS)}")
     check(launches == LAYERS * chunks,
           f"launches {launches} != {LAYERS} x {chunks}")
+    check(fused_conditional.launches == built,
+          "a replayed request ticked the launch counter")
     for (_, x), (mean, var) in zip(requests, outs):
         for name, t in (("mean", mean), ("var", var)):
             check(tuple(t.shape) == (S, len(x), 1),
@@ -770,14 +877,32 @@ def phase_profile(live, cached, requests):
 # phase 6: training
 # ---------------------------------------------------------------------------
 
-def run_fit(model, steps, seed):
+def run_fit(model, steps, seed, profiled=True):
     """fit() with the launch counts set to 0 just before and read just
-    after; logs (and syncs) every 10 steps."""
+    after, logging (and syncing) every chunk; returns the history, the
+    counts and (``profiled``) the launches of the second chunk (one
+    replay) by the profiler."""
     set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    replay = ProfiledChunk()
     _, hist = fit(model, iterations=steps, learning_rate=0.01,
-                  batch_size=BATCH, seed=seed, log_every=10)
+                  batch_size=BATCH, seed=seed, log_every=FIT_CHUNK,
+                  callbacks=[replay] if profiled else [])
     torch.cuda.synchronize()
-    return hist, launch_counts()
+    return hist, launch_counts(), replay.launches
+
+
+def check_fit_launches(label, counts, replay, per_step):
+    """Raise unless the counters hold the launches of fit's warm-up and
+    capture chunks, and the profiled replay those of one chunk, for each
+    record: ``per_step`` {record: launches a step}, every other record 0."""
+    want = {n: per_step.get(n, 0) for n in KERNEL_NAMES}
+    check(counts == {n: FIT_CAPTURE_CHUNKS * FIT_CHUNK * k
+                     for n, k in want.items()},
+          f"{label}: launch counters {counts} != {want} a step over the "
+          f"warm-up and capture chunks")
+    check(replay == {n: FIT_CHUNK * k for n, k in want.items()},
+          f"{label}: a replayed chunk launched {replay} (profiler) != "
+          f"{want} a step")
 
 
 def named_grads(model):
@@ -846,17 +971,20 @@ def check_gradient(model, seed):
 def phase_training(seed):
     model, data = build_model(seed, num_samples=TRAIN_S,
                               random_posterior=False)
-    hist, counts = run_fit(model, TRAIN_STEPS, seed)
+    hist, counts, replay = run_fit(model, TRAIN_STEPS, seed)
     losses = [h["loss"] for h in hist]
     print(f"training use_pallas=True: {TRAIN_STEPS} Adam steps, 5 layers, "
           f"M={M}, S={TRAIN_S}, batch {BATCH}: loss {losses[0]:.3f} "
-          f"(steps 1-10) -> {losses[-1]:.3f} (last 10); launches "
-          + ", ".join(f"{n} {c}" for n, c in counts.items()), flush=True)
-    per_run = LAYERS * TRAIN_STEPS
-    check(counts["fused_conditional"] == per_run
-          and counts["fused_conditional_backward"] == per_run,
-          f"launches {counts} != {LAYERS} forward and {LAYERS} backward a "
-          f"step over {TRAIN_STEPS} steps")
+          f"(steps 1-10) -> {losses[-1]:.3f} (last 10); launches (counters:"
+          f" the warm-up and capture chunks) "
+          + ", ".join(f"{n} {c}" for n, c in counts.items())
+          + "; a replayed chunk (profiler) "
+          + ", ".join(f"{n} {c}" for n, c in replay.items()), flush=True)
+    # and 2 grams a layer a step: Kuu and the KL's Kuu
+    check_fit_launches("use_pallas=True", counts, replay,
+                       {"fused_conditional": LAYERS,
+                        "fused_conditional_backward": LAYERS,
+                        "rbf_gram": 2 * LAYERS})
     check(all(np.isfinite(losses)), "training loss not finite")
     check(losses[-1] < losses[0], f"training loss did not fall: {losses}")
 
@@ -874,28 +1002,29 @@ def phase_training(seed):
     for route in ("saved", False):
         m, _ = build_model(seed, num_samples=TRAIN_S, random_posterior=False,
                            use_pallas=route)
-        h, c = run_fit(m, 60, seed)
+        h, c, r = run_fit(m, 60, seed)
         print(f"training use_pallas={route!r}: 60 steps, loss "
               f"{h[0]['loss']:.3f} -> {h[-1]['loss']:.3f}; launches "
-              + ", ".join(f"{n} {k}" for n, k in c.items()), flush=True)
+              f"(counters) " + ", ".join(f"{n} {k}" for n, k in c.items())
+              + "; a replayed chunk (profiler) "
+              + ", ".join(f"{n} {k}" for n, k in r.items()), flush=True)
         check(all(np.isfinite([x["loss"] for x in h])),
               f"use_pallas={route!r}: loss not finite")
         if route == "saved":
             saved_counts = c
-            check(c["fused_conditional_saved"] == LAYERS * 60
-                  and c["fused_conditional_saved_backward"] == LAYERS * 60,
-                  f"saved launches {c} != {LAYERS} a step")
+            check_fit_launches("use_pallas='saved'", c, r,
+                               {"fused_conditional_saved": LAYERS,
+                                "fused_conditional_saved_backward": LAYERS,
+                                "rbf_gram": 2 * LAYERS})
         else:
-            check(not any(k for n, k in c.items() if n != "rbf_gram"),
-                  f"use_pallas=False launched {c}")
-            check(c["rbf_gram"] == 3 * LAYERS * 60,
-                  f"use_pallas=False: rbf_gram launches {c['rbf_gram']} != "
-                  f"3 a layer a step (Kuf, Kuu, the KL's Kuu)")
+            # 3 grams a layer a step: Kuf, Kuu, the KL's Kuu
+            check_fit_launches("use_pallas=False", c, r,
+                               {"rbf_gram": 3 * LAYERS})
 
     runs = []
     for _ in range(2):
         m, _ = build_model(seed, num_samples=TRAIN_S, random_posterior=False)
-        run_fit(m, 20, seed)
+        run_fit(m, 2 * FIT_CHUNK, seed, profiled=False)
         runs.append(m.state_dict())
     same = all(torch.equal(runs[0][k], runs[1][k]) for k in runs[0])
     print(f"training: two 20-step fits from one seed agree bit for bit: "
@@ -915,7 +1044,7 @@ def steps_per_s(models, seed, card, label):
     samples = {r: [] for r in models}
     for i in range(3):
         for r, m in models.items():
-            hist, _ = run_fit(m, 30, seed + i)
+            hist = run_fit(m, 30, seed + i, profiled=False)[0]
             samples[r] += [h["iters_per_sec"] for h in hist[1:]]
     rates = {r: statistics.median(v) for r, v in samples.items()}
     print(f"{label} steps/s of fit (median of 6 ten-step chunks, in turns; "
@@ -998,9 +1127,9 @@ def phase_training_profile(model, seed, card, route="use_pallas=True"):
     torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     syncs = sum("synchroniz" in str(w.message) for w in caught)
-    print(f"training step: {syncs} host syncs (torch.cuda sync debug mode; "
-          f"{LAYERS} conditionals and {LAYERS} KL terms each read "
-          f"safe_cholesky's info once)", flush=True)
+    print(f"training step (eager): {syncs} host syncs (torch.cuda sync "
+          f"debug mode)", flush=True)
+    check(syncs == 0, f"an eager training step made {syncs} host syncs")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1153,7 +1282,7 @@ def f32_witnesses(build, model, data, zs, b64, p64):
             m = build("damianou_large", torch.float64, "auto", False)
             psi_stats.psi2_core = f32_psi2
         m.load_state_dict(model.state_dict())
-        safe_cholesky_ladder.escalations = 0
+        safe_cholesky_ladder.escalations.reset()
         try:
             with torch.no_grad():
                 b = m.elbo()
@@ -1167,7 +1296,7 @@ def f32_witnesses(build, model, data, zs, b64, p64):
             f"damianou_large {variant}: not finite")
         out[variant] = (abs(b.item() - b64.item()) / abs(b64.item()),
                         pred_err(preds, p64),
-                        safe_cholesky_ladder.escalations)
+                        int(safe_cholesky_ladder.escalations))
         print(f"collapsed damianou_large witness {variant}: bound "
               f"{b.item():.6f}, rel err vs f64 {out[variant][0]:.3e}; "
               f"predictions worst err {out[variant][1]:.3e} of scale; "
@@ -1225,9 +1354,9 @@ def phase_collapsed(seed, card):
                 m = build(name, *ROUTES[route])
                 m.load_state_dict(model.state_dict())
                 out["models"][name][route] = m
-            safe_cholesky_ladder.escalations = 0
+            safe_cholesky_ladder.escalations.reset()
             results[route] = evaluate_route(name, route, m, data, zs[name])
-            escal[route] = safe_cholesky_ladder.escalations
+            escal[route] = int(safe_cholesky_ladder.escalations)
         b64, p64 = results["f64"]
         errs = {}
         for route in ("kernel", "plain"):
@@ -1454,7 +1583,6 @@ def phase_collapsed_timings(collapsed, card):
 PSI2_GRADS = ("gU", "gV", "gw", "glogdet", "gZ")
 # fit's chunk (the guard's verification forward runs once a chunk)
 COLLAPSED_FIT = {"collapsed_L2": 200, "damianou_large": 100}
-FIT_CHUNK = 10
 
 
 def check_psi2_backward_refusals(seed):
@@ -1661,14 +1789,17 @@ def phase_collapsed_gradient(collapsed, card):
     return out
 
 
-def collapsed_fit(model, steps, seed):
+def collapsed_fit(model, steps, seed, profiled):
     """fit() on a collapsed model (no batch size, the guard by fit's own
-    rule), the launch counts set to 0 just before and read just after."""
+    rule), the launch counts set to 0 just before and read just after;
+    with (``profiled``) the launches of the second chunk (one replay) by
+    the profiler."""
     set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    replay = ProfiledChunk()
     _, hist = fit(model, iterations=steps, learning_rate=0.01, seed=seed,
-                  log_every=FIT_CHUNK)
+                  log_every=FIT_CHUNK, callbacks=[replay] if profiled else [])
     torch.cuda.synchronize()
-    return hist, launch_counts()
+    return hist, launch_counts(), replay.launches
 
 
 def phase_collapsed_training(collapsed, seed, card):
@@ -1682,7 +1813,8 @@ def phase_collapsed_training(collapsed, seed, card):
         for route in ("kernel", "plain"):
             n = steps if route == "kernel" or name == "collapsed_L2" else 20
             model = build(name, *ROUTES[route])
-            hist, c = collapsed_fit(model, n, seed)
+            hist, c, r = collapsed_fit(model, n, seed,
+                                       profiled=route == "kernel")
             losses = [h["loss"] for h in hist]
             rates = [h["iters_per_sec"] for h in hist[1:]]
             rejected = hist[-1]["rejected"]
@@ -1709,14 +1841,24 @@ def phase_collapsed_training(collapsed, seed, card):
                       f"{name}: the plain psi2 route launched {c}")
                 continue
             main_counts[name] = c
-            chunks = n // FIT_CHUNK
-            fused = (n + chunks, n) if name == "collapsed_L2" else (0, 0)
-            want = {"psi2_core_forward": n + chunks, "psi2_core_backward": n,
+            # a chunk: its steps and one verification forward; the
+            # counters hold the warm-up and capture chunks, the profiler
+            # one replayed chunk
+            fwd, bwd = FIT_CHUNK + 1, FIT_CHUNK
+            fused = (fwd, bwd) if name == "collapsed_L2" else (0, 0)
+            want = {"psi2_core_forward": fwd, "psi2_core_backward": bwd,
                     "fused_conditional": fused[0],
                     "fused_conditional_backward": fused[1]}
-            check(all(c[k] == v for k, v in want.items()),
-                  f"{name}: launches {c} != {want} ({n} steps, {chunks} "
-                  f"verification forwards)")
+            print(f"collapsed training {name}: a replayed chunk launched "
+                  f"(profiler) " + ", ".join(f"{k} {v}" for k, v in r.items()
+                                              if v), flush=True)
+            check(all(c[k] == FIT_CAPTURE_CHUNKS * v
+                      for k, v in want.items()),
+                  f"{name}: launch counters {c} != {FIT_CAPTURE_CHUNKS} x "
+                  f"{want} (the warm-up and capture chunks)")
+            check(all(r[k] == v for k, v in want.items()),
+                  f"{name}: a replayed chunk launched {r} (profiler) != "
+                  f"{want}")
             if name == "collapsed_L2":
                 check(all(np.isfinite(losses)) and losses[-1] < losses[0],
                       f"{name}: training loss did not fall: {losses}")
@@ -1818,7 +1960,7 @@ def phase_collapsed_step_profile(collapsed, seed, card):
               f"chunk of {steps} steps + 1 verification forward), per step: "
               f"wall median {wall:.3f} ms over 5 chunks (all: "
               f"{', '.join(f'{t:.3f}' for t in times)}); host syncs "
-              f"{syncs:.2f}; rejected so far {chunk.rejected} [{card}]",
+              f"{syncs:.2f}; rejected so far {int(chunk.rejected)} [{card}]",
               flush=True)
         out[name] = {"step_ms": wall, "host_syncs": syncs, "busy_ms": None}
         if found is None:
@@ -2130,36 +2272,38 @@ def phase_solve_dgp(seed, card):
     model, data = build_model(seed, num_samples=TRAIN_S,
                               random_posterior=False,
                               config=solve_config(torch.float32))
-    hist, counts = run_fit(model, SOLVE_STEPS, seed)
+    hist, counts, replay = run_fit(model, SOLVE_STEPS, seed)
     losses = [h["loss"] for h in hist]
-    want = GRAMS_PER_LAYER_STEP * LAYERS * SOLVE_STEPS
     rate = statistics.median(h["iters_per_sec"] for h in hist[1:])
     print(f"solve route float32 (Config(dtype=float32, jitter=1e-5), "
           f"solve_mode='solve'): fit {SOLVE_STEPS} Adam steps, batch {BATCH}"
           f", S={TRAIN_S}: loss {losses[0]:.3f} (steps 1-10) -> "
           f"{losses[-1]:.3f} (last 10); steps/s median of the chunks after "
-          f"the first {rate:.2f}; rbf_gram launches {counts['rbf_gram']}"
-          f" = {counts['rbf_gram'] / SOLVE_STEPS:.0f} a step (expected "
-          f"{GRAMS_PER_LAYER_STEP} a layer: Kuf, Kuu, the KL's Kuu); all: "
-          f"{counts} [{card}]", flush=True)
-    check(counts["rbf_gram"] == want,
-          f"solve route: rbf_gram launches {counts['rbf_gram']} != {want}")
-    check(not any(c for n, c in counts.items() if n != "rbf_gram"),
-          f"solve route launched another kernel: {counts}")
+          f"the first {rate:.2f}; rbf_gram launches in a replayed chunk "
+          f"(profiler) {replay['rbf_gram']} = "
+          f"{replay['rbf_gram'] / FIT_CHUNK:.0f} a step (expected "
+          f"{GRAMS_PER_LAYER_STEP} a layer: Kuf, Kuu, the KL's Kuu); "
+          f"counters (the warm-up and capture chunks): {counts}; profiler: "
+          f"{replay} [{card}]", flush=True)
+    check_fit_launches("solve route", counts, replay,
+                       {"rbf_gram": GRAMS_PER_LAYER_STEP * LAYERS})
     check(all(np.isfinite(losses)), "solve route: loss not finite")
     check(losses[-1] < losses[0], f"solve route: loss did not fall {losses}")
 
     m64, _ = build_model(seed, num_samples=TRAIN_S, random_posterior=False,
                          config=solve_config(torch.float64))
-    h64, c64 = run_fit(m64, SOLVE_F64_STEPS, seed)
+    # not profiled: its second chunk's rate is printed
+    h64, c64, _ = run_fit(m64, SOLVE_F64_STEPS, seed, profiled=False)
     print(f"solve route float64 (Config()): fit {SOLVE_F64_STEPS} steps: "
           f"loss {h64[0]['loss']:.3f} -> {h64[-1]['loss']:.3f}; steps/s of "
           f"the second chunk {h64[-1]['iters_per_sec']:.2f}; rbf_gram "
           f"launches {c64['rbf_gram']} [{card}]", flush=True)
     check(all(np.isfinite([h["loss"] for h in h64])),
           "solve route float64: loss not finite")
-    check(c64["rbf_gram"] == GRAMS_PER_LAYER_STEP * LAYERS * SOLVE_F64_STEPS,
-          f"solve route float64: rbf_gram launches {c64['rbf_gram']}")
+    check(c64["rbf_gram"] == GRAMS_PER_LAYER_STEP * LAYERS
+          * FIT_CAPTURE_CHUNKS * FIT_CHUNK,
+          f"solve route float64: rbf_gram launches {c64['rbf_gram']} (the "
+          f"warm-up and capture chunks)")
     del m64
 
     metrics = evaluate_regression(model, data["Xs"], data["Ys"],
@@ -2186,8 +2330,8 @@ def phase_solve_dgp(seed, card):
           f" > 2x the plain gram's {worst['plain gram f32']}")
     return model, data, {"losses": [losses[0], losses[-1]],
                          "f64_losses": [h64[0]["loss"], h64[-1]["loss"]],
-                         "launches_per_step": counts["rbf_gram"]
-                         / SOLVE_STEPS, "test_metrics": metrics,
+                         "launches_per_step": replay["rbf_gram"] / FIT_CHUNK,
+                         "test_metrics": metrics,
                          "grad_rel_err": worst}, counts["rbf_gram"]
 
 
@@ -2315,6 +2459,412 @@ def phase_full_cov(model, data, seed, card):
             "diag_rel_err": e_diag,
             "asymmetry": asym, "latency_ms": times,
             "collapsed_L2_ms": c_ms, "collapsed_L2_asymmetry": c_asym}
+
+
+# ---------------------------------------------------------------------------
+# phases 20-24: the one-program dispatch (captured CUDA graphs) and
+# checkpoints
+# ---------------------------------------------------------------------------
+
+GRAPH_STEPS = 100           # fit steps of the graphed-vs-eager comparison
+GRAPH_CHUNK = 10            # fit's chunk: one replay
+GRAPH_ROUNDS = 6            # timed chunks a route and mode, in turns
+# graphed vs eager parameters after GRAPH_STEPS steps: bit for bit, or
+# else within this fraction of each parameter tensor's scale
+GRAPH_VS_EAGER_RTOL = 1e-4
+LATENCY_REPS = 7
+RESUME_STEPS = 20           # k: k steps, a checkpoint, k more vs 2k
+# rows of the headline DGP's training set set to NaN for one guarded chunk
+NAN_ROWS = 5
+
+
+@contextlib.contextmanager
+def no_sync():
+    """torch's sync debug mode at 'error' while inside: a host sync
+    raises."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def param_agreement(a, b):
+    """(bit for bit, worst max|a - b| / max|b| over the parameter tensors,
+    the tensor where it is) for two models' parameters."""
+    same, worst, where = True, 0.0, None
+    for (name, p), q in zip(a.named_parameters(), b.parameters()):
+        same = same and torch.equal(p, q)
+        d = ((p - q).abs().max() / q.abs().max().clamp_min(1e-30)).item()
+        if d > worst:
+            worst, where = d, name
+    return same, worst, where
+
+
+def total_device_ms(fn, n=20):
+    """(device ms, device ops) of one call of ``fn``, all its device ops
+    summed (torch.profiler over n calls); None when the profiler saw
+    none."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    found = device_breakdown(prof, n)
+    return None if found is None else found[:2]
+
+
+def graph_event_ms(fn, reps=20, rounds=5):
+    """Device ms of one call of ``fn`` captured in a CUDA graph: CUDA
+    events around ``reps`` replays back to back, per replay, the median of
+    ``rounds``; the launch gaps are a graph's, as in a captured chunk."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        fn()
+    g.replay()
+    times = []
+    for _ in range(rounds):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del g
+    return statistics.median(times)
+
+
+def phase_cholesky_rungs(seed, card):
+    """The sync-free rung selection's cost: every rung factorized in one
+    batched cholesky_ex, against one factorization (the healthy path of
+    the design with a host read) and against one call a rung, at the
+    DGP's Kuu (M=100, 3 absolute rungs) and the collapsed cells' B (M=100
+    and 256, the 8 relative rungs); and whether the first rung's factor
+    keeps torch.linalg.cholesky's bits.  Each is timed captured in a CUDA
+    graph (CUDA events over its replays) and by the profiler's sum of its
+    device ops.  The CUDA graph conditional node (the other design) is not
+    in this PyTorch's Python API."""
+    from doubly_stochastic_dgp_tpu_torch.ops.linalg import safe_cholesky
+    cond = sorted({n for mod in (torch.cuda, torch.cuda.graphs)
+                   for n in dir(mod) if "conditional" in n.lower()})
+    print(f"cholesky rungs: CUDA graph conditional nodes in torch "
+          f"{torch.__version__}'s torch.cuda API: {cond or 'none'}",
+          flush=True)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    out = {}
+    for M_, relative in ((100, False), (100, True), (256, True)):
+        A = torch.randn(M_, M_, generator=g, device="cuda")
+        K = A @ A.T / M_ + torch.eye(M_, device="cuda")
+        js = ((0.0, 1e-7, 1e-5, 1e-3, 1e-1, 1.0, 1e1, 1e3) if relative
+              else (1e-5, 1e-3, 1e-1))
+        I = torch.eye(M_, device="cuda")
+        stack = torch.stack([K + j * I for j in js])
+        fn = ((lambda: safe_cholesky_ladder(K)) if relative
+              else (lambda: safe_cholesky(K, js[0])))
+        ref = torch.linalg.cholesky(K + js[0] * I)
+        got = fn()
+        fns = {"one factorization":
+                   lambda: torch.linalg.cholesky_ex(K + js[0] * I),
+               "one call a rung":
+                   lambda: [torch.linalg.cholesky_ex(K + j * I) for j in js],
+               "batched rungs": lambda: torch.linalg.cholesky_ex(stack),
+               "safe_cholesky": fn}
+        t = {k: graph_event_ms(f) for k, f in fns.items()}
+        t_prof = {k: total_device_ms(f) for k, f in fns.items()}
+        kind = "relative" if relative else "absolute"
+        key = f"M={M_} {len(js)} {kind} rungs"
+        out[key] = {"graph_replay_ms": t, "profiler_ms": t_prof,
+                    "first_rung_bits_equal": torch.equal(got, ref),
+                    "first_rung_max_diff": (got - ref).abs().max().item()}
+        print(f"cholesky rungs {key}: device ms a call, captured and "
+              f"replayed (CUDA events) "
+              + ", ".join(f"{k} {v:.4f}" for k, v in t.items())
+              + "; the profiler's sum of device ops (ms, ops) "
+              + ", ".join(f"{k} {v if v is None else (round(v[0], 4), v[1])}"
+                          for k, v in t_prof.items())
+              + f"; the first rung's factor against torch.linalg.cholesky: "
+              f"bits equal {out[key]['first_rung_bits_equal']}, max |d| "
+              f"{out[key]['first_rung_max_diff']:.3e} [{card}]", flush=True)
+    return out
+
+
+def graph_routes(seed, build_collapsed):
+    """{route: (build function, minibatch)}: the headline DGP on the fused
+    route and on the solve route, and the two collapsed cells on the kernel
+    route (full batch, fit's guard on)."""
+    def dgp(config=None):
+        return lambda: build_model(seed, num_samples=TRAIN_S,
+                                   random_posterior=False, config=config)[0]
+    return {"use_pallas=True": (dgp(), BATCH),
+            "solve_mode='solve'": (dgp(solve_config(torch.float32)), BATCH),
+            "damianou_large": (lambda: build_collapsed(
+                "damianou_large", *ROUTES["kernel"]), None),
+            "collapsed_L2": (lambda: build_collapsed(
+                "collapsed_L2", *ROUTES["kernel"]), None)}
+
+
+def profile_chunk(run, steps, what):
+    """(device busy ms, device ops, top device ops) a step and each
+    record's device launches (:func:`device_launches`) in one ``run()`` of
+    ``steps`` steps under torch.profiler.  Profiles again, up to 3 times,
+    when the profiler saw no device time, and raises if it never does."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        found = device_breakdown(prof, steps)
+        if found is not None:
+            return found, device_launches(prof)
+        print(f"{what}: the profiler saw no device time; profiling again",
+              flush=True)
+    check(False, f"{what}: the profiler saw no device time in 3 tries")
+
+
+def phase_graphs(seed, build_collapsed, card):
+    """Per route: 100 fit steps graphed and eager from one seed, their
+    parameters compared; then chunks of 10 steps graphed and eager in
+    turns (steps/s; the eager chunks' launches by the counters, which a
+    replay must not tick), every replay under torch's sync debug mode at
+    'error'; a profiled chunk of each (device busy, device ops, idle
+    share, each kernel's device launches; the replay's must equal the
+    eager chunk's counts; the eager profile's are printed only, since
+    the profiler can lose a few of an eager chunk's ~27,000 kernel
+    records); the graph's memory pool."""
+    from doubly_stochastic_dgp_tpu_torch.graphs import eager_on_card
+    from doubly_stochastic_dgp_tpu_torch.training.loop import (
+        make_scan_train_step)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        masked_optimizer)
+    counts0 = launch_counts()
+    out = {}
+    for route, (build_fn, batch) in graph_routes(seed,
+                                                 build_collapsed).items():
+        guard = batch is None
+        ma, mb = build_fn(), build_fn()
+        fit(ma, GRAPH_STEPS, 0.01, batch_size=batch, seed=seed,
+            log_every=GRAPH_CHUNK)
+        with eager_on_card():
+            fit(mb, GRAPH_STEPS, 0.01, batch_size=batch, seed=seed,
+                log_every=GRAPH_CHUNK)
+        torch.cuda.synchronize()
+        same, worst, where = param_agreement(ma, mb)
+        print(f"graphs {route}: parameters after {GRAPH_STEPS} fit steps, "
+              f"graphed vs eager: bit for bit {same}; worst {worst:.3e} of "
+              f"scale ({where})", flush=True)
+        check(same or worst <= GRAPH_VS_EAGER_RTOL,
+              f"{route}: graphed and eager parameters differ by {worst} of "
+              f"scale in {where}")
+        chunks = {mode: make_scan_train_step(
+            masked_optimizer(m, 0.01), batch, GRAPH_CHUNK,
+            reject_nonfinite=guard) for mode, m in (("graphed", ma),
+                                                     ("eager", mb))}
+        gens = {mode: torch.Generator(device="cuda").manual_seed(seed + 1)
+                for mode in chunks}
+        runs = {"graphed": lambda: chunks["graphed"](ma, gens["graphed"]),
+                "eager": lambda: chunks["eager"](mb, gens["eager"])}
+        runs["graphed"]()                          # capture
+        with eager_on_card():
+            runs["eager"]()
+        torch.cuda.synchronize()
+        rates = {m: [] for m in runs}
+        counted = {}
+        for _ in range(GRAPH_ROUNDS):
+            for mode in runs:
+                before = launch_counts()
+                t0 = time.perf_counter()
+                if mode == "graphed":
+                    with no_sync():
+                        runs[mode]()
+                else:
+                    with eager_on_card():
+                        runs[mode]()
+                torch.cuda.synchronize()
+                rates[mode].append(GRAPH_CHUNK / (time.perf_counter() - t0))
+                counted[mode] = {n: launch_counts()[n] - before[n]
+                                 for n in KERNEL_NAMES}
+        check(not any(counted["graphed"].values()),
+              f"{route}: a replay ticked the launch counters "
+              f"{counted['graphed']}")
+        rec = {"bit_for_bit": same, "worst_rel_diff": worst,
+               "launches_per_step": {n: v / GRAPH_CHUNK for n, v in
+                                     counted["eager"].items() if v},
+               "pool_bytes": chunks["graphed"].graph[2].pool_bytes()}
+        by_prof = {}
+        for mode, run in runs.items():
+            rate = statistics.median(rates[mode])
+            with (eager_on_card() if mode == "eager"
+                  else contextlib.nullcontext()):
+                (busy, ops, top), by_prof[mode] = profile_chunk(
+                    run, GRAPH_CHUNK, f"graphs {route} {mode}")
+            rec[mode] = {"steps_per_s": rate, "rates": rates[mode],
+                         "step_ms": 1e3 / rate, "busy_ms": busy,
+                         "device_ops": ops,
+                         "idle_share": 1 - busy * rate / 1e3,
+                         "device_launches_per_step": {
+                             n: v / GRAPH_CHUNK
+                             for n, v in by_prof[mode].items() if v},
+                         "top": top}
+            print(f"graphs {route} {mode}: steps/s median of "
+                  f"{GRAPH_ROUNDS} chunks of {GRAPH_CHUNK} (in turns) "
+                  f"{rate:.2f} (all: "
+                  f"{', '.join(f'{r:.2f}' for r in rates[mode])}); device "
+                  f"busy {busy:.3f} ms in {ops:.0f} device ops a step, idle "
+                  f"share {rec[mode]['idle_share']:.3f}; kernel launches a "
+                  f"step (profiler) {rec[mode]['device_launches_per_step']};"
+                  f" top: {top} [{card}]", flush=True)
+        print(f"graphs {route}: kernel launches a step, eager by the "
+              f"counters {rec['launches_per_step']}, graphed replay by the "
+              f"profiler {rec['graphed']['device_launches_per_step']}; "
+              f"graph pool {rec['pool_bytes'] / 2**20:.1f} MiB", flush=True)
+        check(by_prof["graphed"] == counted["eager"],
+              f"{route}: a replayed chunk launched {by_prof['graphed']} "
+              f"(profiler) != the eager chunk's {counted['eager']} "
+              f"(counters)")
+        check(rec["graphed"]["idle_share"] < rec["eager"]["idle_share"],
+              f"{route}: graphed idle share {rec['graphed']['idle_share']} "
+              f"not below eager {rec['eager']['idle_share']}")
+        out[route] = rec
+        del ma, mb, chunks, runs
+    set_launch_counts(counts0)
+    return out
+
+
+def phase_guard_nan(seed, card):
+    """The guarded chunk with NaN training rows for one chunk, graphed and
+    eager: three chunks (clean, NAN_ROWS rows of X NaN, restored); the
+    NaN chunk must reject some steps and keep a finite state, the next
+    must recover, and graphed must equal eager bit for bit."""
+    from doubly_stochastic_dgp_tpu_torch.graphs import eager_on_card
+    from doubly_stochastic_dgp_tpu_torch.training.loop import (
+        make_scan_train_step)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        masked_optimizer)
+    counts0 = launch_counts()
+    res = {}
+    for mode in ("graphed", "eager"):
+        model = build_model(seed, num_samples=TRAIN_S,
+                            random_posterior=False)[0]
+        chunk = make_scan_train_step(masked_optimizer(model, 0.01), BATCH,
+                                     GRAPH_CHUNK, reject_nonfinite=True)
+        gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+        X0 = model.X_data.clone()
+        losses, rejected = [], []
+        with (eager_on_card() if mode == "eager"
+              else contextlib.nullcontext()):
+            for c in range(3):
+                if c == 1:
+                    model.X_data[:NAN_ROWS] = float("nan")
+                if c == 2:
+                    model.X_data.copy_(X0)
+                losses.append(float(chunk(model, gen)))
+                rejected.append(int(chunk.rejected))
+        finite = all(bool(torch.isfinite(p).all())
+                     for p in model.parameters())
+        res[mode] = (model, losses, rejected, finite)
+        print(f"guard NaN injection {mode}: chunk losses {losses}, rejected "
+              f"so far {rejected}, parameters finite {finite} [{card}]",
+              flush=True)
+    (mg, lg, rg, fg), (me, le, re_, _) = res["graphed"], res["eager"]
+    same = param_agreement(mg, me)[0]
+    check(same and lg == le and rg == re_,
+          f"guard NaN injection: graphed {lg} {rg} != eager {le} {re_} or "
+          f"parameters differ")
+    check(rg[0] == 0 and rg[1] > 0 and rg[2] == rg[1] and fg
+          and np.isfinite(lg).all(),
+          f"guard NaN injection: did not reject and recover: {lg}, {rg}")
+    set_launch_counts(counts0)
+    return {"losses": lg, "rejected": rg, "bit_for_bit": same}
+
+
+def phase_graph_serving(seed, card):
+    """1000-row S=100 requests to the live and the cached server, graphed
+    and eager in turns: latency (median of 7), pinned-seed answers bit
+    for bit, replays under sync debug 'error', the pool the server's
+    graphs share."""
+    from doubly_stochastic_dgp_tpu_torch.graphs import eager_on_card
+    model, data = build_model(seed)
+    X = torch.as_tensor(data["X"][:1000], dtype=torch.float32,
+                        device="cuda")
+    out = {}
+    for name, pre in (("live", False), ("cached", True)):
+        serve = make_server(model, S=S, precompute=pre,
+                            batch_buckets=BUCKETS)
+        a = serve(X, seed=5)
+        with eager_on_card():
+            b = serve(X, seed=5)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(same, f"{name} server: graphed and eager answers differ at a "
+                    f"pinned seed")
+        times = {"graphed": [], "eager": []}
+        for i in range(LATENCY_REPS):
+            for mode in times:
+                t0 = time.perf_counter()
+                if mode == "graphed":
+                    with no_sync():
+                        serve(X, seed=3000 + i)
+                else:
+                    with eager_on_card():
+                        serve(X, seed=3000 + i)
+                torch.cuda.synchronize()
+                times[mode].append(1e3 * (time.perf_counter() - t0))
+        lat = {m: statistics.median(t) for m, t in times.items()}
+        pool = next(iter(serve.captured.values()))[3].pool_bytes()
+        out[name] = {"bit_for_bit": same, "latency_ms": lat,
+                     "pool_bytes": pool,
+                     "buckets": [k[0][0] for k in serve.captured]}
+        print(f"graphs serving {name}, 1000-row request, S={S}: graphed "
+              f"{lat['graphed']:.3f} ms, eager {lat['eager']:.3f} ms "
+              f"(median of {LATENCY_REPS}, in turns; all graphed "
+              f"{', '.join(f'{t:.3f}' for t in times['graphed'])}); pinned "
+              f"seed bit for bit {same}; replays with no host sync; the "
+              f"graph pool of the buckets {out[name]['buckets']} "
+              f"{pool / 2**20:.1f} MiB [{card}]", flush=True)
+    return out
+
+
+def phase_resume(seed, card):
+    """fit k steps with a checkpoint, restore into a fresh model and fit k
+    more, against 2k straight steps, graphed, bit for bit."""
+    import shutil
+    ckpt = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        "chip_smoke_ckpt")
+    shutil.rmtree(ckpt, ignore_errors=True)
+    counts0 = launch_counts()
+
+    def fresh():
+        return build_model(seed, num_samples=TRAIN_S,
+                           random_posterior=False)[0]
+
+    kw = dict(learning_rate=0.01, batch_size=BATCH, seed=seed,
+              log_every=GRAPH_CHUNK)
+    try:
+        straight, want = fit(fresh(), 2 * RESUME_STEPS, **kw)
+        fit(fresh(), RESUME_STEPS, ckpt_dir=ckpt, **kw)
+        resumed, hist = fit(fresh(), 2 * RESUME_STEPS, ckpt_dir=ckpt, **kw)
+        torch.cuda.synchronize()
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    same, worst, where = param_agreement(resumed, straight)
+    print(f"checkpoint resume: fit {RESUME_STEPS} steps, checkpoint, a "
+          f"fresh model restored and fit to {2 * RESUME_STEPS}, against "
+          f"{2 * RESUME_STEPS} straight steps: bit for bit {same} (worst "
+          f"{worst:.3e} in {where}); last loss {hist[-1]['loss']} vs "
+          f"{want[-1]['loss']} [{card}]", flush=True)
+    check(same and hist[-1]["loss"] == want[-1]["loss"]
+          and hist[0]["iter"] > RESUME_STEPS,
+          "a resumed fit differs from the straight one")
+    set_launch_counts(counts0)
+    return {"bit_for_bit": same}
 
 
 def print_kernel_resources(name, out):
@@ -2471,6 +3021,15 @@ def main():
     lap("12-15")
     launches["psi2_core_backward"] = sum(
         c["psi2_core_backward"] for c in fit_counts.values())
+    cholesky = phase_cholesky_rungs(args.seed, card)
+    graphs = phase_graphs(args.seed, collapsed["build"], card)
+    lap(20)
+    guard_nan = phase_guard_nan(args.seed, card)
+    lap(21)
+    graph_serving = phase_graph_serving(args.seed, card)
+    lap(22)
+    resume = phase_resume(args.seed, card)
+    lap(23)
 
     records = []
     for name, src, replaces, _, _ in KERNELS:
@@ -2509,6 +3068,10 @@ def main():
                       "collapsed_fit_launches": fit_counts,
                       "collapsed_training_step": collapsed_steps,
                       "solve_route": solve, "full_cov": full_cov,
+                      "cholesky_rungs": cholesky, "graphs": graphs,
+                      "graph_guard_nan": guard_nan,
+                      "graph_serving": graph_serving,
+                      "checkpoint_resume": resume,
                       "fused_forward_precision": precision,
                       "card": card}))
     print(json.dumps({"kernels": records}))

@@ -26,6 +26,7 @@ import torch
 from torch import nn
 
 from ..config import Config, resolve_device
+from ..graphs import randn
 from ..ops.likelihoods import Gaussian
 from ..ops.linalg import reparameterize, tri_solve
 from ..utils.params import Param
@@ -162,8 +163,7 @@ class DGPDamianou(DGPBase):
             if z is None:
                 if generator is None:
                     raise ValueError("need a generator when z is not given")
-                z = torch.randn(mean.shape, generator=generator,
-                                dtype=mean.dtype, device=mean.device)
+                z = randn(mean.shape, generator, mean.dtype, mean.device)
             else:
                 z = torch.as_tensor(z, dtype=mean.dtype,
                                     device=mean.device).expand(mean.shape)

@@ -74,12 +74,13 @@ class DGPBase(nn.Module):
         Fs, Fmeans, Fvars = [], [], []
         for layer, z in zip(layers, zs):
             if remat:
-                # draw before the checkpointed call: its recompute restores
-                # the global RNG, not ``generator``
+                # draw before the checkpointed call, so the recompute draws
+                # nothing and needs no RNG state (whose save would read the
+                # CUDA generator, which a graph capture refuses)
                 z = layer.draw_z(F, generator) if z is None else z
                 F, Fmean, Fvar = checkpoint(
                     layer.sample_from_conditional, F, z, None, full_cov,
-                    use_reentrant=False)
+                    use_reentrant=False, preserve_rng_state=False)
             else:
                 F, Fmean, Fvar = layer.sample_from_conditional(
                     F, z=z, generator=generator, full_cov=full_cov)

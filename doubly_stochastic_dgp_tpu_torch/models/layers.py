@@ -40,6 +40,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..graphs import randn
 from ..ops.kernels import RBF, Sum, White
 from ..ops.linalg import (add_jitter, gauss_kl_nonwhite, gauss_kl_white,
                           inv_lower, reparameterize, safe_cholesky,
@@ -92,12 +93,12 @@ class Layer(nn.Module):
 
     def draw_z(self, X, generator):
         """The unit normals a sample at X (S, N, D_in) draws from
-        ``generator``: (S, N, D_out) in X's dtype, on X's device."""
+        ``generator`` (a ``torch.Generator`` or a ``graphs.DrawTape``):
+        (S, N, D_out) in X's dtype, on X's device."""
         if generator is None:
             raise ValueError("need a generator when z is not given")
-        return torch.randn((X.shape[0], X.shape[1], self.num_outputs),
-                           generator=generator, dtype=X.dtype,
-                           device=X.device)
+        return randn((X.shape[0], X.shape[1], self.num_outputs), generator,
+                     X.dtype, X.device)
 
     def sample_from_conditional(self, X, z=None, generator=None,
                                 full_cov=False):

@@ -6,18 +6,21 @@ Gaussian KL terms.
 Counterpart of ``doubly_stochastic_dgp_tpu/ops/linalg.py``
 (``add_jitter``, ``safe_cholesky``, ``safe_cholesky_ladder``,
 ``inv_lower``, ``tri_solve``, ``reparameterize``, ``gauss_kl_white``,
-``gauss_kl_nonwhite``).  The JAX escalation tests the
-factor for NaN; ``torch.linalg.cholesky`` raises on a non-positive-definite
-matrix instead, so the port uses ``cholesky_ex`` and escalates when
-``info != 0`` or the factor is not finite.  Reading ``info`` costs one
-host sync per call (ROADMAP queue).
+``gauss_kl_nonwhite``).  The JAX escalation tests the factor for NaN and
+gates the later rungs behind a ``lax.cond``; ``torch.linalg.cholesky``
+raises on a non-positive-definite matrix instead, so the port uses
+``cholesky_ex`` and factorizes every rung in one batched call, then
+selects per batch element with ``torch.where`` on ``info`` and
+finiteness.  Nothing is read on the host, so the factorization runs
+inside a captured CUDA graph; the price is the later rungs' work on a
+healthy matrix (PERF.md).
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["add_jitter", "safe_cholesky", "safe_cholesky_ladder",
+__all__ = ["DeviceCount", "add_jitter", "safe_cholesky", "safe_cholesky_ladder",
            "inv_lower", "tri_solve", "reparameterize", "gauss_kl_white",
            "gauss_kl_nonwhite"]
 
@@ -48,18 +51,51 @@ def _chol_pullback(L, gL):
     return 0.5 * (gA + gA.transpose(-1, -2))
 
 
-def _chol_ok(K):
-    L, info = torch.linalg.cholesky_ex(K)
-    return L, (info == 0) & torch.isfinite(L).all(dim=-1).all(dim=-1)
+class DeviceCount:
+    """A count kept on the device: :meth:`add` adds a 0-dim tensor to the
+    count on that tensor's device without a host read; ``int()`` (and
+    ``==``) read it.  The count of a device is created by its first
+    :meth:`add`, which must come before any CUDA graph capture that adds
+    to it (a capture would bake in the creation)."""
+
+    def __init__(self):
+        self._counts = {}
+
+    def add(self, n):
+        count = self._counts.get(n.device)
+        if count is None:
+            if n.device.type == "cuda" and \
+                    torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(
+                    "DeviceCount: first add on a device while a CUDA graph "
+                    "is being captured; run the captured code once eagerly "
+                    "first")
+            count = self._counts[n.device] = torch.zeros(
+                (), dtype=torch.int64, device=n.device)
+        count.add_(n)
+
+    def reset(self):
+        for count in self._counts.values():
+            count.zero_()
+
+    def __int__(self):
+        return sum(int(c) for c in self._counts.values())
+
+    def __eq__(self, other):
+        return int(self) == other
+
+    def __repr__(self):
+        return f"DeviceCount({int(self)})"
 
 
 def _select_rung(K, jitters, relative):
-    """One factorization on the healthy path.  When any batch element
-    fails, every rung is factorized and each element takes its first rung
-    that succeeded, else the last rung — the JAX selection rule.  Rung j
-    adds j I, or (j * mean(diag K)) I when ``relative``; a rung of exactly
-    0.0 adds nothing.  Returns the factor and whether the first rung
-    failed anywhere."""
+    """Every rung factorized in one batched ``cholesky_ex`` over the
+    stacked rungs; each batch element takes its first rung that succeeded
+    (``info == 0`` and a finite factor), else the last rung — the JAX
+    selection rule, with no host read.  Rung j adds j I, or (j * mean(diag
+    K)) I when ``relative``; a rung of exactly 0.0 adds nothing.  Returns
+    the factor and a 0-dim bool tensor: whether the first rung failed
+    anywhere."""
     I = _eye_like(K)
 
     def rung(j):
@@ -70,18 +106,13 @@ def _select_rung(K, jitters, relative):
                                                                  None]
         return K + j * I
 
-    L0, ok0 = _chol_ok(rung(jitters[0]))
-    if bool(ok0.all()):
-        return L0, False
-    Ls, oks = [L0], [ok0]
-    for j in jitters[1:]:
-        L, ok = _chol_ok(rung(j))
-        Ls.append(L)
-        oks.append(ok)
+    Ls, info = torch.linalg.cholesky_ex(torch.stack([rung(j)
+                                                     for j in jitters]))
+    oks = (info == 0) & torch.isfinite(Ls).all(dim=-1).all(dim=-1)
     sel = Ls[-1]
-    for L, ok in zip(reversed(Ls[:-1]), reversed(oks[:-1])):
-        sel = torch.where(ok[..., None, None], L, sel)
-    return sel, True
+    for r in range(len(jitters) - 2, -1, -1):
+        sel = torch.where(oks[r][..., None, None], Ls[r], sel)
+    return sel, ~oks[0].all()
 
 
 class _SafeCholesky(torch.autograd.Function):
@@ -95,8 +126,8 @@ class _SafeCholesky(torch.autograd.Function):
     @staticmethod
     def forward(ctx, K, jitters, relative):
         L, escalated = _select_rung(K, jitters, relative)
-        if escalated and relative:
-            safe_cholesky_ladder.escalations += 1
+        if relative:
+            safe_cholesky_ladder.escalations.add(escalated)
         ctx.save_for_backward(L)
         return L
 
@@ -119,17 +150,19 @@ def safe_cholesky_ladder(K, jitters=(0.0, 1e-7, 1e-5, 1e-3, 1e-1, 1.0,
     by construction (the collapsed bound's B = I + AA^T), where a failure
     is floating-point garbage that scales with the matrix: rung j adds
     j * mean(diag K) I.  The first rung is 0.0, so a healthy matrix gets
-    exactly ``torch.linalg.cholesky(K)``.  The deep rungs (up to 1e3) are
-    the net for float32 B at the damianou_large shape, where whether the
-    factorization of B squeaks through can turn on psi2's last ulp (the
-    JAX docstring records it); jitter on B only lowers the bound.  Same
+    ``torch.linalg.cholesky(K)`` (bit for bit on the CPU; on the card the
+    batched factorization may round otherwise, PERF.md).  The deep rungs
+    (up to 1e3) are the net for float32 B at the damianou_large shape,
+    where whether the factorization of B squeaks through can turn on
+    psi2's last ulp (the JAX docstring records it); jitter on B only
+    lowers the bound.  Same
     per-element selection and grad-safe backward as :func:`safe_cholesky`.
-    ``safe_cholesky_ladder.escalations`` counts the calls whose first rung
-    failed."""
+    ``safe_cholesky_ladder.escalations`` (a :class:`DeviceCount`) counts
+    the calls whose first rung failed."""
     return _SafeCholesky.apply(K, tuple(float(j) for j in jitters), True)
 
 
-safe_cholesky_ladder.escalations = 0
+safe_cholesky_ladder.escalations = DeviceCount()
 
 
 def inv_lower(L):

@@ -1,16 +1,22 @@
 """Serving: a one-call request path over a trained model.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/serving.py::make_server``
-without ``jax.export`` (PyTorch runs eagerly, so there is no program to
-compile or export).  Every request runs under ``torch.no_grad()``.
+without ``jax.export``.  Every request runs under ``torch.no_grad()``.
+On a CUDA tensor each request shape (each bucket, or without buckets
+each new shape at its first request, as jit caches per shape) is
+captured once as a CUDA graph (``graphs.CapturedCall``) and replayed per
+request, with no host sync inside it; on the CPU, and on the card inside
+``graphs.eager_on_card()``, the request runs eagerly.
 
 Random draws: each request gets its own ``torch.Generator`` on the
 model's device.  Without a caller seed it is seeded from the server's
 base seed and an internal counter; a pinned ``seed=`` is used as given
 for a single chunk and, for a request split into chunks, derived per
 chunk from (seed, chunk index), so identical pinned requests reproduce
-bit for bit.  The JAX package's keys and this package's generators give
-different numbers.
+bit for bit.  A graphed request's normals are drawn from that generator
+before the replay, in the eager order (``graphs.DrawTape``), so it
+returns the eager answer.  The JAX package's keys and this package's
+generators give different numbers.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from typing import Optional
 
 import numpy as np
 import torch
+
+from .graphs import CapturedCall, DrawTape, graphs_enabled
 
 __all__ = ["make_server", "derive_seed"]
 
@@ -57,7 +65,11 @@ def make_server(model, S: int, *, method: str = "predict_y",
     Monte-Carlo model the padded shape takes part in the draw, so a
     bucketed answer equals a same-shape padded call, not an unpadded
     one.  ``warmup_batch`` (or every bucket) is served once before
-    returning."""
+    returning, which on the card captures its graph.  ``serve.captured``
+    maps each captured (X shape, Y shape) to (static X, static Y, tape,
+    ``CapturedCall``).  The graphs share one memory pool, which holds the
+    largest captured request's intermediates and every captured shape's
+    outputs; each shape also keeps its static inputs and normals."""
     if method not in ("predict_y", "predict_density"):
         raise ValueError(f"method must be 'predict_y' or 'predict_density'; "
                          f"got {method!r}")
@@ -74,12 +86,47 @@ def make_server(model, S: int, *, method: str = "predict_y",
     buckets = (tuple(sorted({int(b) for b in batch_buckets}))
                if batch_buckets else None)
 
-    def _call(Xb, Yb, s):
-        g = torch.Generator(device=device)
-        g.manual_seed(s)
+    def _eager(Xb, Yb, g):
         if needs_y:
             return bound(Xb, Yb, S=S, generator=g)
         return bound(Xb, S=S, generator=g)
+
+    # (X shape, Y shape) -> (static X, static Y, tape, CapturedCall)
+    captured = {}
+    # one memory pool for all of the server's graphs: requests replay one
+    # at a time, each replay's outputs are cloned before the next, and the
+    # static inputs and the tapes' buffers are allocated outside the
+    # captures, so a graph may reuse what another graph's capture freed
+    pool = []
+
+    def _capture(key, Xb, Yb):
+        sX, sY = Xb.clone(), None if Yb is None else Yb.clone()
+        tape = DrawTape(torch.Generator(device=device))
+
+        def warmup():
+            _eager(sX, sY, tape)
+            tape.freeze()
+
+        if not pool:
+            pool.append(torch.cuda.graph_pool_handle())
+        captured[key] = sX, sY, tape, CapturedCall(
+            lambda: _eager(sX, sY, tape), warmup,
+            f"{method} request of shape {key}", pool=pool[0])
+
+    def _call(Xb, Yb, s):
+        g = torch.Generator(device=device)
+        g.manual_seed(s)
+        if not graphs_enabled(device):
+            return _eager(Xb, Yb, g)
+        key = (tuple(Xb.shape), None if Yb is None else tuple(Yb.shape))
+        if key not in captured:
+            _capture(key, Xb, Yb)
+        sX, sY, tape, call = captured[key]
+        sX.copy_(Xb)
+        if sY is not None:
+            sY.copy_(Yb)
+        tape.fill(g)
+        return _map(torch.clone, call.replay())
 
     def _next_seed():
         return derive_seed(base_seed, next(counter))
@@ -127,4 +174,5 @@ def make_server(model, S: int, *, method: str = "predict_y",
             serve(x0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+    serve.captured = captured
     return serve

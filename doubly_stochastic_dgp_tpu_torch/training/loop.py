@@ -1,28 +1,31 @@
 """Training loop: on-device minibatches, the Adam step, the reject-nonfinite
-guard, ``fit`` and the regression metrics.
+guard, ``fit`` with checkpoints, and the regression metrics.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/training/loop.py``
 (``make_sgd_train_step``, ``guarded_scan``, ``make_scan_train_step``,
-``fit``, ``evaluate_regression``).  PyTorch runs eagerly, so there is no
-program to compile: a step is one forward and one backward through the
-model and one optimizer update, and a chunk of steps (the JAX ``lax.scan``)
-is a Python loop.  Minibatch indices are drawn with replacement on the
-model's device from a ``torch.Generator`` there, and the batch is gathered
-there, so no data cross to the host.  Random streams differ from the JAX
+``fit``, ``evaluate_regression``).  A step is one forward, gradients as
+values (``torch.autograd.grad``) and one Adam update in place.  A chunk
+of steps (the JAX ``lax.scan``) is, on a CUDA tensor, one captured CUDA
+graph replayed per chunk (``graphs.CapturedCall``), with no host sync
+inside it; on the CPU, and on the card inside ``graphs.eager_on_card()``,
+the same code runs eagerly.  Minibatch indices are drawn with replacement
+on the model's device from a ``torch.Generator`` there, and the batch is
+gathered there; a graphed chunk's draws are made before each replay, in
+the eager order, into buffers the graph reads (``graphs.DrawTape``), so
+it takes the eager chunk's steps.  Random streams differ from the JAX
 package's; the step takes explicit ``idx`` and ``zs`` to pin them.
 
-The guard (:func:`guarded_scan`) decides on the host whether a step is
-accepted: one host sync a step, which reads the loss and one flag, and no
-``where`` over the parameters (a rejected candidate is dropped, so nothing
-non-finite can leak into the state).
+The guard (:func:`guarded_scan`) selects the next state on the device
+with ``torch.where``, as the JAX body does: nothing is read on the host,
+and a rejected candidate is never installed.
 
-Not ported yet (``fit`` raises): the natural-gradient steps (ROADMAP A11)
-and checkpoints (ROADMAP A7).
+``fit(ckpt_dir=...)`` saves and resumes (``training/checkpoint.py``).
+Not ported yet (``fit`` raises): the natural-gradient steps (ROADMAP
+A11).
 """
 
 from __future__ import annotations
 
-import math
 import time
 import warnings
 from typing import Optional, Sequence
@@ -30,9 +33,10 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from ..graphs import CapturedCall, DrawTape, graphs_enabled, randint
 from ..serving import derive_seed
 from ..utils.params import log_prior
-from .optim import masked_optimizer
+from .optim import copy_state, masked_optimizer
 
 __all__ = ["check_minibatchable", "make_sgd_train_step", "guarded_scan",
            "make_scan_train_step", "fit", "evaluate_regression"]
@@ -77,12 +81,23 @@ def _minibatch_loss(model, batch_size, generator, idx=None, zs=None):
     X, Y = model.X_data, model.Y_data
     N = X.shape[0]
     if idx is None and batch_size is not None and batch_size < N:
-        idx = torch.randint(0, N, (batch_size,), generator=generator,
-                            device=X.device)
+        idx = randint(N, (batch_size,), generator, X.device)
     if idx is not None:
         idx = torch.as_tensor(idx, device=X.device)
         X, Y = X[idx], Y[idx]
     return _objective(model, X, Y, generator, zs)
+
+
+def _loss_and_grads(model, params, batch_size, generator, idx=None,
+                    zs=None):
+    """The minibatch objective and its gradients in ``params`` as values
+    (zeros for a parameter it does not reach, as the JAX gradient of an
+    unused leaf)."""
+    with torch.enable_grad():
+        loss = _minibatch_loss(model, batch_size, generator, idx, zs)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(params, grads)]
 
 
 def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
@@ -96,12 +111,13 @@ def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
     ``generator``, which then also draws the samples unless ``zs`` (one
     array per layer) fixes them."""
 
+    @torch.no_grad()
     def step(model, generator=None, idx=None, zs=None):
-        optimizer.zero_grad()
-        loss = _minibatch_loss(model, batch_size, generator, idx, zs)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
+        loss, grads = _loss_and_grads(model, optimizer.params, batch_size,
+                                      generator, idx, zs)
+        torch._foreach_add_(optimizer.params,
+                            optimizer.update(grads, optimizer.state))
+        return loss
 
     return step
 
@@ -112,20 +128,39 @@ def _all_finite(loss, tensors):
     return torch.isfinite(flat).all()
 
 
+def _select_(ok, dst, a, b):
+    """dst[i] <- where(ok, a[i], b[i]) for lists of tensors."""
+    torch._foreach_copy_(dst, [torch.where(ok, x, y) for x, y in zip(a, b)])
+
+
+def _flat_state(state):
+    return [state.count] + state.mu + state.nu
+
+
+def _select_state_(ok, dst, a, b):
+    _select_(ok, _flat_state(dst), _flat_state(a), _flat_state(b))
+
+
+def _copy_state_(dst, src):
+    torch._foreach_copy_(_flat_state(dst), _flat_state(src))
+
+
 @torch.no_grad()
 def guarded_scan(loss_and_grads, loss_only, tx, params, opt_state, keys):
     """The reject-nonfinite optimization core: the JAX ``guarded_scan``
-    with its semantics, a chunk of ``len(keys) - 1`` steps as a Python
-    loop.
+    with its semantics and its ``where``-selects, a chunk of ``len(keys) -
+    1`` steps, with no host read.
 
     ``params`` is the list of parameter tensors, updated in place;
     ``loss_and_grads(params, key) -> (loss, grads)`` and
     ``loss_only(params, key) -> loss`` evaluate the objective at their
     current values (``grads`` in the order of ``params``); ``tx`` yields
-    the update as a value (``tx.update(grads, state) -> (updates,
-    state)``, :class:`~.optim.Adam`); the last key drives the verification
-    forward after the chunk.  Returns (opt_state, nanmean of the reported
-    losses, number of rollbacks: rejected steps and a failed verification).
+    the update as a value and advances its state in place
+    (``tx.update(grads, state) -> updates``, :class:`~.optim.Adam`);
+    ``opt_state`` is updated in place; the last key drives the
+    verification forward after the chunk.  Returns (opt_state, nanmean of
+    the reported losses, number of rollbacks: rejected steps and a failed
+    verification), the last two as 0-dim tensors on the device.
 
     A step evaluates loss and gradients at the current state, scales the
     Adam update by the trust scale and forms the candidate; it is accepted
@@ -139,44 +174,42 @@ def guarded_scan(loss_and_grads, loss_only, tx, params, opt_state, keys):
     last finite one.  After the chunk one more forward: if it is not
     finite, the state goes back to ``prev``, so a chunk never hands on a
     state that was not verified."""
-    dt = np.dtype(str(params[0].dtype).replace("torch.", "")).type
-    one, half = dt(1.0), dt(0.5)
-    recover, floor = dt(_GUARD_SCALE_RECOVER), dt(_GUARD_SCALE_MIN)
+    like = params[0]
+    scale = torch.ones((), dtype=like.dtype, device=like.device)
+    last_loss = torch.full((), float("nan"), dtype=like.dtype,
+                           device=like.device)
+    rejected = torch.zeros((), dtype=torch.int64, device=like.device)
     prev = [p.clone() for p in params]
-    prev_opt = opt_state
-    scale, last_loss = one, math.nan
-    losses, rejected = [], 0
+    prev_opt = copy_state(opt_state)
+    losses = []
     for key in keys[:-1]:
         with torch.enable_grad():
             loss, grads = loss_and_grads(params, key)
-        updates, new_opt = tx.update(grads, opt_state)
-        if scale != one:
-            torch._foreach_mul_(updates, float(scale))
+        loss = loss.detach()
+        before = copy_state(opt_state)
+        updates = tx.update(grads, opt_state)
+        torch._foreach_mul_(updates, scale)
         cand = torch._foreach_add(params, updates)
-        # the one host sync of the step: the loss and the accept flag
-        flag = _all_finite(loss.detach(), list(grads) + list(cand))
-        loss_value, ok = torch.stack(
-            [loss.detach(), flag.to(loss.dtype)]).tolist()
-        if ok:
-            torch._foreach_copy_(prev, params)
-            torch._foreach_copy_(params, cand)
-            prev_opt, opt_state = opt_state, new_opt
-            scale = min(one, dt(scale * recover))
-        else:
-            torch._foreach_copy_(params, prev)
-            opt_state = prev_opt
-            scale = max(floor, dt(scale * half))
-            rejected += 1
-        if math.isfinite(loss_value):
-            last_loss = loss_value
+        ok = _all_finite(loss, list(grads) + list(cand))
+        # accept: params <- cand, prev <- params; reject: params <- prev
+        # (Adam's state alike)
+        new_prev = [torch.where(ok, p, q) for p, q in zip(params, prev)]
+        _select_(ok, params, cand, prev)
+        torch._foreach_copy_(prev, new_prev)
+        _select_state_(ok, opt_state, opt_state, prev_opt)
+        _select_state_(ok, prev_opt, before, prev_opt)
+        scale = torch.where(ok,
+                            torch.clamp(scale * _GUARD_SCALE_RECOVER, max=1.0),
+                            torch.clamp(scale * 0.5, min=_GUARD_SCALE_MIN))
+        rejected += ~ok
+        last_loss = torch.where(torch.isfinite(loss), loss.to(like.dtype),
+                                last_loss)
         losses.append(last_loss)
-    if not bool(torch.isfinite(loss_only(params, keys[-1]))):
-        torch._foreach_copy_(params, prev)
-        opt_state = prev_opt
-        rejected += 1
-    finite = [l for l in losses if not math.isnan(l)]
-    mean = sum(finite) / len(finite) if finite else math.nan
-    return opt_state, mean, rejected
+    ok = torch.isfinite(loss_only(params, keys[-1]))
+    _select_(ok, params, params, prev)
+    _select_state_(ok, opt_state, opt_state, prev_opt)
+    rejected += ~ok
+    return opt_state, torch.nanmean(torch.stack(losses)), rejected
 
 
 def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
@@ -186,54 +219,106 @@ def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
     Adam steps of ``model`` in place, and their mean loss (a 0-dim tensor,
     no host sync).
 
+    On a CUDA tensor the chunk is captured as one CUDA graph at its first
+    call and replayed at every call (outside ``graphs.eager_on_card()``):
+    the capture's warm-up runs one chunk eagerly from a snapshot of the
+    parameters, the Adam state, the rejection count and the generator,
+    and restores it, so it takes no step.  Before each replay the chunk's
+    draws (per step the minibatch indices, then each layer's normals) are
+    made from ``generator`` into the buffers the graph reads.  A capture
+    that fails raises.
+
     ``reject_nonfinite=True`` bounds the trajectory with
     :func:`guarded_scan`: a step whose loss, gradient or candidate is not
     finite rolls back to the state before the previous update and halves
     a trust scale; the chunk ends with a verification forward, and its
-    loss is the nanmean of the last finite losses (a float).  A chunk that
-    is never rejected takes exactly the unguarded steps.  The scale starts
-    at 1.0 in every chunk, so its halving works only within a chunk: use
+    loss is the nanmean of the last finite losses.  A chunk that is never
+    rejected takes exactly the unguarded steps.  The scale starts at 1.0
+    in every chunk, so its halving works only within a chunk: use
     ``inner_steps`` >= 8 with the guard (``fit`` does).  The chunk's
-    rejections are added to ``chunk.rejected``."""
+    rejections are added to ``chunk.rejected``, a 0-dim tensor on the
+    model's device."""
+    params = optimizer.params
+    # the chunk's rejection count, also ``chunk.rejected``; the closures
+    # below do not refer to the chunk, so a chunk and its captured graph
+    # are freed when the last reference goes, not by a cyclic collection
+    rejected_total = torch.zeros((), dtype=torch.int64,
+                                 device=params[0].device)
+
     step = make_sgd_train_step(optimizer, batch_size)
 
-    def plain_chunk(model, generator=None):
-        return torch.stack([step(model, generator=generator)
-                            for _ in range(inner_steps)]).mean()
-
-    if not reject_nonfinite:
-        return plain_chunk
-
-    def guarded_chunk(model, generator=None):
-        def loss_only(params, key):
-            return _minibatch_loss(model, batch_size, generator)
-
-        def loss_and_grads(params, key):
-            optimizer.zero_grad()
-            loss = loss_only(params, key)
-            loss.backward()
-            return loss, optimizer.grads()
-
-        optimizer.state, loss, rejected = guarded_scan(
-            loss_and_grads, loss_only, optimizer, optimizer.params,
-            optimizer.state, range(inner_steps + 1))
-        guarded_chunk.rejected += rejected
+    def body(model, generator):
+        if not reject_nonfinite:
+            return torch.stack([step(model, generator)
+                                for _ in range(inner_steps)]).mean()
+        _, loss, rejected = guarded_scan(
+            lambda p, k: _loss_and_grads(model, params, batch_size,
+                                         generator),
+            lambda p, k: _minibatch_loss(model, batch_size, generator),
+            optimizer, params, optimizer.state, range(inner_steps + 1))
+        rejected_total.add_(rejected)
         return loss
 
-    guarded_chunk.rejected = 0
-    return guarded_chunk
+    def capture(model, generator):
+        tape = DrawTape(generator)
+        # detached: a clone that kept the parameters' autograd nodes alive
+        # would pin them to this stream, which the capture cannot join
+        saved = ([p.detach().clone() for p in params],
+                 copy_state(optimizer.state), rejected_total.clone(),
+                 generator.get_state())
+
+        def warmup():
+            body(model, tape)
+            with torch.no_grad():
+                torch._foreach_copy_(params, saved[0])
+                _copy_state_(optimizer.state, saved[1])
+                rejected_total.copy_(saved[2])
+            generator.set_state(saved[3])
+            tape.freeze()
+
+        kind = "guarded" if reject_nonfinite else "plain"
+        return tape, CapturedCall(
+            lambda: body(model, tape), warmup,
+            f"{kind} training chunk of {inner_steps} steps "
+            f"({type(model).__name__})")
+
+    return _Chunk(body, capture, rejected_total)
+
+
+class _Chunk:
+    """The callable :func:`make_scan_train_step` returns: eager on the CPU
+    (and inside ``graphs.eager_on_card()``), else the captured graph of
+    its model, captured at the first call.  ``graph`` is (model, tape,
+    ``CapturedCall``) once captured."""
+
+    def __init__(self, body, capture, rejected):
+        self._body, self._capture = body, capture
+        self.rejected = rejected
+        self.graph = None
+
+    def __call__(self, model, generator=None):
+        if not graphs_enabled(model.X_data.device):
+            return self._body(model, generator)
+        if generator is None:
+            raise ValueError("a graphed chunk needs a generator")
+        if self.graph is None or self.graph[0] is not model:
+            self.graph = (model,) + self._capture(model, generator)
+        _, tape, graph = self.graph
+        tape.fill(generator)
+        return graph.replay().clone()
 
 
 def fit(model, iterations: int, learning_rate: float = 0.01,
         batch_size: Optional[int] = None, seed: int = 0,
         natgrad_gamma: Optional[float] = None, callbacks: Sequence = (),
         log_every: int = 100, scan_steps: Optional[int] = None,
-        ckpt_dir: Optional[str] = None,
+        ckpt_dir: Optional[str] = None, ckpt_every: Optional[int] = None,
         reject_nonfinite: Optional[bool] = None):
     """Train ``model`` in place with Adam; returns (model, history).
 
     Steps run in chunks of ``scan_steps`` (default min(10, log_every)),
-    whole chunks as in the JAX ``fit``; the losses stay on the device
+    whole chunks as in the JAX ``fit``, each a captured CUDA graph on the
+    card (:func:`make_scan_train_step`); the losses stay on the device
     until a chunk that ends on a ``log_every`` boundary (or the last one),
     where the history gets {"iter", "loss" (the chunk's mean),
     "iters_per_sec", "elapsed"} and ``callbacks`` are called as
@@ -249,16 +334,19 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
     the plain step.  With the guard on, a chunk below 8 steps is raised to
     8 with a warning.
 
-    ``natgrad_gamma`` and ``ckpt_dir`` are not ported yet and raise."""
+    ``ckpt_dir``: resume from the latest ``ckpt_<step>.npz`` there, if
+    any (the parameters, the Adam state, the generator's state and the
+    rejection count, copied into the existing tensors), and save one
+    after every chunk that ends on a ``ckpt_every`` boundary (default
+    ``log_every``) and after the last, as the JAX ``fit`` does; a resumed
+    fit continues the trajectory of an uninterrupted one.
+
+    ``natgrad_gamma`` is not ported yet and raises."""
     check_minibatchable(model, batch_size)
     if natgrad_gamma is not None:
         raise NotImplementedError(
             "fit(natgrad_gamma=...): natural-gradient steps are not ported "
             "yet (ROADMAP A11)")
-    if ckpt_dir is not None:
-        raise NotImplementedError(
-            "fit(ckpt_dir=...): checkpoints are not ported yet (ROADMAP A7, "
-            "training/checkpoint.py)")
     if reject_nonfinite is None:
         reject_nonfinite = bool(model.full_batch_bound)
     chunk = max(1, min(10, log_every) if scan_steps is None else scan_steps)
@@ -271,18 +359,33 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
             f"{_GUARD_MIN_CHUNK} (the trust scale needs room within a "
             f"chunk; pass reject_nonfinite=False to keep scan_steps={chunk})")
         chunk = _GUARD_MIN_CHUNK
+    optimizer = masked_optimizer(model, learning_rate)
     run_chunk = make_scan_train_step(
-        masked_optimizer(model, learning_rate), batch_size,
-        inner_steps=chunk, reject_nonfinite=reject_nonfinite)
+        optimizer, batch_size, inner_steps=chunk,
+        reject_nonfinite=reject_nonfinite)
     generator = torch.Generator(device=model.X_data.device)
     generator.manual_seed(seed)
 
+    done = 0
+    if ckpt_dir is not None:
+        from .checkpoint import restore_checkpoint
+        _, resumed = restore_checkpoint(
+            ckpt_dir, (model, optimizer.state, generator, run_chunk.rejected))
+        if resumed is not None:
+            done = int(resumed)
+    ckpt_every = ckpt_every or log_every
+
     history = []
     t0 = time.perf_counter()
-    last_t, last_i, done = t0, 0, 0
+    last_t, last_i = t0, done
     while done < iterations:
         loss = run_chunk(model, generator=generator)
         done += chunk
+        if ckpt_dir is not None and (done % ckpt_every < chunk
+                                     or done >= iterations):
+            from .checkpoint import save_checkpoint
+            save_checkpoint(ckpt_dir, (model, optimizer.state, generator,
+                                       run_chunk.rejected), done)
         if done % log_every < chunk or done >= iterations:
             loss = float(loss)
             now = time.perf_counter()
@@ -291,7 +394,7 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
             stats = {"iter": done, "loss": loss, "iters_per_sec": rate,
                      "elapsed": now - t0}
             if reject_nonfinite:
-                stats["rejected"] = run_chunk.rejected
+                stats["rejected"] = int(run_chunk.rejected)
             history.append(stats)
             for cb in callbacks:
                 cb(done, model, loss, stats)

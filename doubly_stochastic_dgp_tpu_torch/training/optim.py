@@ -14,15 +14,18 @@ decay):
     u = -lr (m / (1 - b1^t)) / (sqrt(v / (1 - b2^t)) + eps),   p <- p + u.
 
 Like optax, and unlike ``torch.optim.Adam`` (whose ``step`` writes the
-parameters), it yields the update ``u`` and the new state as values
-(:meth:`Adam.update`), so the reject-nonfinite guard can scale the update
-before it is applied and keep the previous state to roll back to; a
-scale of exactly 1.0 leaves the update's bits as they are, so a guarded
-step that never rejects is the plain step.  The state is a step count on
-the host and two lists of tensors; every list operation is one
-``torch._foreach_*`` call.  optax evaluates the formula in a different
-order, so trajectories agree to rounding; a 20-step trajectory test pins
-that in float64.
+parameters), it yields the update ``u`` as a value (:meth:`Adam.update`),
+so the reject-nonfinite guard can scale the update before it is applied
+and select the next state on the device; a scale of exactly 1.0 leaves
+the update's bits as they are, so a guarded step that never rejects is
+the plain step.  The state is a step count on the device (a 0-dim int64
+tensor) and two lists of tensors, all advanced in place: the bias
+corrections 1 - b^t are computed on the device from the count, so a
+captured CUDA graph that replays :meth:`Adam.update` reads and writes the
+same tensors each time and bakes in no step number.  Every list
+operation is one ``torch._foreach_*`` call.  optax evaluates the formula
+in a different order, so trajectories agree to rounding; a 20-step
+trajectory test pins that in float64.
 """
 
 from __future__ import annotations
@@ -31,16 +34,22 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Adam", "AdamState", "masked_optimizer"]
+__all__ = ["Adam", "AdamState", "copy_state", "masked_optimizer"]
 
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
 
 
 class AdamState(NamedTuple):
-    count: int
+    count: torch.Tensor     # 0-dim int64 on the parameters' device
     mu: list
     nu: list
+
+
+def copy_state(state: AdamState) -> AdamState:
+    """A copy of ``state`` in new tensors."""
+    return AdamState(state.count.clone(), [m.clone() for m in state.mu],
+                     [v.clone() for v in state.nu])
 
 
 class Adam:
@@ -52,41 +61,33 @@ class Adam:
         self.state = self.init()
 
     def init(self) -> AdamState:
-        return AdamState(0, [torch.zeros_like(p) for p in self.params],
+        device = self.params[0].device if self.params else None
+        return AdamState(torch.zeros((), dtype=torch.int64, device=device),
+                         [torch.zeros_like(p) for p in self.params],
                          [torch.zeros_like(p) for p in self.params])
-
-    def grads(self):
-        """The parameters' ``.grad``, zeros for a parameter the objective
-        did not reach (its update is then 0, as in the JAX package, whose
-        gradient of an unused leaf is 0)."""
-        return [torch.zeros_like(p) if p.grad is None else p.grad
-                for p in self.params]
 
     @torch.no_grad()
     def update(self, grads, state: AdamState):
-        """(updates, new state) for ``grads`` at ``state``; changes
-        neither.  The step is ``p + u`` for each update ``u``."""
-        count = state.count + 1
-        mu = torch._foreach_mul(state.mu, _B1)
-        torch._foreach_add_(mu, grads, alpha=1.0 - _B1)
-        nu = torch._foreach_mul(state.nu, _B2)
-        torch._foreach_addcmul_(nu, grads, grads, value=1.0 - _B2)
-        denom = torch._foreach_div(nu, 1.0 - _B2 ** count)
+        """The updates for ``grads`` at ``state``, which advances in place
+        (count, mu, nu); the step is ``p + u`` for each update ``u``.  No
+        host read: the count and the bias corrections stay on the
+        device, the corrections in float64, cast to the parameters'
+        dtype where they scale a tensor."""
+        state.count.add_(1)
+        t = state.count.to(torch.float64)
+        dtype = state.mu[0].dtype
+        torch._foreach_mul_(state.mu, _B1)
+        torch._foreach_add_(state.mu, grads, alpha=1.0 - _B1)
+        torch._foreach_mul_(state.nu, _B2)
+        torch._foreach_addcmul_(state.nu, grads, grads, value=1.0 - _B2)
+        denom = torch._foreach_div(state.nu,
+                                   (1.0 - torch.pow(_B2, t)).to(dtype))
         torch._foreach_sqrt_(denom)
         torch._foreach_add_(denom, _EPS)
-        updates = torch._foreach_div(mu, denom)
-        torch._foreach_mul_(updates, -self.lr / (1.0 - _B1 ** count))
-        return updates, AdamState(count, mu, nu)
-
-    def zero_grad(self):
-        for p in self.params:
-            p.grad = None
-
-    @torch.no_grad()
-    def step(self):
-        """One Adam step in place from the parameters' ``.grad``."""
-        updates, self.state = self.update(self.grads(), self.state)
-        torch._foreach_add_(self.params, updates)
+        updates = torch._foreach_div(state.mu, denom)
+        torch._foreach_mul_(updates,
+                            (-self.lr / (1.0 - torch.pow(_B1, t))).to(dtype))
+        return updates
 
 
 def masked_optimizer(model, learning_rate: float = 0.01) -> Adam:

@@ -1,6 +1,7 @@
 """PyTorch port: module-by-module parity with the JAX package in float64
 on the CPU (bijectors and priors, kernels, Cholesky with escalation and
-its gradient, the relative jitter ladder, triangular inverse and solves,
+its gradient, the relative jitter ladder (both also with no host read,
+per batch element), triangular inverse and solves,
 the diagonal and full-covariance reparameterization, the Gaussian KL
 terms, mean functions, Gaussian likelihood, the SVGP conditional on its
 fused, staged-inverse and solve branches, diagonal and full-covariance,
@@ -33,6 +34,7 @@ from doubly_stochastic_dgp_tpu.ops.psi_stats import (
 from doubly_stochastic_dgp_tpu.utils import modules as jmodules
 import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
+from doubly_stochastic_dgp_tpu_torch.graphs import no_host_reads
 from doubly_stochastic_dgp_tpu_torch.models import posterior as tposterior
 from doubly_stochastic_dgp_tpu_torch.ops import linalg as tlinalg
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
@@ -196,7 +198,7 @@ def _check_ladder_and_solves(rng):
     Zh = rng.randn(10, 3)
     K = np.exp(-0.5 * ((Zh[:, None] - Zh[None]) ** 2).sum(-1)) + np.eye(10)
     ladder = tlinalg.safe_cholesky_ladder
-    ladder.escalations = 0
+    ladder.escalations.reset()
     assert torch.equal(ladder(_t(K)), torch.linalg.cholesky(_t(K))), (
         "safe_cholesky_ladder healthy: not bit-identical to cholesky")
     assert ladder.escalations == 0, "safe_cholesky_ladder healthy escalated"
@@ -474,6 +476,55 @@ def _check_layers(rng):
         raise AssertionError("CachedSVGPLayer.KL did not raise")
 
 
+def _check_sync_free_cholesky(rng):
+    """safe_cholesky and safe_cholesky_ladder with no host read (every
+    rung factorized, per-element selection on the device) on a healthy,
+    an escalated and a mixed batch whose elements take different rungs:
+    values and gradients against the JAX functions; the ladder's
+    escalation count kept on the device."""
+    Q = np.linalg.qr(rng.randn(8, 8))[0]
+    P = Q @ np.diag(np.logspace(-8, 0, 8)) @ Q.T
+    P = 0.5 * (P + P.T)
+    j = 1e-3
+    # absolute rungs j, 1e2 j, 1e4 j: P takes the first, P - 1e-2 I the
+    # second, P - I the third
+    absolute = {"healthy": np.stack([P, P + np.eye(8)]),
+                "escalated": np.stack([P - 1e-2 * np.eye(8),
+                                       P - np.eye(8)]),
+                "mixed": np.stack([P, P - 1e-2 * np.eye(8), P - np.eye(8)])}
+    # relative rungs (0, 1e-7, ..., 1e3) x mean(diag): B + I is healthy,
+    # B - 0.05 m I first succeeds at 1e-1, B - 0.8 m I at 1e1
+    m = np.trace(P) / 8
+    relative = {"healthy": np.stack([P + np.eye(8), P + 2 * np.eye(8)]),
+                "escalated": np.stack([P - 0.05 * m * np.eye(8)]),
+                "mixed": np.stack([P + np.eye(8), P - 0.05 * m * np.eye(8),
+                                   P - 0.8 * m * np.eye(8)])}
+    ladder = tlinalg.safe_cholesky_ladder
+    for name, cases, tfn, jfn in (
+            ("safe_cholesky", absolute,
+             lambda a: tlinalg.safe_cholesky(a, j),
+             lambda a: jlinalg.safe_cholesky(a, j)),
+            ("safe_cholesky_ladder", relative, ladder,
+             jlinalg.safe_cholesky_ladder)):
+        for batch, A in cases.items():
+            case = f"{name} with no host read, {batch} batch"
+            R = rng.randn(*A.shape)
+            At = _t(A).requires_grad_()
+            ladder.escalations.reset()
+            with no_host_reads():
+                L = tfn(At)
+                (L * _t(R)).sum().backward()
+            assert torch.isfinite(L).all() and torch.isfinite(
+                At.grad).all(), f"{case}: non-finite factor or gradient"
+            _close(case, L, jfn(jnp.asarray(A)))
+            _close(f"{case} grad", At.grad, jax.grad(
+                lambda a: jnp.sum(jfn(a) * R))(jnp.asarray(A)))
+            if name == "safe_cholesky_ladder":
+                want = 0 if batch == "healthy" else 1
+                assert ladder.escalations == want, (
+                    f"{case}: escalations {ladder.escalations} != {want}")
+
+
 def _check_import_and_device_rules():
     code = ("import sys, doubly_stochastic_dgp_tpu_torch\n"
             "import doubly_stochastic_dgp_tpu_torch.ops.psi_stats\n"
@@ -484,6 +535,8 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.ops.cuda.build\n"
             "import doubly_stochastic_dgp_tpu_torch.training.loop\n"
             "import doubly_stochastic_dgp_tpu_torch.training.optim\n"
+            "import doubly_stochastic_dgp_tpu_torch.training.checkpoint\n"
+            "import doubly_stochastic_dgp_tpu_torch.graphs\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
@@ -522,6 +575,7 @@ def test_modules_match_jax():
     _check_kernels(rng)
     _check_linalg(rng)
     _check_ladder_and_solves(rng)
+    _check_sync_free_cholesky(np.random.RandomState(11))
     _check_mean_functions_and_likelihood(rng)
     _check_layers(rng)
     psi2_core.launches = 0

@@ -3,8 +3,11 @@ under the default ``Config()``, ``solve_mode='solve'``, with its
 full-covariance predictions and ``remat``), and the bound and predictions
 of the collapsed DGPs (DGPDamianou, DGPCollapsed, also their
 full-covariance propagation), against the JAX package in float64 on the
-CPU, the port's server and ``fit`` semantics, and the reject-nonfinite
-guard against the JAX ``guarded_scan`` and ``fit``.
+CPU, the port's server and ``fit`` semantics (with checkpoints and
+resume), the reject-nonfinite guard against the JAX ``guarded_scan`` and
+``fit``, and a training chunk (plain, and guarded on DGPCollapsed) and a
+live and a cached request with no host read (what a CUDA graph captures
+on the card).
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -16,6 +19,8 @@ pieces (``propagate``, ``variational_expectations``, ``KL``, the
 num_data / batch scale, ``log_prior``).  One test item that names the
 failing case in every assertion message."""
 
+import os
+import tempfile
 import warnings
 
 import jax
@@ -36,9 +41,11 @@ from doubly_stochastic_dgp_tpu.training.optim import masked_optimizer
 from doubly_stochastic_dgp_tpu.utils.modules import log_prior, trainable_mask
 import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
+from doubly_stochastic_dgp_tpu_torch.graphs import no_host_reads
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     fused_conditional)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
+from doubly_stochastic_dgp_tpu_torch.training.checkpoint import latest_step
 from doubly_stochastic_dgp_tpu_torch.training.loop import (
     guarded_scan, make_scan_train_step, make_sgd_train_step)
 from doubly_stochastic_dgp_tpu_torch.training.optim import (
@@ -173,13 +180,14 @@ def _check_training(rng, X, Y, jmodel):
                            batch_size=BATCH, seed=3, log_every=10)
     assert [h["iter"] for h in hist] == [10, 20], f"fit history {hist}"
     assert all(np.isfinite(h["loss"]) for h in hist), f"fit loss {hist}"
-    for kw in (dict(natgrad_gamma=0.1), dict(ckpt_dir="ckpt")):
-        try:
-            port.fit(model, iterations=1, **kw)
-        except NotImplementedError as e:
-            assert "ROADMAP" in str(e), f"fit({kw}): {e}"
-        else:
-            raise AssertionError(f"fit({kw}) did not raise")
+    try:
+        port.fit(model, iterations=1, natgrad_gamma=0.1)
+    except NotImplementedError as e:
+        assert "ROADMAP" in str(e), f"fit(natgrad_gamma=0.1): {e}"
+    else:
+        raise AssertionError("fit(natgrad_gamma=0.1) did not raise")
+    _check_resume("DGP", lambda: _port_model(X, Y, jmodel), k=10,
+                  batch_size=BATCH, seed=3, log_every=10, scan_steps=5)
     # the guard works for the DGP too, and is off for it by default
     assert "rejected" not in hist[0], "fit(DGP): the guard is on by default"
     model, hist = port.fit(model, iterations=10, batch_size=BATCH, seed=3,
@@ -485,9 +493,49 @@ def _check_guard(rng):
         assert (rejected == 0) == clean, (
             f"guard [{script}]: {rejected} rejected steps")
         if script == "every step rejected":
-            assert rejected == 2 * (GUARD_STEPS + 1) and np.isnan(tloss) and all(
+            assert rejected == 2 * (GUARD_STEPS + 1) and torch.isnan(tloss) and all(
                 np.array_equal(p.numpy(), p0[k]) for k, p in zip(names, tp)
             ), f"guard [{script}]: the state moved"
+
+
+def _check_resume(case, fresh, k, **kw):
+    """fit with checkpoints: k steps, a checkpoint, and a fit of a fresh
+    model resumed to 2k, against 2k straight steps, bit for bit (the
+    parameters and the last logged loss); latest_step on an empty and on
+    a filled directory."""
+    with tempfile.TemporaryDirectory() as d:
+        assert latest_step(d) is None and latest_step(
+            os.path.join(d, "absent")) is None, f"{case}: latest_step empty"
+        straight, want = port.fit(fresh(), iterations=2 * k, **kw)
+        port.fit(fresh(), iterations=k, ckpt_dir=d, **kw)
+        assert latest_step(d) == k, f"{case}: latest_step {latest_step(d)}"
+        resumed, hist = port.fit(fresh(), iterations=2 * k, ckpt_dir=d, **kw)
+        assert latest_step(d) == 2 * k, f"{case}: no checkpoint at {2 * k}"
+        assert hist[0]["iter"] > k and hist[-1]["loss"] == want[-1]["loss"], (
+            f"{case}: resumed history {hist} against {want}")
+        for (name, p), q in zip(resumed.named_parameters(),
+                                straight.parameters()):
+            assert torch.equal(p, q), (
+                f"{case}: the resumed fit differs from the straight one in "
+                f"{name}")
+
+
+def _check_no_host_reads(X, Y, jmodel, Xt):
+    """A plain training chunk and a live and a cached request with no
+    host read and no value-shaped op: the code a CUDA graph captures on
+    the card."""
+    model = _port_model(X, Y, jmodel)
+    chunk = make_scan_train_step(port_masked_optimizer(model, LR), BATCH,
+                                 inner_steps=2)
+    live = port.make_server(model, S=S, precompute=False)
+    cached = port.make_server(model, S=S, precompute=True)
+    Xq = torch.as_tensor(Xt)
+    with no_host_reads():
+        loss = chunk(model, generator=torch.Generator().manual_seed(0))
+        requests = [serve(Xq, seed=4) for serve in (live, cached)]
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(t).all() for r in requests for t in r), (
+        "no host read: non-finite chunk loss or request")
 
 
 def _check_collapsed_fit(name, jm, build):
@@ -508,6 +556,16 @@ def _check_collapsed_fit(name, jm, build):
     assert np.isfinite(losses).all() and losses[1] < losses[0], (
         f"{name}: fit loss {losses}")
     if name != "DGPDamianou":
+        model = fresh()
+        guarded = make_scan_train_step(port_masked_optimizer(model, LR),
+                                       inner_steps=8, reject_nonfinite=True)
+        with no_host_reads():
+            loss = guarded(model, generator=torch.Generator().manual_seed(0))
+        assert torch.isfinite(loss) and guarded.rejected == 0 and all(
+            torch.isfinite(p).all() for p in model.parameters()), (
+            f"{name}: guarded chunk with no host read")
+        _check_resume(name, fresh, k=8, learning_rate=LR, scan_steps=8,
+                      log_every=8)
         return
     # two guarded chunks of 8 against 16 unguarded steps, bit for bit
     plain = fresh()
@@ -618,6 +676,7 @@ def test_paths_match_jax():
         assert all(torch.isfinite(t).all() for t in r1), f"{name}: non-finite"
 
     _check_training(rng, X, Y, jmodel)
+    _check_no_host_reads(X, Y, jmodel, Xt)
     # its own stream, so that the cases after it keep their draws
     _check_default_config(np.random.RandomState(6), X, Y, Xt, Yt)
     _check_guard(rng)
