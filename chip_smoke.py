@@ -9,10 +9,13 @@ Phases, each of which raises on a failed check:
 0. the card's name and power limit (nvidia-smi), TF32 off, and a build of
    every CUDA kernel from the sources in this checkout (one nvcc per
    source, all started together); raises if a build fails.  Prints each
-   kernel's registers and spills (ptxas), resident blocks an SM, and the
+   kernel's registers and spills (ptxas), resident blocks an SM, the
    psi2 backward's launch plan at both collapsed cells and at (2000, 512,
    2) (raises if its gZ scratch is above 32 MB at N or at 1000 N, or if
-   fewer blocks fit an SM than the plan counts on);
+   fewer blocks fit an SM than the plan counts on), and the psi2
+   forward's, symmetric and general, at both cells and phase 10's shapes
+   (micro-tiles, blocks, chunks, stages, scratch, registers, resident
+   blocks an SM; raises if no block fits);
 1. every kernel (the fused conditional's forward, backward, save-gram
    forward and save-gram backward) against its plain PyTorch version at
    the serving path's per-layer shapes (B=100,000), the training path's
@@ -100,19 +103,30 @@ Phases, each of which raises on a failed check:
    escalations per route, two witnesses of where damianou_large's float32
    error comes from (``solve_mode='solve'``; float64 with psi2 alone in
    float32);
-10. the kernel route's refusals on the card (M=513 and float64 raise,
-   with no launch; ``'xla'`` runs), then the psi2 kernel against its
-   plain version on the operands the two
-   models pass it (captured from ``_rbf_cross_psi2``), a ragged N, D=12
-   (Z from shared memory), M=512 and a clamp-active case, in float32 and
-   float64; raises if it differs from the plain float32 version by more
-   than 1e-4 of the output scale, is more than 2x as far from float64 as
-   the plain float32 version, or gives other bits on a repeat launch.
-   Prints the error of the expf variant beside the __expf one in use;
-11. timings with CUDA events (median of 30): the psi2 kernel, its plain
-   version and its bound at both path shapes; one bound evaluation and
-   one 820-row S=100 predict_y request per model and route; and a
-   torch.profiler breakdown of each on the kernel route;
+10. the psi2 route on the card (at M=513 and in float64 ``'auto'`` takes
+   the plain route, equal to ``'xla'``; ``'pallas'`` raises; no launch),
+   then the psi2 kernel against its plain version on the operands the two
+   models pass it (captured from ``_rbf_cross_psi2``; raises unless the
+   call is symmetric), a ragged N, D=12 (Z from shared memory), M=512, a
+   clamp-active case and the tiling's edges (M=1, M=65, N=1, N=33, N=1500
+   at M=100), as ``symmetric=True`` wherever the operands are symmetric
+   and as ``symmetric=False``, in float32 and float64; raises if it
+   differs from the plain float32 version (with the same ``symmetric``)
+   by more than 1e-4 of the output scale, is more than 2x as far from
+   float64 as the plain float32 version, gives other bits on a repeat
+   launch or on launches on two streams at once (eager, and two CUDA
+   graphs replayed on two streams), or (symmetric) differs from its
+   transpose.  Prints the first design's (``design='two_pass'``) error
+   beside it;
+11. timings at both path shapes: the psi2 kernel symmetric (the path's
+   call) and general, its first design and its plain version, each with
+   CUDA events (median of 30), torch.profiler device time and CUDA-graph
+   replays, with the profiler's kernel records counted against the calls
+   (eager and in replays), beside the triangle's and the full square's
+   bounds and a GEMM yardstick; the kernel at every wt that fits beside
+   the wt forward_plan picks (``psi2 forward wt sweep`` lines); one
+   bound evaluation and one 820-row S=100 predict_y request per model and
+   route; and a torch.profiler breakdown of each on the kernel route;
 12. the psi2 backward kernel against its plain version, with a seeded
    dense cotangent, on phase 10's cases plus exact ties (pre == 0 on some
    rows: nothing may pass the gate there) and a row with logdet = -1e30
@@ -212,7 +226,14 @@ Phases, each of which raises on a failed check:
    the graph pool the server's buckets share;
 23. ``fit`` for 20 steps with ``ckpt_dir``, a fresh model resumed from the
    checkpoint to 40, against 40 straight steps: raises unless bit for
-   bit.
+   bit;
+24. (run right after phase 11) both collapsed models under ``Config()``
+   (float64, ``psi2_impl='auto'``) on the card: the bound against the
+   port's float64 CPU bound on the same parameters (raises above 1e-6
+   relative), an 820-row S=100 predict_y, and for damianou_large 20 fit
+   steps, with no psi2 kernel launch (raises otherwise);
+   ``psi2_impl='pallas'`` raises before a launch; the bound's, the
+   request's and a step's times.
 
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
@@ -227,6 +248,7 @@ import contextlib
 import ctypes
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -308,7 +330,7 @@ DEVICE_KERNELS = {
                                    "sum_slices_kernel"),
     "fused_conditional_saved_backward": ("fused_conditional_bwd",
                                          "sum_slices_kernel"),
-    "psi2_core_forward": ("psi2_fwd_kernel", "psi2_sum_chunks_kernel"),
+    "psi2_core_forward": ("psi2_fwd_kernel",),
     "psi2_core_backward": ("psi2_bwd_kernel", "psi2_bwd_finish_kernel"),
     "rbf_gram": ("rbf_gram_kernel",),
 }
@@ -324,11 +346,17 @@ LAUNCH_MARKER = {
     "psi2_core_backward": "psi2_bwd_kernel",
     "rbf_gram": "rbf_gram_kernel",
 }
+# the psi2 forward's first design (design='two_pass': the full square in
+# 64 x 64 tiles, its chunks added by a second kernel), timed beside the
+# kernel in phase 11
+TWO_PASS_KERNELS = ("psi2_fwd_two_pass_kernel", "psi2_sum_chunks_kernel")
 # device ms a launch of the two redesigned kernels' earlier designs (two
 # passes over the terms; lengthscales divided out by separate device ops),
 # from this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section
 # 6), printed beside this run's
 EARLIER_DEVICE_MS = {
+    ("psi2_core_forward", "damianou_large"): "0.1770-0.1879",
+    ("psi2_core_forward", "collapsed_L2"): "0.0272-0.0289",
     ("psi2_core_backward", "damianou_large"): "0.9711-1.0036",
     ("psi2_core_backward", "collapsed_L2"): "0.1081-0.1115",
     ("rbf_gram", "Kuf_M100_B10000_D8 float32"): "0.0061-0.0064",
@@ -1186,10 +1214,11 @@ def collapsed_models(data, seed):
     rng = np.random.RandomState(seed + 5)
     n = len(data["Xs"])
 
-    def build(name, dtype, impl, use_pallas, solve_mode="inverse",
-              device="cuda"):
-        cfg = Config(dtype=dtype, jitter=1e-5, solve_mode=solve_mode,
-                     use_pallas=use_pallas, psi2_impl=impl)
+    def build(name, dtype=None, impl=None, use_pallas=None,
+              solve_mode="inverse", device="cuda", config=None):
+        cfg = config or Config(dtype=dtype, jitter=1e-5,
+                               solve_mode=solve_mode, use_pallas=use_pallas,
+                               psi2_impl=impl)
         if name == "damianou_large":
             return DGPDamianou.build(X, Y, Z256, [RBF(8), RBF(2)],
                                      Gaussian(0.05), config=cfg,
@@ -1272,14 +1301,17 @@ def f32_witnesses(build, model, data, zs, b64, p64):
     out = {}
     kernel = psi_stats.psi2_core
 
-    def f32_psi2(*args):
-        return kernel(*[a.float().contiguous() for a in args]).double()
+    def f32_psi2(*args, symmetric=False):
+        return kernel(*[a.float().contiguous() for a in args],
+                      symmetric=symmetric).double()
 
     for variant in ("f32 solve_mode=solve", "f64, f32 psi2"):
         if variant.startswith("f32"):
             m = build("damianou_large", torch.float32, "xla", True, "solve")
         else:
-            m = build("damianou_large", torch.float64, "auto", False)
+            # 'pallas': the kernel route whatever the dtype ('auto' takes
+            # the plain route in float64), here into f32_psi2
+            m = build("damianou_large", torch.float64, "pallas", False)
             psi_stats.psi2_core = f32_psi2
         m.load_state_dict(model.state_dict())
         safe_cholesky_ladder.escalations.reset()
@@ -1306,14 +1338,17 @@ def f32_witnesses(build, model, data, zs, b64, p64):
 
 def capture_psi2_operands(model):
     """The (U, V, w, logdet, Z) that the model's bound hands psi2_core
-    (the launch is not counted)."""
+    (the launch is not counted); raises unless the call is symmetric (a
+    single RBF's psi2)."""
     got = []
     inner = psi_stats.psi2_core
     n = psi2.psi2_core.launches
 
-    def record(*args):
+    def record(*args, symmetric=False):
+        check(symmetric is True, "the bound's psi2_core call is not "
+                                 "symmetric")
         got.append([a.detach().clone() for a in args])
-        return inner(*args)
+        return inner(*args, symmetric=symmetric)
 
     psi_stats.psi2_core = record
     try:
@@ -1403,21 +1438,27 @@ def phase_collapsed(seed, card):
     return out
 
 
-def psi2_inputs(N, M_, D, seed, clamp=False):
-    """float64 operands on the card in the psi2 contract (w >= 0)."""
+def psi2_inputs(N, M_, D, seed, clamp=False, symmetric=False):
+    """float64 operands on the card in the psi2 contract (w >= 0); with
+    ``symmetric`` U = V - t/2 row by row, as one RBF's staging makes them
+    (the output is then symmetric)."""
     rng = np.random.RandomState(seed)
     U = rng.randn(N, M_) * 0.5 - 0.2 + (1.0 if clamp else 0.0)
-    arrays = (U, rng.randn(N, M_) * 0.5 - 0.2, rng.rand(N, D),
-              rng.randn(N, 1) * 0.3, rng.randn(M_, D) * 0.5)
+    V = rng.randn(N, M_) * 0.5 - 0.2
+    if symmetric:
+        U = V - rng.rand(N, 1) * 0.25
+    arrays = (U, V, rng.rand(N, D), rng.randn(N, 1) * 0.3,
+              rng.randn(M_, D) * 0.5)
     return [torch.tensor(a, dtype=torch.float64, device="cuda")
             for a in arrays]
 
 
 def check_psi2_refusals(seed):
-    """On a CUDA tensor the kernel route ('auto', 'pallas') launches or
-    raises: outside the kernel's limits (M=513) and in float64,
-    psi_statistics raises and launches nothing; 'xla' takes the plain
-    route there."""
+    """The route is chosen before any launch: on a CUDA tensor 'auto'
+    takes the kernel only where it can (float32, M <= 512, 1 <= D <= 32)
+    and the plain route elsewhere (M=513, float64), with no launch;
+    'pallas' asks for the kernel and raises there, with no launch; 'xla'
+    runs the plain route."""
     rng = np.random.RandomState(seed)
     n = psi2.psi2_core.launches
     for dtype, M_, err in ((torch.float32, psi2.MAX_M + 1, ValueError),
@@ -1427,113 +1468,260 @@ def check_psi2_refusals(seed):
                      (rng.randn(64, 2), rng.rand(64, 2) * 0.1,
                       rng.randn(M_, 2)))
         with torch.no_grad():
-            for impl in ("auto", "pallas"):
-                raised = None
-                try:
-                    psi_stats.psi_statistics(kern, mu, Sv, Z, impl)
-                except err as e:
-                    raised = e
-                check(raised is not None, f"psi_statistics {impl} on CUDA "
-                                          f"{dtype}, M={M_}: did not raise")
+            raised = None
+            try:
+                psi_stats.psi_statistics(kern, mu, Sv, Z, "pallas")
+            except err as e:
+                raised = e
+            check(raised is not None, f"psi_statistics pallas on CUDA "
+                                      f"{dtype}, M={M_}: did not raise")
+            auto = psi_stats.psi_statistics(kern, mu, Sv, Z, "auto")[2]
             plain = psi_stats.psi_statistics(kern, mu, Sv, Z, "xla")[2]
-        check(plain.shape == (M_, M_) and bool(torch.isfinite(plain).all()),
-              f"psi_statistics xla on CUDA {dtype}, M={M_}")
-    check(psi2.psi2_core.launches == n, "a refused psi2 call launched")
-    print(f"psi2 kernel route on CUDA: raises at M={psi2.MAX_M + 1} and in "
-          f"float64 ('auto' and 'pallas'), no launch; 'xla' runs the plain "
-          f"route", flush=True)
+        check(plain.shape == (M_, M_) and bool(torch.isfinite(plain).all())
+              and torch.equal(auto, plain),
+              f"psi_statistics auto/xla on CUDA {dtype}, M={M_}")
+    check(psi2.psi2_core.launches == n, "a psi2 call off the kernel's "
+                                        "limits launched")
+    print(f"psi2 route on CUDA: at M={psi2.MAX_M + 1} and in float64 "
+          f"'auto' takes the plain route (equal to 'xla'), 'pallas' "
+          f"raises; no launch", flush=True)
+
+
+# phase 10's cases beyond the models' operands: (name, N, M, D, clamp,
+# symmetric operands): ragged N, D above the register-held range, the
+# cap, the clamp active; and the tiling's edges: M=1, one past a 64-wide
+# tile, one row, one past a 32-row step, and collapsed_L2's N and M
+PSI2_CASES = [("ragged_N1301_M100", 1301, 100, 3, False, False),
+              ("D12_shared_Z", 500, 64, 12, False, False),
+              ("M512", 2000, 512, 2, False, False),
+              ("clamp_active", 300, 37, 2, True, False),
+              ("M1", 300, 1, 2, False, True),
+              ("M65", 700, 65, 2, False, True),
+              ("N1", 1, 100, 8, False, True),
+              ("N33", 33, 100, 8, False, True),
+              ("N1500_M100", 1500, 100, 8, False, True)]
+
+
+def check_psi2_streams(name, a32, sym, want):
+    """psi2 forward launches on two streams at once, eagerly and as two
+    CUDA graphs replayed on the two streams, 8 rounds: raises unless every
+    output has ``want``'s bits (each launch has its own ticket counters,
+    in its scratch from the caching allocator on its stream)."""
+    streams = [torch.cuda.Stream() for _ in range(2)]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for k in range(8):
+        with torch.cuda.stream(streams[k % 2]):
+            outs.append(psi2.psi2_core_forward(*a32, symmetric=sym))
+    torch.cuda.synchronize()
+    check(all(torch.equal(o, want) for o in outs),
+          f"psi2_core_forward {name}: launches on two streams at once "
+          f"differ from one stream's")
+    graphs, graph_outs = [], []
+    for _ in streams:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g):
+            graph_outs.append(psi2.psi2_core_forward(*a32, symmetric=sym))
+        graphs.append(g)
+    for _ in range(8):
+        for g, st in zip(graphs, streams):
+            st.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(st):
+                g.replay()
+        torch.cuda.synchronize()
+        check(all(torch.equal(o, want) for o in graph_outs),
+              f"psi2_core_forward {name}: two graphs replayed on two "
+              f"streams at once differ from one stream's launch")
 
 
 def phase_psi2_kernel(seed, operands):
     """psi2 kernel vs its plain version (float32) and float64, on the
-    models' operands and the edge cases; bit-identical repeats.  Returns
-    the worst errors (the launches here are not counted)."""
+    models' operands and the cases above, as symmetric=True wherever the
+    operands are symmetric and as symmetric=False; bit-identical repeats,
+    on one stream and on two at once, and (symmetric) outputs equal to
+    their transpose.  Returns the worst
+    errors (the launches here are not counted)."""
     counts = launch_counts()
     check_psi2_refusals(seed)
-    cases = [(name, [t.double() for t in operands[name]])
+    cases = [(name, [t.double() for t in operands[name]], True)
              for name in COLLAPSED]
-    cases += [("ragged_N1301_M100", psi2_inputs(1301, 100, 3, seed)),
-              ("D12_shared_Z", psi2_inputs(500, 64, 12, seed + 1)),
-              ("M512", psi2_inputs(2000, 512, 2, seed + 2)),
-              ("clamp_active", psi2_inputs(300, 37, 2, seed + 3, True))]
+    cases += [(name, psi2_inputs(N, M_, D, seed + i, clamp, sym), sym)
+              for i, (name, N, M_, D, clamp, sym) in enumerate(PSI2_CASES)]
     worst = [0.0] * 4
-    for case, a64 in cases:
+    for case, a64, symmetric_operands in cases:
         a32 = [t.float().contiguous() for t in a64]
+        N, M_ = a32[0].shape
+        D = a32[4].shape[1]
         if case == "clamp_active":
             U, V, w, _, Z = a64
             pre = (U[:, :, None] + V[:, None, :]
                    - torch.einsum("nd,ad,bd->nab", w, Z, Z))
             check(bool((pre > 0).any() and (pre < 0).any()),
                   "psi2 clamp_active: the clamp is not active")
-        with torch.no_grad():
-            fwd = lambda: (psi2.psi2_core_forward(*a32),)  # noqa: E731
-            got = fwd()
-            torch.cuda.synchronize()
-            plain = (psi2.psi2_core_plain(*a32),)
-            ref = (psi2.psi2_core_plain(*a64),)
-            errs = compare(got, plain, ref, joint_scale=True)
-            hold("psi2_core_forward", case, errs)
-            check_repeat("psi2_core_forward", case, fwd, got)
-            other = psi2.psi2_core_forward(*a32,
-                                           fast_exp=not psi2.FAST_EXP)
-            e_other = compare((other,), plain, ref, joint_scale=True)[2]
-        N, M_ = a32[0].shape
-        print(f"kernel psi2_core_forward {case} (N={N}, M={M_}, D="
-              f"{a32[4].shape[1]}): exp variant in use "
-              f"{'__expf' if psi2.FAST_EXP else 'expf'}; the other's error "
-              f"vs f64 {e_other:.3e} of scale", flush=True)
-        worst = list(map(max, worst, errs))
+        for sym in ((True, False) if symmetric_operands else (False,)):
+            name = f"{case} symmetric={sym}"
+            with torch.no_grad():
+                fwd = lambda: (psi2.psi2_core_forward(  # noqa: E731
+                    *a32, symmetric=sym),)
+                got = fwd()
+                torch.cuda.synchronize()
+                plain = (psi2.psi2_core_plain(*a32, symmetric=sym),)
+                ref = (psi2.psi2_core_plain(*a64, symmetric=sym),)
+                errs = compare(got, plain, ref, joint_scale=True)
+                hold("psi2_core_forward", name, errs)
+                check_repeat("psi2_core_forward", name, fwd, got)
+                check_psi2_streams(name, a32, sym, got[0])
+                if sym:
+                    check(torch.equal(got[0], got[0].T),
+                          f"psi2_core_forward {name}: not symmetric")
+                first = psi2._forward_kernel(*a32, design="two_pass")
+                e_first = compare((first,), plain, ref, joint_scale=True)[2]
+            print(f"kernel psi2_core_forward {name} (N={N}, M={M_}, D={D}): "
+                  f"bitwise symmetric {torch.equal(got[0], got[0].T)}; the "
+                  f"first design's error vs f64 {e_first:.3e} of scale",
+                  flush=True)
+            worst = list(map(max, worst, errs))
     set_launch_counts(counts)
     return worst
 
 
-def psi2_bound_ms(N, M_, D, backward=False):
+def psi2_bound_ms(N, M_, D, backward=False, symmetric=False):
     """The least time of one call: its bytes (U, V, w, logdet, Z read
     once, the (M, M) output written once; the backward also reads g and
     writes a gradient of the size of each input) over the HBM rate, its
-    fp32 flops over the fp32 peak, and its exps over the SFU exp rate."""
+    fp32 flops over the fp32 peak, and its exps over the SFU exp rate; a
+    symmetric call's least work is the upper triangle's terms."""
     inputs = 2 * N * M_ + N * D + N + M_ * D
     n_bytes = 4 * (2 * inputs + M_ * M_ if backward else inputs + M_ * M_)
-    n_flops = (psi2.backward_flops if backward else psi2.flops)(N, M_, D)
+    n_flops = (psi2.backward_flops(N, M_, D) if backward
+               else psi2.flops(N, M_, D, symmetric))
     times = {"bytes": n_bytes / HBM_RATE,
              "operations": max(n_flops / FP32_PEAK,
-                               psi2.terms(N, M_) / SFU_EXP_RATE)}
+                               psi2.terms(N, M_, symmetric) / SFU_EXP_RATE)}
     by = max(times, key=times.get)
     return 1e3 * times[by], by
 
 
+def psi2_wt_sweep(name, a32, sms, card):
+    """The psi2 forward at every wt that fits (tile warps a block;
+    forward_plan's other choices follow from it), symmetric and general:
+    device ms a call by CUDA-graph replays, beside the wt that
+    forward_plan's cost model picks.  The readings the model is held to."""
+    N, M_ = a32[0].shape
+    D = a32[4].shape[1]
+    out = {}
+    for symmetric in (True, False):
+        plan = psi2.forward_plan(N, M_, D, sms, symmetric)
+        sweep = {}
+        with torch.no_grad():
+            for wt in range(1, min(16, -(-plan["tiles"] // 32)) + 1):
+                try:
+                    psi2.forward_plan(N, M_, D, sms, symmetric, wt)
+                except ValueError:
+                    continue
+                sweep[wt] = graph_calls_ms(
+                    lambda: psi2._forward_kernel(  # noqa: B023
+                        *a32, symmetric=symmetric, wt=wt), reps=5, rounds=3)
+        fastest = min(sweep, key=sweep.get)
+        print(f"psi2 forward wt sweep {name} symmetric={symmetric} (device "
+              f"ms a call, CUDA-graph replays): "
+              + ", ".join(f"wt={k} {v:.4f}" for k, v in sweep.items())
+              + f"; the plan's wt={plan['wt']} {sweep[plan['wt']]:.4f}, the "
+              f"fastest wt={fastest} {sweep[fastest]:.4f} [{card}]",
+              flush=True)
+        out[f"symmetric={symmetric}"] = {"plan_wt": plan["wt"],
+                                         "ms": sweep}
+    return out
+
+
 def phase_collapsed_timings(collapsed, card):
-    """psi2 kernel and plain version at both path shapes (CUDA-event
-    medians of 30), one bound evaluation and one 820-row S=100 predict_y
-    request per model and route (medians of 10), and a torch.profiler
-    breakdown of the kernel route's bound and request."""
+    """psi2 kernel at both path shapes, symmetric (the path's call) and
+    general, beside the first design and the plain version (CUDA-event
+    medians of 30, torch.profiler device time and CUDA-graph replays; the
+    profiler's kernel records counted against the calls, eager and in
+    replays), the triangle's and the full square's bounds, a GEMM
+    yardstick and the wt sweep (psi2_wt_sweep); one bound evaluation and
+    one 820-row S=100 predict_y request per model and route (medians of
+    10), and a torch.profiler breakdown of the kernel route's bound and
+    request."""
     from torch.profiler import ProfilerActivity, profile
     counts = launch_counts()
     shapes, paths = [], {}
     Xs = collapsed["data"]["Xs"]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     for name in COLLAPSED:
         a32 = [t.contiguous() for t in collapsed["operands"][name]]
         N, M_ = a32[0].shape
         D = a32[4].shape[1]
+        sym = lambda: psi2.psi2_core_forward(  # noqa: E731
+            *a32, symmetric=True)
+        gen = lambda: psi2.psi2_core_forward(*a32)  # noqa: E731
+        first = lambda: psi2._forward_kernel(  # noqa: E731
+            *a32, design="two_pass")
+        plain = lambda: psi2.psi2_core_plain(  # noqa: E731
+            *a32, symmetric=True)
+        kernel = DEVICE_KERNELS["psi2_core_forward"]
+        # device kernels a call: the first design adds its chunks in a
+        # second kernel
+        first_per = 1 + (psi2._chunks(N, M_, sms) > 1)
+        t, records = {}, {}
         with torch.no_grad():
-            k_ms = event_ms(lambda: psi2.psi2_core_forward(*a32))
-            d_ms = device_ms(lambda: psi2.psi2_core_forward(*a32),
-                             DEVICE_KERNELS["psi2_core_forward"])
-            p_ms = event_ms(lambda: psi2.psi2_core_plain(*a32))
+            for what, fn, names, per in (
+                    ("symmetric", sym, kernel, 1),
+                    ("general", gen, kernel, 1),
+                    ("first design", first, TWO_PASS_KERNELS, first_per)):
+                d_ms, got = kernel_records(fn, names, n=20)
+                t[what] = (event_ms(fn), d_ms, graph_calls_ms(fn))
+                g_ms, g_got = kernel_records(capture_calls(fn, 10).replay,
+                                             names, n=5)
+                records[what] = {"eager_records": got,
+                                 "eager_expected": 20 * per,
+                                 "graph_profiler_ms": g_ms,
+                                 "graph_records": g_got,
+                                 "graph_expected": 50 * per}
+                print(f"profiler psi2_core_forward {name} {what}: eager "
+                      f"{d_ms} ms a call from {got} kernel records of "
+                      f"{20 * per} expected; under CUDA-graph replays "
+                      f"{g_ms} ms a call from {g_got} of "
+                      f"{50 * per}; CUDA events on the replays "
+                      f"{t[what][2]:.4f} ms [{card}]", flush=True)
+            t["plain"] = (event_ms(plain),
+                          (total_device_ms(plain) or (None,))[0],
+                          graph_calls_ms(plain, calls=2))
         y_ms = gemm_yardstick_ms(M_, N, M_)
-        b_ms, b_by = psi2_bound_ms(N, M_, D)
-        shapes.append({"config": name, "N": N, "M": M_, "D": D, "ms": k_ms,
-                       "device_ms": d_ms, "plain_ms": p_ms,
-                       "gemm_yardstick_ms": y_ms, "bound_ms": b_ms,
-                       "bound_by": b_by, "exps_M": psi2.terms(N, M_) / 1e6,
-                       "gflop": psi2.flops(N, M_, D) / 1e9})
-        print(f"timing psi2_core_forward {name} N={N} M={M_} D={D}: kernel "
-              f"{k_ms:.4f} ms (device time {d_ms}), plain {p_ms:.4f} ms, "
-              f"GEMM yardstick (torch.matmul ({M_} x {N}) by ({N} x {M_}), "
-              f"not this function) {y_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"({b_by}; {psi2.terms(N, M_) / 1e6:.1f} M exps at "
+        b_ms, b_by = psi2_bound_ms(N, M_, D, symmetric=True)
+        full_ms, full_by = psi2_bound_ms(N, M_, D)
+        shapes.append({
+            "config": name, "N": N, "M": M_, "D": D,
+            "ms": t["symmetric"][0], "device_ms": t["symmetric"][1],
+            "graph_ms": t["symmetric"][2],
+            "general_ms": t["general"][0],
+            "general_device_ms": t["general"][1],
+            "general_graph_ms": t["general"][2],
+            "first_design_ms": t["first design"][0],
+            "first_design_device_ms": t["first design"][1],
+            "first_design_graph_ms": t["first design"][2],
+            "plain_ms": t["plain"][0], "plain_device_ms": t["plain"][1],
+            "plain_graph_ms": t["plain"][2],
+            "gemm_yardstick_ms": y_ms, "bound_ms": b_ms, "bound_by": b_by,
+            "full_bound_ms": full_ms, "full_bound_by": full_by,
+            "exps_M": psi2.terms(N, M_, True) / 1e6,
+            "gflop": psi2.flops(N, M_, D, True) / 1e9,
+            "profiler_records": records,
+            "wt_sweep_ms": psi2_wt_sweep(name, a32, sms, card)})
+        print(f"timing psi2_core_forward {name} N={N} M={M_} D={D} (CUDA "
+              f"events ms, profiler device ms, CUDA-graph replay ms): "
+              + ", ".join(f"{k} {v[0]:.4f}, {v[1]}, {v[2]:.4f}"
+                          for k, v in t.items())
+              + f"; bound {b_ms:.4f} ms triangle ({b_by}; "
+              f"{psi2.terms(N, M_, True) / 1e6:.1f} M exps at "
               f"{SFU_EXP_RATE / 1e12:.2f} T/s, "
-              f"{psi2.flops(N, M_, D) / 1e9:.3f} GFLOP), library call: none "
+              f"{psi2.flops(N, M_, D, True) / 1e9:.3f} GFLOP), {full_ms:.4f} "
+              f"ms full square ({full_by}); earlier runs' first design "
+              f"{EARLIER_DEVICE_MS[('psi2_core_forward', name)]} ms device; "
+              f"GEMM yardstick (torch.matmul ({M_} x {N}) by ({N} x {M_}), "
+              f"not this function) {y_ms:.4f} ms; library call: none "
               f"[{card}]", flush=True)
         paths[name] = {}
         for route in ("kernel", "plain"):
@@ -1574,6 +1762,90 @@ def phase_collapsed_timings(collapsed, card):
                   flush=True)
     set_launch_counts(counts)
     return shapes, paths
+
+
+# ---------------------------------------------------------------------------
+# phase 24 (run right after phase 11): the collapsed DGPs under Config()
+# ---------------------------------------------------------------------------
+
+# the float64 card bound against the float64 CPU bound on the same
+# parameters: Kuu is near singular at damianou_large (PERF.md, section 6),
+# so a tighter gate would test cuSOLVER against LAPACK, not the route
+F64_BOUND_RTOL = 1e-6
+F64_FIT_STEPS = 20
+
+
+def phase_f64_route(collapsed, seed, card):
+    """DGPDamianou at damianou_large and DGPCollapsed at collapsed_L2 under
+    ``Config()`` (float64, psi2_impl='auto') on the card: 'auto' takes the
+    plain psi2 route there, so the bound (against the port's float64 CPU
+    bound on the same parameters, within 1e-6 relative), an 820-row S=100
+    predict_y and (damianou_large) fit launch no psi2 kernel; 'pallas' in
+    float64 raises before any launch.  Times the bound, the request and a
+    step (the second chunk of 10)."""
+    counts = launch_counts()
+    build, data = collapsed["build"], collapsed["data"]
+    Xs, out = data["Xs"], {}
+    for name in COLLAPSED:
+        set_launch_counts({n: 0 for n in KERNEL_NAMES})
+        model = build(name, config=Config())
+        cpu = build(name, config=Config(), device="cpu")
+        cpu.load_state_dict(model.state_dict())
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        with torch.no_grad():
+            bound = model.elbo()
+            bound_cpu = cpu.elbo()
+            bound_ms = event_ms(lambda: model.elbo(), reps=5)
+            mean, var = model.predict_y(Xs, S=S, generator=gen)
+            req_ms = event_ms(lambda: model.predict_y(Xs, S=S,
+                                                      generator=gen), reps=5)
+        rel = abs(bound.item() - bound_cpu.item()) / abs(bound_cpu.item())
+        rec = {"bound": bound.item(), "bound_cpu": bound_cpu.item(),
+               "rel_err": rel, "bound_ms": bound_ms, "predict_ms": req_ms}
+        check(bool(torch.isfinite(mean).all() and torch.isfinite(var).all())
+              and mean.shape[-2] == len(Xs),
+              f"{name} under Config(): predict_y not finite")
+        check(rel <= F64_BOUND_RTOL, f"{name} under Config(): bound "
+                                     f"{bound.item()} vs the CPU's "
+                                     f"{bound_cpu.item()}, {rel} > "
+                                     f"{F64_BOUND_RTOL} relative")
+        step = ""
+        if name == "damianou_large":
+            _, hist = fit(model, iterations=F64_FIT_STEPS,
+                          learning_rate=0.01, seed=seed, log_every=FIT_CHUNK)
+            torch.cuda.synchronize()
+            check(np.isfinite(hist[-1]["loss"]) and all(
+                bool(torch.isfinite(p).all()) for p in model.parameters()),
+                f"{name} under Config(): the fit ended non-finite")
+            rec["fit_steps_per_s"] = hist[-1]["iters_per_sec"]
+            step = (f"; fit {F64_FIT_STEPS} steps, loss {hist[0]['loss']:.3f}"
+                    f" -> {hist[-1]['loss']:.3f}, second chunk of "
+                    f"{FIT_CHUNK}: {rec['fit_steps_per_s']:.2f} steps/s "
+                    f"({1e3 / rec['fit_steps_per_s']:.2f} ms a step)")
+        c = launch_counts()
+        check(c["psi2_core_forward"] == c["psi2_core_backward"] == 0,
+              f"{name} under Config(): a psi2 kernel launched {c}")
+        pallas = build(name, config=Config(psi2_impl="pallas"))
+        raised = None
+        try:
+            with torch.no_grad():
+                pallas.elbo()
+        except TypeError as e:
+            raised = e
+        check(raised is not None and launch_counts()["psi2_core_forward"]
+              == 0, f"{name}: psi2_impl='pallas' in float64 did not raise "
+                    f"before a launch")
+        print(f"f64 route {name} under Config() (float64, psi2_impl='auto'"
+              f", the plain psi2 route): bound {bound.item():.6f} vs CPU "
+              f"{bound_cpu.item():.6f} (rel {rel:.3e}); bound {bound_ms:.3f}"
+              f" ms, {len(Xs)}-row S={S} predict_y {req_ms:.3f} ms (CUDA "
+              f"events, median of 5){step}; psi2 launches 0; 'pallas' "
+              f"raises before a launch [{card}]", flush=True)
+        out[name] = rec
+        del model, cpu, pallas
+    set_launch_counts(counts)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -2104,9 +2376,20 @@ def gram_bound_ms(N, M_, D, dtype):
 
 def device_ms(fn, name, n=20):
     """Device time of one call of ``fn`` in the kernels whose names hold
-    ``name`` (or one of the names in a tuple): torch.profiler over n calls
-    (the CUDA-event times of a small kernel also hold the host's time
-    between the events)."""
+    ``name`` (or one of the names in a tuple), by torch.profiler (the
+    CUDA-event times of a small kernel also hold the host's time between
+    the events); see kernel_records."""
+    return kernel_records(fn, name, n)[0]
+
+
+def kernel_records(fn, name, n=20):
+    """(device ms a call, kernel records) of ``fn`` in the kernels whose
+    names hold ``name`` (or one of the names in a tuple), each launched
+    once a call: torch.profiler over n calls after one unprofiled call,
+    each kernel's device time over its own records, summed.  The
+    profiler loses the records of the first 3-4 launches it should see
+    (phase 11 counts them), so the time over n calls would read low;
+    (None, 0) when it saw none."""
     names = (name,) if isinstance(name, str) else tuple(name)
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2119,8 +2402,9 @@ def device_ms(fn, name, n=20):
              if e.device_type.name == "CUDA"
              and any(n in e.key for n in names)]
     if not found:
-        return None
-    return sum(e.self_device_time_total for e in found) / (1e3 * n)
+        return None, 0
+    return (sum(e.self_device_time_total / e.count for e in found) / 1e3,
+            sum(e.count for e in found))
 
 
 def sass_fp64_opcodes():
@@ -2516,6 +2800,42 @@ def total_device_ms(fn, n=20):
     return None if found is None else found[:2]
 
 
+def capture_calls(fn, calls):
+    """A CUDA graph of ``calls`` calls of ``fn`` (after an eager call and
+    one on a side stream), replayed once."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    return g
+
+
+def graph_calls_ms(fn, calls=10, reps=10, rounds=5):
+    """Device ms of one call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, timed with CUDA events over ``reps`` replays back to back, per
+    call, the median of ``rounds`` (no host time between the calls, and no
+    profiler records to lose)."""
+    g = capture_calls(fn, calls)
+    times = []
+    for _ in range(rounds):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        for _ in range(reps):
+            g.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / (reps * calls))
+    del g
+    return statistics.median(times)
+
+
 def graph_event_ms(fn, reps=20, rounds=5):
     """Device ms of one call of ``fn`` captured in a CUDA graph: CUDA
     events around ``reps`` replays back to back, per replay, the median of
@@ -2869,7 +3189,8 @@ def phase_resume(seed, card):
 
 def print_kernel_resources(name, out):
     """Registers, shared memory and spills of each kernel in one source,
-    as ``nvcc -Xptxas -v`` reported them (one line a kernel)."""
+    as ``nvcc -Xptxas -v`` reported them (one line a kernel); kept in
+    PTXAS by kernel."""
     kernel = None
     for line in out.splitlines():
         if "Compiling entry function" in line:
@@ -2877,6 +3198,11 @@ def print_kernel_resources(name, out):
         elif kernel and ("spill" in line or "registers" in line):
             print(f"ptxas {name}.cu {kernel[:96]}: {line.strip()}",
                   flush=True)
+            for key, pattern in (("registers", r"Used (\d+) registers"),
+                                 ("spill bytes", r"(\d+) bytes spill stores")):
+                found = re.search(pattern, line)
+                if found:
+                    PTXAS.setdefault(kernel, {})[key] = int(found.group(1))
 
 
 def print_occupancy():
@@ -2909,6 +3235,51 @@ def print_occupancy():
           f"{lib.rbf_gram_occupancy(0, 8)}, float64 "
           f"{lib.rbf_gram_occupancy(1, 8)} (128 threads a block)", flush=True)
     print_psi2_backward_plans()
+    print_psi2_forward_plans()
+
+
+# registers and spills of each kernel, as ptxas reported them in the build
+PTXAS = {}
+# (N, M, D) of the psi2 forward's plan printout: both cells, phase 10's
+# edges, the cap
+PSI2_FWD_PLAN_SHAPES = ((7372, 256, 2), (1500, 100, 8), (300, 1, 2),
+                        (700, 65, 2), (1, 100, 8), (33, 100, 8),
+                        (2000, 512, 2), (500, 64, 12))
+
+
+def print_psi2_forward_plans():
+    """The psi2 forward's launch plan, symmetric and general, at both
+    cells' shapes and phase 10's: micro-tiles, groups x chunks blocks,
+    threads, the ring's stages and box, shared memory, scratch (also at
+    1000 N), registers and spills (ptxas), resident blocks an SM (raises
+    below 1)."""
+    lib = build.load_library("psi2")
+    lib.psi2_fwd_occupancy.argtypes = [ctypes.c_int, ctypes.c_int,
+                                       ctypes.c_int64]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for N, M_, D in PSI2_FWD_PLAN_SHAPES:
+        for sym in (True, False):
+            p = psi2.forward_plan(N, M_, D, sms, sym)
+            big = psi2.forward_plan(1000 * N, M_, D, sms, sym)
+            occ = lib.psi2_fwd_occupancy(D, p["threads"], p["smem_bytes"])
+            dt = D if D <= 4 else 0
+            regs = [f"{v.get('registers')} registers, "
+                    f"{v.get('spill bytes')} B spilled"
+                    for k, v in PTXAS.items()
+                    if f"psi2_fwd_kernelILi{dt}E" in k]
+            print(f"psi2 forward plan N={N} M={M_} D={D} symmetric={sym}: "
+                  f"{p['tiles']} micro-tiles in {p['groups']} groups of "
+                  f"{32 * p['wt']} x {p['chunks']} chunks of "
+                  f"{p['rows_per_chunk']} rows = {p['blocks']} blocks of "
+                  f"{p['threads']} threads ({p['row_groups']} row groups), "
+                  f"{p['stages']} stages of {p['rows_per_step']} rows x "
+                  f"{p['box']} columns, {p['smem_bytes']} B shared memory; "
+                  f"scratch {4 * p['scratch_floats']} B (at {1000 * N} rows "
+                  f"{4 * big['scratch_floats']} B); ptxas "
+                  f"{regs[0] if regs else 'not reported'}; resident blocks "
+                  f"an SM {occ}", flush=True)
+            check(occ >= 1, f"psi2 forward plan N={N} M={M_} D={D}: no "
+                            f"block fits an SM")
 
 
 # (N, M, D) of the psi2 backward's plan printout: both cells and the cap
@@ -3007,6 +3378,8 @@ def main():
                                                   collapsed["operands"])
     psi2_shapes, collapsed_paths = phase_collapsed_timings(collapsed, card)
     lap("9-11")
+    f64_route = phase_f64_route(collapsed, args.seed, card)
+    lap(24)
     train_shapes["psi2_core_forward"] = psi2_shapes
     launches["psi2_core_forward"] = collapsed["main_counts"][
         "psi2_core_forward"]
@@ -3063,6 +3436,7 @@ def main():
                       "collapsed": {n: collapsed[n] for n in COLLAPSED},
                       "collapsed_launches_per_call": collapsed["launches"],
                       "collapsed_paths": collapsed_paths,
+                      "collapsed_f64_route": f64_route,
                       "collapsed_grad_rel_err": collapsed_grads,
                       "collapsed_fits": collapsed_fits,
                       "collapsed_fit_launches": fit_counts,

@@ -41,12 +41,14 @@ class Config:
     # whose backward reads the forward's gram instead of recomputing it)
     use_pallas: bool | str = False
     precision: str = "mixed"
-    # 'auto' | 'pallas' | 'xla': the route of the RBF psi2 data sum
-    # (ops/psi_stats.py), with the JAX field's names.  'auto' and
-    # 'pallas' are both the kernel route, ops/cuda/psi2.py: on a CUDA
-    # tensor the kernel, which takes float32, M <= 512 and 1 <= D <= 32
-    # and raises otherwise; on a CPU tensor its plain version.  'xla' is
-    # the plain blocked torch path on any device.  The JAX 'auto' gates
+    # 'auto' | 'pallas' | 'xla': the route of the RBF psi2 data sum, with
+    # the JAX field's names (ops/psi_stats.py::psi2_route).  'auto': on a
+    # CUDA tensor the kernel (ops/cuda/psi2.py) where it takes the call
+    # (float32, M <= 512, 1 <= D <= 32), else the plain blocked torch
+    # path; on a CPU tensor the kernel's plain version.  'pallas': the
+    # kernel route always, which on a CUDA tensor raises where the kernel
+    # cannot take the call (the JAX 'pallas' falls back to XLA there).
+    # 'xla': the plain path on any device.  The JAX 'auto' gates
     # (PSI2_KERNEL_MIN_M/MAX_D) are TPU profitability measurements and do
     # not carry over.
     psi2_impl: str = "auto"

@@ -54,8 +54,8 @@
 // each group recomputes the exps).  No atomics: repeat launches are
 // bit-identical.  Ragged N and M are masked, not padded: a row past the
 // end has logdet = -inf and adds exactly 0, and g is 0 past M.  Row
-// offsets are 64-bit.  exp is __expf, the variant the forward's wrapper
-// uses.  The launch plan (rows a chunk, chunks, blocks, shared memory)
+// offsets are 64-bit.  exp is __expf (ex2.approx, as in the forward).
+// The launch plan (rows a chunk, chunks, blocks, shared memory)
 // comes from ops/cuda/psi2.py::backward_plan, which mirrors smem_floats.
 
 #include <cuda_runtime.h>

@@ -12,16 +12,6 @@ namespace psi2 {
 constexpr int kMaxD = 32;
 constexpr int kMaxM = 512;
 
-// __expf (ex2.approx) or expf
-template <bool kFastExp>
-__device__ __forceinline__ float exp_(float x) {
-  if constexpr (kFastExp) {
-    return __expf(x);
-  } else {
-    return expf(x);
-  }
-}
-
 // One step of Kahan's compensated sum: sum += x, the rounding error kept
 // in comp.
 __device__ __forceinline__ void kahan_add(float& sum, float& comp, float x) {

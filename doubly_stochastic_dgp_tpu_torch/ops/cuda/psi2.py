@@ -19,6 +19,13 @@ the whole cotangent: the convention of the JAX kernels, which the JAX
     gw[n,d] = -sum_ab P Z[a,d] Z[b,d],
     gZ[c,d] = -sum_n w[n,d] (sum_b P[n,c,b] Z[b,d] + sum_a P[n,a,c] Z[a,d]).
 
+``symmetric=True`` says that U and V make ``out`` symmetric (one RBF
+kernel's staging, where U = V - t/2 row by row): the forward then computes
+each a <= b once and mirrors it, so the output is bitwise symmetric.  The
+backward is the general one either way: U and V are functions of the same
+parameters, so the total derivative with respect to them is unchanged;
+only its split between gU and gV differs, which no caller reads.
+
 What bounds them on an H100: operations (one exp per (n, a, b) term and
 4 + 2D flops forward, 8 + 6D backward; see :func:`terms`, :func:`flops`
 and :func:`backward_flops`), so the kernels keep the (N, M, M) block out
@@ -26,7 +33,8 @@ of memory: the backward recomputes the exponentials.  Both add their
 partial sums in a fixed order (deterministic).
 
 Routing: a CPU tensor takes the plain versions; a CUDA tensor launches the
-kernels or raises: there is no fallback.  ``psi2_core.launches`` counts the
+kernels or raises: there is no fallback (:func:`kernel_supports` says
+beforehand what the kernels take).  ``psi2_core.launches`` counts the
 forward kernel's launches, ``psi2_core.backward_launches`` the backward's.
 """
 
@@ -34,19 +42,34 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 __all__ = ["psi2_core", "psi2_core_forward", "psi2_core_plain",
            "psi2_core_backward", "psi2_core_backward_plain", "terms", "flops",
-           "backward_flops", "backward_plan", "MAX_M", "MAX_D"]
+           "backward_flops", "forward_plan", "backward_plan",
+           "kernel_supports", "MAX_M", "MAX_D"]
 
 # the kernel's limits (the JAX kernel's _MAX_M, _MAX_D); N is not limited:
 # the kernel streams rows and stages nothing of size N
 MAX_M = 512
 MAX_D = 32
-FAST_EXP = True      # __expf in the kernel (see PERF.md for the choice)
-_ROWS, _TILE, _BLOCKS_PER_SM = 32, 64, 4   # as in csrc/psi2.cu
+# csrc/psi2.cu's forward, mirrored by forward_plan: warps a block (tile
+# warps x row groups), rows a row group a step, chunks x tile warps a
+# group's last block adds (x 512 floats), chunks, dynamic shared memory a
+# block
+_FWD_WARPS, _FWD_KR, _FWD_REDUCE, _FWD_CHUNKS = 16, 8, 96, 16
+# the plan's cost model: staging a row costs about 0.7 of a tile warp's
+# terms on it, and an SM's rate grows as the square root of its warps up
+# to 16.  Held to chip_smoke.py's wt sweep (every wt timed at both
+# collapsed cells' shapes, PERF.md section 6): on an H100 it picks the
+# fastest wt there, symmetric and general
+_FWD_STAGE_COST = 0.7
+_FWD_SMEM_MAX = 200 * 1024
+# the first design (design='two_pass'): 32-row steps, 64 x 64 tiles, about
+# four blocks an SM
+_ROWS, _TILE, _BLOCKS_PER_SM = 32, 64, 4
 # csrc/psi2_bwd.cu's tiling, mirrored by backward_plan: threads a block
 # (16 x 16), b's a sub-tile, rows a step, d's of gw and Q a block when
 # D > 8, the row stride of the per-thread partials; shared memory a block
@@ -70,9 +93,18 @@ def _pre(Ub, Vb, wb, Z):
     return pre
 
 
-def psi2_core_plain(U, V, w, logdet, Z):
+def psi2_core_plain(U, V, w, logdet, Z, symmetric=False):
     """Plain PyTorch version: a blocked mirror of the JAX
-    ``_xla_blocked_core`` (same block rows and d-loop arithmetic)."""
+    ``_xla_blocked_core`` (same block rows and d-loop arithmetic); with
+    ``symmetric`` its upper triangle, mirrored."""
+    out = _plain_sum(U, V, w, logdet, Z)
+    if not symmetric:
+        return out
+    upper = torch.triu(out)
+    return upper + torch.triu(out, 1).T
+
+
+def _plain_sum(U, V, w, logdet, Z):
     N, M = U.shape
 
     def block(Ub, Vb, wb, ldb):
@@ -117,16 +149,118 @@ def psi2_core_backward_plain(U, V, w, logdet, Z, g):
     return gU, gV, gw, glogdet, gZ
 
 
-def terms(N, M):
-    """(n, a, b) terms of one call: each is one exp."""
-    return N * M * M
+def terms(N, M, symmetric=False):
+    """(n, a, b) terms of one call, each one exp: all M x M, or the upper
+    triangle's M (M + 1) / 2 for a symmetric call."""
+    return N * (M * (M + 1) // 2 if symmetric else M * M)
 
 
-def flops(N, M, D):
+def flops(N, M, D, symmetric=False):
     """fp32 flops of one call besides the exps: per term U + V, D
     multiply-adds, the clamp, + logdet and the sum (an FMA counts as
     two)."""
-    return terms(N, M) * (4 + 2 * D)
+    return terms(N, M, symmetric) * (4 + 2 * D)
+
+
+def kernel_supports(M, D, dtype):
+    """Whether the CUDA kernels take a call: float32, M <= MAX_M and
+    1 <= D <= MAX_D (N is not limited).  The JAX ``psi2_kernel_supported``
+    also caps N M; the port's kernels stream rows and need no cap."""
+    return dtype == torch.float32 and M <= MAX_M and 1 <= D <= MAX_D
+
+
+def _fwd_smem_floats(M, D, row_groups, box, threads, stages):
+    """Shared memory of a forward block in floats: csrc/psi2.cu's
+    smem_floats (the ring of ``stages`` stages for the widest box, the
+    per-thread totals and compensations and, for D > 4, Z)."""
+    stage = -(-_FWD_KR * row_groups * (box + D + 1) // 4) * 4
+    return (stages * stage + 32 * threads
+            + (D * 4 * -(-M // 4) if D > 4 else 0))
+
+
+def _decode(k, P, symmetric):
+    """csrc/psi2.cu's decode: micro-tile number -> (i, j), row-major over
+    P x P or over i <= j."""
+    if not symmetric:
+        return divmod(k, P)
+    i = 0
+    while k >= P - i:
+        k -= P - i
+        i += 1
+    return i, i + k
+
+
+def _group_box(g, width, tiles, P, symmetric):
+    """(a_lo, a's, b_lo, b's) in micro-tiles of the box that group g of
+    ``width`` micro-tiles stages (csrc/psi2.cu, psi2_fwd_kernel): its
+    micro-rows i0..i1; on one row its micro-columns, else from the first
+    row's j0 (or the next row's diagonal) to the end."""
+    (i0, j0) = _decode(g * width, P, symmetric)
+    (i1, j1) = _decode(min(tiles, (g + 1) * width) - 1, P, symmetric)
+    if i0 == i1:
+        return i0, 1, j0, j1 + 1 - j0
+    b_lo = min(j0, i0 + 1) if symmetric else 0
+    return i0, i1 - i0 + 1, b_lo, P - b_lo
+
+
+@functools.lru_cache(maxsize=256)
+def forward_plan(N, M, D, sms=132, symmetric=False, wt=None):
+    """The forward kernel's launch plan.
+
+    A thread owns a 4 x 4 micro-tile of (a, b); the ``tiles`` micro-tiles
+    (all P x P, P = ceil(M / 4), or the ``symmetric`` upper triangle's P
+    (P + 1) / 2) are taken row-major by ``groups`` groups of ``wt`` warps'
+    worth (32 wt).  A block is a group's ``row_groups`` x ``wt`` warps over
+    one of ``chunks`` chunks of ``rows_per_chunk`` rows, 8 rows a row
+    group a step (``rows_per_step`` = 8 row_groups).  A group stages the
+    U and V columns of its box, at most ``box`` floats a row, through a
+    ring of ``stages`` steps (3, or 2 where shared memory is short).  wt (and
+    row_groups = 16 // wt) is chosen by a cost model of the kernel's time:
+    waves of blocks x a block's rows x (wt + the staging's cost) over the
+    SM's rate at its warps; the chunks are as many as fill the SMs once,
+    at most 16 and 96 / wt (the floats that a group's last block adds are
+    512 x chunks x wt), and a chunk holds at least 8 rows.  With
+    more than one chunk the launch's scratch holds ``scratch_floats`` =
+    chunks x groups x 512 wt floats of the chunks' sums and the ``groups``
+    ticket counters, bounded whatever N.  ``wt`` (private, for timing
+    the choices) fixes wt.  Cached: the wrapper asks at every launch."""
+    P = -(-M // 4)
+    tiles = P * (P + 1) // 2 if symmetric else P * P
+    tile_warps = -(-tiles // 32)
+    best = None
+    for wt in ([wt] if wt else range(1, min(tile_warps, _FWD_WARPS) + 1)):
+        groups = -(-tile_warps // wt)
+        R = _FWD_WARPS // wt
+        S = _FWD_KR * R
+        threads = 32 * wt * R
+        box = 4 * max(na + nb for _, na, _, nb in (
+            _group_box(g, 32 * wt, tiles, P, symmetric)
+            for g in range(groups)))
+        stages = 3 if 4 * _fwd_smem_floats(
+            M, D, R, box, threads, 3) <= _FWD_SMEM_MAX else 2
+        smem = 4 * _fwd_smem_floats(M, D, R, box, threads, stages)
+        if smem > _FWD_SMEM_MAX:
+            continue
+        chunks = max(1, min(sms // groups, _FWD_CHUNKS, _FWD_REDUCE // wt,
+                            N // _FWD_KR))
+        rows = -(-N // chunks)
+        chunks = -(-N // rows)
+        waves = -(-groups * chunks // sms)
+        cost = (waves * rows * (wt + _FWD_STAGE_COST)
+                / math.sqrt(wt * R / _FWD_WARPS))
+        if best is None or cost < best[0]:
+            best = (cost, {
+                "symmetric": bool(symmetric), "tiles": tiles, "wt": wt,
+                "groups": groups, "row_groups": R, "rows_per_step": S,
+                "box": box, "threads": threads, "chunks": chunks,
+                "rows_per_chunk": rows, "blocks": groups * chunks,
+                "stages": stages, "smem_bytes": smem,
+                "scratch_floats": (chunks * groups * 512 * wt + groups
+                                   if chunks > 1 else 0)})
+    if best is None:
+        raise ValueError(f"psi2_core forward: M={M}, D={D} leaves no room "
+                         f"for a block's shared memory")
+    return best[1]
 
 
 def backward_flops(N, M, D):
@@ -139,8 +273,9 @@ def backward_flops(N, M, D):
 
 
 def _chunks(N, M, sms):
-    """Row chunks of one launch: enough (tiles x chunks) blocks to give
-    each SM about four, and no more chunks than 32-row steps."""
+    """Row chunks of a launch of the first design: enough (tiles x chunks)
+    blocks to give each SM about four, and no more chunks than 32-row
+    steps."""
     tiles = (-(-M // _TILE)) ** 2
     steps = -(-N // _ROWS)
     target = max(1, _BLOCKS_PER_SM * sms // tiles)
@@ -213,9 +348,22 @@ def _sm_count(device):
 def _fwd_fn():
     from .build import load_library
     fn = load_library("psi2").psi2_fwd
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _two_pass_fn():
+    from .build import load_library
+    fn = load_library("psi2").psi2_fwd_two_pass
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int,
                                            ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
+                                           ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -244,8 +392,8 @@ def _check(U, V, w, logdet, Z, g=None):
     if M > MAX_M or not 1 <= D <= MAX_D:
         raise ValueError(f"psi2_core: M={M}, D={D} outside the kernel's "
                          f"limits M <= {MAX_M}, 1 <= D <= {MAX_D} "
-                         f"(Config.psi2_impl='xla' takes the plain psi2 "
-                         f"route)")
+                         f"(Config.psi2_impl='auto' or 'xla' takes the "
+                         f"plain psi2 route there)")
     for name, t in (("U", U), ("V", V), ("w", w), ("logdet", logdet),
                     ("Z", Z)) + (() if g is None else (("g", g),)):
         if t.device != U.device:
@@ -253,27 +401,52 @@ def _check(U, V, w, logdet, Z, g=None):
                              f"{U.device}")
         if t.dtype != torch.float32:
             raise TypeError(f"psi2_core: the CUDA kernel takes float32; "
-                            f"{name} is {t.dtype} (Config.psi2_impl='xla' "
-                            f"takes the plain psi2 route)")
+                            f"{name} is {t.dtype} (Config.psi2_impl='auto' "
+                            f"or 'xla' takes the plain psi2 route there)")
         if not t.is_contiguous():
             raise ValueError(f"psi2_core: {name} must be contiguous")
     return N, M, D
 
 
-def _forward_kernel(U, V, w, logdet, Z, fast_exp):
+def _forward_kernel(U, V, w, logdet, Z, symmetric=False, design="one_pass",
+                    wt=None):
+    """Launch the forward kernel.  The launch's scratch (the chunks' sums
+    and its ticket counters) comes from the caching allocator on the
+    current stream, so launches on several streams, or in several CUDA
+    graphs, never share it.  Private, for timing: ``wt`` fixes the plan's
+    wt (:func:`forward_plan`); ``design='two_pass'`` launches the first
+    design, which computes the full square (so ``symmetric`` does not
+    apply) and adds its chunks in a second kernel."""
     N, M, D = _check(U, V, w, logdet, Z)
     out = torch.empty(M, M, dtype=torch.float32, device=U.device)
     if N == 0:
         return out.zero_()
-    chunks = _chunks(N, M, _sm_count(U.device))
-    scratch = (torch.empty(chunks * M * M, dtype=torch.float32,
-                           device=U.device) if chunks > 1 else None)
+    sms = _sm_count(U.device)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = _fwd_fn()(U.data_ptr(), V.data_ptr(), w.data_ptr(),
-                        logdet.data_ptr(), Z.data_ptr(), out.data_ptr(),
-                        None if scratch is None else scratch.data_ptr(),
-                        N, M, D, chunks, int(fast_exp), stream)
+        if design == "two_pass":
+            chunks = _chunks(N, M, sms)
+            scratch = (torch.empty(chunks * M * M, dtype=torch.float32,
+                                   device=U.device) if chunks > 1 else None)
+            err = _two_pass_fn()(
+                U.data_ptr(), V.data_ptr(), w.data_ptr(), logdet.data_ptr(),
+                Z.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), N, M, D,
+                chunks, stream)
+        elif design == "one_pass":
+            plan = forward_plan(N, M, D, sms, bool(symmetric), wt)
+            scratch = (torch.empty(plan["scratch_floats"],
+                                   dtype=torch.float32, device=U.device)
+                       if plan["chunks"] > 1 else None)
+            err = _fwd_fn()(
+                U.data_ptr(), V.data_ptr(), w.data_ptr(), logdet.data_ptr(),
+                Z.data_ptr(), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), N, M, D,
+                int(symmetric), plan["wt"], plan["row_groups"],
+                plan["rows_per_chunk"], plan["box"], plan["stages"],
+                plan["groups"], plan["chunks"], plan["smem_bytes"], stream)
+        else:
+            raise ValueError(f"psi2_core: unknown design {design!r}")
     if err != 0:
         raise RuntimeError(f"psi2_core: kernel launch failed with CUDA "
                            f"error {err}")
@@ -281,15 +454,16 @@ def _forward_kernel(U, V, w, logdet, Z, fast_exp):
     return out
 
 
-def psi2_core_forward(U, V, w, logdet, Z, fast_exp=FAST_EXP):
+def psi2_core_forward(U, V, w, logdet, Z, symmetric=False):
     """The (M, M) data sum: the plain version for CPU tensors, the kernel
-    for CUDA tensors (``fast_exp``: __expf, else expf).  Not
-    differentiable: :func:`psi2_core` is."""
+    for CUDA tensors (``symmetric``: U and V make the output symmetric,
+    and each a <= b is computed once).  Not differentiable:
+    :func:`psi2_core` is."""
     if U.device.type == "cpu":
-        return psi2_core_plain(U, V, w, logdet, Z)
+        return psi2_core_plain(U, V, w, logdet, Z, symmetric)
     if U.device.type != "cuda":
         raise ValueError(f"psi2_core: unsupported device {U.device}")
-    return _forward_kernel(U, V, w, logdet, Z, fast_exp)
+    return _forward_kernel(U, V, w, logdet, Z, symmetric)
 
 
 def _backward_kernel(U, V, w, logdet, Z, g):
@@ -336,21 +510,25 @@ class _Psi2Core(torch.autograd.Function):
     of the inputs that need one."""
 
     @staticmethod
-    def forward(ctx, U, V, w, logdet, Z):
+    def forward(ctx, U, V, w, logdet, Z, symmetric):
         ctx.save_for_backward(U, V, w, logdet, Z)
-        return psi2_core_forward(U, V, w, logdet, Z)
+        return psi2_core_forward(U, V, w, logdet, Z, symmetric)
 
     @staticmethod
     def backward(ctx, g):
         grads = psi2_core_backward(*ctx.saved_tensors, g.contiguous())
         return tuple(gr if need else None
-                     for gr, need in zip(grads, ctx.needs_input_grad))
+                     for gr, need in zip(grads, ctx.needs_input_grad)) + (
+            None,)
 
 
-def psi2_core(U, V, w, logdet, Z):
+def psi2_core(U, V, w, logdet, Z, symmetric=False):
     """sum_n exp(logdet_n + min(U_na + V_nb - sum_d w_nd Z_ad Z_bd, 0)),
-    (M, M); the counterpart of the JAX ``psi2_core``."""
-    return _Psi2Core.apply(U, V, w, logdet, Z)
+    (M, M); the counterpart of the JAX ``psi2_core``.  ``symmetric``: U
+    and V make the output symmetric (one RBF kernel's staging); the
+    forward computes each a <= b once and mirrors it, the backward is the
+    general one (see the module's docstring)."""
+    return _Psi2Core.apply(U, V, w, logdet, Z, symmetric)
 
 
 psi2_core.launches = 0

@@ -8,14 +8,16 @@ diagonal-Gaussian inputs x_n ~ N(mu_n, diag(S_n)):
 Counterpart of ``doubly_stochastic_dgp_tpu/ops/psi_stats.py`` for RBF and
 for ``Sum`` of RBFs and Whites (with the RBF x RBF cross terms).  The RBF
 psi2 data sum stages the one-sided quadratics U, V, the widths w and
-logdet as (N, M) / (N, D) arrays and takes one of two routes
-(``Config.psi2_impl``, carried by the layer): 'auto' and 'pallas' are
-the kernel route, ``ops.cuda.psi2.psi2_core`` (on a CUDA tensor the CUDA
-kernel, which launches or raises; on a CPU tensor its plain version);
-'xla' is the plain route, which forms the (block, M, M) terms in row
-blocks on any device.  Every contraction is a plain fp32/f64 matmul:
-the port never enables TF32, which is the JAX package's HIGHEST-precision
-contract here.
+logdet as (N, M) / (N, D) arrays and takes one of two routes, which
+:func:`psi2_route` picks from ``Config.psi2_impl`` (carried by the layer),
+the device, M, D and the dtype before anything launches: the kernel
+route, ``ops.cuda.psi2.psi2_core`` (on a CUDA tensor the CUDA kernel,
+which launches or raises; on a CPU tensor its plain version), or the
+plain route, which forms the (block, M, M) terms in row blocks on any
+device.  A single RBF's psi2 is symmetric, and its kernel call says so
+(``symmetric=True``: each a <= b computed once).  Every contraction is a
+plain fp32/f64 matmul: the port never enables TF32, which is the JAX
+package's HIGHEST-precision contract here.
 The Linear kernel's psi statistics are not ported yet (ROADMAP A10).
 """
 
@@ -23,10 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from .cuda.psi2 import psi2_core
+from .cuda.psi2 import kernel_supports, psi2_core
 from .kernels import RBF, Sum, White
 
-__all__ = ["psi_statistics"]
+__all__ = ["psi_statistics", "psi2_route"]
 
 # Rows per block of the plain psi2 data sum, and the element budget of one
 # (block, M, M) transient (the JAX PSI2_BLOCK_ROWS / PSI2_BLOCK_ELEMS)
@@ -36,6 +38,32 @@ PSI2_BLOCK_ELEMS = 8192 * 100 * 100
 
 def _psi2_block_rows(M):
     return min(PSI2_BLOCK_ROWS, max(128, PSI2_BLOCK_ELEMS // (M * M)))
+
+
+def psi2_route(psi2_impl, device, M, D, dtype):
+    """'kernel' or 'plain': the route of an RBF psi2 data sum.
+
+    'xla' takes the plain route.  'auto' takes the kernel route on a CPU
+    tensor (the kernel's plain version) and on a CUDA tensor wherever the
+    kernel takes the call (:func:`~.cuda.psi2.kernel_supports`: float32,
+    M <= 512, 1 <= D <= 32), else the plain route, as the JAX
+    ``_psi2_route`` gives the kernel only what it supports; the kernel
+    route won on the card where it runs (PERF.md).  'pallas' is the
+    explicit request for the kernel: it takes the kernel route, which on a
+    CUDA tensor raises where the kernel cannot take the call.  There the
+    JAX 'pallas' falls back to XLA; the port does not.  On any other device
+    'auto' takes the plain route.  Chosen from these alone, before any
+    launch: the kernel route never falls back after a failed launch."""
+    if psi2_impl == "xla":
+        return "plain"
+    if psi2_impl == "pallas":
+        return "kernel"
+    device = torch.device(device)
+    if device.type == "cpu":
+        return "kernel"
+    if device.type == "cuda" and kernel_supports(M, D, dtype):
+        return "kernel"
+    return "plain"
 
 
 def _blocked_data_sum(block_fn, N, out_shape, dtype, device):
@@ -74,7 +102,8 @@ def _rbf_cross_psi2(ka, kb, mu, S, Z, psi2_impl):
     h = ab/(a+b) (a, b the squared lengthscales) and centre c = beta z +
     alpha z' (alpha = a/(a+b), beta = b/(a+b)), times exp(-(z-z')^2 /
     (2(a+b))); E_x of what is left is sqrt(h/(h+s)) exp(-(mu-c)^2 /
-    (2(h+s))).  With a == b it is the single-RBF psi2."""
+    (2(h+s))).  With a == b it is the single-RBF psi2, symmetric in
+    (m, m'): the kernel route then computes each m <= m' once."""
     va = ka.variance.value
     vb = kb.variance.value
     a = ka.lengthscales.value ** 2 + torch.zeros_like(mu[0])     # (D,)
@@ -103,11 +132,12 @@ def _rbf_cross_psi2(ka, kb, mu, S, Z, psi2_impl):
     Uq = -0.5 * (t_mu2[:, None] - 2.0 * P1 + Q1)
     Vq = -0.5 * (Q2 - 2.0 * P2)
     wq = inv * alpha * beta
-    if psi2_impl != "xla":
+    if psi2_route(psi2_impl, mu.device, M, Z.shape[1], mu.dtype) == "kernel":
         # the kernel assembles, exponentiates and sums the (N, M, M) terms
         # (on a CUDA tensor it launches or raises; there is no fallback)
         T = psi2_core(Uq.contiguous(), Vq.contiguous(), wq.contiguous(),
-                      logdet.contiguous(), Z.contiguous())       # (M, M)
+                      logdet.contiguous(), Z.contiguous(),
+                      symmetric=ka is kb)                        # (M, M)
         return va * vb * torch.exp(log_zz) * T
 
     def block_sum(rows):

@@ -7,7 +7,9 @@ float32, as the JAX gram tests).
 
 One test item that loops over its cases and names the failing case in
 every assertion message; it also checks the CUDA kernels' launch plans,
-which are plain Python (``forward_plan``, ``backward_plan``).  On the CPU the port's wrappers and autograd
+which are plain Python (``forward_plan``, ``backward_plan``, the psi2
+forward's and backward's), and the psi2 forward kernel's base-2
+arithmetic, emulated in float64.  On the CPU the port's wrappers and autograd
 Functions take the plain versions (the CUDA kernels themselves are
 checked against them on the card by ``chip_smoke.py``), so no launch
 counter may move."""
@@ -27,6 +29,8 @@ from doubly_stochastic_dgp_tpu.ops.pallas.gram import rbf_gram as jax_rbf_gram
 from doubly_stochastic_dgp_tpu.ops.pallas.psi2 import (
     _psi2_core_bwd_call, psi2_core as jax_psi2_core, psi2_core_pallas_fwd,
     psi2_core_reference)
+import doubly_stochastic_dgp_tpu_torch as port
+from doubly_stochastic_dgp_tpu_torch.ops import psi_stats as tpsi_stats
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import gram as tgram
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import psi2 as tpsi2
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import conditional as tcond
@@ -270,6 +274,215 @@ def _check_psi2_limits():
             continue
         raise AssertionError(f"psi2_core kernel checks: {case} did not "
                              f"raise {err.__name__}")
+
+
+def _rbf_staging(N, M, D, seed):
+    """The float64 (U, V, w, logdet, Z) and the symmetric flag that a
+    single RBF's psi statistics hand psi2_core on the CPU (captured)."""
+    rng = np.random.RandomState(seed)
+    mu, Sv, Z = rng.randn(N, D) + 2.0, np.exp(rng.randn(N, D)) * 0.2, (
+        rng.randn(M, D) + 2.0)
+    kern = port.RBF(D, lengthscales=rng.uniform(0.7, 1.5, D)).double()
+    got, inner = [], tpsi_stats.psi2_core
+
+    def record(*args, symmetric=False):
+        got.append(([a.detach().numpy().copy() for a in args], symmetric))
+        return inner(*args, symmetric=symmetric)
+
+    tpsi_stats.psi2_core = record
+    try:
+        tpsi_stats.psi_statistics(kern, *(torch.from_numpy(a) for a in
+                                           (mu, Sv, Z)), "auto")
+    finally:
+        tpsi_stats.psi2_core = inner
+    assert len(got) == 1, f"psi_statistics called psi2_core {len(got)} times"
+    return got[0]
+
+
+def _fma32(a, b, c):
+    """fmaf: the float32 product is exact in float64, the sum is rounded
+    to float64 and then to float32 (a double rounding, which differs from
+    one rounding only at rare ties)."""
+    return (a.astype(np.float64) * b + c).astype(np.float32)
+
+
+def _kahan32(total, comp, x):
+    y = x - comp
+    t = total + y
+    return t, (t - total) - y
+
+
+def _kernel_forward_f32(U, V, w, logdet, Z, symmetric):
+    """csrc/psi2.cu's forward emulated in float32, step for step, on
+    forward_plan's plan: pre = U + V, then fmaf(-(w Z[a,d]), Z[b,d], pre)
+    for d ascending; 2^fmaf(min(pre, 0), L, logdet L) with L = log2(e)
+    rounded to float32 (the kernel's ex2.approx is within 2 ulp of it);
+    each row group's rows added in their order into a register sum, which
+    goes into a Kahan total every 4 steps; then the row groups' totals
+    and the chunks' in order (Kahan); the upper triangle mirrored when
+    ``symmetric``."""
+    f32 = np.float32
+    U, V, w, logdet, Z = (np.asarray(a, f32) for a in (U, V, w, logdet, Z))
+    N, M = U.shape
+    L = f32(1.4426950408889634)
+    pre = U[:, :, None] + V[:, None, :]
+    for d in range(Z.shape[1]):
+        wz = w[:, d:d + 1] * Z[None, :, d]
+        pre = _fma32(-wz[:, :, None], Z[None, None, :, d], pre)
+    x = _fma32(np.minimum(pre, f32(0)), L, (logdet * L)[:, :, None])
+    e = np.exp2(x.astype(np.float64)).astype(f32)
+    p = tpsi2.forward_plan(N, M, Z.shape[1], symmetric=symmetric)
+    R, S, rc = p["row_groups"], p["rows_per_step"], p["rows_per_chunk"]
+    zero = np.zeros((M, M), f32)
+    out, out_c = zero, zero
+    for c in range(p["chunks"]):
+        n0, n1 = c * rc, min(N, (c + 1) * rc)
+        v, v_c = zero, zero
+        for rg in range(R):
+            part, part_c, reg = zero, zero, zero
+            for s, s0 in enumerate(range(n0, n1, S)):
+                for q in range(8):
+                    if s0 + rg + R * q < min(n1, s0 + S):
+                        reg = reg + e[s0 + rg + R * q]
+                if s % 4 == 3:
+                    part, part_c = _kahan32(part, part_c, reg)
+                    reg = zero
+            part, part_c = _kahan32(part, part_c, reg)
+            v, v_c = _kahan32(v, v_c, part)
+        out, out_c = _kahan32(out, out_c, v)
+    return np.triu(out) + np.triu(out, 1).T if symmetric else out
+
+
+def _check_kernel_arithmetic(case, args, symmetric):
+    """The emulated kernel (float32) against the float64 JAX reference,
+    by phase 10's gates: within 2x the plain float32 version's error, and
+    within 1e-4 of the output scale of the plain float32 version.  On
+    these operands it fails for a serial float32 sum in place of the
+    Kahan sums, or an exp argument off by 1e-4 of itself; not for folding
+    log2(e) and logdet into U, which only collapsed_L2's operands on the
+    card (phase 10) show."""
+    ref = np.asarray(psi2_core_reference(*map(jnp.asarray, args)))
+    scale = max(np.abs(ref).max(), 1.0)
+    got = _kernel_forward_f32(*args, symmetric)
+    plain = tpsi2.psi2_core_plain(
+        *(torch.from_numpy(a).float() for a in args),
+        symmetric=symmetric).double().numpy()
+    e_k = np.abs(got - ref).max() / scale
+    e_p = np.abs(plain - ref).max() / scale
+    assert e_k <= 2 * e_p and np.abs(got - plain).max() <= 1e-4 * scale, (
+        f"{case}: the kernel's float32 arithmetic {e_k:.3e} of scale from "
+        f"float64, the plain float32 version {e_p:.3e}")
+
+
+def _check_psi2_symmetric():
+    """A single RBF's staging (captured from psi_statistics): the call says
+    symmetric=True; psi2_core_plain, the forward wrapper and the Function
+    with symmetric=True on the CPU against the JAX reference and the
+    interpret-mode Pallas forward, exactly symmetric; and the kernel's
+    float32 arithmetic, emulated, against the reference on it (symmetric)
+    and on PSI2_CASES (general)."""
+    for N, M, D, seed in ((57, 13, 3, 31), (90, 21, 2, 32)):
+        case = f"psi2 symmetric RBF staging N={N} M={M} D={D}"
+        args, symmetric = _rbf_staging(N, M, D, seed)
+        assert symmetric is True, f"{case}: the call is not symmetric"
+        jargs = [jnp.asarray(a) for a in args]
+        targs = [torch.from_numpy(a) for a in args]
+        refs = {"psi2_core_reference": psi2_core_reference(*jargs),
+                "interpret-mode Pallas forward":
+                    psi2_core_pallas_fwd(*jargs, True)}
+        ports = {"plain": tpsi2.psi2_core_plain(*targs, symmetric=True),
+                 "forward wrapper on CPU":
+                     tpsi2.psi2_core_forward(*targs, symmetric=True),
+                 "autograd Function on CPU":
+                     tpsi2.psi2_core(*targs, symmetric=True)}
+        for pname, got in ports.items():
+            got = got.numpy()
+            assert (got == got.T).all(), f"{case}: {pname} not symmetric"
+            for rname, want in refs.items():
+                assert_allclose(got, np.asarray(want), rtol=RTOL, atol=ATOL,
+                                err_msg=f"{case}: {pname} vs {rname}")
+        _check_kernel_arithmetic(case, args, True)
+    for name, kw in PSI2_CASES:
+        _check_kernel_arithmetic(f"psi2 {name}", _psi2_inputs(**kw), False)
+
+
+# (N, M, D) the psi2 forward's launch plan is checked at: both cells'
+# shapes, M = 1, one past a 64 tile, one row, one past a 32-row step, the
+# ragged, D = 12, M = 512 and clamp cases of phase 10, D = 32, N far
+# beyond one wave
+PSI2_FWD_PLAN_SHAPES = [(7372, 256, 2), (1500, 100, 8), (1500, 1, 8),
+                        (1500, 65, 2), (1, 100, 8), (33, 100, 8),
+                        (1301, 100, 3), (500, 64, 12), (2000, 512, 2),
+                        (300, 37, 2), (2000, 512, 32), (10 ** 6, 256, 2)]
+
+
+def _check_psi2_forward_plan():
+    """The psi2 forward's launch plan (plain Python, handed to the
+    kernel), symmetric and general, with the kernel's decoding replayed:
+    every (a, b) with a <= b (symmetric) or every (a, b) (general) in
+    exactly one micro-tile of one group, inside the box the group stages,
+    and the ring sized for the widest box; every row in exactly one chunk,
+    step and row group; shared memory and threads within the kernel's
+    limits; the scratch independent of N."""
+    for (N, M, D), sym in [(s, y) for s in PSI2_FWD_PLAN_SHAPES
+                           for y in (True, False)]:
+        case = f"psi2 forward plan N={N} M={M} D={D} symmetric={sym}"
+        p = tpsi2.forward_plan(N, M, D, symmetric=sym)
+        P = -(-M // 4)
+        T = P * (P + 1) // 2 if sym else P * P
+        wt, R, kr = p["wt"], p["row_groups"], 8
+        TL, S = 32 * wt, p["rows_per_step"]
+        assert p["tiles"] == T and S == R * kr and (
+            p["threads"] == TL * R <= 512) and (
+            (p["groups"] - 1) * TL < T <= p["groups"] * TL), (
+            f"{case}: {p}")
+        hits = np.zeros((4 * P, 4 * P), dtype=int)
+        widest = 0
+        for g in range(p["groups"]):
+            a_lo, na, b_lo, nb = tpsi2._group_box(g, TL, T, P, sym)
+            widest = max(widest, 4 * (na + nb))
+            for k in range(g * TL, min(T, (g + 1) * TL)):
+                i, j = tpsi2._decode(k, P, sym)
+                assert a_lo <= i < a_lo + na and b_lo <= j < b_lo + nb, (
+                    f"{case}: micro-tile {(i, j)} outside group {g}'s box")
+                for ii in range(4):
+                    for jj in range(4):
+                        a, b = 4 * i + ii, 4 * j + jj
+                        if not sym or a <= b:
+                            hits[a, b] += 1
+        want = np.triu(np.ones((M, M), dtype=int)) if sym else 1
+        assert (hits[:M, :M] == want).all(), (
+            f"{case}: an (a, b) not in exactly one micro-tile")
+        rc, chunks = p["rows_per_chunk"], p["chunks"]
+        assert (chunks - 1) * rc < N <= chunks * rc and (
+            p["blocks"] == p["groups"] * chunks), f"{case}: {chunks} x {rc}"
+        if N <= 10 ** 4:
+            rows = np.zeros(N, dtype=int)
+            for c in range(chunks):
+                n0, n1 = c * rc, min(N, (c + 1) * rc)
+                for s0 in range(n0, n1, S):
+                    for rg in range(R):
+                        for q in range(kr):
+                            if s0 + rg + R * q < min(n1, s0 + S):
+                                rows[s0 + rg + R * q] += 1
+            assert (rows == 1).all(), f"{case}: a row not taken once"
+        assert p["box"] == widest and p["stages"] in (2, 3) and (
+            p["smem_bytes"] == 4 * tpsi2._fwd_smem_floats(
+                M, D, R, widest, p["threads"], p["stages"]) <= 200 * 1024), (
+            f"{case}: box {p['box']}, smem")
+        assert p["scratch_floats"] == (
+            chunks * p["groups"] * 512 * wt + p["groups"]
+            if chunks > 1 else 0) and (
+            chunks * wt <= 96 and chunks <= 16), f"{case}: scratch"
+        most = tpsi2.forward_plan(10 ** 8, M, D, symmetric=sym)[
+            "scratch_floats"]
+        for other in (N, 1000 * N, 10 ** 7):
+            q = tpsi2.forward_plan(other, M, D, symmetric=sym)
+            assert q["scratch_floats"] <= min(
+                most, (512 * 96 + 1) * q["groups"]), (
+                f"{case}: scratch at N={other} above the bound")
+            assert other < 10 ** 6 or q["scratch_floats"] == most, (
+                f"{case}: scratch depends on N ({other})")
 
 
 def _check_psi2():
@@ -663,6 +876,8 @@ def test_fused_conditional_plain_matches_jax():
     _check_plans()
     _check_psi2_limits()
     _check_psi2()
+    _check_psi2_symmetric()
+    _check_psi2_forward_plan()
     _check_psi2_backward()
     _check_psi2_backward_plan()
     _check_psi2_onepass()

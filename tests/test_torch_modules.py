@@ -7,7 +7,8 @@ terms, mean functions, Gaussian likelihood, the SVGP conditional on its
 fused, staged-inverse and solve branches, diagonal and full-covariance,
 with its KL term and gradients, the cached layer (also full-covariance,
 and its KL refusal), the RBF psi statistics and their gradients on both
-psi2 routes, the collapsed SGPR layer on certain and Gaussian inputs,
+psi2 routes (and the route rule, and which psi2 calls are symmetric),
+the collapsed SGPR layer on certain and Gaussian inputs,
 diagonal and full-covariance), plus the port's import and device rules.
 
 One test item that loops over its cases and names the failing case in
@@ -37,8 +38,10 @@ from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
 from doubly_stochastic_dgp_tpu_torch.graphs import no_host_reads
 from doubly_stochastic_dgp_tpu_torch.models import posterior as tposterior
 from doubly_stochastic_dgp_tpu_torch.ops import linalg as tlinalg
+from doubly_stochastic_dgp_tpu_torch.ops import psi_stats as tpsi_stats
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
-from doubly_stochastic_dgp_tpu_torch.ops.psi_stats import psi_statistics
+from doubly_stochastic_dgp_tpu_torch.ops.psi_stats import (
+    psi2_route, psi_statistics)
 from doubly_stochastic_dgp_tpu_torch.utils import params as tparams
 
 RTOL, ATOL = 1e-8, 1e-10
@@ -244,11 +247,39 @@ def _psi_kernels(D, rng):
              port.load_reference_state(tsum, _state(jsum)))]
 
 
+def _check_psi2_route():
+    """The psi2 route rule (plain, so checked without a card): 'xla' plain;
+    'auto' the kernel route on the CPU and, on CUDA, where the kernel takes
+    the call (float32, M <= 512, 1 <= D <= 32), else plain; 'pallas' the
+    kernel route always (on CUDA it raises where the kernel cannot)."""
+    for mode in ("auto", "pallas", "xla"):
+        for device in ("cpu", "cuda", torch.device("cuda", 0)):
+            for dtype in (torch.float32, torch.float64):
+                for M, D in ((100, 8), (513, 2), (100, 33)):
+                    case = (f"psi2_route {mode} {device} {dtype} M={M} "
+                            f"D={D}")
+                    fits = dtype == torch.float32 and M <= 512 and D <= 32
+                    on_cpu = str(device) == "cpu"
+                    want = {"xla": "plain", "pallas": "kernel",
+                            "auto": ("kernel" if on_cpu or fits
+                                     else "plain")}[mode]
+                    got = psi2_route(mode, device, M, D, dtype)
+                    assert got == want, f"{case}: {got} != {want}"
+
+
 def _check_psi_statistics(rng):
     """psi0/psi1/psi2 on the plain route ('xla') and the psi2 kernel route
     ('auto' and 'pallas': on the CPU the kernel's plain version), with Z
-    and the inputs centred far from zero."""
+    and the inputs centred far from zero; on the kernel route a single
+    RBF's psi2 call says symmetric=True and a Sum's cross term False."""
     N, M, D = 41, 13, 3
+    inner = tpsi_stats.psi2_core
+    calls = []
+
+    def record(*args, symmetric=False):
+        calls.append(symmetric)
+        return inner(*args, symmetric=symmetric)
+
     for centre in (4.0,):
         mu = rng.randn(N, D) + centre
         Sv = np.exp(rng.randn(N, D)) * 0.1
@@ -257,7 +288,18 @@ def _check_psi_statistics(rng):
             want = jax_psi_statistics(jk, jnp.asarray(mu), jnp.asarray(Sv),
                                       jnp.asarray(Z))
             for impl in ("xla", "auto", "pallas"):
-                got = psi_statistics(tk, _t(mu), _t(Sv), _t(Z), impl)
+                calls.clear()
+                tpsi_stats.psi2_core = record
+                try:
+                    got = psi_statistics(tk, _t(mu), _t(Sv), _t(Z), impl)
+                finally:
+                    tpsi_stats.psi2_core = inner
+                # Sum(RBF, RBF, White): two single-RBF terms, one cross
+                want_calls = {"xla": [], "RBF": [True]}.get(
+                    impl if impl == "xla" else kname, [True, True, False])
+                assert calls == want_calls, (
+                    f"psi_statistics {kname} psi2_impl={impl}: psi2_core "
+                    f"calls (symmetric) {calls} != {want_calls}")
                 for what, g, w in zip(("psi0", "psi1", "psi2"), got, want):
                     _close(f"psi_statistics {kname} centre={centre} "
                            f"psi2_impl={impl} {what}", g, w)
@@ -579,6 +621,7 @@ def test_modules_match_jax():
     _check_mean_functions_and_likelihood(rng)
     _check_layers(rng)
     psi2_core.launches = 0
+    _check_psi2_route()
     _check_psi_statistics(rng)
     _check_sgpr_layer(rng)
     assert psi2_core.launches == 0, "psi2_core launched for CPU tensors"
