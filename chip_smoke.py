@@ -116,10 +116,9 @@ Phases, each of which raises on a failed check:
    float64 as the plain float32 version, gives other bits on a repeat
    launch or on launches on two streams at once (eager, and two CUDA
    graphs replayed on two streams), or (symmetric) differs from its
-   transpose.  Prints the first design's (``design='two_pass'``) error
-   beside it;
+   transpose;
 11. timings at both path shapes: the psi2 kernel symmetric (the path's
-   call) and general, its first design and its plain version, each with
+   call) and general, and its plain version, each with
    CUDA events (median of 30), torch.profiler device time and CUDA-graph
    replays, with the profiler's kernel records counted against the calls
    (eager and in replays), beside the triangle's and the full square's
@@ -233,11 +232,37 @@ Phases, each of which raises on a failed check:
    relative), an 820-row S=100 predict_y, and for damianou_large 20 fit
    steps, with no psi2 kernel launch (raises otherwise);
    ``psi2_impl='pallas'`` raises before a launch; the bound's, the
-   request's and a step's times.
+   request's and a step's times;
+25. classification with the paper's MNIST DGPs (DGP2 784 -> 30 -> 10 and
+   DGP3 784 -> 30 -> 30 -> 10, robust-max ``MultiClass(10)``, M=100,
+   RBF(2.0, 2.0), float32, jitter 1e-5, ``solve_mode='inverse'``,
+   ``use_pallas=True``) on MNIST-shaped data made from ``--seed`` (60,000
+   training and 10,000 test rows of 784 pixels in [0, 1], labels
+   learnable through the PCA; through ``load_mnist_npz``).  The main path
+   of each model, the launch counts at 0 just before it and read just
+   after (raises unless the fused pair and rbf_gram launched): ``fit``
+   300 graphed steps (lr 0.01, minibatch 1000, S=1; raises unless the
+   loss falls and the fused launches a step are L forward and L backward,
+   by the counters on the eager chunks and by the profiler on a replay),
+   ``evaluate_classification`` on the test rows at S=100 (raises unless
+   finite and above the untrained model's accuracy), and 1000-row S=100
+   ``predict_y`` requests live and cached (graphed against eager bit for
+   bit at a pinned seed, replays under sync debug 'error', latency).  On
+   the trained parameters: the ELBO gradient against the float64 CPU path
+   (the fused route's worst relative error <= 2x the ``use_pallas=False``
+   route's), the class probabilities at fixed draws within 5e-3 of
+   float64, and graphed steps/s of both routes in turns.  Then the fused
+   pair at (1000, 100, Dx=784, Do=30), (1000, 100, 30, 30), (1000, 100,
+   30, 10) and its forward at the serving shape (100,000, 100, 784, 30),
+   and rbf_gram at (100 x 784) and (1000 x 784 against 100 x 784), on
+   random operands with O(1) scaled distances and on the trained DGP3's,
+   under phase 1's gates, each timed beside its bound and GEMM
+   yardsticks.
 
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
-rbf_gram), the card's name and power limit, and as its last line
+rbf_gram; the fused pair's and rbf_gram's also with phase 25's shapes and
+launches), the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
@@ -245,6 +270,7 @@ prints no result.
 
 import argparse
 import contextlib
+import copy
 import ctypes
 import json
 import os
@@ -252,6 +278,7 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -261,9 +288,9 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from doubly_stochastic_dgp_tpu_torch import (  # noqa: E402
-    DGP, RBF, Config, DGPCollapsed, DGPDamianou, Gaussian,
-    SyntheticRegression, White, evaluate_regression, fit, make_server,
-    precompute)
+    DGP, RBF, Config, DGPCollapsed, DGPDamianou, Gaussian, Linear,
+    MultiClass, SyntheticRegression, White, evaluate_classification,
+    evaluate_regression, fit, load_mnist_npz, make_server, precompute)
 from doubly_stochastic_dgp_tpu_torch.ops import psi_stats  # noqa: E402
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import (  # noqa: E402
     build, gram, psi2)
@@ -276,6 +303,8 @@ from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (  # noqa: E402
     fused_conditional_saved, fused_conditional_saved_plain)
 from doubly_stochastic_dgp_tpu_torch.ops.linalg import (  # noqa: E402
     safe_cholesky_ladder)
+from doubly_stochastic_dgp_tpu_torch.utils.timing import (  # noqa: E402
+    timed_per_call_stats)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at 700 W)
 FP32_PEAK = 67e12          # FLOP/s, fp32 outside the tensor cores
@@ -346,17 +375,16 @@ LAUNCH_MARKER = {
     "psi2_core_backward": "psi2_bwd_kernel",
     "rbf_gram": "rbf_gram_kernel",
 }
-# the psi2 forward's first design (design='two_pass': the full square in
-# 64 x 64 tiles, its chunks added by a second kernel), timed beside the
-# kernel in phase 11
-TWO_PASS_KERNELS = ("psi2_fwd_two_pass_kernel", "psi2_sum_chunks_kernel")
-# device ms a launch of the two redesigned kernels' earlier designs (two
+# device ms a launch of the redesigned kernels' earlier designs (two
 # passes over the terms; lengthscales divided out by separate device ops),
 # from this script on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, section
 # 6), printed beside this run's
 EARLIER_DEVICE_MS = {
-    ("psi2_core_forward", "damianou_large"): "0.1770-0.1879",
-    ("psi2_core_forward", "collapsed_L2"): "0.0272-0.0289",
+    # the psi2 forward's first design (64 x 64 tiles of the full square,
+    # its chunks added by a second kernel; removed): CUDA-graph replays of
+    # its two kernels, the last measurement before its removal
+    ("psi2_core_forward", "damianou_large"): "0.2360-0.2371",
+    ("psi2_core_forward", "collapsed_L2"): "0.0359-0.0365",
     ("psi2_core_backward", "damianou_large"): "0.9711-1.0036",
     ("psi2_core_backward", "collapsed_L2"): "0.1081-0.1115",
     ("rbf_gram", "Kuf_M100_B10000_D8 float32"): "0.0061-0.0064",
@@ -453,16 +481,18 @@ def event_ms(fn, reps=30):
 # phase 1: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def conditional_inputs(B, M_, Dx, Do, seed, clamp=False):
+def conditional_inputs(B, M_, Dx, Do, seed, clamp=False, spread=1.0):
     """float32 inputs on the card in the kernel's contract (staged LiT,
-    symmetric W), drawn from a seeded numpy stream."""
+    symmetric W), drawn from a seeded numpy stream; X and Z with std
+    ``spread`` (1 / sqrt(Dx) keeps the scaled distances O(1) at any
+    Dx)."""
     rng = np.random.RandomState(seed)
     LiT = np.eye(M_) + 0.1 * rng.randn(M_, M_)
     Wh = rng.randn(Do, M_, M_) * 0.1
     W = (Wh + np.swapaxes(Wh, 1, 2)) / 2
     if clamp:
         W = -np.einsum("dij,dkj->dik", Wh, Wh) * 20.0
-    arrays = (rng.randn(B, Dx), rng.randn(M_, Dx), LiT,
+    arrays = (rng.randn(B, Dx) * spread, rng.randn(M_, Dx) * spread, LiT,
               rng.randn(M_, Do) * 0.3, W, np.float64(1.4),
               np.float64(1.4 + 2e-6))
     return [torch.tensor(a, dtype=torch.float32, device="cuda")
@@ -946,14 +976,16 @@ def loss_grads(model, idx, zs):
     return loss.item(), named_grads(model)
 
 
-def gradient_errors(label, runs, ref, seed):
+def gradient_errors(label, runs, ref, seed, widths=(8,) * (LAYERS - 1) + (1,),
+                    samples=TRAIN_S):
     """The ELBO gradient of each float32 card run {name: (model, context
-    it runs in)} at a fixed minibatch and fixed draws against the float64
-    CPU model ``ref`` (the same parameters): per parameter tensor, max |g -
-    g64| / max |g64|.  Returns {name: worst over the tensors}."""
+    it runs in)} at a fixed minibatch and fixed draws (``samples`` of each
+    layer's output ``widths``) against the float64 CPU model ``ref`` (the
+    same parameters): per parameter tensor, max |g - g64| / max |g64|.
+    Returns {name: worst over the tensors}."""
     rng = np.random.RandomState(seed + 3)
     idx = rng.randint(0, ref.X_data.shape[0], BATCH)
-    zs = [rng.randn(TRAIN_S, BATCH, d) for d in (8,) * (LAYERS - 1) + (1,)]
+    zs = [rng.randn(samples, BATCH, d) for d in widths]
     l64, g64 = loss_grads(ref, torch.as_tensor(idx), zs)
     worst = {}
     for name, (m, context) in runs.items():
@@ -968,7 +1000,7 @@ def gradient_errors(label, runs, ref, seed):
         worst[name] = max(errs.values())
         top = sorted(errs.items(), key=lambda kv: -kv[1])[:3]
         print(f"{label} gradient {name} vs f64 (batch {BATCH}, S="
-              f"{TRAIN_S}, fixed draws): loss {loss:.6f} vs {l64:.6f}; "
+              f"{samples}, fixed draws): loss {loss:.6f} vs {l64:.6f}; "
               f"worst relative error over {len(errs)} tensors "
               f"{worst[name]:.3e} ("
               + ", ".join(f"{p} {e:.2e}" for p, e in top) + ")",
@@ -1575,11 +1607,8 @@ def phase_psi2_kernel(seed, operands):
                 if sym:
                     check(torch.equal(got[0], got[0].T),
                           f"psi2_core_forward {name}: not symmetric")
-                first = psi2._forward_kernel(*a32, design="two_pass")
-                e_first = compare((first,), plain, ref, joint_scale=True)[2]
             print(f"kernel psi2_core_forward {name} (N={N}, M={M_}, D={D}): "
-                  f"bitwise symmetric {torch.equal(got[0], got[0].T)}; the "
-                  f"first design's error vs f64 {e_first:.3e} of scale",
+                  f"bitwise symmetric {torch.equal(got[0], got[0].T)}",
                   flush=True)
             worst = list(map(max, worst, errs))
     set_launch_counts(counts)
@@ -1637,7 +1666,7 @@ def psi2_wt_sweep(name, a32, sms, card):
 
 def phase_collapsed_timings(collapsed, card):
     """psi2 kernel at both path shapes, symmetric (the path's call) and
-    general, beside the first design and the plain version (CUDA-event
+    general, beside the plain version (CUDA-event
     medians of 30, torch.profiler device time and CUDA-graph replays; the
     profiler's kernel records counted against the calls, eager and in
     replays), the triangle's and the full square's bounds, a GEMM
@@ -1657,34 +1686,25 @@ def phase_collapsed_timings(collapsed, card):
         sym = lambda: psi2.psi2_core_forward(  # noqa: E731
             *a32, symmetric=True)
         gen = lambda: psi2.psi2_core_forward(*a32)  # noqa: E731
-        first = lambda: psi2._forward_kernel(  # noqa: E731
-            *a32, design="two_pass")
         plain = lambda: psi2.psi2_core_plain(  # noqa: E731
             *a32, symmetric=True)
         kernel = DEVICE_KERNELS["psi2_core_forward"]
-        # device kernels a call: the first design adds its chunks in a
-        # second kernel
-        first_per = 1 + (psi2._chunks(N, M_, sms) > 1)
         t, records = {}, {}
         with torch.no_grad():
-            for what, fn, names, per in (
-                    ("symmetric", sym, kernel, 1),
-                    ("general", gen, kernel, 1),
-                    ("first design", first, TWO_PASS_KERNELS, first_per)):
-                d_ms, got = kernel_records(fn, names, n=20)
+            for what, fn in (("symmetric", sym), ("general", gen)):
+                d_ms, got = kernel_records(fn, kernel, n=20)
                 t[what] = (event_ms(fn), d_ms, graph_calls_ms(fn))
                 g_ms, g_got = kernel_records(capture_calls(fn, 10).replay,
-                                             names, n=5)
+                                             kernel, n=5)
                 records[what] = {"eager_records": got,
-                                 "eager_expected": 20 * per,
+                                 "eager_expected": 20,
                                  "graph_profiler_ms": g_ms,
                                  "graph_records": g_got,
-                                 "graph_expected": 50 * per}
+                                 "graph_expected": 50}
                 print(f"profiler psi2_core_forward {name} {what}: eager "
-                      f"{d_ms} ms a call from {got} kernel records of "
-                      f"{20 * per} expected; under CUDA-graph replays "
-                      f"{g_ms} ms a call from {g_got} of "
-                      f"{50 * per}; CUDA events on the replays "
+                      f"{d_ms} ms a call from {got} kernel records of 20 "
+                      f"expected; under CUDA-graph replays {g_ms} ms a call "
+                      f"from {g_got} of 50; CUDA events on the replays "
                       f"{t[what][2]:.4f} ms [{card}]", flush=True)
             t["plain"] = (event_ms(plain),
                           (total_device_ms(plain) or (None,))[0],
@@ -1699,9 +1719,6 @@ def phase_collapsed_timings(collapsed, card):
             "general_ms": t["general"][0],
             "general_device_ms": t["general"][1],
             "general_graph_ms": t["general"][2],
-            "first_design_ms": t["first design"][0],
-            "first_design_device_ms": t["first design"][1],
-            "first_design_graph_ms": t["first design"][2],
             "plain_ms": t["plain"][0], "plain_device_ms": t["plain"][1],
             "plain_graph_ms": t["plain"][2],
             "gemm_yardstick_ms": y_ms, "bound_ms": b_ms, "bound_by": b_by,
@@ -1718,8 +1735,8 @@ def phase_collapsed_timings(collapsed, card):
               f"{psi2.terms(N, M_, True) / 1e6:.1f} M exps at "
               f"{SFU_EXP_RATE / 1e12:.2f} T/s, "
               f"{psi2.flops(N, M_, D, True) / 1e9:.3f} GFLOP), {full_ms:.4f} "
-              f"ms full square ({full_by}); earlier runs' first design "
-              f"{EARLIER_DEVICE_MS[('psi2_core_forward', name)]} ms device; "
+              f"ms full square ({full_by}); the first design (removed) "
+              f"{EARLIER_DEVICE_MS[('psi2_core_forward', name)]} ms; "
               f"GEMM yardstick (torch.matmul ({M_} x {N}) by ({N} x {M_}), "
               f"not this function) {y_ms:.4f} ms; library call: none "
               f"[{card}]", flush=True)
@@ -3187,6 +3204,506 @@ def phase_resume(seed, card):
     return {"bit_for_bit": same}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: classification with the paper's MNIST DGP
+# ---------------------------------------------------------------------------
+
+# MNIST's shape (60,000 training and 10,000 test rows, 784 pixels in
+# [0, 1], 10 classes); the DGPs of the reference MNIST demo (DGP2 784 ->
+# 30 -> 10, DGP3 784 -> 30 -> 30 -> 10; M=100, minibatch 1000, S=1, RBF
+# with lengthscale 2.0 and variance 2.0 on every layer, float32, jitter
+# 1e-5, solve_mode='inverse')
+MNIST_N, MNIST_NS, MNIST_D, MNIST_K = 60000, 10000, 784, 10
+MNIST_LATENT = 20
+MNIST_MODELS = {"DGP2": (30,), "DGP3": (30, 30)}
+MNIST_STEPS = 300
+# the class probabilities at fixed draws, float32 on the card against the
+# port's float64 CPU path (probabilities, so absolute)
+MNIST_PROBS_ATOL = 5e-3
+# the fused pair at the MNIST layers' shapes: (case, B, Dx, Do, with the
+# backward); minibatch 1000 at S=1, and layer 0 of a 1000-row S=100
+# request
+MNIST_KERNEL_CASES = [("layer0_Dx784_Do30", BATCH, MNIST_D, 30, True),
+                      ("hidden_Dx30_Do30", BATCH, 30, 30, True),
+                      ("last_Dx30_Do10", BATCH, 30, MNIST_K, True),
+                      ("serving_Dx784_Do30", S * BATCH, MNIST_D, 30, False)]
+# rbf_gram at layer 0: Kuu (100 x 784, square) and Kuf off the fused route
+# (1000 x 784 against 100 x 784)
+MNIST_GRAM_CASES = [("Kuu_M100_D784", None), ("Kuf_B1000_M100_D784", BATCH)]
+
+
+def mnist_data(seed):
+    """MNIST-shaped data from ``seed``: a 20-dimensional latent h, pixels
+    clip(0.5 + h A + noise, 0, 1) (std 0.15 of signal, 0.05 of noise a
+    pixel) and labels argmax(h W), so that the labels are learnable
+    through the 784 -> 30 PCA; written to an npz and read back with
+    load_mnist_npz, the classification loader."""
+    rng = np.random.RandomState(seed + 11)
+    n = MNIST_N + MNIST_NS
+    h = rng.randn(n, MNIST_LATENT)
+    A = rng.randn(MNIST_LATENT, MNIST_D) * (0.15 / np.sqrt(MNIST_LATENT))
+    X = np.clip(0.5 + h @ A + 0.05 * rng.randn(n, MNIST_D), 0.0, 1.0)
+    y = np.argmax(h @ rng.randn(MNIST_LATENT, MNIST_K), 1)[:, None]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "mnist.npz")
+        np.savez(path, X=X[:MNIST_N].astype(np.float32), Y=y[:MNIST_N],
+                 Xs=X[MNIST_N:].astype(np.float32), Ys=y[MNIST_N:])
+        return load_mnist_npz(path)
+
+
+def mnist_model(data, hidden, seed, use_pallas=True, device="cuda",
+                dtype=torch.float32):
+    """DGP.build with the MNIST demo's architecture and numerics; Z a
+    seeded random subset of 100 training rows (k-means on 60,000 x 784
+    costs minutes on the host)."""
+    rng = np.random.RandomState(seed)
+    Z = data["X"][rng.choice(MNIST_N, M, replace=False)]
+    kernels = [RBF(w, lengthscales=2.0, variance=2.0)
+               for w in (MNIST_D,) + hidden]
+    cfg = Config(dtype=dtype, jitter=1e-5, solve_mode="inverse",
+                 use_pallas=use_pallas)
+    return DGP.build(data["X"], data["Y"], Z, kernels, MultiClass(MNIST_K),
+                     num_outputs=MNIST_K, num_samples=1, config=cfg,
+                     device=device)
+
+
+def capture_fused_operands(model, X):
+    """The fused conditional's operands of every layer in a 1000-row S=1
+    prediction (the launches are not counted)."""
+    from doubly_stochastic_dgp_tpu_torch.models import layers
+    got = []
+    inner = layers.fused_conditional
+    counts = launch_counts()
+
+    def record(*args):
+        got.append([a.detach().clone() if torch.is_tensor(a) else a
+                    for a in args])
+        return inner(*args)
+
+    layers.fused_conditional = record
+    try:
+        with torch.no_grad():
+            model.predict_f(X, S=1)
+    finally:
+        layers.fused_conditional = inner
+        set_launch_counts(counts)
+    return got
+
+
+def plain_by_rows(args, rows=10000):
+    """fused_conditional_plain in row chunks of ``rows`` (its (B, M, Dx)
+    differences at the serving shape, 100,000 x 100 x 784, would not fit
+    the card in float64); the rows are independent, so it is the same
+    function."""
+    B = args[0].shape[0]
+    if B <= rows:
+        return fused_conditional_plain(*args)
+    parts = [fused_conditional_plain(args[0][i:i + rows], *args[1:])
+             for i in range(0, B, rows)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+def check_fused_mnist(case, args, backward, seed, worst):
+    """The forward (and the backward) kernel against its plain version in
+    float32 and float64, repeats bit-identical (phase 1's gates)."""
+    B, Do = args[0].shape[0], args[3].shape[1]
+    a64 = [a.double() for a in args]
+    with torch.no_grad():
+        fwd = lambda: fused_conditional_forward(*args)[:2]  # noqa: E731
+        km, kv = fwd()
+        torch.cuda.synchronize()
+        plain = plain_by_rows(args)
+        ref = plain_by_rows(a64)
+        errs = compare((km, kv), plain, ref, joint_scale=True)
+        del plain, ref
+        hold("fused_conditional", case, errs)
+        check_repeat("fused_conditional", case, fwd, (km, kv))
+        worst["fused_conditional"] = list(map(max,
+                                              worst["fused_conditional"],
+                                              errs))
+        if not backward:
+            return
+        gm, gv = cotangents(B, Do, seed)
+        bwd = lambda: fused_conditional_backward(  # noqa: E731
+            *args, km, kv, gm, gv)
+        kg = bwd()
+        torch.cuda.synchronize()
+        pg = fused_conditional_backward_plain(*args, km, kv, gm, gv)
+        rg = fused_conditional_backward_plain(*a64, km.double(),
+                                              kv.double(), gm.double(),
+                                              gv.double())
+        errs = compare(kg, pg, rg, joint_scale=False)
+        hold("fused_conditional_backward", case, errs)
+        check_repeat("fused_conditional_backward", case, bwd, kg)
+        worst["fused_conditional_backward"] = list(map(
+            max, worst["fused_conditional_backward"], errs))
+
+
+def mnist_gram_operands(case, N, seed, captured=None):
+    """(X, Z, lengthscales, variance) float32 on the card: random rows with
+    std 1/sqrt(784) and ARD lengthscales in [0.8, 2] (scaled distances
+    O(1)), or layer 0's rows, Z and kernel (``captured``: the model and a
+    batch); Z is X for the square gram (N None)."""
+    if captured is not None:
+        model, Xb = captured
+        kern = model.layers[0].kern
+        Z = model.layers[0].Z.value.detach().contiguous()
+        X = Z if N is None else Xb[:N].contiguous()
+        return [X, Z, kern.lengthscales.value.detach().clone(),
+                kern.variance.value.detach().clone()]
+    rng = np.random.RandomState(seed)
+    Z = rng.randn(M, MNIST_D) / np.sqrt(MNIST_D)
+    X = Z if N is None else rng.randn(N, MNIST_D) / np.sqrt(MNIST_D)
+    out = [torch.tensor(a, dtype=torch.float32, device="cuda") for a in
+           (X, Z, rng.uniform(0.8, 2.0, MNIST_D), np.float64(1.3))]
+    if N is None:
+        out[0] = out[1]
+    return out
+
+
+def check_gram_mnist(tag, ops, square, seed, worst):
+    """rbf_gram against its plain version in float32 and float64, repeats
+    bit-identical, K(Z, Z) bitwise symmetric with its diagonal exactly
+    var; the backward through the Function against plain autograd."""
+    X, Z, ls, v = ops
+    a64 = [t.double() for t in ops]
+    if square:
+        a64[1] = a64[0]
+    with torch.no_grad():
+        fwd = lambda: (gram.rbf_gram(X, Z, ls, v),)  # noqa: E731
+        got = fwd()
+        torch.cuda.synchronize()
+        errs = compare(got, (gram.rbf_gram_plain(X, Z, ls, v),),
+                       (gram.rbf_gram_plain(*a64),), joint_scale=True)
+        hold("rbf_gram", tag, errs)
+        check_repeat("rbf_gram", tag, fwd, got)
+    if square:
+        check(torch.equal(got[0], got[0].T),
+              f"rbf_gram {tag}: K(Z, Z) is not bitwise symmetric")
+        check(bool((torch.diagonal(got[0]) == v).all()),
+              f"rbf_gram {tag}: the diagonal is not exactly var")
+    g64 = torch.tensor(np.random.RandomState(seed + 5).randn(
+        *got[0].shape), dtype=torch.float64, device="cuda")
+    g = g64.float()
+    b_errs = compare(gram_grads(gram.rbf_gram, X, Z, ls, v, g, square),
+                     gram_grads(gram.rbf_gram_plain, X, Z, ls, v, g, square),
+                     gram_grads(gram.rbf_gram_plain, *a64, g64, square),
+                     joint_scale=False)
+    print(f"kernel rbf_gram backward {tag}: |Function-plain| "
+          f"{b_errs[1]:.3e} of scale", flush=True)
+    check(b_errs[1] <= KERNEL_VS_PLAIN_RTOL,
+          f"rbf_gram backward {tag}: Function vs plain autograd "
+          f"{b_errs[1]} > {KERNEL_VS_PLAIN_RTOL} of scale")
+    worst["rbf_gram"] = list(map(max, worst["rbf_gram"], errs))
+
+
+def mnist_graph_ms(fn, event_ms_):
+    """Device ms of one call by CUDA-graph replays (graph_calls_ms), with
+    fewer calls for a call of tens of ms: the profiler's records of these
+    kernels can go missing in a long run (then "not measured")."""
+    if event_ms_ > 10.0:
+        return graph_calls_ms(fn, calls=2, reps=2, rounds=3)
+    return graph_calls_ms(fn)
+
+
+def mnist_call_ms(fn):
+    """utils.timing.timed_per_call_stats of ``fn``: (median, spread %) of
+    three blocks of 10 calls, each block timed with CUDA events."""
+    st = timed_per_call_stats(lambda i: fn(), n=10, repeats=3)
+    return 1e3 * st["median"], st["spread_pct"]
+
+
+def phase_mnist_kernels(seed, trained, card):
+    """The fused pair and rbf_gram at the MNIST shapes against their
+    plain versions, on random operands with O(1) scaled distances and on
+    the operands of the trained DGP3's layers (the pixels' own distances
+    at lengthscale ~2 make Kuf ~ e^-10, where a relative gate sees
+    little); then each timed: CUDA events, device time by the kernel's
+    own records, the plain version, the bound, and GEMM yardsticks of the
+    gram ((B x Dx) by (Dx x M)) and of the staging ((B x M) by (M x Do
+    M))."""
+    counts = launch_counts()
+    worst = {n: [0.0] * 4 for n in ("fused_conditional",
+                                     "fused_conditional_backward",
+                                     "rbf_gram")}
+    model, Xb = trained
+    operands = capture_fused_operands(model, Xb)
+    check(len(operands) == len(model.layers),
+          f"captured {len(operands)} fused calls for "
+          f"{len(model.layers)} layers")
+    shapes = {n: [] for n in worst}
+    for case, B, Dx, Do, backward in MNIST_KERNEL_CASES:
+        args = conditional_inputs(B, M, Dx, Do, seed, spread=Dx ** -0.5)
+        check_fused_mnist(f"mnist {case} random", args, backward, seed,
+                          worst)
+        with torch.no_grad():
+            km, kv = fused_conditional_forward(*args)[:2]
+            gm, gv = cotangents(B, Do, seed)
+            calls = [("fused_conditional",
+                      lambda: fused_conditional_forward(*args),
+                      lambda: plain_by_rows(args), False)]
+            if backward:
+                calls.append((
+                    "fused_conditional_backward",
+                    lambda: fused_conditional_backward(*args, km, kv, gm,
+                                                       gv),
+                    lambda: fused_conditional_backward_plain(
+                        *args, km, kv, gm, gv), True))
+            for name, kern, plain, bwd in calls:
+                row = fused_row_timing(name, kern, plain, B, M, Dx, Do, bwd,
+                                       False, card, what="timing mnist")
+                row["case"] = case
+                row["gram_yardstick_ms"] = gemm_yardstick_ms(B, Dx, M)
+                row["graph_ms"] = mnist_graph_ms(kern, row["ms"])
+                row["timed_per_call_ms"], spread = mnist_call_ms(kern)
+                print(f"timing mnist {name} {case}: device ms a call by "
+                      f"CUDA-graph replays {row['graph_ms']:.4f}; "
+                      f"timed_per_call_stats median {row['timed_per_call_ms']:.4f}"
+                      f" (spread {spread:.1f}%); GEMM "
+                      f"yardstick of the gram (torch.matmul ({B} x {Dx}) by "
+                      f"({Dx} x {M})) {row['gram_yardstick_ms']:.4f} ms "
+                      f"[{card}]", flush=True)
+                shapes[name].append(row)
+        del args
+    for layer, args in enumerate(operands):
+        args = [a.contiguous() if torch.is_tensor(a) else a for a in args]
+        check_fused_mnist(f"mnist DGP3 layer {layer} operands (B="
+                          f"{args[0].shape[0]}, Dx={args[0].shape[1]}, Do="
+                          f"{args[3].shape[1]})", args, True, seed, worst)
+    for i, (case, N) in enumerate(MNIST_GRAM_CASES):
+        square = N is None
+        for source, cap in (("random", None), ("DGP3 layer 0", trained)):
+            ops = mnist_gram_operands(case, N, seed + i, cap)
+            check_gram_mnist(f"mnist {case} {source}", ops, square, seed,
+                             worst)
+        X, Z, ls, v = mnist_gram_operands(case, N, seed + i)
+        Nr = M if square else N
+        with torch.no_grad():
+            k_ms = event_ms(lambda: gram.rbf_gram_kernel(X, Z, ls, v))
+            p_ms = event_ms(lambda: gram.rbf_gram_plain(X, Z, ls, v))
+            d_ms = device_ms(lambda: gram.rbf_gram_kernel(X, Z, ls, v),
+                             DEVICE_KERNELS["rbf_gram"])
+            g_ms = mnist_graph_ms(lambda: gram.rbf_gram_kernel(X, Z, ls, v),
+                                  k_ms)
+            t_ms, _ = mnist_call_ms(lambda: gram.rbf_gram_kernel(X, Z, ls, v))
+        y_ms = gemm_yardstick_ms(Nr, MNIST_D, M)
+        b_ms, b_by = gram_bound_ms(Nr, M, MNIST_D, torch.float32)
+        shapes["rbf_gram"].append({
+            "case": case, "N": Nr, "M": M, "D": MNIST_D, "ms": k_ms,
+            "device_ms": d_ms, "graph_ms": g_ms, "timed_per_call_ms": t_ms,
+            "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "gemm_yardstick_ms": y_ms})
+        d_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        print(f"timing mnist rbf_gram {case}: kernel {k_ms:.4f} ms (device "
+              f"time {d_txt}; by CUDA-graph replays {g_ms:.4f} ms; "
+              f"timed_per_call_stats median {t_ms:.4f} ms), plain "
+              f"{p_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"({b_by}), GEMM yardstick (torch.matmul ({Nr} x {MNIST_D}) "
+              f"by ({MNIST_D} x {M})) {y_ms:.4f} ms, library call: none "
+              f"[{card}]", flush=True)
+    set_launch_counts(counts)
+    return worst, shapes
+
+
+def mnist_chunk_rates(models, seed, card, label):
+    """Graphed training steps/s of each {route: model}: a captured chunk
+    of FIT_CHUNK steps, replayed in turns (GRAPH_ROUNDS a route), every
+    replay under sync debug 'error'; a replay ticks no launch counter."""
+    from doubly_stochastic_dgp_tpu_torch.training.loop import (
+        make_scan_train_step)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        masked_optimizer)
+    chunks = {r: make_scan_train_step(masked_optimizer(m, 0.01), BATCH,
+                                      FIT_CHUNK) for r, m in models.items()}
+    gens = {r: torch.Generator(device="cuda").manual_seed(seed + 1)
+            for r in models}
+    for r, m in models.items():
+        chunks[r](m, gens[r])                      # capture
+    torch.cuda.synchronize()
+    rates = {r: [] for r in models}
+    before = launch_counts()
+    for _ in range(GRAPH_ROUNDS):
+        for r, m in models.items():
+            t0 = time.perf_counter()
+            with no_sync():
+                chunks[r](m, gens[r])
+            torch.cuda.synchronize()
+            rates[r].append(FIT_CHUNK / (time.perf_counter() - t0))
+    check(launch_counts() == before, f"{label}: a replay ticked the launch "
+                                     f"counters")
+    med = {r: statistics.median(v) for r, v in rates.items()}
+    print(f"{label} graphed steps/s (chunks of {FIT_CHUNK}, median of "
+          f"{GRAPH_ROUNDS} in turns, replays under sync debug 'error'): "
+          + ", ".join(f"{r} {med[r]:.2f} (all "
+                      f"{', '.join(f'{x:.2f}' for x in rates[r])})"
+                      for r in rates) + f" [{card}]", flush=True)
+    return med, rates
+
+
+def mnist_serving(model, Xs, seed, card, label):
+    """A 1000-row S=100 predict_y request, live and cached: graphed
+    against eager bit for bit at a pinned seed, replays under sync debug
+    'error', latency (host clock, median of LATENCY_REPS, in turns)."""
+    from doubly_stochastic_dgp_tpu_torch.graphs import eager_on_card
+    X = torch.as_tensor(Xs[:BATCH], dtype=torch.float32, device="cuda")
+    out = {}
+    for name, pre in (("live", False), ("cached", True)):
+        serve = make_server(model, S=S, precompute=pre)
+        a = serve(X, seed=5)
+        with eager_on_card():
+            b = serve(X, seed=5)
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(same, f"{label} {name} server: graphed and eager answers "
+                    f"differ at a pinned seed")
+        p = a[0]
+        check(tuple(p.shape) == (S, BATCH, MNIST_K)
+              and bool(torch.isfinite(p).all())
+              and bool(((p > 0) & (p < 1)).all()),
+              f"{label} {name}: probabilities of shape {tuple(p.shape)}, "
+              f"not all finite in (0, 1)")
+        times = {"graphed": [], "eager": []}
+        for i in range(LATENCY_REPS):
+            for mode in times:
+                t0 = time.perf_counter()
+                if mode == "graphed":
+                    with no_sync():
+                        serve(X, seed=3000 + i)
+                else:
+                    with eager_on_card():
+                        serve(X, seed=3000 + i)
+                torch.cuda.synchronize()
+                times[mode].append(1e3 * (time.perf_counter() - t0))
+        lat = {m: statistics.median(t) for m, t in times.items()}
+        out[name] = {"bit_for_bit": same, "latency_ms": lat,
+                     "latency_all_ms": times}
+        print(f"mnist serving {label} {name}, {BATCH}-row predict_y "
+              f"request, S={S}: graphed {lat['graphed']:.3f} ms, eager "
+              f"{lat['eager']:.3f} ms (host clock, median of "
+              f"{LATENCY_REPS}, in turns); pinned seed bit for bit {same}; "
+              f"replays with no host sync [{card}]", flush=True)
+    return out
+
+
+def phase_mnist(seed, card):
+    """Classification: the MNIST DGP2 and DGP3 trained, evaluated and
+    served on the card through the package's entry points (the main path
+    of this phase, the launch counts at 0 before each model's fit and
+    read after its requests), and held against the float64 CPU path; then
+    the kernels at these shapes."""
+    t0 = time.perf_counter()
+    data = mnist_data(seed)
+    print(f"mnist data: X {data['X'].shape}, Xs {data['Xs'].shape}, "
+          f"{MNIST_K} classes, class shares "
+          f"{np.bincount(data['Y'][:, 0].astype(int), minlength=MNIST_K)}"
+          f" / {MNIST_N}; {time.perf_counter() - t0:.1f} s", flush=True)
+    out, trained = {}, None
+    for label, hidden in MNIST_MODELS.items():
+        L = len(hidden) + 1
+        t_model = time.perf_counter()
+        model = mnist_model(data, hidden, seed)
+        check(isinstance(model.layers[0].mean_function, Linear),
+              f"{label}: layer 0 has no PCA Linear mean function")
+        untrained_model = copy.deepcopy(model)
+        t_fit = time.perf_counter()
+        hist, counts, replay = run_fit(model, MNIST_STEPS, seed)
+        fit_s = time.perf_counter() - t_fit
+        losses = [h["loss"] for h in hist]
+        print(f"mnist training {label}: {MNIST_STEPS} Adam steps "
+              f"(graphed, lr 0.01, minibatch {BATCH}, S=1) in {fit_s:.1f} "
+              f"s: loss {losses[0]:.3f} (steps 1-10) -> {losses[-1]:.3f} "
+              f"(last 10); launches (counters: the warm-up and capture "
+              f"chunks) " + ", ".join(f"{n} {c}" for n, c in counts.items()
+                                       if c)
+              + "; a replayed chunk (profiler) "
+              + ", ".join(f"{n} {c}" for n, c in replay.items() if c),
+              flush=True)
+        check_fit_launches(f"mnist {label}", counts, replay,
+                           {"fused_conditional": L,
+                            "fused_conditional_backward": L,
+                            "rbf_gram": 2 * L})
+        check(all(np.isfinite(losses)), f"{label}: loss not finite")
+        check(losses[-1] < losses[0], f"{label}: loss did not fall: "
+                                      f"{losses}")
+        t_eval = time.perf_counter()
+        metrics = evaluate_classification(model, data["Xs"], data["Ys"],
+                                          S=S, seed=seed)
+        eval_s = time.perf_counter() - t_eval
+        serving = mnist_serving(model, data["Xs"], seed, card, label)
+        main = launch_counts()
+        for name in ("fused_conditional", "fused_conditional_backward",
+                     "rbf_gram"):
+            check(main[name] > 0, f"mnist {label}: {name} was not launched "
+                                  f"on the main path")
+        untrained = evaluate_classification(
+            untrained_model, data["Xs"], data["Ys"], S=S, seed=seed)
+        del untrained_model
+        print(f"mnist evaluate_classification {label} on the "
+              f"{MNIST_NS} test rows, S={S}: accuracy "
+              f"{metrics['accuracy']:.4f}, loglik {metrics['loglik']:.4f} "
+              f"in {eval_s:.2f} s; untrained {untrained['accuracy']:.4f}, "
+              f"{untrained['loglik']:.4f}; main path launches "
+              + ", ".join(f"{n} {c}" for n, c in main.items() if c)
+              + f" [{card}]", flush=True)
+        check(np.isfinite(metrics["accuracy"])
+              and np.isfinite(metrics["loglik"]),
+              f"{label}: test metrics not finite")
+        check(metrics["accuracy"] > untrained["accuracy"],
+              f"{label}: accuracy {metrics['accuracy']} not above the "
+              f"untrained model's {untrained['accuracy']}")
+
+        # the card's float32 against the port's float64 CPU path, on the
+        # trained parameters: the ELBO gradient, and the class
+        # probabilities at fixed draws
+        state = model.state_dict()
+        plain = mnist_model(data, hidden, seed, use_pallas=False)
+        plain.load_state_dict(state)
+        ref = mnist_model(data, hidden, seed, device="cpu",
+                          dtype=torch.float64)
+        ref.load_state_dict(state)
+        grad = gradient_errors(
+            f"mnist {label}", {"kernel f32": (model,
+                                              contextlib.nullcontext()),
+                               "plain f32": (plain,
+                                             contextlib.nullcontext())},
+            ref, seed, widths=hidden + (MNIST_K,), samples=1)
+        check(grad["kernel f32"] <= 2.0 * grad["plain f32"],
+              f"{label}: ELBO gradient through the kernels "
+              f"{grad['kernel f32']} > 2x the plain float32 path's "
+              f"{grad['plain f32']}")
+        rng = np.random.RandomState(seed + 4)
+        xs = data["Xs"][:200]
+        zs = [rng.randn(10, len(xs), w) for w in hidden + (MNIST_K,)]
+        p32 = model.predict_y(xs, S=10, zs=zs)[0].cpu().double()
+        p64 = ref.predict_y(xs, S=10, zs=zs)[0]
+        dp = (p32 - p64).abs().max().item()
+        print(f"mnist {label} class probabilities f32 on the card vs the "
+              f"f64 CPU path (200 test rows, S=10, fixed draws): max "
+              f"|dp| {dp:.3e}", flush=True)
+        check(dp <= MNIST_PROBS_ATOL, f"{label}: probabilities {dp} > "
+                                      f"{MNIST_PROBS_ATOL} from float64")
+        rates, all_rates = mnist_chunk_rates(
+            {"use_pallas=True": model, "use_pallas=False": plain}, seed,
+            card, f"mnist {label}")
+        out[label] = {
+            "losses": losses, "fit_s": fit_s, "launches_fit": counts,
+            "launches_replay": replay, "launches_main_path": main,
+            "metrics": metrics, "untrained": untrained, "eval_s": eval_s,
+            "serving": serving, "grad_rel_err": grad,
+            "probs_max_abs_err": dp, "steps_per_s": rates,
+            "steps_per_s_all": all_rates,
+            "phase_s": time.perf_counter() - t_model}
+        if label == "DGP3":
+            rng = np.random.RandomState(seed + 6)
+            Xb = torch.as_tensor(data["X"][rng.randint(0, MNIST_N, BATCH)],
+                                 device="cuda")
+            trained = (model, Xb)
+        del plain, ref
+    worst, shapes = phase_mnist_kernels(seed, trained, card)
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"mnist phase wall time {out['wall_s']:.1f} s [{card}]",
+          flush=True)
+    return out, worst, shapes
+
 def print_kernel_resources(name, out):
     """Registers, shared memory and spills of each kernel in one source,
     as ``nvcc -Xptxas -v`` reported them (one line a kernel); kept in
@@ -3403,6 +3920,8 @@ def main():
     lap(22)
     resume = phase_resume(args.seed, card)
     lap(23)
+    mnist, mnist_errs, mnist_shapes = phase_mnist(args.seed, card)
+    lap(25)
 
     records = []
     for name, src, replaces, _, _ in KERNELS:
@@ -3425,6 +3944,15 @@ def main():
         if name == "fused_conditional":
             rec["serving_launches"] = serving_launches
             rec["serving_shapes"] = serving_shapes
+        if name in mnist_shapes:
+            # phase 25: the MNIST DGPs' shapes and main-path launches
+            rec["mnist_shapes"] = mnist_shapes[name]
+            rec["mnist_launches"] = {
+                label: mnist[label]["launches_main_path"][name]
+                for label in MNIST_MODELS}
+            rec["mnist_max_rel_err"] = mnist_errs[name][1]
+            rec["mnist_max_rel_err_vs_f64"] = mnist_errs[name][2]
+            rec["mnist_plain_max_rel_err_vs_f64"] = mnist_errs[name][3]
         records.append(rec)
     print(json.dumps({"serving_request_ms": latency,
                       "training_steps_per_s": rates,
@@ -3446,6 +3974,7 @@ def main():
                       "graph_guard_nan": guard_nan,
                       "graph_serving": graph_serving,
                       "checkpoint_resume": resume,
+                      "mnist": mnist,
                       "fused_forward_precision": precision,
                       "card": card}))
     print(json.dumps({"kernels": records}))

@@ -3,11 +3,15 @@ doubly-stochastic deep GP package ``doubly_stochastic_dgp_tpu``.
 
 This package covers the training and serving paths of the Monte-Carlo
 DGP: RBF(+White) SVGP layers with identity/PCA skip connections under
-every ``Config`` numerics mode, a Gaussian likelihood, the
-doubly-stochastic ELBO with the layers' KL terms, Adam training on
-on-device minibatches (``fit``), diagonal and full-covariance
-predictions, the regression metrics (``evaluate_regression``), the cached
-posterior and ``make_server``; and the collapsed DGPs (``DGPCollapsed``,
+every ``Config`` numerics mode, the nine likelihoods (Gaussian, and by
+Gauss-Hermite quadrature Bernoulli, the robust-max MultiClass, Poisson,
+Exponential, StudentT, Gamma, Beta, Ordinal), the doubly-stochastic ELBO
+with the layers' KL terms, Adam training on on-device minibatches
+(``fit``, with the monitors of ``training/monitor.py``), diagonal and
+full-covariance predictions, the regression and classification metrics
+(``evaluate_regression``, ``evaluate_classification``), the cached
+posterior and ``make_server``; the data loaders (``data/datasets.py``,
+``data/native.py``); and the collapsed DGPs (``DGPCollapsed``,
 ``DGPDamianou``: collapsed ``SGPRLayer``s and RBF psi statistics): their
 bound, their predictions, and their training by ``fit`` on the whole
 training set under the reject-nonfinite guard.  The fused staged
@@ -21,7 +25,8 @@ Entry points run on the GPU unless the caller passes ``device='cpu'``.
 
 from .config import Config, resolve_device
 from .convert import load_reference_state
-from .data.datasets import SyntheticRegression
+from .data.datasets import (Datasets, SyntheticRegression, load_mnist_npz,
+                            make_synthetic_regression)
 from .models.damianou import DGPDamianou
 from .models.dgp import DGP, DGPBase
 from .models.layers import SGPRLayer, SVGPLayer
@@ -31,16 +36,21 @@ from .models.posterior import CachedSVGPLayer, precompute
 from .ops.cuda.conditional import fused_conditional, fused_conditional_saved
 from .ops.cuda.psi2 import psi2_core
 from .ops.kernels import RBF, Sum, White
-from .ops.likelihoods import Gaussian
+from .ops.likelihoods import (Bernoulli, Beta, Exponential, Gamma, Gaussian,
+                              Likelihood, MultiClass, Ordinal, Poisson,
+                              StudentT)
 from .serving import make_server
-from .training.loop import evaluate_regression, fit
+from .training.loop import evaluate_classification, evaluate_regression, fit
 from .utils.params import log_prior
 
 __all__ = [
     "Config", "resolve_device", "load_reference_state",
-    "SyntheticRegression", "DGP", "DGPBase", "DGPCollapsed", "DGPDamianou",
-    "SVGPLayer", "SGPRLayer", "Identity", "Linear", "Zero",
+    "SyntheticRegression", "Datasets", "load_mnist_npz",
+    "make_synthetic_regression", "DGP", "DGPBase", "DGPCollapsed",
+    "DGPDamianou", "SVGPLayer", "SGPRLayer", "Identity", "Linear", "Zero",
     "CachedSVGPLayer", "precompute", "fused_conditional",
     "fused_conditional_saved", "psi2_core", "RBF", "Sum", "White",
-    "Gaussian", "make_server", "evaluate_regression", "fit", "log_prior",
+    "Likelihood", "Gaussian", "Bernoulli", "MultiClass", "Poisson",
+    "Exponential", "StudentT", "Gamma", "Beta", "Ordinal", "make_server",
+    "evaluate_regression", "evaluate_classification", "fit", "log_prior",
 ]

@@ -253,7 +253,11 @@ __device__ __forceinline__ float dot4(const float* x, int sx, const float* y,
 // exp(-0.5 ||x_r - z_m||^2), zero for m in [M, P) and for rows past
 // B, as the direct sum of squared differences (no cancellation, where the
 // expansion ||x||^2 + ||z||^2 - 2 x.z loses digits that exp amplifies),
-// d ascending.  With Kout (row stride ldk), each computed entry is also
+// d ascending, Kahan-compensated: at Dx = 784 a running fp32 sum is off
+// by ~1e-6 of d2 (about ten times the plain version's pairwise sum), and
+// exp turns that into the gram's relative error; the compensation's three
+// adds are free beside the loop's two loads a term.  With Kout (row
+// stride ldk), each computed entry is also
 // stored to global memory for m < ncols_out (zeros past M): exactly the
 // value staged here.
 __device__ __forceinline__ void gram_rows(
@@ -268,10 +272,13 @@ __device__ __forceinline__ void gram_rows(
     if (r < B && m < M) {
       const float* x = Xs + r * Dx;
       const float* z = Zs + (size_t)m * Dx;
-      float d2 = 0.f;
+      float d2 = 0.f, c = 0.f;
       for (int d = 0; d < Dx; ++d) {
         const float u = __ldg(x + d) - __ldg(z + d);
-        d2 = fmaf(u, u, d2);
+        const float y = fmaf(u, u, -c);
+        const float t = d2 + y;
+        c = (t - d2) - y;
+        d2 = t;
       }
       k = kvar * expf(-0.5f * d2);
     }

@@ -68,11 +68,6 @@
 //   For D <= 4 a thread's Z values sit in registers; above that they are
 //   read from shared memory (at D = 8 the 64 registers of Z cost more
 //   speed than the loads do).
-//
-// The first design (psi2_fwd_two_pass_kernel below, reached only through
-// the wrapper's private design='two_pass') is kept to time the two side
-// by side: 64 x 64 tiles of the full square, 32-row steps staged and then
-// computed, and the chunks' partial outputs added by a second kernel.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -449,190 +444,6 @@ int occupancy(int threads, size_t smem) {
   return err == cudaSuccess ? n : -1;
 }
 
-// ---------------------------------------------------------------------------
-// The first design: 16 x 16 threads own a 64 x 64 tile of the full square
-// (each a 4 x 4 register tile, a = a0 + ty + 16 i, b = b0 + tx + 16 j);
-// rows split into chunks, staged 32 at a time and then computed; Kahan
-// sums over the steps; a second kernel adds the chunks' partial outputs.
-
-constexpr int kSide = 16;
-constexpr int kThreads = kSide * kSide;
-constexpr int kPer = 4;
-constexpr int kTile = kSide * kPer;     // 64
-constexpr int kRows = 32;
-
-template <int DT>
-__global__ void __launch_bounds__(kThreads, DT >= 1 && DT <= 4 ? 2 : 1)
-psi2_fwd_two_pass_kernel(const float* __restrict__ U,
-                         const float* __restrict__ V,
-                         const float* __restrict__ w,
-                         const float* __restrict__ logdet,
-                         const float* __restrict__ Z,
-                         float* __restrict__ part, int64_t N, int M, int D,
-                         int tiles_b, int64_t rows_per_chunk) {
-  __shared__ float sU[kRows][kTile];
-  __shared__ float sV[kRows][kTile];
-  __shared__ float sW[kRows][kMaxD];
-  __shared__ float sL[kRows];
-  __shared__ float sZa[kMaxD][kTile];   // [d][a], zero past M
-  __shared__ float sZb[kMaxD][kTile];
-
-  const int tx = threadIdx.x % kSide;
-  const int ty = threadIdx.x / kSide;
-  const int a0 = (blockIdx.x / tiles_b) * kTile;
-  const int b0 = (blockIdx.x % tiles_b) * kTile;
-  const int64_t n_begin = (int64_t)blockIdx.y * rows_per_chunk;
-  const int64_t n_end = n_begin + rows_per_chunk < N
-                            ? n_begin + rows_per_chunk : N;
-  const int Dn = DT > 0 ? DT : D;
-
-  for (int i = threadIdx.x; i < Dn * kTile; i += kThreads) {
-    const int d = i / kTile, c = i % kTile;
-    sZa[d][c] = a0 + c < M ? Z[(size_t)(a0 + c) * D + d] : 0.f;
-    sZb[d][c] = b0 + c < M ? Z[(size_t)(b0 + c) * D + d] : 0.f;
-  }
-  __syncthreads();
-  constexpr int kRegD = DT > 0 ? DT : 1;
-  float za[kPer][kRegD], zb[kPer][kRegD];
-  if constexpr (DT > 0) {
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int d = 0; d < DT; ++d) {
-        za[i][d] = sZa[d][ty + kSide * i];
-        zb[i][d] = sZb[d][tx + kSide * i];
-      }
-  }
-
-  float acc[kPer][kPer], comp[kPer][kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i)
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) acc[i][j] = comp[i][j] = 0.f;
-
-  for (int64_t r0 = n_begin; r0 < n_end; r0 += kRows) {
-    const int rows = (int)(n_end - r0 < kRows ? n_end - r0 : kRows);
-    __syncthreads();
-    for (int i = threadIdx.x; i < kRows * kTile; i += kThreads) {
-      const int r = i / kTile, c = i % kTile;
-      const int64_t n = r0 + r;
-      sU[r][c] = r < rows && a0 + c < M ? U[n * M + a0 + c] : 0.f;
-      sV[r][c] = r < rows && b0 + c < M ? V[n * M + b0 + c] : 0.f;
-    }
-    for (int i = threadIdx.x; i < rows * Dn; i += kThreads) {
-      const int r = i / Dn, d = i % Dn;
-      sW[r][d] = w[(r0 + r) * D + d];
-    }
-    if (threadIdx.x < rows) sL[threadIdx.x] = logdet[r0 + threadIdx.x];
-    __syncthreads();
-
-    float s[kPer][kPer];
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
-    for (int r = 0; r < rows; ++r) {
-      float pre[kPer][kPer];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const float u = sU[r][ty + kSide * i];
-#pragma unroll
-        for (int j = 0; j < kPer; ++j) pre[i][j] = u + sV[r][tx + kSide * j];
-      }
-      if constexpr (DT > 0) {
-#pragma unroll
-        for (int d = 0; d < DT; ++d) {
-          const float wd = sW[r][d];
-#pragma unroll
-          for (int i = 0; i < kPer; ++i) {
-            const float wz = wd * za[i][d];
-#pragma unroll
-            for (int j = 0; j < kPer; ++j)
-              pre[i][j] = fmaf(-wz, zb[j][d], pre[i][j]);
-          }
-        }
-      } else {
-        for (int d = 0; d < D; ++d) {
-          const float wd = sW[r][d];
-          float zbd[kPer];
-#pragma unroll
-          for (int j = 0; j < kPer; ++j) zbd[j] = sZb[d][tx + kSide * j];
-#pragma unroll
-          for (int i = 0; i < kPer; ++i) {
-            const float wz = wd * sZa[d][ty + kSide * i];
-#pragma unroll
-            for (int j = 0; j < kPer; ++j)
-              pre[i][j] = fmaf(-wz, zbd[j], pre[i][j]);
-          }
-        }
-      }
-      const float ld = sL[r];
-#pragma unroll
-      for (int i = 0; i < kPer; ++i)
-#pragma unroll
-        for (int j = 0; j < kPer; ++j)
-          s[i][j] += __expf(fminf(pre[i][j], 0.f) + ld);
-    }
-#pragma unroll
-    for (int i = 0; i < kPer; ++i)
-#pragma unroll
-      for (int j = 0; j < kPer; ++j)
-        kahan_add(acc[i][j], comp[i][j], s[i][j]);
-  }
-
-  float* out = part + (size_t)blockIdx.y * M * M;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    const int a = a0 + ty + kSide * i;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int b = b0 + tx + kSide * j;
-      if (a < M && b < M) out[(size_t)a * M + b] = acc[i][j];
-    }
-  }
-}
-
-// out = sum over chunks of part[c], in chunk order (Kahan)
-__global__ void psi2_sum_chunks_kernel(const float* __restrict__ part,
-                                       float* __restrict__ out, int chunks,
-                                       int64_t MM) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= MM) return;
-  float s = 0.f, comp = 0.f;
-  for (int c = 0; c < chunks; ++c) kahan_add(s, comp, part[c * MM + i]);
-  out[i] = s;
-}
-
-template <int DT>
-cudaError_t launch_two_pass(const float* U, const float* V, const float* w,
-                            const float* logdet, const float* Z, float* part,
-                            int64_t N, int M, int D, int chunks,
-                            cudaStream_t stream) {
-  const int tiles = (M + kTile - 1) / kTile;
-  const int64_t steps = (N + kRows - 1) / kRows;
-  const int64_t rows_per_chunk = (steps + chunks - 1) / chunks * kRows;
-  const dim3 grid((unsigned)(tiles * tiles), (unsigned)chunks);
-  psi2_fwd_two_pass_kernel<DT><<<grid, kThreads, 0, stream>>>(
-      U, V, w, logdet, Z, part, N, M, D, tiles, rows_per_chunk);
-  return cudaGetLastError();
-}
-
-cudaError_t launch_two_pass_d(const float* U, const float* V, const float* w,
-                              const float* logdet, const float* Z,
-                              float* part, int64_t N, int M, int D,
-                              int chunks, cudaStream_t s) {
-  switch (D) {
-#define PSI2_CASE(d)                                                      \
-  case d:                                                                 \
-    return launch_two_pass<d>(U, V, w, logdet, Z, part, N, M, D, chunks, s);
-    PSI2_CASE(1) PSI2_CASE(2) PSI2_CASE(3) PSI2_CASE(4)
-    PSI2_CASE(5) PSI2_CASE(6) PSI2_CASE(7) PSI2_CASE(8)
-#undef PSI2_CASE
-    default:   // Z from shared memory
-      return launch_two_pass<0>(U, V, w, logdet, Z, part, N, M, D, chunks, s);
-  }
-}
-
 }  // namespace
 
 // Plain C entry point (bound with ctypes).  Pointers are device pointers
@@ -710,26 +521,4 @@ extern "C" int psi2_fwd_occupancy(int D, int threads, int64_t smem_bytes) {
     case 4: return occupancy<4>(threads, smem);
     default: return occupancy<0>(threads, smem);
   }
-}
-
-// The first design, for comparison only: U..Z and out as psi2_fwd, the
-// rows split into `chunks` chunks; for chunks > 1, scratch holds chunks *
-// M * M floats of partial outputs, which a second kernel adds.
-extern "C" int psi2_fwd_two_pass(const float* U, const float* V,
-                                 const float* w, const float* logdet,
-                                 const float* Z, float* out, float* scratch,
-                                 int64_t N, int M, int D, int chunks,
-                                 void* stream) {
-  if (N <= 0 || M <= 0 || M > kMaxM || D <= 0 || D > kMaxD || chunks <= 0
-      || chunks > 65535 || (chunks > 1 && scratch == nullptr))
-    return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = chunks > 1 ? scratch : out;
-  const cudaError_t err =
-      launch_two_pass_d(U, V, w, logdet, Z, part, N, M, D, chunks, s);
-  if (err != cudaSuccess || chunks == 1) return (int)err;
-  const int64_t MM = (int64_t)M * M;
-  psi2_sum_chunks_kernel<<<(unsigned)((MM + 255) / 256), 256, 0, s>>>(
-      part, out, chunks, MM);
-  return (int)cudaGetLastError();
 }

@@ -36,7 +36,9 @@
 // exactly var.  The distance is the direct sum of squares as fp32 (or
 // fp64) FMAs: no TF32, no tensor cores (D <= 8 leaves nothing for them),
 // and no cancellation of the expansion ||x||^2 + ||z||^2 - 2 x.z.  Above
-// D = 8 the operands are read from L1 and divided in the distance loop.
+// D = 8 the operands are read from L1 and divided in the distance loop,
+// and the sum is Kahan-compensated (at D = 784 a running sum is off by
+// ~1e-6 of d2, which exp turns into the gram's relative error).
 // Offsets are 64-bit.  exp is expf or __expf in float32 (the caller
 // picks; see ops/cuda/gram.py) and exp in float64.
 
@@ -167,14 +169,17 @@ rbf_gram_kernel(const T* __restrict__ X, const T* __restrict__ Z,
         o[c] = v * exp_<T, kFastExp>(T(-0.5) * d2);
       }
     } else {
-      T d2[kCols] = {};
+      T d2[kCols] = {}, comp[kCols] = {};
       for (int d = 0; d < D; ++d) {
         const T lsd = __ldg(ls + d * ls_stride);
         const T x = __ldg(X + n * D + d) / lsd;
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           const T t = x - (c < nc ? __ldg(Z + (m0 + c) * D + d) / lsd : T(0));
-          d2[c] = fma_(t, t, d2[c]);
+          const T y = fma_(t, t, -comp[c]);
+          const T s = d2[c] + y;
+          comp[c] = (s - d2[c]) - y;
+          d2[c] = s;
         }
       }
 #pragma unroll

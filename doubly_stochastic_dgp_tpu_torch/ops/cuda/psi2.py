@@ -67,9 +67,6 @@ _FWD_WARPS, _FWD_KR, _FWD_REDUCE, _FWD_CHUNKS = 16, 8, 96, 16
 # fastest wt there, symmetric and general
 _FWD_STAGE_COST = 0.7
 _FWD_SMEM_MAX = 200 * 1024
-# the first design (design='two_pass'): 32-row steps, 64 x 64 tiles, about
-# four blocks an SM
-_ROWS, _TILE, _BLOCKS_PER_SM = 32, 64, 4
 # csrc/psi2_bwd.cu's tiling, mirrored by backward_plan: threads a block
 # (16 x 16), b's a sub-tile, rows a step, d's of gw and Q a block when
 # D > 8, the row stride of the per-thread partials; shared memory a block
@@ -272,17 +269,6 @@ def backward_flops(N, M, D):
     return terms(N, M) * (8 + 6 * D) + 5 * N * M * D
 
 
-def _chunks(N, M, sms):
-    """Row chunks of a launch of the first design: enough (tiles x chunks)
-    blocks to give each SM about four, and no more chunks than 32-row
-    steps."""
-    tiles = (-(-M // _TILE)) ** 2
-    steps = -(-N // _ROWS)
-    target = max(1, _BLOCKS_PER_SM * sms // tiles)
-    per = -(-steps // target)
-    return -(-steps // per)
-
-
 def _bwd_geometry(D):
     """(D template, a's a thread, d's of gw and Q a block, blocks an SM)
     of csrc/psi2_bwd.cu at this D."""
@@ -358,17 +344,6 @@ def _fwd_fn():
 
 
 @functools.cache
-def _two_pass_fn():
-    from .build import load_library
-    fn = load_library("psi2").psi2_fwd_two_pass
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
 def _bwd_fn():
     from .build import load_library
     fn = load_library("psi2_bwd").psi2_bwd
@@ -408,45 +383,30 @@ def _check(U, V, w, logdet, Z, g=None):
     return N, M, D
 
 
-def _forward_kernel(U, V, w, logdet, Z, symmetric=False, design="one_pass",
-                    wt=None):
+def _forward_kernel(U, V, w, logdet, Z, symmetric=False, wt=None):
     """Launch the forward kernel.  The launch's scratch (the chunks' sums
     and its ticket counters) comes from the caching allocator on the
     current stream, so launches on several streams, or in several CUDA
     graphs, never share it.  Private, for timing: ``wt`` fixes the plan's
-    wt (:func:`forward_plan`); ``design='two_pass'`` launches the first
-    design, which computes the full square (so ``symmetric`` does not
-    apply) and adds its chunks in a second kernel."""
+    wt (:func:`forward_plan`)."""
     N, M, D = _check(U, V, w, logdet, Z)
     out = torch.empty(M, M, dtype=torch.float32, device=U.device)
     if N == 0:
         return out.zero_()
     sms = _sm_count(U.device)
+    plan = forward_plan(N, M, D, sms, bool(symmetric), wt)
+    scratch = (torch.empty(plan["scratch_floats"], dtype=torch.float32,
+                           device=U.device)
+               if plan["chunks"] > 1 else None)
     with torch.cuda.device(U.device):
         stream = torch.cuda.current_stream().cuda_stream
-        if design == "two_pass":
-            chunks = _chunks(N, M, sms)
-            scratch = (torch.empty(chunks * M * M, dtype=torch.float32,
-                                   device=U.device) if chunks > 1 else None)
-            err = _two_pass_fn()(
-                U.data_ptr(), V.data_ptr(), w.data_ptr(), logdet.data_ptr(),
-                Z.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), N, M, D,
-                chunks, stream)
-        elif design == "one_pass":
-            plan = forward_plan(N, M, D, sms, bool(symmetric), wt)
-            scratch = (torch.empty(plan["scratch_floats"],
-                                   dtype=torch.float32, device=U.device)
-                       if plan["chunks"] > 1 else None)
-            err = _fwd_fn()(
-                U.data_ptr(), V.data_ptr(), w.data_ptr(), logdet.data_ptr(),
-                Z.data_ptr(), out.data_ptr(),
-                None if scratch is None else scratch.data_ptr(), N, M, D,
-                int(symmetric), plan["wt"], plan["row_groups"],
-                plan["rows_per_chunk"], plan["box"], plan["stages"],
-                plan["groups"], plan["chunks"], plan["smem_bytes"], stream)
-        else:
-            raise ValueError(f"psi2_core: unknown design {design!r}")
+        err = _fwd_fn()(
+            U.data_ptr(), V.data_ptr(), w.data_ptr(), logdet.data_ptr(),
+            Z.data_ptr(), out.data_ptr(),
+            None if scratch is None else scratch.data_ptr(), N, M, D,
+            int(symmetric), plan["wt"], plan["row_groups"],
+            plan["rows_per_chunk"], plan["box"], plan["stages"],
+            plan["groups"], plan["chunks"], plan["smem_bytes"], stream)
     if err != 0:
         raise RuntimeError(f"psi2_core: kernel launch failed with CUDA "
                            f"error {err}")

@@ -1,10 +1,12 @@
 """Training loop: on-device minibatches, the Adam step, the reject-nonfinite
-guard, ``fit`` with checkpoints, and the regression metrics.
+guard, ``fit`` with checkpoints, and the regression and classification
+metrics.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/training/loop.py``
 (``make_sgd_train_step``, ``guarded_scan``, ``make_scan_train_step``,
-``fit``, ``evaluate_regression``).  A step is one forward, gradients as
-values (``torch.autograd.grad``) and one Adam update in place.  A chunk
+``fit``, ``evaluate_regression``, ``evaluate_classification``).  A step
+is one forward, gradients as values (``torch.autograd.grad``) and one
+Adam update in place.  A chunk
 of steps (the JAX ``lax.scan``) is, on a CUDA tensor, one captured CUDA
 graph replayed per chunk (``graphs.CapturedCall``), with no host sync
 inside it; on the CPU, and on the card inside ``graphs.eager_on_card()``,
@@ -39,7 +41,8 @@ from ..utils.params import log_prior
 from .optim import copy_state, masked_optimizer
 
 __all__ = ["check_minibatchable", "make_sgd_train_step", "guarded_scan",
-           "make_scan_train_step", "fit", "evaluate_regression"]
+           "make_scan_train_step", "fit", "evaluate_regression",
+           "evaluate_classification"]
 
 # The guard's trust scale: halved on a rejected step, down to 2^-12, and
 # recovered by 2^(1/16) on an accepted one, up to exactly 1.0 (clamped by
@@ -438,3 +441,34 @@ def evaluate_regression(model, Xs, Ys, Y_std, S: int = 100,
     test_loglik = np.average(test_loglik_ND)
     return {"rmse": float(test_err), "nll": float(-test_loglik),
             "loglik": float(test_loglik)}
+
+
+def evaluate_classification(model, Xs, Ys, S: int = 100,
+                            batch_size: int = 1000, seed: int = 0):
+    """Test accuracy and mean log predictive probability of a classifier,
+    with the definitions of the reference MNIST notebook (cell 11): the
+    class probabilities are the S-sample mean of the ``predict_y`` means
+    (the robust-max ``MultiClass`` likelihood returns class
+    probabilities), the accuracy is the argmax match, and the loglik is
+    log p(true class) clamped at 1e-12.  ``Ys`` holds integer class
+    labels, (N, 1).  Chunk ``mb`` draws from a generator seeded with
+    ``derive_seed(seed, mb)``."""
+    Xs = np.asarray(Xs)
+    Ys = np.asarray(Ys)
+    correct, lls = 0, []
+    for mb in range(-(-len(Xs) // batch_size)):
+        g = torch.Generator(device=model.X_data.device)
+        g.manual_seed(derive_seed(seed, mb))
+        y = Ys[mb * batch_size:(mb + 1) * batch_size]
+        m, _ = model.predict_y(Xs[mb * batch_size:(mb + 1) * batch_size],
+                               S=S, generator=g)
+        m = m.double().cpu().numpy()
+        if m.ndim == 2:   # models that squeeze the sample axis
+            m = m[None]
+        probs = m.mean(0)
+        correct += int((probs.argmax(1) == y[:, 0]).sum())
+        lls.append(np.log(np.maximum(
+            probs[np.arange(len(y)), y[:, 0].astype(int)], 1e-12)))
+    loglik = float(np.concatenate(lls).mean())
+    return {"accuracy": correct / len(Xs), "loglik": loglik,
+            "nll": -loglik}

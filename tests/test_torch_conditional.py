@@ -26,6 +26,7 @@ from doubly_stochastic_dgp_tpu.ops.pallas.conditional import (
 import doubly_stochastic_dgp_tpu as dsd
 from doubly_stochastic_dgp_tpu.ops.pallas import psi2 as jpsi2
 from doubly_stochastic_dgp_tpu.ops.pallas.gram import rbf_gram as jax_rbf_gram
+from doubly_stochastic_dgp_tpu.utils import timing as jtiming
 from doubly_stochastic_dgp_tpu.ops.pallas.psi2 import (
     _psi2_core_bwd_call, psi2_core as jax_psi2_core, psi2_core_pallas_fwd,
     psi2_core_reference)
@@ -34,6 +35,7 @@ from doubly_stochastic_dgp_tpu_torch.ops import psi_stats as tpsi_stats
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import gram as tgram
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import psi2 as tpsi2
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import conditional as tcond
+from doubly_stochastic_dgp_tpu_torch.utils import timing as ttiming
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     backward_plan, forward_plan, fused_conditional,
     fused_conditional_backward_plain, fused_conditional_plain,
@@ -45,10 +47,11 @@ GRAD_RTOL, GRAD_ATOL = 1e-7, 1e-9
 GRAD_NAMES = ["dXs", "dZs", "dLiT", "dalpha", "dW", "dkvar", "dkdiag"]
 
 
-def _inputs(B, M, Do, Dx=8, seed=0, identity_lit=False, clamp=False):
+def _inputs(B, M, Do, Dx=8, seed=0, identity_lit=False, clamp=False,
+            spread=1.0):
     rng = np.random.RandomState(seed)
-    Xs = rng.randn(B, Dx)
-    Zs = rng.randn(M, Dx)
+    Xs = rng.randn(B, Dx) * spread
+    Zs = rng.randn(M, Dx) * spread
     LiT = np.eye(M) if identity_lit else np.eye(M) + 0.1 * rng.randn(M, M)
     alpha = rng.randn(M, Do) * 0.3
     Wh = rng.randn(Do, M, M) * 0.1
@@ -66,6 +69,12 @@ CASES = [
     ("B1100_M100_Do8", dict(B=1100, M=100, Do=8)),
     ("identity_LiT", dict(B=130, M=37, Do=2, identity_lit=True)),
     ("clamp_active", dict(B=260, M=50, Do=3, Dx=5, seed=1, clamp=True)),
+    # the MNIST DGP's layer widths (784 -> 30 -> 10), few rows; inputs
+    # with std 1/sqrt(Dx), whose scaled distances are O(1)
+    ("mnist_Dx784_Do30", dict(B=70, M=24, Do=30, Dx=784, seed=2,
+                              spread=784 ** -0.5)),
+    ("mnist_Dx30_Do10", dict(B=70, M=24, Do=10, Dx=30, seed=3,
+                             spread=30 ** -0.5)),
 ]
 
 
@@ -75,6 +84,10 @@ GRAD_CASES = [
     ("grad_single_tile", dict(B=260, M=50, Do=3, Dx=5, seed=1), None),
     ("grad_multi_tile", dict(B=1100, M=40, Do=2, Dx=4, seed=5), None),
     ("grad_clamp_active", dict(B=200, M=30, Do=2, Dx=4, seed=3), -0.5),
+    ("grad_mnist_Dx784_Do30", dict(B=60, M=20, Do=30, Dx=784, seed=6,
+                                   spread=784 ** -0.5), None),
+    ("grad_mnist_Dx30_Do10", dict(B=60, M=20, Do=10, Dx=30, seed=7,
+                                  spread=30 ** -0.5), None),
 ]
 
 
@@ -124,7 +137,11 @@ def _check_gradients():
 PLAN_SHAPES = [(10000, 100, 8, 8), (100000, 100, 8, 8), (10000, 100, 8, 1),
                (513, 512, 3, 2), (513, 512, 3, 8), (300, 1, 4, 2),
                (1300, 37, 8, 3), (2000, 100, 8, 13), (1, 100, 8, 8),
-               (41, 100, 8, 8), (17, 100, 8, 8)]
+               (41, 100, 8, 8), (17, 100, 8, 8),
+               # the MNIST DGP's layers (minibatch 1000, S=1) and its
+               # serving shape (1000 rows, S=100) at layer 0
+               (1000, 100, 784, 30), (1000, 100, 30, 30),
+               (1000, 100, 30, 10), (100000, 100, 784, 30)]
 SCRATCH_MAX = 8_000_000   # bytes of the backward's slice partials
 
 
@@ -752,11 +769,14 @@ def _check_rbf_gram():
     rbf_gram (forward in float32; its jax.grad in float64, also with a
     scalar lengthscale, whose gradient is the sum of the ARD ones), and
     rbf_gram(X, X) against the JAX RBF.K(X) with its gradient."""
-    for N, M, D in ((64, 48, 8), (300, 130, 3)):
+    # the last: the MNIST layer-0 width, with std 1/sqrt(D) inputs (O(1)
+    # scaled distances), the kernel's generic-D path on the card
+    for N, M, D in ((64, 48, 8), (300, 130, 3), (64, 40, 784)):
         case = f"rbf_gram forward float32 N={N} M={M} D={D}"
         rng = np.random.RandomState(0)
-        X = rng.randn(N, D).astype(np.float32)
-        Z = rng.randn(M, D).astype(np.float32)
+        spread = 1.0 if D < 100 else D ** -0.5
+        X = (rng.randn(N, D) * spread).astype(np.float32)
+        Z = (rng.randn(M, D) * spread).astype(np.float32)
         ls = (rng.rand(D) + 0.5).astype(np.float32)
         want = jax_rbf_gram(jnp.asarray(X), jnp.asarray(Z), jnp.asarray(ls),
                             jnp.float32(1.7), True)
@@ -842,6 +862,31 @@ def _check_gram_args():
                                 f"arithmetic vs the interpret-mode kernel")
 
 
+def _check_timing():
+    """utils/timing.py keeps the JAX helper's contract: one warm-up call
+    with -1, then ``repeats`` blocks of ``n`` calls with 0 .. repeats n -
+    1, and the JAX statistics (here on the host clock)."""
+    seen = {"port": [], "jax": []}
+
+    def call(who):
+        def f(i):
+            seen[who].append(i)
+            return torch.full((3,), float(i)) if who == "port" else (
+                np.full(3, float(i)))
+        return f
+
+    got = ttiming.timed_per_call_stats(call("port"), n=4, repeats=3)
+    want = jtiming.timed_per_call_stats(call("jax"), n=4, repeats=3)
+    assert seen["port"] == seen["jax"] == [-1] + list(range(12)), (
+        f"timing: call indices {seen}")
+    assert set(want) <= set(got) and got["repeats"] == 3 and (
+        got["clock"] == "host"), f"timing: statistics {got}"
+    assert 0 < got["best"] <= got["median"] <= got["max"], (
+        f"timing: order of the statistics {got}")
+    assert ttiming.timed_per_call(call("port"), n=2, repeats=2) > 0, (
+        "timed_per_call")
+
+
 def test_fused_conditional_plain_matches_jax():
     for f in (fused_conditional, fused_conditional_saved):
         f.launches = f.backward_launches = 0
@@ -883,6 +928,7 @@ def test_fused_conditional_plain_matches_jax():
     _check_psi2_onepass()
     _check_rbf_gram()
     _check_gram_args()
+    _check_timing()
     assert _counts() == (0, 0, 0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 

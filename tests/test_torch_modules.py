@@ -14,9 +14,11 @@ diagonal and full-covariance), plus the port's import and device rules.
 One test item that loops over its cases and names the failing case in
 every assertion message."""
 
+import os
 import re
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax
@@ -27,17 +29,25 @@ from numpy.testing import assert_allclose
 
 import doubly_stochastic_dgp_tpu as dsd
 from doubly_stochastic_dgp_tpu.config import temp_config
+from doubly_stochastic_dgp_tpu.data import datasets as jdata
+from doubly_stochastic_dgp_tpu.data import native as jnative
 from doubly_stochastic_dgp_tpu.models import posterior as jposterior
 from doubly_stochastic_dgp_tpu.models.layers import SGPRLayer as JSGPRLayer
 from doubly_stochastic_dgp_tpu.ops import linalg as jlinalg
+from doubly_stochastic_dgp_tpu.ops import likelihoods as jlik
+from doubly_stochastic_dgp_tpu.ops import quadrature as jquad
 from doubly_stochastic_dgp_tpu.ops.psi_stats import (
     psi_statistics as jax_psi_statistics)
 from doubly_stochastic_dgp_tpu.utils import modules as jmodules
 import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
+from doubly_stochastic_dgp_tpu_torch.data import datasets as tdata
+from doubly_stochastic_dgp_tpu_torch.data import native as tnative
 from doubly_stochastic_dgp_tpu_torch.graphs import no_host_reads
 from doubly_stochastic_dgp_tpu_torch.models import posterior as tposterior
+from doubly_stochastic_dgp_tpu_torch.ops import likelihoods as tlik
 from doubly_stochastic_dgp_tpu_torch.ops import linalg as tlinalg
+from doubly_stochastic_dgp_tpu_torch.ops import quadrature as tquad
 from doubly_stochastic_dgp_tpu_torch.ops import psi_stats as tpsi_stats
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
 from doubly_stochastic_dgp_tpu_torch.ops.psi_stats import (
@@ -430,6 +440,247 @@ def _check_mean_functions_and_likelihood(rng):
                jg).variance.unconstrained)
 
 
+# the quadrature and the likelihoods: the same float64 arithmetic in both
+# packages, summed in other orders (20-point rules, products of K CDFs)
+LIK_RTOL, LIK_ATOL = 1e-10, 1e-12
+QUAD_RTOL = 1e-12
+
+
+def _check_quadrature(rng):
+    for H in (1, 5, 20):
+        for got, want, what in zip(tquad.hermgauss(H), jquad.hermgauss(H),
+                                   ("nodes", "weights")):
+            np.testing.assert_array_equal(
+                got, want, err_msg=f"hermgauss H={H} {what}: not bit for bit")
+    for H, Dq in ((3, 2), (4, 3)):
+        for got, want, what in zip(tquad.mvhermgauss(H, Dq),
+                                   jquad.mvhermgauss(H, Dq),
+                                   ("nodes", "weights")):
+            np.testing.assert_array_equal(
+                got, want, err_msg=f"mvhermgauss H={H} D={Dq} {what}: not "
+                                   f"bit for bit")
+    Fmu, Fvar, Y = rng.randn(3, 7, 2), np.exp(rng.randn(3, 7, 2)), rng.randn(
+        7, 2)
+    Fvar[0, :2] = 0.0                     # below the 1e-12 floor
+    funcs = [lambda X, Y: X ** 2 * Y, lambda X, Y: -0.5 * (X - Y) ** 2]
+    jfuncs = [lambda X, Y: jnp.sin(X) * Y + X ** 2,
+              lambda X, Y: -0.5 * (X - Y) ** 2]
+    tfuncs = [lambda X, Y: torch.sin(X) * Y + X ** 2, funcs[1]]
+    for logspace in (False, True):
+        got = tquad.ndiagquad(tfuncs, 20, _t(Fmu), _t(Fvar), logspace, Y=_t(Y))
+        want = jquad.ndiagquad(jfuncs, 20, jnp.asarray(Fmu),
+                               jnp.asarray(Fvar), logspace, Y=jnp.asarray(Y))
+        for i, (g, w) in enumerate(zip(got, want)):
+            assert_allclose(g.numpy(), np.asarray(w), rtol=QUAD_RTOL,
+                            atol=1e-300, err_msg=f"ndiagquad logspace="
+                                                 f"{logspace} integrand {i}")
+
+
+def _likelihood_cases(rng, N):
+    """(name, JAX likelihood, port likelihood, latent width, Y)."""
+    edges = np.array([-1.0, 0.0, 1.5])
+    cases = [
+        ("Gaussian", jlik.Gaussian.make(0.3), tlik.Gaussian(), 2,
+         rng.randn(N, 2)),
+        ("Bernoulli", jlik.Bernoulli.make(), tlik.Bernoulli(), 1,
+         rng.randint(0, 2, (N, 1)).astype(float)),
+        ("Poisson", jlik.Poisson.make(binsize=0.7), tlik.Poisson(0.7), 1,
+         rng.poisson(2.0, (N, 1)).astype(float)),
+        ("Exponential", jlik.Exponential.make(), tlik.Exponential(), 1,
+         rng.exponential(1.0, (N, 1))),
+        ("StudentT", jlik.StudentT.make(0.6, df=4.0), tlik.StudentT(df=4.0),
+         1, rng.randn(N, 1)),
+        ("Gamma", jlik.Gamma.make(1.7), tlik.Gamma(), 1,
+         rng.gamma(2.0, 1.0, (N, 1))),
+        ("Beta", jlik.Beta.make(2.5), tlik.Beta(), 1,
+         rng.uniform(0.05, 0.95, (N, 1))),
+        ("Ordinal", jlik.Ordinal.make(edges, sigma=0.8),
+         tlik.Ordinal(np.zeros(3)), 1,
+         rng.randint(0, 4, (N, 1)).astype(float)),
+    ]
+    for K in (3, 10):
+        cases.append((f"MultiClass K={K}", jlik.MultiClass.make(K),
+                      tlik.MultiClass(K), K,
+                      rng.randint(0, K, (N, 1)).astype(float)))
+    return cases
+
+
+def _lik_methods(Y):
+    """(method, f(lik, Fmu, Fvar, Y) -> output or (mean, var))."""
+    return [("logp", lambda l, m, v, y: l.logp(m, y)),
+            ("variational_expectations",
+             lambda l, m, v, y: l.variational_expectations(m, v, y)),
+            ("predict_mean_and_var",
+             lambda l, m, v, y: l.predict_mean_and_var(m, v)),
+            ("predict_density",
+             lambda l, m, v, y: l.predict_density(m, v, y))]
+
+
+def _weighted_sum(out, weights, sum_):
+    outs = out if isinstance(out, tuple) else (out,)
+    return sum_(o * w for o, w in zip(outs, weights))
+
+
+def _check_likelihoods(rng):
+    """Each of the nine likelihoods, every method, values and gradients
+    with respect to Fmu, Fvar and each parameter, at (S=3, N=7, D) with
+    Fvar = 0 entries (the floors)."""
+    S_, N_ = 3, 7
+    for name, jl, tl, Dl, Y in _likelihood_cases(rng, N_):
+        tl = port.load_reference_state(tl, _state(jl))
+        Fmu = rng.randn(S_, N_, Dl)
+        Fvar = np.exp(rng.randn(S_, N_, Dl) - 1.0)
+        Fvar[0, :2] = 0.0
+        Fvar[1, 3, 0] = 0.0
+        weights = [rng.randn(S_, N_, Dl), rng.randn(S_, N_, Dl)]
+        params = dict(tl.named_parameters())
+        methods = _lik_methods(Y)
+
+        def joracle(l, m, v, y, w):
+            """Every method's output and its weighted sum's gradients in
+            (lik, Fmu, Fvar): one jitted oracle a likelihood."""
+            def obj(f):
+                def val(l, m, v):
+                    out = f(l, m, v, y)
+                    return _weighted_sum(out, w, lambda t: sum(
+                        jnp.sum(x) for x in t)), out
+                return val
+            return [jax.value_and_grad(obj(f), argnums=(0, 1, 2),
+                                       has_aux=True)(l, m, v)
+                    for _, f in methods]
+
+        oracle = jax.jit(joracle)(jl, jnp.asarray(Fmu), jnp.asarray(Fvar),
+                                  jnp.asarray(Y),
+                                  [jnp.asarray(w) for w in weights])
+        for (method, f), ((_, jout), jg) in zip(methods, oracle):
+            case = f"likelihood {name} {method}"
+            m, v = _t(Fmu).requires_grad_(), _t(Fvar).requires_grad_()
+            tout = f(tl, m, v, _t(Y))
+            loss = _weighted_sum(tout, [_t(w) for w in weights],
+                                 lambda t: sum(torch.sum(x) for x in t))
+            inputs = [m, v] + list(params.values())
+            grads = (torch.autograd.grad(loss, inputs, allow_unused=True)
+                     if loss.requires_grad else [None] * len(inputs))
+            grads = [torch.zeros_like(x) if g is None else g
+                     for x, g in zip(inputs, grads)]
+            for i, (a, b) in enumerate(zip(
+                    tout if isinstance(tout, tuple) else (tout,),
+                    jout if isinstance(jout, tuple) else (jout,))):
+                assert_allclose(a.detach().numpy(), np.asarray(b),
+                                rtol=LIK_RTOL, atol=LIK_ATOL,
+                                err_msg=f"{case} output {i}")
+            jgp = _state(jg[0])
+            named = [("Fmu", jg[1]), ("Fvar", jg[2])] + [
+                (k, jgp["." + k.replace(".unconstrained", "")
+                        + ".unconstrained"]) for k in params]
+            for (what, want), got in zip(named, grads):
+                assert_allclose(got.numpy(), np.asarray(want), rtol=LIK_RTOL,
+                                atol=LIK_ATOL, err_msg=f"{case} grad {what}")
+            assert np.isfinite([g.sum().item() for g in grads]).all(), (
+                f"{case}: non-finite gradient at Fvar = 0")
+
+
+FIXTURES = Path(__file__).resolve().parent / "fixtures"
+
+
+def _raises(case, exc, match, fn):
+    try:
+        fn()
+    except exc as e:
+        assert re.search(match, str(e)), f"{case}: {e}"
+        return str(e)
+    raise AssertionError(f"{case}: did not raise {exc.__name__}")
+
+
+def _check_data(rng):
+    """The loaders against the JAX package's, bit for bit: load_mnist_npz
+    and its four rejections, Kin8nm on the committed CSV, the synthetic
+    sets and the registry; the missing-CSV refusal; data/native.py against
+    its numpy fallback and the JAX binding of the same library."""
+    mnist = str(FIXTURES / "mnist_tiny.npz")
+    got, want = tdata.load_mnist_npz(mnist), jdata.load_mnist_npz(mnist)
+    for k in ("X", "Y", "Xs", "Ys"):
+        assert got[k].dtype == want[k].dtype and np.array_equal(
+            got[k], want[k]), f"load_mnist_npz {k}"
+    d = want
+    with tempfile.TemporaryDirectory() as tmp:
+        bad = os.path.join(tmp, "bad.npz")
+        for case, arrays, match in (
+                ("missing Ys", dict(X=d["X"], Y=d["Y"], Xs=d["Xs"]),
+                 "missing"),
+                ("pixels x 255", dict(X=d["X"] * 255.0, Y=d["Y"],
+                                      Xs=d["Xs"], Ys=d["Ys"]), r"\[0, 1\]"),
+                ("labels + 0.5", dict(X=d["X"], Y=d["Y"] + 0.5, Xs=d["Xs"],
+                                      Ys=d["Ys"]), "integer"),
+                ("10 labels", dict(X=d["X"], Y=d["Y"][:10], Xs=d["Xs"],
+                                   Ys=d["Ys"]), "labels")):
+            np.savez(bad, **arrays)
+            msg = _raises(f"load_mnist_npz rejects {case}", ValueError,
+                          match, lambda: tdata.load_mnist_npz(bad))
+            jmsg = _raises(f"JAX load_mnist_npz rejects {case}", ValueError,
+                           match, lambda: jdata.load_mnist_npz(bad))
+            assert msg == jmsg, f"load_mnist_npz {case}: {msg} vs {jmsg}"
+
+        # a missing CSV raises without a download (no loader has one)
+        missing = tdata.Kin8nm(data_path=tmp)
+        assert not hasattr(missing, "download_data"), "a loader downloads"
+        _raises("Kin8nm without its CSV", FileNotFoundError,
+                "never downloads.*SyntheticRegression", missing.get_data)
+
+        # data/native.py: the library against its numpy fallback
+        A = rng.randn(57, 6)
+        path = os.path.join(tmp, "a.csv")
+        np.savetxt(path, A, delimiter=",", header="a,b,c,d,e,f",
+                   comments="")
+        assert tnative.native_available(), "native: g++ build failed"
+        np.testing.assert_array_equal(
+            tnative.read_csv(path, True), tnative.read_csv_numpy(path, True),
+            err_msg="native read_csv vs numpy, with a header")
+        assert_allclose(tnative.read_csv(path, True), A, rtol=1e-15,
+                        err_msg="native read_csv vs the written array")
+    kin = str(FIXTURES / "kin8nm.csv")
+    np.testing.assert_array_equal(tnative.read_csv(kin),
+                                  tnative.read_csv_numpy(kin),
+                                  err_msg="native read_csv vs numpy, kin8nm")
+    idx = tnative.shuffled_indices(57, 5)
+    np.testing.assert_array_equal(idx, jnative.shuffled_indices(57, 5),
+                                  err_msg="native shuffled_indices vs JAX")
+    for perm in (idx, tnative.shuffled_indices_numpy(57, 5)):
+        assert np.array_equal(np.sort(perm), np.arange(57)), (
+            "shuffled_indices: not a permutation")
+    np.testing.assert_array_equal(tnative.gather_rows(A, idx[:20]),
+                                  A[idx[:20]], err_msg="native gather_rows")
+    stream = tnative.MinibatchStream(A[:, :5], A[:, 5:], 10, seed=3)
+    with tnative.PrefetchingLoader(A[:, :5], A[:, 5:], 10, seed=3,
+                                   depth=2) as pre:
+        for i in range(12):   # two epochs
+            for a, b in zip(stream.next(), pre.next()):
+                np.testing.assert_array_equal(
+                    a, b, err_msg=f"PrefetchingLoader batch {i}")
+
+    # the UCI loader on the committed CSV, and the synthetic sets
+    for name, tds, jds in (
+            ("Kin8nm", tdata.Kin8nm(data_path=str(FIXTURES)),
+             jdata.Kin8nm(data_path=str(FIXTURES))),
+            ("SyntheticRegression", tdata.make_synthetic_regression(
+                N=300, D=3, seed=4), jdata.make_synthetic_regression(
+                N=300, D=3, seed=4)),
+            ("CompositionalRegression", tdata.CompositionalRegression(
+                N=300, D=4), jdata.CompositionalRegression(N=300, D=4)),
+            ("ConjugateRegression", tdata.ConjugateRegression(N=200, D=3),
+             jdata.ConjugateRegression(N=200, D=3))):
+        got, want = tds.get_data(seed=1, split=2), jds.get_data(seed=1,
+                                                                  split=2)
+        assert set(got) == set(want), f"{name} keys"
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k],
+                                          err_msg=f"{name} {k}")
+    reg, jreg = tdata.Datasets(), jdata.Datasets()
+    assert {k: (v.N, v.D, v.url) for k, v in reg.all_datasets.items()} == {
+        k: (v.N, v.D, v.url) for k, v in jreg.all_datasets.items()}, (
+        "Datasets registry")
+
+
 def _layer_pair(rng, white, fused, kern_white, mode="inverse", M=15):
     D_in, D_out = 3, 2
     Z = rng.randn(M, D_in)
@@ -579,6 +830,12 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.training.optim\n"
             "import doubly_stochastic_dgp_tpu_torch.training.checkpoint\n"
             "import doubly_stochastic_dgp_tpu_torch.graphs\n"
+            "import doubly_stochastic_dgp_tpu_torch.ops.quadrature\n"
+            "import doubly_stochastic_dgp_tpu_torch.ops.likelihoods\n"
+            "import doubly_stochastic_dgp_tpu_torch.data.datasets\n"
+            "import doubly_stochastic_dgp_tpu_torch.data.native\n"
+            "import doubly_stochastic_dgp_tpu_torch.training.monitor\n"
+            "import doubly_stochastic_dgp_tpu_torch.utils.timing\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
@@ -619,6 +876,10 @@ def test_modules_match_jax():
     _check_ladder_and_solves(rng)
     _check_sync_free_cholesky(np.random.RandomState(11))
     _check_mean_functions_and_likelihood(rng)
+    # their own streams, so that the cases after them keep their data
+    _check_quadrature(np.random.RandomState(21))
+    _check_likelihoods(np.random.RandomState(22))
+    _check_data(np.random.RandomState(23))
     _check_layers(rng)
     psi2_core.launches = 0
     _check_psi2_route()

@@ -19,6 +19,9 @@ pieces (``propagate``, ``variational_expectations``, ``KL``, the
 num_data / batch scale, ``log_prior``).  One test item that names the
 failing case in every assertion message."""
 
+import contextlib
+import io
+import json
 import os
 import tempfile
 import warnings
@@ -33,21 +36,29 @@ from numpy.testing import assert_allclose
 
 import doubly_stochastic_dgp_tpu as dsd
 from doubly_stochastic_dgp_tpu.config import temp_config
+from doubly_stochastic_dgp_tpu.data.datasets import (
+    load_mnist_npz as jax_load_mnist_npz)
+from doubly_stochastic_dgp_tpu.models import initializations as jinit
 from doubly_stochastic_dgp_tpu.models.layers import SGPRLayer as JSGPRLayer
 from doubly_stochastic_dgp_tpu.training.loop import (
+    evaluate_classification as jax_evaluate_classification,
     evaluate_regression as jax_evaluate_regression, fit as jax_fit,
     guarded_scan as jax_guarded_scan)
+from doubly_stochastic_dgp_tpu.training import monitor as jmonitor
 from doubly_stochastic_dgp_tpu.training.optim import masked_optimizer
 from doubly_stochastic_dgp_tpu.utils.modules import log_prior, trainable_mask
 import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
 from doubly_stochastic_dgp_tpu_torch.graphs import no_host_reads
+from doubly_stochastic_dgp_tpu_torch.models import initializations as tinit
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.conditional import (
     fused_conditional)
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
 from doubly_stochastic_dgp_tpu_torch.training.checkpoint import latest_step
 from doubly_stochastic_dgp_tpu_torch.training.loop import (
     guarded_scan, make_scan_train_step, make_sgd_train_step)
+from doubly_stochastic_dgp_tpu_torch.training.monitor import (
+    FullElboCallback, JsonlLogger, PrintTimings)
 from doubly_stochastic_dgp_tpu_torch.training.optim import (
     Adam, AdamState, masked_optimizer as port_masked_optimizer)
 
@@ -598,6 +609,180 @@ def _check_collapsed_fit(name, jm, build):
                     err_msg=f"{name}: fit history against the JAX fit")
 
 
+# ---------------------------------------------------------------------------
+# classification: the paper's MNIST DGP, cut to the committed fixture
+# ---------------------------------------------------------------------------
+
+MNIST_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                             "fixtures", "mnist_tiny.npz")
+# the MNIST demo's numerics (float64 here), on the card's route
+MNIST_NUMERICS = dict(use_pallas=True, solve_mode="inverse", jitter=1e-5)
+CLS_M, CLS_H, CLS_K = 16, 4, 10
+# predict_y's class probabilities and variances, which lie in [0, 1]:
+# absolute.  The same float64 arithmetic summed in other orders; the
+# randomised posterior's layer 1 means (~1e2) already differ by ~1e-9
+# (Kuu's conditioning at jitter 1e-5), about 1e-11 in the probabilities
+PROBS_ATOL = 1e-10
+EVAL_RTOL = 1e-10
+
+
+@jax.jit
+def _jax_predict_y(model, X, zs):
+    """The JAX predict_y moments at fixed draws (one compile, not one a
+    dispatched op)."""
+    _, means, variances = model.propagate(X, S=S, zs=zs)
+    return model.likelihood.predict_mean_and_var(means[-1], variances[-1])
+
+
+def _classifiers(d, rng, hidden=(CLS_H,)):
+    """A JAX and a port MultiClass DGP on the fixture (the MNIST demo's
+    architecture at test_mnist_path.py's sizes: RBF(2.0, 2.0) layers, D ->
+    hidden -> 10), checked equal as built (the PCA projection included),
+    then carried over with a randomised posterior."""
+    Z = d["X"][rng.permutation(d["X"].shape[0])[:CLS_M]].astype(np.float64)
+    widths = (d["X"].shape[1],) + tuple(hidden)
+    with temp_config(**MNIST_NUMERICS):
+        jm = dsd.DGP.build(
+            d["X"].astype(np.float64), d["Y"], Z,
+            [dsd.RBF.make(w, lengthscales=2.0, variance=2.0) for w in widths],
+            dsd.MultiClass.make(CLS_K), num_outputs=CLS_K, num_samples=S)
+    tm = port.DGP.build(d["X"], d["Y"], Z,
+                        [port.RBF(w, lengthscales=2.0, variance=2.0)
+                         for w in widths], port.MultiClass(CLS_K),
+                        num_outputs=CLS_K, num_samples=S,
+                        config=port.Config(**MNIST_NUMERICS), device="cpu")
+    built = dict(tm.named_parameters())
+    built.update(tm.named_buffers())
+    want = _flat(jm)
+    assert set(built) == set(want), (
+        f"classifier as built: names differ {set(built) ^ set(want)}")
+    for name, t in built.items():
+        _close(f"classifier as built {name}", t, want[name])
+    layers = []
+    for layer in jm.layers:
+        Mi, Do = layer.q_mu.value.shape
+        q_sqrt = np.tril(rng.randn(Do, Mi, Mi) * 0.2) + 0.3 * np.eye(Mi)
+        layers.append(layer.replace(
+            q_mu=layer.q_mu.with_value(rng.randn(Mi, Do)),
+            q_sqrt=layer.q_sqrt.with_value(q_sqrt)))
+    jm = jm.replace(layers=layers)
+    return jm, port.load_reference_state(tm, _flat(jm))
+
+
+def _check_classification(rng):
+    """The MNIST path against the JAX package: the loader, the DGP built
+    from the fixture, its ELBO and gradients at fixed draws, predict_y's
+    class probabilities, evaluate_classification, a fit with the monitors,
+    and a training chunk and live and cached requests with no host read."""
+    d = port.load_mnist_npz(MNIST_FIXTURE)
+    jd = jax_load_mnist_npz(MNIST_FIXTURE)
+    for key in ("X", "Y", "Xs", "Ys"):
+        assert d[key].dtype == jd[key].dtype and np.array_equal(
+            d[key], jd[key]), f"load_mnist_npz {key}"
+    # the 784 -> 30 PCA projection of layer 0, at the MNIST width
+    Xw = rng.uniform(size=(200, 784))
+    np.testing.assert_array_equal(
+        tinit._linear_projection(784, 30, Xw),
+        jinit._linear_projection(784, 30, Xw),
+        err_msg="PCA projection 784 -> 30")
+
+    jm, model = _classifiers(d, rng)
+    assert isinstance(model.layers[0].mean_function, port.Linear), (
+        "classifier: layer 0 has no PCA Linear mean function")
+    X, Y = d["X"].astype(np.float64), d["Y"]
+    idx = rng.randint(0, X.shape[0], BATCH)
+    zs = [rng.randn(S, BATCH, w) for w in (CLS_H, CLS_K)]
+    jloss, jgrads = _jax_loss_and_grads(
+        jm, jnp.asarray(X[idx]), jnp.asarray(Y[idx]),
+        [jnp.asarray(z) for z in zs])
+    loss = model.loss(X[idx], Y[idx], zs=zs) - port.log_prior(model)
+    loss.backward()
+    _close("classifier ELBO at fixed draws", loss, jloss)
+    jgrads = _flat(jgrads)
+    trainable = [k for k, p in model.named_parameters() if p.requires_grad]
+    assert trainable, "classifier: no trainable parameter"
+    for name, p in model.named_parameters():
+        if p.requires_grad:
+            _close(f"classifier ELBO gradient {name}", p.grad, jgrads[name])
+
+    Xs = d["Xs"].astype(np.float64)
+    zt = [rng.randn(S, len(Xs), w) for w in (CLS_H, CLS_K)]
+    want = _jax_predict_y(jm, jnp.asarray(Xs), [jnp.asarray(z) for z in zt])
+    got = model.predict_y(Xs, S=S, zs=zt)
+    for what, a, b in zip(("probabilities", "variances"), got, want):
+        assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=PROBS_ATOL,
+                        err_msg=f"classifier predict_y {what}")
+    assert bool(((got[0] > 0) & (got[0] < 1)).all()), (
+        "classifier predict_y: a probability outside (0, 1)")
+
+    # a 1-layer classifier predicts without inner draws: the port's
+    # evaluate_classification equals the JAX one (ragged last batch)
+    jm1, tm1 = _classifiers(d, rng, hidden=())
+    kw = dict(S=3, batch_size=16, seed=2)
+    want = jax_evaluate_classification(jm1, d["Xs"], d["Ys"], **kw)
+    got = port.evaluate_classification(tm1, d["Xs"], d["Ys"], **kw)
+    assert got["accuracy"] == want["accuracy"], (
+        f"evaluate_classification accuracy {got} vs {want}")
+    for key in ("loglik", "nll"):
+        assert_allclose(got[key], want[key], rtol=EVAL_RTOL,
+                        err_msg=f"evaluate_classification {key}")
+
+    # fit with the monitors, on the CPU
+    with tempfile.TemporaryDirectory() as tmp:
+        log = JsonlLogger(os.path.join(tmp, "log", "train.jsonl"))
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            model, hist = port.fit(
+                model, iterations=4, batch_size=32, seed=1, log_every=2,
+                scan_steps=2, callbacks=[FullElboCallback(),
+                                         PrintTimings("mnist "), log])
+        log.close()
+        with open(log.path) as f:
+            records = [json.loads(line) for line in f]
+    assert [r["step"] for r in records] == [2, 4] and all(
+        np.isfinite(r["loss"]) and np.isfinite(r["full_elbo"])
+        for r in records), f"JsonlLogger records {records}"
+    assert out.getvalue().startswith("mnist iter 2: loss "), (
+        f"PrintTimings printed {out.getvalue()!r}")
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        assert hist[-1]["full_elbo"] == float(model.elbo(generator=g)), (
+            "FullElboCallback: not the ELBO on the whole training set")
+    # the same lines and records as the JAX monitors for the same event
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = []
+        for mod in (jmonitor, port.training.monitor):
+            buf, log = io.StringIO(), mod.JsonlLogger(
+                os.path.join(tmp, f"{mod.__name__}.jsonl"))
+            with contextlib.redirect_stdout(buf):
+                for step, stats in ((2, records[0]), (4, records[1])):
+                    mod.PrintTimings("mnist ")(step, None, stats["loss"],
+                                               dict(stats))
+                    log(step, None, stats["loss"], dict(stats))
+            log.close()
+            with open(log.path) as f:
+                outs.append((buf.getvalue(), f.read()))
+    assert outs[0] == outs[1], f"monitors differ from the JAX ones: {outs}"
+
+    chunk = make_scan_train_step(port_masked_optimizer(model, LR), 32,
+                                 inner_steps=2)
+    with no_host_reads():
+        loss = chunk(model, generator=torch.Generator().manual_seed(0))
+    # the cached server snapshots the parameters: made after the chunk
+    live = port.make_server(model, S=S, precompute=False)
+    cached = port.make_server(model, S=S, precompute=True)
+    Xq = torch.as_tensor(Xs[:10])
+    with no_host_reads():
+        requests = [serve(Xq, seed=4) for serve in (live, cached)]
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(t).all() and t.shape == (S, 10, CLS_K)
+        for r in requests for t in r), (
+        "classification with no host read: non-finite or misshapen")
+    for what, a, b in zip(("probabilities", "variances"), *requests):
+        assert_allclose(a.numpy(), b.numpy(), rtol=RTOL, atol=ATOL,
+                        err_msg=f"classification live vs cached {what}")
+
+
 def _close(case, got, want):
     assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                     atol=ATOL, err_msg=case)
@@ -681,6 +866,8 @@ def test_paths_match_jax():
     _check_default_config(np.random.RandomState(6), X, Y, Xt, Yt)
     _check_guard(rng)
     _check_evaluate_regression(rng, X, Y, Xt, Yt)
+    # its own stream, so that the cases after it keep their draws
+    _check_classification(np.random.RandomState(7))
     psi2_core.launches = 0
     _check_collapsed(rng, Xt, Yt)
     assert (fused_conditional.launches, fused_conditional.backward_launches,
