@@ -2,8 +2,12 @@
 doubly-stochastic deep GP package ``doubly_stochastic_dgp_tpu``.
 
 This package covers the training and serving paths of the Monte-Carlo
-DGP: RBF(+White) SVGP layers with identity/PCA skip connections under
-every ``Config`` numerics mode, the nine likelihoods (Gaussian, and by
+DGP: SVGP layers with identity/PCA skip connections or input propagation
+under every ``Config`` numerics mode, on every kernel of the JAX package
+(RBF, Matern 1/2, 3/2, 5/2, rational quadratic, cosine, periodic,
+arc-cosine, White, Constant, Linear, their Sums and Products), the
+quadrature DGP (``DGPQuad``) and the heteroscedastic-noise DGP
+(``DGPHeteroscedastic``), the nine likelihoods (Gaussian, and by
 Gauss-Hermite quadrature Bernoulli, the robust-max MultiClass, Poisson,
 Exponential, StudentT, Gamma, Beta, Ordinal), the doubly-stochastic ELBO
 with the layers' KL terms, Adam training on on-device minibatches
@@ -12,7 +16,8 @@ full-covariance predictions, the regression and classification metrics
 (``evaluate_regression``, ``evaluate_classification``), the cached
 posterior and ``make_server``; the data loaders (``data/datasets.py``,
 ``data/native.py``); and the collapsed DGPs (``DGPCollapsed``,
-``DGPDamianou``: collapsed ``SGPRLayer``s and RBF psi statistics): their
+``DGPDamianou``: collapsed ``SGPRLayer``s and the psi statistics of RBF,
+Linear and their Sums with White): their
 bound, their predictions, and their training by ``fit`` on the whole
 training set under the reject-nonfinite guard.  The fused staged
 conditional and the psi2 data sum run as hand-written CUDA kernels,
@@ -28,14 +33,19 @@ from .convert import load_reference_state
 from .data.datasets import (Datasets, SyntheticRegression, load_mnist_npz,
                             make_synthetic_regression)
 from .models.damianou import DGPDamianou
-from .models.dgp import DGP, DGPBase
+from .models.dgp import DGP, DGPBase, DGPQuad
+from .models.initializations import init_layers_input_prop, init_layers_linear
 from .models.layers import SGPRLayer, SVGPLayer
-from .models.zoo import DGPCollapsed
+from .models.zoo import DGPCollapsed, DGPHeteroscedastic
+from .models.mean_functions import Constant as ConstantMean
 from .models.mean_functions import Identity, Linear, Zero
 from .models.posterior import CachedSVGPLayer, precompute
 from .ops.cuda.conditional import fused_conditional, fused_conditional_saved
 from .ops.cuda.psi2 import psi2_core
-from .ops.kernels import RBF, Sum, White
+from .ops.kernels import (RBF, ArcCosine, Constant, Cosine, Kernel,
+                          Linear as LinearKernel, Matern12, Matern32,
+                          Matern52, Periodic, Product, RationalQuadratic,
+                          Sum, White)
 from .ops.likelihoods import (Bernoulli, Beta, Exponential, Gamma, Gaussian,
                               Likelihood, MultiClass, Ordinal, Poisson,
                               StudentT)
@@ -46,10 +56,14 @@ from .utils.params import log_prior
 __all__ = [
     "Config", "resolve_device", "load_reference_state",
     "SyntheticRegression", "Datasets", "load_mnist_npz",
-    "make_synthetic_regression", "DGP", "DGPBase", "DGPCollapsed",
-    "DGPDamianou", "SVGPLayer", "SGPRLayer", "Identity", "Linear", "Zero",
+    "make_synthetic_regression", "DGP", "DGPBase", "DGPQuad",
+    "DGPCollapsed", "DGPHeteroscedastic", "DGPDamianou",
+    "init_layers_linear", "init_layers_input_prop", "SVGPLayer",
+    "SGPRLayer", "Identity", "Linear", "Zero", "ConstantMean",
     "CachedSVGPLayer", "precompute", "fused_conditional",
-    "fused_conditional_saved", "psi2_core", "RBF", "Sum", "White",
+    "fused_conditional_saved", "psi2_core", "Kernel", "RBF", "Matern12",
+    "Matern32", "Matern52", "RationalQuadratic", "Cosine", "Periodic",
+    "ArcCosine", "White", "Constant", "LinearKernel", "Sum", "Product",
     "Likelihood", "Gaussian", "Bernoulli", "MultiClass", "Poisson",
     "Exponential", "StudentT", "Gamma", "Beta", "Ordinal", "make_server",
     "evaluate_regression", "evaluate_classification", "fit", "log_prior",

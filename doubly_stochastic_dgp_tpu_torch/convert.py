@@ -5,9 +5,12 @@
 to numpy arrays of ``Param.unconstrained`` values and buffers.  The port
 only sees numpy: the caller does the flattening on the JAX side.  Any
 model whose parameter and buffer names follow the JAX fields is covered:
-``DGP``, ``DGPCollapsed`` (SVGP layers and an ``SGPRLayer``'s ``Z`` and
-``kern``) and ``DGPDamianou`` (also ``h_mean[l]``, ``h_var[l]`` and
-``noise[l]``).
+``DGP`` and ``DGPBase`` (also with input propagation),
+``DGPHeteroscedastic``, ``DGPQuad`` (also its grids ``gh_x[i]`` and
+weights ``gh_w``), ``DGPCollapsed`` (SVGP layers and an ``SGPRLayer``'s
+``Z`` and ``kern``) and ``DGPDamianou`` (also ``h_mean[l]``,
+``h_var[l]`` and ``noise[l]``), on every kernel, ``Sum`` and ``Product``
+and every mean function (``Constant``'s ``c``).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Deep GP with the doubly-stochastic Monte-Carlo ELBO and prediction
-surface.
+surface, and the quadrature bound.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/models/dgp.py`` (``DGPBase``
-propagation, the training objective and prediction, ``DGP.build``).  JAX
+propagation, the training objective and prediction, ``DGP.build``,
+``DGPQuad``).  JAX
 splits one PRNG key per layer; here each layer draws its unit normals in
 order from one ``torch.Generator`` on the model's device, so the two
 packages agree only through fixed draws (``zs``).  With ``remat`` (a
@@ -22,10 +23,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import Config, resolve_device
+from ..ops.quadrature import mvhermgauss
 from .initializations import init_layers_linear
 from .mean_functions import Zero
 
-__all__ = ["DGPBase", "DGP"]
+__all__ = ["DGPBase", "DGP", "DGPQuad"]
 
 
 class DGPBase(nn.Module):
@@ -38,6 +40,9 @@ class DGPBase(nn.Module):
 
     def __init__(self, likelihood, layers, X, Y, num_samples=1,
                  num_data=None, remat=False):
+        """The layers as built (on the host in float64 by the
+        initializers); move the model with ``.to(device=..., dtype=...)``,
+        or use :meth:`make`."""
         super().__init__()
         X = torch.as_tensor(X)
         Y = torch.as_tensor(Y)
@@ -51,6 +56,18 @@ class DGPBase(nn.Module):
         self.num_samples = int(num_samples)
         self.num_data = int(num_data or X.shape[0])
         self.remat = bool(remat)
+
+    @classmethod
+    def make(cls, X, Y, likelihood, layers, num_samples=1, num_data=None,
+             config=Config(), device=None, **kwargs):
+        """A model of ``layers`` (built by an initializer with the same
+        ``config``), moved to ``device`` (CUDA unless given) in
+        ``config.dtype``: the JAX ``make``."""
+        device = resolve_device(device)
+        model = cls(likelihood, layers, np.asarray(X, dtype=np.float64),
+                    np.asarray(Y, dtype=np.float64), num_samples=num_samples,
+                    num_data=num_data, remat=config.remat, **kwargs)
+        return model.to(device=device, dtype=config.dtype)
 
     def _as_input(self, A):
         return torch.as_tensor(A, dtype=self.X_data.dtype,
@@ -195,8 +212,64 @@ class DGP(DGPBase):
                                     num_outputs=num_outputs,
                                     mean_function=mean_function,
                                     white=white, config=config)
-        model = cls(likelihood, layers, np.asarray(X, dtype=np.float64),
-                    np.asarray(Y, dtype=np.float64),
-                    num_samples=num_samples, num_data=num_data,
-                    remat=config.remat)
-        return model.to(device=device, dtype=config.dtype)
+        return cls.make(X, Y, likelihood, layers, num_samples=num_samples,
+                        num_data=num_data, config=config, device=device)
+
+
+class _Grids(nn.Module):
+    """The per-layer quadrature grids as buffers named 0, 1, ... (so that
+    the JAX path ``.gh_x[i]`` maps to ``gh_x.i``)."""
+
+    def __init__(self, grids):
+        super().__init__()
+        for i, g in enumerate(grids):
+            self.register_buffer(str(i), g)
+
+    def __iter__(self):
+        return iter(self._buffers.values())
+
+
+class DGPQuad(DGPBase):
+    """Gauss-Hermite quadrature over the inner layers in place of Monte
+    Carlo: the inner layers' outputs are integrated on the product grid of
+    H points a dimension, H ** D_quad nodes for D_quad inner outputs in
+    all.  Deterministic (``E_log_p_Y`` draws nothing), and exponential in
+    D_quad: the oracle of exactness tests."""
+
+    def __init__(self, likelihood, layers, X, Y, num_samples=1,
+                 num_data=None, remat=False, H=100):
+        super().__init__(likelihood, layers, X, Y, num_samples=num_samples,
+                         num_data=num_data, remat=remat)
+        inner_dims = [layer.num_outputs for layer in self.layers[:-1]]
+        self.H, self.D_quad = int(H), int(sum(inner_dims))
+        gh_x, gh_w = mvhermgauss(self.H, self.D_quad)
+        gh_x = gh_x * np.sqrt(2.0)                          # (H**Dq, Dq)
+        gh_w = gh_w * np.pi ** (-0.5 * self.D_quad)         # (H**Dq,)
+        # each layer's slice of the grid, (S, 1, d): broadcasts with (S, N,
+        # d); the last layer's sample is not used
+        zs, s = [], 0
+        for d in inner_dims:
+            zs.append(torch.as_tensor(gh_x[:, None, s:s + d]))
+            s += d
+        zs.append(torch.zeros(1, 1, 1, dtype=torch.float64))
+        self.gh_x = _Grids(zs)
+        self.register_buffer("gh_w", torch.as_tensor(gh_w))
+
+    @classmethod
+    def build(cls, X, Y, likelihood, layers, H=100, num_data=None,
+              config=Config(), device=None):
+        """The quadrature model of ``layers`` (built on the host, e.g. by
+        ``init_layers_linear`` with the same ``config``), moved to
+        ``device`` (CUDA unless given) in ``config.dtype``."""
+        return cls.make(X, Y, likelihood, layers, num_data=num_data,
+                        config=config, device=device, H=H)
+
+    def E_log_p_Y(self, X, Y, generator=None, zs=None):
+        """The quadrature estimate of E_q[log p(y | f_L)], (N, D): the
+        final layer's expectation at every grid node, weighted.
+        ``generator`` and ``zs`` are ignored: the grid takes their place."""
+        _, Fmeans, Fvars = self.propagate(X, S=self.H ** self.D_quad,
+                                          zs=list(self.gh_x))
+        var_exp = self.likelihood.variational_expectations(
+            Fmeans[-1], Fvars[-1], self._as_input(Y))        # (S, N, D)
+        return torch.sum(var_exp * self.gh_w[:, None, None], dim=0)

@@ -19,15 +19,18 @@ Counterpart of ``doubly_stochastic_dgp_tpu/models/layers.py``
   mean A^T q_mu and variance Kff + A^T SK A, the diagonal clamped at 0.
 
 On a CUDA tensor every RBF gram here (Kuu, Kuf, the full-covariance Kff)
-is the ``rbf_gram`` kernel.  Not ported yet (it raises): input
-propagation.
+is the ``rbf_gram`` kernel, also where the RBF is a factor of a ``Sum``
+or a ``Product``; the other kernels take the solve or staged-inverse
+branch.  With ``input_prop_dim`` p a layer's samples, means and variances
+carry the first p columns of its input in front of its outputs (input
+propagation: the next layer sees the data beside the hidden samples).
 
 The collapsed final layer of ``DGPCollapsed`` and every layer of
 ``DGPDamianou`` is ``SGPRLayer`` (the JAX ``CollapsedLayer`` /
 ``SGPRLayer``): the Titsias bound with certain inputs, or with Gaussian
 inputs through the psi statistics (``ops/psi_stats.py``, whose RBF psi2
 data sum runs in the psi2 kernel), and its diagonal predictive
-conditional.  ``GPRLayer`` is not ported yet (ROADMAP).
+conditional.  ``GPRLayer`` is not ported yet (ROADMAP A13).
 """
 
 from __future__ import annotations
@@ -55,8 +58,11 @@ __all__ = ["Layer", "SVGPLayer", "CollapsedData", "CollapsedLayer",
 
 
 class Layer(nn.Module):
-    """Base layer: multisample conditional and reparameterized sampling.
-    Subclasses set ``jitter``, the sampling jitter."""
+    """Base layer: multisample conditional, reparameterized sampling and
+    input propagation.  Subclasses set ``jitter``, the sampling jitter,
+    and may set ``input_prop_dim``."""
+
+    input_prop_dim = None
 
     @property
     def num_outputs(self):
@@ -104,16 +110,26 @@ class Layer(nn.Module):
                                 full_cov=False):
         """Conditional + reparameterized sample.  X: (S, N, D_in).  Give
         either fixed unit normals ``z`` (broadcastable to (S, N, D_out)) or
-        a ``torch.Generator`` on X's device."""
+        a ``torch.Generator`` on X's device.  With ``input_prop_dim`` p the
+        first p columns of X go in front of the samples and the means, with
+        zero variance."""
         mean, var = self.conditional_SND(X, full_cov=full_cov)
-        shape = (X.shape[0], X.shape[1], self.num_outputs)
+        S, N = X.shape[0], X.shape[1]
         if z is None:
             z = self.draw_z(X, generator)
         else:
-            z = torch.as_tensor(z, dtype=mean.dtype,
-                                device=mean.device).expand(shape)
-        return (reparameterize(mean, var, z, self.jitter, full_cov=full_cov),
-                mean, var)
+            z = torch.as_tensor(z, dtype=mean.dtype, device=mean.device
+                                ).expand(S, N, self.num_outputs)
+        samples = reparameterize(mean, var, z, self.jitter, full_cov=full_cov)
+        p = self.input_prop_dim
+        if p:
+            X_prop = X[:, :, :p]
+            samples = torch.cat([X_prop, samples], dim=2)
+            mean = torch.cat([X_prop, mean], dim=2)
+            zeros = (var.new_zeros(S, N, N, p) if full_cov
+                     else torch.zeros_like(X_prop))
+            var = torch.cat([zeros, var], dim=-1)
+        return samples, mean, var
 
 
 def _fusable_rbf(kern):
@@ -169,16 +185,13 @@ def _init_q_sqrt(Z, kern, num_outputs, white, jitter):
 
 class SVGPLayer(Layer):
     """Sparse variational GP layer: kernel, inducing inputs Z (M, D_in),
-    q_mu (M, D_out), lower-triangular q_sqrt (D_out, M, M), mean function
-    and the whitening flag.  Numerics fields are snapshotted from
-    ``config``."""
+    q_mu (M, D_out), lower-triangular q_sqrt (D_out, M, M), mean function,
+    the whitening flag and ``input_prop_dim`` (None: no input
+    propagation).  Numerics fields are snapshotted from ``config``."""
 
     def __init__(self, kern, Z, num_outputs, mean_function=None,
                  white=False, input_prop_dim=None, config=Config()):
         super().__init__()
-        if input_prop_dim is not None:
-            raise NotImplementedError(
-                "input propagation is not ported yet (ROADMAP)")
         Z = np.asarray(Z, dtype=np.float64)
         if Z.shape[1] != kern.input_dim:
             raise ValueError(
@@ -190,6 +203,7 @@ class SVGPLayer(Layer):
                               else mean_function)
         self.num_outputs_ = int(num_outputs)
         self.white = bool(white)
+        self.input_prop_dim = input_prop_dim
         self.jitter = float(config.jitter)
         self.solve_mode = config.solve_mode
         self.use_pallas = config.use_pallas

@@ -1,4 +1,4 @@
-"""Mean functions: Zero, Identity, Linear.
+"""Mean functions: Zero, Identity, Linear, Constant.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/models/mean_functions.py``.
 """
@@ -10,7 +10,7 @@ from torch import nn
 
 from ..utils.params import Param
 
-__all__ = ["Zero", "Identity", "Linear"]
+__all__ = ["Zero", "Identity", "Linear", "Constant"]
 
 
 class Zero(nn.Module):
@@ -41,3 +41,17 @@ class Linear(nn.Module):
 
     def forward(self, X):
         return X @ self.W.value + self.b.value
+
+
+class Constant(nn.Module):
+    """f(X) = c, broadcast over X's rows.  c: (D_out,) (a scalar becomes
+    (1,))."""
+
+    def __init__(self, c, trainable=True):
+        super().__init__()
+        c = torch.as_tensor(c, dtype=torch.float64)
+        self.c = Param(torch.atleast_1d(c), trainable=trainable)
+
+    def forward(self, X):
+        c = self.c.value
+        return c.expand(*X.shape[:-1], c.shape[-1])

@@ -11,7 +11,8 @@ are computed once, and a prediction needs only the grams and matmuls:
 G = Li Kuf, mean = G^T alpha + m(X), var = Kff - colsum(G*G) +
 colsum(H*H) with H = C^T G — the same sum-of-squares form as the live
 ``solve_mode='inverse'`` branch — or, with ``full_cov``, K(X) - G^T G +
-H^T H per output.
+H^T H per output.  A cached layer keeps its live layer's
+``input_prop_dim``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ class CachedSVGPLayer(Layer):
     """Prediction-only SVGP layer holding the staging factors as buffers."""
 
     def __init__(self, kern, Z, Li, alpha, C, mean_function, num_outputs,
-                 jitter):
+                 jitter, input_prop_dim=None):
         super().__init__()
         self.kern = kern
         self.mean_function = mean_function
@@ -42,6 +43,7 @@ class CachedSVGPLayer(Layer):
         self.register_buffer("C", C)
         self.num_outputs_ = int(num_outputs)
         self.jitter = float(jitter)
+        self.input_prop_dim = input_prop_dim
 
     @property
     def num_outputs(self):
@@ -91,13 +93,16 @@ def _cache_svgp(layer: SVGPLayer) -> CachedSVGPLayer:
         kern=_frozen(layer.kern), Z=layer.Z.value.detach().clone(), Li=Li,
         alpha=alpha.detach().clone(), C=C.detach().clone(),
         mean_function=_frozen(layer.mean_function),
-        num_outputs=layer.num_outputs, jitter=layer.jitter)
+        num_outputs=layer.num_outputs, jitter=layer.jitter,
+        input_prop_dim=layer.input_prop_dim)
 
 
 def precompute(model):
-    """A prediction-only copy of a Monte-Carlo DGP whose SVGP layers are
-    replaced by :class:`CachedSVGPLayer` snapshots; every parameter of the
-    copy is frozen.  Other model families are not ported yet."""
+    """A prediction-only copy of a Monte-Carlo DGP (``DGP``, ``DGPBase``,
+    ``DGPQuad``, ``DGPHeteroscedastic``) whose SVGP layers are replaced by
+    :class:`CachedSVGPLayer` snapshots.  The copy keeps the model's class,
+    its buffers and so its y-space hooks; every parameter of it is frozen.
+    Other model families are not ported yet."""
     if not isinstance(model, DGPBase):
         raise NotImplementedError(
             f"precompute: only the Monte-Carlo DGP family is ported; got "

@@ -1,24 +1,31 @@
-"""DGP with an analytically collapsed final layer.
+"""The DGP with an analytically collapsed final layer and the
+heteroscedastic-noise DGP.
 
-Counterpart of ``DGPCollapsed`` in ``doubly_stochastic_dgp_tpu/models/
-zoo.py``: the inner SVGP layers propagate the *training* inputs (S = 1),
-and the last inner layer's mean and variance are the Gaussian inputs of
-the collapsed SGPR layer, whose uncertain-input Titsias bound (psi
-statistics) is the objective, less the inner layers' KL terms.
-``DGPHeinonen`` and ``DGPHeteroscedastic`` are not ported yet (ROADMAP).
+Counterpart of ``DGPCollapsed`` and ``DGPHeteroscedastic`` in
+``doubly_stochastic_dgp_tpu/models/zoo.py``.  ``DGPCollapsed``: the inner
+SVGP layers propagate the *training* inputs (S = 1), and the last inner
+layer's mean and variance are the Gaussian inputs of the collapsed SGPR
+layer, whose uncertain-input Titsias bound (psi statistics) is the
+objective, less the inner layers' KL terms.  ``DGPHeteroscedastic``: the
+final layer has a mean head and a log-noise head for each target, and
+the noise head's expectation is taken by Gauss-Hermite quadrature.
+``DGPHeinonen`` is not ported yet (ROADMAP A15).
 """
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 
 from ..config import Config, resolve_device
-from .dgp import DGPBase
+from ..ops.quadrature import ndiagquad
+from .dgp import DGP, DGPBase
 from .initializations import init_layers_linear
 from .layers import SGPRLayer
 
-__all__ = ["DGPCollapsed"]
+__all__ = ["DGPCollapsed", "DGPHeteroscedastic"]
 
 
 class DGPCollapsed(DGPBase):
@@ -45,9 +52,8 @@ class DGPCollapsed(DGPBase):
         top = layers[-1]
         layers[-1] = SGPRLayer(top.kern, top.Z.value.detach().numpy(),
                                num_outputs, top.mean_function, config=config)
-        model = cls(likelihood, layers, X, Y, num_samples=num_samples,
-                    num_data=num_data, remat=config.remat)
-        return model.to(device=device, dtype=config.dtype)
+        return cls.make(X, Y, likelihood, layers, num_samples=num_samples,
+                        num_data=num_data, config=config, device=device)
 
     def inner_layers_propagate(self, X, generator=None, S=1, zs=None,
                                full_cov=False):
@@ -83,3 +89,82 @@ class DGPCollapsed(DGPBase):
         last = self._collapsed_last_layer(generator, zs)
         KL = sum(layer.KL() for layer in self.layers[:-1])
         return last.build_likelihood() - KL
+
+
+def _softplus(G):
+    """log(1 + e^G) as logaddexp(G, 0), the ``jax.nn.softplus`` formula
+    (``torch.nn.functional.softplus`` returns G itself above 20, about
+    2e-9 relative off it)."""
+    return torch.logaddexp(G, torch.zeros_like(G))
+
+
+class DGPHeteroscedastic(DGP):
+    """Heteroscedastic-noise DGP: the final layer emits 2 D_Y outputs,
+    (mean, log-noise) heads; the likelihood is a per-point Gaussian whose
+    variance is softplus(g) + ``min_noise``.  The likelihood object's
+    own variance is not used.
+
+    ``predict_f`` returns the raw heads, (S, N, 2 D): columns [:D] the
+    mean head f, [D:] the noise head g before the softplus;
+    ``predict_y`` and ``predict_density`` are in y-space.  ``min_noise``
+    (1e-4, as the JAX package) floors the noise variance: with a lower
+    floor a spike in the noise head's variance makes the quadrature probe
+    g where the noise is at the floor, and the gradients blow up."""
+
+    def __init__(self, likelihood, layers, X, Y, num_samples=1,
+                 num_data=None, remat=False, min_noise=1e-4):
+        super().__init__(likelihood, layers, X, Y, num_samples=num_samples,
+                         num_data=num_data, remat=remat)
+        self.min_noise = float(min_noise)
+
+    @classmethod
+    def build(cls, X, Y, Z, kernels, likelihood, num_outputs=None, **kw):
+        """``DGP.build`` with 2 D_Y outputs by default."""
+        num_outputs = num_outputs or 2 * np.asarray(Y).shape[1]
+        return super().build(X, Y, Z, kernels, likelihood,
+                             num_outputs=num_outputs, **kw)
+
+    def _noise(self, G):
+        return _softplus(G) + self.min_noise
+
+    def E_log_p_Y(self, X, Y, generator=None, zs=None):
+        """E_{f,g}[log N(y; f, noise(g))], averaged over the samples: the
+        f-expectation in closed form given g, the g-expectation by
+        20-point Gauss-Hermite quadrature.  (N, D)."""
+        Fmean, Fvar = self._predict(X, generator=generator,
+                                    S=self.num_samples, zs=zs)
+        Y = self._as_input(Y)
+        D = Y.shape[-1]
+        m_f, m_g = Fmean[..., :D], Fmean[..., D:]
+        v_f, v_g = Fvar[..., :D], Fvar[..., D:]
+
+        def integrand(G, Y):
+            noise = self._noise(G)
+            return (-0.5 * torch.log(2 * math.pi * noise)
+                    - 0.5 * ((Y - m_f) ** 2 + v_f) / noise)
+
+        var_exp = ndiagquad(integrand, 20, m_g, v_g, Y=Y)
+        return torch.mean(var_exp, dim=0)
+
+    def sample_predict_y(self, Fmean, Fvar):
+        """Per-sample y moments: mean m_f, variance v_f + E[noise(g)] over
+        q(g) = N(m_g, v_g) by Gauss-Hermite quadrature."""
+        D = Fmean.shape[-1] // 2
+        m_f, m_g = Fmean[..., :D], Fmean[..., D:]
+        v_f, v_g = Fvar[..., :D], Fvar[..., D:]
+        return m_f, v_f + ndiagquad(self._noise, 20, m_g, v_g)
+
+    def sample_log_densities(self, Fmean, Fvar, Ynew):
+        """Per-sample log predictive density, (S, N, D): N(y; m_f, v_f +
+        noise(g)) integrated over g by Gauss-Hermite quadrature in log
+        space."""
+        D = Ynew.shape[-1]
+        m_f, m_g = Fmean[..., :D], Fmean[..., D:]
+        v_f, v_g = Fvar[..., :D], Fvar[..., D:]
+
+        def log_gauss(G, Y):
+            var = v_f + self._noise(G)
+            return -0.5 * (torch.log(2 * math.pi * var) + (Y - m_f) ** 2
+                           / var)
+
+        return ndiagquad(log_gauss, 20, m_g, v_g, logspace=True, Y=Ynew)

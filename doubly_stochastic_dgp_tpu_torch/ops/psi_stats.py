@@ -1,12 +1,13 @@
-"""Closed-form kernel expectations (psi statistics) for RBF kernels under
-diagonal-Gaussian inputs x_n ~ N(mu_n, diag(S_n)):
+"""Closed-form kernel expectations (psi statistics) for RBF and Linear
+kernels under diagonal-Gaussian inputs x_n ~ N(mu_n, diag(S_n)):
 
     psi0[n]     = E[k(x_n, x_n)]
     psi1[n, m]  = E[k(x_n, z_m)]
     psi2[m, m'] = sum_n E[k(x_n, z_m) k(x_n, z_m')]
 
-Counterpart of ``doubly_stochastic_dgp_tpu/ops/psi_stats.py`` for RBF and
-for ``Sum`` of RBFs and Whites (with the RBF x RBF cross terms).  The RBF
+Counterpart of ``doubly_stochastic_dgp_tpu/ops/psi_stats.py``: RBF,
+Linear, and a ``Sum`` of RBFs, Linears and Whites with every pairwise psi2
+cross term (RBF x RBF, Linear x Linear, RBF x Linear).  The RBF
 psi2 data sum stages the one-sided quadratics U, V, the widths w and
 logdet as (N, M) / (N, D) arrays and takes one of two routes, which
 :func:`psi2_route` picks from ``Config.psi2_impl`` (carried by the layer),
@@ -17,8 +18,9 @@ plain route, which forms the (block, M, M) terms in row blocks on any
 device.  A single RBF's psi2 is symmetric, and its kernel call says so
 (``symmetric=True``: each a <= b computed once).  Every contraction is a
 plain fp32/f64 matmul: the port never enables TF32, which is the JAX
-package's HIGHEST-precision contract here.
-The Linear kernel's psi statistics are not ported yet (ROADMAP A10).
+package's HIGHEST-precision contract here.  The Linear kernel's terms
+and the cross terms with a Linear are plain PyTorch on every device, as
+they are plain XLA in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from .cuda.psi2 import kernel_supports, psi2_core
-from .kernels import RBF, Sum, White
+from .kernels import RBF, Linear, Sum, White
 
 __all__ = ["psi_statistics", "psi2_route"]
 
@@ -170,6 +172,58 @@ def _rbf_psi(kern, mu, S, Z, psi2_impl):
     return psi0, psi1, psi2
 
 
+def _rbf_lin_cross_psi2(kr, kl, mu, S, Z):
+    """sum_n E[k_rbf(x_n, z_m) k_lin(x_n, z_m')] for an (ARD) RBF and an
+    (ARD) Linear kernel, (M, M), the RBF indexing m.  The RBF factor
+    reweights x_n to a Gaussian of mean xbar_nmd = (a_d mu_nd + S_nd z_md)
+    / (a_d + S_nd) (a = ls^2) with psi1's normalizer, where the linear
+    factor is evaluated: C = sum_n psi1[n, m] sum_d v_d xbar_nmd z_m'd."""
+    var = kr.variance.value
+    a = kr.lengthscales.value ** 2 + torch.zeros_like(mu[0])     # (D,)
+    v = kl.variance.value + torch.zeros_like(mu[0])              # (D,)
+    c = _z_center(Z)
+    Zc = Z - c      # the RBF quadratic is centred; the linear factor needs
+                    # absolute coordinates and stays uncentred
+
+    def block_sum(rows):
+        mu_b, S_b = mu[rows], S[rows]
+        logdet = -0.5 * torch.sum(torch.log1p(S_b / a), dim=-1)  # (B,)
+        inv = 1.0 / (a + S_b)                                    # (B, D)
+        psi1 = var * torch.exp(
+            logdet[:, None] + _sep_quad(mu_b - c, inv, Zc))      # (B, M)
+        # xbar = (a mu inv)[n, d] + (S inv)[n, d] z[m, d] separates, so
+        # sum_n psi1[n, m] xbar[n, m, d] is two (M, B) @ (B, D) matmuls
+        U = psi1.T @ (a * mu_b * inv) + Z * (psi1.T @ (S_b * inv))
+        return (U * v) @ Z.T                                     # (M, M)
+
+    M = Z.shape[0]
+    return _blocked_data_sum(block_sum, mu.shape[0], (M, M), mu.dtype,
+                             mu.device)
+
+
+def _x_second_moment(mu, S):
+    """sum_n E[x_n x_n^T] = mu^T mu + diag(sum_n S_n), (D, D)."""
+    return mu.T @ mu + torch.diag(torch.sum(S, dim=0))
+
+
+def _lin_lin_cross_psi2(ka, kb, mu, S, Z):
+    """sum_n E[k_a(x_n, z_m) k_b(x_n, z_m')] for two Linear kernels:
+    (Z va) (sum_n E[x x^T]) (Z vb)^T."""
+    va = ka.variance.value + torch.zeros_like(mu[0])
+    vb = kb.variance.value + torch.zeros_like(mu[0])
+    return (Z * va) @ _x_second_moment(mu, S) @ (Z * vb).T
+
+
+def _linear_psi(kern, mu, S, Z):
+    """The (ARD) Linear kernel k(x, z) = sum_d v_d x_d z_d: psi0 = sum_d
+    v_d (mu^2 + S), psi1 = (mu v) Z^T, and psi2 the a == b case of the
+    cross second moment."""
+    v = kern.variance.value + torch.zeros_like(mu[0])            # (D,)
+    psi0 = torch.sum(v * (mu ** 2 + S), dim=-1)                  # (N,)
+    psi1 = (mu * v) @ Z.T                                        # (N, M)
+    return psi0, psi1, _lin_lin_cross_psi2(kern, kern, mu, S, Z)
+
+
 def _flatten(k):
     if isinstance(k, Sum):
         return [c for part in k.kernels for c in _flatten(part)]
@@ -177,34 +231,49 @@ def _flatten(k):
 
 
 def psi_statistics(kern, mu, S, Z, psi2_impl="auto"):
-    """(psi0, psi1, psi2) for an RBF kernel or a Sum of RBFs and Whites,
-    with the psi2 cross terms of every pair of RBFs.  A White adds its
-    variance to psi0 only (its cross-covariance vanishes in
+    """(psi0, psi1, psi2) for an RBF, a Linear, or a Sum of RBFs, Linears
+    and Whites, with the psi2 cross terms of every pair of components in
+    the JAX order (RBF x RBF, Linear x Linear, RBF x Linear).  A White adds
+    its variance to psi0 only (its cross-covariance vanishes in
     expectation)."""
     if isinstance(kern, RBF):
         return _rbf_psi(kern, mu, S, Z, psi2_impl)
+    if isinstance(kern, Linear):
+        return _linear_psi(kern, mu, S, Z)
     if not isinstance(kern, Sum):
         raise NotImplementedError(
-            f"psi statistics for {type(kern).__name__} are not ported "
-            f"(the Linear kernel's wait for ROADMAP A10)")
+            f"psi statistics not implemented for {type(kern).__name__}")
     N, M = mu.shape[0], Z.shape[0]
     psi0 = torch.zeros(N, dtype=mu.dtype, device=mu.device)
     psi1 = torch.zeros(N, M, dtype=mu.dtype, device=mu.device)
     psi2 = torch.zeros(M, M, dtype=mu.dtype, device=mu.device)
-    rbfs = []
+    rbfs, lins = [], []
     for k in _flatten(kern):
         if isinstance(k, White):
             psi0 = psi0 + k.variance.value
-        elif isinstance(k, RBF):
+            continue
+        if isinstance(k, RBF):
             p0, p1, p2 = _rbf_psi(k, mu, S, Z, psi2_impl)
-            psi0, psi1, psi2 = psi0 + p0, psi1 + p1, psi2 + p2
             rbfs.append(k)
+        elif isinstance(k, Linear):
+            p0, p1, p2 = _linear_psi(k, mu, S, Z)
+            lins.append(k)
         else:
             raise NotImplementedError(
-                f"psi statistics for {type(k).__name__} in a Sum are not "
-                f"ported (the Linear kernel's wait for ROADMAP A10)")
+                f"psi statistics for {type(k).__name__} in a Sum")
+        psi0, psi1, psi2 = psi0 + p0, psi1 + p1, psi2 + p2
+    # E[(sum_i k_i)(z) (sum_j k_j)(z')] adds C_ij + C_ij^T for each
+    # unordered pair of distinct components
     for i in range(len(rbfs)):
         for j in range(i + 1, len(rbfs)):
             C = _rbf_cross_psi2(rbfs[i], rbfs[j], mu, S, Z, psi2_impl)
+            psi2 = psi2 + C + C.T
+    for i in range(len(lins)):
+        for j in range(i + 1, len(lins)):
+            C = _lin_lin_cross_psi2(lins[i], lins[j], mu, S, Z)
+            psi2 = psi2 + C + C.T
+    for kr in rbfs:
+        for kl in lins:
+            C = _rbf_lin_cross_psi2(kr, kl, mu, S, Z)
             psi2 = psi2 + C + C.T
     return psi0, psi1, psi2

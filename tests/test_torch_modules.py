@@ -8,8 +8,12 @@ fused, staged-inverse and solve branches, diagonal and full-covariance,
 with its KL term and gradients, the cached layer (also full-covariance,
 and its KL refusal), the RBF psi statistics and their gradients on both
 psi2 routes (and the route rule, and which psi2 calls are symmetric),
-the collapsed SGPR layer on certain and Gaussian inputs,
-diagonal and full-covariance), plus the port's import and device rules.
+the Linear kernel's psi statistics and the Sum cross terms with a
+Linear, the collapsed SGPR layer on certain and Gaussian inputs,
+diagonal and full-covariance), every other kernel of the JAX package
+(Matern, rational quadratic, cosine, periodic, arc-cosine, Constant,
+Linear, Product) with its gradients, the Constant mean function, plus
+the port's import and device rules.
 
 One test item that loops over its cases and names the failing case in
 every assertion message."""
@@ -120,6 +124,120 @@ def _check_kernels(rng):
         _close(f"{case} K(X, X2)", tk.K(_t(X), _t(X2)),
                jk.K(jnp.asarray(X), jnp.asarray(X2)))
         _close(f"{case} Kdiag", tk.Kdiag(_t(X)), jk.Kdiag(jnp.asarray(X)))
+
+
+# the kernels beyond RBF and White: values to 1e-10 relative, gradients in
+# every parameter to 1e-8
+KERNEL_RTOL, KERNEL_GRAD_RTOL, KERNEL_ATOL = 1e-10, 1e-8, 1e-12
+
+
+def _more_kernels(D, rng):
+    """(name, JAX kernel, port kernel) for every kernel of the JAX package
+    beyond RBF and White, a Product and an RBF * Linear."""
+    ls = rng.uniform(0.6, 1.6, D)
+    stat = dict(variance=1.3, lengthscales=ls)
+    pairs = [
+        ("Matern12", dsd.Matern12.make(D, **stat), port.Matern12(D)),
+        ("Matern32", dsd.Matern32.make(D, **stat), port.Matern32(D)),
+        ("Matern52", dsd.Matern52.make(D, **stat), port.Matern52(D)),
+        ("RationalQuadratic",
+         dsd.RationalQuadratic.make(D, alpha=0.7, **stat),
+         port.RationalQuadratic(D)),
+        ("Cosine", dsd.Cosine.make(D, **stat), port.Cosine(D)),
+        ("Periodic", dsd.Periodic.make(D, period=1.7, **stat),
+         port.Periodic(D)),
+        ("Constant", dsd.Constant.make(D, variance=0.8), port.Constant(D)),
+        ("Linear", dsd.LinearKernel.make(D, variance=0.8),
+         port.LinearKernel(D)),
+        ("Linear ARD", dsd.LinearKernel.make(D, variance=ls[::-1], ard=True),
+         port.LinearKernel(D, ard=True)),
+        ("Product(RBF, Matern32)",
+         dsd.Product(kernels=[dsd.RBF.make(D, **stat),
+                              dsd.Matern32.make(D, lengthscales=0.9)],
+                     input_dim=D),
+         port.Product([port.RBF(D), port.Matern32(D)])),
+        ("RBF * Linear", dsd.RBF.make(D, lengthscales=ls)
+         * dsd.LinearKernel.make(D, variance=0.6),
+         port.RBF(D) * port.LinearKernel(D)),
+    ]
+    pairs += [(f"ArcCosine order {o}",
+               dsd.ArcCosine.make(D, order=o, variance=1.2,
+                                  weight_variances=ls, bias_variance=0.4),
+               port.ArcCosine(D, order=o)) for o in (0, 1, 2)]
+    return [(n, jk, port.load_reference_state(tk, _state(jk)))
+            for n, jk, tk in pairs]
+
+
+def _close_grad(case, got, want):
+    """Gradients to KERNEL_GRAD_RTOL where the JAX one is finite; where it
+    is not, the port's must be non-finite at the same entries."""
+    got = got.detach().numpy()
+    want = np.asarray(want)
+    fin = np.isfinite(want)
+    assert np.array_equal(np.isfinite(got), fin), (
+        f"{case}: non-finite at {np.argwhere(~np.isfinite(got))}, JAX at "
+        f"{np.argwhere(~fin)}")
+    assert_allclose(got[fin], want[fin], rtol=KERNEL_GRAD_RTOL,
+                    atol=KERNEL_ATOL, err_msg=case)
+
+
+# the parameters whose K(X) gradient is non-finite in the JAX package, and
+# so in the port: at the diagonal of an arc-cosine K(X) num / denom is 1
+# up to rounding, and where it rounds to exactly 1 the clip passes the
+# gradient of arccos at 1, which is infinite (both packages give NaN)
+NONFINITE_KX_GRADS = {
+    f"ArcCosine order {o}": {"weight_variances.unconstrained",
+                             "bias_variance.unconstrained"}
+    for o in (0, 1, 2)}
+
+
+def _jax_kernel_value_and_grad(k, method, args, R):
+    """Eager, not jitted: on K(X)'s diagonal the squared distance is a
+    cancellation to about 0, which the jitted program rounds to another
+    tiny value (1e-17 against 0), and the Matern kernels' sqrt makes that
+    a 5e-9 difference; eager JAX rounds it as the port does."""
+    def f(k):
+        out = getattr(k, method)(*args)
+        return jnp.sum(out * R), out
+    (_, out), g = jax.value_and_grad(f, has_aux=True)(k)
+    return out, g
+
+
+def _check_more_kernels(rng):
+    """K(X, X2) (distinct rows), K(X) and Kdiag of every other kernel and
+    the gradients of each in every parameter, at N=7, M=5, D=3; the
+    non-finite K(X) gradients are the ones NONFINITE_KX_GRADS names, in
+    both packages."""
+    D = 3
+    X, X2 = rng.randn(7, D), rng.randn(5, D)
+    for name, jk, tk in _more_kernels(D, rng):
+        for what, method, args in (("K(X, X2)", "K", (X, X2)),
+                                   ("K(X)", "K", (X,)),
+                                   ("Kdiag", "Kdiag", (X,))):
+            case = f"kernel {name} {what}"
+            jargs = [jnp.asarray(a) for a in args]
+            R = rng.randn(X.shape[0], *(() if method == "Kdiag" else
+                                        (args[-1].shape[0],)))
+            want, jg = _jax_kernel_value_and_grad(jk, method, jargs, R)
+            jg = {_torch_key(jax.tree_util.keystr(p)): g for p, g in
+                  jax.tree_util.tree_flatten_with_path(jg)[0]}
+            tk.zero_grad(set_to_none=True)
+            got = getattr(tk, method)(*map(_t, args))
+            assert_allclose(got.detach().numpy(), np.asarray(want),
+                            rtol=KERNEL_RTOL, atol=KERNEL_ATOL,
+                            err_msg=f"{case} value")
+            (got * _t(R)).sum().backward()
+            nonfinite = set()
+            for pname, p in tk.named_parameters():
+                g = torch.zeros_like(p) if p.grad is None else p.grad
+                _close_grad(f"{case} grad {pname}", g, jg[pname])
+                if not np.isfinite(np.asarray(jg[pname])).all():
+                    nonfinite.add(pname)
+            want_nonfinite = (NONFINITE_KX_GRADS.get(name, set())
+                              if what == "K(X)" else set())
+            assert nonfinite == want_nonfinite, (
+                f"{case}: non-finite gradients in {sorted(nonfinite)}, "
+                f"expected {sorted(want_nonfinite)}")
 
 
 def _check_linalg(rng):
@@ -317,6 +435,70 @@ def _check_psi_statistics(rng):
                                  Z, rng.randn(N, M), rng.randn(M, M))
 
 
+def _linear_psi_kernels(D, rng):
+    """(name, JAX kernel, port kernel, expected symmetric psi2_core calls on
+    the kernel route) for Linear, Sum(RBF, Linear ARD, White) and
+    Sum(Linear, Linear)."""
+    ls, v = rng.uniform(0.6, 1.6, D), rng.uniform(0.3, 1.2, D)
+    pairs = [
+        ("Linear", dsd.LinearKernel.make(D, variance=0.7),
+         port.LinearKernel(D), []),
+        ("Sum(RBF, Linear ARD, White)",
+         dsd.RBF.make(D, variance=1.1, lengthscales=ls)
+         + dsd.LinearKernel.make(D, variance=v, ard=True)
+         + dsd.White.make(D, variance=1e-3),
+         port.RBF(D) + port.LinearKernel(D, ard=True) + port.White(D),
+         [True]),
+        ("Sum(Linear, Linear)",
+         dsd.LinearKernel.make(D, variance=0.7)
+         + dsd.LinearKernel.make(D, variance=v, ard=True),
+         port.LinearKernel(D) + port.LinearKernel(D, ard=True), []),
+    ]
+    return [(n, jk, port.load_reference_state(tk, _state(jk)), calls)
+            for n, jk, tk, calls in pairs]
+
+
+def _check_linear_psi_statistics(rng):
+    """psi0/psi1/psi2 with a Linear kernel, alone and in Sums (the Linear
+    x Linear and RBF x Linear cross terms), on the plain route and the
+    psi2 kernel route (whose one call is the RBF's own symmetric psi2; the
+    cross terms are plain on every route), with their gradients in mu, S,
+    Z and every kernel parameter, against the JAX package."""
+    N, M, D = 41, 13, 3
+    mu = rng.randn(N, D) + 2.0
+    Sv = np.exp(rng.randn(N, D)) * 0.1
+    Z = rng.randn(M, D) + 2.0
+    inner = tpsi_stats.psi2_core
+    calls = []
+
+    def record(*args, symmetric=False):
+        calls.append(symmetric)
+        return inner(*args, symmetric=symmetric)
+
+    for kname, jk, tk, want_calls in _linear_psi_kernels(D, rng):
+        want = jax_psi_statistics(jk, jnp.asarray(mu), jnp.asarray(Sv),
+                                  jnp.asarray(Z))
+        for impl in ("xla", "auto"):
+            calls.clear()
+            tpsi_stats.psi2_core = record
+            try:
+                got = psi_statistics(tk, _t(mu), _t(Sv), _t(Z), impl)
+            finally:
+                tpsi_stats.psi2_core = inner
+            expected = [] if impl == "xla" else want_calls
+            assert calls == expected, (
+                f"psi_statistics {kname} psi2_impl={impl}: psi2_core calls "
+                f"(symmetric) {calls} != {expected}")
+            for what, g, w in zip(("psi0", "psi1", "psi2"), got, want):
+                assert_allclose(g.detach().numpy(), np.asarray(w),
+                                rtol=KERNEL_RTOL,
+                                atol=KERNEL_ATOL,
+                                err_msg=f"psi_statistics {kname} "
+                                        f"psi2_impl={impl} {what}")
+        _check_psi_gradients(f"psi_statistics {kname}", jk, tk, mu, Sv, Z,
+                             rng.randn(N, M), rng.randn(M, M))
+
+
 def _check_psi_gradients(case, jk, tk, mu, Sv, Z, R1, R2):
     """Gradients of sum(psi1 R1) + sum(psi2 R2) reach mu, S, Z and every
     kernel hyperparameter alike on the plain route ('xla': autograd
@@ -414,6 +596,11 @@ def _check_mean_functions_and_likelihood(rng):
     _close("mean function Identity", port.Identity()(_t(X)), X)
     _close("mean function Zero", port.Zero(3)(_t(X)),
            dsd.models.mean_functions.Zero(output_dim=3)(jnp.asarray(X)))
+    for c in (rng.randn(3), 0.4):
+        jc = dsd.ConstantMean.make(c)
+        tc = port.load_reference_state(port.ConstantMean(np.zeros_like(c)),
+                                       _state(jc))
+        _close(f"mean function Constant c={c}", tc(_t(X)), jc(jnp.asarray(X)))
     jg = dsd.Gaussian.make(0.07)
     tg = port.load_reference_state(port.Gaussian(1.0), _state(jg))
     Fm, Fv, Y = rng.randn(5, 6, 2), np.exp(rng.randn(5, 6, 2)), rng.randn(6, 2)
@@ -836,6 +1023,12 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.data.native\n"
             "import doubly_stochastic_dgp_tpu_torch.training.monitor\n"
             "import doubly_stochastic_dgp_tpu_torch.utils.timing\n"
+            "import doubly_stochastic_dgp_tpu_torch.ops.kernels\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.dgp\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.mean_functions\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.initializations\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.posterior\n"
+            "import doubly_stochastic_dgp_tpu_torch.convert\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
@@ -852,20 +1045,33 @@ def _check_import_and_device_rules():
     assert not found, f"import rule: chip_smoke.py imports {found}"
     X = np.random.RandomState(1).randn(10, 2)
     args = (X, X[:, :1], X[:4], [port.RBF(2)], port.Gaussian(0.1))
-    for cls in (port.DGP, port.DGPCollapsed, port.DGPDamianou):
+
+    def stack(init):
+        return init(X, X[:, :1], X[:4], [port.RBF(2), port.RBF(3)])
+
+    builders = {
+        cls.__name__: lambda cls=cls, **kw: cls.build(*args, **kw)
+        for cls in (port.DGP, port.DGPCollapsed, port.DGPDamianou,
+                    port.DGPHeteroscedastic)}
+    builders["DGPQuad"] = lambda **kw: port.DGPQuad.build(
+        X, X[:, :1], port.Gaussian(0.1), stack(port.init_layers_linear),
+        H=3, **kw)
+    builders["DGPBase.make"] = lambda **kw: port.DGPBase.make(
+        X, X[:, :1], port.Gaussian(0.1), stack(port.init_layers_input_prop),
+        **kw)
+    for name, build in builders.items():
         if torch.cuda.is_available():
-            model = cls.build(*args, config=port.Config(dtype=torch.float32))
+            model = build(config=port.Config(dtype=torch.float32))
             assert model.X_data.device.type == "cuda", (
-                f"device rule: {cls.__name__} not on CUDA")
+                f"device rule: {name} not on CUDA")
             continue
         try:
-            cls.build(*args)
+            build()
         except RuntimeError as e:
-            assert "CUDA" in str(e), f"device rule: {cls.__name__}: {e}"
+            assert "CUDA" in str(e), f"device rule: {name}: {e}"
         else:
-            raise AssertionError(f"device rule: {cls.__name__}.build() "
-                                 f"without a device did not raise although "
-                                 f"CUDA is absent")
+            raise AssertionError(f"device rule: {name} without a device "
+                                 f"did not raise although CUDA is absent")
 
 
 def test_modules_match_jax():
@@ -885,5 +1091,8 @@ def test_modules_match_jax():
     _check_psi2_route()
     _check_psi_statistics(rng)
     _check_sgpr_layer(rng)
+    # their own streams, so that the cases before them keep their data
+    _check_more_kernels(np.random.RandomState(31))
+    _check_linear_psi_statistics(np.random.RandomState(32))
     assert psi2_core.launches == 0, "psi2_core launched for CPU tensors"
     _check_import_and_device_rules()

@@ -7,7 +7,11 @@ CPU, the port's server and ``fit`` semantics (with checkpoints and
 resume), the reject-nonfinite guard against the JAX ``guarded_scan`` and
 ``fit``, and a training chunk (plain, and guarded on DGPCollapsed) and a
 live and a cached request with no host read (what a CUDA graph captures
-on the card).
+on the card); the quadrature DGP (``DGPQuad``), the heteroscedastic DGP
+(``DGPHeteroscedastic``) and the input-propagation stack
+(``init_layers_input_prop``), each carried over by
+``load_reference_state``: bound or ELBO and gradients, predictions, the
+cached model, and a chunk and requests with no host read.
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -25,6 +29,7 @@ import json
 import os
 import tempfile
 import warnings
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -63,6 +68,9 @@ from doubly_stochastic_dgp_tpu_torch.training.optim import (
     Adam, AdamState, masked_optimizer as port_masked_optimizer)
 
 RTOL, ATOL = 1e-8, 1e-10
+# the quadrature, heteroscedastic and input-propagation cases hold values
+# to 1e-10 relative (gradients to RTOL)
+VALUE_RTOL = 1e-10
 S, N, D, M, H = 4, 30, 5, 20, 3
 BATCH, LR, STEPS = 30, 0.01, 20
 # 20 Adam steps in float64: optax and torch.optim.Adam evaluate the same
@@ -610,6 +618,229 @@ def _check_collapsed_fit(name, jm, build):
 
 
 # ---------------------------------------------------------------------------
+# the quadrature DGP, the heteroscedastic DGP and input propagation
+# ---------------------------------------------------------------------------
+
+def _randomised(layers, rng, scale=0.3):
+    """JAX layers with a posterior moved off its initialization."""
+    out = []
+    for layer in layers:
+        Mi, Do = layer.q_mu.value.shape
+        q_sqrt = np.tril(rng.randn(Do, Mi, Mi) * 0.2) + 0.5 * np.eye(Mi)
+        out.append(layer.replace(
+            q_mu=layer.q_mu.with_value(rng.randn(Mi, Do) * scale),
+            q_sqrt=layer.q_sqrt.with_value(q_sqrt)))
+    return out
+
+
+def _named_grads(model):
+    return {n: (torch.zeros_like(p) if p.grad is None else p.grad)
+            for n, p in model.named_parameters() if p.requires_grad}
+
+
+def _check_grads(case, model, jgrads):
+    jgrads = _flat(jgrads)
+    for name, g in _named_grads(model).items():
+        _close(f"{case} gradient {name}", g, jgrads[name])
+
+
+def _close_value(case, got, want):
+    assert_allclose(got.detach().numpy(), np.asarray(want),
+                    rtol=VALUE_RTOL, atol=ATOL, err_msg=case)
+
+
+def _check_quad(rng):
+    """DGPQuad at the JAX TestQuad shape (N=2, two RBF(1) layers with
+    lengthscale 0.1, Z = X) with H=20: the bound is the same bits twice,
+    and its value and gradients equal the JAX bound's; a chunk with no
+    host read; precompute keeps the class and the grids."""
+    X = rng.uniform(size=(2, 1))
+    Y = np.sin(20 * X) + rng.randn(2, 1) * 0.001
+    jlayers = dsd.init_layers_linear(
+        X, Y, X, [dsd.RBF.make(1, lengthscales=0.1),
+                  dsd.RBF.make(1, lengthscales=0.1)])
+    jm = dsd.DGPQuad.build(X, Y, dsd.Gaussian.make(0.01),
+                           _randomised(jlayers, rng), H=20)
+    layers = port.init_layers_linear(X, Y, X, [port.RBF(1), port.RBF(1)])
+    tm = port.DGPQuad.build(X, Y, port.Gaussian(1.0), layers, H=20,
+                            device="cpu")
+    assert {"gh_x.0", "gh_x.1", "gh_w"} <= dict(tm.named_buffers()).keys(), (
+        f"DGPQuad buffers {list(dict(tm.named_buffers()))}")
+    port.load_reference_state(tm, _flat(jm))
+    jloss, jgrads = jax.jit(jax.value_and_grad(lambda m: m.loss()))(jm)
+    loss = tm.loss()
+    assert torch.equal(loss, tm.loss()), "DGPQuad: the bound is not the " \
+                                         "same bits twice"
+    loss.backward()
+    _close_value("DGPQuad H=20 bound", loss, jloss)
+    _check_grads("DGPQuad H=20 bound", tm, jgrads)
+    cached = port.precompute(tm)
+    assert type(cached) is port.DGPQuad and torch.equal(
+        cached.gh_w, tm.gh_w), "precompute(DGPQuad) lost its class or grids"
+    chunk = make_scan_train_step(port_masked_optimizer(tm, LR),
+                                 inner_steps=2)
+    with no_host_reads():
+        first = chunk(tm, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(first), "DGPQuad chunk with no host read"
+
+
+def _jax_hetero_loss(model, X, Y, zs):
+    """The JAX heteroscedastic ELBO (the package's own E_log_p_Y) at fixed
+    draws: its _predict, which draws from a key, takes ``zs`` instead."""
+    def fixed(self, X, key=None, full_cov=False, S=1):
+        return dsd.DGPBase._predict(self, X, full_cov=full_cov, S=S, zs=zs)
+
+    with mock.patch.object(dsd.DGPHeteroscedastic, "_predict", fixed):
+        return model.loss(X, Y)
+
+
+_jax_hetero_loss_and_grads = jax.jit(jax.value_and_grad(_jax_hetero_loss))
+
+
+@jax.jit
+def _jax_hetero_predictions(model, X, Y, zs):
+    Fmean, Fvar = model._predict(X, S=S, zs=zs)
+    dens = logsumexp(model.sample_log_densities(Fmean, Fvar, Y)
+                     - jnp.log(S), axis=0)
+    return model.sample_predict_y(Fmean, Fvar), dens
+
+
+def _check_heteroscedastic(rng, Xt, Yt):
+    """DGPHeteroscedastic, 2 layers with num_outputs=2 on the fused
+    branch: the ELBO and its gradients at fixed draws, predict_y and
+    predict_density against JAX, also with the noise head above 20 (a
+    Constant mean of 25 on it, which pins softplus as logaddexp(g, 0)); the
+    cached model keeps the class and its y-space hooks; a chunk and a live
+    and a cached request with no host read."""
+    X, Y = rng.randn(60, D), rng.randn(60, 1)
+    for head in (0.0, 25.0):
+        case = f"DGPHeteroscedastic noise head mean {head}: "
+        with temp_config(**FUSED):
+            jlayers = dsd.init_layers_linear(
+                X, Y, X[:M], [dsd.RBF.make(D) + dsd.White.make(D, 2e-6),
+                              dsd.RBF.make(H, lengthscales=1.3)],
+                num_outputs=2, mean_function=dsd.ConstantMean.make(
+                    [0.1, head]))
+        jm = dsd.DGPHeteroscedastic.make(X, Y, dsd.Gaussian.make(0.05),
+                                         _randomised(jlayers, rng),
+                                         num_samples=S)
+        tm = port.DGPHeteroscedastic.build(
+            X, Y, X[:M], [port.RBF(D) + port.White(D), port.RBF(H)],
+            port.Gaussian(1.0), mean_function=port.ConstantMean([0.0, 0.0]),
+            num_samples=S, config=port.Config(**FUSED), device="cpu")
+        port.load_reference_state(tm, _flat(jm))
+        idx = rng.randint(0, 60, BATCH)
+        zs = [rng.randn(S, BATCH, d) for d in (H, 2)]
+        jloss, jgrads = _jax_hetero_loss_and_grads(
+            jm, jnp.asarray(X[idx]), jnp.asarray(Y[idx]),
+            [jnp.asarray(z) for z in zs])
+        loss = tm.loss(X[idx], Y[idx], zs=zs)
+        loss.backward()
+        _close_value(f"{case}ELBO at fixed draws", loss, jloss)
+        _check_grads(f"{case}ELBO", tm, jgrads)
+        zt = [rng.randn(S, N, d) for d in (H, 2)]
+        Fm = tm.predict_f(Xt, S=S, zs=zt)[0]
+        if head:
+            assert Fm[..., 1].min() > 20, (
+                f"{case}the noise head's mean {Fm[..., 1].min()} is not "
+                f"above 20")
+        (jmean, jvar), jdens = _jax_hetero_predictions(
+            jm, jnp.asarray(Xt), jnp.asarray(Yt), [jnp.asarray(z) for z in zt])
+        for name, m in (("live", tm), ("cached", port.precompute(tm))):
+            assert type(m) is port.DGPHeteroscedastic, (
+                f"{case}precompute lost the class")
+            mean, var = m.predict_y(Xt, S=S, zs=zt)
+            dens = m.predict_density(Xt, Yt, S=S, zs=zt)
+            assert dens.shape == (N, 1), f"{case}density {dens.shape}"
+            for what, g, w in (("predict_y mean", mean, jmean),
+                               ("predict_y var", var, jvar),
+                               ("predict_density", dens, jdens)):
+                _close_value(f"{case}{name} {what}", g, w)
+    # the noise link across torch's softplus threshold of 20, above which
+    # F.softplus returns G itself (6e-11 relative off at G = 20.5)
+    G = np.linspace(15.0, 40.0, 101)
+    assert_allclose(tm._noise(torch.as_tensor(G)).numpy(),
+                    np.asarray(jax.nn.softplus(jnp.asarray(G)) + jm.min_noise),
+                    rtol=1e-15, atol=0,
+                    err_msg="DGPHeteroscedastic noise link above 20")
+    chunk = make_scan_train_step(port_masked_optimizer(tm, LR), BATCH,
+                                 inner_steps=2)
+    live = port.make_server(tm, S=S, precompute=False,
+                            method="predict_density")
+    cached = port.make_server(tm, S=S, precompute=True,
+                              method="predict_density")
+    Xq, Yq = torch.as_tensor(Xt), torch.as_tensor(Yt)
+    with no_host_reads():
+        loss = chunk(tm, generator=torch.Generator().manual_seed(0))
+        requests = [serve(Xq, Yq, seed=4) for serve in (live, cached)]
+    assert torch.isfinite(loss) and all(
+        torch.isfinite(r).all() and r.shape == (N, 1) for r in requests), (
+        "DGPHeteroscedastic with no host read: non-finite or misshapen")
+
+
+def _check_input_prop(rng, Xt):
+    """The input-propagation stack RBF(5) -> RBF(7) -> RBF(7) (hidden width
+    2) on the fused branch: Z bit for bit from the default RandomState(0),
+    then the ELBO and its gradients at fixed draws, and
+    predict_all_layers(_full_cov) against the JAX propagate (shapes: the 5
+    input columns in front of each inner layer's outputs); the cached
+    layers keep input_prop_dim and the cached model's predictions."""
+    X, Y = rng.randn(60, D), rng.randn(60, 1)
+    Hp = 2
+    widths = (D, D + Hp, D + Hp)
+    with temp_config(**FUSED):
+        jlayers = dsd.init_layers_input_prop(
+            X, Y, X[:M], [dsd.RBF.make(w, lengthscales=1.2) for w in widths])
+    cfg = port.Config(**FUSED)
+    layers = port.init_layers_input_prop(X, Y, X[:M],
+                                         [port.RBF(w) for w in widths],
+                                         config=cfg)
+    for l, (jl, tl) in enumerate(zip(jlayers, layers)):
+        assert np.array_equal(tl.Z.value.detach().numpy(),
+                              np.asarray(jl.Z.value)), (
+            f"input prop layer {l}: Z differs from the JAX Z in its bits")
+        assert tl.input_prop_dim == jl.input_prop_dim, (
+            f"input prop layer {l}: input_prop_dim {tl.input_prop_dim}")
+    jm = dsd.DGPBase.make(X, Y, dsd.Gaussian.make(0.05),
+                          _randomised(jlayers, rng), num_samples=S)
+    tm = port.DGPBase.make(X, Y, port.Gaussian(1.0), layers, num_samples=S,
+                           config=cfg, device="cpu")
+    port.load_reference_state(tm, _flat(jm))
+    idx = rng.randint(0, 60, BATCH)
+    zs = [rng.randn(S, BATCH, d) for d in (Hp, Hp, 1)]
+    jloss, jgrads = _jax_loss_and_grads(jm, jnp.asarray(X[idx]),
+                                        jnp.asarray(Y[idx]),
+                                        [jnp.asarray(z) for z in zs])
+    loss = tm.loss(X[idx], Y[idx], zs=zs) - port.log_prior(tm)
+    loss.backward()
+    _close_value("input prop ELBO at fixed draws", loss, jloss)
+    _check_grads("input prop ELBO", tm, jgrads)
+    zt = [rng.randn(S, N, d) for d in (Hp, Hp, 1)]
+    jax_side = jax.jit(lambda m, x, z: (m.propagate(x, S=S, zs=z),
+                                        m.propagate(x, S=S, zs=z,
+                                                    full_cov=True)))
+    wants = jax_side(jm, jnp.asarray(Xt), [jnp.asarray(z) for z in zt])
+    cached = port.precompute(tm)
+    assert [l.input_prop_dim for l in cached.layers] == [D, D, None], (
+        "precompute lost input_prop_dim")
+    for full_cov, want in zip((False, True), wants):
+        tag = "_full_cov" if full_cov else ""
+        for name, m in (("live", tm), ("cached", cached)):
+            got = getattr(m, f"predict_all_layers{tag}")(Xt, S=S, zs=zt)
+            for l in range(3):
+                for what, g, w in zip(("F", "mean", "var"), got, want):
+                    assert g[l].shape == w[l].shape, (
+                        f"input prop {name} predict_all_layers{tag} layer "
+                        f"{l} {what} shape {tuple(g[l].shape)}")
+                    _close_value(f"input prop {name} predict_all_layers"
+                                 f"{tag} layer {l} {what}", g[l], w[l])
+            assert torch.equal(got[0][0][..., :D],
+                               torch.as_tensor(Xt).expand(S, N, D)), (
+                f"input prop {name}: layer 0's first {D} columns are not "
+                f"the input")
+
+
+# ---------------------------------------------------------------------------
 # classification: the paper's MNIST DGP, cut to the committed fixture
 # ---------------------------------------------------------------------------
 
@@ -868,6 +1099,10 @@ def test_paths_match_jax():
     _check_evaluate_regression(rng, X, Y, Xt, Yt)
     # its own stream, so that the cases after it keep their draws
     _check_classification(np.random.RandomState(7))
+    # their own streams, so that the cases before them keep their draws
+    _check_quad(np.random.RandomState(41))
+    _check_heteroscedastic(np.random.RandomState(42), Xt, Yt)
+    _check_input_prop(np.random.RandomState(43), Xt)
     psi2_core.launches = 0
     _check_collapsed(rng, Xt, Yt)
     assert (fused_conditional.launches, fused_conditional.backward_launches,
