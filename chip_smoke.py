@@ -292,11 +292,46 @@ Phases, each of which raises on a failed check:
    model's graphed steps/s (both routes in turns, where it has two),
    device busy a step and request latency are printed with the card.
 
+27. natural gradients, L-BFGS and the single-layer baselines (float32,
+   jitter 1e-5, ``solve_mode='inverse'``), each sub-phase's main path with
+   the launch counts at 0 just before and read just after.  27a: the
+   headline DGP trained by ``fit(natgrad_gamma=0.1, ng_layers=(-1,))``
+   for 300 steps (raises unless the loss is finite and falls, the last
+   layer's q moves, and the launches a step are 10 fused forwards, 6 fused
+   backwards and 20 rbf_gram); ``natgrad_update`` on the trained last
+   layer in float32 on the card within 2x the CPU float32 error against
+   float64, and its device time; 2 chunks graphed against eager bit for
+   bit; NatGrad+Adam and Adam-only chunks replayed in turns under sync
+   debug 'error' (steps/s, device busy, idle share; an eager chunk's
+   launches by the counters equal to a replayed one's by the profiler);
+   the full-data loss after 100 steps of each from one state; the fused
+   pair and rbf_gram on the trained model's operands on a training
+   minibatch under phase 1's gates.  27b: one
+   gamma = 1 natural step in float64 on the card lands on the collapsed
+   bound (SVGP on SGPR, rtol 1e-8; DGPQuad(H=200) on DGPCollapsed, rtol
+   1e-7).  27c: the UCI notebook's baselines at the kin8nm shape (M=100,
+   kmeans2 Z): SGPR and GPRFITC by ``lbfgs_minimize`` (at most 100
+   iterations; raises unless the loss is finite and falls, and unless the
+   card's float32 bound's worst error against float64 over 8 parameter
+   points is within 2x the CPU float32 bound's; the ratio at the trained
+   point alone is printed), SVGP by 300 Adam steps (the fused route), a
+   GPR on 1000 rows; test rmse and loglik; the fused pair and rbf_gram on
+   the operands each trained model hands them (SVGP's at B=1000, Do=1;
+   SGPR's and FITC's Kuu and Kuf at 100 x 7372; GPR's K(X) at 1000 x
+   1000) under phase 1's gates.  27d: ``make_server(precompute=True)`` on
+   SGPR, GPRFITC, the GPR and phase 9's collapsed_L2 and damianou_large:
+   cached against live (5e-3, or 5e-2 of scale for the collapsed DGPs at
+   fixed draws), 1000-row requests graphed against eager bit for bit,
+   latency cached against live; the kernels on a 1000-row request's
+   operands, live and cached, under phase 1's gates (the forward).
+
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
 rbf_gram; the fused pair's and rbf_gram's also with phase 25's shapes and
 launches; every record with ``extra_launches``, each phase-26 model's
-main-path launches), the card's name and power limit, and as its last line
+main-path launches, and ``natgrad_launches``, phase 27's by sub-phase;
+the fused pair's and rbf_gram's also with phase 27's worst errors),
+the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
 prints no result.
@@ -997,16 +1032,16 @@ def phase_profile(live, cached, requests):
 # phase 6: training
 # ---------------------------------------------------------------------------
 
-def run_fit(model, steps, seed, profiled=True):
-    """fit() with the launch counts set to 0 just before and read just
-    after, logging (and syncing) every chunk; returns the history, the
-    counts and (``profiled``) the launches of the second chunk (one
-    replay) by the profiler."""
+def run_fit(model, steps, seed, profiled=True, **fit_kw):
+    """fit() (with ``fit_kw``) with the launch counts set to 0 just before
+    and read just after, logging (and syncing) every chunk; returns the
+    history, the counts and (``profiled``) the launches of the second
+    chunk (one replay) by the profiler."""
     set_launch_counts({n: 0 for n in KERNEL_NAMES})
     replay = ProfiledChunk()
     _, hist = fit(model, iterations=steps, learning_rate=0.01,
                   batch_size=BATCH, seed=seed, log_every=FIT_CHUNK,
-                  callbacks=[replay] if profiled else [])
+                  callbacks=[replay] if profiled else [], **fit_kw)
     torch.cuda.synchronize()
     return hist, launch_counts(), replay.launches
 
@@ -3964,46 +3999,46 @@ def serving_graphed_vs_eager(model, Xs, Ys, label, card, shape=None,
     return out
 
 
-def check_extra_kernels(name, model, run, seed):
+def hold_captured_kernels(label, run, seed, worst, backward=True,
+                          n_fused=None):
     """Phase 1's gates (check_fused_mnist, check_gram_mnist: within 1e-4
     of scale of the plain version, within 2x the plain float32 error
     against float64, repeats bit-identical) on the operands that ``run``,
-    a call of the trained ``model`` at the training shapes, hands the
-    fused pair (every layer's, forward and backward; the first gate
-    relaxed to the plain float32 error against float64 where that is
-    larger: hold's ``floor``) and rbf_gram (each distinct call); and on
-    random operands at each fused shape that phase 1 does not hold, under
-    its gates as they are.  Returns the worst errors per kernel and the
-    fused calls' (B, Dx, Do)."""
+    a call at a main path's shapes, hands the fused pair (every call; the
+    backward too when ``backward``; the first gate relaxed to the plain
+    float32 error against float64 where that is larger: hold's ``floor``)
+    and rbf_gram (each distinct call); and on random operands at each
+    fused shape that phase 1 does not hold, under its gates as they are.
+    ``n_fused``: the number of fused calls ``run`` must make.  The worst
+    errors go into ``worst``; returns the fused calls' (B, Dx, Do) and
+    the grams' (N, M, D)."""
     from doubly_stochastic_dgp_tpu_torch.models import layers
     from doubly_stochastic_dgp_tpu_torch.ops import kernels
-    worst = {n: [0.0] * 4 for n in ("fused_conditional",
-                                     "fused_conditional_backward",
-                                     "rbf_gram")}
     fused = captured_calls(run, layers, "fused_conditional")
-    check(len(fused) == len(model.layers),
-          f"extra {name}: captured {len(fused)} fused calls for "
-          f"{len(model.layers)} layers")
+    check(n_fused is None or len(fused) == n_fused,
+          f"{label}: captured {len(fused)} fused calls, expected {n_fused}")
     shapes, held = [], {case[1:5] for case in KERNEL_CASES}
     for layer, args in enumerate(fused):
         args = [a.contiguous() if torch.is_tensor(a) else a for a in args]
         B, Dx, Do = args[0].shape[0], args[0].shape[1], args[3].shape[1]
+        M_ = args[1].shape[0]
         shapes.append((B, Dx, Do))
-        if (B, M, Dx, Do) not in held:
+        if (B, M_, Dx, Do) not in held:
             # a shape phase 1 does not hold: its random operands, too
-            held.add((B, M, Dx, Do))
+            held.add((B, M_, Dx, Do))
             check_fused_mnist(
-                f"extra {name} random (B, Dx, Do) = {shapes[-1]}",
-                conditional_inputs(B, M, Dx, Do, seed + layer,
-                                   spread=Dx ** -0.5), True, seed, worst)
-        check_fused_mnist(f"extra {name} layer {layer} operands (B, Dx, Do) "
-                          f"= {shapes[-1]}", args, True, seed, worst,
+                f"{label} random (B, M, Dx, Do) = {(B, M_, Dx, Do)}",
+                conditional_inputs(B, M_, Dx, Do, seed + layer,
+                                   spread=Dx ** -0.5), backward, seed, worst)
+        check_fused_mnist(f"{label} layer {layer} operands (B, Dx, Do) "
+                          f"= {shapes[-1]}", args, backward, seed, worst,
                           floor=True)
     grams = []
     for ops in captured_calls(run, kernels, "rbf_gram"):
         if not any(all(a.shape == b.shape and torch.equal(a, b)
                        for a, b in zip(ops, seen)) for seen in grams):
             grams.append(ops)
+    gram_shapes = []
     for i, ops in enumerate(grams):
         ops = [t.contiguous() for t in ops]
         X, Z = ops[0], ops[1]
@@ -4011,10 +4046,27 @@ def check_extra_kernels(name, model, run, seed):
         square = X.shape == Z.shape and torch.equal(X, Z)
         if square:
             ops[1] = X
-        check_gram_mnist(f"extra {name} call {i} "
+        gram_shapes.append((X.shape[0], Z.shape[0], X.shape[1]))
+        check_gram_mnist(f"{label} call {i} "
                          f"{'K(Z, Z)' if square else 'K(X, Z)'} (N, M, D) = "
-                         f"({X.shape[0]}, {Z.shape[0]}, {X.shape[1]})",
-                         ops, square, seed, worst)
+                         f"{gram_shapes[-1]}", ops, square, seed, worst)
+    return shapes, gram_shapes
+
+
+def kernel_worst():
+    """Worst errors per kernel, as hold_captured_kernels keeps them."""
+    return {n: [0.0] * 4 for n in ("fused_conditional",
+                                    "fused_conditional_backward",
+                                    "rbf_gram")}
+
+
+def check_extra_kernels(name, model, run, seed):
+    """hold_captured_kernels on a trained ``model``'s call ``run`` at its
+    training shapes (one fused call a layer).  Returns the worst errors
+    per kernel and the fused calls' (B, Dx, Do)."""
+    worst = kernel_worst()
+    shapes, _ = hold_captured_kernels(f"extra {name}", run, seed, worst,
+                                      n_fused=len(model.layers))
     return worst, shapes
 
 
@@ -4277,6 +4329,585 @@ def phase_extra(seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: natural gradients, L-BFGS, the single-layer baselines and their
+# serving caches
+# ---------------------------------------------------------------------------
+
+NG_GAMMA = 0.1
+# scripts/stress_sweep.py's natgrad family (1000 steps there)
+NG_STEPS = 300
+NG_COMPARE_STEPS = 100
+# a NatGrad+Adam step, counted by the wrappers on the CPU: the natural
+# step's objective (a fused forward a layer; rbf_gram for each layer's Kuu
+# in its conditional and in its KL) and its gradient in the last layer's
+# (q_mu, q_sqrt) alone, for which autograd runs the last layer's fused
+# backward and no other; then Adam's objective and full gradient
+NG_STEP = {"fused_conditional": 2 * LAYERS,
+           "fused_conditional_backward": LAYERS + 1,
+           "rbf_gram": 4 * LAYERS}
+# the SVGP baseline (one white layer on the fused route): its conditional's
+# Kuu, and no KL gram (the whitened KL has none)
+SVGP_STEP = {"fused_conditional": 1, "fused_conditional_backward": 1,
+             "rbf_gram": 1}
+BASELINE_LBFGS_ITERS = 100      # demos/uci_benchmark.py runs 300
+GPR_ROWS = 1000
+# precompute's collapsed snapshot against the live collapsed model, float32
+# on the card: the collapsed-prediction limit of section 2 (PERF.md)
+CACHED_COLLAPSED_RTOL = ROUTE_GAP_RTOL["predictions"]
+
+
+def natgrad_chunk(model, natgrad=True):
+    """A training chunk of FIT_CHUNK steps at minibatch BATCH, lr 0.01:
+    NatGrad(NG_GAMMA, last layer) + Adam on the rest, or Adam alone."""
+    from doubly_stochastic_dgp_tpu_torch.training.loop import (
+        make_natgrad_adam_step, make_scan_train_step)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        freeze_q_params, masked_optimizer)
+    if not natgrad:
+        return make_scan_train_step(masked_optimizer(model, 0.01), BATCH,
+                                    FIT_CHUNK)
+    opt = masked_optimizer(model, 0.01,
+                           freeze=freeze_q_params((-1,), len(model.layers)))
+    return make_scan_train_step(
+        opt, BATCH, FIT_CHUNK,
+        step=make_natgrad_adam_step(opt, NG_GAMMA, (-1,), BATCH))
+
+
+def last_layer_grads(model, seed):
+    """The objective's gradient in the last layer's (q_mu, q_sqrt) at a
+    fixed minibatch and fixed draws: (q_mu, q_sqrt, dq_mu, dq_sqrt)."""
+    rng = np.random.RandomState(seed + 13)
+    idx = torch.as_tensor(rng.randint(0, model.X_data.shape[0], BATCH),
+                          device="cuda")
+    zs = [rng.randn(TRAIN_S, BATCH, 8) for _ in range(LAYERS - 1)] + [
+        rng.randn(TRAIN_S, BATCH, 1)]
+    last = model.layers[-1]
+    loss = model.loss(model.X_data[idx], model.Y_data[idx], zs=zs)
+    gm, gL = torch.autograd.grad(
+        loss, [last.q_mu.unconstrained, last.q_sqrt.unconstrained])
+    return (last.q_mu.value.detach(), last.q_sqrt.value.detach(), gm,
+            torch.tril(gL))
+
+
+def natgrad_update_precision(model, seed, card):
+    """natgrad_update on the trained last layer's (q_mu, q_sqrt) and its
+    gradients: float32 on the card and on the CPU against float64 on the
+    CPU (each output's max |error| over its scale); raises when the card's
+    error is above 2x the CPU float32 error (phase 19's rule for cuSOLVER
+    against LAPACK).  Then the update's device time, captured in a CUDA
+    graph and by the profiler."""
+    from doubly_stochastic_dgp_tpu_torch import natgrad_update
+    args = last_layer_grads(model, seed)
+    jitter = model.layers[-1].jitter
+    a64 = [a.double().cpu() for a in args]
+    ref = natgrad_update(*a64, NG_GAMMA, jitter=jitter)
+    runs = {"card f32": natgrad_update(*args, NG_GAMMA, jitter=jitter),
+            "cpu f32": natgrad_update(*[a.float() for a in a64], NG_GAMMA,
+                                      jitter=jitter)}
+    errs = {run: [(g.double().cpu() - r).abs().max().item()
+                  / r.abs().max().item() for g, r in zip(out, ref)]
+            for run, out in runs.items()}
+    print("natgrad_update f32 vs f64 (the trained last layer, M=100, D=1, "
+          "gamma 0.1), max |error| of scale (q_mu, q_sqrt): "
+          + ", ".join(f"{run} {e[0]:.3e}, {e[1]:.3e}"
+                      for run, e in errs.items()) + f" [{card}]", flush=True)
+    for k, what in enumerate(("q_mu", "q_sqrt")):
+        check(errs["card f32"][k] <= 2.0 * errs["cpu f32"][k],
+              f"natgrad_update {what}: card float32 error "
+              f"{errs['card f32'][k]} > 2x the CPU float32 error "
+              f"{errs['cpu f32'][k]}")
+    fn = lambda: natgrad_update(*args, NG_GAMMA, jitter=jitter)  # noqa
+    graph_ms = graph_event_ms(fn)
+    busy = total_device_ms(fn)
+    print(f"natgrad_update device time (the batched (1, 100, 100) "
+          f"factorizations and solves): {graph_ms:.4f} ms a call captured "
+          f"and replayed (CUDA events); the profiler's sum of device ops "
+          + ("not measured" if busy is None
+             else f"{busy[0]:.4f} ms in {busy[1]:.0f} ops")
+          + f" [{card}]", flush=True)
+    return {"errors_of_scale": errs, "graph_ms": graph_ms,
+            "profiler_ms": None if busy is None else busy[0],
+            "device_ops": None if busy is None else busy[1]}
+
+
+def natgrad_rates(seed, card):
+    """Graphed against eager over 2 chunks of NatGrad+Adam from one seed,
+    bit for bit; then NatGrad+Adam and Adam-only chunks replayed in turns
+    (GRAPH_ROUNDS each, every replay under sync debug 'error', no replay
+    ticking a counter); an eager NatGrad+Adam chunk's launches by the
+    counters against a replayed one's by the profiler, which must agree;
+    device busy and idle share of each."""
+    from doubly_stochastic_dgp_tpu_torch.graphs import eager_on_card
+
+    def fresh():
+        return build_model(seed, num_samples=TRAIN_S,
+                           random_posterior=False)[0]
+
+    ma, mb = fresh(), fresh()
+    kw = dict(learning_rate=0.01, batch_size=BATCH, seed=seed,
+              log_every=FIT_CHUNK, natgrad_gamma=NG_GAMMA)
+    fit(ma, 2 * FIT_CHUNK, **kw)
+    with eager_on_card():
+        fit(mb, 2 * FIT_CHUNK, **kw)
+    torch.cuda.synchronize()
+    same, worst, where = param_agreement(ma, mb)
+    print(f"natgrad graphs: parameters after {2 * FIT_CHUNK} NatGrad+Adam "
+          f"steps (2 chunks), graphed vs eager: bit for bit {same}; worst "
+          f"{worst:.3e} of scale ({where}) [{card}]", flush=True)
+    check(same, f"NatGrad+Adam: graphed and eager parameters differ by "
+                f"{worst} of scale in {where}")
+    models = {"natgrad+adam": ma, "adam": fresh()}
+    chunks = {r: natgrad_chunk(m, natgrad=r != "adam")
+              for r, m in models.items()}
+    gens = {r: torch.Generator(device="cuda").manual_seed(seed + 1)
+            for r in models}
+    runs = {r: (lambda r=r: chunks[r](models[r], gens[r])) for r in models}
+    for run in runs.values():
+        run()                                       # capture
+    torch.cuda.synchronize()
+    before = launch_counts()
+    with eager_on_card():
+        runs["natgrad+adam"]()
+    torch.cuda.synchronize()
+    eager = {n: launch_counts()[n] - before[n] for n in KERNEL_NAMES}
+    rates = {r: [] for r in runs}
+    before = launch_counts()
+    for _ in range(GRAPH_ROUNDS):
+        for r, run in runs.items():
+            t0 = time.perf_counter()
+            with no_sync():
+                run()
+            torch.cuda.synchronize()
+            rates[r].append(FIT_CHUNK / (time.perf_counter() - t0))
+    check(launch_counts() == before,
+          "natgrad: a replay ticked the launch counters")
+    out = {"bit_for_bit": same, "eager_chunk_launches": eager}
+    for r, run in runs.items():
+        rate = statistics.median(rates[r])
+        (busy, ops, top), launches = profile_chunk(run, FIT_CHUNK,
+                                                   f"natgrad {r}")
+        out[r] = {"steps_per_s": rate, "rates": rates[r], "busy_ms": busy,
+                  "device_ops": ops, "idle_share": 1 - busy * rate / 1e3,
+                  "replay_launches": launches, "top": top}
+        print(f"natgrad graphs {r}: steps/s median of {GRAPH_ROUNDS} chunks "
+              f"of {FIT_CHUNK} (in turns) {rate:.2f} (all "
+              f"{', '.join(f'{x:.2f}' for x in rates[r])}); device busy "
+              f"{busy:.3f} ms in {ops:.0f} device ops a step, idle share "
+              f"{out[r]['idle_share']:.3f}; a replayed chunk's launches "
+              f"(profiler) {', '.join(f'{n} {c}' for n, c in launches.items() if c)};"
+              f" top: {top} [{card}]", flush=True)
+    want = {n: FIT_CHUNK * NG_STEP.get(n, 0) for n in KERNEL_NAMES}
+    print(f"natgrad graphs: an eager chunk's launches (counters) "
+          f"{', '.join(f'{n} {c}' for n, c in eager.items() if c)}; "
+          f"expected {FIT_CHUNK} x {NG_STEP}", flush=True)
+    check(eager == want and out["natgrad+adam"]["replay_launches"] == eager,
+          f"natgrad: an eager chunk launched {eager} (counters), a replay "
+          f"{out['natgrad+adam']['replay_launches']} (profiler), expected "
+          f"{want}")
+    return out
+
+
+def natgrad_vs_adam(seed, card):
+    """NG_COMPARE_STEPS steps of NatGrad+Adam and of Adam alone from one
+    build state and seed: the negative ELBO on the whole training set at
+    one fixed generator seed, and the last logged chunk loss, of each."""
+    out = {}
+    for name, gamma in (("natgrad+adam", NG_GAMMA), ("adam", None)):
+        model = build_model(seed, num_samples=TRAIN_S,
+                            random_posterior=False)[0]
+        _, hist = fit(model, NG_COMPARE_STEPS, 0.01, batch_size=BATCH,
+                      seed=seed, log_every=FIT_CHUNK, natgrad_gamma=gamma)
+        g = torch.Generator(device="cuda").manual_seed(seed + 17)
+        with torch.no_grad():
+            full = model.loss(generator=g).item()
+        out[name] = {"full_loss": full, "last_chunk_loss": hist[-1]["loss"]}
+        rows = model.X_data.shape[0]
+    print(f"natgrad vs adam after {NG_COMPARE_STEPS} steps from one state "
+          f"and seed: negative ELBO on the {rows}-row training set "
+          f"(S={TRAIN_S}, one fixed draw) natgrad+adam "
+          f"{out['natgrad+adam']['full_loss']:.3f}, adam "
+          f"{out['adam']['full_loss']:.3f}; last chunk's mean minibatch "
+          f"loss {out['natgrad+adam']['last_chunk_loss']:.3f} vs "
+          f"{out['adam']['last_chunk_loss']:.3f} [{card}]", flush=True)
+    return out
+
+
+def phase_natgrad(seed, card, worst):
+    """27a: the headline DGP trained by fit(natgrad_gamma=0.1,
+    ng_layers=(-1,)) for NG_STEPS steps (its main path: the launch counts
+    at 0 just before and read just after), then the natural update's
+    precision and time, graphed against eager, steps/s against Adam, and
+    the loss after NG_COMPARE_STEPS steps against Adam's; the kernels
+    on the operands the trained model hands them on a training minibatch
+    (hold_captured_kernels; worst errors into ``worst``)."""
+    model = build_model(seed, num_samples=TRAIN_S,
+                        random_posterior=False)[0]
+    last = model.layers[-1]
+    q0 = [t.detach().clone() for t in (last.q_mu.unconstrained,
+                                        last.q_sqrt.unconstrained)]
+    t0 = time.perf_counter()
+    hist, counts, replay = run_fit(model, NG_STEPS, seed,
+                                   natgrad_gamma=NG_GAMMA, ng_layers=(-1,))
+    fit_s = time.perf_counter() - t0
+    losses = [h["loss"] for h in hist]
+    rejected = hist[-1]["rejected"]
+    moved = [not torch.equal(a, b) for a, b in zip(
+        q0, (last.q_mu.unconstrained, last.q_sqrt.unconstrained))]
+    print(f"natgrad training: fit {NG_STEPS} NatGrad(gamma {NG_GAMMA}, last "
+          f"layer) + Adam steps (graphed chunks of {FIT_CHUNK}, lr 0.01, "
+          f"minibatch {BATCH}) in {fit_s:.1f} s: loss {losses[0]:.3f} "
+          f"(steps 1-{FIT_CHUNK}) -> {losses[-1]:.3f} (last {FIT_CHUNK}); "
+          f"natural updates rejected {rejected}; last layer's (q_mu, "
+          f"q_sqrt) moved {moved}; launches (counters: the warm-up and "
+          f"capture chunks) "
+          + ", ".join(f"{n} {c}" for n, c in counts.items() if c)
+          + "; a replayed chunk (profiler) "
+          + ", ".join(f"{n} {c}" for n, c in replay.items() if c)
+          + f" [{card}]", flush=True)
+    check_fit_launches("natgrad", counts, replay, NG_STEP)
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"natgrad: loss not finite or did not fall: {losses}")
+    check(all(moved), "natgrad: the last layer's q_mu or q_sqrt did not "
+                      "move")
+    out = {"steps": NG_STEPS, "loss_first": losses[0],
+           "loss_last": losses[-1], "rejected": rejected, "fit_s": fit_s,
+           "launches_fit": counts, "launches_replay": replay}
+    out["update"] = natgrad_update_precision(model, seed, card)
+    rng = np.random.RandomState(seed + 37)
+    idx = torch.as_tensor(rng.randint(0, model.X_data.shape[0], BATCH),
+                          device="cuda")
+    zs = [rng.randn(TRAIN_S, BATCH, 8) for _ in range(LAYERS - 1)] + [
+        rng.randn(TRAIN_S, BATCH, 1)]
+    out["kernel_shapes"] = hold_captured_kernels(
+        "natgrad", lambda: model.loss(model.X_data[idx], model.Y_data[idx],
+                                      zs=zs), seed, worst, n_fused=LAYERS)
+    del model
+    out["graphs"] = natgrad_rates(seed, card)
+    out["vs_adam"] = natgrad_vs_adam(seed, card)
+    return out
+
+
+def phase_gamma1(card):
+    """27b: one gamma = 1 natural step in float64 on the card lands on the
+    collapsed bound: an SVGP's against SGPR's (rtol 1e-8) at
+    tests/test_single_layer_models.py's shapes, DGPQuad(H=200)'s last
+    layer against DGPCollapsed's (rtol 1e-7) at tests/test_collapsed.py's;
+    every gram there is the float64 rbf_gram kernel."""
+    from doubly_stochastic_dgp_tpu_torch import (SGPR, SVGP,
+                                                 NaturalGradient)
+    cfg = Config(jitter=1e-12)
+    rng = np.random.RandomState(0)
+    X, Y, Z = rng.rand(12, 2), rng.randn(12, 2), rng.rand(5, 2)
+
+    def kern():
+        return RBF(2, variance=1.1, lengthscales=0.6)
+
+    sgpr = SGPR.build(X, Y, kern(), Z, noise_variance=0.2, config=cfg)
+    svgp = SVGP.build(X, Y, kern(), Gaussian(0.2), Z, white=False,
+                      config=cfg)
+    NaturalGradient(1.0, (0,)).step(svgp, lambda m: -m.log_likelihood())
+    with torch.no_grad():
+        got = {"svgp": (svgp.log_likelihood().item(),
+                        sgpr.log_likelihood().item())}
+    np.random.seed(100)
+    X = np.random.uniform(size=(1, 1))
+    Y = np.random.uniform(size=(1, 1))
+    Z = np.random.uniform(size=(8, 1))
+    Z[:1] = X[:8]
+
+    def kerns():
+        return [RBF(1, lengthscales=0.1), RBF(1, lengthscales=0.5)]
+
+    q_mu1 = np.random.randn(8, 1)
+    q_sqrt1 = np.tril(np.random.randn(8, 8))[None]
+    collapsed = DGPCollapsed.build(X, Y, Z, kerns(), Gaussian(0.1),
+                                   config=cfg)
+    quad = DGPQuad.build(X, Y, Gaussian(0.1),
+                         init_layers_linear(X, Y, Z, kerns(), config=cfg),
+                         H=200, config=cfg)
+    for m in (collapsed, quad):
+        m.layers[0].q_mu.set_value(q_mu1)
+        m.layers[0].q_sqrt.set_value(q_sqrt1)
+    NaturalGradient(1.0, (-1,)).step(quad, lambda m: -m.elbo())
+    with torch.no_grad():
+        got["quad"] = (quad.elbo().item(), collapsed.elbo().item())
+    for name, (a, b), rtol in (("SVGP vs SGPR", got["svgp"], 1e-8),
+                               ("DGPQuad vs DGPCollapsed", got["quad"],
+                                1e-7)):
+        rel = abs(a - b) / abs(b)
+        print(f"gamma=1 identity {name}, float64 on the card: {a!r} vs "
+              f"{b!r}, relative {rel:.3e} (limit {rtol:g}) [{card}]",
+              flush=True)
+        check(rel <= rtol, f"gamma=1 identity {name}: {rel} > {rtol}")
+    return {k: {"natgrad": a, "collapsed": b} for k, (a, b) in got.items()}
+
+
+def eval_deterministic(model, data):
+    """Test RMSE and mean Gaussian log-likelihood of a single-layer
+    model's deterministic predictive moments, de-normalized, as
+    demos/uci_benchmark.py's eval_deterministic."""
+    from scipy.stats import norm
+    Xs, Ys, Y_std = data["Xs"], data["Ys"], data["Y_std"]
+    means, vars_ = [], []
+    for mb in range(-(-len(Xs) // 1000)):
+        m, v = model.predict_y(Xs[mb * 1000:(mb + 1) * 1000])
+        means.append(m.double().cpu().numpy())
+        vars_.append(v.double().cpu().numpy())
+    mean, var = np.concatenate(means), np.concatenate(vars_)
+    rmse = float(np.average(Y_std * np.mean((Ys - mean) ** 2) ** 0.5))
+    ll = float(np.average(norm.logpdf(Ys * Y_std, mean * Y_std,
+                                      var ** 0.5 * Y_std)))
+    return {"rmse": rmse, "loglik": ll}
+
+
+# points at which the baselines' float32 bounds are held against float64:
+# the trained parameters and BOUND_POINTS - 1 perturbations of them (each
+# unconstrained parameter times 1 + 0.01 u, u standard normal), since one
+# scalar's rounding error is a draw from a spread (PERF.md, section 6)
+BOUND_POINTS = 8
+
+
+def baseline_bound_gate(name, model, build, seed):
+    """The float32 bound on the card and on the CPU against the float64
+    CPU bound at BOUND_POINTS parameter points: raises when the card's
+    worst error is above 2x the CPU float32 bound's worst."""
+    state = model.state_dict()
+    params = dict(model.named_parameters())
+    rng = np.random.RandomState(seed + 23)
+    runs = {"card f32": model, "cpu f32": build("cpu", torch.float32),
+            "cpu f64": build("cpu", torch.float64)}
+    bounds = {r: [] for r in runs}
+    for k in range(BOUND_POINTS):
+        point = {n: (t if k == 0 or n not in params
+                     else t * (1.0 + 0.01 * torch.as_tensor(
+                         rng.randn(*t.shape), dtype=t.dtype,
+                         device=t.device)))
+                 for n, t in state.items()}
+        for r, m in runs.items():
+            m.load_state_dict(point)
+            with torch.no_grad():
+                bounds[r].append(m.log_likelihood().double().item())
+    model.load_state_dict(state)
+    errs = {r: [abs(a - b) for a, b in zip(bounds[r], bounds["cpu f64"])]
+            for r in ("card f32", "cpu f32")}
+    worst = {r: max(e) for r, e in errs.items()}
+    # the rule as first written, at the trained parameters alone: printed
+    # and kept, not gated (PERF.md, section 6; ROADMAP, queue C)
+    one_point = errs["card f32"][0] / max(errs["cpu f32"][0], 1e-300)
+    print(f"baseline {name} bound at the trained parameters and "
+          f"{BOUND_POINTS - 1} perturbations: cpu f64 "
+          f"{bounds['cpu f64'][0]!r} at the trained ones; |f32 - f64| card "
+          + ", ".join(f"{e:.3e}" for e in errs["card f32"]) + "; cpu "
+          + ", ".join(f"{e:.3e}" for e in errs["cpu f32"])
+          + f"; worst card {worst['card f32']:.3e}, cpu "
+            f"{worst['cpu f32']:.3e} (ratio "
+            f"{worst['card f32'] / max(worst['cpu f32'], 1e-300):.3f}, "
+            f"gated at 2); at the trained parameters alone card / cpu "
+            f"{one_point:.3f} (not gated)", flush=True)
+    check(worst["card f32"] <= 2.0 * worst["cpu f32"],
+          f"baseline {name}: the card's float32 bound is up to "
+          f"{worst['card f32']} off float64, above 2x the CPU float32 "
+          f"bound's {worst['cpu f32']}")
+    return {"bounds": bounds, "errors": errs, "worst": worst,
+            "one_point_ratio": one_point}
+
+
+def phase_baselines(seed, card, worst):
+    """27c: the UCI notebook's baselines at the kin8nm shape
+    (demos/uci_benchmark.py:83-101): M=100, Z by kmeans2; SGPR and
+    GPRFITC by lbfgs_minimize (at most BASELINE_LBFGS_ITERS iterations),
+    SVGP by fit (TRAIN_STEPS Adam steps, minibatch BATCH, the fused
+    route), a GPR on a GPR_ROWS-row subset by lbfgs_minimize (for the
+    serving cell), with the launch counts at 0 before and read after;
+    each model's test rmse and loglik (eval_deterministic); the SGPR and
+    FITC float32 bounds against float64; then the kernels on the
+    operands each trained model hands them, under phase 1's gates
+    (hold_captured_kernels; worst errors into ``worst``)."""
+    from scipy.cluster.vq import kmeans2
+    from doubly_stochastic_dgp_tpu_torch import (GPR, GPRFITC, SGPR, SVGP,
+                                                 lbfgs_minimize)
+    data = SyntheticRegression(N=8192, D=8).get_data(split=0)
+    X, Y = data["X"], data["Y"]
+    Z = kmeans2(X, M, minit="points", seed=0)[0]
+
+    def config(dtype):
+        return Config(dtype=dtype, jitter=1e-5, solve_mode="inverse")
+
+    builds = {
+        "SGPR": lambda dev="cuda", dt=torch.float32: SGPR.build(
+            X, Y, RBF(8), Z, noise_variance=0.01, config=config(dt),
+            device=dev),
+        "GPRFITC": lambda dev="cuda", dt=torch.float32: GPRFITC.build(
+            X, Y, RBF(8), Z, noise_variance=0.01, config=config(dt),
+            device=dev)}
+    out, models = {}, {}
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    for name, build in builds.items():
+        t0 = time.perf_counter()
+        model = build()
+        with torch.no_grad():
+            l0 = -model.log_likelihood().item()
+        _, loss = lbfgs_minimize(lambda m: -m.log_likelihood(), model,
+                                 max_iters=BASELINE_LBFGS_ITERS)
+        lbfgs_s = time.perf_counter() - t0
+        with torch.no_grad():
+            l1 = -model.log_likelihood().item()
+        metrics = eval_deterministic(model, data)
+        print(f"baseline {name}: lbfgs_minimize (at most "
+              f"{BASELINE_LBFGS_ITERS} iterations) in {lbfgs_s:.1f} s: loss "
+              f"{l0:.3f} -> {l1:.3f} (last iteration's start {loss:.3f}); "
+              f"rmse {metrics['rmse']:.6f}, loglik {metrics['loglik']:.6f} "
+              f"on the {len(data['Xs'])}-row test split [{card}]",
+              flush=True)
+        check(np.isfinite([l0, l1, loss]).all() and l1 < l0,
+              f"baseline {name}: the L-BFGS loss {l0} -> {l1} is not finite "
+              f"or did not fall")
+        models[name] = model
+        out[name] = {"loss_first": l0, "loss_last": l1, "lbfgs_s": lbfgs_s,
+                     "metrics": metrics}
+    svgp = SVGP.build(X, Y, RBF(8), Gaussian(0.01), Z,
+                      config=Config(dtype=torch.float32, jitter=1e-5,
+                                    solve_mode="inverse", use_pallas=True))
+    main = launch_counts()
+    hist, counts, replay = run_fit(svgp, TRAIN_STEPS, seed)
+    check_fit_launches("baseline SVGP", counts, replay, SVGP_STEP)
+    set_launch_counts({n: main[n] + counts[n] for n in KERNEL_NAMES})
+    losses = [h["loss"] for h in hist]
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"baseline SVGP: loss not finite or did not fall: {losses}")
+    metrics = eval_deterministic(svgp, data)
+    print(f"baseline SVGP: fit {TRAIN_STEPS} Adam steps (graphed, minibatch "
+          f"{BATCH}): loss {losses[0]:.3f} -> {losses[-1]:.3f}; rmse "
+          f"{metrics['rmse']:.6f}, loglik {metrics['loglik']:.6f}; "
+          f"launches (counters) "
+          + ", ".join(f"{n} {c}" for n, c in counts.items() if c)
+          + f" [{card}]", flush=True)
+    out["SVGP"] = {"loss_first": losses[0], "loss_last": losses[-1],
+                   "metrics": metrics, "launches_fit": counts}
+    rows = np.random.RandomState(seed + 19).choice(len(X), GPR_ROWS,
+                                                  replace=False)
+    gpr = GPR.build(X[rows], Y[rows], RBF(8), noise_variance=0.01,
+                    config=config(torch.float32), device="cuda")
+    with torch.no_grad():
+        l0 = -gpr.log_likelihood().item()
+    _, loss = lbfgs_minimize(lambda m: -m.log_likelihood(), gpr,
+                             max_iters=BASELINE_LBFGS_ITERS)
+    metrics = eval_deterministic(gpr, data)
+    out["launches_main_path"] = launch_counts()
+    print(f"baseline GPR on {GPR_ROWS} training rows: lbfgs_minimize loss "
+          f"{l0:.3f} -> {loss:.3f}; rmse {metrics['rmse']:.6f}, loglik "
+          f"{metrics['loglik']:.6f} [{card}]", flush=True)
+    check(np.isfinite(loss) and loss < l0, f"baseline GPR: L-BFGS loss "
+                                           f"{l0} -> {loss}")
+    check(out["launches_main_path"]["rbf_gram"] > 0
+          and out["launches_main_path"]["fused_conditional"] > 0,
+          f"baselines: rbf_gram or the fused conditional was not launched "
+          f"on the main path {out['launches_main_path']}")
+    models["GPR"] = gpr
+    out["GPR"] = {"loss_first": l0, "loss_last": loss, "metrics": metrics}
+    for name, build in builds.items():
+        out[name]["bound_gate"] = baseline_bound_gate(name, models[name],
+                                                      build, seed)
+    # the kernels on the operands the trained models hand them: SGPR's and
+    # FITC's bound (Kuu, and Kuf at 100 x 7372), SVGP's objective on a
+    # training minibatch (the fused pair at B=BATCH, Do=1, and its Kuu),
+    # GPR's bound (K(X) at GPR_ROWS x GPR_ROWS)
+    idx = torch.as_tensor(np.random.RandomState(seed + 29).randint(
+        0, len(X), BATCH), device="cuda")
+    runs = {name: (lambda m=models[name]: m.log_likelihood())
+            for name in ("SGPR", "GPRFITC", "GPR")}
+    runs["SVGP"] = lambda: svgp.log_likelihood(svgp.X_data[idx],
+                                               svgp.Y_data[idx])
+    out["kernel_shapes"] = {
+        name: hold_captured_kernels(f"baseline {name}", run, seed, worst,
+                                    n_fused=int(name == "SVGP"))
+        for name, run in runs.items()}
+    return out, models, data
+
+
+def phase_baseline_serving(seed, card, models, data, collapsed, worst):
+    """27d: make_server(precompute=True) on the trained SGPR, GPRFITC and
+    GPR and on phase 9's collapsed_L2 and damianou_large (the kernel
+    route): each cached model against the live one (the single-layer
+    models within F32_PATH_ATOL; the collapsed DGPs at phase 9's fixed
+    draws within CACHED_COLLAPSED_RTOL of scale), then 1000-row S=100
+    requests live and cached, graphed against eager bit for bit, with
+    their latency (serving_graphed_vs_eager); the launch counts at 0
+    before the requests and read after.  Then the kernels on the operands
+    a 1000-row request hands them, live and cached (hold_captured_kernels,
+    forward only; worst errors into ``worst``)."""
+    Xs = data["Xs"]
+    out = {}
+    served = dict(models)
+    served.update({name: collapsed["models"][name]["kernel"]
+                   for name in COLLAPSED})
+    for name, model in served.items():
+        cached = precompute(model)
+        if name in COLLAPSED:
+            zs = collapsed["zs"][name]
+            live_p = model.predict_y(Xs, S=S, zs=zs)
+            cached_p = cached.predict_y(Xs, S=S, zs=zs)
+            err = pred_err(cached_p, live_p)
+            limit = CACHED_COLLAPSED_RTOL
+        else:
+            live_p, cached_p = model.predict_y(Xs), cached.predict_y(Xs)
+            err = max((a - b).abs().max().item()
+                      for a, b in zip(cached_p, live_p))
+            limit = F32_PATH_ATOL
+        print(f"serving {name} cached vs live predict_y on "
+              f"{len(Xs)} test rows: {err:.3e} (limit {limit:g}"
+              f"{' of scale' if name in COLLAPSED else ''}) [{card}]",
+              flush=True)
+        check(err <= limit, f"serving {name}: cached vs live {err} > "
+                            f"{limit}")
+        out[name] = {"cached_vs_live": err}
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    for name, model in served.items():
+        shape = (S, BATCH, 1) if name in COLLAPSED else (BATCH, 1)
+        out[name]["serving"] = serving_graphed_vs_eager(
+            model, data["X"], None, f"serving {name}", card, shape=shape)
+    main = launch_counts()
+    check(main["rbf_gram"] > 0 and main["psi2_core_forward"] > 0,
+          f"baseline serving: rbf_gram or psi2 not launched on the main "
+          f"path {main}")
+    out["launches_main_path"] = main
+    X = torch.as_tensor(data["X"][:BATCH], dtype=torch.float32,
+                        device="cuda")
+    for name, model in served.items():
+        for mode, m in (("live", model), ("cached", precompute(model))):
+            if name in COLLAPSED:
+                g = torch.Generator(device="cuda").manual_seed(seed + 31)
+                run = lambda m=m, g=g: m.predict_y(X, S=S, generator=g)  # noqa
+            else:
+                run = lambda m=m: m.predict_y(X)  # noqa: E731
+            out[name][f"kernel_shapes_{mode}"] = hold_captured_kernels(
+                f"serving {name} {mode}", run, seed, worst, backward=False)
+    return out
+
+
+def phase_natgrad_baselines(seed, card, collapsed):
+    """Phase 27: natural gradients on the headline DGP (27a), the gamma =
+    1 identities on the card (27b), the UCI baselines (27c) and their
+    serving caches with the collapsed DGPs' (27d)."""
+    t0 = time.perf_counter()
+    worst = kernel_worst()
+    out = {"natgrad": phase_natgrad(seed, card, worst)}
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    out["gamma1"] = phase_gamma1(card)
+    out["gamma1"]["launches_main_path"] = launch_counts()
+    check(out["gamma1"]["launches_main_path"]["rbf_gram"] > 0,
+          "gamma=1 identities: rbf_gram was not launched")
+    out["baselines"], models, data = phase_baselines(seed, card, worst)
+    out["serving"] = phase_baseline_serving(seed, card, models, data,
+                                            collapsed, worst)
+    out["kernel_errs"] = worst
+    out["wall_s"] = time.perf_counter() - t0
+    print(f"natgrad phase wall time {out['wall_s']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
 def print_kernel_resources(name, out):
     """Registers, shared memory and spills of each kernel in one source,
     as ``nvcc -Xptxas -v`` reported them (one line a kernel); kept in
@@ -4497,6 +5128,13 @@ def main():
     lap(25)
     extra = phase_extra(args.seed, card)
     lap(26)
+    natgrad = phase_natgrad_baselines(args.seed, card, collapsed)
+    lap(27)
+    natgrad_launches = {
+        "natgrad_fit": natgrad["natgrad"]["launches_fit"],
+        "gamma1": natgrad["gamma1"]["launches_main_path"],
+        "baselines": natgrad["baselines"]["launches_main_path"],
+        "serving": natgrad["serving"]["launches_main_path"]}
     extra_launches = {
         label: {n: rec["launches_main_path"][n] for n in KERNEL_NAMES}
         for label, rec in extra.items() if label != "wall_s"}
@@ -4540,6 +5178,15 @@ def main():
         # phase 26: each model's main-path launches
         rec["extra_launches"] = {label: c[name]
                                  for label, c in extra_launches.items()}
+        # phase 27: each sub-phase's main-path launches
+        rec["natgrad_launches"] = {label: c[name]
+                                   for label, c in natgrad_launches.items()}
+        if name in natgrad["kernel_errs"]:
+            # phase 27: the worst errors on its models' operands
+            ng_errs = natgrad["kernel_errs"][name]
+            rec["natgrad_max_rel_err"] = ng_errs[1]
+            rec["natgrad_max_rel_err_vs_f64"] = ng_errs[2]
+            rec["natgrad_plain_max_rel_err_vs_f64"] = ng_errs[3]
         if name in extra_errs:
             rec["extra_max_rel_err"] = extra_errs[name][1]
             rec["extra_max_rel_err_vs_f64"] = extra_errs[name][2]
@@ -4566,6 +5213,7 @@ def main():
                       "graph_serving": graph_serving,
                       "checkpoint_resume": resume,
                       "mnist": mnist, "extra_models": extra,
+                      "natgrad_baselines": natgrad,
                       "fused_forward_precision": precision,
                       "card": card}))
     print(json.dumps({"kernels": records}))

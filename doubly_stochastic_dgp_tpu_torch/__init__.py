@@ -19,7 +19,12 @@ posterior and ``make_server``; the data loaders (``data/datasets.py``,
 ``DGPDamianou``: collapsed ``SGPRLayer``s and the psi statistics of RBF,
 Linear and their Sums with White): their
 bound, their predictions, and their training by ``fit`` on the whole
-training set under the reject-nonfinite guard.  The fused staged
+training set under the reject-nonfinite guard; natural-gradient steps
+(``NaturalGradient``, ``fit(natgrad_gamma=, ng_layers=)``: NatGrad and Adam
+in turns), L-BFGS (``lbfgs_minimize``), the single-layer baselines
+(``SVGP``, ``GPR``, ``SGPR``, ``GPRFITC``, on ``GPRLayer`` and
+``SGPRLayer``) and the serving cache of every family but ``GPMCLayer``'s.
+The fused staged
 conditional and the psi2 data sum run as hand-written CUDA kernels,
 forward and backward, the conditional also with a save-gram variant, and
 every RBF gram on the card runs in the ``rbf_gram`` kernel
@@ -35,11 +40,13 @@ from .data.datasets import (Datasets, SyntheticRegression, load_mnist_npz,
 from .models.damianou import DGPDamianou
 from .models.dgp import DGP, DGPBase, DGPQuad
 from .models.initializations import init_layers_input_prop, init_layers_linear
-from .models.layers import SGPRLayer, SVGPLayer
+from .models.layers import GPRLayer, SGPRLayer, SVGPLayer
 from .models.zoo import DGPCollapsed, DGPHeteroscedastic
 from .models.mean_functions import Constant as ConstantMean
 from .models.mean_functions import Identity, Linear, Zero
-from .models.posterior import CachedSVGPLayer, precompute
+from .models.posterior import (CachedSingleLayerGP, CachedSVGPLayer,
+                               precompute)
+from .models.single_layer import GPR, GPRFITC, SGPR, SVGP
 from .ops.cuda.conditional import fused_conditional, fused_conditional_saved
 from .ops.cuda.psi2 import psi2_core
 from .ops.kernels import (RBF, ArcCosine, Constant, Cosine, Kernel,
@@ -50,7 +57,10 @@ from .ops.likelihoods import (Bernoulli, Beta, Exponential, Gamma, Gaussian,
                               Likelihood, MultiClass, Ordinal, Poisson,
                               StudentT)
 from .serving import make_server
-from .training.loop import evaluate_classification, evaluate_regression, fit
+from .training.loop import (evaluate_classification, evaluate_regression,
+                            fit, make_natgrad_adam_step)
+from .training.natgrad import NaturalGradient, natgrad_update
+from .training.optim import lbfgs_minimize, make_train_step
 from .utils.params import log_prior
 
 __all__ = [
@@ -59,12 +69,15 @@ __all__ = [
     "make_synthetic_regression", "DGP", "DGPBase", "DGPQuad",
     "DGPCollapsed", "DGPHeteroscedastic", "DGPDamianou",
     "init_layers_linear", "init_layers_input_prop", "SVGPLayer",
-    "SGPRLayer", "Identity", "Linear", "Zero", "ConstantMean",
-    "CachedSVGPLayer", "precompute", "fused_conditional",
+    "SGPRLayer", "GPRLayer", "SVGP", "GPR", "SGPR", "GPRFITC", "Identity",
+    "Linear", "Zero", "ConstantMean", "CachedSVGPLayer",
+    "CachedSingleLayerGP", "precompute", "fused_conditional",
     "fused_conditional_saved", "psi2_core", "Kernel", "RBF", "Matern12",
     "Matern32", "Matern52", "RationalQuadratic", "Cosine", "Periodic",
     "ArcCosine", "White", "Constant", "LinearKernel", "Sum", "Product",
     "Likelihood", "Gaussian", "Bernoulli", "MultiClass", "Poisson",
     "Exponential", "StudentT", "Gamma", "Beta", "Ordinal", "make_server",
     "evaluate_regression", "evaluate_classification", "fit", "log_prior",
+    "NaturalGradient", "natgrad_update", "make_natgrad_adam_step",
+    "lbfgs_minimize", "make_train_step",
 ]

@@ -30,7 +30,8 @@ The collapsed final layer of ``DGPCollapsed`` and every layer of
 ``SGPRLayer``): the Titsias bound with certain inputs, or with Gaussian
 inputs through the psi statistics (``ops/psi_stats.py``, whose RBF psi2
 data sum runs in the psi2 kernel), and its diagonal predictive
-conditional.  ``GPRLayer`` is not ported yet (ROADMAP A13).
+conditional.  ``GPRLayer`` is the collapsed exact-GPR layer with its exact
+marginal likelihood (the single-layer ``GPR`` baseline).
 """
 
 from __future__ import annotations
@@ -45,8 +46,9 @@ from torch import nn
 from ..config import Config
 from ..graphs import randn
 from ..ops.kernels import RBF, Sum, White
-from ..ops.linalg import (add_jitter, gauss_kl_nonwhite, gauss_kl_white,
-                          inv_lower, reparameterize, safe_cholesky,
+from ..ops.linalg import (add_jitter, cholesky_nan, gauss_kl_nonwhite,
+                          gauss_kl_white, inv_lower, mvn_logpdf,
+                          reparameterize, safe_cholesky,
                           safe_cholesky_ladder, tri_solve)
 from ..ops.cuda.conditional import fused_conditional, fused_conditional_saved
 from ..ops.psi_stats import psi_statistics
@@ -54,7 +56,7 @@ from ..utils.params import Param
 from .mean_functions import Zero
 
 __all__ = ["Layer", "SVGPLayer", "CollapsedData", "CollapsedLayer",
-           "SGPRLayer"]
+           "GPRLayer", "SGPRLayer"]
 
 
 class Layer(nn.Module):
@@ -338,6 +340,57 @@ class CollapsedLayer(Layer):
 
     def build_likelihood(self):
         raise NotImplementedError
+
+
+class GPRLayer(CollapsedLayer):
+    """Collapsed exact-GPR layer on certain inputs: the data's own gram K +
+    sigma^2 I, its exact marginal likelihood and predictive conditional.
+    Numerics fields (``jitter``, the sampling jitter, and ``solve_mode``)
+    are snapshotted from ``config``."""
+
+    def __init__(self, kern, mean_function, num_outputs, config=Config()):
+        super().__init__()
+        self.kern = kern
+        self.mean_function = mean_function
+        self.num_outputs_ = int(num_outputs)
+        self.jitter = float(config.jitter)
+        self.solve_mode = config.solve_mode
+
+    @property
+    def num_outputs(self):
+        return self.num_outputs_
+
+    def _chol(self):
+        """chol(K(X) + sigma^2 I), NaN where it fails (the JAX
+        ``jnp.linalg.cholesky``: no jitter, no escalation)."""
+        X = self.data.X_mean
+        return cholesky_nan(add_jitter(self.kern.K(X),
+                                       self.data.lik_variance))
+
+    def conditional_ND(self, X, full_cov=False):
+        """Predictive conditional at X (B, D_in): mean (B, D_Y) and var
+        (B, D_Y), or (B, B, D_Y) with ``full_cov``."""
+        X_data, Y = self.data.X_mean, self.data.Y
+        L = self._chol()
+        A = tri_solve(L, self.kern.K(X_data, X), lower=True,
+                      mode=self.solve_mode)                    # (N, B)
+        V = tri_solve(L, Y - self.mean_function(X_data), lower=True,
+                      mode=self.solve_mode)
+        mean = A.T @ V + self.mean_function(X)
+        D_Y = Y.shape[1]
+        if full_cov:
+            var = self.kern.K(X) - A.T @ A
+            return mean, var[:, :, None].expand(-1, -1, D_Y)
+        # clamp float32 cancellation noise at zero (the SVGP policy)
+        var = torch.clamp(self.kern.Kdiag(X) - torch.sum(A ** 2, dim=0),
+                          min=0.0)
+        return mean, var[:, None].expand(-1, D_Y)
+
+    def build_likelihood(self):
+        """The exact log marginal likelihood, summed over the outputs."""
+        X_data, Y = self.data.X_mean, self.data.Y
+        return torch.sum(mvn_logpdf(Y, self.mean_function(X_data),
+                                    self._chol()))
 
 
 class SGPRLayer(CollapsedLayer):

@@ -5,9 +5,11 @@ Gaussian KL terms.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/ops/linalg.py``
 (``add_jitter``, ``safe_cholesky``, ``safe_cholesky_ladder``,
-``inv_lower``, ``tri_solve``, ``reparameterize``, ``gauss_kl_white``,
-``gauss_kl_nonwhite``).  The JAX escalation tests the factor for NaN and
-gates the later rungs behind a ``lax.cond``; ``torch.linalg.cholesky``
+``inv_lower``, ``tri_solve``, ``mvn_logpdf``, ``reparameterize``,
+``gauss_kl_white``, ``gauss_kl_nonwhite``); the JAX fused
+factor-and-inverse forms (``safe_cholesky_inv``, ``tri_solve(Li=)``) are
+left out, since no JAX model calls them.  The JAX escalation tests the
+factor for NaN and gates the later rungs behind a ``lax.cond``; ``torch.linalg.cholesky``
 raises on a non-positive-definite matrix instead, so the port uses
 ``cholesky_ex`` and factorizes every rung in one batched call, then
 selects per batch element with ``torch.where`` on ``info`` and
@@ -18,11 +20,13 @@ healthy matrix (PERF.md).
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 __all__ = ["DeviceCount", "add_jitter", "safe_cholesky", "safe_cholesky_ladder",
-           "inv_lower", "tri_solve", "reparameterize", "gauss_kl_white",
-           "gauss_kl_nonwhite"]
+           "cholesky_nan", "inv_lower", "tri_solve", "mvn_logpdf",
+           "reparameterize", "gauss_kl_white", "gauss_kl_nonwhite"]
 
 
 def _eye_like(K):
@@ -91,8 +95,8 @@ class DeviceCount:
 def _select_rung(K, jitters, relative):
     """Every rung factorized in one batched ``cholesky_ex`` over the
     stacked rungs; each batch element takes its first rung that succeeded
-    (``info == 0`` and a finite factor), else the last rung — the JAX
-    selection rule, with no host read.  Rung j adds j I, or (j * mean(diag
+    (``info == 0`` and a finite factor), else NaN — the JAX selection
+    rule, with no host read.  Rung j adds j I, or (j * mean(diag
     K)) I when ``relative``; a rung of exactly 0.0 adds nothing.  Returns
     the factor and a 0-dim bool tensor: whether the first rung failed
     anywhere."""
@@ -109,7 +113,10 @@ def _select_rung(K, jitters, relative):
     Ls, info = torch.linalg.cholesky_ex(torch.stack([rung(j)
                                                      for j in jitters]))
     oks = (info == 0) & torch.isfinite(Ls).all(dim=-1).all(dim=-1)
-    sel = Ls[-1]
+    # where every rung fails, NaN in the lower triangle, as the JAX
+    # Cholesky returns (cholesky_ex leaves a partial, finite factor)
+    sel = torch.where(oks[-1][..., None, None], Ls[-1],
+                      torch.full_like(Ls[-1], float("nan")).tril())
     for r in range(len(jitters) - 2, -1, -1):
         sel = torch.where(oks[r][..., None, None], Ls[r], sel)
     return sel, ~oks[0].all()
@@ -165,6 +172,15 @@ def safe_cholesky_ladder(K, jitters=(0.0, 1e-7, 1e-5, 1e-3, 1e-1, 1.0,
 safe_cholesky_ladder.escalations = DeviceCount()
 
 
+def cholesky_nan(K):
+    """Cholesky of K with NaN factors where it fails, as the JAX
+    ``jnp.linalg.cholesky`` returns (``cholesky_ex``, no host read, where
+    ``torch.linalg.cholesky`` reads the status on the host to raise)."""
+    L, info = torch.linalg.cholesky_ex(K)
+    return torch.where((info != 0)[..., None, None],
+                       torch.full_like(L, float("nan")), L)
+
+
 def inv_lower(L):
     """Inverse of a lower-triangular matrix (batched over leading dims)."""
     eye = _eye_like(L).expand_as(L)
@@ -183,6 +199,16 @@ def tri_solve(L, B, lower=True, trans=False, mode="solve"):
     return torch.linalg.solve_triangular(L, B, upper=not lower)
 
 
+def mvn_logpdf(Y, mu, L):
+    """Columnwise multivariate-normal log density: each column of Y (N, D)
+    a draw from N(mu[:, d], L L^T), L (N, N) lower.  Returns (D,)."""
+    N = Y.shape[0]
+    alpha = torch.linalg.solve_triangular(L, Y - mu, upper=False)
+    p = -0.5 * torch.sum(alpha ** 2, dim=0)
+    p = p - 0.5 * N * math.log(2 * math.pi)
+    return p - torch.sum(torch.log(torch.diagonal(L)))
+
+
 def reparameterize(mean, var, z, jitter, full_cov=False):
     """Reparameterized sample from mean (S, N, D) and unit normals z (S, N,
     D).  Diagonal: mean + z * sqrt(max(var, 0) + jitter), var (S, N, D)
@@ -195,9 +221,7 @@ def reparameterize(mean, var, z, jitter, full_cov=False):
     if not full_cov:
         return mean + z * torch.sqrt(torch.clamp(var, min=0.0) + jitter)
     var_sdnn = var.permute(0, 3, 1, 2)                   # (S, D, N, N)
-    chol, info = torch.linalg.cholesky_ex(add_jitter(var_sdnn, jitter))
-    chol = torch.where((info != 0)[..., None, None],
-                       torch.full_like(chol, float("nan")), chol)
+    chol = cholesky_nan(add_jitter(var_sdnn, jitter))
     f = mean.transpose(1, 2) + torch.einsum("sdnm,sdm->sdn", chol,
                                             z.transpose(1, 2))
     return f.transpose(1, 2)                             # (S, N, D)

@@ -1,2 +1,8 @@
-"""Training: the Adam optimizer, the SGD step, the reject-nonfinite guard,
-fit and evaluation."""
+"""Training: the Adam optimizer, natural gradients, L-BFGS, the SGD and
+alternating steps, the reject-nonfinite guard, fit and evaluation."""
+
+from .loop import (evaluate_classification, evaluate_regression, fit,
+                   make_natgrad_adam_step, make_scan_train_step,
+                   make_sgd_train_step)
+from .natgrad import NaturalGradient, natgrad_update
+from .optim import lbfgs_minimize, make_train_step, masked_optimizer

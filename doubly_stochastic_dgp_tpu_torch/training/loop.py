@@ -4,9 +4,11 @@ metrics.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/training/loop.py``
 (``make_sgd_train_step``, ``guarded_scan``, ``make_scan_train_step``,
-``fit``, ``evaluate_regression``, ``evaluate_classification``).  A step
-is one forward, gradients as values (``torch.autograd.grad``) and one
-Adam update in place.  A chunk
+``make_natgrad_adam_step``, ``fit``, ``evaluate_regression``,
+``evaluate_classification``).  A step is one forward, gradients as values
+(``torch.autograd.grad``) and one Adam update in place; the alternating
+step adds a natural-gradient step on chosen layers' (q_mu, q_sqrt) before
+it.  A chunk
 of steps (the JAX ``lax.scan``) is, on a CUDA tensor, one captured CUDA
 graph replayed per chunk (``graphs.CapturedCall``), with no host sync
 inside it; on the CPU, and on the card inside ``graphs.eager_on_card()``,
@@ -22,8 +24,6 @@ with ``torch.where``, as the JAX body does: nothing is read on the host,
 and a rejected candidate is never installed.
 
 ``fit(ckpt_dir=...)`` saves and resumes (``training/checkpoint.py``).
-Not ported yet (``fit`` raises): the natural-gradient steps (ROADMAP
-A11).
 """
 
 from __future__ import annotations
@@ -38,11 +38,13 @@ import torch
 from ..graphs import CapturedCall, DrawTape, graphs_enabled, randint
 from ..serving import derive_seed
 from ..utils.params import log_prior
-from .optim import copy_state, masked_optimizer
+from .natgrad import natural_step
+from .optim import (copy_state, freeze_q_params, make_train_step,
+                    masked_optimizer, value_and_grads)
 
 __all__ = ["check_minibatchable", "make_sgd_train_step", "guarded_scan",
-           "make_scan_train_step", "fit", "evaluate_regression",
-           "evaluate_classification"]
+           "make_scan_train_step", "make_natgrad_adam_step", "fit",
+           "evaluate_regression", "evaluate_classification"]
 
 # The guard's trust scale: halved on a rejected step, down to 2^-12, and
 # recovered by 2^(1/16) on an accepted one, up to exactly 1.0 (clamped by
@@ -75,11 +77,10 @@ def check_minibatchable(model, batch_size):
             f"minibatchable model (DGP)")
 
 
-def _minibatch_loss(model, batch_size, generator, idx=None, zs=None):
-    """The objective on a minibatch: ``idx`` if given, else ``batch_size``
-    indices (when below the number of stored rows) drawn uniformly with
-    replacement from ``generator``, which then also draws the samples
-    unless ``zs`` fixes them."""
+def _minibatch(model, batch_size, generator, idx=None):
+    """(X, Y) of a minibatch: the rows ``idx`` if given, else
+    ``batch_size`` rows (when below the number of stored rows) drawn
+    uniformly with replacement from ``generator``, else every row."""
     check_minibatchable(model, batch_size)
     X, Y = model.X_data, model.Y_data
     N = X.shape[0]
@@ -88,19 +89,14 @@ def _minibatch_loss(model, batch_size, generator, idx=None, zs=None):
     if idx is not None:
         idx = torch.as_tensor(idx, device=X.device)
         X, Y = X[idx], Y[idx]
+    return X, Y
+
+
+def _minibatch_loss(model, batch_size, generator, idx=None, zs=None):
+    """The objective on a :func:`_minibatch`; ``generator`` draws the
+    samples unless ``zs`` fixes them."""
+    X, Y = _minibatch(model, batch_size, generator, idx)
     return _objective(model, X, Y, generator, zs)
-
-
-def _loss_and_grads(model, params, batch_size, generator, idx=None,
-                    zs=None):
-    """The minibatch objective and its gradients in ``params`` as values
-    (zeros for a parameter it does not reach, as the JAX gradient of an
-    unused leaf)."""
-    with torch.enable_grad():
-        loss = _minibatch_loss(model, batch_size, generator, idx, zs)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-    return loss.detach(), [torch.zeros_like(p) if g is None else g
-                           for p, g in zip(params, grads)]
 
 
 def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
@@ -114,14 +110,44 @@ def make_sgd_train_step(optimizer, batch_size: Optional[int] = None):
     ``generator``, which then also draws the samples unless ``zs`` (one
     array per layer) fixes them."""
 
+    def loss(model, generator=None, idx=None, zs=None):
+        return _minibatch_loss(model, batch_size, generator, idx, zs)
+
+    return make_train_step(loss, optimizer)
+
+
+def make_natgrad_adam_step(optimizer, gamma: float,
+                           ng_layers: Sequence[int] = (-1,),
+                           batch_size: Optional[int] = None):
+    """Step ``step(model, generator=None, idx=None, zs=None) -> loss``: one
+    iteration of the alternating loop (the JAX ``make_natgrad_adam_step``
+    body): one minibatch, a natural-gradient step of size ``gamma`` on the
+    (q_mu, q_sqrt) of ``model.layers[i]`` for i in ``ng_layers`` from the
+    objective's gradient at one set of samples, then an Adam update of
+    ``optimizer``'s parameters (built with ``freeze=freeze_q_params(...)``,
+    so it leaves those out) from a second gradient at fresh samples; both
+    on the MAP objective.  Returns the second evaluation's loss, a 0-dim
+    tensor (no host read).
+
+    The draws come from ``generator`` in this order: the minibatch
+    indices (unless ``idx`` is given), the natural step's normals, Adam's
+    normals; ``zs`` = (the natural step's, Adam's) fixes both sets.
+    ``step.rejected`` (a 0-dim int64 tensor on the device) counts the
+    natural updates rejected for a non-finite result, one a layer and
+    output dimension."""
+    rejected = torch.zeros_like(optimizer.state.count)
+    adam = make_train_step(_objective, optimizer)
+
     @torch.no_grad()
     def step(model, generator=None, idx=None, zs=None):
-        loss, grads = _loss_and_grads(model, optimizer.params, batch_size,
-                                      generator, idx, zs)
-        torch._foreach_add_(optimizer.params,
-                            optimizer.update(grads, optimizer.state))
-        return loss
+        X, Y = _minibatch(model, batch_size, generator, idx)
+        z_nat, z_adam = (None, None) if zs is None else zs
+        with torch.enable_grad():
+            natural_step(model, _objective(model, X, Y, generator, z_nat),
+                         ng_layers, gamma, rejected)
+        return adam(model, X, Y, generator, z_adam)
 
+    step.rejected = rejected
     return step
 
 
@@ -217,19 +243,22 @@ def guarded_scan(loss_and_grads, loss_only, tx, params, opt_state, keys):
 
 def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
                          inner_steps: int = 10,
-                         reject_nonfinite: bool = False):
+                         reject_nonfinite: bool = False, step=None):
     """Chunk ``chunk(model, generator=None) -> loss``: ``inner_steps``
     Adam steps of ``model`` in place, and their mean loss (a 0-dim tensor,
-    no host sync).
+    no host sync).  ``step``: the step to take instead, one of
+    :func:`make_natgrad_adam_step` (the alternating loop's chunk, the JAX
+    ``inner_steps``; not with the guard); ``chunk.rejected`` is then its
+    ``step.rejected``.
 
     On a CUDA tensor the chunk is captured as one CUDA graph at its first
     call and replayed at every call (outside ``graphs.eager_on_card()``):
     the capture's warm-up runs one chunk eagerly from a snapshot of the
-    parameters, the Adam state, the rejection count and the generator,
-    and restores it, so it takes no step.  Before each replay the chunk's
-    draws (per step the minibatch indices, then each layer's normals) are
-    made from ``generator`` into the buffers the graph reads.  A capture
-    that fails raises.
+    model's parameters, the Adam state, the rejection count and the
+    generator, and restores it, so it takes no step.  Before each replay
+    the chunk's draws (per step the minibatch indices, then each layer's
+    normals, in the step's order) are made from ``generator`` into the
+    buffers the graph reads.  A capture that fails raises.
 
     ``reject_nonfinite=True`` bounds the trajectory with
     :func:`guarded_scan`: a step whose loss, gradient or candidate is not
@@ -241,22 +270,30 @@ def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
     ``inner_steps`` >= 8 with the guard (``fit`` does).  The chunk's
     rejections are added to ``chunk.rejected``, a 0-dim tensor on the
     model's device."""
+    if step is not None and reject_nonfinite:
+        raise ValueError("the guard does not apply to a given step (the "
+                         "alternating loop has its own reject net)")
     params = optimizer.params
-    # the chunk's rejection count, also ``chunk.rejected``; the closures
-    # below do not refer to the chunk, so a chunk and its captured graph
-    # are freed when the last reference goes, not by a cyclic collection
-    rejected_total = torch.zeros((), dtype=torch.int64,
-                                 device=params[0].device)
-
-    step = make_sgd_train_step(optimizer, batch_size)
+    if step is None:
+        kind = "guarded" if reject_nonfinite else "plain"
+        step = make_sgd_train_step(optimizer, batch_size)
+        # the chunk's rejection count, also ``chunk.rejected``; the
+        # closures below do not refer to the chunk, so a chunk and its
+        # captured graph are freed when the last reference goes, not by a
+        # cyclic collection
+        rejected_total = torch.zeros_like(optimizer.state.count)
+    else:
+        kind = "natural-gradient and Adam"
+        rejected_total = step.rejected
 
     def body(model, generator):
         if not reject_nonfinite:
             return torch.stack([step(model, generator)
                                 for _ in range(inner_steps)]).mean()
         _, loss, rejected = guarded_scan(
-            lambda p, k: _loss_and_grads(model, params, batch_size,
-                                         generator),
+            lambda p, k: value_and_grads(
+                lambda: _minibatch_loss(model, batch_size, generator),
+                params),
             lambda p, k: _minibatch_loss(model, batch_size, generator),
             optimizer, params, optimizer.state, range(inner_steps + 1))
         rejected_total.add_(rejected)
@@ -264,22 +301,24 @@ def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
 
     def capture(model, generator):
         tape = DrawTape(generator)
-        # detached: a clone that kept the parameters' autograd nodes alive
-        # would pin them to this stream, which the capture cannot join
-        saved = ([p.detach().clone() for p in params],
+        # every parameter of the model: a natural step also writes those
+        # the optimizer leaves out.  Detached: a clone that kept the
+        # parameters' autograd nodes alive would pin them to this stream,
+        # which the capture cannot join
+        written = list(model.parameters())
+        saved = ([p.detach().clone() for p in written],
                  copy_state(optimizer.state), rejected_total.clone(),
                  generator.get_state())
 
         def warmup():
             body(model, tape)
             with torch.no_grad():
-                torch._foreach_copy_(params, saved[0])
+                torch._foreach_copy_(written, saved[0])
                 _copy_state_(optimizer.state, saved[1])
                 rejected_total.copy_(saved[2])
             generator.set_state(saved[3])
             tape.freeze()
 
-        kind = "guarded" if reject_nonfinite else "plain"
         return tape, CapturedCall(
             lambda: body(model, tape), warmup,
             f"{kind} training chunk of {inner_steps} steps "
@@ -313,11 +352,13 @@ class _Chunk:
 
 def fit(model, iterations: int, learning_rate: float = 0.01,
         batch_size: Optional[int] = None, seed: int = 0,
-        natgrad_gamma: Optional[float] = None, callbacks: Sequence = (),
+        natgrad_gamma: Optional[float] = None,
+        ng_layers: Sequence[int] = (-1,), callbacks: Sequence = (),
         log_every: int = 100, scan_steps: Optional[int] = None,
         ckpt_dir: Optional[str] = None, ckpt_every: Optional[int] = None,
         reject_nonfinite: Optional[bool] = None):
-    """Train ``model`` in place with Adam; returns (model, history).
+    """Train ``model`` in place with Adam, or with natural gradients and
+    Adam in turns; returns (model, history).
 
     Steps run in chunks of ``scan_steps`` (default min(10, log_every)),
     whole chunks as in the JAX ``fit``, each a captured CUDA graph on the
@@ -337,19 +378,21 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
     the plain step.  With the guard on, a chunk below 8 steps is raised to
     8 with a warning.
 
+    ``natgrad_gamma``: each iteration is the alternating loop of
+    :func:`make_natgrad_adam_step`, a natural-gradient step of that size
+    on the (q_mu, q_sqrt) of ``model.layers[i]`` for i in ``ng_layers``,
+    then Adam on the other parameters (the Adam state holds only those).
+    The guard is not applied on this path (the natural step has its own
+    reject net); the history counts the natural updates rejected so far
+    ("rejected", one a layer and output dimension).
+
     ``ckpt_dir``: resume from the latest ``ckpt_<step>.npz`` there, if
     any (the parameters, the Adam state, the generator's state and the
     rejection count, copied into the existing tensors), and save one
     after every chunk that ends on a ``ckpt_every`` boundary (default
     ``log_every``) and after the last, as the JAX ``fit`` does; a resumed
-    fit continues the trajectory of an uninterrupted one.
-
-    ``natgrad_gamma`` is not ported yet and raises."""
+    fit continues the trajectory of an uninterrupted one."""
     check_minibatchable(model, batch_size)
-    if natgrad_gamma is not None:
-        raise NotImplementedError(
-            "fit(natgrad_gamma=...): natural-gradient steps are not ported "
-            "yet (ROADMAP A11)")
     if reject_nonfinite is None:
         reject_nonfinite = bool(model.full_batch_bound)
     chunk = max(1, min(10, log_every) if scan_steps is None else scan_steps)
@@ -362,10 +405,20 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
             f"{_GUARD_MIN_CHUNK} (the trust scale needs room within a "
             f"chunk; pass reject_nonfinite=False to keep scan_steps={chunk})")
         chunk = _GUARD_MIN_CHUNK
-    optimizer = masked_optimizer(model, learning_rate)
-    run_chunk = make_scan_train_step(
-        optimizer, batch_size, inner_steps=chunk,
-        reject_nonfinite=reject_nonfinite)
+    if natgrad_gamma is not None:
+        optimizer = masked_optimizer(
+            model, learning_rate,
+            freeze=freeze_q_params(ng_layers, len(model.layers)))
+        run_chunk = make_scan_train_step(
+            optimizer, batch_size, inner_steps=chunk,
+            step=make_natgrad_adam_step(optimizer, natgrad_gamma, ng_layers,
+                                        batch_size))
+        reject_nonfinite = False
+    else:
+        optimizer = masked_optimizer(model, learning_rate)
+        run_chunk = make_scan_train_step(
+            optimizer, batch_size, inner_steps=chunk,
+            reject_nonfinite=reject_nonfinite)
     generator = torch.Generator(device=model.X_data.device)
     generator.manual_seed(seed)
 
@@ -396,7 +449,7 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
             last_t, last_i = now, done
             stats = {"iter": done, "loss": loss, "iters_per_sec": rate,
                      "elapsed": now - t0}
-            if reject_nonfinite:
+            if reject_nonfinite or natgrad_gamma is not None:
                 stats["rejected"] = int(run_chunk.rejected)
             history.append(stats)
             for cb in callbacks:

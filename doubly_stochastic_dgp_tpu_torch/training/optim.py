@@ -1,10 +1,15 @@
-"""The optimizer over a model's trainable parameters.
+"""The optimizers over a model's trainable parameters: Adam, the jitted
+train step's counterpart and L-BFGS.
 
-Counterpart of ``doubly_stochastic_dgp_tpu/training/optim.py::
-masked_optimizer`` with ``optax.adam``.  The JAX package masks buffers and
-frozen Params out of the update with ``trainable_mask``; here a frozen
-``Param`` has ``requires_grad=False`` and data are buffers, so the
-optimizer simply takes the parameters that require grad.
+Counterpart of ``doubly_stochastic_dgp_tpu/training/optim.py``
+(``masked_optimizer`` with ``optax.adam``, ``freeze_q_params``,
+``make_train_step``, ``partition_trainable``, ``lbfgs_minimize``).  The
+JAX package masks buffers and frozen Params out of the update with
+``trainable_mask``; here a frozen ``Param`` has ``requires_grad=False``
+and data are buffers, so the optimizer takes the parameters that require
+grad, less those a ``freeze(name, param)`` predicate names (the JAX
+``trainable_mask(freeze=)``, whose left-out leaves optax's
+``set_to_zero`` never moves).
 
 :class:`Adam` is ``optax.adam``'s formula with its defaults (b1 = 0.9,
 b2 = 0.999, eps = 1e-8 added to the bias-corrected sqrt(v), no weight
@@ -34,7 +39,9 @@ from typing import NamedTuple
 
 import torch
 
-__all__ = ["Adam", "AdamState", "copy_state", "masked_optimizer"]
+__all__ = ["Adam", "AdamState", "copy_state", "masked_optimizer",
+           "freeze_q_params", "trainable_parameters", "value_and_grads",
+           "make_train_step", "partition_trainable", "lbfgs_minimize"]
 
 
 _B1, _B2, _EPS = 0.9, 0.999, 1e-8      # optax.adam's defaults
@@ -90,7 +97,115 @@ class Adam:
         return updates
 
 
-def masked_optimizer(model, learning_rate: float = 0.01) -> Adam:
-    """Adam over the parameters of ``model`` that require grad."""
-    return Adam([p for p in model.parameters() if p.requires_grad],
-                lr=learning_rate)
+def freeze_q_params(layer_indices, num_layers: int):
+    """A ``freeze(name, param)`` predicate that names the (q_mu, q_sqrt)
+    of ``model.layers[i]`` for i in ``layer_indices`` (negative indices
+    count from the end): the parameters a natural-gradient step moves, so
+    the gradient optimizer leaves them out."""
+    idxs = {i % num_layers for i in layer_indices}
+
+    def freeze(name, param) -> bool:
+        parts = name.split(".")
+        return (len(parts) > 2 and parts[0] == "layers"
+                and parts[1].isdigit() and int(parts[1]) in idxs
+                and parts[2] in ("q_mu", "q_sqrt"))
+
+    return freeze
+
+
+def trainable_parameters(model, freeze=None):
+    """The parameters of ``model`` that require grad and that ``freeze``
+    (if given) does not name, in ``named_parameters`` order."""
+    return [p for name, p in model.named_parameters()
+            if p.requires_grad and not (freeze and freeze(name, p))]
+
+
+def masked_optimizer(model, learning_rate: float = 0.01,
+                     freeze=None) -> Adam:
+    """Adam over :func:`trainable_parameters` of ``model``."""
+    return Adam(trainable_parameters(model, freeze), lr=learning_rate)
+
+
+def value_and_grads(loss_fn, params):
+    """``loss_fn()`` (a 0-dim tensor, detached) and its gradients in
+    ``params`` as values: zeros for a parameter it does not reach, as the
+    JAX gradient of an unused leaf."""
+    with torch.enable_grad():
+        loss = loss_fn()
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(p) if g is None else g
+                           for p, g in zip(params, grads)]
+
+
+def make_train_step(loss_fn, optimizer: Adam):
+    """Step ``step(model, *args, **kwargs) -> loss``: one update of
+    ``optimizer``'s parameters in place on ``loss_fn(model, *args,
+    **kwargs)``; returns the loss as a 0-dim tensor (no host read)."""
+
+    @torch.no_grad()
+    def step(model, *args, **kwargs):
+        loss, grads = value_and_grads(lambda: loss_fn(model, *args, **kwargs),
+                                      optimizer.params)
+        torch._foreach_add_(optimizer.params,
+                            optimizer.update(grads, optimizer.state))
+        return loss
+
+    return step
+
+
+def partition_trainable(model, freeze=None):
+    """(flat, rebuild): the trainable parameters (as
+    :func:`trainable_parameters` picks them) concatenated into one 1-D
+    tensor, and ``rebuild(vec)``, which writes such a vector back into
+    them in place and returns the model."""
+    params = trainable_parameters(model, freeze)
+    flat = torch.cat([p.detach().reshape(-1) for p in params])
+
+    @torch.no_grad()
+    def rebuild(vec):
+        start = 0
+        for p in params:
+            p.copy_(vec[start:start + p.numel()].view_as(p))
+            start += p.numel()
+        return model
+
+    return flat, rebuild
+
+
+def lbfgs_minimize(loss_fn, model, max_iters: int = 500, tol: float = 1e-9,
+                   freeze=None):
+    """L-BFGS over the trainable parameters (the reference's
+    ScipyOptimizer): ``torch.optim.LBFGS`` with memory 10 (optax's
+    default) and a strong-Wolfe line search on the flat vector of
+    :func:`partition_trainable`, one iteration at a time, until
+    ``max_iters`` or until two successive losses differ by less than
+    ``tol``, the JAX stopping rule.  Its trajectory is not optax's (zoom
+    line search), its optimum is.  Returns (model, the last iteration's
+    loss at its start), the model updated in place; the loop reads the
+    loss on the host each iteration."""
+    flat, rebuild = partition_trainable(model, freeze)
+    params = trainable_parameters(model, freeze)
+    vec = flat.clone().requires_grad_()
+    # one iteration a step; max_eval bounds the evaluations of a step
+    # and so the line search's (25, torch's default budget), beside the
+    # step's own first evaluation
+    opt = torch.optim.LBFGS([vec], lr=1.0, max_iter=1, max_eval=26,
+                            history_size=10, tolerance_grad=0.0,
+                            tolerance_change=0.0,
+                            line_search_fn="strong_wolfe")
+
+    def closure():
+        rebuild(vec.detach())
+        loss, grads = value_and_grads(lambda: loss_fn(model), params)
+        vec.grad = torch.cat([g.reshape(-1) for g in grads])
+        return loss
+
+    prev = float("inf")
+    loss = prev
+    for _ in range(max_iters):
+        loss = float(opt.step(closure))
+        if abs(prev - loss) < tol:
+            break
+        prev = loss
+    rebuild(vec.detach())
+    return model, loss

@@ -12,8 +12,11 @@ the Linear kernel's psi statistics and the Sum cross terms with a
 Linear, the collapsed SGPR layer on certain and Gaussian inputs,
 diagonal and full-covariance), every other kernel of the JAX package
 (Matern, rational quadratic, cosine, periodic, arc-cosine, Constant,
-Linear, Product) with its gradients, the Constant mean function, plus
-the port's import and device rules.
+Linear, Product) with its gradients, the Constant mean function; the
+natural-gradient update (and its reject net), the frozen-parameter
+optimizer, the fused Cholesky-and-inverse and the other linalg helpers,
+the single-layer baselines (SVGP, GPR on GPRLayer, SGPR, GPRFITC) with
+their caches; plus the port's import and device rules.
 
 One test item that loops over its cases and names the failing case in
 every assertion message."""
@@ -42,6 +45,9 @@ from doubly_stochastic_dgp_tpu.ops import likelihoods as jlik
 from doubly_stochastic_dgp_tpu.ops import quadrature as jquad
 from doubly_stochastic_dgp_tpu.ops.psi_stats import (
     psi_statistics as jax_psi_statistics)
+from doubly_stochastic_dgp_tpu.training import optim as jax_optim
+from doubly_stochastic_dgp_tpu.training.natgrad import (
+    natgrad_update as jax_natgrad_update)
 from doubly_stochastic_dgp_tpu.utils import modules as jmodules
 import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
@@ -56,6 +62,7 @@ from doubly_stochastic_dgp_tpu_torch.ops import psi_stats as tpsi_stats
 from doubly_stochastic_dgp_tpu_torch.ops.cuda.psi2 import psi2_core
 from doubly_stochastic_dgp_tpu_torch.ops.psi_stats import (
     psi2_route, psi_statistics)
+from doubly_stochastic_dgp_tpu_torch.training import optim as toptim
 from doubly_stochastic_dgp_tpu_torch.utils import params as tparams
 
 RTOL, ATOL = 1e-8, 1e-10
@@ -1005,6 +1012,245 @@ def _check_sync_free_cholesky(rng):
                     f"{case}: escalations {ladder.escalations} != {want}")
 
 
+# ---------------------------------------------------------------------------
+# natural gradients, the frozen-parameter optimizer, the single-layer
+# baselines and their serving caches
+# ---------------------------------------------------------------------------
+
+NATGRAD_RTOL = 1e-9
+
+
+def _check_natgrad_update(rng):
+    """natgrad_update at M=7, D=3 against the JAX function: gamma 0.1 and
+    1.0 on gradients a natural step can take, and gamma 1.0 where output
+    dimension 1's stepped precision goes indefinite, so the reject net
+    keeps its old (m, L) and counts one rejection (on the device)."""
+    M_, D_ = 7, 3
+    q_mu = rng.randn(M_, D_)
+    q_sqrt = np.tril(rng.randn(D_, M_, M_) * 0.3) + np.eye(M_)
+    dq_mu = 0.1 * rng.randn(M_, D_)
+    dq_sqrt = 0.02 * np.tril(rng.randn(D_, M_, M_))
+    wild = dq_sqrt.copy()
+    wild[1] = 50.0 * np.tril(rng.randn(M_, M_))
+    for case, gamma, dL, want_rejected in (("gamma 0.1", 0.1, dq_sqrt, 0),
+                                           ("gamma 1.0", 1.0, dq_sqrt, 0),
+                                           ("reject net", 1.0, wild, 1)):
+        case = f"natgrad_update {case}"
+        args = (q_mu, q_sqrt, dq_mu, dL)
+        rejected = torch.zeros((), dtype=torch.int64)
+        with no_host_reads():
+            m, L = port.natgrad_update(*map(_t, args), gamma,
+                                       rejected=rejected)
+        jm, jL = jax.jit(jax_natgrad_update, static_argnums=4)(
+            *map(jnp.asarray, args), gamma)
+        for what, got, want in (("q_mu", m, jm), ("q_sqrt", L, jL)):
+            assert_allclose(got.numpy(), np.asarray(want), rtol=NATGRAD_RTOL,
+                            atol=1e-12, err_msg=f"{case} {what}")
+        assert int(rejected) == want_rejected, (
+            f"{case}: {int(rejected)} rejected, not {want_rejected}")
+        moved = [not np.allclose(m.numpy()[:, d], q_mu[:, d])
+                 for d in range(D_)]
+        assert moved == [True, not want_rejected, True], (
+            f"{case}: output dimensions moved {moved}")
+
+
+def _check_frozen_optimizer(rng):
+    """freeze_q_params with masked_optimizer(freeze=) train the parameters
+    that the JAX trainable_mask(freeze=freeze_q_params(...)) keeps, for
+    the last layer and for layers (0, -1) of a 3-layer DGP;
+    partition_trainable's flat vector and its rebuild."""
+    X, Y = rng.randn(20, 3), rng.randn(20, 1)
+    with temp_config(jitter=1e-6):
+        jm = dsd.DGP.build(X, Y, X[:5], [dsd.RBF.make(3) for _ in range(3)],
+                           dsd.Gaussian.make(0.1))
+    tm = port.DGP.build(X, Y, X[:5], [port.RBF(3) for _ in range(3)],
+                        port.Gaussian(0.1), device="cpu")
+    port.load_reference_state(tm, {k: v for k, v in _state(jm).items()})
+    for ng in ((-1,), (0, -1)):
+        jmask = jmodules.trainable_mask(
+            jm, freeze=jax_optim.freeze_q_params(ng, 3))
+        want = {_torch_key(jax.tree_util.keystr(p)) for p, v in
+                jax.tree_util.tree_flatten_with_path(jmask)[0] if v}
+        freeze = toptim.freeze_q_params(ng, 3)
+        names = {n for n, p in tm.named_parameters()
+                 if p.requires_grad and not freeze(n, p)}
+        assert names == want, (
+            f"freeze_q_params{ng}: trainable {sorted(names ^ want)} differ")
+        params = toptim.masked_optimizer(tm, 0.01, freeze=freeze).params
+        assert [id(p) for p in params] == [
+            id(p) for n, p in tm.named_parameters() if n in names], (
+            f"masked_optimizer(freeze=) over {ng}: not the trainable set")
+        flat, rebuild = toptim.partition_trainable(tm, freeze)
+        assert flat.numel() == sum(p.numel() for p in params), (
+            f"partition_trainable{ng}: size {flat.numel()}")
+        before = [p.detach().clone() for p in tm.parameters()]
+        rebuild(flat + 1.0)
+        rebuild(flat)
+        assert all(torch.equal(a, b) for a, b in zip(before,
+                                                     tm.parameters())), (
+            f"partition_trainable{ng}: rebuild(flat) is not the identity")
+
+
+def _check_linalg_helpers(rng):
+    """tri_solve in inverse mode; mvn_logpdf with its gradient;
+    cholesky_nan's NaN on an indefinite matrix; safe_cholesky NaN where
+    every rung fails, as the JAX Cholesky (the port once returned
+    cholesky_ex's partial factor there)."""
+    Zh = rng.randn(6, 3)
+    Zh = np.concatenate([Zh, Zh[:3]], 0)          # duplicated rows
+    B = np.exp(-0.5 * ((Zh[:, None] - Zh[None]) ** 2).sum(-1)) + np.eye(9)
+    L = np.linalg.cholesky(B)
+    Rb = rng.randn(9, 4)
+    for lower, T in ((True, L), (False, L.T)):
+        for trans in (False, True):
+            _close(f"tri_solve inverse lower={lower} trans={trans}",
+                   tlinalg.tri_solve(_t(T), _t(Rb), lower=lower, trans=trans,
+                                     mode="inverse"),
+                   jlinalg.tri_solve(jnp.asarray(T), jnp.asarray(Rb),
+                                     lower=lower, trans=trans,
+                                     mode="inverse"))
+    Yv, mu = rng.randn(9, 2), rng.randn(9, 2)
+    Lt = _t(L).requires_grad_()
+    lp = tlinalg.mvn_logpdf(_t(Yv), _t(mu), Lt)
+    lp.sum().backward()
+    _close("mvn_logpdf", lp, jlinalg.mvn_logpdf(*map(jnp.asarray,
+                                                     (Yv, mu, L))))
+    _close("mvn_logpdf grad L", Lt.grad, jax.grad(lambda l: jnp.sum(
+        jlinalg.mvn_logpdf(jnp.asarray(Yv), jnp.asarray(mu), l)))(
+        jnp.asarray(L)))
+    with no_host_reads():
+        nan = tlinalg.cholesky_nan(_t(np.stack([B, -np.eye(9)])))
+        every_rung_fails = tlinalg.safe_cholesky(_t(-np.eye(9)), 1e-12)
+    assert torch.equal(nan[0], torch.linalg.cholesky(_t(B))) and \
+        torch.isnan(nan[1]).any(), "cholesky_nan"
+    _close("safe_cholesky where every rung fails (NaN)",
+           torch.nan_to_num(every_rung_fails, nan=7.0),
+           np.nan_to_num(jlinalg.safe_cholesky(-jnp.eye(9), 1e-12), nan=7.0))
+
+
+SINGLE_RTOL = 1e-9
+
+
+def _single_layer_pairs(rng):
+    """(name, JAX model, port model) of SVGP (white and not), GPR, SGPR
+    and GPRFITC at N=14, D=2, D_Y=2, M=5 with a Linear mean function and
+    moved kernel parameters, carried over with load_reference_state."""
+    N_, D_, DY, M_ = 14, 2, 2, 5
+    X, Y, Z = rng.rand(N_, D_), rng.randn(N_, DY), rng.rand(M_, D_)
+    W = 0.3 * rng.randn(D_, DY)
+    ls = rng.uniform(0.4, 0.9, D_)
+    cfg = port.Config(jitter=1e-10)
+    pairs = []
+    with temp_config(jitter=1e-10):
+        def jk():
+            return dsd.RBF.make(D_, variance=1.2, lengthscales=ls)
+
+        def jmf():
+            return dsd.models.mean_functions.Linear.make(W)
+
+        def tmf():
+            return port.Linear(np.zeros((D_, DY)))
+
+        for white in (True, False):
+            jm = dsd.SVGP.build(X, Y, jk(), dsd.Gaussian.make(0.2), Z,
+                                white=white, mean_function=jmf())
+            layer = jm.layers[0]
+            jm = jm.replace(layers=[layer.replace(
+                q_mu=layer.q_mu.with_value(rng.randn(M_, DY)),
+                q_sqrt=layer.q_sqrt.with_value(
+                    np.tril(rng.randn(DY, M_, M_) * 0.2) + np.eye(M_)))])
+            tm = port.SVGP.build(X, Y, port.RBF(D_), port.Gaussian(1.0), Z,
+                                 white=white, mean_function=tmf(),
+                                 config=cfg, device="cpu")
+            pairs.append((f"SVGP white={white}", jm, tm))
+        pairs.append(("GPR", dsd.GPR.build(X, Y, jk(), jmf(), 0.15),
+                      port.GPR.build(X, Y, port.RBF(D_), tmf(), config=cfg,
+                                     device="cpu")))
+        pairs.append(("SGPR", dsd.SGPR.build(X, Y, jk(), Z, jmf(), 0.15),
+                      port.SGPR.build(X, Y, port.RBF(D_), Z, tmf(),
+                                      config=cfg, device="cpu")))
+        pairs.append(("GPRFITC", dsd.GPRFITC.build(X, Y, jk(), Z, jmf(),
+                                                    0.15),
+                      port.GPRFITC.build(X, Y, port.RBF(D_), Z, tmf(),
+                                         config=cfg, device="cpu")))
+    return [(name, jm, port.load_reference_state(tm, _state(jm)))
+            for name, jm, tm in pairs]
+
+
+@jax.jit
+def _jax_single_layer(model, Xs, Ys):
+    """Bound and its gradient, predict_f(_full_cov), predict_y and
+    predict_density of a JAX single-layer model, and of its precompute."""
+    bound, grads = jax.value_and_grad(lambda m: m.log_likelihood())(model)
+    cached = dsd.precompute(model)
+    return (bound, grads, model.predict_f(Xs), model.predict_f_full_cov(Xs),
+            model.predict_y(Xs), model.predict_density(Xs, Ys),
+            cached.predict_f(Xs), cached.predict_f_full_cov(Xs),
+            cached.predict_y(Xs), cached.predict_density(Xs, Ys))
+
+
+def _check_single_layer(rng):
+    """SVGP, GPR (on GPRLayer), SGPR and GPRFITC against the JAX package
+    in float64 at rtol 1e-9: the bound and
+    its gradients, predict_f(_full_cov), predict_y, predict_density; their
+    precompute against JAX's precompute (mean, variance, y moments,
+    density, full covariance) and against the live model; a cached
+    request with no host read; GPR/SGPR/GPRFITC's full-batch bound
+    refusing a minibatch, the cache refusing a bound."""
+    Xs, Ys = rng.rand(6, 2), rng.randn(6, 2)
+    for name, jm, tm in _single_layer_pairs(rng):
+        (jbound, jgrads, jf, jfull, jy, jd, jcf, jcfull, jcy,
+         jcd) = _jax_single_layer(jm, jnp.asarray(Xs), jnp.asarray(Ys))
+        bound = tm.log_likelihood()
+        assert_allclose(bound.item(), float(jbound), rtol=SINGLE_RTOL,
+                        err_msg=f"{name} bound")
+        bound.backward()
+        want = {_torch_key(jax.tree_util.keystr(p)): g for p, g in
+                jax.tree_util.tree_flatten_with_path(jgrads)[0]}
+        for pname, p in tm.named_parameters():
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            assert_allclose(g.numpy(), np.asarray(want[pname]),
+                            rtol=SINGLE_RTOL, atol=1e-11,
+                            err_msg=f"{name} bound gradient {pname}")
+        live = (tm.predict_f(Xs), tm.predict_f_full_cov(Xs),
+                tm.predict_y(Xs), (tm.predict_density(Xs, Ys),))
+        cached = port.precompute(tm)
+        got_c = (cached.predict_f(Xs), cached.predict_f_full_cov(Xs),
+                 cached.predict_y(Xs), (cached.predict_density(Xs, Ys),))
+        for what, got, cgot, want, cwant in zip(
+                ("predict_f", "predict_f_full_cov", "predict_y",
+                 "predict_density"), live, got_c, (jf, jfull, jy, (jd,)),
+                (jcf, jcfull, jcy, (jcd,))):
+            for k, (a, c, w, cw) in enumerate(zip(got, cgot, want, cwant)):
+                case = f"{name} {what} output {k}"
+                assert a.shape == tuple(np.shape(w)), f"{case} shape"
+                assert_allclose(a.numpy(), np.asarray(w), rtol=SINGLE_RTOL,
+                                atol=1e-11, err_msg=f"{case} live")
+                assert_allclose(c.numpy(), np.asarray(cw), rtol=SINGLE_RTOL,
+                                atol=1e-11, err_msg=f"{case} cached")
+                assert_allclose(c.numpy(), a.numpy(), rtol=1e-7, atol=1e-9,
+                                err_msg=f"{case} cached vs live")
+        assert not any(p.requires_grad for p in cached.parameters()), (
+            f"{name}: a cached parameter is trainable")
+        with no_host_reads():
+            request = port.make_server(tm, S=1)(Xs, seed=1)
+        assert all(torch.equal(a, b) for a, b in zip(request,
+                                                     cached.predict_y(Xs))), (
+            f"{name}: the cached server's request")
+        if name.startswith("SVGP"):
+            continue
+        assert tm.full_batch_bound, f"{name}: not a full-batch bound"
+        for what, fn in (("fit(batch_size=5)",
+                          lambda: port.fit(tm, iterations=1, batch_size=5)),
+                         ("the cache's bound", cached.elbo)):
+            try:
+                fn()
+            except (ValueError, NotImplementedError):
+                pass
+            else:
+                raise AssertionError(f"{name}: {what} did not raise")
+
+
 def _check_import_and_device_rules():
     code = ("import sys, doubly_stochastic_dgp_tpu_torch\n"
             "import doubly_stochastic_dgp_tpu_torch.ops.psi_stats\n"
@@ -1028,6 +1274,8 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.models.mean_functions\n"
             "import doubly_stochastic_dgp_tpu_torch.models.initializations\n"
             "import doubly_stochastic_dgp_tpu_torch.models.posterior\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.single_layer\n"
+            "import doubly_stochastic_dgp_tpu_torch.training.natgrad\n"
             "import doubly_stochastic_dgp_tpu_torch.convert\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
@@ -1059,6 +1307,12 @@ def _check_import_and_device_rules():
     builders["DGPBase.make"] = lambda **kw: port.DGPBase.make(
         X, X[:, :1], port.Gaussian(0.1), stack(port.init_layers_input_prop),
         **kw)
+    builders["SVGP"] = lambda **kw: port.SVGP.build(
+        X, X[:, :1], port.RBF(2), port.Gaussian(0.1), X[:4], **kw)
+    for cls in (port.GPR, port.SGPR, port.GPRFITC):
+        builders[cls.__name__] = lambda cls=cls, **kw: cls.build(
+            X, X[:, :1], port.RBF(2), *(() if cls is port.GPR else (X[:4],)),
+            **kw)
     for name, build in builders.items():
         if torch.cuda.is_available():
             model = build(config=port.Config(dtype=torch.float32))
@@ -1094,5 +1348,9 @@ def test_modules_match_jax():
     # their own streams, so that the cases before them keep their data
     _check_more_kernels(np.random.RandomState(31))
     _check_linear_psi_statistics(np.random.RandomState(32))
+    _check_natgrad_update(np.random.RandomState(33))
+    _check_frozen_optimizer(np.random.RandomState(34))
+    _check_linalg_helpers(np.random.RandomState(35))
+    _check_single_layer(np.random.RandomState(36))
     assert psi2_core.launches == 0, "psi2_core launched for CPU tensors"
     _check_import_and_device_rules()

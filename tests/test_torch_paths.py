@@ -11,7 +11,11 @@ on the card); the quadrature DGP (``DGPQuad``), the heteroscedastic DGP
 (``DGPHeteroscedastic``) and the input-propagation stack
 (``init_layers_input_prop``), each carried over by
 ``load_reference_state``: bound or ELBO and gradients, predictions, the
-cached model, and a chunk and requests with no host read.
+cached model, and a chunk and requests with no host read; the
+alternating NatGrad + Adam step against a JAX oracle, ``fit(natgrad_gamma=)``
+with its checkpoint and resume, the two gamma = 1 identities (SVGP against
+SGPR, DGPQuad against DGPCollapsed), ``lbfgs_minimize`` at the JAX
+optimum, and ``precompute`` of both collapsed DGPs against JAX's.
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -50,7 +54,11 @@ from doubly_stochastic_dgp_tpu.training.loop import (
     evaluate_regression as jax_evaluate_regression, fit as jax_fit,
     guarded_scan as jax_guarded_scan)
 from doubly_stochastic_dgp_tpu.training import monitor as jmonitor
-from doubly_stochastic_dgp_tpu.training.optim import masked_optimizer
+from doubly_stochastic_dgp_tpu.training.natgrad import (
+    natgrad_update as jax_natgrad_update)
+from doubly_stochastic_dgp_tpu.training.optim import (
+    freeze_q_params as jax_freeze_q_params,
+    lbfgs_minimize as jax_lbfgs_minimize, masked_optimizer)
 from doubly_stochastic_dgp_tpu.utils.modules import log_prior, trainable_mask
 import doubly_stochastic_dgp_tpu_torch as port
 from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
@@ -65,7 +73,9 @@ from doubly_stochastic_dgp_tpu_torch.training.loop import (
 from doubly_stochastic_dgp_tpu_torch.training.monitor import (
     FullElboCallback, JsonlLogger, PrintTimings)
 from doubly_stochastic_dgp_tpu_torch.training.optim import (
-    Adam, AdamState, masked_optimizer as port_masked_optimizer)
+    Adam, AdamState, freeze_q_params as port_freeze_q_params,
+    masked_optimizer as port_masked_optimizer)
+from doubly_stochastic_dgp_tpu_torch.utils.params import Param
 
 RTOL, ATOL = 1e-8, 1e-10
 # the quadrature, heteroscedastic and input-propagation cases hold values
@@ -86,7 +96,9 @@ TRAJ_RTOL, TRAJ_ATOL = 1e-6, 1e-9
 FUSED = dict(use_pallas=True, solve_mode="inverse", jitter=1e-6)
 
 
-def _jax_model(rng, X, Y, numerics=FUSED):
+def _jax_model(rng, X, Y, numerics=FUSED, randomise=(0, 1, 2)):
+    """The 3-layer JAX DGP with the posterior of the layers ``randomise``
+    moved off its initialization."""
     Z = X[:M]
     with temp_config(**numerics):
         kernels = [dsd.RBF.make(D) + dsd.White.make(D, variance=2e-6),
@@ -95,7 +107,10 @@ def _jax_model(rng, X, Y, numerics=FUSED):
                    dsd.RBF.make(H, variance=0.9)]
         model = dsd.DGP.build(X, Y, Z, kernels, dsd.Gaussian.make(0.05))
     layers = []
-    for layer in model.layers:
+    for l, layer in enumerate(model.layers):
+        if l not in randomise:
+            layers.append(layer)
+            continue
         Mi, Do = layer.q_mu.value.shape
         q_sqrt = np.tril(rng.randn(Do, Mi, Mi) * 0.2) + 0.3 * np.eye(Mi)
         layers.append(layer.replace(
@@ -199,12 +214,8 @@ def _check_training(rng, X, Y, jmodel):
                            batch_size=BATCH, seed=3, log_every=10)
     assert [h["iter"] for h in hist] == [10, 20], f"fit history {hist}"
     assert all(np.isfinite(h["loss"]) for h in hist), f"fit loss {hist}"
-    try:
-        port.fit(model, iterations=1, natgrad_gamma=0.1)
-    except NotImplementedError as e:
-        assert "ROADMAP" in str(e), f"fit(natgrad_gamma=0.1): {e}"
-    else:
-        raise AssertionError("fit(natgrad_gamma=0.1) did not raise")
+    # its own stream, so that the cases after it keep their draws
+    _check_natgrad(np.random.RandomState(44), X, Y, jmodel)
     _check_resume("DGP", lambda: _port_model(X, Y, jmodel), k=10,
                   batch_size=BATCH, seed=3, log_every=10, scan_steps=5)
     # the guard works for the DGP too, and is off for it by default
@@ -368,6 +379,8 @@ def _check_collapsed(rng, Xt, Yt):
             jnp.asarray(Xt), S=S, full_cov=True,
             zs=[jnp.asarray(z) for z in zs]))(jm)
         jgrads = _flat(jgrads)
+        jcached = jax.jit(lambda m: dsd.precompute(m).propagate(
+            jnp.asarray(Xt), S=S, zs=[jnp.asarray(z) for z in zs]))(jm)
         for impl in ("xla", "auto"):
             case = f"{name} psi2_impl={impl}"
             cfg = port.Config(jitter=1e-6, solve_mode="inverse",
@@ -391,6 +404,29 @@ def _check_collapsed(rng, Xt, Yt):
                     g = torch.zeros_like(p) if p.grad is None else p.grad
                     _close(f"{case} bound gradient {pname}", g,
                            jgrads[pname])
+        # precompute's collapsed branch against JAX's and the live model
+        cached = port.precompute(model)
+        assert type(cached) is port.DGPBase and not any(
+            p.requires_grad for p in cached.parameters()), (
+            f"{name}: precompute's model")
+        # the diagonal against JAX's precompute; both against the live
+        # model, whose full covariances the case above holds against JAX
+        for full_cov in (False, True):
+            what = "propagate full_cov" if full_cov else "propagate"
+            got = cached.propagate(Xt, S=S, zs=zs, full_cov=full_cov)
+            live = model.propagate(Xt, S=S, zs=zs, full_cov=full_cov)
+            for l in range(2):
+                for k, part in enumerate(("F", "mean", "var")):
+                    case = f"{name} precompute {what} layer {l} {part}"
+                    if not full_cov:
+                        _close(case, got[k][l], jcached[k][l])
+                    assert_allclose(got[k][l].numpy(),
+                                    live[k][l].detach().numpy(), rtol=1e-7,
+                                    atol=1e-9, err_msg=f"{case} vs live")
+        with no_host_reads():
+            request = port.make_server(model, S=S)(Xt, seed=2)
+        assert all(torch.isfinite(t).all() and t.shape == (S, 9, 1)
+                   for t in request), f"{name}: cached request"
         try:
             port.fit(model, iterations=1, batch_size=10)
         except ValueError:
@@ -1014,6 +1050,237 @@ def _check_classification(rng):
                         err_msg=f"classification live vs cached {what}")
 
 
+# ---------------------------------------------------------------------------
+# natural gradients, the gamma = 1 identities and L-BFGS
+# ---------------------------------------------------------------------------
+
+NG_GAMMA = 0.1
+
+
+def _check_natgrad(rng, X, Y, jmodel):
+    """The alternating NatGrad(gamma 0.1, last layer) + Adam step: 3
+    iterations at fixed indices and two fixed sets of draws an iteration
+    against the JAX oracle (TRAJ_RTOL); a CPU fit(natgrad_gamma=0.1) (its
+    history, the last layer's q moved by the natural steps, the inner
+    layers' by Adam, and a checkpoint whose Adam state holds every
+    trainable parameter but the last layer's q); its resume bit for bit;
+    and a chunk with no host read."""
+    # the last layer at its prior, where the natural steps start in
+    # practice (at the randomised posterior every gamma = 0.1 step goes
+    # indefinite in both packages and the reject net keeps the old q)
+    jmodel = _jax_model(rng, X, Y, randomise=(0, 1))
+    tx = masked_optimizer(optax.adam(LR), jmodel,
+                          freeze=jax_freeze_q_params((-1,), 3))
+    opt_state = tx.init(jmodel)
+    jitter = jmodel.layers[-1].jitter
+    natural = jax.jit(lambda *a: jax_natgrad_update(*a, NG_GAMMA,
+                                                    jitter=jitter))
+    adam = jax.jit(tx.update)
+
+    def jax_iter(model, opt_state, X, Y, z_nat, z_adam):
+        """One iteration of the JAX alternating loop at fixed draws, from
+        the package's natgrad_update and masked_optimizer(optax.adam,
+        freeze=freeze_q_params((-1,), 3)); the gradients by the jitted
+        objective the Adam cases compiled."""
+        _, grads = _jax_loss_and_grads(model, X, Y, z_nat)
+        layers = list(model.layers)
+        layer, glayer = layers[-1], grads.layers[-1]
+        m, L = natural(layer.q_mu.value, layer.q_sqrt.value,
+                       glayer.q_mu.unconstrained,
+                       jnp.tril(glayer.q_sqrt.unconstrained))
+        layers[-1] = layer.replace(q_mu=layer.q_mu.with_value(m),
+                                   q_sqrt=layer.q_sqrt.with_value(L))
+        model = model.replace(layers=layers)
+        loss, grads = _jax_loss_and_grads(model, X, Y, z_adam)
+        updates, opt_state = adam(grads, opt_state, model)
+        return optax.apply_updates(model, updates), opt_state, loss
+
+    model = _port_model(X, Y, jmodel)
+    optimizer = port_masked_optimizer(
+        model, LR, freeze=port_freeze_q_params((-1,), 3))
+    step = port.make_natgrad_adam_step(optimizer, NG_GAMMA, (-1,), BATCH)
+    jm = jmodel
+    for t in range(3):
+        idx, z_nat = _draws(rng, X.shape[0])
+        z_adam = _draws(rng, X.shape[0])[1]
+        jm, opt_state, jl = jax_iter(
+            jm, opt_state, jnp.asarray(X[idx]), jnp.asarray(Y[idx]),
+            [jnp.asarray(z) for z in z_nat], [jnp.asarray(z) for z in z_adam])
+        tl = step(model, idx=torch.as_tensor(idx), zs=(z_nat, z_adam))
+        assert_allclose(tl.numpy(), np.asarray(jl), rtol=TRAJ_RTOL,
+                        atol=TRAJ_ATOL,
+                        err_msg=f"NatGrad+Adam trajectory loss, step {t}")
+    want = _flat(jm)
+    for name, p in model.named_parameters():
+        assert_allclose(p.detach().numpy(), want[name], rtol=TRAJ_RTOL,
+                        atol=TRAJ_ATOL, err_msg=f"NatGrad+Adam trajectory "
+                                                f"{name} after 3 steps")
+    assert int(step.rejected) == 0, "NatGrad+Adam: a natural step rejected"
+
+    kw = dict(batch_size=BATCH, seed=3, log_every=10, scan_steps=5,
+              natgrad_gamma=NG_GAMMA)
+    before = _port_model(X, Y, jmodel)
+    with tempfile.TemporaryDirectory() as d:
+        fitted, hist = port.fit(_port_model(X, Y, jmodel), iterations=20,
+                                ckpt_dir=d, **kw)
+        with np.load(os.path.join(d, "ckpt_20.npz")) as ckpt:
+            mu = [k for k in ckpt.files if k.startswith("1:mu:")]
+    assert [h["iter"] for h in hist] == [10, 20] and all(
+        np.isfinite(h["loss"]) and h["rejected"] == 0 for h in hist), (
+        f"fit(natgrad_gamma) history {hist}")
+    adam_names = [n for n, p in before.named_parameters() if p.requires_grad
+                  and not n.startswith(("layers.2.q_mu", "layers.2.q_sqrt"))]
+    assert len(mu) == len(adam_names), (
+        f"fit(natgrad_gamma): the Adam state holds {len(mu)} tensors, not "
+        f"the {len(adam_names)} unfrozen parameters")
+    moved = dict(fitted.named_parameters())
+    for name, p in before.named_parameters():
+        if ".q_mu." in name or ".q_sqrt." in name:
+            assert not torch.allclose(p, moved[name]), (
+                f"fit(natgrad_gamma): {name} did not move")
+    _check_resume("DGP natgrad", lambda: _port_model(X, Y, jmodel), k=10,
+                  **kw)
+    model = _port_model(X, Y, jmodel)
+    optimizer = port_masked_optimizer(
+        model, LR, freeze=port_freeze_q_params((-1,), 3))
+    chunk = make_scan_train_step(
+        optimizer, BATCH, inner_steps=2,
+        step=port.make_natgrad_adam_step(optimizer, NG_GAMMA, (-1,), BATCH))
+    with no_host_reads():
+        loss = chunk(model, generator=torch.Generator().manual_seed(0))
+    assert torch.isfinite(loss) and chunk.rejected == 0, (
+        "NatGrad+Adam chunk with no host read")
+
+
+def _check_gamma1_identities():
+    """One gamma = 1 natural step on a conjugate last layer lands on the
+    collapsed bound: an SVGP's against SGPR's (rtol 1e-8), at
+    tests/test_single_layer_models.py's shapes, and DGPQuad(H=200)'s last
+    layer against DGPCollapsed's (rtol 1e-7), at tests/test_collapsed.py's
+    (the same seeds and draws)."""
+    cfg = port.Config(jitter=1e-12)
+    rng = np.random.RandomState(0)
+    X, Y, Z = rng.rand(12, 2), rng.randn(12, 2), rng.rand(5, 2)
+
+    def kern():
+        return port.RBF(2, variance=1.1, lengthscales=0.6)
+
+    sgpr = port.SGPR.build(X, Y, kern(), Z, noise_variance=0.2, config=cfg,
+                           device="cpu")
+    svgp = port.SVGP.build(X, Y, kern(), port.Gaussian(0.2), Z, white=False,
+                           config=cfg, device="cpu")
+    with torch.no_grad():
+        want, before = sgpr.log_likelihood(), svgp.log_likelihood()
+    assert before < want, "SVGP's untrained bound is not below SGPR's"
+    port.NaturalGradient(1.0, (0,)).step(svgp, lambda m: -m.log_likelihood())
+    with torch.no_grad():
+        got = svgp.log_likelihood()
+    assert_allclose(got.item(), want.item(), rtol=1e-8,
+                    err_msg="gamma=1 natural step: SVGP against SGPR")
+
+    np.random.seed(100)
+    N_, M_ = 1, 8
+    X = np.random.uniform(size=(N_, 1))
+    Y = np.random.uniform(size=(N_, 1))
+    Z = np.random.uniform(size=(M_, 1))
+    Z[:N_] = X[:M_]
+
+    def kerns():
+        return [port.RBF(1, lengthscales=0.1), port.RBF(1, lengthscales=0.5)]
+
+    q_mu1 = np.random.randn(M_, 1)
+    q_sqrt1 = np.tril(np.random.randn(M_, M_))[None]
+    collapsed = port.DGPCollapsed.build(X, Y, Z, kerns(), port.Gaussian(0.1),
+                                        config=cfg, device="cpu")
+    layers = port.init_layers_linear(X, Y, Z, kerns(), config=cfg)
+    quad = port.DGPQuad.build(X, Y, port.Gaussian(0.1), layers, H=200,
+                              config=cfg, device="cpu")
+    for m in (collapsed, quad):
+        m.layers[0].q_mu.set_value(q_mu1)
+        m.layers[0].q_sqrt.set_value(q_sqrt1)
+    port.NaturalGradient(1.0, (-1,)).step(quad, lambda m: -m.elbo())
+    with torch.no_grad():
+        got, want = quad.elbo().item(), collapsed.elbo().item()
+    assert_allclose(got, want, rtol=1e-7, atol=1e-7,
+                    err_msg="gamma=1 natural step: DGPQuad against "
+                            "DGPCollapsed")
+
+
+# L-BFGS: the optimum's loss relative to JAX's, and each constrained
+# parameter's value (flat directions, such as FITC's noise at its floor,
+# leave the unconstrained values apart)
+LBFGS_LOSS_RTOL, LBFGS_PARAM_TOL = 1e-7, 1e-5
+
+
+def _check_lbfgs(rng):
+    """lbfgs_minimize on small GPR, SGPR and GPRFITC problems (N=30, D=2,
+    M=6, Z frozen in both packages) reaches the optimum of the JAX
+    lbfgs_minimize, run once on the sum of the three objectives (they
+    share no parameter, so its optimum is each one's; one compile of the
+    JAX step instead of three); and on tests/test_training.py's 1-layer
+    DGP at fixed zero draws it improves the loss by more than 1, as the
+    JAX test asserts."""
+    X = rng.rand(30, 2)
+    Y = (np.sin(6 * X[:, :1]) * np.cos(4 * X[:, 1:])
+         + 0.05 * rng.randn(30, 1))
+    Z = X[::5].copy()
+    cfg = port.Config(jitter=1e-8)
+    with temp_config(jitter=1e-8):
+        def jk():
+            return dsd.RBF.make(2, lengthscales=0.5)
+
+        cases = [("GPR", dsd.GPR.build(X, Y, jk(), noise_variance=0.1),
+                  lambda: port.GPR.build(X, Y, port.RBF(2), config=cfg,
+                                         device="cpu")),
+                 ("SGPR", dsd.SGPR.build(X, Y, jk(), Z, noise_variance=0.1),
+                  lambda: port.SGPR.build(X, Y, port.RBF(2), Z, config=cfg,
+                                          device="cpu")),
+                 ("GPRFITC", dsd.GPRFITC.build(X, Y, jk(), Z,
+                                               noise_variance=0.1),
+                  lambda: port.GPRFITC.build(X, Y, port.RBF(2), Z,
+                                             config=cfg, device="cpu"))]
+        jms, jl = jax_lbfgs_minimize(
+            lambda ms: sum(-m.log_likelihood() for m in ms),
+            tuple(jm for _, jm, _ in cases), max_iters=100, tol=1e-12,
+            freeze=lambda path, p: "Z" in path)
+    optimum = 0.0
+    for (name, jm, build), jm2 in zip(cases, jms):
+        tm, tl = port.lbfgs_minimize(
+            lambda m: -m.log_likelihood(),
+            port.load_reference_state(build(), _flat(jm)), max_iters=100,
+            tol=1e-12, freeze=lambda n, p: n.endswith("Z.unconstrained"))
+        ref = port.load_reference_state(build(), _flat(jm2))
+        with torch.no_grad():
+            ref_loss = -ref.log_likelihood().item()
+        optimum += ref_loss
+        assert_allclose(tl, ref_loss, rtol=LBFGS_LOSS_RTOL,
+                        err_msg=f"lbfgs_minimize {name}: optimum loss")
+        for (pname, p), q in zip(tm.named_modules(), ref.modules()):
+            if isinstance(p, Param):
+                assert_allclose(p.value.detach().numpy(),
+                                q.value.detach().numpy(),
+                                rtol=LBFGS_PARAM_TOL, atol=LBFGS_PARAM_TOL,
+                                err_msg=f"lbfgs_minimize {name}: {pname}")
+    # the JAX optimum's loss, as the port evaluates it
+    assert_allclose(optimum, jl, rtol=LBFGS_LOSS_RTOL,
+                    err_msg="lbfgs_minimize: the JAX optimum's loss")
+    # tests/test_training.py's _step_data(20)
+    step_rng = np.random.RandomState(0)
+    Xs = step_rng.uniform(-1, 1, (20, 1))
+    Ys = (Xs > 0).astype(float) + step_rng.randn(20, 1) * 0.02
+    dgp = port.DGP.build(Xs, Ys, np.linspace(-1, 1, 6)[:, None],
+                         [port.RBF(1, lengthscales=0.5)], port.Gaussian(0.05),
+                         device="cpu")
+
+    def loss(m):
+        return -m.elbo(zs=[torch.zeros(1, 1, 1, dtype=torch.float64)])
+
+    with torch.no_grad():
+        l0 = loss(dgp).item()
+    _, l1 = port.lbfgs_minimize(loss, dgp, max_iters=60)
+    assert l1 < l0 - 1.0, f"lbfgs_minimize on the DGP: {l0} -> {l1}"
+
+
 def _close(case, got, want):
     assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                     atol=ATOL, err_msg=case)
@@ -1103,6 +1370,8 @@ def test_paths_match_jax():
     _check_quad(np.random.RandomState(41))
     _check_heteroscedastic(np.random.RandomState(42), Xt, Yt)
     _check_input_prop(np.random.RandomState(43), Xt)
+    _check_gamma1_identities()
+    _check_lbfgs(np.random.RandomState(45))
     psi2_core.launches = 0
     _check_collapsed(rng, Xt, Yt)
     assert (fused_conditional.launches, fused_conditional.backward_launches,
