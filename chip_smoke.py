@@ -311,10 +311,11 @@ Phases, each of which raises on a failed check:
    bound (SVGP on SGPR, rtol 1e-8; DGPQuad(H=200) on DGPCollapsed, rtol
    1e-7).  27c: the UCI notebook's baselines at the kin8nm shape (M=100,
    kmeans2 Z): SGPR and GPRFITC by ``lbfgs_minimize`` (at most 100
-   iterations; raises unless the loss is finite and falls, and unless the
-   card's float32 bound's worst error against float64 over 8 parameter
-   points is within 2x the CPU float32 bound's; the ratio at the trained
-   point alone is printed), SVGP by 300 Adam steps (the fused route), a
+   iterations; raises unless the loss is finite and falls, and unless,
+   over 8 parameter points, the card's float32 bound's median error
+   against float64 is within 2x the CPU float32 bound's median and its
+   worst error within 2x the CPU's worst; the ratio at the trained point
+   alone is printed, not gated), SVGP by 300 Adam steps (the fused route), a
    GPR on 1000 rows; test rmse and loglik; the fused pair and rbf_gram on
    the operands each trained model hands them (SVGP's at B=1000, Do=1;
    SGPR's and FITC's Kuu and Kuf at 100 x 7372; GPR's K(X) at 1000 x
@@ -325,12 +326,50 @@ Phases, each of which raises on a failed check:
    latency cached against live; the kernels on a 1000-row request's
    operands, live and cached, under phase 1's gates (the forward).
 
+28. MCMC and the rest of serving (float32, jitter 1e-5), each sub-phase's
+   main path with the launch counts at 0 just before and read just after.
+   28a: ``sgpmc_headline``, HMC over the 3300 inducing values of the
+   headline stack built as ``init_layers_linear`` builds it with each
+   layer an ``SGPMCLayer(white=True)`` (``use_pallas=True``), target
+   ``elbo`` at fixed draws plus ``log_prior``, full batch (7372 rows),
+   S=1, 10 leapfrog steps, initial step 0.01 adapted, 100 burn-in + 100
+   samples, chunks of 10 iterations each one captured graph: 20
+   iterations graphed against eager from one seed (raises unless bit for
+   bit or within 1e-4 of scale), the chain with every replay under sync
+   debug 'error', chunks graphed and eager in turns (iterations/s, device
+   busy a gradient, idle share; raises unless an eager chunk's launches
+   by the counters and a replayed chunk's by the profiler are 5 fused
+   forwards, 5 fused backwards and 5 rbf_gram a gradient), accept rate,
+   step size, ESS min and median; the fused pair (Do = 8 with the
+   broadcast W, and Do = 1) and rbf_gram on one gradient's operands
+   under phase 1's gates.  28b: a single ``SGPMCLayer(white=True)``,
+   M=100, on the 7372 rows, whose target is exactly Gaussian: HMC (300 +
+   1000, 5 leapfrog steps, the trajectory's closest approach to a whole
+   turn in any eigen-direction printed) and NUTS (``max_depth=6``, 200 + 600) on the card recover the
+   float64 closed-form mean within 4.5 max sd / sqrt(ESS min) and the
+   marginal sds within 25% (raises otherwise, or on a post-warmup NUTS
+   divergence); the NUTS host reads a transition.  28c: ``DGPHeinonen``
+   on the first 1000 rows (tests/test_zoo.py's recipe on RBF kernels):
+   NUTS over the GPMC layer's q_mu (raises unless finite and moving),
+   ``make_server`` cached against live within 5e-3 and graphed equal to
+   eager, rbf_gram on the 1000 x 1000 Kuf of a request and on the GPR K
+   under phase 1's gates.  28d: ``DynamicPredictor`` on the headline DGP
+   of phases 2-3: S in (1, 5, 25, 100) over buckets (1, 8, 32, 128),
+   raises unless one capture a bucket used (4) and the kept samples equal
+   ``make_server``'s at the bucket size and seed bit for bit; latency of
+   each S beside ``make_server``'s at S=100.  28e: ``export_predict_y`` of
+   that DGP at 1000 rows and S=100, live and ``precomputed=True``, saved,
+   loaded and run in a fresh process that imports only the port's
+   ``ops.cuda``: raises unless equal to the model bit for bit or within
+   1e-6 of scale, and (live) the profiler sees 5 fused forwards.
+
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
 rbf_gram; the fused pair's and rbf_gram's also with phase 25's shapes and
 launches; every record with ``extra_launches``, each phase-26 model's
-main-path launches, and ``natgrad_launches``, phase 27's by sub-phase;
-the fused pair's and rbf_gram's also with phase 27's worst errors),
+main-path launches, ``natgrad_launches``, phase 27's by sub-phase, and
+``mcmc_launches``, phase 28's; the fused pair's and rbf_gram's also with
+phase 27's and phase 28's worst errors),
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -357,11 +396,15 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from doubly_stochastic_dgp_tpu_torch import (  # noqa: E402
-    DGP, RBF, Config, DGPBase, DGPCollapsed, DGPDamianou,
-    DGPHeteroscedastic, DGPQuad, Gaussian, Linear, LinearKernel, Matern52,
-    MultiClass, SyntheticRegression, White, evaluate_classification,
-    evaluate_regression, fit, init_layers_input_prop, init_layers_linear,
-    load_mnist_npz, make_server, precompute)
+    DGP, RBF, Config, DGPBase, DGPCollapsed, DGPDamianou, DGPHeinonen,
+    DGPHeteroscedastic, DGPQuad, DynamicPredictor, Gaussian, GPMCLayer,
+    GPRLayer, Identity, Linear, LinearKernel, Matern52, MultiClass,
+    SGPMCLayer, SyntheticRegression, White, Zero, effective_sample_size,
+    evaluate_classification, evaluate_regression, export_predict_y, fit,
+    hmc_sample, init_layers_input_prop, init_layers_linear, load_mnist_npz,
+    log_prior, make_server, nuts_sample, precompute)
+from doubly_stochastic_dgp_tpu_torch.training.hmc import (  # noqa: E402
+    CHUNK, HMCChains)
 from doubly_stochastic_dgp_tpu_torch.ops import psi_stats  # noqa: E402
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import (  # noqa: E402
     build, gram, psi2)
@@ -508,33 +551,70 @@ def device_launches(prof):
             for name, marker in LAUNCH_MARKER.items()}
 
 
+# the profiler can lose a kernel's record: twice in about 25 runs of this
+# script on an NVIDIA H100 80GB HBM3 it counted 39 of the 40 rbf_gram
+# launches of phase 26's replayed quad chunk.  A launch count by the
+# profiler that differs from what the counters expect is taken again on
+# the next replay, up to PROFILE_TRIES profiles in all, each retry
+# printed; a CUDA graph replays the same kernels every time, so a launch
+# that the path really lacks or adds fails every try
+PROFILE_TRIES = 3
+
+
+def shield_profile():
+    """Uncounted device work at a profile's start: the profiler can drop a
+    profile's first device records (PERF.md §6), so give it a few to drop
+    before the profiled run, whose first kernel may be a counted one."""
+    for _ in range(8):
+        torch.ones(1, device="cuda").add_(1.0)
+    torch.cuda.synchronize()
+
+
 class ProfiledChunk:
     """A ``fit`` callback that profiles the chunk between its first two
     calls (log boundaries), on the card one replay of the captured chunk:
     ``launches`` is then :func:`device_launches` of that chunk.  ``fit``
     reads the loss (a host sync) before it calls back, so the chunk's
-    device work has ended by then."""
+    device work has ended by then.  The counters at the first call hold
+    the warm-up and capture chunks (FIT_CAPTURE_CHUNKS of them); while a
+    profiled replay's launches differ from one chunk's share of them, the
+    next chunk is profiled, up to PROFILE_TRIES in all (``tries``)."""
 
     def __init__(self):
         self.prof, self.launches, self.calls = None, None, 0
+        self.counts, self.tries = None, 0
+
+    def _start(self):
+        from torch.profiler import ProfilerActivity, profile
+        self.prof = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        self.prof.start()
+        shield_profile()
+        self.tries += 1
 
     def __call__(self, step, model, loss, stats):
-        from torch.profiler import ProfilerActivity, profile
         self.calls += 1
         if self.calls == 1:
-            self.prof = profile(activities=[ProfilerActivity.CPU,
-                                            ProfilerActivity.CUDA])
-            self.prof.start()
-            # the profiler can drop a profile's first device records
-            # (PERF.md §6): give it a few uncounted ones to drop before
-            # the chunk, whose first kernel may be a counted one
-            for _ in range(8):
-                torch.ones(1, device="cuda").add_(1.0)
-            torch.cuda.synchronize()
-        elif self.calls == 2:
+            self.counts = launch_counts()
+            self._start()
+        elif self.prof is not None:
             torch.cuda.synchronize()
             self.prof.stop()
             self.launches = device_launches(self.prof)
+            self.prof = None
+            chunks = {n: FIT_CAPTURE_CHUNKS * v
+                      for n, v in self.launches.items()}
+            if chunks != self.counts and self.tries < PROFILE_TRIES:
+                print(f"profiled chunk (try {self.tries}): the profiler "
+                      f"counted {self.launches}, the counters "
+                      f"{self.counts} over {FIT_CAPTURE_CHUNKS} chunks; "
+                      f"profiling the next chunk", flush=True)
+                self._start()
+
+    def close(self):
+        """Stop a profile the fit's end left open (its chunk never came)."""
+        if self.prof is not None:
+            self.prof.stop()
             self.prof = None
 
 
@@ -845,6 +925,17 @@ def phase_serving(seed):
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
     launches = device_launches(prof)["fused_conditional"]
+    for i in range(2, PROFILE_TRIES + 1):
+        if launches == LAYERS * chunks:
+            break
+        print(f"serving live: the profiler counted {launches} fused "
+              f"launches, expected {LAYERS * chunks} (try {i - 1}); "
+              f"profiling the requests again", flush=True)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            serve_all(live, requests)
+            torch.cuda.synchronize()
+        launches = device_launches(prof)["fused_conditional"]
     print(f"serving live: 3 requests ({[len(x) for _, x in requests]} rows,"
           f" {chunks} chunks) in {first_s:.3f} s under the profiler; "
           f"fused_conditional launches: building the server {built} "
@@ -1043,6 +1134,7 @@ def run_fit(model, steps, seed, profiled=True, **fit_kw):
                   batch_size=BATCH, seed=seed, log_every=FIT_CHUNK,
                   callbacks=[replay] if profiled else [], **fit_kw)
     torch.cuda.synchronize()
+    replay.close()
     return hist, launch_counts(), replay.launches
 
 
@@ -2212,6 +2304,7 @@ def collapsed_fit(model, steps, seed, profiled):
     _, hist = fit(model, iterations=steps, learning_rate=0.01, seed=seed,
                   log_every=FIT_CHUNK, callbacks=[replay] if profiled else [])
     torch.cuda.synchronize()
+    replay.close()
     return hist, launch_counts(), replay.launches
 
 
@@ -3091,23 +3184,33 @@ def graph_routes(seed, build_collapsed):
                 "collapsed_L2", *ROUTES["kernel"]), None)}
 
 
-def profile_chunk(run, steps, what):
+def profile_chunk(run, steps, what, expect=None):
     """(device busy ms, device ops, top device ops) a step and each
     record's device launches (:func:`device_launches`) in one ``run()`` of
-    ``steps`` steps under torch.profiler.  Profiles again, up to 3 times,
-    when the profiler saw no device time, and raises if it never does."""
+    ``steps`` steps under torch.profiler.  Profiles again, up to
+    PROFILE_TRIES times in all, when the profiler saw no device time
+    (raises if it never does) or, given ``expect``, counted other launches
+    than it (the last try's are returned)."""
     from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
+    found = None
+    for i in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
             torch.cuda.synchronize()
         found = device_breakdown(prof, steps)
-        if found is not None:
-            return found, device_launches(prof)
-        print(f"{what}: the profiler saw no device time; profiling again",
-              flush=True)
-    check(False, f"{what}: the profiler saw no device time in 3 tries")
+        launches = device_launches(prof)
+        if found is None:
+            print(f"{what}: the profiler saw no device time (try {i}); "
+                  f"profiling again", flush=True)
+        elif expect is None or launches == expect:
+            return found, launches
+        elif i < PROFILE_TRIES:
+            print(f"{what}: the profiler counted {launches}, expected "
+                  f"{expect} (try {i}); profiling again", flush=True)
+    check(found is not None,
+          f"{what}: the profiler saw no device time in {PROFILE_TRIES} tries")
+    return found, launches
 
 
 def phase_graphs(seed, build_collapsed, card):
@@ -3185,7 +3288,8 @@ def phase_graphs(seed, build_collapsed, card):
             with (eager_on_card() if mode == "eager"
                   else contextlib.nullcontext()):
                 (busy, ops, top), by_prof[mode] = profile_chunk(
-                    run, GRAPH_CHUNK, f"graphs {route} {mode}")
+                    run, GRAPH_CHUNK, f"graphs {route} {mode}",
+                    expect=counted["eager"] if mode == "graphed" else None)
             rec[mode] = {"steps_per_s": rate, "rates": rates[mode],
                          "step_ms": 1e3 / rate, "busy_ms": busy,
                          "device_ops": ops,
@@ -4485,8 +4589,9 @@ def natgrad_rates(seed, card):
     out = {"bit_for_bit": same, "eager_chunk_launches": eager}
     for r, run in runs.items():
         rate = statistics.median(rates[r])
-        (busy, ops, top), launches = profile_chunk(run, FIT_CHUNK,
-                                                   f"natgrad {r}")
+        (busy, ops, top), launches = profile_chunk(
+            run, FIT_CHUNK, f"natgrad {r}",
+            expect=eager if r == "natgrad+adam" else None)
         out[r] = {"steps_per_s": rate, "rates": rates[r], "busy_ms": busy,
                   "device_ops": ops, "idle_share": 1 - busy * rate / 1e3,
                   "replay_launches": launches, "top": top}
@@ -4671,7 +4776,8 @@ BOUND_POINTS = 8
 def baseline_bound_gate(name, model, build, seed):
     """The float32 bound on the card and on the CPU against the float64
     CPU bound at BOUND_POINTS parameter points: raises when the card's
-    worst error is above 2x the CPU float32 bound's worst."""
+    median error is above 2x the CPU float32 bound's median, or the
+    card's worst error above 2x the CPU's worst."""
     state = model.state_dict()
     params = dict(model.named_parameters())
     rng = np.random.RandomState(seed + 23)
@@ -4692,6 +4798,7 @@ def baseline_bound_gate(name, model, build, seed):
     errs = {r: [abs(a - b) for a, b in zip(bounds[r], bounds["cpu f64"])]
             for r in ("card f32", "cpu f32")}
     worst = {r: max(e) for r, e in errs.items()}
+    median = {r: statistics.median(e) for r, e in errs.items()}
     # the rule as first written, at the trained parameters alone: printed
     # and kept, not gated (PERF.md, section 6; ROADMAP, queue C)
     one_point = errs["card f32"][0] / max(errs["cpu f32"][0], 1e-300)
@@ -4700,17 +4807,25 @@ def baseline_bound_gate(name, model, build, seed):
           f"{bounds['cpu f64'][0]!r} at the trained ones; |f32 - f64| card "
           + ", ".join(f"{e:.3e}" for e in errs["card f32"]) + "; cpu "
           + ", ".join(f"{e:.3e}" for e in errs["cpu f32"])
-          + f"; worst card {worst['card f32']:.3e}, cpu "
+          + f"; median card {median['card f32']:.3e}, cpu "
+            f"{median['cpu f32']:.3e} (ratio "
+            f"{median['card f32'] / max(median['cpu f32'], 1e-300):.3f}, "
+            f"gated at 2); worst card {worst['card f32']:.3e}, cpu "
             f"{worst['cpu f32']:.3e} (ratio "
             f"{worst['card f32'] / max(worst['cpu f32'], 1e-300):.3f}, "
             f"gated at 2); at the trained parameters alone card / cpu "
             f"{one_point:.3f} (not gated)", flush=True)
+    check(median["card f32"] <= 2.0 * median["cpu f32"],
+          f"baseline {name}: the card's float32 bound's median error "
+          f"against float64 over {BOUND_POINTS} points, "
+          f"{median['card f32']}, is above 2x the CPU float32 bound's "
+          f"{median['cpu f32']}")
     check(worst["card f32"] <= 2.0 * worst["cpu f32"],
           f"baseline {name}: the card's float32 bound is up to "
           f"{worst['card f32']} off float64, above 2x the CPU float32 "
           f"bound's {worst['cpu f32']}")
     return {"bounds": bounds, "errors": errs, "worst": worst,
-            "one_point_ratio": one_point}
+            "median": median, "one_point_ratio": one_point}
 
 
 def phase_baselines(seed, card, worst):
@@ -4905,6 +5020,626 @@ def phase_natgrad_baselines(seed, card, collapsed):
     out["wall_s"] = time.perf_counter() - t0
     print(f"natgrad phase wall time {out['wall_s']:.1f} s [{card}]",
           flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 28: MCMC (SGPMC, GPMC, DGPHeinonen, HMC, NUTS) and the rest of
+# serving (DynamicPredictor, export)
+# ---------------------------------------------------------------------------
+
+MC_BURN, MC_SAMPLES, MC_LEAPFROG, MC_STEP = 100, 100, 10, 0.01
+MC_COMPARE = 10             # burn-in and samples of the graphed-vs-eager run
+MC_RATE_ROUNDS = 3          # timed chunks a mode, in turns
+MC_GRAPH_VS_EAGER_RTOL = 1e-4
+CLOSED_HMC = (300, 1000)    # burn-in, samples of 28b's HMC
+# 28b's leapfrog steps: with 28a's 10 at the adapted step (0.0319) two
+# eigen-directions of the target (sds 0.0506, 0.0527) turn within 0.13
+# rad of a whole period a trajectory, so a fixed-length chain hardly
+# moves along them (on an H100 its marginal sds came out 37% off with
+# ESS min 262, and 36% off in float64 on the CPU, tools/hmc_resonance.py;
+# PERF.md, section 6); at 5 no direction comes within 0.6 rad of a turn
+# (closed_form_resonance prints it each run)
+CLOSED_LEAPFROG = 5
+# 28b refuses to judge an HMC chain whose trajectory comes this near a
+# whole turn in some eigen-direction (tools/hmc_resonance.py)
+RESONANCE_RAD = 0.3
+CLOSED_NUTS = (200, 600)    # burn-in, samples of 28b's NUTS
+NUTS_DEPTH = 6
+HEIN_N, HEIN_ITERS, HEIN_DEPTH, HEIN_S = 1000, 20, 5, 10
+HEIN_CACHED_ATOL = 5e-3
+DYN_S, DYN_BUCKETS = (1, 5, 25, 100), (1, 8, 32, 128)
+EXPORT_ROWS = 1000
+EXPORT_RTOL = 1e-6
+# the fused pair's and rbf_gram's launches a gradient of the 5-layer
+# SGPMC DGP on the fused route: a forward and a backward a layer, and
+# the gram of Kuu a layer (its backward is closed-form torch)
+MC_GRAD = {"fused_conditional": LAYERS, "fused_conditional_backward": LAYERS,
+           "rbf_gram": LAYERS}
+
+
+def sgpmc_model(seed, layers=LAYERS, device="cuda", dtype=torch.float32):
+    """``sgpmc_headline``: the headline stack as ``init_layers_linear``
+    builds it (M=100, inner RBF + White(2e-6), last RBF, Gaussian(0.05),
+    linear mean skips), each SVGPLayer replaced by an SGPMCLayer(white=
+    True) of its kernel, Z and mean; float32, jitter 1e-5,
+    ``use_pallas=True``; S=1.  ``layers=1``: 28b's single RBF layer."""
+    data = SyntheticRegression(N=8192, D=8).get_data(split=0)
+    X, Y = data["X"], data["Y"]
+    rng = np.random.RandomState(seed)
+    Z = X[rng.choice(X.shape[0], M, replace=False)]
+    kernels = [RBF(8) + White(8, variance=2e-6, trainable=False)
+               for _ in range(layers - 1)] + [RBF(8)]
+    cfg = Config(dtype=dtype, jitter=1e-5, solve_mode="inverse",
+                 use_pallas=True)
+    svgp = init_layers_linear(X, Y, Z, kernels, num_outputs=1, config=cfg)
+    stack = [SGPMCLayer(l.kern, l.Z.value.detach().numpy(), l.num_outputs,
+                        l.mean_function, white=True, config=cfg)
+             for l in svgp]
+    model = DGP.make(X, Y, Gaussian(0.05), stack, config=cfg, device=device)
+    return model, data
+
+
+def q_mu_only(name, param):
+    return not name.endswith("q_mu.unconstrained")
+
+
+def mc_target(model, seed):
+    """elbo at fixed draws (one (1, N, D_l) tensor a layer, seeded) plus
+    the q_mu priors, full batch."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 28)
+    N = model.X_data.shape[0]
+    zs = [torch.randn(1, N, l.num_outputs, generator=g, device="cuda")
+          for l in model.layers]
+    return lambda m: m.elbo(zs=zs) + log_prior(m)
+
+
+def mc_chains(model, logp, seed, burn, samples):
+    return HMCChains(model, logp, torch.Generator(device="cuda").manual_seed(
+        seed + 280), num_samples=samples, num_burn=burn, step_size=MC_STEP,
+        num_leapfrog=MC_LEAPFROG, freeze=q_mu_only, adapt_step_size=True)
+
+
+def phase_sgpmc_headline(seed, card, worst):
+    """28a: HMC over the 3300 inducing values of sgpmc_headline."""
+    from doubly_stochastic_dgp_tpu_torch.graphs import eager_on_card
+    t_phase = time.perf_counter()
+    model, _ = sgpmc_model(seed)
+    logp = mc_target(model, seed)
+    P = sum(p.numel() for n, p in model.named_parameters()
+            if not q_mu_only(n, p))
+    check(P == 3300, f"sgpmc_headline: {P} sampled values, not 3300")
+    # graphed against eager from one seed
+    runs = {}
+    for mode in ("graphed", "eager"):
+        chains = mc_chains(model, logp, seed, MC_COMPARE, MC_COMPARE)
+        with (eager_on_card() if mode == "eager"
+              else contextlib.nullcontext()):
+            runs[mode] = chains.run()
+    torch.cuda.synchronize()
+    a, b = runs["graphed"], runs["eager"]
+    same = torch.equal(a, b)
+    scale = b.abs().max().clamp_min(1e-30)
+    it_worst = ((a - b).abs().amax(dim=(1, 2)) / scale).cpu().numpy()
+    print(f"28a sgpmc_headline: {2 * MC_COMPARE} HMC iterations graphed vs "
+          f"eager from one seed: positions bit for bit {same}; worst "
+          f"{it_worst.max():.3e} of scale (iteration "
+          f"{int(it_worst.argmax())}, tensor 'q_mu positions')", flush=True)
+    check(same or it_worst.max() <= MC_GRAPH_VS_EAGER_RTOL,
+          f"28a: graphed and eager HMC positions differ by "
+          f"{it_worst.max()} of scale at iteration {int(it_worst.argmax())}")
+    print(f"28a graphed vs eager done at {time.perf_counter() - t_phase:.1f}"
+          f" s", flush=True)
+    # the main path: the whole chain, graphed, counts at 0 just before
+    counts0 = launch_counts()
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    chains = mc_chains(model, logp, seed, MC_BURN, MC_SAMPLES)
+    t0 = time.perf_counter()
+    qs = [chains.run_chunk()]                        # capture
+    with no_sync():
+        while chains.done < chains.total:
+            qs.append(chains.run_chunk())
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    main_counts = launch_counts()
+    set_launch_counts(counts0)
+    check(all(main_counts[n] > 0 for n in MC_GRAD),
+          f"28a: a kernel of the path did not launch: {main_counts}")
+    qs = torch.cat(qs)[:, 0]
+    check(bool(torch.isfinite(qs).all()), "28a: non-finite positions")
+    samples = qs[MC_BURN:].double().cpu().numpy()
+    ess = effective_sample_size(samples[None])
+    accept = float(chains.acc[0]) / chains.total
+    step = float(chains.da.final_step_sizes()[0])
+    check(0.0 < accept <= 1.0 and step > 0.0,
+          f"28a: accept rate {accept}, step size {step}")
+    print(f"28a main path done at {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    # launches a leapfrog: eager chunks by the counters, a replay by the
+    # profiler; the main chain continues past its samples (its step size
+    # frozen), graphed and eager chunks in turns, on its captured graph
+    rate_chain = chains
+    # (room for PROFILE_TRIES profiled chunks of each mode)
+    rate_chain.total += (CHUNK * (2 * MC_RATE_ROUNDS + PROFILE_TRIES)
+                         + PROFILE_TRIES)
+    rates = {"graphed": [], "eager": []}
+    counted = {}
+    for _ in range(MC_RATE_ROUNDS):
+        for mode in rates:
+            before = launch_counts()
+            t0 = time.perf_counter()
+            if mode == "graphed":
+                with no_sync():
+                    rate_chain.run_chunk()
+            else:
+                with eager_on_card():
+                    rate_chain.run_chunk()
+            torch.cuda.synchronize()
+            rates[mode].append(CHUNK / (time.perf_counter() - t0))
+            counted[mode] = {n: launch_counts()[n] - before[n]
+                             for n in KERNEL_NAMES}
+    check(not any(counted["graphed"].values()),
+          f"28a: a replay ticked the counters {counted['graphed']}")
+    grads = CHUNK * (MC_LEAPFROG + 1)
+    want = {n: v * grads for n, v in MC_GRAD.items()}
+    got_eager = {n: v for n, v in counted["eager"].items() if v}
+    check(got_eager == want, f"28a: an eager chunk launched {got_eager}, "
+                             f"expected {want} ({grads} gradients)")
+    prof = {}
+    # a replayed chunk of 10 iterations; eagerly one iteration (the
+    # profiler's overhead on ~8000 eager ops an iteration).  Idle share: busy against the wall of the profiled run itself (the
+    # profiler's own cost adds to that wall), and against the rate of the
+    # timed chunks (other runs: negative when the two disagree)
+    for mode, n_it in (("graphed", CHUNK), ("eager", 1)):
+        walls = []
+
+        def profiled():
+            t0 = time.perf_counter()
+            rate_chain.run_chunk(n_it)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+
+        with (eager_on_card() if mode == "eager"
+              else contextlib.nullcontext()):
+            (busy, ops, top), launched = profile_chunk(
+                profiled, n_it * (MC_LEAPFROG + 1), f"28a {mode}",
+                expect={n: want.get(n, 0) for n in KERNEL_NAMES}
+                if mode == "graphed" else None)
+        rate = statistics.median(rates[mode])
+        grads_run = n_it * (MC_LEAPFROG + 1)
+        prof[mode] = {"iterations_per_s": rate, "rates": rates[mode],
+                      "busy_ms_per_gradient": busy,
+                      "device_ops_per_gradient": ops,
+                      "profiled_wall_ms": 1e3 * walls[-1],
+                      "idle_share_profiled":
+                          1 - busy * grads_run / (1e3 * walls[-1]),
+                      "idle_share": 1 - busy * (MC_LEAPFROG + 1) * rate
+                      / 1e3,
+                      "launches_per_iteration": {
+                          n: v / n_it for n, v in launched.items() if v},
+                      "top": top}
+        idle, idle_rate = (prof[mode]["idle_share_profiled"],
+                           prof[mode]["idle_share"])
+        print(f"28a sgpmc_headline {mode}: iterations/s median of "
+              f"{MC_RATE_ROUNDS} chunks of {CHUNK} in turns {rate:.2f} "
+              f"(all: {', '.join(f'{r:.2f}' for r in rates[mode])}); device "
+              f"busy {busy:.3f} ms a gradient in {ops:.0f} device ops; idle "
+              f"share in the profiled run {idle:.3f} (its wall "
+              f"{prof[mode]['profiled_wall_ms']:.3f} ms for {grads_run} "
+              f"gradients, the profiler's cost in it), against the timed "
+              f"rate {idle_rate:.3f}"
+              f"{' (unresolved: below 0)' if idle_rate < 0 else ''}; kernel "
+              f"launches an "
+              f"iteration (profiler) {prof[mode]['launches_per_iteration']};"
+              f" top: {top} [{card}]", flush=True)
+        if mode == "graphed":
+            check({n: v for n, v in launched.items() if v} == want,
+                  f"28a: a replayed chunk launched {launched} (profiler), "
+                  f"the eager chunk {want} (counters)")
+    # the kernels on the operands of one gradient of the sampled state
+    rate_chain.target.rebuild(rate_chain.q[0])
+    shapes, gram_shapes = hold_captured_kernels(
+        "28a sgpmc_headline gradient", lambda: rate_chain.target.
+        value_and_grad(rate_chain.q[0]), seed, worst, n_fused=LAYERS)
+    rate_chain.target.rebuild(rate_chain.target.flat0)
+    check(shapes[-1][2] == 1 and all(s[0] == 7372 for s in shapes),
+          f"28a: fused calls {shapes}")
+    out = {"P": P, "graphed_vs_eager_bit_for_bit": same,
+           "graphed_vs_eager_worst": float(it_worst.max()),
+           "launches_main_path": main_counts, "chain_wall_s": wall,
+           "accept_rate": accept, "step_size": step,
+           "ess_min": float(ess.min()), "ess_median": float(np.median(ess)),
+           "launches_per_gradient": {n: v / grads for n, v in want.items()},
+           "rates": prof, "kernel_shapes": shapes, "gram_shapes": gram_shapes}
+    print(f"28a sgpmc_headline: P={P}, {MC_BURN} + {MC_SAMPLES} iterations "
+          f"of {MC_LEAPFROG} leapfrog steps graphed in {wall:.1f} s; accept "
+          f"rate {accept:.3f}, adapted step size {step:.4g}, ESS min "
+          f"{ess.min():.1f} median {np.median(ess):.1f} of {MC_SAMPLES}; "
+          f"main-path launches {main_counts}; launches a gradient "
+          f"{out['launches_per_gradient']} [{card}]", flush=True)
+    return out
+
+
+def closed_form_posterior(model):
+    """(mu, sd, Sigma) of the exactly Gaussian target over v = q_mu of a
+    single white SGPMC layer with a Gaussian likelihood, in float64 on the
+    host: Lambda = I + A A^T / s2, mu = Lambda^-1 A (y - m) / s2, A =
+    Lu^-1 Kuf, from the model's own parameters."""
+    layer = model.layers[0]
+    host = copy.deepcopy(layer).to(device="cpu", dtype=torch.float64)
+    X = model.X_data.double().cpu()
+    Y = model.Y_data.double().cpu()
+    with torch.no_grad():
+        Z = host.Z.value
+        Kuu = host.kern.K(Z) + layer.jitter * torch.eye(Z.shape[0],
+                                                        dtype=torch.float64)
+        Lu = torch.linalg.cholesky(Kuu)
+        A = torch.linalg.solve_triangular(Lu, host.kern.K(Z, X), upper=False)
+        r = (Y - host.mean_function(X))[:, 0]
+    s2 = float(model.likelihood.variance.value.detach())
+    A, r = A.numpy(), r.numpy()
+    Lam = np.eye(A.shape[0]) + A @ A.T / s2
+    Sig = np.linalg.inv(Lam)
+    mu = Sig @ A @ r / s2
+    return mu, np.sqrt(np.diag(Sig)), Sig
+
+
+def closed_form_resonance(Sig, step, L):
+    """The leapfrog trajectory's rotation in each eigen-direction of a
+    Gaussian target of covariance Sig (cos theta = 1 - step^2 / (2
+    sd^2), L steps): (the smallest distance of L theta from a whole
+    turn, the eigen-sd there).  Near 0 a fixed-length HMC chain barely
+    moves along that direction."""
+    sd = np.sqrt(np.linalg.eigvalsh(Sig))
+    theta = np.arccos(np.clip(1 - step ** 2 / (2 * sd ** 2), -1.0, 1.0))
+    off = np.abs((L * theta + np.pi) % (2 * np.pi) - np.pi)
+    return float(off.min()), float(sd[off.argmin()])
+
+
+def phase_closed_form(seed, card):
+    """28b: HMC and NUTS on the card against the closed-form posterior of
+    a single SGPMCLayer(white=True), M=100, on the 7372 headline rows."""
+    model, _ = sgpmc_model(seed, layers=1)
+    logp = mc_target(model, seed)
+    mu, sd, Sig = closed_form_posterior(model)
+    out = {"posterior_sd_min": float(sd.min()),
+           "posterior_sd_max": float(sd.max())}
+    counts0 = launch_counts()
+    for name in ("hmc", "nuts"):
+        set_launch_counts({n: 0 for n in KERNEL_NAMES})
+        g = torch.Generator(device="cuda").manual_seed(seed + 281)
+        t0 = time.perf_counter()
+        if name == "hmc":
+            burn, n = CLOSED_HMC
+            s, acc, _, info = hmc_sample(
+                model, logp, g, num_samples=n, num_burn=burn,
+                step_size=MC_STEP, num_leapfrog=CLOSED_LEAPFROG,
+                freeze=q_mu_only, adapt_step_size=True)
+            info = info._asdict()
+            info["closest_to_a_turn_rad"], info["sd_there"] = \
+                closed_form_resonance(Sig, info["step_size"],
+                                      CLOSED_LEAPFROG)
+        else:
+            burn, n = CLOSED_NUTS
+            s, acc, _, info = nuts_sample(
+                model, logp, g, num_samples=n, num_burn=burn,
+                step_size=MC_STEP, max_depth=NUTS_DEPTH, freeze=q_mu_only)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        s = s.double().cpu().numpy()
+        check(np.isfinite(s).all(), f"28b {name}: non-finite samples")
+        ess = effective_sample_size(s[None])
+        bound = 4.5 * sd.max() / np.sqrt(ess.min())
+        mean_err = np.abs(s.mean(0) - mu).max()
+        sd_err = np.abs(s.std(0) / sd - 1.0).max()
+        rec = {"wall_s": wall, "accept": acc, "ess_min": float(ess.min()),
+               "ess_median": float(np.median(ess)),
+               "max_mean_err": float(mean_err), "mean_bound": float(bound),
+               "max_sd_rel_err": float(sd_err), "launches": counts,
+               "info": {k: v for k, v in info.items() if k != "ess"}}
+        print(f"28b closed form {name}: {burn} + {n} iterations in "
+              f"{wall:.1f} s; accept {acc:.3f}; ESS min {ess.min():.1f} "
+              f"median {np.median(ess):.1f}; max |mean - mu| "
+              f"{mean_err:.4e} (bound 4.5 max sd / sqrt(ESS min) = "
+              f"{bound:.4e}); max |sd / sd_true - 1| {sd_err:.4f} (gate "
+              f"0.25); info {rec['info']}; launches {counts} [{card}]",
+              flush=True)
+        if name == "hmc":
+            check(info["closest_to_a_turn_rad"] >= RESONANCE_RAD,
+                  f"28b hmc: at the adapted step {info['step_size']} an "
+                  f"eigen-direction (sd {info['sd_there']}) turns within "
+                  f"{info['closest_to_a_turn_rad']} rad of a whole turn a "
+                  f"trajectory: fixed-length HMC resonance, under which "
+                  f"the chain mixes slowly along it and its marginal sds "
+                  f"come out wrong whatever the kernels do; the gates "
+                  f"below cannot judge this chain")
+        check(mean_err <= bound, f"28b {name}: posterior mean off by "
+                                 f"{mean_err} > {bound}")
+        check(sd_err < 0.25, f"28b {name}: marginal sds off by {sd_err}")
+        check(counts["fused_conditional"] > 0
+              and counts["fused_conditional_backward"] > 0,
+              f"28b {name}: the fused pair did not launch: {counts}")
+        if name == "nuts":
+            check(info["divergences"] == 0,
+                  f"28b nuts: {info['divergences']} post-warmup divergences")
+            print(f"28b nuts: host reads a transition "
+                  f"{info['host_reads_per_transition']:.3f} (one a "
+                  f"doubling; {info['host_reads']} in all), mean tree depth "
+                  f"{info['mean_tree_depth']:.3f}", flush=True)
+        out[name] = rec
+    set_launch_counts(counts0)
+    return out
+
+
+def heinonen_model(data, device="cuda", dtype=torch.float32):
+    """DGPHeinonen on the headline's first HEIN_N rows: tests/test_zoo.py's
+    recipe (lengthscales 0.6, inner variance 0.05, Identity mean, noise
+    0.05^2) on RBF kernels; float32, jitter 1e-5."""
+    X, Y = data["X"][:HEIN_N], data["Y"][:HEIN_N]
+    D = X.shape[1]
+    cfg = Config(dtype=dtype, jitter=1e-5)
+    layers = [GPMCLayer(RBF(D, lengthscales=0.6, variance=0.05), X, D,
+                        Identity(), config=cfg),
+              GPRLayer(RBF(D, lengthscales=0.6), Zero(1), 1, config=cfg)]
+    return DGPHeinonen.make(X, Y, Gaussian(0.05 ** 2), layers, config=cfg,
+                            device=device)
+
+
+def phase_heinonen(seed, card, worst):
+    """28c: DGPHeinonen at N=1000: NUTS over the GPMC layer's q_mu; the
+    cached server against the live one; rbf_gram on its operands."""
+    from doubly_stochastic_dgp_tpu_torch.graphs import eager_on_card
+    data = SyntheticRegression(N=8192, D=8).get_data(split=0)
+    model = heinonen_model(data)
+    counts0 = launch_counts()
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    t0 = time.perf_counter()
+    s, acc, _, info = nuts_sample(
+        model, lambda m: m.log_posterior(),
+        torch.Generator(device="cuda").manual_seed(seed + 282),
+        num_samples=HEIN_ITERS, num_burn=HEIN_ITERS, step_size=0.05,
+        max_depth=HEIN_DEPTH, freeze=q_mu_only)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    nuts_counts = launch_counts()
+    moved = float(s.std(0).max())
+    print(f"28c DGPHeinonen NUTS over {s.shape[1]} values: "
+          f"{HEIN_ITERS} + {HEIN_ITERS} transitions in {wall:.1f} s, accept "
+          f"{acc:.3f}, info {info}, samples finite "
+          f"{bool(torch.isfinite(s).all())}, largest sd {moved:.4g}; "
+          f"launches {nuts_counts} [{card}]", flush=True)
+    check(bool(torch.isfinite(s).all()) and moved > 0,
+          "28c: NUTS samples not finite or not moving")
+    check(nuts_counts["rbf_gram"] > 0, "28c: rbf_gram did not launch")
+    with torch.no_grad():
+        model.layers[0].q_mu.unconstrained.copy_(s[-1].view_as(
+            model.layers[0].q_mu.unconstrained))
+    Xq = torch.as_tensor(data["X"][HEIN_N:2 * HEIN_N], dtype=torch.float32,
+                         device="cuda")
+    served = {}
+    for name, pre in (("live", False), ("cached", True)):
+        set_launch_counts({n: 0 for n in KERNEL_NAMES})
+        serve = make_server(model, S=HEIN_S, precompute=pre)
+        a = serve(Xq, seed=5)
+        with eager_on_card():
+            b = serve(Xq, seed=5)
+        served[name] = a
+        same = all(torch.equal(x, y) for x, y in zip(a, b))
+        check(same, f"28c {name}: graphed and eager requests differ")
+        check(all(bool(torch.isfinite(t).all()) for t in a),
+              f"28c {name}: non-finite predictions")
+        lat = []
+        for i in range(LATENCY_REPS):
+            t0 = time.perf_counter()
+            with no_sync():
+                serve(Xq, seed=100 + i)
+            torch.cuda.synchronize()
+            lat.append(1e3 * (time.perf_counter() - t0))
+        served[name + "_ms"] = statistics.median(lat)
+        served[name + "_launches"] = launch_counts()
+    diff = max(float((x - y).abs().max()) for x, y in
+               zip(served["live"], served["cached"]))
+    print(f"28c DGPHeinonen {HEIN_N}-row S={HEIN_S} request: cached vs live "
+          f"{diff:.3e} (gate {HEIN_CACHED_ATOL}); graphed equal to eager; "
+          f"latency live {served['live_ms']:.3f} ms, cached "
+          f"{served['cached_ms']:.3f} ms (host clock, median of "
+          f"{LATENCY_REPS}); launches live {served['live_launches']}, "
+          f"cached {served['cached_launches']} [{card}]", flush=True)
+    check(diff <= HEIN_CACHED_ATOL, f"28c: cached vs live {diff}")
+    set_launch_counts(counts0)
+    # rbf_gram on the Kuf (1000 x 1000) of a request and the GPR K
+    _, gram_shapes = hold_captured_kernels(
+        "28c DGPHeinonen", lambda: (model.log_posterior(),
+                                    model.predict_y(Xq, S=1)),
+        seed, worst, n_fused=0)
+    check(any(s_ == (HEIN_N, HEIN_N, 8) for s_ in gram_shapes),
+          f"28c: no 1000 x 1000 gram among {gram_shapes}")
+    return {"nuts_wall_s": wall, "accept": acc,
+            "info": {k: v for k, v in info.items()},
+            "nuts_launches": nuts_counts, "cached_vs_live": diff,
+            "latency_ms": {k: served[k + "_ms"] for k in ("live", "cached")},
+            "gram_shapes": gram_shapes,
+            "launches_main_path": {
+                n: nuts_counts[n] + served["live_launches"][n]
+                + served["cached_launches"][n] for n in KERNEL_NAMES}}
+
+
+def phase_dynamic(seed, card, worst):
+    """28d: DynamicPredictor on the headline DGP of phases 2-3; the fused
+    forward and rbf_gram held under phase 1's gates on the operands each
+    bucket's request hands them."""
+    model, data = build_model(seed)
+    X = torch.as_tensor(data["X"][:BATCH], dtype=torch.float32,
+                        device="cuda")
+    Ys = torch.as_tensor(data["Y"][:BATCH], dtype=torch.float32,
+                         device="cuda")
+    counts0 = launch_counts()
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    dp = DynamicPredictor(model, buckets=DYN_BUCKETS)
+    lat = {}
+    for S_ in DYN_S:
+        got = dp.predict_y(X, S_, seed=9)
+        B_ = dp._plan(S_)[0]
+        want = make_server(model, B_, precompute=False)(X, seed=9)
+        check(all(torch.equal(a, b[:S_]) for a, b in zip(got, want)),
+              f"28d: S={S_}: the kept samples are not the first S of "
+              f"make_server's S={B_} request")
+        times = []
+        for i in range(LATENCY_REPS):
+            t0 = time.perf_counter()
+            with no_sync():
+                dp.predict_y(X, S_, seed=200 + i)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+        lat[S_] = statistics.median(times)
+    server = make_server(model, S, precompute=False)
+    times = []
+    for i in range(LATENCY_REPS):
+        t0 = time.perf_counter()
+        with no_sync():
+            server(X, seed=200 + i)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    server_ms = statistics.median(times)
+    captures = dict(dp.trace_counts)
+    density = dp.predict_density(X, Ys, 25, seed=9)
+    counts = launch_counts()
+    set_launch_counts(counts0)
+    print(f"28d DynamicPredictor, {X.shape[0]}-row predict_y at S in "
+          f"{DYN_S} over buckets {DYN_BUCKETS}: programs {captures} "
+          f"({len(captures)} captures); latency (host clock, median of "
+          f"{LATENCY_REPS}) " + ", ".join(f"S={k} {v:.3f} ms"
+                                          for k, v in lat.items())
+          + f"; make_server S={S} {server_ms:.3f} ms; predict_density "
+            f"finite {bool(torch.isfinite(density).all())}; launches "
+            f"{counts} [{card}]", flush=True)
+    check(len(captures) == len(DYN_S)
+          and all(v == 1 for v in captures.values()),
+          f"28d: captures {captures}, expected one for each of the "
+          f"{len(DYN_S)} buckets S maps to")
+    check(bool(torch.isfinite(density).all()), "28d: density not finite")
+    shapes, gram_shapes = hold_captured_kernels(
+        "28d dynamic", lambda: [dp.model.predict_y(X, S=b)
+                                for b in DYN_BUCKETS],
+        seed, worst, backward=False, n_fused=LAYERS * len(DYN_BUCKETS))
+    return {"captures": {f"{k[0]} {k[1]}": v for k, v in captures.items()},
+            "latency_ms": lat, "make_server_ms": server_ms,
+            "launches_main_path": counts, "kernel_shapes": shapes,
+            "gram_shapes": gram_shapes}
+
+
+EXPORT_CHILD = r"""
+import json, sys, torch
+import doubly_stochastic_dgp_tpu_torch.ops.cuda
+from torch.profiler import ProfilerActivity, profile
+inputs = torch.load(sys.argv[1])
+counts = {}
+for name, path, result in zip(*[iter(sys.argv[2:])] * 3):
+    module = torch.export.load(path).module()
+    out = module(inputs["X"], *inputs["zs"])
+    torch.cuda.synchronize()
+    # the program runs the same kernels every call, and the profiler can
+    # lose a record: the most that one of three profiled calls showed
+    counts[name] = {}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(8):
+                torch.ones(1, device="cuda").add_(1.0)
+            torch.cuda.synchronize()
+            module(inputs["X"], *inputs["zs"])
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type.name == "CUDA"]
+        for k in ("fused_conditional_fwd_kernel", "rbf_gram_kernel"):
+            counts[name][k] = max(counts[name].get(k, 0),
+                                  sum(e.count for e in events if k in e.key))
+    torch.save(out, result)
+print(json.dumps(counts))
+"""
+
+
+def phase_export(seed, card, worst):
+    """28e: export_predict_y of the headline DGP, live and precomputed,
+    saved, then loaded and run in one fresh process that imports only the
+    port's ops.cuda; the kernels held under phase 1's gates on the
+    operands the two models' requests hand them."""
+    from doubly_stochastic_dgp_tpu_torch.serving import predict_y_draws
+    model, data = build_model(seed)
+    X = torch.as_tensor(data["X"][:EXPORT_ROWS], dtype=torch.float32,
+                        device="cuda")
+    zs = predict_y_draws(model, EXPORT_ROWS, S,
+                         torch.Generator(device="cuda").manual_seed(seed))
+    out, args = {}, []
+    with tempfile.TemporaryDirectory() as tmp:
+        inputs = os.path.join(tmp, "inputs.pt")
+        torch.save({"X": X, "zs": zs}, inputs)
+        for name, pre in (("live", False), ("precomputed", True)):
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, f"predict_y_{name}.pt2")
+            export_predict_y(model, EXPORT_ROWS, S, path=path,
+                             precomputed=pre)
+            out[name] = {"export_s": time.perf_counter() - t0}
+            args += [name, path, os.path.join(tmp, f"out_{name}.pt")]
+        env = dict(os.environ, PYTHONPATH=os.path.dirname(
+            os.path.abspath(__file__)))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", EXPORT_CHILD, inputs,
+                               *args], capture_output=True, text=True,
+                              timeout=600, env=env)
+        child_s = time.perf_counter() - t0
+        check(proc.returncode == 0, f"28e: the loaded programs failed:\n"
+                                    f"{proc.stderr[-3000:]}")
+        prof = json.loads(proc.stdout.strip().splitlines()[-1])
+        models = {"live": model, "precomputed": precompute(model)}
+        for name, pre in (("live", False), ("precomputed", True)):
+            got = torch.load(os.path.join(tmp, f"out_{name}.pt"))
+            src = models[name]
+            want = src.predict_y(X, S=S, zs=zs)
+            scale = max(float(w.abs().max()) for w in want)
+            err = max(float((g - w).abs().max())
+                      for g, w in zip(got, want)) / max(scale, 1.0)
+            same = all(torch.equal(g, w) for g, w in zip(got, want))
+            print(f"28e export {name}: {EXPORT_ROWS}-row S={S} predict_y "
+                  f"exported in {out[name]['export_s']:.1f} s, loaded and "
+                  f"run in a fresh process ({child_s:.1f} s for both): "
+                  f"equal to the model bit for bit {same}, worst "
+                  f"{err:.3e} of scale (gate {EXPORT_RTOL}); device launches "
+                  f"in the loaded program (profiler) {prof[name]} "
+                  f"[{card}]", flush=True)
+            check(same or err <= EXPORT_RTOL,
+                  f"28e {name}: the loaded program differs by {err}")
+            check(pre or prof[name]["fused_conditional_fwd_kernel"]
+                  == LAYERS,
+                  f"28e {name}: the loaded program launched the fused "
+                  f"forward {prof[name]['fused_conditional_fwd_kernel']} "
+                  f"times, not {LAYERS}")
+            out[name].update(bit_for_bit=same, rel_err=err,
+                             device_launches=prof[name])
+        out["child_s"] = child_s
+    out["kernel_shapes"], out["gram_shapes"] = hold_captured_kernels(
+        "28e export", lambda: [m.predict_y(X, S=S, zs=zs)
+                               for m in models.values()],
+        seed, worst, backward=False, n_fused=LAYERS)
+    return out
+
+
+def phase_mcmc(seed, card):
+    """Phase 28: 28a-28e; the worst kernel errors on their operands."""
+    worst = kernel_worst()
+    t0 = time.perf_counter()
+    out = {"sgpmc_headline": phase_sgpmc_headline(seed, card, worst)}
+    print(f"28a done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["closed_form"] = phase_closed_form(seed, card)
+    print(f"28b done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["heinonen"] = phase_heinonen(seed, card, worst)
+    print(f"28c done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["dynamic"] = phase_dynamic(seed, card, worst)
+    print(f"28d done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["export"] = phase_export(seed, card, worst)
+    print(f"28e done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["kernel_errs"] = worst
+    out["wall_s"] = time.perf_counter() - t0
     return out
 
 
@@ -5130,6 +5865,14 @@ def main():
     lap(26)
     natgrad = phase_natgrad_baselines(args.seed, card, collapsed)
     lap(27)
+    mcmc = phase_mcmc(args.seed, card)
+    lap(28)
+    mcmc_launches = {
+        "sgpmc_headline": mcmc["sgpmc_headline"]["launches_main_path"],
+        "closed_form_hmc": mcmc["closed_form"]["hmc"]["launches"],
+        "closed_form_nuts": mcmc["closed_form"]["nuts"]["launches"],
+        "heinonen": mcmc["heinonen"]["launches_main_path"],
+        "dynamic": mcmc["dynamic"]["launches_main_path"]}
     natgrad_launches = {
         "natgrad_fit": natgrad["natgrad"]["launches_fit"],
         "gamma1": natgrad["gamma1"]["launches_main_path"],
@@ -5187,6 +5930,14 @@ def main():
             rec["natgrad_max_rel_err"] = ng_errs[1]
             rec["natgrad_max_rel_err_vs_f64"] = ng_errs[2]
             rec["natgrad_plain_max_rel_err_vs_f64"] = ng_errs[3]
+        # phase 28: each sub-phase's main-path launches
+        rec["mcmc_launches"] = {label: c[name]
+                                for label, c in mcmc_launches.items()}
+        if name in mcmc["kernel_errs"]:
+            mc_errs = mcmc["kernel_errs"][name]
+            rec["mcmc_max_rel_err"] = mc_errs[1]
+            rec["mcmc_max_rel_err_vs_f64"] = mc_errs[2]
+            rec["mcmc_plain_max_rel_err_vs_f64"] = mc_errs[3]
         if name in extra_errs:
             rec["extra_max_rel_err"] = extra_errs[name][1]
             rec["extra_max_rel_err_vs_f64"] = extra_errs[name][2]
@@ -5214,6 +5965,7 @@ def main():
                       "checkpoint_resume": resume,
                       "mnist": mnist, "extra_models": extra,
                       "natgrad_baselines": natgrad,
+                      "mcmc": mcmc,
                       "fused_forward_precision": precision,
                       "card": card}))
     print(json.dumps({"kernels": records}))

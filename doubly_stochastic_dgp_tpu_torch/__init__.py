@@ -23,7 +23,13 @@ training set under the reject-nonfinite guard; natural-gradient steps
 (``NaturalGradient``, ``fit(natgrad_gamma=, ng_layers=)``: NatGrad and Adam
 in turns), L-BFGS (``lbfgs_minimize``), the single-layer baselines
 (``SVGP``, ``GPR``, ``SGPR``, ``GPRFITC``, on ``GPRLayer`` and
-``SGPRLayer``) and the serving cache of every family but ``GPMCLayer``'s.
+``SGPRLayer``) and the serving cache of every family; MCMC over the
+inducing values of ``SGPMCLayer`` stacks and over the ``GPMCLayer`` of
+``DGPHeinonen`` (``hmc_sample``, ``nuts_sample`` and their multi-chain
+forms, as captured graphs on the card, with ``potential_scale_reduction``
+and ``effective_sample_size``); call-time sample counts
+(``DynamicPredictor``) and exported prediction programs
+(``export_predict_y``, ``load_exported``, through ``torch.export``).
 The fused staged
 conditional and the psi2 data sum run as hand-written CUDA kernels,
 forward and backward, the conditional also with a save-gram variant, and
@@ -40,8 +46,10 @@ from .data.datasets import (Datasets, SyntheticRegression, load_mnist_npz,
 from .models.damianou import DGPDamianou
 from .models.dgp import DGP, DGPBase, DGPQuad
 from .models.initializations import init_layers_input_prop, init_layers_linear
-from .models.layers import GPRLayer, SGPRLayer, SVGPLayer
-from .models.zoo import DGPCollapsed, DGPHeteroscedastic
+from .models.dynamic import DynamicPredictor
+from .models.layers import (GPMCLayer, GPRLayer, SGPMCLayer, SGPRLayer,
+                            SVGPLayer)
+from .models.zoo import DGPCollapsed, DGPHeinonen, DGPHeteroscedastic
 from .models.mean_functions import Constant as ConstantMean
 from .models.mean_functions import Identity, Linear, Zero
 from .models.posterior import (CachedSingleLayerGP, CachedSVGPLayer,
@@ -56,7 +64,10 @@ from .ops.kernels import (RBF, ArcCosine, Constant, Cosine, Kernel,
 from .ops.likelihoods import (Bernoulli, Beta, Exponential, Gamma, Gaussian,
                               Likelihood, MultiClass, Ordinal, Poisson,
                               StudentT)
-from .serving import make_server
+from .serving import export_fn, export_predict_y, load_exported, make_server
+from .training.hmc import (effective_sample_size, hmc_sample,
+                           hmc_sample_chains, potential_scale_reduction)
+from .training.nuts import nuts_sample, nuts_sample_chains
 from .training.loop import (evaluate_classification, evaluate_regression,
                             fit, make_natgrad_adam_step)
 from .training.natgrad import NaturalGradient, natgrad_update
@@ -67,9 +78,9 @@ __all__ = [
     "Config", "resolve_device", "load_reference_state",
     "SyntheticRegression", "Datasets", "load_mnist_npz",
     "make_synthetic_regression", "DGP", "DGPBase", "DGPQuad",
-    "DGPCollapsed", "DGPHeteroscedastic", "DGPDamianou",
+    "DGPCollapsed", "DGPHeteroscedastic", "DGPDamianou", "DGPHeinonen",
     "init_layers_linear", "init_layers_input_prop", "SVGPLayer",
-    "SGPRLayer", "GPRLayer", "SVGP", "GPR", "SGPR", "GPRFITC", "Identity",
+    "SGPMCLayer", "GPMCLayer", "SGPRLayer", "GPRLayer", "SVGP", "GPR", "SGPR", "GPRFITC", "Identity",
     "Linear", "Zero", "ConstantMean", "CachedSVGPLayer",
     "CachedSingleLayerGP", "precompute", "fused_conditional",
     "fused_conditional_saved", "psi2_core", "Kernel", "RBF", "Matern12",
@@ -79,5 +90,8 @@ __all__ = [
     "Exponential", "StudentT", "Gamma", "Beta", "Ordinal", "make_server",
     "evaluate_regression", "evaluate_classification", "fit", "log_prior",
     "NaturalGradient", "natgrad_update", "make_natgrad_adam_step",
-    "lbfgs_minimize", "make_train_step",
+    "lbfgs_minimize", "make_train_step", "DynamicPredictor", "export_fn",
+    "export_predict_y", "load_exported", "hmc_sample", "hmc_sample_chains",
+    "nuts_sample", "nuts_sample_chains", "potential_scale_reduction",
+    "effective_sample_size",
 ]

@@ -9,8 +9,11 @@ model whose parameter and buffer names follow the JAX fields is covered:
 ``DGPHeteroscedastic``, ``DGPQuad`` (also its grids ``gh_x[i]`` and
 weights ``gh_w``), ``DGPCollapsed`` (SVGP layers and an ``SGPRLayer``'s
 ``Z`` and ``kern``) and ``DGPDamianou`` (also ``h_mean[l]``,
-``h_var[l]`` and ``noise[l]``), on every kernel, ``Sum`` and ``Product``
-and every mean function (``Constant``'s ``c``).
+``h_var[l]`` and ``noise[l]``), ``DGPHeinonen`` (a ``GPMCLayer``'s
+``X_fixed`` and ``Lu`` buffers and its (N, D) ``q_mu``, then a
+``GPRLayer``), and stacks of ``SGPMCLayer`` (no ``q_sqrt`` key), on every
+kernel, ``Sum`` and ``Product`` and every mean function (``Constant``'s
+``c``).
 """
 
 from __future__ import annotations

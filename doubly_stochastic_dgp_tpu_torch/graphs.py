@@ -10,9 +10,11 @@ eagerly, and so does the card inside :func:`eager_on_card`, the
 reference for measurements, which the package itself never enters.
 
 A graph must not draw random numbers (it would bake in the generator's
-state at capture).  The code that draws calls :func:`randn` and
-:func:`randint`, which take a ``torch.Generator`` or a :class:`DrawTape`
-in its place: the tape notes the draws of an eager warm-up, hands the
+state at capture).  The code that draws calls :func:`randn`, :func:`rand`
+and :func:`randint`, which take a ``torch.Generator`` or a draw source in
+its place, an object with :meth:`DrawTape.draw`'s signature (a
+:class:`DrawTape`, or a test's source that replays another package's
+draws): the tape notes the draws of an eager warm-up, hands the
 capture static buffers in their place, and before each replay draws into
 those buffers from the caller's generator in the noted order, which is
 the eager order.  A graphed call thus sees the numbers of the eager call
@@ -34,8 +36,8 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 
-__all__ = ["eager_on_card", "graphs_enabled", "DrawTape", "randn", "randint",
-           "CapturedCall", "no_host_reads"]
+__all__ = ["eager_on_card", "graphs_enabled", "DrawTape", "randn", "rand",
+           "randint", "CapturedCall", "no_host_reads"]
 
 _eager = False
 
@@ -97,29 +99,41 @@ class DrawTape:
 
 def _draw(entry, generator, out=None):
     kind, shape, dtype, device, high = entry
-    if kind == "randn":
+    if kind in ("randn", "rand"):
+        f = torch.randn if kind == "randn" else torch.rand
         if out is not None:
-            return torch.randn(shape, generator=generator, out=out)
-        return torch.randn(shape, generator=generator, dtype=dtype,
-                           device=device)
+            return f(shape, generator=generator, out=out)
+        return f(shape, generator=generator, dtype=dtype, device=device)
     if out is not None:
         return torch.randint(0, high, shape, generator=generator, out=out)
     return torch.randint(0, high, shape, generator=generator, dtype=dtype,
                          device=device)
 
 
+def _is_source(generator):
+    return not isinstance(generator, torch.Generator) and hasattr(
+        generator, "draw")
+
+
 def randn(shape, generator, dtype, device):
-    """Unit normals from a ``torch.Generator`` or a :class:`DrawTape`."""
-    if isinstance(generator, DrawTape):
+    """Unit normals from a ``torch.Generator`` or a draw source."""
+    if _is_source(generator):
         return generator.draw("randn", shape, dtype, device)
     return torch.randn(shape, generator=generator, dtype=dtype,
                        device=device)
 
 
+def rand(shape, generator, dtype, device):
+    """Uniforms on [0, 1) from a ``torch.Generator`` or a draw source."""
+    if _is_source(generator):
+        return generator.draw("rand", shape, dtype, device)
+    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+
 def randint(high, shape, generator, device):
     """int64 draws uniform on [0, high) from a ``torch.Generator`` or a
-    :class:`DrawTape`."""
-    if isinstance(generator, DrawTape):
+    draw source."""
+    if _is_source(generator):
         return generator.draw("randint", shape, torch.int64, device, high)
     return torch.randint(0, high, shape, generator=generator, device=device)
 

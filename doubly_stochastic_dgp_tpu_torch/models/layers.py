@@ -1,10 +1,12 @@
 """The SVGP layer of the main path: multisample conditionals, sampling,
 the sparse conditional on its three branches (diagonal and full
-covariance) and the KL term.
+covariance) and the KL term; the MCMC layers (``SGPMCLayer``,
+``GPMCLayer``); the collapsed layers.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/models/layers.py``
-(``Layer``, ``_fusable_rbf``, the build-time host helpers and
-``SVGPLayer``).  ``conditional_ND`` has three branches:
+(``Layer``, ``_fusable_rbf``, the build-time host helpers,
+``SVGPLayer``, ``SGPMCLayer``, ``GPMCLayer``, ``GPRLayer``,
+``SGPRLayer``).  ``conditional_ND`` has three branches:
 
 - the fused branch (``use_pallas=True``, an RBF(+White) kernel and the
   diagonal): staging factors LiT = Lu^{-T}, alpha = Li q_mu and W = Li SK
@@ -55,8 +57,8 @@ from ..ops.psi_stats import psi_statistics
 from ..utils.params import Param
 from .mean_functions import Zero
 
-__all__ = ["Layer", "SVGPLayer", "CollapsedData", "CollapsedLayer",
-           "GPRLayer", "SGPRLayer"]
+__all__ = ["Layer", "SVGPLayer", "SGPMCLayer", "GPMCLayer", "CollapsedData",
+           "CollapsedLayer", "GPRLayer", "SGPRLayer"]
 
 
 class Layer(nn.Module):
@@ -189,7 +191,12 @@ class SVGPLayer(Layer):
     """Sparse variational GP layer: kernel, inducing inputs Z (M, D_in),
     q_mu (M, D_out), lower-triangular q_sqrt (D_out, M, M), mean function,
     the whitening flag and ``input_prop_dim`` (None: no input
-    propagation).  Numerics fields are snapshotted from ``config``."""
+    propagation).  Numerics fields are snapshotted from ``config``.  A
+    subclass without a ``q_sqrt`` (``SGPMCLayer``: q(u) is a point mass)
+    gets the (1, M, M) covariance core -{I | Ku} and a 1-column variance
+    on every branch but the fused one, which gives (B, D_out)."""
+
+    _has_q_sqrt = True
 
     def __init__(self, kern, Z, num_outputs, mean_function=None,
                  white=False, input_prop_dim=None, config=Config()):
@@ -212,8 +219,9 @@ class SVGPLayer(Layer):
         self.precision = config.precision
         self.Z = Param(Z)
         self.q_mu = Param(np.zeros((M, num_outputs)))
-        self.q_sqrt = Param(_init_q_sqrt(Z, kern, num_outputs, white,
-                                         self.jitter), "triangular")
+        self.q_sqrt = (Param(_init_q_sqrt(Z, kern, num_outputs, white,
+                                          self.jitter), "triangular")
+                       if self._has_q_sqrt else None)
 
     @property
     def num_outputs(self):
@@ -228,9 +236,12 @@ class SVGPLayer(Layer):
         return add_jitter(K, self.jitter), safe_cholesky(K, self.jitter)
 
     def _SK(self, Ku):
-        """q_sqrt q_sqrt^T - {I | Ku}: the (D, M, M) covariance core."""
+        """q_sqrt q_sqrt^T - {I | Ku}: the (D, M, M) covariance core, or
+        (1, M, M) without a q_sqrt."""
         I = torch.eye(self.num_inducing, dtype=Ku.dtype, device=Ku.device)
         SK = -I[None] if self.white else -Ku[None]
+        if self.q_sqrt is None:
+            return SK
         q_sqrt = self.q_sqrt.value
         return SK + torch.einsum("dij,dkj->dik", q_sqrt, q_sqrt)
 
@@ -247,17 +258,22 @@ class SVGPLayer(Layer):
         _, Lu = self._chol_Kuu()
         Li = inv_lower(Lu)
         G = Li @ Kuf                                            # (M, B)
+        q_sqrt = None if self.q_sqrt is None else self.q_sqrt.value
         if self.white:
-            alpha, C = self.q_mu.value, self.q_sqrt.value
+            alpha, C = self.q_mu.value, q_sqrt
         else:
             alpha = Li @ self.q_mu.value                        # (M, D)
-            C = torch.einsum("ij,djk->dik", Li, self.q_sqrt.value)
+            C = (None if q_sqrt is None
+                 else torch.einsum("ij,djk->dik", Li, q_sqrt))
         mean = G.T @ alpha                                      # (B, D)
         resid = self.kern.Kdiag(X) - torch.sum(G * G, dim=0)    # (B,)
-        D_, M_, _ = C.shape
-        CT = C.transpose(-1, -2).reshape(D_ * M_, M_)
-        H = (CT @ G).reshape(D_, M_, G.shape[1])                # (D, M, B)
-        var = resid[:, None] + torch.sum(H * H, dim=1).T
+        if C is None:
+            var = resid[:, None]                                # (B, 1)
+        else:
+            D_, M_, _ = C.shape
+            CT = C.transpose(-1, -2).reshape(D_ * M_, M_)
+            H = (CT @ G).reshape(D_, M_, G.shape[1])            # (D, M, B)
+            var = resid[:, None] + torch.sum(H * H, dim=1).T
         var = torch.clamp(var, min=0.0)
         return mean + self.mean_function(X), var
 
@@ -271,7 +287,7 @@ class SVGPLayer(Layer):
             A = tri_solve(Lu, A, lower=True, trans=True,
                           mode=self.solve_mode)                 # Ku^{-1} Kuf
         mean = A.T @ self.q_mu.value                            # (B, D)
-        B = torch.einsum("dij,jb->dib", SK, A)                  # (D, M, B)
+        B = torch.einsum("dij,jb->dib", SK, A)                  # (D|1, M, B)
         if full_cov:
             delta = torch.einsum("ib,dic->dbc", A, B)           # (D, B, B)
             var = (self.kern.K(X)[None] + delta).permute(1, 2, 0)
@@ -293,7 +309,11 @@ class SVGPLayer(Layer):
             alpha, W = self.q_mu.value, SK
         else:
             alpha = Li @ self.q_mu.value                        # (M, D)
-            W = (Li @ SK) @ Li.T                                # (D, M, M)
+            W = (Li @ SK) @ Li.T                                # (D|1, M, M)
+        if W.shape[0] != alpha.shape[1]:
+            # no q_sqrt: the broadcast (1, M, M) core, one per output for
+            # the kernel; autograd sums its W gradient over the outputs
+            W = W.expand(alpha.shape[1], -1, -1)
         ls = rbf.lengthscales.value
         kvar = rbf.variance.value
         kdiag = kvar if white_var is None else kvar + white_var
@@ -306,12 +326,83 @@ class SVGPLayer(Layer):
         return mean + self.mean_function(X), var
 
     def KL(self):
-        """Analytic KL(q(u) || p(u)), summed over output dims."""
+        """Analytic KL(q(u) || p(u)), summed over output dims; 0 without a
+        q_sqrt (the prior then enters through ``log_prior``)."""
+        if self.q_sqrt is None:
+            return torch.zeros((), dtype=self.q_mu.unconstrained.dtype,
+                               device=self.q_mu.unconstrained.device)
         q_mu, q_sqrt = self.q_mu.value, self.q_sqrt.value
         if self.white:
             return gauss_kl_white(q_mu, q_sqrt)
         _, Lu = self._chol_Kuu()
         return gauss_kl_nonwhite(q_mu, q_sqrt, Lu)
+
+
+class SGPMCLayer(SVGPLayer):
+    """Sparse layer for MCMC over the inducing values: no q_sqrt, a unit
+    Gaussian prior on q_mu, ``KL() == 0`` (the prior enters the sampler's
+    target through ``log_prior``)."""
+
+    _has_q_sqrt = False
+
+    def __init__(self, kern, Z, num_outputs, mean_function=None,
+                 white=False, input_prop_dim=None, config=Config()):
+        super().__init__(kern, Z, num_outputs, mean_function, white,
+                         input_prop_dim, config)
+        self.q_mu.prior = ("gaussian", 0.0, 1.0)
+
+
+class GPMCLayer(Layer):
+    """Dense layer on fixed inputs X (N, D_in) for MCMC: buffers
+    ``X_fixed`` and ``Lu`` = chol(K(X) + jitter I), computed on the host in
+    float64 at build time; q_mu (N, D_out) carries a unit Gaussian prior.
+    Its latents at X are the deterministic ``build_latents``, and at new
+    inputs the whitened dense conditional.  Numerics fields (``jitter``,
+    ``solve_mode``) are snapshotted from ``config``."""
+
+    def __init__(self, kern, X, num_outputs, mean_function=None,
+                 input_prop_dim=None, config=Config()):
+        super().__init__()
+        X = np.asarray(X, dtype=np.float64)
+        self.kern = kern
+        self.mean_function = (Zero(num_outputs) if mean_function is None
+                              else mean_function)
+        self.num_outputs_ = int(num_outputs)
+        self.input_prop_dim = input_prop_dim
+        self.jitter = float(config.jitter)
+        self.solve_mode = config.solve_mode
+        Lu = _host_cholesky(_host_gram(kern, X), self.jitter)
+        self.register_buffer("X_fixed", torch.as_tensor(X))
+        self.register_buffer("Lu", torch.as_tensor(Lu))
+        self.q_mu = Param(np.zeros((X.shape[0], num_outputs)),
+                          prior=("gaussian", 0.0, 1.0))
+
+    @property
+    def num_outputs(self):
+        return self.num_outputs_
+
+    def build_latents(self):
+        """The latents at X: Lu q_mu + m(X), (N, D_out), with the first
+        ``input_prop_dim`` columns of X in front."""
+        f = self.Lu @ self.q_mu.value + self.mean_function(self.X_fixed)
+        if self.input_prop_dim:
+            f = torch.cat([self.X_fixed[:, :self.input_prop_dim], f], dim=1)
+        return f
+
+    def conditional_ND(self, X, full_cov=False):
+        """Whitened dense conditional with q_sqrt None at X (B, D_in): A =
+        Lu^{-1} K(X_fixed, X), mean A^T q_mu + m(X), var K(X) - A^T A
+        (diagonal clamped at 0) repeated over the outputs."""
+        Kuf = self.kern.K(self.X_fixed, X)                      # (N, B)
+        A = tri_solve(self.Lu, Kuf, lower=True, mode=self.solve_mode)
+        mean = A.T @ self.q_mu.value + self.mean_function(X)
+        D = self.num_outputs
+        if full_cov:
+            var = self.kern.K(X) - A.T @ A                      # (B, B)
+            return mean, var[:, :, None].expand(-1, -1, D)
+        var = torch.clamp(self.kern.Kdiag(X) - torch.sum(A ** 2, dim=0),
+                          min=0.0)
+        return mean, var[:, None].expand(-1, D)
 
 
 class CollapsedData(NamedTuple):

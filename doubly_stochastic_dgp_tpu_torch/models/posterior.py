@@ -11,7 +11,8 @@ with ``full_cov``, K(X) - G^T G + H^T H per output.  The factors of each
 layer kind:
 
     SVGP   Li = Lu^-1, alpha = Li q_mu (q_mu if white), C = Li q_sqrt
-           (q_sqrt if white)
+           (q_sqrt if white; None for an SGPMC layer, which has none)
+    GPMC   Z = X_fixed, Li = Lu^-1, alpha = q_mu, C None
     GPR    Z = X_data, Li = chol(Knn + sigma^2 I)^-1, alpha = Li (Y -
            m(X)), C None
     SGPR   (and FITC) Li = L^-1, alpha = LB^-T c, C = LB^-T: the
@@ -36,9 +37,9 @@ from torch import nn
 from ..ops.linalg import inv_lower
 from .damianou import DGPDamianou
 from .dgp import DGPBase
-from .layers import GPRLayer, Layer, SGPRLayer, SVGPLayer
+from .layers import GPMCLayer, GPRLayer, Layer, SGPRLayer, SVGPLayer
 from .single_layer import DeterministicPredictions, GPR, GPRFITC, SGPR
-from .zoo import DGPCollapsed
+from .zoo import DGPCollapsed, DGPHeinonen
 
 __all__ = ["CachedSVGPLayer", "CachedSingleLayerGP", "precompute"]
 
@@ -154,17 +155,32 @@ def _snapshot(t):
 def _cache_svgp(layer: SVGPLayer) -> CachedSVGPLayer:
     _, Lu = layer._chol_Kuu()
     Li = inv_lower(Lu)
+    q_sqrt = None if layer.q_sqrt is None else layer.q_sqrt.value
     if layer.white:
-        alpha, C = layer.q_mu.value, layer.q_sqrt.value
+        alpha, C = layer.q_mu.value, q_sqrt
     else:
         alpha = Li @ layer.q_mu.value
-        C = torch.einsum("ij,djk->dik", Li, layer.q_sqrt.value)
+        C = (None if q_sqrt is None
+             else torch.einsum("ij,djk->dik", Li, q_sqrt))
     return CachedSVGPLayer(
         kern=_frozen(layer.kern), Z=_snapshot(layer.Z.value), Li=Li,
-        alpha=_snapshot(alpha), C=_snapshot(C),
+        alpha=_snapshot(alpha), C=None if C is None else _snapshot(C),
         mean_function=_frozen(layer.mean_function),
         num_outputs=layer.num_outputs, jitter=layer.jitter,
         input_prop_dim=layer.input_prop_dim)
+
+
+@torch.no_grad()
+def _cache_gpmc(layer: GPMCLayer) -> CachedSVGPLayer:
+    """The whitened dense conditional is the SVGP cache with Z = X_fixed,
+    Li = Lu^-1, alpha = q_mu and no C; its variance is repeated to the
+    outputs (``tile_var``)."""
+    return CachedSVGPLayer(
+        kern=_frozen(layer.kern), Z=_snapshot(layer.X_fixed),
+        Li=inv_lower(layer.Lu), alpha=_snapshot(layer.q_mu.value), C=None,
+        mean_function=_frozen(layer.mean_function),
+        num_outputs=layer.num_outputs, jitter=layer.jitter,
+        input_prop_dim=layer.input_prop_dim, tile_var=True)
 
 
 def _cache_gpr(layer: GPRLayer) -> CachedSVGPLayer:
@@ -218,6 +234,8 @@ def _cache_fitc(model: GPRFITC) -> CachedSingleLayerGP:
 def _cache_any(layer):
     if isinstance(layer, SVGPLayer):
         return _cache_svgp(layer)
+    if isinstance(layer, GPMCLayer):
+        return _cache_gpmc(layer)
     if isinstance(layer, CachedSVGPLayer):
         return layer
     raise NotImplementedError(
@@ -243,7 +261,8 @@ def precompute(model, generator=None, zs=None):
     - ``GPR``, ``SGPR``, ``GPRFITC``: a :class:`CachedSingleLayerGP`.
     - ``DGPDamianou``: every collapsed layer cached from its q(H) data,
       the inner ones carrying sigma_l^2; a generic ``DGPBase``.
-    - ``DGPCollapsed``: the inner SVGP layers cached, and the collapsed
+    - ``DGPCollapsed`` and ``DGPHeinonen``: the inner SVGP (or GPMC)
+      layers cached, and the collapsed
       last layer snapshotted from the inner propagation of the training
       inputs, drawn from ``generator`` (default: seeded with 0) unless
       ``zs`` fixes it; a generic ``DGPBase``.  With more than one
@@ -267,7 +286,8 @@ def precompute(model, generator=None, zs=None):
                                         else None))
             for l, lay in enumerate(model._data_layers())])
     if isinstance(model, DGPCollapsed):
-        if generator is None and zs is None and len(model.layers) > 2:
+        if (generator is None and zs is None and len(model.layers) > 2
+                and not isinstance(model, DGPHeinonen)):
             warnings.warn(
                 "precompute(DGPCollapsed with >1 stochastic inner layer): "
                 "the cached collapsed factorization freezes a single "

@@ -9,7 +9,8 @@ layer, whose uncertain-input Titsias bound (psi statistics) is the
 objective, less the inner layers' KL terms.  ``DGPHeteroscedastic``: the
 final layer has a mean head and a log-noise head for each target, and
 the noise head's expectation is taken by Gauss-Hermite quadrature.
-``DGPHeinonen`` is not ported yet (ROADMAP A15).
+``DGPHeinonen``: the dense 2-layer model for MCMC, a ``GPMCLayer`` whose
+deterministic latents at the training inputs feed an exact ``GPRLayer``.
 """
 
 from __future__ import annotations
@@ -20,12 +21,14 @@ import numpy as np
 import torch
 
 from ..config import Config, resolve_device
+from ..ops.likelihoods import Gaussian
 from ..ops.quadrature import ndiagquad
+from ..utils.params import log_prior
 from .dgp import DGP, DGPBase
 from .initializations import init_layers_linear
-from .layers import SGPRLayer
+from .layers import GPMCLayer, GPRLayer, SGPRLayer
 
-__all__ = ["DGPCollapsed", "DGPHeteroscedastic"]
+__all__ = ["DGPCollapsed", "DGPHeinonen", "DGPHeteroscedastic"]
 
 
 class DGPCollapsed(DGPBase):
@@ -89,6 +92,39 @@ class DGPCollapsed(DGPBase):
         last = self._collapsed_last_layer(generator, zs)
         KL = sum(layer.KL() for layer in self.layers[:-1])
         return last.build_likelihood() - KL
+
+
+class DGPHeinonen(DGPCollapsed):
+    """Dense 2-layer non-stationary GP (Heinonen et al. 2016) for MCMC: the
+    inner propagation is the ``GPMCLayer``'s deterministic
+    ``build_latents``, the final layer exact GPR on them.  Gaussian
+    likelihood, no minibatching."""
+
+    @classmethod
+    def make(cls, X, Y, likelihood, layers, **kwargs):
+        assert len(layers) == 2
+        assert isinstance(likelihood, Gaussian)
+        assert isinstance(layers[0], GPMCLayer)
+        assert isinstance(layers[1], GPRLayer)
+        return super().make(X, Y, likelihood, layers, **kwargs)
+
+    def inner_layers_propagate(self, X, generator=None, S=1, zs=None,
+                               full_cov=False):
+        f = self.layers[0].build_latents()[None]
+        return [f], [f], [torch.zeros_like(f)]
+
+    def _collapsed_last_layer(self, generator=None, zs=None):
+        """The GPR layer on the latents at the training inputs; their
+        propagation draws nothing, so no generator is made (a capture
+        could not make one)."""
+        f = self.layers[0].build_latents()
+        return self.layers[-1].set_data(f, torch.zeros_like(f), self.Y_data,
+                                        self.likelihood.variance.value)
+
+    def log_posterior(self, generator=None):
+        """The MCMC target: the exact marginal likelihood on the latents
+        plus the parameters' priors (the q_mu unit Gaussians)."""
+        return self.elbo(generator=generator) + log_prior(self.layers)
 
 
 def _softplus(G):

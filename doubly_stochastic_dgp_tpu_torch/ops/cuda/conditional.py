@@ -31,7 +31,10 @@ B (:func:`backward_plan`).  dkvar and dkdiag come from the saved forward
 outputs (``_scalar_grads``, as in the JAX package).
 
 Routing: a CPU tensor takes the plain versions (forward and backward); a
-CUDA tensor launches the kernels or raises — there is no fallback.
+CUDA tensor launches the kernels or raises — there is no fallback.  The
+forward is the registered op ``torch.ops.dsdgp.fused_conditional_fwd``
+(with a shape function for tracing), so ``torch.export`` carries it into
+an exported program, which then runs the kernel on the card.
 Launch counters: ``fused_conditional.launches`` and
 ``fused_conditional.backward_launches`` count the plain variant's forward
 and backward kernel launches, ``fused_conditional_saved.launches`` and
@@ -126,11 +129,33 @@ def fused_conditional_forward(Xs, Zs, LiT, alpha, W, kvar, kdiag,
     forward kernel (or its save-gram variant) for CUDA tensors.  Not
     differentiable: :func:`fused_conditional` is."""
     kvar, kdiag = _scalars(kvar, kdiag, Xs)
+    mean, var, K = torch.ops.dsdgp.fused_conditional_fwd(
+        Xs, Zs, LiT, alpha, W, kvar, kdiag, bool(save_gram))
+    return mean, var, (K if save_gram else None)
+
+
+@torch.library.custom_op("dsdgp::fused_conditional_fwd", mutates_args=())
+def _fwd_op(Xs: torch.Tensor, Zs: torch.Tensor, LiT: torch.Tensor,
+            alpha: torch.Tensor, W: torch.Tensor, kvar: torch.Tensor,
+            kdiag: torch.Tensor, save_gram: bool
+            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The forward as a registered op (so ``torch.export`` can carry it):
+    the plain version on the CPU, the kernel on CUDA; K is (B, M) with
+    ``save_gram``, else empty."""
     if _on_cpu(Xs):
         mean, var, K = fused_conditional_saved_plain(Xs, Zs, LiT, alpha, W,
                                                      kvar, kdiag)
-        return mean, var, (K if save_gram else None)
-    return _forward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, save_gram)
+    else:
+        mean, var, K = _forward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag,
+                                       save_gram)
+    return mean, var, (K if save_gram else Xs.new_empty(0))
+
+
+@_fwd_op.register_fake
+def _(Xs, Zs, LiT, alpha, W, kvar, kdiag, save_gram):
+    B, M, Do = Xs.shape[0], Zs.shape[0], alpha.shape[1]
+    return (Xs.new_empty(B, Do), Xs.new_empty(B, Do),
+            Xs.new_empty(B, M) if save_gram else Xs.new_empty(0))
 
 
 def fused_conditional_backward(Xs, Zs, LiT, alpha, W, kvar, kdiag, mean,

@@ -22,7 +22,9 @@ JAX ``_bwd`` closed form on the saved K, as torch ops on either device:
 it sits outside the Pallas kernel in JAX too.
 
 Routing: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises: there is no fallback.  ``rbf_gram.launches`` counts the
+kernel or raises: there is no fallback.  Both go through the registered
+op ``torch.ops.dsdgp.rbf_gram`` (with a shape function for tracing), so
+``torch.export`` carries the gram into an exported program.  ``rbf_gram.launches`` counts the
 kernel's launches.  Inside :func:`plain_on_card` CUDA tensors take the
 plain version: a reference for measurements, which the package itself
 never enters.
@@ -186,19 +188,34 @@ def rbf_gram_kernel(X, Z, lengthscales, variance, fast_exp=FAST_EXP):
 
 
 def _forward(X, Z, lengthscales, variance):
-    if X.device.type == "cpu" or (X.device.type == "cuda"
-                                  and rbf_gram.plain_on_card):
+    if X.device.type == "cuda" and rbf_gram.plain_on_card:
         return rbf_gram_plain(X, Z, lengthscales, variance)
-    if X.device.type != "cuda":
+    if X.device.type not in ("cpu", "cuda"):
         raise ValueError(f"rbf_gram: unsupported device {X.device}")
-    # rbf_gram checked the shapes, dtypes and devices; what is left is the
-    # kernel's own: its dtypes, one variance value, contiguous rows
-    _check_kernel_dtype("X", X)
-    if variance.numel() != 1:
-        raise ValueError(f"rbf_gram: variance must hold one value; got "
-                         f"shape {tuple(variance.shape)}")
-    return _launch(X.contiguous(), Z.contiguous(), lengthscales, variance,
-                   FAST_EXP)
+    if X.device.type == "cuda":
+        # rbf_gram checked the shapes, dtypes and devices; what is left is
+        # the kernel's own: its dtypes, one variance value, contiguous rows
+        _check_kernel_dtype("X", X)
+        if variance.numel() != 1:
+            raise ValueError(f"rbf_gram: variance must hold one value; got "
+                             f"shape {tuple(variance.shape)}")
+        X, Z = X.contiguous(), Z.contiguous()
+    return torch.ops.dsdgp.rbf_gram(X, Z, lengthscales, variance)
+
+
+@torch.library.custom_op("dsdgp::rbf_gram", mutates_args=())
+def _gram_op(X: torch.Tensor, Z: torch.Tensor, lengthscales: torch.Tensor,
+             variance: torch.Tensor) -> torch.Tensor:
+    """The forward as a registered op (so ``torch.export`` can carry it):
+    the plain version on the CPU, the kernel on CUDA."""
+    if X.device.type == "cpu":
+        return rbf_gram_plain(X, Z, lengthscales, variance)
+    return _launch(X, Z, lengthscales, variance, FAST_EXP)
+
+
+@_gram_op.register_fake
+def _(X, Z, lengthscales, variance):
+    return X.new_empty(X.shape[0], Z.shape[0])
 
 
 class _RBFGram(torch.autograd.Function):

@@ -34,8 +34,11 @@ partial sums in a fixed order (deterministic).
 
 Routing: a CPU tensor takes the plain versions; a CUDA tensor launches the
 kernels or raises: there is no fallback (:func:`kernel_supports` says
-beforehand what the kernels take).  ``psi2_core.launches`` counts the
-forward kernel's launches, ``psi2_core.backward_launches`` the backward's.
+beforehand what the kernels take).  The forward on either device is the
+registered op ``torch.ops.dsdgp.psi2_core_fwd`` (with a shape function for
+tracing), so ``torch.export`` carries it into an exported program.
+``psi2_core.launches`` counts the forward kernel's launches,
+``psi2_core.backward_launches`` the backward's.
 """
 
 from __future__ import annotations
@@ -419,11 +422,25 @@ def psi2_core_forward(U, V, w, logdet, Z, symmetric=False):
     for CUDA tensors (``symmetric``: U and V make the output symmetric,
     and each a <= b is computed once).  Not differentiable:
     :func:`psi2_core` is."""
+    if U.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"psi2_core: unsupported device {U.device}")
+    return torch.ops.dsdgp.psi2_core_fwd(U, V, w, logdet, Z, bool(symmetric))
+
+
+@torch.library.custom_op("dsdgp::psi2_core_fwd", mutates_args=())
+def _fwd_op(U: torch.Tensor, V: torch.Tensor, w: torch.Tensor,
+            logdet: torch.Tensor, Z: torch.Tensor,
+            symmetric: bool) -> torch.Tensor:
+    """The forward as a registered op (so ``torch.export`` can carry it):
+    the plain version on the CPU, the kernel on CUDA."""
     if U.device.type == "cpu":
         return psi2_core_plain(U, V, w, logdet, Z, symmetric)
-    if U.device.type != "cuda":
-        raise ValueError(f"psi2_core: unsupported device {U.device}")
     return _forward_kernel(U, V, w, logdet, Z, symmetric)
+
+
+@_fwd_op.register_fake
+def _(U, V, w, logdet, Z, symmetric):
+    return U.new_empty(Z.shape[0], Z.shape[0])
 
 
 def _backward_kernel(U, V, w, logdet, Z, g):

@@ -1,7 +1,9 @@
-"""Serving: a one-call request path over a trained model.
+"""Serving: a one-call request path over a trained model, and exported
+prediction programs.
 
-Counterpart of ``doubly_stochastic_dgp_tpu/serving.py::make_server``
-without ``jax.export``.  Every request runs under ``torch.no_grad()``.
+Counterpart of ``doubly_stochastic_dgp_tpu/serving.py`` (``make_server``,
+``export_fn``, ``load_exported``, ``export_predict_y``).  Every request
+runs under ``torch.no_grad()``.
 On a CUDA tensor each request shape (each bucket, or without buckets
 each new shape at its first request, as jit caches per shape) is
 captured once as a CUDA graph (``graphs.CapturedCall``) and replayed per
@@ -17,6 +19,16 @@ bit for bit.  A graphed request's normals are drawn from that generator
 before the replay, in the eager order (``graphs.DrawTape``), so it
 returns the eager answer.  The JAX package's keys and this package's
 generators give different numbers.
+
+Export: ``export_predict_y`` traces ``predict_y`` with ``torch.export``
+into a program that takes X and the unit normals of every layer (in place
+of the JAX key) and holds the parameters as its lifted inputs; the CUDA
+kernels' forward launches are the registered ops ``torch.ops.dsdgp.*``,
+so a program saved with ``torch.export.save`` loads (``load_exported``)
+in a process that has imported only ``doubly_stochastic_dgp_tpu_torch.
+ops.cuda`` and runs the kernels on the card.  A loaded program takes
+refreshed parameters (a state dict of the exported model) without a new
+export.
 """
 
 from __future__ import annotations
@@ -29,7 +41,8 @@ import torch
 
 from .graphs import CapturedCall, DrawTape, graphs_enabled
 
-__all__ = ["make_server", "derive_seed"]
+__all__ = ["make_server", "derive_seed", "GraphedRequests", "export_fn",
+           "load_exported", "export_predict_y"]
 
 
 def derive_seed(base: int, index: int) -> int:
@@ -48,6 +61,53 @@ def _rows(t, n):
     # request outputs carry rows on axis -2 ((S, B, D) moments, (B, D)
     # densities); 1-D outputs on axis 0
     return t.narrow(-2 if t.ndim >= 2 else 0, 0, n)
+
+
+class GraphedRequests:
+    """``fn(X, Y, generator)`` (Y may be None) run eagerly on the CPU and
+    inside ``graphs.eager_on_card()``, and on the card as one CUDA graph
+    captured per (X shape, Y shape) at its first request and replayed
+    after: the request's inputs are copied into the graph's static inputs
+    and its draws made from ``generator`` into the tape's buffers in the
+    eager order; the outputs are cloned.  ``captured`` maps each captured
+    shape to (static X, static Y, tape, ``CapturedCall``).  The graphs
+    share one memory pool, which holds the largest captured request's
+    intermediates and every captured shape's outputs: requests replay one
+    at a time, each replay's outputs are cloned before the next, and the
+    static inputs and the tapes' buffers are allocated outside the
+    captures, so a graph may reuse what another graph's capture freed."""
+
+    def __init__(self, fn, device, what):
+        self.fn, self.device, self.what = fn, torch.device(device), what
+        self.captured = {}
+        self.pool = None
+
+    def _capture(self, key, Xb, Yb):
+        sX, sY = Xb.clone(), None if Yb is None else Yb.clone()
+        tape = DrawTape(torch.Generator(device=self.device))
+
+        def warmup():
+            self.fn(sX, sY, tape)
+            tape.freeze()
+
+        if self.pool is None:
+            self.pool = torch.cuda.graph_pool_handle()
+        self.captured[key] = sX, sY, tape, CapturedCall(
+            lambda: self.fn(sX, sY, tape), warmup,
+            f"{self.what} request of shape {key}", pool=self.pool)
+
+    def __call__(self, Xb, Yb, generator):
+        if not graphs_enabled(self.device):
+            return self.fn(Xb, Yb, generator)
+        key = (tuple(Xb.shape), None if Yb is None else tuple(Yb.shape))
+        if key not in self.captured:
+            self._capture(key, Xb, Yb)
+        sX, sY, tape, call = self.captured[key]
+        sX.copy_(Xb)
+        if sY is not None:
+            sY.copy_(Yb)
+        tape.fill(generator)
+        return _map(torch.clone, call.replay())
 
 
 def make_server(model, S: int, *, method: str = "predict_y",
@@ -69,7 +129,8 @@ def make_server(model, S: int, *, method: str = "predict_y",
     maps each captured (X shape, Y shape) to (static X, static Y, tape,
     ``CapturedCall``).  The graphs share one memory pool, which holds the
     largest captured request's intermediates and every captured shape's
-    outputs; each shape also keeps its static inputs and normals."""
+    outputs; each shape also keeps its static inputs and normals
+    (:class:`GraphedRequests`)."""
     if method not in ("predict_y", "predict_density"):
         raise ValueError(f"method must be 'predict_y' or 'predict_density'; "
                          f"got {method!r}")
@@ -91,42 +152,12 @@ def make_server(model, S: int, *, method: str = "predict_y",
             return bound(Xb, Yb, S=S, generator=g)
         return bound(Xb, S=S, generator=g)
 
-    # (X shape, Y shape) -> (static X, static Y, tape, CapturedCall)
-    captured = {}
-    # one memory pool for all of the server's graphs: requests replay one
-    # at a time, each replay's outputs are cloned before the next, and the
-    # static inputs and the tapes' buffers are allocated outside the
-    # captures, so a graph may reuse what another graph's capture freed
-    pool = []
-
-    def _capture(key, Xb, Yb):
-        sX, sY = Xb.clone(), None if Yb is None else Yb.clone()
-        tape = DrawTape(torch.Generator(device=device))
-
-        def warmup():
-            _eager(sX, sY, tape)
-            tape.freeze()
-
-        if not pool:
-            pool.append(torch.cuda.graph_pool_handle())
-        captured[key] = sX, sY, tape, CapturedCall(
-            lambda: _eager(sX, sY, tape), warmup,
-            f"{method} request of shape {key}", pool=pool[0])
+    requests = GraphedRequests(_eager, device, method)
 
     def _call(Xb, Yb, s):
         g = torch.Generator(device=device)
         g.manual_seed(s)
-        if not graphs_enabled(device):
-            return _eager(Xb, Yb, g)
-        key = (tuple(Xb.shape), None if Yb is None else tuple(Yb.shape))
-        if key not in captured:
-            _capture(key, Xb, Yb)
-        sX, sY, tape, call = captured[key]
-        sX.copy_(Xb)
-        if sY is not None:
-            sY.copy_(Yb)
-        tape.fill(g)
-        return _map(torch.clone, call.replay())
+        return requests(Xb, Yb, g)
 
     def _next_seed():
         return derive_seed(base_seed, next(counter))
@@ -174,5 +205,78 @@ def make_server(model, S: int, *, method: str = "predict_y",
             serve(x0)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
-    serve.captured = captured
+    serve.captured = requests.captured
     return serve
+
+
+def export_fn(module, *example_args, path: Optional[str] = None):
+    """``torch.export.export`` of ``module`` (an ``nn.Module`` whose
+    ``forward`` takes the example arguments) at the example arguments'
+    shapes; writes it to ``path`` with ``torch.export.save`` if given.
+    Returns the ``ExportedProgram``."""
+    program = torch.export.export(module, tuple(example_args), strict=False)
+    if path is not None:
+        torch.export.save(program, path)
+    return program
+
+
+class _PredictY(torch.nn.Module):
+    """``model.predict_y(X, S, zs)`` as a module: the parameters are the
+    model's, the draws an argument (one (S, B, D_l) tensor a layer)."""
+
+    def __init__(self, model, S):
+        super().__init__()
+        self.model, self.S = model, int(S)
+
+    def forward(self, X, *zs):
+        return self.model.predict_y(X, S=self.S, zs=list(zs))
+
+
+def predict_y_draws(model, batch_size: int, S: int, generator=None):
+    """Unit normals for an exported ``predict_y`` of ``model``: one (S,
+    batch_size, D_l) tensor a layer, drawn from ``generator`` (zeros
+    without one) on the model's device."""
+    like = model.X_data
+    shapes = [(S, batch_size, layer.num_outputs) for layer in model.layers]
+    if generator is None:
+        return [like.new_zeros(s) for s in shapes]
+    return [torch.randn(s, generator=generator, dtype=like.dtype,
+                        device=like.device) for s in shapes]
+
+
+def export_predict_y(model, batch_size: int, S: int,
+                     path: Optional[str] = None, precomputed: bool = False):
+    """Export ``model.predict_y`` at a fixed batch size and sample count:
+    the program takes (X, *zs), the draws of :func:`predict_y_draws`, and
+    returns (mean, var), each (S, batch_size, D_Y).  ``precomputed=True``
+    exports the posterior cache (``models.posterior.precompute``), so the
+    program holds no Cholesky.  Returns the ``ExportedProgram`` (saved to
+    ``path`` if given)."""
+    if precomputed:
+        from .models.posterior import precompute
+        model = precompute(model)
+    X = torch.zeros(batch_size, model.X_data.shape[1],
+                    dtype=model.X_data.dtype, device=model.X_data.device)
+    return export_fn(_PredictY(model, S), X,
+                     *predict_y_draws(model, batch_size, S), path=path)
+
+
+def load_exported(path_or_program):
+    """A callable ``call(X, zs, state=None)`` running a saved (or given)
+    exported program; ``state``: refreshed parameters and buffers, a
+    ``state_dict()`` of a model of the exported structure (the cached
+    model, for a ``precomputed`` export).  ``call.program`` is the
+    ``ExportedProgram``."""
+    program = path_or_program
+    if not isinstance(program, torch.export.ExportedProgram):
+        program = torch.export.load(path_or_program)
+    module = program.module()
+
+    def call(X, zs, state=None):
+        if state is None:
+            return module(X, *zs)
+        return torch.func.functional_call(
+            module, {f"model.{k}": v for k, v in state.items()}, (X, *zs))
+
+    call.program = program
+    return call

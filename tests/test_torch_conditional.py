@@ -12,7 +12,14 @@ forward's and backward's), and the psi2 forward kernel's base-2
 arithmetic, emulated in float64.  On the CPU the port's wrappers and autograd
 Functions take the plain versions (the CUDA kernels themselves are
 checked against them on the card by ``chip_smoke.py``), so no launch
-counter may move."""
+counter may move.
+
+It also holds the MCMC samplers against the JAX package draw for draw: a
+draw source replays the JAX key schedule (momenta, accept uniforms, the
+NUTS direction, leaf and merge uniforms), and HMC (single chain and
+chains, on a correlated 3-D Gaussian and on a 2-layer SGPMC DGP of width
+2) and NUTS (the 3-D Gaussian) must take the same decisions and land on
+the same positions; and the two chain diagnostics on fixed arrays."""
 
 import jax
 import jax.numpy as jnp
@@ -30,8 +37,20 @@ from doubly_stochastic_dgp_tpu.utils import timing as jtiming
 from doubly_stochastic_dgp_tpu.ops.pallas.psi2 import (
     _psi2_core_bwd_call, psi2_core as jax_psi2_core, psi2_core_pallas_fwd,
     psi2_core_reference)
+from doubly_stochastic_dgp_tpu.config import temp_config
+from doubly_stochastic_dgp_tpu.training import hmc as jhmc
+from doubly_stochastic_dgp_tpu.training import nuts as jnuts
+from doubly_stochastic_dgp_tpu.training.optim import (
+    partition_trainable as jax_partition_trainable)
+from doubly_stochastic_dgp_tpu.utils.modules import Module as JModule
+from doubly_stochastic_dgp_tpu.utils.modules import Param as JParam
+from doubly_stochastic_dgp_tpu.utils.modules import log_prior as jlog_prior
 import doubly_stochastic_dgp_tpu_torch as port
+from doubly_stochastic_dgp_tpu_torch.convert import _torch_key
 from doubly_stochastic_dgp_tpu_torch.ops import psi_stats as tpsi_stats
+from doubly_stochastic_dgp_tpu_torch.training import hmc as thmc
+from doubly_stochastic_dgp_tpu_torch.training import nuts as tnuts
+from doubly_stochastic_dgp_tpu_torch.utils.params import Param as TParam
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import gram as tgram
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import psi2 as tpsi2
 from doubly_stochastic_dgp_tpu_torch.ops.cuda import conditional as tcond
@@ -887,6 +906,269 @@ def _check_timing():
         "timed_per_call")
 
 
+# ---------------------------------------------------------------------------
+# MCMC: HMC and NUTS draw for draw against the JAX samplers
+# ---------------------------------------------------------------------------
+
+# draw-for-draw positions, step sizes and statistics, float64
+MCMC_RTOL = 1e-8
+_QA = np.array([[2.0, 0.6, 0.0], [0.6, 1.0, 0.3], [0.0, 0.3, 0.5]])
+_QPREC = np.linalg.inv(_QA @ _QA.T)
+_QC = np.array([1.0, -2.0, 0.5])
+
+
+class _JQuad(JModule):
+    v: JParam = None
+
+
+class _TQuad(torch.nn.Module):
+    def __init__(self):
+        super().__init__()
+        self.v = TParam(np.zeros(3))
+
+
+def _jquad_logp(m):
+    d = m.v.value - jnp.asarray(_QC)
+    return -0.5 * d @ jnp.asarray(_QPREC) @ d
+
+
+def _tquad_logp(m):
+    d = m.v.value - torch.as_tensor(_QC)
+    return -0.5 * d @ torch.as_tensor(_QPREC) @ d
+
+
+class _Replay:
+    """A draw source handing out given arrays in order (the port's draws
+    of a run, as the JAX key schedule makes them)."""
+
+    def __init__(self, draws):
+        self.draws, self.i = list(draws), 0
+
+    def draw(self, kind, shape, dtype, device, high=None):
+        want_kind, a = self.draws[self.i]
+        assert (kind, tuple(shape)) == (want_kind, a.shape), (
+            f"draw {self.i}: the sampler drew {kind} {tuple(shape)}, the "
+            f"schedule has {want_kind} {a.shape}")
+        self.i += 1
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def _hmc_draws(keys_per_chain, P, q0_noise=None):
+    """The JAX HMC schedule (hmc.py:64-78,138; :239-244 for chains): per
+    iteration every chain's momenta, then every chain's accept
+    uniform."""
+    draws = [] if q0_noise is None else [("randn", q0_noise)]
+    for it in range(keys_per_chain.shape[1]):
+        kp_ku = [jax.random.split(k[it]) for k in keys_per_chain]
+        draws.append(("randn", np.stack([np.asarray(jax.random.normal(
+            kp, (P,), dtype=jnp.float64)) for kp, _ in kp_ku])))
+        draws.append(("rand", np.stack([np.asarray(jax.random.uniform(
+            ku, dtype=jnp.float64)) for _, ku in kp_ku])))
+    return draws
+
+
+class _NutsReplay:
+    """The JAX NUTS schedule (nuts.py:120-121,148-149,166-167,178,283) as
+    a draw source: per transition the momenta, per doubling the
+    direction (a uniform below 0.5 where ``bernoulli(kd)`` is True), the
+    subtree's leaf uniforms along its key chain and the merge uniform."""
+
+    def __init__(self, keys):
+        self.keys, self.t, self.key = keys, 0, None
+        self.state, self.kb, self.ka = "dir", None, None
+
+    def draw(self, kind, shape, dtype, device, high=None):
+        shape = tuple(shape)
+        if kind == "randn":
+            kr, self.key = jax.random.split(self.keys[self.t])
+            self.t += 1
+            self.state = "dir"
+            a = np.asarray(jax.random.normal(kr, shape, dtype=jnp.float64))
+        elif self.state == "dir":
+            assert shape == (), f"NUTS draw: {kind} {shape} for a direction"
+            kd, self.kb, self.ka, self.key = jax.random.split(self.key, 4)
+            a = np.array(0.25 if jax.random.bernoulli(kd) else 0.75)
+            self.state = "leaves"
+        elif self.state == "leaves":
+            us, k = [], self.kb
+            for _ in range(shape[0]):
+                ku, k = jax.random.split(k)
+                us.append(np.asarray(jax.random.uniform(
+                    ku, dtype=jnp.float64)))
+            a = np.array(us)
+            self.state = "take"
+        else:
+            assert shape == (), f"NUTS draw: {kind} {shape} for a merge"
+            a = np.asarray(jax.random.uniform(self.ka, dtype=jnp.float64))
+            self.state = "dir"
+        return torch.as_tensor(np.array(a), dtype=dtype, device=device)
+
+
+def _sgpmc_pair(rng):
+    """A 2-layer SGPMC DGP of width 2 in both packages (white, RBF, M=5,
+    N=20, the solve branch), with its posterior moved off zero; the
+    target is the ELBO at fixed draws plus the q_mu priors."""
+    N, Dx, Mi = 20, 2, 5
+    X = rng.randn(N, Dx)
+    Y = np.sin(X[:, :1]) + 0.1 * rng.randn(N, 1)
+    Z = X[:Mi]
+    zs = [rng.randn(1, N, 2), rng.randn(1, N, 1)]
+    with temp_config(jitter=1e-6, solve_mode="solve", use_pallas=False):
+        jl = [dsd.SGPMCLayer.make(dsd.RBF.make(Dx), Z, 2, white=True),
+              dsd.SGPMCLayer.make(dsd.RBF.make(2, lengthscales=1.2), Z, 1,
+                                  white=True)]
+        jm = dsd.DGPBase.make(X, Y, dsd.Gaussian.make(0.1), jl)
+    jm = jm.replace(layers=[
+        l.replace(q_mu=l.q_mu.with_value(0.3 * rng.randn(
+            *l.q_mu.value.shape))) for l in jm.layers])
+    cfg = port.Config(dtype=torch.float64, jitter=1e-6)
+    tl = [port.SGPMCLayer(port.RBF(Dx), Z, 2, white=True, config=cfg),
+          port.SGPMCLayer(port.RBF(2), Z, 1, white=True, config=cfg)]
+    tm = port.DGPBase.make(X, Y, port.Gaussian(0.1), tl, config=cfg,
+                           device="cpu")
+    state = {_torch_key(jax.tree_util.keystr(p)): np.asarray(v) for p, v in
+             jax.tree_util.tree_flatten_with_path(jm)[0]}
+    port.load_reference_state(tm, state)
+    jzs = [jnp.asarray(z) for z in zs]
+    tzs = [torch.as_tensor(z) for z in zs]
+
+    def jlogp(m):
+        _, Fm, Fv = m.propagate(m.X_data, S=1, zs=jzs)
+        ve = m.likelihood.variational_expectations(Fm[-1], Fv[-1], m.Y_data)
+        return jnp.sum(jnp.mean(ve, axis=0)) + jlog_prior(m)
+
+    def tlogp(m):
+        return m.elbo(zs=tzs) + port.log_prior(m)
+
+    return jm, tm, jlogp, tlogp
+
+
+def _close_mcmc(case, got, want):
+    assert_allclose(np.asarray(got, dtype=np.float64),
+                    np.asarray(want, dtype=np.float64), rtol=MCMC_RTOL,
+                    atol=1e-12, err_msg=case)
+
+
+def _decisions(qs):
+    """Per iteration, whether the position moved (an accepted proposal)."""
+    qs = np.asarray(qs)
+    prev = np.concatenate([qs[:1] * np.nan, qs[:-1]])
+    return np.any(qs != prev, axis=-1)
+
+
+def _check_hmc(name, jm, tm, jlogp, tlogp, jfreeze, tfreeze, step, L):
+    """20 iterations (10 burn-in with adaptation, 10 samples) of
+    ``hmc_sample`` and 2 chains of ``hmc_sample_chains``: every
+    iteration's position (so every accept decision), the accept counts,
+    the adapted step sizes and the final log densities."""
+    before = [p.detach().clone() for p in tm.parameters()]
+    key = jax.random.PRNGKey(5)
+    kw = dict(num_samples=10, num_burn=10, step_size=step, num_leapfrog=L,
+              adapt_step_size=True)
+    # the JAX single chain, every iteration (the runner hmc_sample jits)
+    flat0, rebuild = jax_partition_trainable(jm, freeze=jfreeze)
+
+    def logp(v):
+        return jlogp(rebuild(v))
+
+    run = jax.jit(jhmc._make_chain_runner(
+        jax.value_and_grad(logp), flat0.dtype, 10, 10, step, L, True, 0.8))
+    keys = jax.random.split(key, 20)
+    carry, jqs = run(flat0, logp(flat0), keys)
+    js, jacc, _, jinfo = jhmc.hmc_sample(jm, jlogp, key, freeze=jfreeze,
+                                         **kw)
+    P = flat0.shape[0]
+    chains = thmc.HMCChains(tm, tlogp, _Replay(_hmc_draws(keys[None], P)),
+                            freeze=tfreeze, **kw)
+    tqs = chains.run()[:, 0].numpy()
+    _close_mcmc(f"HMC {name}: every iteration's position", tqs, jqs)
+    td, jd = _decisions(tqs), _decisions(np.asarray(jqs))
+    assert (td == jd).all(), f"HMC {name}: accept decisions {td} vs {jd}"
+    ts, tacc, _, tinfo = thmc.hmc_sample(
+        tm, tlogp, _Replay(_hmc_draws(keys[None], P)), freeze=tfreeze, **kw)
+    _close_mcmc(f"HMC {name}: hmc_sample samples", ts.numpy(), js)
+    assert tacc == jacc, f"HMC {name}: accept rate {tacc} vs {jacc}"
+    _close_mcmc(f"HMC {name}: adapted step size", tinfo.step_size,
+                jinfo.step_size)
+    _close_mcmc(f"HMC {name}: final log density", tinfo.final_log_prob,
+                jinfo.final_log_prob)
+    # chains: the overdispersed starts, then per-chain key splits
+    C = 2
+    js, jaccs, _, jinfo = jhmc.hmc_sample_chains(
+        jm, jlogp, key, num_chains=C, freeze=jfreeze, **kw)
+    k_init, k_run = jax.random.split(key)
+    noise = np.asarray(jax.random.normal(k_init, (C, P), dtype=jnp.float64))
+    chain_keys = jax.vmap(lambda k: jax.random.split(k, 20))(
+        jax.random.split(k_run, C))
+    ts, taccs, _, tinfo = thmc.hmc_sample_chains(
+        tm, tlogp, _Replay(_hmc_draws(chain_keys, P, noise)), num_chains=C,
+        freeze=tfreeze, **kw)
+    _close_mcmc(f"HMC chains {name}: samples", ts.numpy(), js)
+    assert (taccs == np.asarray(jaccs)).all(), (
+        f"HMC chains {name}: accept rates {taccs} vs {jaccs}")
+    for k in ("step_sizes", "final_log_probs", "rhat"):
+        _close_mcmc(f"HMC chains {name}: {k}", tinfo[k], jinfo[k])
+    for t in (thmc.potential_scale_reduction, thmc.effective_sample_size):
+        assert np.isfinite(t(ts.numpy())).all(), f"{name}: diagnostics"
+    assert all(torch.equal(a, b) for a, b in zip(tm.parameters(), before)
+               ), f"HMC {name}: the samplers changed the model"
+
+
+def _check_nuts():
+    """10 NUTS transitions (5 burn-in with adaptation, 5 samples),
+    max_depth=6, on the 3-D Gaussian: samples, mean tree depth,
+    divergences, accept statistic and step size against ``nuts_sample``;
+    and a divergent chain (step 50, no adaptation)."""
+    key = jax.random.PRNGKey(9)
+    for case, kw in (("adapting", dict(num_samples=5, num_burn=5,
+                                       step_size=0.5)),
+                     ("divergent", dict(num_samples=6, num_burn=0,
+                                        step_size=50.0,
+                                        adapt_step_size=False))):
+        js, jacc, _, jinfo = jnuts.nuts_sample(_JQuad(v=JParam.create(
+            np.zeros(3))), _jquad_logp, key, max_depth=6, **kw)
+        keys = jax.random.split(key, kw["num_samples"] + kw["num_burn"])
+        ts, tacc, _, tinfo = tnuts.nuts_sample(
+            _TQuad(), _tquad_logp, _NutsReplay(keys), max_depth=6, **kw)
+        _close_mcmc(f"NUTS {case}: samples", ts.numpy(), js)
+        _close_mcmc(f"NUTS {case}: accept statistic", tacc, jacc)
+        for k in ("step_size", "mean_tree_depth"):
+            _close_mcmc(f"NUTS {case}: {k}", tinfo[k], jinfo[k])
+        assert tinfo["divergences"] == jinfo["divergences"], (
+            f"NUTS {case}: divergences {tinfo['divergences']} vs "
+            f"{jinfo['divergences']}")
+        assert tinfo["host_reads"] <= 6 * 10, f"NUTS {case}: host reads"
+    assert jinfo["divergences"] > 0, "NUTS divergent: no divergence"
+
+
+def _check_diagnostics():
+    """Split R-hat and ESS on fixed arrays (a sticky chain, iid chains,
+    an odd sample count) against the JAX functions."""
+    rng = np.random.RandomState(61)
+    iid = rng.randn(3, 41, 4)
+    sticky = np.cumsum(rng.randn(2, 40, 3), axis=1)
+    for case, x in (("iid, odd S", iid), ("random walk", sticky),
+                    ("one chain", iid[:1])):
+        assert_allclose(thmc.potential_scale_reduction(x),
+                        np.asarray(jhmc.potential_scale_reduction(
+                            jnp.asarray(x))), rtol=1e-12,
+                        err_msg=f"potential_scale_reduction {case}")
+        assert_allclose(thmc.effective_sample_size(x),
+                        jhmc.effective_sample_size(x), rtol=1e-12,
+                        err_msg=f"effective_sample_size {case}")
+
+
+def _check_mcmc():
+    _check_hmc("3-D Gaussian", _JQuad(v=JParam.create(np.zeros(3))),
+               _TQuad(), _jquad_logp, _tquad_logp, None, None, 0.3, 5)
+    jm, tm, jlogp, tlogp = _sgpmc_pair(np.random.RandomState(60))
+    _check_hmc("2-layer SGPMC DGP", jm, tm, jlogp, tlogp,
+               lambda path, p: "q_mu" not in path,
+               lambda name, p: "q_mu" not in name, 0.05, 4)
+    _check_nuts()
+    _check_diagnostics()
+
+
 def test_fused_conditional_plain_matches_jax():
     for f in (fused_conditional, fused_conditional_saved):
         f.launches = f.backward_launches = 0
@@ -929,6 +1211,7 @@ def test_fused_conditional_plain_matches_jax():
     _check_rbf_gram()
     _check_gram_args()
     _check_timing()
+    _check_mcmc()
     assert _counts() == (0, 0, 0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 

@@ -1277,6 +1277,10 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.models.single_layer\n"
             "import doubly_stochastic_dgp_tpu_torch.training.natgrad\n"
             "import doubly_stochastic_dgp_tpu_torch.convert\n"
+            "import doubly_stochastic_dgp_tpu_torch.models.dynamic\n"
+            "import doubly_stochastic_dgp_tpu_torch.training.hmc\n"
+            "import doubly_stochastic_dgp_tpu_torch.training.nuts\n"
+            "import doubly_stochastic_dgp_tpu_torch.serving\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
@@ -1313,6 +1317,13 @@ def _check_import_and_device_rules():
         builders[cls.__name__] = lambda cls=cls, **kw: cls.build(
             X, X[:, :1], port.RBF(2), *(() if cls is port.GPR else (X[:4],)),
             **kw)
+    builders["DGPBase.make of SGPMCLayers"] = lambda **kw: port.DGPBase.make(
+        X, X[:, :1], port.Gaussian(0.1),
+        [port.SGPMCLayer(port.RBF(2), X[:4], 1)], **kw)
+    builders["DGPHeinonen"] = lambda **kw: port.DGPHeinonen.make(
+        X, X[:, :1], port.Gaussian(0.1),
+        [port.GPMCLayer(port.RBF(2), X, 2),
+         port.GPRLayer(port.RBF(2), port.Zero(1), 1)], **kw)
     for name, build in builders.items():
         if torch.cuda.is_available():
             model = build(config=port.Config(dtype=torch.float32))

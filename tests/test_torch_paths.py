@@ -15,7 +15,11 @@ cached model, and a chunk and requests with no host read; the
 alternating NatGrad + Adam step against a JAX oracle, ``fit(natgrad_gamma=)``
 with its checkpoint and resume, the two gamma = 1 identities (SVGP against
 SGPR, DGPQuad against DGPCollapsed), ``lbfgs_minimize`` at the JAX
-optimum, and ``precompute`` of both collapsed DGPs against JAX's.
+optimum, and ``precompute`` of both collapsed DGPs against JAX's; the MCMC
+models (``SGPMCLayer`` on its three branches, ``GPMCLayer`` and
+``DGPHeinonen``: values and gradients, their ``precompute`` and
+``load_reference_state``), ``DynamicPredictor`` and the exported
+``predict_y`` program round trip.
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -28,6 +32,7 @@ num_data / batch scale, ``log_prior``).  One test item that names the
 failing case in every assertion message."""
 
 import contextlib
+import copy
 import io
 import json
 import os
@@ -1281,6 +1286,270 @@ def _check_lbfgs(rng):
     assert l1 < l0 - 1.0, f"lbfgs_minimize on the DGP: {l0} -> {l1}"
 
 
+# ---------------------------------------------------------------------------
+# the MCMC models, DynamicPredictor and export
+# ---------------------------------------------------------------------------
+
+MCMC_RTOL = 1e-9       # the MCMC models against JAX, float64
+SGPMC_BRANCHES = {"solve": dict(solve_mode="solve", use_pallas=False),
+                  "staged": dict(solve_mode="inverse", use_pallas=False),
+                  "fused": dict(solve_mode="inverse", use_pallas=True)}
+
+
+def _close9(case, got, want):
+    got = got.detach().numpy() if torch.is_tensor(got) else np.asarray(got)
+    assert_allclose(got, np.asarray(want), rtol=MCMC_RTOL, atol=1e-12,
+                    err_msg=case)
+
+
+def _grads_close(case, tmod, jgrads, names):
+    """Port gradients (already in .grad) against the JAX gradient pytree
+    flattened to port names."""
+    jg = _flat(jgrads)
+    for name, p in tmod.named_parameters():
+        if name in names:
+            # a parameter the objective does not reach: JAX's zero
+            g = torch.zeros_like(p) if p.grad is None else p.grad
+            _close9(f"{case} d/d{name}", g, jg[name])
+
+
+def _sgpmc_layer_case(rng, white, branch):
+    """An SGPMCLayer (M=6, 3 -> 2) on one branch in both packages: the
+    diagonal and (solve) full-covariance conditional, conditional_SND,
+    the gradients of a weighted sum of them, KL and log_prior."""
+    Mi, Dx, Do, B = 6, 3, 2, 9
+    X, Z = rng.randn(B, Dx), rng.randn(Mi, Dx)
+    q_mu = rng.randn(Mi, Do)
+    wm, wv = rng.randn(B, Do), rng.randn(B, Do)
+    Xs = rng.randn(2, 4, Dx)
+    numerics = dict(jitter=1e-6, **SGPMC_BRANCHES[branch])
+    with temp_config(**numerics):
+        jl = dsd.SGPMCLayer.make(dsd.RBF.make(Dx, lengthscales=1.4)
+                                 + dsd.White.make(Dx, variance=1e-5), Z, Do,
+                                 white=white)
+    jl = jl.replace(q_mu=jl.q_mu.with_value(q_mu))
+    cfg = port.Config(dtype=torch.float64, **numerics)
+    tl = port.SGPMCLayer(port.RBF(Dx) + port.White(Dx), Z, Do, white=white,
+                         config=cfg)
+    port.load_reference_state(tl, _flat(jl))
+    assert tl.q_sqrt is None and "q_sqrt.unconstrained" not in dict(
+        tl.named_parameters()), "SGPMCLayer carries a q_sqrt"
+
+    def jf(layer):
+        m, v = layer.conditional_ND(jnp.asarray(X))
+        sm, sv = layer.conditional_SND(jnp.asarray(Xs))
+        obj = jnp.sum(m * wm) + jnp.sum(v * wv) + jnp.sum(sm) + jnp.sum(sv)
+        return obj, (m, v, sm, sv)
+
+    (_, jout), jg = jax.jit(jax.value_and_grad(jf, has_aux=True))(jl)
+    m, v = tl.conditional_ND(torch.as_tensor(X))
+    sm, sv = tl.conditional_SND(torch.as_tensor(Xs))
+    case = f"SGPMCLayer white={white} {branch}"
+    want_cols = Do if branch == "fused" else 1
+    assert v.shape == (B, want_cols), f"{case}: variance {tuple(v.shape)}"
+    for what, g, w in zip(("mean", "var", "SND mean", "SND var"),
+                          (m, v, sm, sv), jout):
+        _close9(f"{case} {what}", g, w)
+    obj = (torch.sum(m * torch.as_tensor(wm)) + torch.sum(
+        v * torch.as_tensor(wv)) + sm.sum() + sv.sum())
+    obj.backward()
+    _grads_close(case, tl, jg, dict(tl.named_parameters()))
+    assert float(tl.KL()) == 0.0 and float(jl.KL()) == 0.0, f"{case}: KL"
+    _close9(f"{case} log_prior", port.log_prior(tl), log_prior(jl))
+    if branch == "solve":
+        jm_, jv_ = jl.conditional_ND(jnp.asarray(X), full_cov=True)
+        tm_, tv_ = tl.conditional_ND(torch.as_tensor(X), full_cov=True)
+        assert tv_.shape == (B, B, 1), f"{case}: full cov {tuple(tv_.shape)}"
+        _close9(f"{case} full-cov mean", tm_, jm_)
+        _close9(f"{case} full-cov var", tv_, jv_)
+    return jl, tl
+
+
+def _sgpmc_dgp(rng, X, Y, white):
+    """A 2-layer SGPMC DGP (D -> 2 -> 1, M=6) in both packages on the
+    fused branch, with a random posterior."""
+    Z = X[:6]
+    numerics = dict(jitter=1e-6, **SGPMC_BRANCHES["fused"])
+    with temp_config(**numerics):
+        jl = [dsd.SGPMCLayer.make(dsd.RBF.make(D), Z, 2,
+                                  mean_function=dsd.Linear.make(
+                                      rng.randn(D, 2) * 0.3), white=white),
+              dsd.SGPMCLayer.make(dsd.RBF.make(2), rng.randn(6, 2), 1,
+                                  white=white)]
+        jm = dsd.DGPBase.make(X, Y, dsd.Gaussian.make(0.1), jl)
+    jm = jm.replace(layers=[l.replace(q_mu=l.q_mu.with_value(
+        rng.randn(*l.q_mu.value.shape))) for l in jm.layers])
+    cfg = port.Config(dtype=torch.float64, **numerics)
+    tl = [port.SGPMCLayer(port.RBF(D), Z, 2, port.Linear(np.zeros((D, 2))),
+                          white=white, config=cfg),
+          port.SGPMCLayer(port.RBF(2), Z[:, :2], 1, white=white, config=cfg)]
+    tm = port.DGPBase.make(X, Y, port.Gaussian(0.1), tl, config=cfg,
+                           device="cpu")
+    return jm, port.load_reference_state(tm, _flat(jm))
+
+
+def _heinonen_pair(rng):
+    """DGPHeinonen (a GPMCLayer 2 -> 2 with an Identity mean on 12 fixed
+    inputs, then GPR) in both packages, with a random q_mu."""
+    Nh = 12
+    X = np.sort(rng.uniform(-1, 1, (Nh, 2)), axis=0)
+    Y = np.sin(2.5 * X[:, :1]) + 0.05 * rng.randn(Nh, 1)
+    with temp_config(jitter=1e-6):
+        jl = [dsd.GPMCLayer.make(dsd.RBF.make(2, lengthscales=0.6,
+                                              variance=0.05), X, 2,
+                                 dsd.Identity()),
+              dsd.GPRLayer.make(dsd.RBF.make(2, lengthscales=0.6),
+                                dsd.Zero(output_dim=1), 1)]
+        jm = dsd.DGPHeinonen.make(X, Y, dsd.Gaussian.make(0.05 ** 2), jl)
+    jm = jm.replace(layers=[jm.layers[0].replace(
+        q_mu=jm.layers[0].q_mu.with_value(rng.randn(Nh, 2)))] + [
+        jm.layers[1]])
+    cfg = port.Config(dtype=torch.float64, jitter=1e-6)
+    tl = [port.GPMCLayer(port.RBF(2), X, 2, port.Identity(), config=cfg),
+          port.GPRLayer(port.RBF(2), port.Zero(1), 1, config=cfg)]
+    tm = port.DGPHeinonen.make(X, Y, port.Gaussian(1.0), tl, config=cfg,
+                               device="cpu")
+    return jm, port.load_reference_state(tm, _flat(jm)), X
+
+
+def _check_mcmc_models(rng, Xt):
+    """SGPMCLayer on every branch, the SGPMC DGP and DGPHeinonen, their
+    precompute and load_reference_state, against JAX at rtol 1e-9."""
+    for white in (True, False):
+        for branch in SGPMC_BRANCHES:
+            _sgpmc_layer_case(rng, white, branch)
+    X, Y = rng.randn(25, D), rng.randn(25, 1)
+    zs = [rng.randn(S, N, 2), rng.randn(S, N, 1)]
+    jzs = [jnp.asarray(z) for z in zs]
+    for white in (True, False):
+        case = f"SGPMC DGP white={white}"
+        jm, tm = _sgpmc_dgp(rng, X, Y, white)
+        assert not any("q_sqrt" in k for k in _flat(jm)), (
+            f"{case}: a q_sqrt in the JAX state")
+        want = _jax_predict_y(jm, jnp.asarray(Xt), jzs)
+        live = tm.predict_y(Xt, S=S, zs=zs)
+        cached = port.precompute(tm).predict_y(Xt, S=S, zs=zs)
+        jcached = _jax_predict_y(dsd.precompute(jm), jnp.asarray(Xt), jzs)
+        for what, a, b, c, d in zip(("mean", "var"), live, want, cached,
+                                    jcached):
+            _close9(f"{case} predict_y {what}", a, b)
+            _close9(f"{case} precompute predict_y {what}", c, d)
+            _close9(f"{case} cached vs live {what}", c, b)
+    jm, tm, Xh = _heinonen_pair(rng)
+    Xn = rng.uniform(-1, 1, (7, 2))
+    _close9("GPMCLayer build_latents", tm.layers[0].build_latents(),
+            jm.layers[0].build_latents())
+    for full_cov in (False, True):
+        jc = jm.layers[0].conditional_ND(jnp.asarray(Xn), full_cov=full_cov)
+        tc = tm.layers[0].conditional_ND(torch.as_tensor(Xn),
+                                         full_cov=full_cov)
+        for what, a, b in zip(("mean", "var"), tc, jc):
+            _close9(f"GPMCLayer conditional_ND full_cov={full_cov} {what}",
+                    a, b)
+    jlp, jg = jax.jit(jax.value_and_grad(lambda m: m.log_posterior()))(jm)
+    lp = tm.log_posterior()
+    lp.backward()
+    _close9("DGPHeinonen log_posterior", lp, jlp)
+    _grads_close("DGPHeinonen log_posterior", tm, jg,
+                 dict(tm.named_parameters()))
+    hzs = [rng.randn(S, 7, 2), rng.randn(S, 7, 1)]
+    jhzs = [jnp.asarray(z) for z in hzs]
+    live = tm.predict_y(Xn, S=S, zs=hzs)
+    want = _jax_predict_y(jm.replace(layers=[
+        jm.layers[0], jm._collapsed_last_layer()]), jnp.asarray(Xn), jhzs)
+    cached = port.precompute(tm).predict_y(Xn, S=S, zs=hzs)
+    jcached = _jax_predict_y(dsd.precompute(jm), jnp.asarray(Xn), jhzs)
+    for what, a, b, c, d in zip(("mean", "var"), live, want, cached,
+                                jcached):
+        _close9(f"DGPHeinonen predict_y {what}", a, b)
+        _close9(f"DGPHeinonen precompute predict_y {what}", c, d)
+    state = _flat(jm)
+    assert {"layers.0.X_fixed", "layers.0.Lu"} <= set(state), (
+        "DGPHeinonen: the JAX state lacks the GPMC buffers")
+    bad = dict(state, **{"layers.0.q_sqrt.unconstrained": np.eye(2)})
+    try:
+        port.load_reference_state(tm, bad)
+    except KeyError:
+        pass
+    else:
+        raise AssertionError("load_reference_state took an extra q_sqrt")
+
+
+def _check_dynamic_and_export(rng, model, Xt, Yt):
+    """DynamicPredictor's plan, first-S slicing against make_server at the
+    bucket size, chunking above the largest bucket and its program counts;
+    predict_density of a single-layer model against JAX's
+    DynamicPredictor; the exported predict_y, live and precomputed,
+    through torch.export.save / load against the live model."""
+    from doubly_stochastic_dgp_tpu_torch.serving import predict_y_draws
+    dp = port.DynamicPredictor(model)
+    plans = {S_: dp._plan(S_) for S_ in (1, 5, 8, 25, 100, 128, 129, 300)}
+    assert plans == {1: (1, 1), 5: (8, 1), 8: (8, 1), 25: (32, 1),
+                     100: (128, 1), 128: (128, 1), 129: (128, 2),
+                     300: (128, 3)}, f"DynamicPredictor plan {plans}"
+    for S_ in (1, 5, 25, 100):
+        B_ = dp._plan(S_)[0]
+        got = dp.predict_y(Xt, S_, seed=7)
+        want = port.make_server(model, B_, precompute=False)(Xt, seed=7)
+        for what, a, b in zip(("mean", "var"), got, want):
+            assert a.shape == (S_, N, 1) and torch.equal(a, b[:S_]), (
+                f"DynamicPredictor S={S_} {what}: not the first S of "
+                f"make_server's S={B_} request")
+    dp.predict_y(Xt, 25, seed=8)
+    assert dict(dp.trace_counts) == {("y", b): 1 for b in (1, 8, 32, 128)}, (
+        f"DynamicPredictor programs {dict(dp.trace_counts)}")
+    got = dp.predict_f(Xt, 300, seed=7)
+    parts = [model.predict_f(Xt, S=128, generator=torch.Generator(
+        ).manual_seed(port.serving.derive_seed(7, c))) for c in range(3)]
+    for what, a, b in zip(("mean", "var"), got, zip(*parts)):
+        assert torch.equal(a, torch.cat(b)[:300]), (
+            f"DynamicPredictor chunked S=300 {what}")
+    d = dp.predict_density(Xt, Yt, 25, seed=7)
+    assert d.shape == (N, 1) and torch.isfinite(d).all(), "density shape"
+    # single layer: the moments do not depend on the draws, so the
+    # density equals JAX's exactly
+    with temp_config(**FUSED):
+        js = dsd.DGP.build(Xt, Yt, Xt[:5], [dsd.RBF.make(D)],
+                           dsd.Gaussian.make(0.1))
+    js = js.replace(layers=[js.layers[0].replace(
+        q_mu=js.layers[0].q_mu.with_value(rng.randn(5, 1)))])
+    ts = port.DGP.build(Xt, Yt, Xt[:5], [port.RBF(D)], port.Gaussian(1.0),
+                        config=port.Config(**FUSED), device="cpu")
+    port.load_reference_state(ts, _flat(js))
+    want = dsd.DynamicPredictor(js).predict_density(jnp.asarray(Xt),
+                                                    jnp.asarray(Yt), 5)
+    _close9("DynamicPredictor single-layer predict_density",
+            port.DynamicPredictor(ts).predict_density(Xt, Yt, 5), want)
+    # export: the saved program against the live (and cached) model
+    g = torch.Generator().manual_seed(3)
+    zs = predict_y_draws(model, N, S, g)
+    with tempfile.TemporaryDirectory() as tmp:
+        for pre in (False, True):
+            path = os.path.join(tmp, f"predict_y_{pre}.pt2")
+            port.export_predict_y(model, N, S, path=path, precomputed=pre)
+            call = port.load_exported(path)
+            src = port.precompute(model) if pre else model
+            want = src.predict_y(Xt, S=S, zs=zs)
+            for what, a, b in zip(("mean", "var"),
+                                  call(torch.as_tensor(Xt), zs), want):
+                _close9(f"export precomputed={pre} {what}", a, b)
+            ops = {str(n.target) for mod in call.program.graph_module.modules()
+                   if hasattr(mod, "graph") for n in mod.graph.nodes}
+            assert any("dsdgp.fused_conditional_fwd" in o for o in ops) or pre, (
+                f"export: the program lacks the fused op: {sorted(ops)}")
+        # refreshed parameters without a new export
+        other = copy.deepcopy(model)
+        with torch.no_grad():
+            for p in other.parameters():
+                p.mul_(1.01)
+        for what, a, b in zip(("mean", "var"), call(
+                torch.as_tensor(Xt), zs,
+                state=port.precompute(other).state_dict()),
+                port.precompute(other).predict_y(Xt, S=S, zs=zs)):
+            _close9(f"export with refreshed parameters {what}", a, b)
+
+
+
 def _close(case, got, want):
     assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                     atol=ATOL, err_msg=case)
@@ -1372,6 +1641,8 @@ def test_paths_match_jax():
     _check_input_prop(np.random.RandomState(43), Xt)
     _check_gamma1_identities()
     _check_lbfgs(np.random.RandomState(45))
+    _check_mcmc_models(np.random.RandomState(46), Xt)
+    _check_dynamic_and_export(np.random.RandomState(47), model, Xt, Yt)
     psi2_core.launches = 0
     _check_collapsed(rng, Xt, Yt)
     assert (fused_conditional.launches, fused_conditional.backward_launches,
