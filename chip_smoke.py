@@ -362,14 +362,57 @@ Phases, each of which raises on a failed check:
    loaded and run in a fresh process that imports only the port's
    ``ops.cuda``: raises unless equal to the model bit for bit or within
    1e-6 of scale, and (live) the profiler sees 5 fused forwards.
+29. data parallelism over torch.distributed (``parallel/``), the kernels
+   built by this process before any rank starts; each main path with the
+   launch counts at 0 just before and read just after.  29a: a one-rank
+   NCCL group on cuda:0: ``fit_dp`` on the headline DGP (5 layers, M=100,
+   batch 1000, S=10, ``use_pallas=True``, graphed chunks of 10) for 100
+   steps against ``fit`` from the same seed (raises unless bit for bit or
+   within 1e-5 of scale, unless every chunk went as a graph, and unless
+   the counters show fit's 5 fused forwards, 5 backwards and 10 rbf_gram
+   a step over the warm-up and capture chunks); the captured chunk's
+   all-reduces, by the profiler's host records at its warm-up and
+   capture (raises unless NCCL's own record counts one a step, and the
+   c10d op's counts the warm-up's steps once and the capture's twice);
+   a replay's launches by the profiler (fit's; a one-rank in-place NCCL
+   sum launches no kernel, so the collective's device work is printed,
+   not checked), every replay under sync debug 'error'; steps/s of
+   fit_dp's and fit's chunks, 6 each in turns; and the NCCL gather
+   (``all_gather``: ``all_gather_into_tensor``, its backward a
+   ``reduce_scatter_tensor``) on one rank, raising unless it returns its
+   input and the gradient bit for bit.  29b: two gloo ranks sharing cuda:0, spawned by this script
+   (every collective, and the run, bounded by a timeout; a rank that
+   fails or hangs fails the phase): ``dp_elbo`` and its gradient at 1001
+   rows (padded) and fixed draws against the single-process float32
+   ``elbo`` (raises unless within 1e-5 of scale or 2x the float32
+   error against float64, and unless the ranks agree bit for bit); 20
+   ``fit_dp`` steps (ranks bit for bit); ``dp_predict_y`` at 1000 rows,
+   S=100, against the single-process moments of the same draws;
+   ``dp_evaluate_regression`` on 821 rows (padded) against
+   ``evaluate_regression`` on the ranks' draws; ``dp_damianou_elbo`` at
+   damianou_large and ``dp_collapsed_elbo`` at collapsed_L2 on the psi2
+   kernel route (raises unless one psi2 forward a rank a bound and the
+   bound within a tenth of the single-process float32 bound's error
+   against float64, or 1e-5 of scale, of that float32 bound) and in
+   float64 on the plain route (raises unless within 1e-9 of the
+   single-process float64 bound: the data-parallel algebra), and one step of each model's data-parallel train step
+   (raises unless the loss is finite, the replicated parameters agree
+   across the ranks bit for bit, and one psi2 backward ran a rank); two
+   HMC chains of 28b's target, one a rank, against
+   ``hmc_sample_chains`` in one process, no mesh, from the same
+   generator (raises unless bit for bit).  29c: a (data 1 x sample 2) mesh on the
+   same ranks: ``sp_elbo`` at fixed draws against the single-process
+   ``elbo`` (the gate of 29b), and 10 ``fit_dp(sample_axis='sample')``
+   steps (ranks bit for bit).  Prints the phase's time.
 
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
 rbf_gram; the fused pair's and rbf_gram's also with phase 25's shapes and
 launches; every record with ``extra_launches``, each phase-26 model's
 main-path launches, ``natgrad_launches``, phase 27's by sub-phase, and
-``mcmc_launches``, phase 28's; the fused pair's and rbf_gram's also with
-phase 27's and phase 28's worst errors),
+``mcmc_launches``, phase 28's, and ``parallel_launches``, phase 29's;
+the fused pair's and rbf_gram's also with phase 27's and phase 28's worst
+errors),
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -5643,6 +5686,488 @@ def phase_mcmc(seed, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 29: data parallelism over torch.distributed
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 100              # 29a: fit_dp against fit
+DP_ROUNDS = 6               # 29a: timed chunks of each, in turns
+DP_FIT_RTOL = 1e-5          # 29a: fit_dp vs fit, if not bit for bit
+DP_ROWS = 1001              # 29b: dp_elbo's batch (odd: padding runs)
+DP_RANK_STEPS = 20          # 29b: fit_dp steps on the two ranks
+DP_SP_STEPS = 10            # 29c
+DP_PRED_ROWS, DP_PRED_S = 1000, 100
+DP_HMC = (10, 10)           # 29b: burn-in, samples of the split chains
+DP_GATE = 1e-5              # of scale, or 2x the float32 error vs float64
+DP_F32_SHARE = 0.1          # 29b bounds: of one process's f32 error vs f64
+DP_F64_RTOL = 1e-9          # 29b bounds in float64: the algebra
+DP_TIMEOUT_S = 300.0        # every collective of 29b-c, and their run
+
+
+def dp_draws(model, seed, rows, S_):
+    """Fixed unit normals (S_, rows, D_l) a layer, on the card: drawn in
+    float32 and cast to the model's dtype, so a float64 model gets the
+    same numbers."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 2900)
+    return [torch.randn((S_, rows, l.num_outputs), generator=g,
+                        device="cuda").to(model.X_data.dtype)
+            for l in model.layers]
+
+
+def eval_rows(data):
+    """The test split and one training row (821 rows: the ranks' split
+    pads one)."""
+    return (np.concatenate([data["Xs"], data["X"][:1]]),
+            np.concatenate([data["Ys"], data["Y"][:1]]))
+
+
+def host(t):
+    return t.detach().double().cpu().numpy()
+
+
+def trainable_names(model):
+    return [n for n, p in model.named_parameters() if p.requires_grad]
+
+
+def dp_rank(rank, seed):
+    """29b and 29c on one of two gloo ranks sharing cuda:0 (run by
+    ``run_ranks``; this module is imported in the rank, its ``main`` not
+    run): returns numpy results and the rank's main-path launches."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from doubly_stochastic_dgp_tpu_torch import fit_dp
+    from doubly_stochastic_dgp_tpu_torch.parallel import collapsed as pcoll
+    from doubly_stochastic_dgp_tpu_torch.parallel import dp as pdp
+    from doubly_stochastic_dgp_tpu_torch.parallel import mesh as pmesh
+    from doubly_stochastic_dgp_tpu_torch.training.hmc import (
+        hmc_sample_chains)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        masked_optimizer)
+    mesh = pmesh.make_mesh()
+    out = {}
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    model, data = build_model(seed, num_samples=TRAIN_S)
+    X, Y = model.X_data[:DP_ROWS], model.Y_data[:DP_ROWS]
+    zs = dp_draws(model, seed, DP_ROWS, TRAIN_S)
+    params = [p for p in model.parameters() if p.requires_grad]
+    value, grads = pdp.dp_value_and_grads(
+        lambda: pdp.dp_elbo(model, X, Y, None, mesh, zs=zs), params, mesh)
+    out["dp_elbo"] = (float(value), [host(g) for g in grads])
+    m = build_model(seed, num_samples=TRAIN_S, random_posterior=False)[0]
+    t0 = time.perf_counter()
+    _, hist = fit_dp(m, mesh, DP_RANK_STEPS, 0.01, batch_size=BATCH,
+                     seed=seed, log_every=FIT_CHUNK)
+    torch.cuda.synchronize()
+    out["fit_dp"] = ([host(p) for p in m.parameters()],
+                     [(h["iter"], h["loss"], h["dispatch"]) for h in hist],
+                     time.perf_counter() - t0)
+    out["predict_y"] = tuple(map(host, pdp.dp_predict_y(
+        model, model.X_data[:DP_PRED_ROWS], DP_PRED_S, seed + 29, mesh)))
+    Xe, Ye = eval_rows(data)
+    out["evaluate"] = pdp.dp_evaluate_regression(
+        model, Xe, Ye, data["Y_std"], DP_PRED_S, seed + 30, mesh)
+    build, _ = collapsed_models(data, seed)
+    for name in COLLAPSED:
+        cm = build(name, *ROUTES["kernel"])
+        before = psi2.psi2_core.launches
+        with torch.no_grad():
+            b = (pcoll.dp_damianou_elbo(cm, mesh) if name == "damianou_large"
+                 else pcoll.dp_collapsed_elbo(
+                     cm, mesh, zs=dp_draws(cm, seed, cm.X_data.shape[0], 1)))
+        torch.cuda.synchronize()
+        out[name] = (float(b), psi2.psi2_core.launches - before)
+        cm64 = build(name, *ROUTES["f64"])
+        with torch.no_grad():
+            out[f"{name} f64"] = float(
+                pcoll.dp_damianou_elbo(cm64, mesh)
+                if name == "damianou_large" else pcoll.dp_collapsed_elbo(
+                    cm64, mesh, zs=dp_draws(cm64, seed, cm64.X_data.shape[0],
+                                            1)))
+        del cm64
+        # one data-parallel Adam step: the psi2 backward on the rank's rows
+        if name == "damianou_large":
+            cm = pcoll.damianou_shard(cm, mesh)
+            step = pcoll.make_dp_damianou_train_step(
+                masked_optimizer(cm, 0.01), mesh)
+            run = lambda: step(cm)                          # noqa: E731
+        else:
+            step = pcoll.make_dp_collapsed_train_step(
+                masked_optimizer(cm, 0.01), mesh)
+            run = lambda: step(cm, seed=seed)               # noqa: E731
+        before = psi2.psi2_core.backward_launches
+        loss = float(run())
+        torch.cuda.synchronize()
+        specs = pcoll.damianou_specs(cm)
+        out[f"{name} step"] = (loss, [host(p) for n, p in
+                                      cm.named_parameters()
+                                      if specs[n] is None])
+        out[f"{name} step launches"] = (psi2.psi2_core.backward_launches
+                                        - before)
+        del cm, step, run
+    sg, _ = sgpmc_model(seed, layers=1)
+    samples, _, _, info = hmc_sample_chains(
+        sg, mc_target(sg, seed), torch.Generator(device="cuda").manual_seed(
+            seed + 290), num_chains=2, num_samples=DP_HMC[1],
+        num_burn=DP_HMC[0], step_size=MC_STEP, num_leapfrog=CLOSED_LEAPFROG,
+        freeze=q_mu_only, mesh=mesh)
+    out["hmc"] = (host(samples), info["accept_rates"])
+    out["counts_29b"] = launch_counts()
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    sp = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "sample"))
+    with torch.no_grad():
+        out["sp_elbo"] = float(pdp.sp_elbo(model, X, Y, None, sp, zs=zs))
+    m = build_model(seed, num_samples=TRAIN_S, random_posterior=False)[0]
+    _, hist = fit_dp(m, sp, DP_SP_STEPS, 0.01, batch_size=BATCH, seed=seed,
+                     sample_axis="sample", log_every=DP_SP_STEPS)
+    out["fit_dp_sample"] = ([host(p) for p in m.parameters()],
+                            [h["loss"] for h in hist])
+    out["counts_29c"] = launch_counts()
+    return out
+
+
+def dp_gate(what, got, s32, s64):
+    """Raise unless ``got`` is within DP_GATE of the float64 scale of the
+    single-process float32 value ``s32``, or within 2x its error against
+    float64; returns (|got - s32|, the allowance)."""
+    got, s32, s64 = (np.asarray(a, dtype=np.float64) for a in (got, s32,
+                                                               s64))
+    scale = max(float(np.max(np.abs(s64))), 1e-30)
+    err = float(np.max(np.abs(got - s32)))
+    allow = max(DP_GATE * scale, 2.0 * float(np.max(np.abs(s32 - s64))))
+    check(np.isfinite(got).all() and err <= allow,
+          f"{what}: {err:.4e} from the single-process float32 value "
+          f"(allowed {allow:.4e})")
+    return err, allow
+
+
+def nccl_kernels(prof):
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type.name == "CUDA" and "nccl" in e.key.lower())
+
+
+def phase_parallel_nccl(seed, card):
+    """29a: a one-rank NCCL group on cuda:0, fit_dp against fit; the
+    group is destroyed after the phase's graphs are freed."""
+    import torch.distributed as dist
+    from doubly_stochastic_dgp_tpu_torch.parallel import mesh as pmesh
+    with tempfile.TemporaryDirectory() as store:
+        pmesh.initialize_distributed(f"file://{store}/store", 1, 0,
+                                     timeout_s=DP_TIMEOUT_S)
+        try:
+            check(dist.get_backend() == "nccl", "29a: the group is not NCCL")
+            mesh = pmesh.make_mesh()
+            out = fit_dp_against_fit(seed, card, mesh)
+            out["all_gather"] = nccl_gather(mesh)
+            return out
+        finally:
+            torch.cuda.synchronize()
+            dist.destroy_process_group()
+
+
+def nccl_gather(mesh):
+    """29a: ``all_gather`` on the one-rank NCCL mesh (a gather, its
+    backward a reduce-scatter) returns its input and passes the gradient
+    through, bit for bit."""
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import all_gather
+    g = torch.Generator(device="cuda").manual_seed(2990)
+    x = torch.randn((7, 3), generator=g, device="cuda").requires_grad_()
+    ct = torch.randn((7, 3), generator=g, device="cuda")
+    y = all_gather(x, mesh, "data")
+    y.backward(ct)
+    torch.cuda.synchronize()
+    same = torch.equal(y, x) and torch.equal(x.grad, ct)
+    print(f"29a all_gather on the one-rank NCCL mesh (all_gather_into_"
+          f"tensor, backward reduce_scatter_tensor): value and gradient bit "
+          f"for bit {same}", flush=True)
+    check(same, "29a: the NCCL gather changed its input or its gradient")
+    return same
+
+
+def fit_dp_against_fit(seed, card, mesh):
+    """29a's checks on ``mesh`` (one rank, NCCL)."""
+    from torch.profiler import ProfilerActivity, profile
+    from doubly_stochastic_dgp_tpu_torch import fit_dp
+    from doubly_stochastic_dgp_tpu_torch.parallel.dp import (
+        make_dp_scan_train_step)
+    from doubly_stochastic_dgp_tpu_torch.training.loop import (
+        make_scan_train_step)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        masked_optimizer)
+    ma = build_model(seed, num_samples=TRAIN_S, random_posterior=False)[0]
+    mb = build_model(seed, num_samples=TRAIN_S, random_posterior=False)[0]
+    _, counts_fit, _ = run_fit(ma, DP_STEPS, seed, profiled=False)
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    _, hist = fit_dp(mb, mesh, DP_STEPS, 0.01, batch_size=BATCH,
+                     seed=seed, log_every=FIT_CHUNK)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    same, worst, where = param_agreement(mb, ma)
+    print(f"29a fit_dp on a one-rank NCCL mesh vs fit: parameters after "
+          f"{DP_STEPS} steps bit for bit {same}; worst {worst:.3e} of "
+          f"scale ({where}); dispatch {sorted({h['dispatch'] for h in hist})}"
+          f"; launches fit_dp {counts}, fit {counts_fit} [{card}]",
+          flush=True)
+    check(same or worst <= DP_FIT_RTOL,
+          f"29a: fit_dp differs from fit by {worst} of scale in {where}")
+    check(all(h["dispatch"] == "graph" for h in hist),
+          "29a: a fit_dp chunk did not run as a captured graph")
+    check(counts == counts_fit, f"29a: fit_dp launched {counts}, fit "
+                                f"{counts_fit}")
+    per_step = {"fused_conditional": LAYERS,
+                "fused_conditional_backward": LAYERS,
+                "rbf_gram": 2 * LAYERS}
+    want = {n: FIT_CHUNK * per_step.get(n, 0) for n in KERNEL_NAMES}
+    check(counts == {n: FIT_CAPTURE_CHUNKS * v for n, v in want.items()},
+          f"29a: fit_dp's counters {counts} != {per_step} a step over "
+          f"the warm-up and capture chunks")
+    # the chunks, for the all-reduces, the launches and the rates
+    chunks = {"fit_dp": make_dp_scan_train_step(
+        masked_optimizer(mb, 0.01), mesh, batch_size=BATCH,
+        inner_steps=FIT_CHUNK),
+        "fit": make_scan_train_step(masked_optimizer(ma, 0.01), BATCH,
+                                    FIT_CHUNK)}
+    gens = {k: torch.Generator(device="cuda").manual_seed(seed + 1)
+            for k in chunks}
+    runs = {"fit_dp": lambda: chunks["fit_dp"](mb, gens["fit_dp"]),
+            "fit": lambda: chunks["fit"](ma, gens["fit"])}
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        runs["fit_dp"]()                   # warm-up and capture
+    # the host records of the collective (the c10d op, NCCL's own)
+    reduces = {e.key: e.count for e in prof.key_averages()
+               if "allreduce" in e.key.lower().replace("_", "")}
+    runs["fit"]()
+    torch.cuda.synchronize()
+    # NCCL's own record counts the calls, one a step of the warm-up and
+    # of the capture; the c10d op is recorded once a call in the warm-up
+    # and twice in the capture, which runs under a TorchDispatchMode
+    # (graphs.CapturedCall names a failed capture's op): the profiler
+    # records the op where it enters the dispatcher and again where the
+    # mode redispatches it
+    want_records = {"nccl:all_reduce": FIT_CAPTURE_CHUNKS * FIT_CHUNK,
+                    "c10d::allreduce_": 3 * FIT_CHUNK}
+    check(all(reduces.get(k) == v for k, v in want_records.items()),
+          f"29a: all-reduce records {reduces} in the warm-up and capture "
+          f"of a {FIT_CHUNK}-step chunk, expected {want_records}")
+    for i in range(1, PROFILE_TRIES + 1):
+        shield_profile()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            with no_sync():
+                runs["fit_dp"]()
+            torch.cuda.synchronize()
+        replay, nccl = device_launches(prof), nccl_kernels(prof)
+        if replay == want:
+            break
+        print(f"29a: a replay launched {replay} (try {i}); profiling again",
+              flush=True)
+    print(f"29a: a replayed fit_dp chunk of {FIT_CHUNK} steps: launches "
+          f"(profiler) {replay}; NCCL kernels {nccl} (a one-rank in-place "
+          f"sum launches none: the collective's device work is not "
+          f"measurable on one rank); all-reduce records in its warm-up and "
+          f"capture {reduces}", flush=True)
+    check(replay == want, f"29a: a replay launched {replay} != {want}")
+    rates = {k: [] for k in runs}
+    for _ in range(DP_ROUNDS):
+        for k, run in runs.items():
+            t0 = time.perf_counter()
+            with no_sync():
+                run()
+            torch.cuda.synchronize()
+            rates[k].append(FIT_CHUNK / (time.perf_counter() - t0))
+    med = {k: statistics.median(v) for k, v in rates.items()}
+    print(f"29a steps/s, median of {DP_ROUNDS} chunks of {FIT_CHUNK} in "
+          f"turns (sync debug 'error'): fit_dp {med['fit_dp']:.2f} "
+          f"(all: {', '.join(f'{r:.2f}' for r in rates['fit_dp'])}), fit "
+          f"{med['fit']:.2f} (all: "
+          f"{', '.join(f'{r:.2f}' for r in rates['fit'])}) [{card}]",
+          flush=True)
+    return {"bit_for_bit": same, "worst_rel_diff": worst,
+            "launches": counts, "replay_launches": replay,
+            "nccl_kernels_per_step": nccl / FIT_CHUNK,
+            "all_reduce_records_capture": reduces,
+            "steps_per_s": med, "rates": rates}
+
+
+def phase_parallel_gloo(seed, card):
+    """29b-c: two gloo ranks on cuda:0 against this process."""
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import (
+        rank_generator, run_ranks)
+    from doubly_stochastic_dgp_tpu_torch.training.hmc import (
+        hmc_sample_chains)
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        value_and_grads)
+    t0 = time.perf_counter()
+    res = run_ranks(dp_rank, 2, (seed,), backend="gloo", device="cuda",
+                    timeout_s=DP_TIMEOUT_S)
+    print(f"29b-c: two gloo ranks on cuda:0 done in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    a, b = res
+    for key in ("dp_elbo", "predict_y", "evaluate", "hmc", "sp_elbo",
+                "fit_dp_sample") + COLLAPSED + tuple(
+                    f"{n} {k}" for n in COLLAPSED for k in ("step", "f64")):
+        check(pickle_equal(a[key], b[key]),
+              f"29b-c {key}: the two ranks disagree")
+    check(pickle_equal(a["fit_dp"][:2], b["fit_dp"][:2]),
+          "29b fit_dp: the two ranks disagree")
+    out = {}
+    model, data = build_model(seed, num_samples=TRAIN_S)
+    m64, _ = build_model(seed, num_samples=TRAIN_S, dtype=torch.float64,
+                         use_pallas=False)
+    X, Y = model.X_data[:DP_ROWS], model.Y_data[:DP_ROWS]
+    zs = dp_draws(model, seed, DP_ROWS, TRAIN_S)
+    refs = {}
+    for label, m in (("f32", model), ("f64", m64)):
+        params = [p for p in m.parameters() if p.requires_grad]
+        z = [t.to(m.X_data.dtype) for t in zs]
+        v, g = value_and_grads(lambda: m.elbo(X.to(m.X_data.dtype),
+                                              Y.to(m.X_data.dtype), zs=z),
+                               params)
+        refs[label] = (float(v), [host(t) for t in g])
+    value, grads = a["dp_elbo"]
+    err, allow = dp_gate("29b dp_elbo", value, refs["f32"][0],
+                         refs["f64"][0])
+    gerr = []
+    for name, g, g32, g64 in zip(trainable_names(model), grads,
+                                 refs["f32"][1], refs["f64"][1]):
+        gerr.append((name,) + dp_gate(f"29b dp_elbo gradient {name}", g,
+                                      g32, g64))
+    worst = max(gerr, key=lambda e: e[1] / e[2])
+    print(f"29b dp_elbo on 2 gloo ranks, {DP_ROWS} rows (padded), fixed "
+          f"draws: {value:.6f} vs single-process float32 "
+          f"{refs['f32'][0]:.6f} (float64 {refs['f64'][0]:.6f}): |d| "
+          f"{err:.3e} (allowed {allow:.3e}); gradients: worst {worst[1]:.3e} "
+          f"of allowed {worst[2]:.3e} ({worst[0]}); ranks bit for bit True",
+          flush=True)
+    out["dp_elbo"] = {"value": value, "f32": refs["f32"][0],
+                      "f64": refs["f64"][0], "err": err, "allowed": allow}
+    params, hist, wall = a["fit_dp"]
+    losses = [h[1] for h in hist]
+    print(f"29b fit_dp on 2 gloo ranks: {DP_RANK_STEPS} steps in {wall:.1f} "
+          f"s ({DP_RANK_STEPS / wall:.2f} steps/s, dispatch "
+          f"{sorted({h[2] for h in hist})}); losses {losses}; ranks bit for "
+          f"bit True [{card}]", flush=True)
+    check(all(np.isfinite(losses)) and all(h[2] == "eager" for h in hist),
+          f"29b fit_dp: {hist}")
+    out["fit_dp"] = {"losses": losses, "steps_per_s": DP_RANK_STEPS / wall}
+    g = torch.Generator(device="cuda").manual_seed(seed + 29)
+    mean_s, var_s = model.predict_y(model.X_data[:DP_PRED_ROWS], DP_PRED_S,
+                                    generator=g)
+    mean1 = mean_s.double().mean(0)
+    var1 = (var_s.double() + mean_s.double() ** 2).mean(0) - mean1 ** 2
+    d_mean = float(np.max(np.abs(a["predict_y"][0] - host(mean1))))
+    d_var = float(np.max(np.abs(a["predict_y"][1] - host(var1))))
+    print(f"29b dp_predict_y {DP_PRED_ROWS} rows S={DP_PRED_S} (50 samples "
+          f"a rank): vs one process on the same draws max |dmean| "
+          f"{d_mean:.3e}, max |dvar| {d_var:.3e}", flush=True)
+    check(d_mean <= DP_GATE * float(mean1.abs().max())
+          and d_var <= DP_GATE * float(var1.abs().max()),
+          f"29b dp_predict_y: {d_mean}, {d_var}")
+    Xs, Ys = eval_rows(data)
+    n = len(Xs) + len(Xs) % 2
+    gens = [rank_generator(seed + 30, r, "cuda") for r in range(2)]
+    # rank r's draws, a layer at a time from its generator, joined by rows
+    per_rank = [[torch.randn((DP_PRED_S, n // 2, l.num_outputs),
+                             generator=gr, device="cuda")
+                 for l in model.layers] for gr in gens]
+    zs_eval = [torch.cat([d[i] for d in per_rank], dim=1)[:, :len(Xs)]
+               for i in range(len(model.layers))]
+    want = evaluate_regression(model, Xs, Ys, data["Y_std"], DP_PRED_S,
+                               zs=zs_eval)
+    got = a["evaluate"]
+    rel = max(abs(got[k] - want[k]) / abs(want[k]) for k in ("rmse", "nll"))
+    print(f"29b dp_evaluate_regression on {len(Xs)} rows: {got} vs one "
+          f"process on the ranks' draws {want}: worst relative {rel:.3e}",
+          flush=True)
+    check(rel <= DP_GATE, f"29b dp_evaluate_regression: {got} vs {want}")
+    out["evaluate"] = {"dp": got, "single": want}
+    build, _ = collapsed_models(data, seed)
+    for name in COLLAPSED:
+        vals = {}
+        for route in ("kernel", "f64"):
+            cm = build(name, *ROUTES[route])
+            with torch.no_grad():
+                vals[route] = float(cm.elbo(zs=dp_draws(
+                    cm, seed, cm.X_data.shape[0], 1)) if name ==
+                    "collapsed_L2" else cm.elbo())
+            del cm
+        got, launched = a[name]
+        got64 = a[f"{name} f64"]
+        # the kernel route on the ranks against one process on the same
+        # route; the algebra in float64, where rounding does not hide it
+        f32_err = abs(vals["kernel"] - vals["f64"])
+        allow = max(DP_F32_SHARE * f32_err, DP_GATE * abs(vals["f64"]))
+        err = abs(got - vals["kernel"])
+        allow64 = DP_F64_RTOL * abs(vals["f64"])
+        err64 = abs(got64 - vals["f64"])
+        print(f"29b {name} data-parallel bound on 2 ranks (psi2 kernel "
+              f"route): {got:.4f}; one process float32 {vals['kernel']:.4f}"
+              f": |dp - f32| {err:.4e} (allowed {allow:.4e}); float64 on "
+              f"the plain route {got64:.8f} vs one process {vals['f64']:.8f}"
+              f": |d| {err64:.4e} (allowed {allow64:.4e}); against float64"
+              f" |dp - f64| {abs(got - vals['f64']):.4e}, |f32 - f64| "
+              f"{f32_err:.4e}; psi2 forward launches a rank {launched}",
+              flush=True)
+        check(np.isfinite(got) and err <= allow,
+              f"29b {name}: {got} vs one process's float32 {vals['kernel']}")
+        check(err64 <= allow64,
+              f"29b {name} float64: {got64} vs one process's {vals['f64']}")
+        check(launched == 1, f"29b {name}: {launched} psi2 launches a rank")
+        loss, _ = a[f"{name} step"]
+        back = [r[f"{name} step launches"] for r in res]
+        print(f"29b {name} data-parallel Adam step on 2 ranks: loss "
+              f"{loss:.4f}; replicated parameters bit for bit across the "
+              f"ranks True; psi2 backward launches a rank {back}",
+              flush=True)
+        check(np.isfinite(loss) and back == [1, 1],
+              f"29b {name} step: loss {loss}, psi2 backward launches {back}")
+        out[name] = {"dp": got, "f32": vals["kernel"], "f64": vals["f64"],
+                     "dp_f64": got64, "psi2_launches_per_rank": launched,
+                     "step_loss": loss}
+    sg, _ = sgpmc_model(seed, layers=1)
+    samples, _, _, _ = hmc_sample_chains(
+        sg, mc_target(sg, seed), torch.Generator(device="cuda").manual_seed(
+            seed + 290), num_chains=2, num_samples=DP_HMC[1],
+        num_burn=DP_HMC[0], step_size=MC_STEP, num_leapfrog=CLOSED_LEAPFROG,
+        freeze=q_mu_only)
+    same = np.array_equal(a["hmc"][0], host(samples))
+    print(f"29b HMC: 2 chains split over 2 ranks vs one process, no mesh, "
+          f"from the same generator ({DP_HMC[0]} + {DP_HMC[1]} iterations): "
+          f"bit for bit {same}; accept {a['hmc'][1]}", flush=True)
+    check(same, "29b: the split HMC chains differ from one process's")
+    err, allow = dp_gate("29c sp_elbo", a["sp_elbo"], refs["f32"][0],
+                         refs["f64"][0])
+    print(f"29c sp_elbo on a (data 1 x sample 2) mesh, fixed draws: "
+          f"{a['sp_elbo']:.6f} vs single-process {refs['f32'][0]:.6f}: |d| "
+          f"{err:.3e} (allowed {allow:.3e}); fit_dp(sample_axis='sample') "
+          f"{DP_SP_STEPS} steps: losses {a['fit_dp_sample'][1]}, ranks bit "
+          f"for bit True", flush=True)
+    check(np.isfinite(a["fit_dp_sample"][1]).all(), "29c fit_dp: loss")
+    out["sp_elbo"] = {"value": a["sp_elbo"], "err": err, "allowed": allow}
+    out["launches_29b"] = {n: a["counts_29b"][n] + b["counts_29b"][n]
+                           for n in KERNEL_NAMES}
+    out["launches_29c"] = {n: a["counts_29c"][n] + b["counts_29c"][n]
+                           for n in KERNEL_NAMES}
+    return out
+
+
+def pickle_equal(x, y):
+    import pickle
+    return pickle.dumps(x) == pickle.dumps(y)
+
+
+def phase_parallel(seed, card):
+    """Phase 29: 29a (one-rank NCCL), 29b-c (two gloo ranks)."""
+    counts0 = launch_counts()
+    t0 = time.perf_counter()
+    out = {"nccl": phase_parallel_nccl(seed, card)}
+    print(f"29a done at {time.perf_counter() - t0:.1f} s", flush=True)
+    out["gloo"] = phase_parallel_gloo(seed, card)
+    out["wall_s"] = time.perf_counter() - t0
+    set_launch_counts(counts0)
+    print(f"parallel phase wall time {out['wall_s']:.1f} s [{card}]",
+          flush=True)
+    return out
+
+
 def print_kernel_resources(name, out):
     """Registers, shared memory and spills of each kernel in one source,
     as ``nvcc -Xptxas -v`` reported them (one line a kernel); kept in
@@ -5867,6 +6392,12 @@ def main():
     lap(27)
     mcmc = phase_mcmc(args.seed, card)
     lap(28)
+    parallel = phase_parallel(args.seed, card)
+    lap(29)
+    parallel_launches = {
+        "fit_dp_nccl": parallel["nccl"]["launches"],
+        "gloo_ranks": parallel["gloo"]["launches_29b"],
+        "sample_axis": parallel["gloo"]["launches_29c"]}
     mcmc_launches = {
         "sgpmc_headline": mcmc["sgpmc_headline"]["launches_main_path"],
         "closed_form_hmc": mcmc["closed_form"]["hmc"]["launches"],
@@ -5933,6 +6464,9 @@ def main():
         # phase 28: each sub-phase's main-path launches
         rec["mcmc_launches"] = {label: c[name]
                                 for label, c in mcmc_launches.items()}
+        # phase 29: each sub-phase's main-path launches
+        rec["parallel_launches"] = {label: c[name] for label, c in
+                                    parallel_launches.items()}
         if name in mcmc["kernel_errs"]:
             mc_errs = mcmc["kernel_errs"][name]
             rec["mcmc_max_rel_err"] = mc_errs[1]
@@ -5965,7 +6499,7 @@ def main():
                       "checkpoint_resume": resume,
                       "mnist": mnist, "extra_models": extra,
                       "natgrad_baselines": natgrad,
-                      "mcmc": mcmc,
+                      "mcmc": mcmc, "parallel": parallel,
                       "fused_forward_precision": precision,
                       "card": card}))
     print(json.dumps({"kernels": records}))

@@ -29,7 +29,12 @@ inducing values of ``SGPMCLayer`` stacks and over the ``GPMCLayer`` of
 forms, as captured graphs on the card, with ``potential_scale_reduction``
 and ``effective_sample_size``); call-time sample counts
 (``DynamicPredictor``) and exported prediction programs
-(``export_predict_y``, ``load_exported``, through ``torch.export``).
+(``export_predict_y``, ``load_exported``, through ``torch.export``);
+and data and sample parallelism over ``torch.distributed`` (``parallel``:
+meshes of ranks with the port's collectives, the data- and
+sample-parallel ELBO, its scanned steps and ``fit_dp``, predictions and
+evaluation over the ranks, the collapsed DGPs' bounds and steps with the
+rows split, and the MCMC chains split over ranks by ``mesh=``).
 The fused staged
 conditional and the psi2 data sum run as hand-written CUDA kernels,
 forward and backward, the conditional also with a save-gram variant, and
@@ -69,7 +74,15 @@ from .training.hmc import (effective_sample_size, hmc_sample,
                            hmc_sample_chains, potential_scale_reduction)
 from .training.nuts import nuts_sample, nuts_sample_chains
 from .training.loop import (evaluate_classification, evaluate_regression,
-                            fit, make_natgrad_adam_step)
+                            fit, fit_dp, make_natgrad_adam_step)
+from . import parallel
+from .parallel import (collapsed_shard, damianou_shard, dp_collapsed_elbo,
+                       dp_damianou_elbo, dp_elbo, dp_predict_y,
+                       make_dp_collapsed_train_step,
+                       make_dp_damianou_train_step,
+                       make_dp_sp_scan_train_step, make_dp_train_step,
+                       make_mesh, pad_to_multiple, replicate, shard_along,
+                       sp_elbo)
 from .training.natgrad import NaturalGradient, natgrad_update
 from .training.optim import lbfgs_minimize, make_train_step
 from .utils.params import log_prior
@@ -93,5 +106,10 @@ __all__ = [
     "lbfgs_minimize", "make_train_step", "DynamicPredictor", "export_fn",
     "export_predict_y", "load_exported", "hmc_sample", "hmc_sample_chains",
     "nuts_sample", "nuts_sample_chains", "potential_scale_reduction",
-    "effective_sample_size",
+    "effective_sample_size", "fit_dp", "parallel", "collapsed_shard",
+    "damianou_shard", "dp_collapsed_elbo", "dp_damianou_elbo", "dp_elbo",
+    "dp_predict_y", "make_dp_collapsed_train_step",
+    "make_dp_damianou_train_step", "make_dp_sp_scan_train_step",
+    "make_dp_train_step", "make_mesh", "pad_to_multiple", "replicate",
+    "shard_along", "sp_elbo",
 ]

@@ -3,7 +3,7 @@ alternating steps, the reject-nonfinite guard, fit and evaluation, and
 the MCMC samplers (HMC, NUTS)."""
 
 from .loop import (evaluate_classification, evaluate_regression, fit,
-                   make_natgrad_adam_step, make_scan_train_step,
+                   fit_dp, make_natgrad_adam_step, make_scan_train_step,
                    make_sgd_train_step)
 from .natgrad import NaturalGradient, natgrad_update
 from .optim import lbfgs_minimize, make_train_step, masked_optimizer

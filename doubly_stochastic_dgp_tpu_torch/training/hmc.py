@@ -23,10 +23,15 @@ each replay, in the eager order (``graphs.DrawTape``), so a graphed chain
 takes the eager chain's steps.  On the CPU, and on the card inside
 ``graphs.eager_on_card()``, the same code runs eagerly; there the draws
 may also come from any draw source (``graphs.randn``), which is how the
-tests replay the JAX package's keys.  Draw order, per iteration: the
-momenta of every chain, (C, P), then the accept uniforms, (C,);
-``hmc_sample_chains`` first draws the (C, P) normals of its overdispersed
-starts.
+tests replay the JAX package's keys.  Draw order: ``hmc_sample_chains``
+draws the (C, P) normals of its overdispersed starts from the caller's
+generator, then gives each chain a draw source of its own
+(:func:`chain_generators`, as JAX splits its run key into one key a
+chain); ``hmc_sample``'s one chain draws from the caller's generator
+itself (JAX: its key).  Per iteration a chain draws its momenta (P,), then
+its accept uniform, from its own source, so a chain's draws do not depend
+on where it runs: ``mesh=`` splits the chains over ranks (the JAX
+``shard_chains``) and the ranks draw what one process draws.
 
 Chains: JAX ``vmap``s them into one batched program.  Here they run one
 after another inside the captured chunk (the kernels' autograd Functions
@@ -47,7 +52,8 @@ from ..graphs import CapturedCall, DrawTape, graphs_enabled, rand, randn
 from .optim import partition_trainable, trainable_parameters, value_and_grads
 
 __all__ = ["hmc_sample", "hmc_sample_chains", "HMCChains",
-           "potential_scale_reduction", "effective_sample_size", "HMCInfo"]
+           "chain_generators", "potential_scale_reduction",
+           "effective_sample_size", "HMCInfo"]
 
 # dual-averaging constants (Hoffman & Gelman 2014)
 DA_T0, DA_GAMMA, DA_KAPPA = 10.0, 0.05, 0.75
@@ -143,44 +149,49 @@ class Program:
 
     ``state`` lists the persistent tensors the bodies write (with the
     model's parameters): a capture's eager warm-up runs the body from a
-    snapshot of them and of the generator, and restores them, so it takes
-    no step.  A graphed body needs a ``torch.Generator`` on the device;
-    before each replay its draws are made from it into the tape's buffers
-    in the eager order."""
+    snapshot of them and of the generators, and restores them, so it takes
+    no step.  ``sources``: the body's draw sources, a list; a graphed body
+    needs each to be a ``torch.Generator`` on the device, and before each
+    replay its draws are made from them into the tapes' buffers in the
+    eager order."""
 
     def __init__(self, target, state, what):
         self.target, self.state, self.what = target, state, what
         self.graphs = {}
 
-    def run(self, key, body, generator):
+    def run(self, key, body, sources):
+        """``body(draws)``, ``draws`` a list of one draw source for each of
+        ``sources``."""
         if not graphs_enabled(self.target.device):
-            return body(generator)
-        if not isinstance(generator, torch.Generator):
+            return body(sources)
+        if not all(isinstance(g, torch.Generator) for g in sources):
             raise ValueError(f"{self.what}: a graphed chain draws from a "
                              f"torch.Generator on {self.target.device}")
         if key not in self.graphs:
-            self.graphs[key] = self._capture(key, body, generator)
-        tape, call = self.graphs[key]
-        tape.fill(generator)
+            self.graphs[key] = self._capture(key, body, sources)
+        tapes, call = self.graphs[key]
+        for tape, g in zip(tapes, sources):
+            tape.fill(g)
         out = call.replay()
         return tuple(o.clone() for o in out) if isinstance(out, tuple) \
             else out.clone()
 
-    def _capture(self, key, body, generator):
-        tape = DrawTape(generator)
+    def _capture(self, key, body, sources):
+        tapes = [DrawTape(g) for g in sources]
         written = self.state + self.target.params
         saved = [t.detach().clone() for t in written]
-        gen_state = generator.get_state()
+        gen_states = [g.get_state() for g in sources]
 
         def warmup():
             with torch.no_grad():
-                body(tape)
+                body(tapes)
                 torch._foreach_copy_(written, saved)
-            generator.set_state(gen_state)
-            tape.freeze()
+            for g, state, tape in zip(sources, gen_states, tapes):
+                g.set_state(state)
+                tape.freeze()
 
-        return tape, CapturedCall(lambda: body(tape), warmup,
-                                  f"{self.what} {key}")
+        return tapes, CapturedCall(lambda: body(tapes), warmup,
+                                   f"{self.what} {key}")
 
 
 def _leapfrog(target, q, p, eps, num_leapfrog):
@@ -204,18 +215,20 @@ class HMCChains:
     of iterations (one graph replay on the card) and returns its
     positions (n, C, P) without a host read; :meth:`run` runs the rest.
     ``q0`` (C, P): the starting positions, default the model's own;
-    ``generator``: a ``torch.Generator`` on the model's device (default:
-    seeded with 0) or, eagerly, a draw source.  ``program.graphs`` maps
-    each captured chunk length to its (tape, ``CapturedCall``)."""
+    ``generators``: one draw source a chain, each a ``torch.Generator`` on
+    the model's device or, eagerly, any draw source; a lone chain may be
+    given its one source (default: a generator seeded with 0).
+    ``program.graphs`` maps each captured chunk length to its (tapes,
+    ``CapturedCall``)."""
 
-    def __init__(self, model, log_prob_fn, generator=None, q0=None,
+    def __init__(self, model, log_prob_fn, generators=None, q0=None,
                  num_samples=100, num_burn=100, step_size=0.01,
                  num_leapfrog=10, freeze=None, adapt_step_size=False,
                  target_accept=0.8, target=None):
         t = target or Target(model, log_prob_fn, freeze)
         self.target, self.L = t, num_leapfrog
-        self.generator = _default_generator(generator, t.device)
         q0 = t.flat0[None] if q0 is None else q0
+        self.generators = chain_sources(generators, q0.shape[0], t.device)
         self.q = q0.clone()                                   # (C, P)
         self.lp = torch.stack([t.value(q) for q in q0])       # (C,)
         self.acc = torch.zeros_like(self.lp)
@@ -232,19 +245,24 @@ class HMCChains:
     @torch.no_grad()
     def iteration(self, draws):
         """One HMC iteration of every chain; returns the positions (C,
-        P)."""
+        P).  ``draws``: one source a chain (its momenta, then its accept
+        uniform)."""
         t = self.target
+        P = self.q.shape[1]
         eps, in_burn = self.da.eps(self.it)
-        p0 = randn(tuple(self.q.shape), draws, t.dtype, t.device)
-        outs = [_leapfrog(t, self.q[c], p0[c], eps[c], self.L)
-                for c in range(self.q.shape[0])]
+        p0 = [randn((P,), d, t.dtype, t.device) for d in draws]
+        outs = [_leapfrog(t, self.q[c], p, eps[c], self.L)
+                for c, p in enumerate(p0)]
         q_new = torch.stack([o[0] for o in outs])
-        p_new = torch.stack([o[1] for o in outs])
         lp_new = torch.stack([o[2] for o in outs])
-        log_u = torch.log(rand((self.q.shape[0],), draws, t.dtype,
-                               t.device))
-        log_alpha = (lp_new - self.lp - 0.5 * torch.sum(p_new ** 2, dim=1)
-                     + 0.5 * torch.sum(p0 ** 2, dim=1))
+        log_u = torch.log(torch.stack([rand((), d, t.dtype, t.device)
+                                       for d in draws]))
+        # each chain's energy change from its own vectors: a chain's
+        # numbers do not depend on how many chains run beside it
+        log_alpha = torch.stack([
+            o[2] - self.lp[c] - 0.5 * torch.sum(o[1] ** 2)
+            + 0.5 * torch.sum(p ** 2)
+            for c, (o, p) in enumerate(zip(outs, p0))])
         # divergences (NaN energy) count as acceptance probability 0
         nan = torch.isnan(log_alpha)
         alpha = torch.where(nan, 0.0,
@@ -261,7 +279,7 @@ class HMCChains:
         n = min(n or CHUNK, self.total - self.done)
         out = self.program.run(
             n, lambda d: torch.stack([self.iteration(d) for _ in range(n)]),
-            self.generator)
+            self.generators)
         self.done += n
         self.target.rebuild(self.target.flat0)
         return out
@@ -279,6 +297,21 @@ def _default_generator(generator, device):
         generator = torch.Generator(device=device)
         generator.manual_seed(0)
     return generator
+
+
+def chain_sources(generators, num_chains: int, device):
+    """``generators`` as a list of one draw source a chain: a sequence of
+    ``num_chains`` as given; a lone chain's one source (default: a
+    generator seeded with 0) in a list."""
+    if isinstance(generators, (list, tuple)):
+        if len(generators) != num_chains:
+            raise ValueError(f"{len(generators)} draw sources for "
+                             f"{num_chains} chains")
+        return list(generators)
+    if num_chains != 1:
+        raise ValueError(f"{num_chains} chains need one draw source each "
+                         f"(chain_generators)")
+    return [_default_generator(generators, device)]
 
 
 def hmc_sample(model, log_prob_fn: Callable, generator=None,
@@ -308,33 +341,81 @@ def hmc_sample(model, log_prob_fn: Callable, generator=None,
     return qs[num_burn:, 0], accept_rate, chains.target.rebuild, info
 
 
+def chain_generators(generator, num_chains: int, device):
+    """The chains' own draw sources from ``generator``, as JAX splits its
+    run key into one key a chain: a ``torch.Generator`` draws
+    ``num_chains`` seeds, each seeding a generator on ``device``; any other
+    draw source gives its ``split(num_chains)``."""
+    if not isinstance(generator, torch.Generator):
+        return list(generator.split(num_chains))
+    seeds = torch.randint(0, 2 ** 62, (num_chains,), generator=generator,
+                          device=generator.device)
+    return [torch.Generator(device=device).manual_seed(s)
+            for s in seeds.tolist()]
+
+
+def overdispersed_chains(target, generator, num_chains, init_jitter, mesh,
+                         chain_axis):
+    """(this rank's starts (C_l, P), their draw sources, the gather) of a
+    multi-chain run: the model's position plus ``init_jitter`` times
+    (C, P) unit normals from ``generator``, then each chain's source
+    (:func:`chain_generators`), on every rank.  Without a mesh every
+    chain runs here; with one, rank r runs its block of
+    ``shard_chains`` and ``gather`` joins the ranks' blocks along the
+    chain axis on every rank."""
+    generator = _default_generator(generator, target.device)
+    q0 = target.flat0[None] + init_jitter * randn(
+        (num_chains, target.flat0.shape[0]), generator, target.dtype,
+        target.device)
+    sources = chain_generators(generator, num_chains, target.device)
+    if mesh is None:
+        return q0, sources, lambda x: x
+    from ..parallel.mesh import all_gather, shard_chains
+    q0, idx = shard_chains(mesh, chain_axis, num_chains, q0,
+                           torch.arange(num_chains))
+    axis = chain_axis or mesh.mesh_dim_names[0]
+    return (q0, [sources[int(c)] for c in idx],
+            lambda x: all_gather(x, mesh, axis))
+
+
 def hmc_sample_chains(model, log_prob_fn: Callable, generator=None,
                       num_chains: int = 4, num_samples: int = 100,
                       num_burn: int = 100, step_size: float = 0.01,
                       num_leapfrog: int = 10, freeze=None,
                       adapt_step_size: bool = True,
                       target_accept: float = 0.8,
-                      init_jitter: float = 0.1):
+                      init_jitter: float = 0.1, mesh=None,
+                      chain_axis: str = None):
     """C chains from overdispersed starts (the model's position plus
     ``init_jitter`` times unit normals), each adapting its own step size.
     Returns (samples (C, num_samples, P), accept_rates (C,), rebuild, info
     with per-chain step sizes, final log densities, split R-hat and ESS).
-    Sharding the chains over devices (the JAX ``mesh=``) is not ported."""
+
+    ``generator``: a ``torch.Generator`` on the model's device (default:
+    seeded with 0) or, eagerly, a draw source with ``split``; it draws the
+    starts, then each chain's own generator (:func:`chain_generators`).
+    ``mesh`` splits the chains over the mesh axis ``chain_axis`` (default
+    its first): chains are independent, so each rank runs its block with
+    no per-step collective, and the draws and statistics are gathered, so
+    every rank returns what one process returns.  ``num_chains`` must
+    divide by the axis size."""
     target = Target(model, log_prob_fn, freeze)
-    generator = _default_generator(generator, target.device)
-    P = target.flat0.shape[0]
-    q0 = target.flat0[None] + init_jitter * randn(
-        (num_chains, P), generator, target.dtype, target.device)
-    chains = HMCChains(model, log_prob_fn, generator, q0, num_samples,
+    q0, sources, gather = overdispersed_chains(
+        target, generator, num_chains, init_jitter, mesh, chain_axis)
+    chains = HMCChains(model, log_prob_fn, sources, q0, num_samples,
                        num_burn, step_size, num_leapfrog, freeze,
                        adapt_step_size, target_accept, target=target)
-    samples = chains.run()[num_burn:].transpose(0, 1)       # (C, S, P)
-    accept_rates = chains.acc.double().cpu().numpy() / chains.total
+    samples = gather(chains.run()[num_burn:].transpose(0, 1).contiguous())
+    stats = gather(torch.stack([chains.acc, chains.lp,
+                                chains.da.log_eps_bar], dim=1))
+    accept_rates = stats[:, 0].double().cpu().numpy() / chains.total
     host = samples.double().cpu().numpy()
     info = {
         "accept_rates": accept_rates,
-        "step_sizes": chains.da.final_step_sizes(),
-        "final_log_probs": chains.lp.double().cpu().numpy(),
+        "step_sizes": (np.exp(stats[:, 2].double().cpu().numpy())
+                       if adapt_step_size
+                       else np.full(num_chains, step_size)),
+        "final_log_probs": stats[:, 1].double().cpu().numpy(),
         "rhat": potential_scale_reduction(host),
         "ess": effective_sample_size(host),
     }

@@ -4,7 +4,7 @@ metrics.
 
 Counterpart of ``doubly_stochastic_dgp_tpu/training/loop.py``
 (``make_sgd_train_step``, ``guarded_scan``, ``make_scan_train_step``,
-``make_natgrad_adam_step``, ``fit``, ``evaluate_regression``,
+``make_natgrad_adam_step``, ``fit``, ``fit_dp``, ``evaluate_regression``,
 ``evaluate_classification``).  A step is one forward, gradients as values
 (``torch.autograd.grad``) and one Adam update in place; the alternating
 step adds a natural-gradient step on chosen layers' (q_mu, q_sqrt) before
@@ -24,6 +24,7 @@ with ``torch.where``, as the JAX body does: nothing is read on the host,
 and a rejected candidate is never installed.
 
 ``fit(ckpt_dir=...)`` saves and resumes (``training/checkpoint.py``).
+``fit_dp`` is ``fit`` over a mesh of ranks (``parallel/``).
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ from .optim import (copy_state, freeze_q_params, make_train_step,
 
 __all__ = ["check_minibatchable", "make_sgd_train_step", "guarded_scan",
            "make_scan_train_step", "make_natgrad_adam_step", "fit",
-           "evaluate_regression", "evaluate_classification"]
+           "fit_dp", "evaluate_regression", "evaluate_classification"]
 
 # The guard's trust scale: halved on a rejected step, down to 2^-12, and
 # recovered by 2^(1/16) on an accepted one, up to exactly 1.0 (clamped by
@@ -299,6 +300,17 @@ def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
         rejected_total.add_(rejected)
         return loss
 
+    return _Chunk(body, _chunk_capture(
+        body, optimizer, rejected_total,
+        f"{kind} training chunk of {inner_steps} steps"), rejected_total)
+
+
+def _chunk_capture(body, optimizer, rejected_total, what):
+    """``capture(model, generator) -> (tape, CapturedCall)``: the CUDA
+    graph of ``body(model, tape)``, whose eager warm-up runs from a
+    snapshot of the model's parameters, the Adam state, the rejection
+    count and the generator, and restores it."""
+
     def capture(model, generator):
         tape = DrawTape(generator)
         # every parameter of the model: a natural step also writes those
@@ -319,27 +331,29 @@ def make_scan_train_step(optimizer, batch_size: Optional[int] = None,
             generator.set_state(saved[3])
             tape.freeze()
 
-        return tape, CapturedCall(
-            lambda: body(model, tape), warmup,
-            f"{kind} training chunk of {inner_steps} steps "
-            f"({type(model).__name__})")
+        return tape, CapturedCall(lambda: body(model, tape), warmup,
+                                  f"{what} ({type(model).__name__})")
 
-    return _Chunk(body, capture, rejected_total)
+    return capture
 
 
 class _Chunk:
     """The callable :func:`make_scan_train_step` returns: eager on the CPU
-    (and inside ``graphs.eager_on_card()``), else the captured graph of
-    its model, captured at the first call.  ``graph`` is (model, tape,
-    ``CapturedCall``) once captured."""
+    (and inside ``graphs.eager_on_card()``, or when not ``graphable``),
+    else the captured graph of its model, captured at the first call.
+    ``graph`` is (model, tape, ``CapturedCall``) once captured;
+    ``dispatch`` is 'graph' or 'eager', the way the last call went."""
 
-    def __init__(self, body, capture, rejected):
+    def __init__(self, body, capture, rejected, graphable=True):
         self._body, self._capture = body, capture
         self.rejected = rejected
+        self.graphable = graphable
         self.graph = None
+        self.dispatch = None
 
     def __call__(self, model, generator=None):
-        if not graphs_enabled(model.X_data.device):
+        if not (self.graphable and graphs_enabled(model.X_data.device)):
+            self.dispatch = "eager"
             return self._body(model, generator)
         if generator is None:
             raise ValueError("a graphed chunk needs a generator")
@@ -347,6 +361,7 @@ class _Chunk:
             self.graph = (model,) + self._capture(model, generator)
         _, tape, graph = self.graph
         tape.fill(generator)
+        self.dispatch = "graph"
         return graph.replay().clone()
 
 
@@ -457,14 +472,164 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
     return model, history
 
 
+def fit_dp(model, mesh, iterations: int, learning_rate: float = 0.01,
+           batch_size: Optional[int] = None, seed: int = 0,
+           axis: str = "data", sample_axis: Optional[str] = None,
+           callbacks: Sequence = (), log_every: int = 100,
+           scan_steps: Optional[int] = None,
+           ckpt_dir: Optional[str] = None,
+           ckpt_every: Optional[int] = None,
+           reject_nonfinite: Optional[bool] = None):
+    """:func:`fit` over a mesh (``parallel/mesh.py``), called on every
+    rank: broadcasts rank 0's parameters, splits the model's stored
+    training rows over ``axis`` and trains in place with the scanned
+    data-parallel step (``parallel.dp.make_dp_scan_train_step``); with
+    ``sample_axis`` (a 2-D mesh) the data x sample step splits the MC
+    samples too.  Returns (model, history); every rank ends with the same
+    parameters.
+
+    Rank d of the data axis draws from ``rank_generator(seed, d)`` for the
+    whole run (a chunk's draws follow from the seed, the rank and the
+    chunk's index, as the JAX key folds them): on a one-rank mesh that is
+    ``fit``'s generator, and ``fit_dp`` takes ``fit``'s steps.  Chunks, logging, callbacks (called on every rank)
+    and the guard are ``fit``'s; the guard is off by default
+    (``reject_nonfinite=None`` means False here) and not applied to the
+    data x sample step.  History entries add "dispatch": 'graph' (NCCL
+    on the card: one captured CUDA graph a chunk, its all-reduces
+    inside) or 'eager' (gloo, and the CPU).  ``ckpt_dir``: rank 0 saves
+    the parameters, the Adam state, every rank's generator state and the
+    rejection count; a later ``fit_dp`` on the same mesh resumes from the
+    latest checkpoint, each rank with its own generator state.
+
+    A model with a full-batch bound (the collapsed family) raises:
+    ``parallel.collapsed`` has its data-parallel steps."""
+    import torch.distributed as dist
+
+    from ..parallel.dp import (make_dp_scan_train_step,
+                               make_dp_sp_scan_train_step)
+    from ..parallel.mesh import (all_reduce_sum_, axis_index, axis_size,
+                                 rank_generator, replicate)
+
+    check_minibatchable(model, batch_size)
+    if model.full_batch_bound:
+        # the generic data-parallel step optimizes the per-datum
+        # E_log_p_Y - KL decomposition, which the collapsed bounds are not
+        raise ValueError(
+            f"{type(model).__name__}'s objective is a full-batch "
+            f"collapsed bound: fit_dp's generic data-parallel step "
+            f"would silently optimize the uncollapsed per-datum "
+            f"decomposition instead.  Use the dedicated collapsed DP "
+            f"machinery: parallel.collapsed.collapsed_shard/"
+            f"damianou_shard + make_dp_collapsed_train_step/"
+            f"make_dp_damianou_train_step (the all-reduced psi-moment "
+            f"algebra), or train on one device with fit().")
+    if reject_nonfinite is None:
+        reject_nonfinite = False
+    n_data = axis_size(mesh, axis)
+    N = int(model.X_data.shape[0])
+    if N % n_data != 0:
+        raise ValueError(
+            f"training rows N={N} must divide the '{axis}' mesh axis "
+            f"({n_data}); pad or trim the dataset")
+    chunk = max(1, min(10, log_every) if scan_steps is None else scan_steps)
+    if reject_nonfinite and chunk < _GUARD_MIN_CHUNK:
+        warnings.warn(
+            f"reject_nonfinite guard: raising scan_steps from {chunk} to "
+            f"{_GUARD_MIN_CHUNK} (the trust scale needs room within a "
+            f"chunk; pass reject_nonfinite=False to keep scan_steps={chunk})")
+        chunk = _GUARD_MIN_CHUNK
+    if reject_nonfinite and sample_axis is not None:
+        warnings.warn(
+            "reject_nonfinite guard is not implemented for the composed "
+            "data x sample step; training unguarded "
+            "(pass reject_nonfinite=False to silence)")
+        reject_nonfinite = False
+
+    replicate(model, mesh)
+    optimizer = masked_optimizer(model, learning_rate)
+    if sample_axis is None:
+        run_chunk = make_dp_scan_train_step(
+            optimizer, mesh, axis=axis, batch_size=batch_size,
+            inner_steps=chunk, reject_nonfinite=reject_nonfinite)
+    else:
+        run_chunk = make_dp_sp_scan_train_step(
+            optimizer, mesh, data_axis=axis, sample_axis=sample_axis,
+            batch_size=batch_size, inner_steps=chunk)
+    device = model.X_data.device
+    generator = rank_generator(seed, axis_index(mesh, axis), device)
+    rank, world = dist.get_rank(), mesh.size()
+    own = generator.get_state()
+
+    def generator_states():
+        # every rank's generator state, gathered: a zero-filled buffer
+        # with this rank's row, summed over the mesh
+        buf = torch.zeros((world, own.numel()), dtype=torch.int64,
+                          device=device)
+        buf[rank] = generator.get_state().to(device=device,
+                                             dtype=torch.int64)
+        return all_reduce_sum_([buf], mesh)[0].to(torch.uint8).cpu()
+
+    done = 0
+    if ckpt_dir is not None:
+        from .checkpoint import restore_checkpoint
+        states = torch.zeros((world, own.numel()), dtype=torch.uint8)
+        _, resumed = restore_checkpoint(
+            ckpt_dir, (model, optimizer.state, states, run_chunk.rejected))
+        if resumed is not None:
+            done = int(resumed)
+            generator.set_state(states[rank].clone())
+    ckpt_every = ckpt_every or log_every
+
+    history = []
+    t0 = time.perf_counter()
+    last_t, last_i = t0, done
+    while done < iterations:
+        loss = run_chunk(model, generator=generator)
+        done += chunk
+        if ckpt_dir is not None and (done % ckpt_every < chunk
+                                     or done >= iterations):
+            states = generator_states()
+            if rank == 0:
+                from .checkpoint import save_checkpoint
+                save_checkpoint(ckpt_dir, (model, optimizer.state, states,
+                                           run_chunk.rejected), done)
+        if done % log_every < chunk or done >= iterations:
+            loss = float(loss)
+            now = time.perf_counter()
+            rate = (done - last_i) / max(now - last_t, 1e-9)
+            last_t, last_i = now, done
+            stats = {"iter": done, "loss": loss, "iters_per_sec": rate,
+                     "elapsed": now - t0, "dispatch": run_chunk.dispatch}
+            if reject_nonfinite:
+                stats["rejected"] = int(run_chunk.rejected)
+            history.append(stats)
+            for cb in callbacks:
+                cb(done, model, loss, stats)
+    return model, history
+
+
+def _chunk_draws(model, seed, mb, batch_size, zs):
+    """(generator, zs) of row chunk ``mb`` of an evaluation: a generator
+    seeded with ``derive_seed(seed, mb)``, or the chunk's rows of ``zs``
+    (a layer's (S, 1, D) broadcast as it is)."""
+    if zs is not None:
+        rows = slice(mb * batch_size, (mb + 1) * batch_size)
+        return None, [z if z.shape[-2] == 1 else z[..., rows, :]
+                      for z in zs]
+    g = torch.Generator(device=model.X_data.device)
+    g.manual_seed(derive_seed(seed, mb))
+    return g, None
+
+
 def evaluate_regression(model, Xs, Ys, Y_std, S: int = 100,
-                        batch_size: int = 1000, seed: int = 0):
+                        batch_size: int = 1000, seed: int = 0, zs=None):
     """Test RMSE and log-likelihood with the definitions of the reference
     harness (run_regression.py:109-123): S-sample predictive moments in
     row batches, de-normalized by Y_std; the loglik is the logsumexp of
     the sample mixture's log densities (higher is better) and nll its
     negative.  Chunk ``mb`` draws from a generator seeded with
-    ``derive_seed(seed, mb)``."""
+    ``derive_seed(seed, mb)``; ``zs`` (one (S, N or 1, D_l) array a layer)
+    pins the draws instead."""
     from scipy.special import logsumexp
     from scipy.stats import norm
 
@@ -472,10 +637,9 @@ def evaluate_regression(model, Xs, Ys, Y_std, S: int = 100,
     Ys = np.asarray(Ys)
     means, vars_ = [], []
     for mb in range(-(-len(Xs) // batch_size)):
-        g = torch.Generator(device=model.X_data.device)
-        g.manual_seed(derive_seed(seed, mb))
+        g, z = _chunk_draws(model, seed, mb, batch_size, zs)
         m, v = model.predict_y(Xs[mb * batch_size:(mb + 1) * batch_size],
-                               S=S, generator=g)
+                               S=S, generator=g, zs=z)
         m, v = m.double().cpu().numpy(), v.double().cpu().numpy()
         if m.ndim == 2:   # models that squeeze the sample axis
             m, v = m[None], v[None]
@@ -497,7 +661,7 @@ def evaluate_regression(model, Xs, Ys, Y_std, S: int = 100,
 
 
 def evaluate_classification(model, Xs, Ys, S: int = 100,
-                            batch_size: int = 1000, seed: int = 0):
+                            batch_size: int = 1000, seed: int = 0, zs=None):
     """Test accuracy and mean log predictive probability of a classifier,
     with the definitions of the reference MNIST notebook (cell 11): the
     class probabilities are the S-sample mean of the ``predict_y`` means
@@ -505,16 +669,15 @@ def evaluate_classification(model, Xs, Ys, S: int = 100,
     probabilities), the accuracy is the argmax match, and the loglik is
     log p(true class) clamped at 1e-12.  ``Ys`` holds integer class
     labels, (N, 1).  Chunk ``mb`` draws from a generator seeded with
-    ``derive_seed(seed, mb)``."""
+    ``derive_seed(seed, mb)``; ``zs`` pins the draws instead."""
     Xs = np.asarray(Xs)
     Ys = np.asarray(Ys)
     correct, lls = 0, []
     for mb in range(-(-len(Xs) // batch_size)):
-        g = torch.Generator(device=model.X_data.device)
-        g.manual_seed(derive_seed(seed, mb))
+        g, z = _chunk_draws(model, seed, mb, batch_size, zs)
         y = Ys[mb * batch_size:(mb + 1) * batch_size]
         m, _ = model.predict_y(Xs[mb * batch_size:(mb + 1) * batch_size],
-                               S=S, generator=g)
+                               S=S, generator=g, zs=z)
         m = m.double().cpu().numpy()
         if m.ndim == 2:   # models that squeeze the sample axis
             m = m[None]

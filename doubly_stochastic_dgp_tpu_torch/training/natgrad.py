@@ -29,7 +29,8 @@ import torch
 
 from ..ops.linalg import _chol_pullback, inv_lower, safe_cholesky
 
-__all__ = ["NaturalGradient", "natgrad_update", "natural_step"]
+__all__ = ["NaturalGradient", "natgrad_update", "natural_leaves",
+           "natural_step"]
 
 
 def _sym(A):
@@ -81,14 +82,23 @@ def natgrad_update(q_mu, q_sqrt, dq_mu, dq_sqrt, gamma, jitter=1e-12,
     return m_out.mT, L_out
 
 
-def natural_step(model, loss, layers, gamma, rejected=None):
+def natural_leaves(model, layers):
+    """The (q_mu, q_sqrt) unconstrained tensors of ``model.layers[i]`` for
+    i in ``layers``, in the order :func:`natural_step` takes gradients."""
+    return [t for i in layers
+            for t in (model.layers[i].q_mu.unconstrained,
+                      model.layers[i].q_sqrt.unconstrained)]
+
+
+def natural_step(model, loss, layers, gamma, rejected=None, grads=None):
     """A natural-gradient step in place on the (q_mu, q_sqrt) of each of
     ``model.layers[i]`` for i in ``layers``, from ``loss`` (a 0-dim tensor
-    with its autograd graph) at the current parameters."""
+    with its autograd graph) at the current parameters, or from its
+    gradients ``grads`` in :func:`natural_leaves` (``loss`` then
+    unused)."""
     picked = [model.layers[i] for i in layers]
-    leaves = [t for layer in picked
-              for t in (layer.q_mu.unconstrained, layer.q_sqrt.unconstrained)]
-    grads = torch.autograd.grad(loss, leaves)
+    if grads is None:
+        grads = torch.autograd.grad(loss, natural_leaves(model, layers))
     with torch.no_grad():
         for k, layer in enumerate(picked):
             # identity bijector: the unconstrained gradient is dloss/dm;

@@ -28,14 +28,16 @@ read is the only one inside a transition (``info['host_reads']`` counts
 them).  A subtree's leaves after a turn cost device time but no draws.
 The draws of each program (per transition: the momenta (P,); per
 doubling: the direction uniform, the 2^d leaf uniforms, the merge
-uniform) are made from the caller's generator before its replay in the
+uniform) are made from the chain's generator before its replay in the
 eager order, so a graphed chain takes the eager chain's steps.  On the
 CPU, and on the card inside ``graphs.eager_on_card()``, the same code runs
 eagerly, also from any draw source (``graphs.randn``).
 
 Chains run one after another, each transition on the same device buffers
 (a chain's state is copied in before its transition and out after), in
-the order iteration, then chain.
+the order iteration, then chain.  Each chain draws from its own source
+(``hmc.chain_generators``, the JAX per-chain keys), so a chain's draws do
+not depend on where it runs: ``mesh=`` splits the chains over ranks.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ import numpy as np
 import torch
 
 from ..graphs import rand, randn
-from .hmc import (DualAveraging, Program, Target, _default_generator,
-                  effective_sample_size, potential_scale_reduction)
+from .hmc import (DualAveraging, Program, Target, chain_sources,
+                  effective_sample_size, overdispersed_chains,
+                  potential_scale_reduction)
 
 __all__ = ["nuts_sample", "nuts_sample_chains", "NUTSChains",
            "DIVERGENCE_THRESHOLD"]
@@ -69,17 +72,17 @@ class NUTSChains:
     """C NUTS chains over ``log_prob_fn(model)``: :meth:`transition` runs
     one transition of one chain, :meth:`run` the remaining iterations of
     all of them.  ``q0`` (C, P): the starting positions, default the
-    model's own.  ``host_reads`` counts the flags read on the host."""
+    model's own; ``generators`` as ``hmc.HMCChains``'s.  ``host_reads`` counts the flags read on the host."""
 
-    def __init__(self, model, log_prob_fn, generator=None, q0=None,
+    def __init__(self, model, log_prob_fn, generators=None, q0=None,
                  num_samples=100, num_burn=100, step_size=0.01, max_depth=8,
                  freeze=None, adapt_step_size=True, target_accept=0.8,
                  target=None):
         t = target or Target(model, log_prob_fn, freeze)
         self.target, self.max_depth = t, int(max_depth)
-        self.generator = _default_generator(generator, t.device)
         q0 = t.flat0[None] if q0 is None else q0
         C, P = q0.shape
+        self.generators = chain_sources(generators, C, t.device)
         self.num_burn, self.total = num_burn, num_burn + num_samples
         # the chains' state: position with its log density and gradient,
         # dual averaging, post-warmup counts, iteration
@@ -259,15 +262,17 @@ class NUTSChains:
         slot = [v[c:c + 1] if v.ndim == 1 and k in self.da_keys else v[c]
                 for k, v in self.chains.items()]
         torch._foreach_copy_(list(self.w.values()), slot)
-        run = self.program.run
-        run("start", self._start, self.generator)
+        def run(key, body):
+            return self.program.run(key, lambda dr: body(dr[0]),
+                                    self.generators[c:c + 1])
+
+        run("start", self._start)
         for d in range(self.max_depth):
-            stop = run(("doubling", d),
-                       lambda dr, d=d: self._doubling(d, dr), self.generator)
+            stop = run(("doubling", d), lambda dr, d=d: self._doubling(d, dr))
             self.host_reads += 1
             if bool(stop):
                 break
-        out = run("finish", self._finish, self.generator)
+        out = run("finish", self._finish)
         torch._foreach_copy_(slot, list(self.w.values()))
         return out
 
@@ -330,29 +335,38 @@ def nuts_sample_chains(model, log_prob_fn: Callable, generator=None,
                        max_depth: int = 8, freeze=None,
                        adapt_step_size: bool = True,
                        target_accept: float = 0.8,
-                       init_jitter: float = 0.1):
+                       init_jitter: float = 0.1, mesh=None,
+                       chain_axis: str = None):
     """C chains from overdispersed starts, each adapting its own step
     size and growing its own trees.  Returns (samples (C, S, P),
     accept_stats (C,), rebuild, info with per-chain step sizes, divergence
-    counts and mean tree depths, split R-hat, ESS and the host reads).
-    Sharding the chains over devices (the JAX ``mesh=``) is not ported."""
+    counts and mean tree depths, split R-hat, ESS and the host reads,
+    this rank's).
+
+    ``generator`` and ``mesh`` as ``hmc.hmc_sample_chains``'s: the starts,
+    then each chain's own generator; ``mesh`` splits the chains over the
+    mesh axis ``chain_axis``, each rank running its block, and the draws
+    and statistics are gathered on every rank."""
     target = Target(model, log_prob_fn, freeze)
-    generator = _default_generator(generator, target.device)
-    P = target.flat0.shape[0]
-    q0 = target.flat0[None] + init_jitter * randn(
-        (num_chains, P), generator, target.dtype, target.device)
-    chains = NUTSChains(model, log_prob_fn, generator, q0, num_samples,
+    q0, sources, gather = overdispersed_chains(
+        target, generator, num_chains, init_jitter, mesh, chain_axis)
+    chains = NUTSChains(model, log_prob_fn, sources, q0, num_samples,
                         num_burn, step_size, max_depth, freeze,
                         adapt_step_size, target_accept, target=target)
     qs, alphas = chains.run()
-    samples = qs[num_burn:].transpose(0, 1)                 # (C, S, P)
+    samples = gather(qs[num_burn:].transpose(0, 1).contiguous())
+    stats = gather(torch.stack([torch.mean(alphas[num_burn:], dim=0),
+                                chains.da_final.log_eps_bar], dim=1))
+    counts = gather(torch.stack([chains.chains["n_div"],
+                                 chains.chains["sum_depth"]], dim=1))
     host = samples.double().cpu().numpy()
     info = {
-        "accept_stats": torch.mean(alphas[num_burn:], dim=0
-                                   ).double().cpu().numpy(),
-        "step_sizes": chains.step_sizes(),
-        "divergences": chains.chains["n_div"].cpu().numpy(),
-        "mean_tree_depths": chains.chains["sum_depth"].cpu().numpy()
+        "accept_stats": stats[:, 0].double().cpu().numpy(),
+        "step_sizes": (np.exp(stats[:, 1].double().cpu().numpy())
+                       if adapt_step_size
+                       else np.full(num_chains, step_size)),
+        "divergences": counts[:, 0].cpu().numpy(),
+        "mean_tree_depths": counts[:, 1].cpu().numpy()
         / max(num_samples, 1),
         "rhat": potential_scale_reduction(host),
         "ess": effective_sample_size(host),

@@ -19,7 +19,13 @@ draw source replays the JAX key schedule (momenta, accept uniforms, the
 NUTS direction, leaf and merge uniforms), and HMC (single chain and
 chains, on a correlated 3-D Gaussian and on a 2-layer SGPMC DGP of width
 2) and NUTS (the 3-D Gaussian) must take the same decisions and land on
-the same positions; and the two chain diagnostics on fixed arrays."""
+the same positions; and the two chain diagnostics on fixed arrays.
+
+And data and sample parallelism on gloo ranks (spawned CPU processes,
+``tests/test_torch_ranks.py``): ``dp_elbo`` and ``sp_elbo`` on 2 ranks and
+on a 2 x 2 mesh against the JAX package's ``shard_map`` functions, their
+gradients against its single-device gradients (a replicated term counted
+once), and the HMC and NUTS chains split over 2 ranks draw for draw."""
 
 import jax
 import jax.numpy as jnp
@@ -953,18 +959,31 @@ class _Replay:
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
 
-def _hmc_draws(keys_per_chain, P, q0_noise=None):
-    """The JAX HMC schedule (hmc.py:64-78,138; :239-244 for chains): per
-    iteration every chain's momenta, then every chain's accept
-    uniform."""
-    draws = [] if q0_noise is None else [("randn", q0_noise)]
-    for it in range(keys_per_chain.shape[1]):
-        kp_ku = [jax.random.split(k[it]) for k in keys_per_chain]
-        draws.append(("randn", np.stack([np.asarray(jax.random.normal(
-            kp, (P,), dtype=jnp.float64)) for kp, _ in kp_ku])))
-        draws.append(("rand", np.stack([np.asarray(jax.random.uniform(
-            ku, dtype=jnp.float64)) for _, ku in kp_ku])))
+def _hmc_draws(keys, P):
+    """The JAX HMC schedule of one chain (hmc.py:64-78): per iteration
+    the momenta, then the accept uniform."""
+    draws = []
+    for k in keys:
+        kp, ku = jax.random.split(k)
+        draws.append(("randn", np.asarray(jax.random.normal(
+            kp, (P,), dtype=jnp.float64))))
+        draws.append(("rand", np.asarray(jax.random.uniform(
+            ku, dtype=jnp.float64))))
     return draws
+
+
+class _ChainsReplay(_Replay):
+    """The JAX multi-chain schedule (hmc.py:239-244, nuts.py:333-338) as
+    a draw source: the (C, P) normals of the starts, then ``split`` hands
+    out each chain's own replay of its key stream."""
+
+    def __init__(self, q0_noise, chains):
+        super().__init__([("randn", q0_noise)])
+        self.chains = chains
+
+    def split(self, num_chains):
+        assert num_chains == len(self.chains), "one key stream a chain"
+        return self.chains
 
 
 class _NutsReplay:
@@ -1078,14 +1097,14 @@ def _check_hmc(name, jm, tm, jlogp, tlogp, jfreeze, tfreeze, step, L):
     js, jacc, _, jinfo = jhmc.hmc_sample(jm, jlogp, key, freeze=jfreeze,
                                          **kw)
     P = flat0.shape[0]
-    chains = thmc.HMCChains(tm, tlogp, _Replay(_hmc_draws(keys[None], P)),
+    chains = thmc.HMCChains(tm, tlogp, _Replay(_hmc_draws(keys, P)),
                             freeze=tfreeze, **kw)
     tqs = chains.run()[:, 0].numpy()
     _close_mcmc(f"HMC {name}: every iteration's position", tqs, jqs)
     td, jd = _decisions(tqs), _decisions(np.asarray(jqs))
     assert (td == jd).all(), f"HMC {name}: accept decisions {td} vs {jd}"
     ts, tacc, _, tinfo = thmc.hmc_sample(
-        tm, tlogp, _Replay(_hmc_draws(keys[None], P)), freeze=tfreeze, **kw)
+        tm, tlogp, _Replay(_hmc_draws(keys, P)), freeze=tfreeze, **kw)
     _close_mcmc(f"HMC {name}: hmc_sample samples", ts.numpy(), js)
     assert tacc == jacc, f"HMC {name}: accept rate {tacc} vs {jacc}"
     _close_mcmc(f"HMC {name}: adapted step size", tinfo.step_size,
@@ -1101,8 +1120,9 @@ def _check_hmc(name, jm, tm, jlogp, tlogp, jfreeze, tfreeze, step, L):
     chain_keys = jax.vmap(lambda k: jax.random.split(k, 20))(
         jax.random.split(k_run, C))
     ts, taccs, _, tinfo = thmc.hmc_sample_chains(
-        tm, tlogp, _Replay(_hmc_draws(chain_keys, P, noise)), num_chains=C,
-        freeze=tfreeze, **kw)
+        tm, tlogp, _ChainsReplay(noise, [_Replay(_hmc_draws(k, P))
+                                         for k in chain_keys]),
+        num_chains=C, freeze=tfreeze, **kw)
     _close_mcmc(f"HMC chains {name}: samples", ts.numpy(), js)
     assert (taccs == np.asarray(jaccs)).all(), (
         f"HMC chains {name}: accept rates {taccs} vs {jaccs}")
@@ -1118,7 +1138,8 @@ def _check_nuts():
     """10 NUTS transitions (5 burn-in with adaptation, 5 samples),
     max_depth=6, on the 3-D Gaussian: samples, mean tree depth,
     divergences, accept statistic and step size against ``nuts_sample``;
-    and a divergent chain (step 50, no adaptation)."""
+    a divergent chain (step 50, no adaptation); and 2 chains of
+    ``nuts_sample_chains`` (4 + 4 transitions), each on its own keys."""
     key = jax.random.PRNGKey(9)
     for case, kw in (("adapting", dict(num_samples=5, num_burn=5,
                                        step_size=0.5)),
@@ -1139,6 +1160,24 @@ def _check_nuts():
             f"{jinfo['divergences']}")
         assert tinfo["host_reads"] <= 6 * 10, f"NUTS {case}: host reads"
     assert jinfo["divergences"] > 0, "NUTS divergent: no divergence"
+    # chains: the overdispersed starts, then each chain's key stream
+    C, kw = 2, dict(num_samples=4, num_burn=4, step_size=0.5, max_depth=6)
+    js, jacc, _, jinfo = jnuts.nuts_sample_chains(
+        _JQuad(v=JParam.create(np.zeros(3))), _jquad_logp, key,
+        num_chains=C, **kw)
+    k_init, k_run = jax.random.split(key)
+    noise = np.asarray(jax.random.normal(k_init, (C, 3), dtype=jnp.float64))
+    chain_keys = jax.vmap(lambda k: jax.random.split(k, 8))(
+        jax.random.split(k_run, C))
+    ts, tacc, _, tinfo = tnuts.nuts_sample_chains(
+        _TQuad(), _tquad_logp, _ChainsReplay(
+            noise, [_NutsReplay(k) for k in chain_keys]), num_chains=C, **kw)
+    _close_mcmc("NUTS chains: samples", ts.numpy(), js)
+    _close_mcmc("NUTS chains: accept statistics", tacc, jacc)
+    for k in ("step_sizes", "mean_tree_depths", "rhat"):
+        _close_mcmc(f"NUTS chains: {k}", tinfo[k], jinfo[k])
+    assert (tinfo["divergences"] == np.asarray(jinfo["divergences"])).all(
+    ), f"NUTS chains: divergences {tinfo['divergences']}"
 
 
 def _check_diagnostics():
@@ -1167,6 +1206,230 @@ def _check_mcmc():
                lambda name, p: "q_mu" not in name, 0.05, 4)
     _check_nuts()
     _check_diagnostics()
+
+
+# ---------------------------------------------------------------------------
+# data and sample parallelism: the port's ranks (gloo, spawned CPU
+# processes running tests/test_torch_ranks.py) against the JAX package's
+# shard_map programs on the CPU devices of tests/conftest.py
+# ---------------------------------------------------------------------------
+
+DP_S, DP_N, DP_DX = 2, 12, 2
+RANKS_TIMEOUT_S = 240.0
+
+
+def _dp_pair(rng):
+    """A 2-layer DGP (RBF, M=4, S=2, the solve branch) in both packages,
+    its posterior moved off the prior; the port's pickled for the
+    ranks."""
+    X = rng.randn(DP_N, DP_DX)
+    Y = np.sin(X[:, :1]) + 0.1 * rng.randn(DP_N, 1)
+    Z = X[:4]
+    with temp_config(jitter=1e-6, solve_mode="solve", use_pallas=False):
+        jm = dsd.DGP.build(X, Y, Z, [dsd.RBF.make(DP_DX),
+                                     dsd.RBF.make(DP_DX, lengthscales=1.2)],
+                           dsd.Gaussian.make(0.1), num_samples=DP_S)
+    layers = []
+    for layer in jm.layers:
+        Mi, Do = layer.q_mu.value.shape
+        q_sqrt = np.tril(rng.randn(Do, Mi, Mi) * 0.2) + 0.4 * np.eye(Mi)
+        layers.append(layer.replace(
+            q_mu=layer.q_mu.with_value(rng.randn(Mi, Do) * 0.5),
+            q_sqrt=layer.q_sqrt.with_value(q_sqrt)))
+    jm = jm.replace(layers=layers)
+    tm = port.DGP.build(X, Y, Z, [port.RBF(DP_DX), port.RBF(DP_DX)],
+                        port.Gaussian(0.1), num_samples=DP_S,
+                        config=port.Config(), device="cpu")
+    port.load_reference_state(tm, _jax_state(jm))
+    return jm, tm
+
+
+def _jax_state(jm):
+    return {_torch_key(jax.tree_util.keystr(p)): np.asarray(v) for p, v in
+            jax.tree_util.tree_flatten_with_path(jm)[0]}
+
+
+def _jax_elbo(m, X, Y, zs):
+    """The single-device ELBO of the batch at fixed draws (zs' S)."""
+    _, Fm, Fv = m.propagate(X, zs=zs, S=zs[0].shape[0])
+    ve = m.likelihood.variational_expectations(Fm[-1], Fv[-1], Y)
+    KL = sum(layer.KL() for layer in m.layers)
+    return jnp.sum(jnp.mean(ve, axis=0)) * (m.num_data / X.shape[0]) - KL
+
+
+_jax_elbo_grad = jax.jit(jax.grad(_jax_elbo))
+_jax_kl_grad = jax.jit(jax.grad(
+    lambda m: sum(layer.KL() for layer in m.layers)))
+
+
+def _close_grads(case, got, want, rtol=1e-8, atol=1e-10):
+    """The port's {name: gradient} against a JAX gradient tree."""
+    want = _jax_state(want)
+    assert got, f"{case}: no gradients"
+    for name, g in got.items():
+        assert_allclose(g, want[name], rtol=rtol, atol=atol,
+                        err_msg=f"{case}: gradient of {name}")
+
+
+def _counted_once(case, got, want, replicated, n):
+    """The 'replicated term counted once' case: the gradients match the
+    single-device ones, and counting the replicated term's gradient n
+    times instead would move them by far more than the tolerance."""
+    _close_grads(case, got, want)
+    want, rep = _jax_state(want), _jax_state(replicated)
+    margin = max(float(np.max(np.abs((n - 1) * rep[k]) / (
+        1e-10 + 1e-8 * np.abs(want[k])))) for k in got)
+    assert margin > 1e3, (
+        f"{case}: counting the replicated term {n} times would move the "
+        f"gradient by only {margin:.3g} tolerances")
+
+
+def _rows_seed_draws(seed, n, rows, widths, S):
+    """The normals the ranks of ``dp_elbo(seed)`` draw (rank r from
+    ``rank_generator(seed, r)``, S x its rows a layer), joined by rows."""
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import rank_generator
+    per_rank = []
+    for r in range(n):
+        g = rank_generator(seed, r, "cpu")
+        per_rank.append([torch.randn((S, rows // n, d), generator=g,
+                                     dtype=torch.float64) for d in widths])
+    return [torch.cat([d[l] for d in per_rank], dim=1)
+            for l in range(len(widths))]
+
+
+def _dp_oracles(jm, X, Y, zs_rows1, zs_full):
+    """The JAX package's dp_elbo (2 devices, even and odd batches; the
+    2 x 2 mesh, odd) and sp_elbo (2 devices; 2 x 2) values, and the
+    single-device ELBO and gradients at the same draws."""
+    from jax.sharding import Mesh
+    from doubly_stochastic_dgp_tpu.parallel import dp as jdp
+    from doubly_stochastic_dgp_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh)
+
+    jzs1 = [jnp.asarray(z) for z in zs_rows1]
+    jzsf = [jnp.asarray(z) for z in zs_full]
+    mesh22 = Mesh(np.asarray(jax.devices()[:4]).reshape(2, 2),
+                  ("data", "sample"))
+
+    def jit(fn, mesh, **kw):
+        # a shard_map outside jit runs op by op (20 s here); one program
+        return jax.jit(lambda m, X, Y, zs: fn(m, X, Y, None, mesh, zs=zs,
+                                              **kw))
+
+    out = {"kl_grad": _jax_kl_grad(jm)}
+    jax_dp2 = jit(jdp.dp_elbo, jax_make_mesh(num_devices=2))
+    for case, rows in (("even", DP_N), ("odd", DP_N - 1)):
+        Xb, Yb = jnp.asarray(X[:rows]), jnp.asarray(Y[:rows])
+        out[f"dp_elbo {case}"] = (float(jax_dp2(jm, Xb, Yb, jzs1)),
+                                  _jax_elbo_grad(jm, Xb, Yb, jzs1))
+    Xo, Yo = jnp.asarray(X[:-1]), jnp.asarray(Y[:-1])
+    out["dp_elbo 2 x 2"] = (
+        float(jit(jdp.dp_elbo, mesh22, axis="data")(jm, Xo, Yo, jzs1)),
+        out["dp_elbo odd"][1])
+    Xf, Yf = jnp.asarray(X), jnp.asarray(Y)
+    out["elbo grad"] = _jax_elbo_grad(jm, Xf, Yf, jzsf)
+    out["elbo"] = float(_jax_elbo(jm, Xf, Yf, jzsf))
+    for case, mesh in (("sp_elbo on 2", jax_make_mesh(num_devices=2,
+                                                       axis="sample")),
+                       ("sp_elbo on 2 x 2", mesh22)):
+        out[case] = float(jit(jdp.sp_elbo, mesh, axis="sample")(
+            jm, Xf, Yf, jzsf))
+    return out
+
+
+def _check_parallel():
+    """dp_elbo (an even and an odd, padded, batch) and sp_elbo on 2 gloo
+    ranks and on a 2 x 2 (data x sample) mesh of 4, values against the
+    JAX package's shard_map functions (rtol 1e-10) and gradients against
+    its single-device gradient (rtol 1e-8) at the same draws; the
+    replicated KL counted once; dp_elbo's seeded draws; HMC and NUTS
+    chains split over the ranks, draw for draw the chains of one process
+    given the same generator (mesh= changes no draw); shard_chains's
+    refusal."""
+    from concurrent.futures import ThreadPoolExecutor
+    from doubly_stochastic_dgp_tpu.parallel.mesh import (
+        make_mesh as jax_make_mesh, shard_chains as jax_shard_chains)
+    import pickle
+    import test_torch_ranks as ranks
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import run_ranks
+
+    rng = np.random.RandomState(70)
+    jm, tm = _dp_pair(rng)
+    X, Y = np.asarray(jm.X_data), np.asarray(jm.Y_data)
+    zs_rows1 = [rng.randn(DP_S, 1, d) for d in (DP_DX, 1)]
+    zs_full = [rng.randn(2 * DP_S, DP_N, d) for d in (DP_DX, 1)]
+    payload = {"model": pickle.dumps(tm), "X_even": X, "Y_even": Y,
+               "X_odd": X[:DP_N - 1], "Y_odd": Y[:DP_N - 1],
+               "zs_rows1": zs_rows1, "zs_full": zs_full}
+    # the ranks run while this process computes the JAX oracles
+    pool = ThreadPoolExecutor(2)
+    runs = [pool.submit(run_ranks, fn, n, (payload,), threads=1,
+                        timeout_s=RANKS_TIMEOUT_S)
+            for fn, n in ((ranks.conditional_ranks, 2),
+                          (ranks.mesh2x2_ranks, 4))]
+    pool.shutdown(wait=False)
+    oracles = _dp_oracles(jm, X, Y, zs_rows1, zs_full)
+    two, four = (r.result() for r in runs)
+    for r in two:     # NUTS counts its own rank's host reads
+        for name in ("hmc", "nuts"):
+            r["chains"][name][2].pop("host_reads", None)
+    for res in (two, four):
+        for key in res[0]:
+            if key != "coords":
+                assert pickle.dumps(res[0][key]) == pickle.dumps(
+                    res[-1][key]), f"parallel {key}: the ranks disagree"
+    assert [r["coords"] for r in four] == [(0, 0), (0, 1), (1, 0), (1, 1)], (
+        "parallel 2 x 2: rank = data index x 2 + sample index")
+    out, out4 = two[0], four[0]
+
+    kl_grad = oracles["kl_grad"]
+    for case in ("even", "odd"):
+        value, grads = out[f"dp_elbo {case}"]
+        want, want_grad = oracles[f"dp_elbo {case}"]
+        assert_allclose(value, want, rtol=1e-10,
+                        err_msg=f"dp_elbo {case} batch: value vs JAX")
+        _counted_once(f"dp_elbo {case} batch (a replicated term counted "
+                      f"once)", grads, want_grad, kl_grad, 2)
+    value, grads = out4["dp_elbo"]
+    want, want_grad = oracles["dp_elbo 2 x 2"]
+    assert_allclose(value, want, rtol=1e-10,
+                    err_msg="dp_elbo on 2 x 2: value vs JAX")
+    _counted_once("dp_elbo on 2 x 2 (a replicated term counted once)",
+                  grads, want_grad, kl_grad, 4)
+    for case, res in (("sp_elbo on 2", out["sp_elbo"]),
+                      ("sp_elbo on 2 x 2", out4["sp_elbo"])):
+        value, grads = res
+        assert_allclose(value, oracles[case], rtol=1e-10,
+                        err_msg=f"{case}: value vs JAX sp_elbo")
+        assert_allclose(value, oracles["elbo"], rtol=1e-10,
+                        err_msg=f"{case}: value vs the JAX elbo")
+        _close_grads(f"{case}: gradient", grads, oracles["elbo grad"])
+    # the seeded path: rank r draws from rank_generator(3, r)
+    zs = _rows_seed_draws(3, 2, DP_N, (DP_DX, 1), DP_S)
+    with torch.no_grad():
+        want = float(tm.elbo(tm.X_data, tm.Y_data, zs=zs))
+    assert_allclose(out["dp_elbo seed"], want, rtol=1e-10,
+                    err_msg="dp_elbo seed: the ranks' generators")
+    # the chains: one process, no mesh, the same generator
+    single = ranks.chains(None)
+    for name in ("hmc", "nuts"):
+        s, acc, info = out["chains"][name]
+        s1, acc1, info1 = single[name]
+        assert np.array_equal(s, s1), (
+            f"{name} chains over 2 ranks: samples differ from one "
+            f"process's without a mesh")
+        assert np.array_equal(acc, acc1), f"{name} chains: accept stats"
+        for k in info:
+            assert np.array_equal(info[k], info1[k]), f"{name} chains: {k}"
+        assert s.shape[0] == 2 and not np.array_equal(s[0], s[1]), (
+            f"{name} chains: the two chains must differ")
+    try:
+        jax_shard_chains(jax_make_mesh(num_devices=2), None, 3,
+                         jnp.zeros((3, 1)))
+    except ValueError as e:
+        jax_error = ("ValueError", str(e))
+    assert out["shard_chains 3"] == jax_error, (
+        f"shard_chains: {out['shard_chains 3']} vs JAX {jax_error}")
 
 
 def test_fused_conditional_plain_matches_jax():
@@ -1212,6 +1475,7 @@ def test_fused_conditional_plain_matches_jax():
     _check_gram_args()
     _check_timing()
     _check_mcmc()
+    _check_parallel()
     assert _counts() == (0, 0, 0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 

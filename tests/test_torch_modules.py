@@ -16,7 +16,9 @@ Linear, Product) with its gradients, the Constant mean function; the
 natural-gradient update (and its reject net), the frozen-parameter
 optimizer, the fused Cholesky-and-inverse and the other linalg helpers,
 the single-layer baselines (SVGP, GPR on GPRLayer, SGPR, GPRFITC) with
-their caches; plus the port's import and device rules.
+their caches; the collapsed DGPs' data-parallel bounds and steps on
+gloo ranks (``parallel/collapsed.py`` against the JAX package's, and the
+mesh helpers); plus the port's import and device rules.
 
 One test item that loops over its cases and names the failing case in
 every assertion message."""
@@ -32,6 +34,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+from jax.sharding import PartitionSpec as P
 from numpy.testing import assert_allclose
 
 import doubly_stochastic_dgp_tpu as dsd
@@ -1251,6 +1254,243 @@ def _check_single_layer(rng):
                 raise AssertionError(f"{name}: {what} did not raise")
 
 
+# ---------------------------------------------------------------------------
+# the collapsed DGPs' data-parallel bounds: the port's gloo ranks (spawned
+# CPU processes running tests/test_torch_ranks.py) against the JAX
+# package's shard_map functions on the CPU devices of tests/conftest.py
+# ---------------------------------------------------------------------------
+
+RANKS_TIMEOUT_S = 240.0
+
+
+def _collapsed_dp_models(rng):
+    """(JAX model, port model) of DGPDamianou (L=2, hidden width 2, its
+    q(H) moved off the initialization) and of DGPCollapsed with an SGPR
+    and with a GPR final layer (an SVGP inner layer of width 2, its q_mu
+    moved), 16 rows, M=5; and DGPHeinonen (for its refusal)."""
+    from doubly_stochastic_dgp_tpu.models.layers import GPRLayer as JGPR
+    N, D, Mi = 16, 2, 5
+    X = rng.randn(N, D)
+    Y = np.sin(X[:, :1]) + 0.1 * rng.randn(N, 1)
+    Z = X[:Mi]
+    cfg = port.Config()
+    out = {}
+    with temp_config(jitter=1e-6, solve_mode="solve", use_pallas=False):
+        jd = dsd.DGPDamianou.build(
+            X, Y, Z, [dsd.RBF.make(D), dsd.RBF.make(D, lengthscales=1.3)],
+            dsd.Gaussian.make(0.05))
+        jd = jd.replace(
+            h_var=[p.with_value(np.exp(rng.randn(N, D)) * 0.05)
+                   for p in jd.h_var],
+            h_mean=[p.with_value(p.value + 0.3 * rng.randn(N, D))
+                    for p in jd.h_mean])
+        td = port.DGPDamianou.build(X, Y, Z, [port.RBF(D), port.RBF(D)],
+                                    port.Gaussian(1.0), config=cfg,
+                                    device="cpu")
+        out["damianou"] = (jd, td)
+        for last in ("sgpr", "gpr"):
+            jl = dsd.init_layers_linear(
+                X, Y, Z, [dsd.RBF.make(D), dsd.RBF.make(D, lengthscales=1.2)],
+                num_outputs=1)
+            top = jl[-1]
+            fin = (JSGPRLayer.make(top.kern, np.asarray(top.Z.value), 1,
+                                   top.mean_function) if last == "sgpr"
+                   else JGPR.make(top.kern, top.mean_function, 1))
+            inner = jl[0].replace(q_mu=jl[0].q_mu.with_value(
+                rng.randn(Mi, D) * 0.4))
+            jc = dsd.DGPCollapsed.make(X, Y, dsd.Gaussian.make(0.05),
+                                       [inner, fin])
+            tl = port.init_layers_linear(X, Y, Z, [port.RBF(D),
+                                                   port.RBF(D)],
+                                         num_outputs=1, config=cfg)
+            tfin = (port.SGPRLayer(tl[-1].kern, Z, 1, tl[-1].mean_function,
+                                   config=cfg) if last == "sgpr"
+                    else port.GPRLayer(tl[-1].kern, tl[-1].mean_function, 1,
+                                       config=cfg))
+            tc = port.DGPCollapsed.make(X, Y, port.Gaussian(1.0),
+                                        [tl[0], tfin], config=cfg,
+                                        device="cpu")
+            out[last] = (jc, tc)
+        jh = dsd.DGPHeinonen.make(X, Y, dsd.Gaussian.make(0.05), [
+            dsd.GPMCLayer.make(dsd.RBF.make(D), X, D, dsd.Identity()),
+            dsd.GPRLayer.make(dsd.RBF.make(D), dsd.Zero(output_dim=1), 1)])
+    th = port.DGPHeinonen.make(X, Y, port.Gaussian(0.05), [
+        port.GPMCLayer(port.RBF(D), X, D, port.Identity(), config=cfg),
+        port.GPRLayer(port.RBF(D), port.Zero(1), 1, config=cfg)],
+        config=cfg, device="cpu")
+    for key, (jm, tm) in out.items():
+        port.load_reference_state(tm, _state(jm))
+    out["heinonen"] = (jh, th)
+    return out
+
+
+def _jax_replicated_damianou(m):
+    """The Damianou bound with every per-row sum held constant
+    (stop_gradient): the gradient of its replicated algebra alone."""
+    from doubly_stochastic_dgp_tpu.parallel import collapsed as jcoll
+    sg = jax.lax.stop_gradient
+    total, L = 0.0, len(m.layers)
+    for l, layer in enumerate(m.layers):
+        mu, sv, T, var_l = m._layer_data(l)
+        sigma2 = layer.set_data(mu, sv, T, var_l)._bound_variance()
+        phi, P2, P1T, st2, sp0 = map(sg, jcoll._layer_moments(layer, mu, sv,
+                                                              T))
+        Lc, LB, c, tr = jcoll._assemble(layer, P2, P1T, sigma2)
+        g = jcoll._layer_bound(mu.shape[0], T.shape[1], sigma2, LB, c, st2,
+                               sp0, tr, mu.dtype)
+        if l < L - 1:
+            s = sg(m.h_var[l].value)
+            Vh = jlinalg.tri_solve(Lc, jnp.eye(P2.shape[0]), lower=True)
+            V = jlinalg.tri_solve(LB, Vh, lower=True) / sigma2
+            g = g + 0.5 * jnp.sum(jnp.sum((V @ phi) ** 2, axis=0)[:, None]
+                                  * s) - 0.5 * jnp.sum(s) / sigma2
+        total = total + g
+    return total
+
+
+def _named(jax_tree):
+    """{port parameter name: numpy array} of a JAX pytree."""
+    return {_torch_key(k): v for k, v in _state(jax_tree).items()}
+
+
+def _jax_collapsed_bound(m, zs):
+    """The single-device DGPCollapsed bound at fixed inner draws."""
+    last = m._collapsed_last_layer(key=jax.random.PRNGKey(0), zs=zs)
+    KL = sum((layer.KL() for layer in m.layers[:-1]),
+             jnp.zeros((), dtype=m.X_data.dtype))
+    return last.build_likelihood() - KL
+
+
+def _check_collapsed_dp(rng):
+    """dp_damianou_elbo and dp_collapsed_elbo (SGPR and GPR final layers)
+    on 2 gloo ranks: values against the JAX package's on 2 devices (rtol
+    1e-10), gradients against its single-device gradients (rtol 1e-8),
+    each rank's q(H) rows with their own rows' gradients, the replicated
+    algebra counted once; one step of each collapsed train step against
+    the port's single-process Adam step on the same draws; the refusals
+    (DGPHeinonen, shapes that do not divide); the mesh helpers."""
+    import pickle
+    from concurrent.futures import ThreadPoolExecutor
+    import test_torch_ranks as ranks
+    from doubly_stochastic_dgp_tpu.parallel import collapsed as jcoll
+    from doubly_stochastic_dgp_tpu.parallel import mesh as jmesh
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import (
+        rank_generator, run_ranks)
+
+    pairs = _collapsed_dp_models(rng)
+    N = pairs["sgpr"][1].X_data.shape[0]
+    zs = [rng.randn(1, N, 2), rng.randn(1, N, 1)]
+    payload = {k: pickle.dumps(tm) for k, (_, tm) in pairs.items()}
+    payload["zs"] = zs
+    # the ranks run while this process computes the JAX oracles
+    pool = ThreadPoolExecutor(1)
+    run = pool.submit(run_ranks, ranks.modules_ranks, 2, (payload,),
+                      threads=1, timeout_s=RANKS_TIMEOUT_S)
+    pool.shutdown(wait=False)
+    mesh2 = jmesh.make_mesh(num_devices=2)
+    jzs = [jnp.asarray(z) for z in zs]
+    jd, td = pairs["damianou"]
+    want_dam = float(jax.jit(lambda m: jcoll.dp_damianou_elbo(m, mesh2))(
+        jcoll.damianou_shard(jd, mesh2)))
+    grads_dam = _named(jax.jit(jax.grad(lambda m: m.elbo()))(jd))
+    rep = _named(jax.jit(jax.grad(_jax_replicated_damianou))(jd))
+    want_c = {case: (float(jax.jit(lambda m, z: jcoll.dp_collapsed_elbo(
+        m, mesh2, zs=z))(pairs[case][0], jzs)), _named(jax.jit(jax.grad(
+            _jax_collapsed_bound))(pairs[case][0], jzs)))
+        for case in ("sgpr", "gpr")}
+    res = run.result()
+    for key in res[0]:
+        if key not in ("damianou placed", "damianou step", "shard_along",
+                       "gather"):
+            assert pickle.dumps(res[0][key]) == pickle.dumps(res[1][key]), (
+                f"collapsed dp {key}: the ranks disagree")
+    out = res[0]
+    want, grads = want_dam, grads_dam
+    assert_allclose(out["damianou whole"], want, rtol=1e-10,
+                    err_msg="dp_damianou_elbo (whole model) vs JAX")
+    rows = {n for n in grads if n.startswith(("h_mean", "h_var"))}
+    for r, (value, got) in enumerate(x["damianou placed"] for x in res):
+        assert_allclose(value, want, rtol=1e-10,
+                        err_msg="dp_damianou_elbo (placed) vs JAX")
+        for name, g in got.items():
+            w = grads[name][r * N // 2:(r + 1) * N // 2] if name in rows \
+                else grads[name]
+            assert_allclose(g, w, rtol=1e-8, atol=1e-10,
+                            err_msg=f"dp_damianou_elbo rank {r}: gradient "
+                                    f"of {name} (q(H) rows: its own)")
+    margin = max(float(np.max(np.abs(rep[k]) / (
+        1e-10 + 1e-8 * np.abs(grads[k])))) for k in grads if k not in rows)
+    assert margin > 1e3, (
+        f"dp_damianou_elbo (a replicated term counted once): counting the "
+        f"replicated algebra twice would move the gradient by only "
+        f"{margin:.3g} tolerances")
+    specs = {_torch_key(jax.tree_util.keystr(p)): (None if s == P() else
+                                                   s[0])
+             for p, s in jax.tree_util.tree_flatten_with_path(
+                 jcoll.damianou_specs(jd),
+                 is_leaf=lambda x: isinstance(x, P))[0]}
+    assert out["damianou specs"] == {k: specs[k]
+                                     for k in out["damianou specs"]}, (
+        f"damianou_specs: {out['damianou specs']} vs JAX {specs}")
+    # one step: the single-process Adam step on the whole rows
+    opt = toptim.masked_optimizer(td, 0.01)
+    toptim.make_train_step(lambda m: -(m.elbo() + port.log_prior(m)),
+                           opt)(td)
+    for r, (_, params) in enumerate(x["damianou step"] for x in res):
+        for name, p in td.named_parameters():
+            w = p.detach().numpy()
+            if name.startswith(("h_mean", "h_var")):
+                w = w[r * N // 2:(r + 1) * N // 2]
+            assert_allclose(params[name], w, rtol=1e-9, atol=1e-12,
+                            err_msg=f"make_dp_damianou_train_step rank "
+                                    f"{r}: {name}")
+
+    for case in ("sgpr", "gpr"):
+        value, got = out[f"collapsed {case}"]
+        want, grads = want_c[case]
+        assert_allclose(value, want, rtol=1e-10,
+                        err_msg=f"dp_collapsed_elbo {case} vs JAX")
+        assert_allclose(out[f"collapsed {case} placed"], want, rtol=1e-10,
+                        err_msg=f"dp_collapsed_elbo {case} (placed) vs JAX")
+        for name, g in got.items():
+            assert_allclose(g, grads[name], rtol=1e-8, atol=1e-10,
+                            err_msg=f"dp_collapsed_elbo {case}: gradient "
+                                    f"of {name}")
+    # one step at seed 5: rank r draws its rows' inner normals from
+    # rank_generator(5, r)
+    _, tc = pairs["sgpr"]
+    z = torch.cat([torch.randn((1, N // 2, 2), generator=rank_generator(
+        5, r, "cpu"), dtype=torch.float64) for r in range(2)], dim=1)
+    opt = toptim.masked_optimizer(tc, 0.01)
+    loss = toptim.make_train_step(
+        lambda m: -(m.elbo(zs=[z]) + port.log_prior(m)), opt)(tc)
+    step_loss, params = out["collapsed step"]
+    assert_allclose(step_loss, float(loss), rtol=1e-10,
+                    err_msg="make_dp_collapsed_train_step: loss")
+    for name, p in tc.named_parameters():
+        assert_allclose(params[name], p.detach().numpy(), rtol=1e-9,
+                        atol=1e-12,
+                        err_msg=f"make_dp_collapsed_train_step: {name}")
+
+    try:
+        jcoll.dp_collapsed_elbo(pairs["heinonen"][0], mesh2)
+    except NotImplementedError as e:
+        assert out["heinonen"] == ("NotImplementedError", str(e)), (
+            f"dp_collapsed_elbo on DGPHeinonen: {out['heinonen']}")
+    assert_allclose(out["pad"], np.asarray(jmesh.pad_to_multiple(
+        jnp.arange(10.0).reshape(5, 2), 4)[0]), rtol=0,
+        err_msg="pad_to_multiple vs JAX")
+    assert [x["shard_along"].tolist() for x in res] == [[0, 1, 2],
+                                                        [3, 4, 5]], (
+        "shard_along: each rank its block")
+    assert out["shard_along 5"][0] == "ValueError", "shard_along: 5 rows"
+    assert [x["replicate"].tolist() for x in res] == [[1.0] * 3] * 2, (
+        "replicate: rank 0's values everywhere")
+    assert [x["gather"].ravel().tolist() for x in res] == [
+        [0, 0, 1, 1]] * 2, "all_gather: the ranks' blocks in order"
+    assert out["make_mesh 3"][0] == "ValueError", "make_mesh(num_devices=3)"
+
+
 def _check_import_and_device_rules():
     code = ("import sys, doubly_stochastic_dgp_tpu_torch\n"
             "import doubly_stochastic_dgp_tpu_torch.ops.psi_stats\n"
@@ -1281,11 +1521,20 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.training.hmc\n"
             "import doubly_stochastic_dgp_tpu_torch.training.nuts\n"
             "import doubly_stochastic_dgp_tpu_torch.serving\n"
+            "import doubly_stochastic_dgp_tpu_torch.parallel\n"
+            "import doubly_stochastic_dgp_tpu_torch.parallel.mesh\n"
+            "import doubly_stochastic_dgp_tpu_torch.parallel.dp\n"
+            "import doubly_stochastic_dgp_tpu_torch.parallel.collapsed\n"
+            "import test_torch_ranks\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
             "'doubly_stochastic_dgp_tpu.'))]\n"
             "print(repr(bad))\n")
+    # the ranks' side of the parallel cases (tests/test_torch_ranks.py)
+    # too: a spawned rank imports it and must not import JAX
+    code = (f"sys_path = {str(Path(__file__).resolve().parent)!r}\n"
+            "import sys; sys.path.insert(0, sys_path)\n" + code)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, f"import rule: {out.stderr}"
@@ -1324,7 +1573,21 @@ def _check_import_and_device_rules():
         X, X[:, :1], port.Gaussian(0.1),
         [port.GPMCLayer(port.RBF(2), X, 2),
          port.GPRLayer(port.RBF(2), port.Zero(1), 1)], **kw)
+    # a process group: NCCL on the card by default, never gloo in its place
+    init = port.parallel.mesh.initialize_distributed
+    builders["initialize_distributed"] = lambda config=None: init(
+        "127.0.0.1:1", 1, 0)
+    if not torch.cuda.is_available():
+        try:
+            init("127.0.0.1:1", 1, 0, backend="nccl", device="cpu")
+        except RuntimeError as e:
+            assert "nccl" in str(e), f"device rule: nccl on the CPU: {e}"
+        else:
+            raise AssertionError("device rule: backend='nccl' on the CPU "
+                                 "did not raise")
     for name, build in builders.items():
+        if name == "initialize_distributed" and torch.cuda.is_available():
+            continue
         if torch.cuda.is_available():
             model = build(config=port.Config(dtype=torch.float32))
             assert model.X_data.device.type == "cuda", (
@@ -1363,5 +1626,6 @@ def test_modules_match_jax():
     _check_frozen_optimizer(np.random.RandomState(34))
     _check_linalg_helpers(np.random.RandomState(35))
     _check_single_layer(np.random.RandomState(36))
+    _check_collapsed_dp(np.random.RandomState(37))
     assert psi2_core.launches == 0, "psi2_core launched for CPU tensors"
     _check_import_and_device_rules()

@@ -19,7 +19,10 @@ optimum, and ``precompute`` of both collapsed DGPs against JAX's; the MCMC
 models (``SGPMCLayer`` on its three branches, ``GPMCLayer`` and
 ``DGPHeinonen``: values and gradients, their ``precompute`` and
 ``load_reference_state``), ``DynamicPredictor`` and the exported
-``predict_y`` program round trip.
+``predict_y`` program round trip; and on gloo ranks the data-parallel
+steps, ``fit_dp`` (resume, a data x sample mesh, one rank against
+``fit`` bit for bit), predictions and evaluation against the port's
+single-process functions on the same rows and draws.
 
 The model (D=5 narrowing to a hidden width of 3, so a PCA Linear mean
 function is exercised; M=20) is built in JAX with ``use_pallas=True``
@@ -1550,6 +1553,262 @@ def _check_dynamic_and_export(rng, model, Xt, Yt):
 
 
 
+# ---------------------------------------------------------------------------
+# data parallelism: the port's steps, fit_dp, predictions and evaluation
+# on gloo ranks (spawned CPU processes running tests/test_torch_ranks.py)
+# against the port's own single-process functions, fed the union of the
+# ranks' rows and the same draws (JAX's threefry draws cannot be
+# reproduced here, so these comparisons are internal to the port)
+# ---------------------------------------------------------------------------
+
+RANKS_TIMEOUT_S = 240.0
+DP_N, DP_D, DP_S, DP_BATCH = 12, 2, 2, 6
+
+
+def _dp_model(rng, rows=DP_N, num_samples=DP_S, lik=None, outputs=1):
+    X = rng.randn(rows, DP_D)
+    Y = (np.sin(X[:, :1]) + 0.1 * rng.randn(rows, 1) if lik is None
+         else rng.randint(0, outputs, (rows, 1)).astype(float))
+    kernels = ([port.RBF(DP_D), port.RBF(DP_D, lengthscales=1.2)]
+               if lik is None else [port.RBF(DP_D)])
+    m = port.DGP.build(X, Y, X[:4], kernels, lik or port.Gaussian(0.1),
+                       num_outputs=outputs, num_samples=num_samples,
+                       config=port.Config(), device="cpu")
+    for layer in m.layers:
+        layer.q_mu.set_value(rng.randn(*layer.q_mu.value.shape) * 0.5)
+    return m
+
+
+def _union(per_rank, rows_per_rank):
+    """Per step (minibatch indices, [normals a layer]) of one process:
+    the ranks' recorded draws joined, the indices made global."""
+    steps = []
+    for draws in zip(*[_by_step(d) for d in per_rank]):
+        idx = np.concatenate([r * rows_per_rank + d[0]
+                              for r, d in enumerate(draws)])
+        zs = [np.concatenate([d[1][l] for d in draws], axis=1)
+              for l in range(len(draws[0][1]))]
+        steps.append((idx, zs))
+    return steps
+
+
+def _by_step(draws):
+    out = []
+    for kind, a in draws:
+        if kind == "randint":
+            out.append((a, []))
+        else:
+            out[-1][1].append(a)
+    return out
+
+
+def _single_steps(model, steps, **adam):
+    opt = port_masked_optimizer(model, LR, **adam)
+    step = make_sgd_train_step(opt)
+    losses = [float(step(model, idx=torch.as_tensor(idx), zs=zs))
+              for idx, zs in steps]
+    return losses
+
+
+def _params_close(case, got, model, rtol=1e-9, atol=1e-12):
+    for name, p in model.named_parameters():
+        assert_allclose(got[name], p.detach().numpy(), rtol=rtol, atol=atol,
+                        err_msg=f"{case}: {name}")
+
+
+def _seed_draws(seed, n, rows, widths, steps, batch, S=DP_S):
+    """The draws of ``fit_dp``'s ranks (rank r from rank_generator(seed,
+    r): per step its minibatch indices, then the normals a layer) in the
+    recorded form."""
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import rank_generator
+    per_rank = []
+    for r in range(n):
+        g = rank_generator(seed, r, "cpu")
+        draws = []
+        for _ in range(steps):
+            draws.append(("randint", torch.randint(
+                0, rows // n, (batch // n,), generator=g).numpy()))
+            draws += [("randn", torch.randn(
+                (S, batch // n, d), generator=g,
+                dtype=torch.float64).numpy()) for d in widths]
+        per_rank.append(draws)
+    return per_rank
+
+
+def _check_data_parallel(rng):
+    """On 2 gloo ranks: a chunk of make_dp_scan_train_step (plain, guarded,
+    grad_inside=False), make_dp_train_step and make_dp_natgrad_adam_step
+    (a padded 7-row batch) and fit_dp (3 steps at batch 6) against the
+    single-process steps on the same rows and draws; fit_dp's checkpoint
+    resume bit for bit; fit_dp on a (data 1 x sample 2) mesh against
+    fit; dp_predict_y and dp_predict_density (fixed and seeded draws),
+    dp_evaluate_regression (7 rows, padded; fixed and seeded draws) and
+    dp_evaluate_classification against the single-process functions;
+    the JAX functions' refusals (exception types) and fit_dp's guard
+    warnings; and on 1 rank, fit_dp against fit bit for bit (plain and
+    guarded)."""
+    import pickle
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+    import test_torch_ranks as ranks
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import run_ranks
+
+    model = _dp_model(rng)
+    fresh = lambda: pickle.loads(pickle.dumps(model))        # noqa: E731
+    Xs, Ys = rng.randn(7, DP_D), rng.randn(7, 1)
+    widths = (DP_D, 1)
+    clf = _dp_model(rng, lik=port.MultiClass(3), outputs=3)
+    ckpt = tempfile.mkdtemp(prefix="dsdgp_fit_dp_")
+    payload = {
+        "model": pickle.dumps(model), "batch": DP_BATCH,
+        "X_b": model.X_data[:7].numpy(), "Y_b": model.Y_data[:7].numpy(),
+        "zs_b": [rng.randn(DP_S, 7, d) for d in widths],
+        "zs_b2": [rng.randn(DP_S, 7, d) for d in widths],
+        "ckpt_dir": ckpt, "Xs": Xs, "Ys": Ys, "S": 4,
+        "zs_pred": [rng.randn(4, 7, d) for d in widths],
+        "zs_eval": [rng.randn(4, 7, d) for d in widths],
+        "Y_std": np.array([1.3]), "classifier": pickle.dumps(clf),
+        "Xc": clf.X_data[:7].numpy(), "Yc": clf.Y_data[:7].numpy(),
+        "zs_c": [rng.randn(4, 7, 3)],
+        "collapsed": pickle.dumps(port.DGPCollapsed.build(
+            Xs[:6], Ys[:6], Xs[:3], [port.RBF(DP_D)], port.Gaussian(0.1),
+            device="cpu")),
+        "odd": pickle.dumps(_dp_model(rng, rows=13)),
+        "s3": pickle.dumps(_dp_model(rng, num_samples=3))}
+    # the two groups at once
+    pool = ThreadPoolExecutor(2)
+    runs = [pool.submit(run_ranks, fn, n, (payload,), threads=1,
+                        timeout_s=RANKS_TIMEOUT_S)
+            for fn, n in ((ranks.paths_ranks, 2), (ranks.fit_one_rank, 1))]
+    pool.shutdown(wait=False)
+    try:
+        res, (one,) = (r.result() for r in runs)
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    out = res[0]
+    for key in out:
+        a, b = out[key], res[1][key]
+        if key.startswith("scan"):
+            a, b = a[:2], b[:2]          # the ranks' draws differ
+        if key == "fit_dp":              # and their clocks
+            a, b = ([a[0]] + [(h["iter"], h["loss"]) for h in a[1]],
+                    [b[0]] + [(h["iter"], h["loss"]) for h in b[1]])
+        assert pickle.dumps(a) == pickle.dumps(b), (
+            f"data parallel {key}: the ranks disagree")
+
+    for case in ("plain", "guarded", "grad outside"):
+        loss, params, _, dispatch = out[f"scan {case}"]
+        assert dispatch == "eager", f"scan {case}: dispatch {dispatch}"
+        single = fresh()
+        losses = _single_steps(single, _union(
+            [r[f"scan {case}"][2] for r in res], DP_N // 2)[:2])
+        assert_allclose(loss, np.mean(losses), rtol=1e-10,
+                        err_msg=f"make_dp_scan_train_step {case}: loss")
+        _params_close(f"make_dp_scan_train_step {case}", params, single)
+
+    single = fresh()
+    opt = port_masked_optimizer(single, LR)
+    port.make_train_step(lambda m: -(m.elbo(
+        payload["X_b"], payload["Y_b"], zs=payload["zs_b"])
+        + port.log_prior(m)), opt)(single)
+    _params_close("make_dp_train_step (7 rows, padded)",
+                  out["train step"][1], single)
+    single = fresh()
+    opt = port_masked_optimizer(single, LR,
+                                freeze=port_freeze_q_params((-1,), 2))
+    step = port.make_natgrad_adam_step(opt, 0.1)
+    loss = step(single, idx=torch.arange(7),
+                zs=(payload["zs_b"], payload["zs_b2"]))
+    nat_loss, params, rejected = out["natgrad step"]
+    assert rejected == int(step.rejected) == 0, "natgrad step: rejected"
+    assert_allclose(nat_loss, float(loss), rtol=1e-10,
+                    err_msg="make_dp_natgrad_adam_step: loss")
+    _params_close("make_dp_natgrad_adam_step", params, single)
+
+    params, hist = out["fit_dp"]
+    single = fresh()
+    losses = _single_steps(single, _union(_seed_draws(
+        4, 2, DP_N, widths, 3, DP_BATCH), DP_N // 2))
+    _params_close("fit_dp (2 ranks, 3 steps)", params, single)
+    assert [h["iter"] for h in hist] == [1, 2, 3] and all(
+        h["dispatch"] == "eager" for h in hist), f"fit_dp history {hist}"
+    assert_allclose([h["loss"] for h in hist], losses, rtol=1e-10,
+                    err_msg="fit_dp: history losses")
+    for name in params:
+        assert np.array_equal(out["fit_dp resumed"][name], params[name]), (
+            f"fit_dp checkpoint resume: {name} not bit for bit")
+    single = fresh()
+    port.fit(single, 2, learning_rate=LR, batch_size=DP_BATCH, seed=6,
+             log_every=2, scan_steps=2)
+    _params_close("fit_dp on a (data 1 x sample 2) mesh vs fit",
+                  out["fit_dp sample axis"], single)
+
+    m = fresh()
+    mean, var = m.predict_y(Xs, 4, zs=payload["zs_pred"])
+    gen = torch.Generator().manual_seed(9)
+    mean9, var9 = m.predict_y(Xs, 4, generator=gen)
+    for case, (pm, pv), (m_, v_) in (("zs", out["predict_y zs"], (mean, var)),
+                                     ("seed", out["predict_y seed"],
+                                      (mean9, var9))):
+        want_m = m_.mean(0)
+        want_v = (v_ + m_ ** 2).mean(0) - want_m ** 2
+        assert_allclose(pm, want_m.numpy(), rtol=1e-10, atol=1e-12,
+                        err_msg=f"dp_predict_y {case}: mean")
+        assert_allclose(pv, want_v.numpy(), rtol=1e-10, atol=1e-12,
+                        err_msg=f"dp_predict_y {case}: variance")
+    assert_allclose(out["predict_density zs"], m.predict_density(
+        Xs, Ys, 4, zs=payload["zs_pred"]).numpy(), rtol=1e-10,
+        err_msg="dp_predict_density")
+    want = port.evaluate_regression(m, Xs, Ys, payload["Y_std"], 4,
+                                    zs=payload["zs_eval"])
+    # seeded: rank r predicts its 4 rows (7 padded to 8) with the normals
+    # of rank_generator(2, r), a layer at a time
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import rank_generator
+    gens = [rank_generator(2, r, "cpu") for r in range(2)]
+    zs2 = [torch.cat([torch.randn((4, 4, d), generator=g,
+                                  dtype=torch.float64) for g in gens],
+                     dim=1)[:, :7] for d in widths]
+    want2 = port.evaluate_regression(m, Xs, Ys, payload["Y_std"], 4,
+                                     zs=zs2)
+    for case, got, w in (("zs", out["evaluate_regression"], want),
+                         ("seed", out["evaluate_regression seed"], want2)):
+        for k in ("rmse", "nll", "loglik"):
+            assert_allclose(got[k], w[k], rtol=1e-10,
+                            err_msg=f"dp_evaluate_regression {case}: {k}")
+    want = port.evaluate_classification(clf, payload["Xc"], payload["Yc"],
+                                        4, zs=payload["zs_c"])
+    for k in ("accuracy", "loglik", "nll"):
+        assert_allclose(out["evaluate_classification"][k], want[k],
+                        rtol=1e-10,
+                        err_msg=f"dp_evaluate_classification: {k}")
+
+    for key, exc, text in (
+            ("fit_dp collapsed", "ValueError", "collapsed"),
+            ("fit_dp odd N", "ValueError", "must divide"),
+            ("sp_elbo S=3", "ValueError", "num_samples=3 must divide"),
+            ("dp_predict_y S=3", "AssertionError", "S=3 must divide"),
+            ("guard grad outside", "ValueError", "grad_inside=True")):
+        assert out[key] is not None and out[key][0] == exc and (
+            text in out[key][1]), f"{key}: raised {out[key]}, want {exc}"
+    for text in ("raising scan_steps from 2 to 8",
+                 "not implemented for the composed data x sample step"):
+        assert any(text in w for w in out["warnings"]), (
+            f"fit_dp warnings {out['warnings']}: no {text!r}")
+
+    for guard in (False, True):
+        single = fresh()
+        _, hist = port.fit(single, 16, learning_rate=LR,
+                           batch_size=DP_BATCH, seed=3, log_every=8,
+                           reject_nonfinite=guard)
+        params, losses = one[guard]
+        assert losses == [h["loss"] for h in hist], (
+            f"fit_dp on 1 rank (guard {guard}): losses differ from fit's")
+        for name, p in single.named_parameters():
+            assert np.array_equal(params[name], p.detach().numpy()), (
+                f"fit_dp on 1 rank (guard {guard}): {name} not bit for "
+                f"bit fit's")
+
+
 def _close(case, got, want):
     assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL,
                     atol=ATOL, err_msg=case)
@@ -1643,6 +1902,7 @@ def test_paths_match_jax():
     _check_lbfgs(np.random.RandomState(45))
     _check_mcmc_models(np.random.RandomState(46), Xt)
     _check_dynamic_and_export(np.random.RandomState(47), model, Xt, Yt)
+    _check_data_parallel(np.random.RandomState(48))
     psi2_core.launches = 0
     _check_collapsed(rng, Xt, Yt)
     assert (fused_conditional.launches, fused_conditional.backward_launches,
