@@ -404,15 +404,43 @@ Phases, each of which raises on a failed check:
    same ranks: ``sp_elbo`` at fixed draws against the single-process
    ``elbo`` (the gate of 29b), and 10 ``fit_dp(sample_axis='sample')``
    steps (ranks bit for bit).  Prints the phase's time.
+30. output-dimension and pipeline parallelism (``parallel/outdim.py``,
+   ``parallel/pp.py``), on the same groups.  30c, in 29a's one-rank NCCL
+   group: ``outdim_elbo`` over a dim axis of 1 on mnist_DGP2 and
+   ``pp_elbo`` over 1 stage on the headline DGP against ``elbo`` on the
+   same draws (raises unless bit for bit or within 1e-5 of scale;
+   prints which).  30a and 30b on 29b's two gloo ranks, each with the
+   launch counts at 0 just before and read just after: 30a, outdim on
+   mnist_DGP2 (784 -> 30 -> 10, MultiClass(10), M=100, batch 1000, S=1,
+   ``use_pallas=True``, phase 25's data) over a dim axis of 2, each rank
+   holding 15 and 5 of the layers' latent dims; 30b, pp on the headline
+   DGP (batch 1000, S=10), ``pp_stack(split_final=True)``: its 4-layer
+   trunk over 2 stages, 4 microbatches of 250, the head replicated.
+   Each: the objective and its gradient at fixed draws on the whole
+   model, and on a data 1 x ... mesh (the value), against this
+   process's float32 ``elbo`` on the same draws and route (29b's gate),
+   the ranks bit for bit; 20 eager steps of ``make_outdim_train_step`` /
+   ``make_pp_train_step`` on the model placed by ``outdim_shard`` /
+   ``pp_shard`` (raises unless the loss is finite and falls, the
+   replicated leaves agree across the ranks bit for bit, and each
+   sharded leaf holds half its whole bytes), with steps/s; the launches
+   a rank against the counts derived from the code (30a: 2 fused
+   forwards and 4 ``rbf_gram`` an evaluation, 2 backwards a gradient;
+   30b: 15 fused forwards and 18 ``rbf_gram`` an evaluation, 15
+   backwards a gradient); and every fused call and distinct gram of an
+   evaluation on each rank's own operands, sent back by the rank, under
+   phase 1's gates as phase 26 holds its models' (Do=15 and Do=5 at
+   Dx=784 and 30; B=2500).  Prints the phase's time.
 
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
 rbf_gram; the fused pair's and rbf_gram's also with phase 25's shapes and
 launches; every record with ``extra_launches``, each phase-26 model's
 main-path launches, ``natgrad_launches``, phase 27's by sub-phase, and
-``mcmc_launches``, phase 28's, and ``parallel_launches``, phase 29's;
-the fused pair's and rbf_gram's also with phase 27's and phase 28's worst
-errors),
+``mcmc_launches``, phase 28's, and ``parallel_launches``, phase 29's and
+30's (``outdim_mnist``, ``pp_headline``, the two ranks' sum); the fused
+pair's and rbf_gram's also with phase 27's, phase 28's and phase 30's
+worst errors),
 the card's name and power limit, and as its last line
 ``{"ok": true, "device": {...}}``.
 Without CUDA, or without the package beside it, it exits non-zero and
@@ -3233,12 +3261,17 @@ def profile_chunk(run, steps, what, expect=None):
     ``steps`` steps under torch.profiler.  Profiles again, up to
     PROFILE_TRIES times in all, when the profiler saw no device time
     (raises if it never does) or, given ``expect``, counted other launches
-    than it (the last try's are returned)."""
+    than it (the last try's are returned).  Each profile starts with
+    :func:`shield_profile`'s uncounted work, as ``ProfiledChunk``'s do: a
+    run whose first kernel is a counted one (28a's replay starts with a
+    gram) would otherwise lose its record whenever the profiler drops a
+    profile's first device records."""
     from torch.profiler import ProfilerActivity, profile
     found = None
     for i in range(1, PROFILE_TRIES + 1):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            shield_profile()
             run()
             torch.cuda.synchronize()
         found = device_breakdown(prof, steps)
@@ -4164,6 +4197,16 @@ def hold_captured_kernels(label, run, seed, worst, backward=True,
     fused = captured_calls(run, layers, "fused_conditional")
     check(n_fused is None or len(fused) == n_fused,
           f"{label}: captured {len(fused)} fused calls, expected {n_fused}")
+    return hold_operands(label, fused, captured_calls(run, kernels,
+                                                      "rbf_gram"),
+                         seed, worst, backward)
+
+
+def hold_operands(label, fused, gram_calls, seed, worst, backward=True):
+    """hold_captured_kernels' gates on captured operands: ``fused``, the
+    fused conditional's calls, and ``gram_calls``, rbf_gram's (each
+    distinct call held once).  Returns the fused calls' (B, Dx, Do) and
+    the grams' (N, M, D)."""
     shapes, held = [], {case[1:5] for case in KERNEL_CASES}
     for layer, args in enumerate(fused):
         args = [a.contiguous() if torch.is_tensor(a) else a for a in args]
@@ -4181,7 +4224,7 @@ def hold_captured_kernels(label, run, seed, worst, backward=True,
                           f"= {shapes[-1]}", args, backward, seed, worst,
                           floor=True)
     grams = []
-    for ops in captured_calls(run, kernels, "rbf_gram"):
+    for ops in gram_calls:
         if not any(all(a.shape == b.shape and torch.equal(a, b)
                        for a, b in zip(ops, seen)) for seen in grams):
             grams.append(ops)
@@ -5725,6 +5768,11 @@ def host(t):
     return t.detach().double().cpu().numpy()
 
 
+def host_keep(t):
+    """``t`` as a numpy array of its own dtype."""
+    return t.detach().cpu().numpy()
+
+
 def trainable_names(model):
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
@@ -5821,6 +5869,7 @@ def dp_rank(rank, seed):
     out["fit_dp_sample"] = ([host(p) for p in m.parameters()],
                             [h["loss"] for h in hist])
     out["counts_29c"] = launch_counts()
+    out["30"] = sharded_ranks(seed)
     return out
 
 
@@ -5844,9 +5893,10 @@ def nccl_kernels(prof):
                if e.device_type.name == "CUDA" and "nccl" in e.key.lower())
 
 
-def phase_parallel_nccl(seed, card):
-    """29a: a one-rank NCCL group on cuda:0, fit_dp against fit; the
-    group is destroyed after the phase's graphs are freed."""
+def phase_parallel_nccl(seed, card, mnist):
+    """29a: a one-rank NCCL group on cuda:0, fit_dp against fit, and
+    30c in the same group; the group is destroyed after the phase's
+    graphs are freed."""
     import torch.distributed as dist
     from doubly_stochastic_dgp_tpu_torch.parallel import mesh as pmesh
     with tempfile.TemporaryDirectory() as store:
@@ -5857,6 +5907,9 @@ def phase_parallel_nccl(seed, card):
             mesh = pmesh.make_mesh()
             out = fit_dp_against_fit(seed, card, mesh)
             out["all_gather"] = nccl_gather(mesh)
+            t0 = time.perf_counter()
+            out["one_rank"] = one_rank_sharding(seed, mnist)
+            out["one_rank"]["wall_s"] = time.perf_counter() - t0
             return out
         finally:
             torch.cuda.synchronize()
@@ -5987,8 +6040,8 @@ def fit_dp_against_fit(seed, card, mesh):
             "steps_per_s": med, "rates": rates}
 
 
-def phase_parallel_gloo(seed, card):
-    """29b-c: two gloo ranks on cuda:0 against this process."""
+def phase_parallel_gloo(seed, card, mnist):
+    """29b-c and 30a-b: two gloo ranks on cuda:0 against this process."""
     from doubly_stochastic_dgp_tpu_torch.parallel.mesh import (
         rank_generator, run_ranks)
     from doubly_stochastic_dgp_tpu_torch.training.hmc import (
@@ -6146,6 +6199,10 @@ def phase_parallel_gloo(seed, card):
                            for n in KERNEL_NAMES}
     out["launches_29c"] = {n: a["counts_29c"][n] + b["counts_29c"][n]
                            for n in KERNEL_NAMES}
+    t0 = time.perf_counter()
+    out["30"] = check_sharded(seed, card, a["30"], b["30"], mnist,
+                              (model, m64))
+    out["30"]["checks_s"] = time.perf_counter() - t0
     return out
 
 
@@ -6155,16 +6212,422 @@ def pickle_equal(x, y):
 
 
 def phase_parallel(seed, card):
-    """Phase 29: 29a (one-rank NCCL), 29b-c (two gloo ranks)."""
+    """Phases 29 and 30: 29a and 30c (one-rank NCCL), 29b-c and 30a-b
+    (two gloo ranks)."""
     counts0 = launch_counts()
     t0 = time.perf_counter()
-    out = {"nccl": phase_parallel_nccl(seed, card)}
-    print(f"29a done at {time.perf_counter() - t0:.1f} s", flush=True)
-    out["gloo"] = phase_parallel_gloo(seed, card)
+    mnist = sharded_mnist(seed)
+    build_s = time.perf_counter() - t0
+    out = {"nccl": phase_parallel_nccl(seed, card, mnist)}
+    print(f"29a and 30c done at {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    out["gloo"] = phase_parallel_gloo(seed, card, mnist)
     out["wall_s"] = time.perf_counter() - t0
     set_launch_counts(counts0)
-    print(f"parallel phase wall time {out['wall_s']:.1f} s [{card}]",
-          flush=True)
+    p30 = out["gloo"]["30"]
+    # phase 30's share: this process's MNIST models, 30c, the ranks' work
+    # for 30a-b (the slower rank's) and the checks here
+    out["phase30_s"] = (build_s + out["nccl"]["one_rank"]["wall_s"]
+                        + p30["rank_s"] + p30["checks_s"])
+    print(f"parallel phase wall time {out['wall_s']:.1f} s, of it phase 30 "
+          f"{out['phase30_s']:.1f} s (MNIST models here {build_s:.1f} s, "
+          f"30c {out['nccl']['one_rank']['wall_s']:.1f} s, 30a-b in the "
+          f"ranks {p30['rank_s']:.1f} s, their checks here "
+          f"{p30['checks_s']:.1f} s) [{card}]", flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 30: output-dimension and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+SHARD_STEPS = 20            # 30a-b: eager steps on the placed models
+PP_MICRO = 4                # 30b: microbatches of 250 rows
+PP_STAGES = 2
+PP_TICKS = PP_MICRO + PP_STAGES - 1
+# the launches a rank makes, derived from the code: an evaluation of
+# outdim_elbo runs each layer's fused forward once on the rank's dims and
+# its Kuu gram twice (the conditional's Cholesky and the non-white KL's);
+# a gradient adds each layer's fused backward.  pp_elbo runs, every tick,
+# the stage's layers and the split-final head's conditional (a fused
+# forward and a Kuu gram each), then one Kuu gram for each KL (the
+# stage's layers, the head)
+OUTDIM_PER = {"eval": {"fused_conditional": 2, "rbf_gram": 4},
+              "grad": {"fused_conditional_backward": 2}}
+PP_LOCAL = (LAYERS - 1) // PP_STAGES
+PP_PER = {"eval": {"fused_conditional": PP_TICKS * (PP_LOCAL + 1),
+                   "rbf_gram": PP_TICKS * (PP_LOCAL + 1) + PP_LOCAL + 1},
+          "grad": {"fused_conditional_backward": PP_TICKS * (PP_LOCAL + 1)}}
+
+
+def sharded_draws(seed, shapes, device="cuda"):
+    """Fixed float32 unit normals of the given shapes."""
+    g = torch.Generator(device=device).manual_seed(seed + 3000)
+    return [torch.randn(sh, generator=g, device=device) for sh in shapes]
+
+
+def sharded_mnist(seed, f64=True):
+    """30a's model: mnist_DGP2 (784 -> 30 -> 10, MultiClass(10), M=100,
+    S=1, use_pallas=True, float32), its q_mu moved off zero (at zero the
+    first layer's q_mu gradient is zero, and float32 noise is all a gate
+    would see), with ``f64`` a float64 copy of it on the plain route, and
+    the fixed draws of a 1000-row batch."""
+    data = mnist_data(seed)
+    m32 = mnist_model(data, MNIST_MODELS["DGP2"], seed)
+    rng = np.random.RandomState(seed + 30)
+    for layer in m32.layers:
+        layer.q_mu.set_value(rng.randn(*layer.q_mu.value.shape) * 0.5)
+    out = {"m32": m32, "zs": sharded_draws(
+        seed, [(1, BATCH, l.num_outputs) for l in m32.layers],
+        m32.X_data.device)}
+    if f64:
+        out["m64"] = copy.deepcopy(m32).to(torch.float64)
+        for layer in out["m64"].layers:
+            layer.use_pallas = False
+    return out
+
+
+def pp_draws(seed, device="cuda"):
+    """30b's fixed draws: the headline trunk's (4, S, 1000, 8), stacked."""
+    return sharded_draws(seed + 1, [(LAYERS - 1, TRAIN_S, BATCH, 8)],
+                         device)[0]
+
+
+def mesh_kind():
+    """The device type of a mesh of this process group's backend."""
+    import torch.distributed as dist
+    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+
+
+def one_rank_sharding(seed, mnist):
+    """30c on the one-rank NCCL group: ``outdim_elbo`` over a dim axis of
+    1 on the MNIST DGP and ``pp_elbo`` over 1 stage on the headline DGP
+    (split-final head, one microbatch) against ``elbo`` on the same
+    draws; raises unless bit for bit or within 1e-5 of scale, and prints
+    which."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from doubly_stochastic_dgp_tpu_torch.parallel import outdim as pod
+    from doubly_stochastic_dgp_tpu_torch.parallel import pp as ppp
+    out = {}
+    m = mnist["m32"]
+    head = build_model(seed, num_samples=TRAIN_S)[0]
+    dev = head.X_data.device
+    zs = pp_draws(seed, dev)
+    zs_all = list(zs) + [torch.zeros((1, BATCH, 1), device=dev)]
+    dim = init_device_mesh(mesh_kind(), (1,), mesh_dim_names=("dim",))
+    stage = init_device_mesh(mesh_kind(), (1,), mesh_dim_names=("stage",))
+    with torch.no_grad():
+        for name, got, want in (
+                ("outdim_elbo (dim 1), mnist_DGP2",
+                 lambda: pod.outdim_elbo(m, m.X_data[:BATCH],
+                                         m.Y_data[:BATCH], None, dim,
+                                         zs=mnist["zs"]),
+                 lambda: m.elbo(m.X_data[:BATCH], m.Y_data[:BATCH],
+                                zs=mnist["zs"])),
+                ("pp_elbo (1 stage, split-final head), headline",
+                 lambda: ppp.pp_elbo(ppp.pp_stack(head, split_final=True),
+                                     head.X_data[:BATCH],
+                                     head.Y_data[:BATCH], None, stage,
+                                     zs=zs),
+                 lambda: head.elbo(head.X_data[:BATCH], head.Y_data[:BATCH],
+                                   zs=zs_all))):
+            g, w = got(), want()
+            torch.cuda.synchronize()
+            same = torch.equal(g, w)
+            rel = float(abs(g - w) / abs(w))
+            print(f"30c {name} on the one-rank NCCL group: {float(g):.6f} "
+                  f"vs elbo {float(w):.6f} on the same draws: "
+                  f"{'bit for bit' if same else f'|d| {rel:.3e} of scale'}",
+                  flush=True)
+            check(same or rel <= DP_GATE,
+                  f"30c {name}: {float(g)} vs elbo {float(w)}")
+            out[name] = {"value": float(g), "elbo": float(w),
+                         "bit_for_bit": same, "rel": rel}
+    return out
+
+
+def sharded_rank(model, elbo, elbo_data, place, make_step, mesh, axis, seed,
+                 zs):
+    """One of 30a-b on this rank, with the launch counts at 0 just before:
+    ``elbo(m, X, Y, zs)`` of the whole model on a 1000-row batch at fixed
+    draws and its gradient under the gradient rule, ``elbo_data`` (the
+    same objective on a data x ... mesh, the value), the placed model's
+    objective as its steps differentiate it (``log_prior_sharded`` plus
+    ``elbo`` of ``place(model)``, its sharded leaves along ``axis`` this
+    rank's own) at the same draws and its gradient, then SHARD_STEPS
+    eager steps of ``make_step(optimizer)`` on the placed model; the
+    counts just after.  Then, uncounted, the kernels' operands of one
+    evaluation (for the holds in the main process)."""
+    from doubly_stochastic_dgp_tpu_torch.parallel import mesh as pmesh
+    from doubly_stochastic_dgp_tpu_torch.models import layers
+    from doubly_stochastic_dgp_tpu_torch.ops import kernels
+    from doubly_stochastic_dgp_tpu_torch.parallel import dp as pdp
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        masked_optimizer)
+    X, Y = model.X_data[:BATCH], model.Y_data[:BATCH]
+    set_launch_counts({n: 0 for n in KERNEL_NAMES})
+    params = [p for p in model.parameters() if p.requires_grad]
+    value, grads = pdp.dp_value_and_grads(lambda: elbo(model, X, Y, zs),
+                                          params, mesh)
+    res = {"value": float(value),
+           "grads": dict(zip(trainable_names(model), map(host, grads)))}
+    with torch.no_grad():
+        res["data_axis"] = float(elbo_data(model, X, Y, zs))
+    placed = place(model)
+    whole = dict(model.named_parameters())
+    local = {n: p for n, p in placed.named_parameters()
+             if p.shape != whole[n].shape}
+    res["bytes"] = {n: (p.numel() * p.element_size(),
+                        whole[n].numel() * whole[n].element_size())
+                    for n, p in local.items()}
+    # each sharded leaf's block of the whole leaf: (dim, start, size)
+    at = pmesh.axis_index(mesh, axis)
+    res["blocks"] = {}
+    for n, p in local.items():
+        d = next(i for i in range(p.ndim) if p.shape[i] != whole[n].shape[i])
+        res["blocks"][n] = (d, at * p.shape[d], p.shape[d])
+    shards = list(local.values())
+    pvalue, pgrads = pdp.dp_value_and_grads(
+        lambda: pdp.log_prior_sharded(placed, shards, mesh, axis)
+        + elbo(placed, X, Y, zs),
+        [p for p in placed.parameters() if p.requires_grad], mesh,
+        local=shards)
+    res["placed_value"] = float(pvalue)
+    res["placed_grads"] = dict(zip(trainable_names(placed),
+                                   map(host, pgrads)))
+    step = make_step(masked_optimizer(placed, 0.01))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res["losses"] = [float(step(placed, X, Y, seed=seed + i))
+                     for i in range(SHARD_STEPS)]
+    torch.cuda.synchronize()
+    res["steps_per_s"] = SHARD_STEPS / (time.perf_counter() - t0)
+    res["counts"] = launch_counts()
+    res["replicated"] = {n: host(p) for n, p in placed.named_parameters()
+                         if n not in local}
+
+    def cpu(args):
+        # numpy: a tensor sent through the ranks' queue is shared memory,
+        # gone with the rank
+        return [host_keep(a) if torch.is_tensor(a) else a for a in args]
+
+    run = lambda: elbo(model, X, Y, zs)                       # noqa: E731
+    res["fused"] = [cpu(a) for a in captured_calls(run, layers,
+                                                   "fused_conditional")]
+    res["grams"] = [cpu(a) for a in captured_calls(run, kernels, "rbf_gram")]
+    return res
+
+
+def sharded_ranks(seed):
+    """30a and 30b on one of 29b's two gloo ranks (run by ``dp_rank``):
+    30a outdim on mnist_DGP2 over a dim axis of 2 (and a data 1 x dim 2
+    mesh), 30b pp on the headline DGP over 2 stages (split-final head,
+    4 microbatches; and a data 1 x stage 2 mesh)."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from doubly_stochastic_dgp_tpu_torch.parallel import outdim as pod
+    from doubly_stochastic_dgp_tpu_torch.parallel import pp as ppp
+    t0 = time.perf_counter()
+    dim = init_device_mesh("cpu", (2,), mesh_dim_names=("dim",))
+    dd = init_device_mesh("cpu", (1, 2), mesh_dim_names=("data", "dim"))
+    stage = init_device_mesh("cpu", (PP_STAGES,), mesh_dim_names=("stage",))
+    ds = init_device_mesh("cpu", (1, PP_STAGES),
+                          mesh_dim_names=("data", "stage"))
+    mnist = sharded_mnist(seed, f64=False)
+    out = {"30a": sharded_rank(
+        mnist["m32"],
+        lambda m, X, Y, z: pod.outdim_elbo(m, X, Y, None, dim, zs=z),
+        lambda m, X, Y, z: pod.elbo_2d(m, X, Y, None, dd, zs=z),
+        lambda m: pod.outdim_shard(m, dim),
+        lambda opt: pod.make_outdim_train_step(opt, dim), dim, "dim", seed,
+        mnist["zs"])}
+    del mnist
+    headline = build_model(seed, num_samples=TRAIN_S)[0]
+    stacked = ppp.pp_stack(headline, split_final=True)
+    out["30b"] = sharded_rank(
+        stacked,
+        lambda m, X, Y, z: ppp.pp_elbo(m, X, Y, None, stage, n_micro=PP_MICRO,
+                                       zs=z),
+        lambda m, X, Y, z: ppp.pp_elbo(m, X, Y, None, ds, n_micro=PP_MICRO,
+                                       data_axis="data", zs=z),
+        lambda m: ppp.pp_shard(m, stage),
+        lambda opt: ppp.make_pp_train_step(opt, stage, n_micro=PP_MICRO),
+        stage, "stage", seed, pp_draws(seed, headline.X_data.device))
+    torch.cuda.synchronize()
+    out["rank_s"] = time.perf_counter() - t0
+    return out
+
+
+def expected_counts(per, evals, grads):
+    return {n: evals * per["eval"].get(n, 0) + grads * per["grad"].get(n, 0)
+            for n in KERNEL_NAMES}
+
+
+def stacked_name(name):
+    """The single-process names of a pp-stacked model's parameter: the
+    trunk's L - 1 layers' (stacked) or the head's."""
+    if name.startswith("layers.0."):
+        rest = name.split(".", 2)[2]
+        return [f"layers.{i}.{rest}" for i in range(LAYERS - 1)]
+    if name.startswith("layers.1."):
+        return [f"layers.{LAYERS - 1}.{name.split('.', 2)[2]}"]
+    return [name]
+
+
+def check_sharded(seed, card, a, b, mnist, headline):
+    """Phase 30's checks on the two ranks' results (``sharded_ranks``):
+    the ranks bit for bit; 30a's outdim_elbo and 30b's pp_elbo and their
+    gradients, and the data x ... values, against this process's float32
+    ``elbo`` on the same draws and route (dp_gate: 1e-5 of scale, or 2x
+    its float32 error against float64); the placed model's objective
+    (log prior and bound) against ``log_prior`` plus ``elbo``, and its
+    gradients, each rank's sharded leaves against their block of the
+    whole gradient, under the same gate; the losses of the steps finite
+    and falling; each rank's sharded leaves half the whole model's bytes;
+    the launch counts as derived; the kernels on the ranks' operands
+    under phase 1's gates."""
+    from doubly_stochastic_dgp_tpu_torch.training.optim import (
+        value_and_grads)
+    from doubly_stochastic_dgp_tpu_torch.utils.params import log_prior
+    m32, m64 = headline
+    dev = m32.X_data.device
+    zs = pp_draws(seed, dev)
+    cases = {
+        "30a": ("outdim, mnist_DGP2 over a dim axis of 2",
+                (mnist["m32"], mnist["m64"]), mnist["zs"],
+                lambda n: [n], OUTDIM_PER,
+                [(BATCH, MNIST_D, 15), (BATCH, 30, 5)]),
+        "30b": (f"pp, headline over {PP_STAGES} stages ({PP_MICRO} "
+                f"microbatches, split-final head)", (m32, m64),
+                list(zs) + [torch.zeros((1, BATCH, 1), device=dev)],
+                stacked_name, PP_PER,
+                ([(TRAIN_S * BATCH // PP_MICRO, 8, 8)] * PP_LOCAL
+                 + [(TRAIN_S * BATCH // PP_MICRO, 8, 1)]) * PP_TICKS),
+    }
+    out = {"rank_s": max(a["rank_s"], b["rank_s"])}
+    worst = kernel_worst()
+    for key, (what, models, draws, names, per, shapes) in cases.items():
+        ra, rb = a[key], b[key]
+        for k in ("value", "grads", "data_axis", "placed_value", "losses",
+                  "replicated"):
+            check(pickle_equal(ra[k], rb[k]), f"{key} {k}: the two ranks "
+                                              f"disagree")
+        check(pickle_equal(
+            *({n: g for n, g in r["placed_grads"].items()
+               if n not in r["blocks"]} for r in (ra, rb))),
+            f"{key} placed: the replicated leaves' gradients disagree")
+        refs, priors = {}, {}
+        for label, m in zip(("f32", "f64"), models):
+            dt = m.X_data.dtype
+            params = [p for p in m.parameters() if p.requires_grad]
+            v, g = value_and_grads(lambda: m.elbo(
+                m.X_data[:BATCH], m.Y_data[:BATCH],
+                zs=[z.to(dt) for z in draws]), params)
+            refs[label] = (float(v), dict(zip(trainable_names(m),
+                                              map(host, g))))
+            # the log prior and its gradient (zeros where no Param of the
+            # model carries a prior: a constant, with no graph)
+            with torch.enable_grad():
+                lp = log_prior(m)
+            g = (torch.autograd.grad(lp, params, allow_unused=True)
+                 if lp.requires_grad else [None] * len(params))
+            priors[label] = (float(lp), {
+                n: np.zeros(tuple(p.shape)) if gi is None else host(gi)
+                for n, p, gi in zip(trainable_names(m), params, g)})
+
+        def whole(refs, name):
+            """The one-process gradient of a (possibly stacked) leaf."""
+            got = [refs[n] for n in names(name)]
+            return np.stack(got) if len(got) > 1 else got[0]
+        err, allow = dp_gate(f"{key} value", ra["value"], refs["f32"][0],
+                             refs["f64"][0])
+        derr, dallow = dp_gate(f"{key} data x ... mesh value",
+                               ra["data_axis"], refs["f32"][0],
+                               refs["f64"][0])
+        gerr = []
+        for name, g in ra["grads"].items():
+            s32, s64 = (whole(r[1], name) for r in (refs["f32"],
+                                                     refs["f64"]))
+            gerr.append((name,) + dp_gate(f"{key} gradient {name}", g, s32,
+                                          s64))
+        gw = max(gerr, key=lambda e: e[1] / e[2])
+        # the placed model: log prior plus bound, sharded leaves' blocks
+        perr, pallow = dp_gate(
+            f"{key} placed value", ra["placed_value"],
+            *(refs[k][0] + priors[k][0] for k in ("f32", "f64")))
+        pgerr = []
+        for r, res in enumerate((ra, rb)):
+            for name, g in res["placed_grads"].items():
+                s32, s64 = (whole(refs[k][1], name)
+                            + whole(priors[k][1], name)
+                            for k in ("f32", "f64"))
+                if name in res["blocks"]:
+                    d, start, size = res["blocks"][name]
+                    s32, s64 = (np.take(a, range(start, start + size),
+                                        axis=d) for a in (s32, s64))
+                pgerr.append((f"{name} rank {r}",) + dp_gate(
+                    f"{key} placed gradient {name} rank {r}", g, s32, s64))
+        pgw = max(pgerr, key=lambda e: e[1] / e[2])
+        print(f"{key} {what}: {ra['value']:.6f} vs one process float32 "
+              f"{refs['f32'][0]:.6f} (float64 {refs['f64'][0]:.6f}): |d| "
+              f"{err:.3e} (allowed {allow:.3e}); on the data 1 x ... mesh "
+              f"|d| {derr:.3e}; gradients ({len(gerr)} tensors) worst "
+              f"{gw[1]:.3e} of allowed {gw[2]:.3e} ({gw[0]}); ranks bit for "
+              f"bit True [{card}]", flush=True)
+        print(f"{key} placed model (log prior + bound): "
+              f"{ra['placed_value']:.6f} vs one process float32 "
+              f"{refs['f32'][0] + priors['f32'][0]:.6f}: |d| {perr:.3e} "
+              f"(allowed {pallow:.3e}); gradients ({len(pgerr)} tensors over "
+              f"both ranks, sharded leaves against their block) worst "
+              f"{pgw[1]:.3e} of allowed {pgw[2]:.3e} ({pgw[0]}) [{card}]",
+              flush=True)
+        losses = ra["losses"]
+        print(f"{key} {SHARD_STEPS} eager steps on the placed model, fixed "
+              f"batch of {BATCH}: {ra['steps_per_s']:.2f} / "
+              f"{rb['steps_per_s']:.2f} steps/s (rank 0 / 1); losses "
+              f"{losses[0]:.3f} -> {losses[-1]:.3f}; replicated leaves bit "
+              f"for bit across the ranks True [{card}]", flush=True)
+        check(np.isfinite(losses).all() and losses[-1] < losses[0],
+              f"{key}: the loss did not fall: {losses}")
+        for r, res in enumerate((ra, rb)):
+            for name, (got, whole) in res["bytes"].items():
+                check(2 * got == whole, f"{key} rank {r}: {name} holds "
+                                        f"{got} of {whole} bytes")
+        share = {r: sum(g for g, _ in res["bytes"].values())
+                 for r, res in enumerate((ra, rb))}
+        total = sum(w for _, w in ra["bytes"].values())
+        print(f"{key} placed: each rank holds {share[0]} / {share[1]} of "
+              f"the sharded leaves' {total} bytes ({len(ra['bytes'])} "
+              f"leaves, each half: {sorted(ra['bytes'])})", flush=True)
+        evals, grads = 3 + SHARD_STEPS, 2 + SHARD_STEPS
+        want = expected_counts(per, evals, grads)
+        for r, res in enumerate((ra, rb)):
+            check(res["counts"] == want,
+                  f"{key} rank {r}: launches {res['counts']}, derived "
+                  f"{want}")
+        print(f"{key} launches a rank (counters, {evals} evaluations, "
+              f"{grads} gradients): {ra['counts']} = derived {per} each",
+              flush=True)
+        for r, res in enumerate((ra, rb)):
+            fused = [[torch.as_tensor(t, device=dev)
+                      if isinstance(t, np.ndarray) else t for t in args]
+                     for args in res["fused"]]
+            grams = [[torch.as_tensor(t, device=dev) for t in args]
+                     for args in res["grams"]]
+            got, _ = hold_operands(f"{key} rank {r}", fused, grams,
+                                   seed + r, worst)
+            check(got == shapes, f"{key} rank {r}: fused calls at (B, Dx, "
+                                 f"Do) {got}, expected {shapes}")
+        out[key] = {"value": ra["value"], "f32": refs["f32"][0],
+                    "f64": refs["f64"][0], "err": err, "allowed": allow,
+                    "data_axis_err": derr, "grad_worst": gw[1:],
+                    "placed_err": perr, "placed_allowed": pallow,
+                    "placed_grad_worst": pgw[1:],
+                    "losses": losses, "steps_per_s": [ra["steps_per_s"],
+                                                      rb["steps_per_s"]],
+                    "launches": {n: ra["counts"][n] + rb["counts"][n]
+                                 for n in KERNEL_NAMES},
+                    "rank_bytes": share[0], "sharded_bytes": total}
+    out["kernel_errs"] = worst
     return out
 
 
@@ -6393,11 +6856,13 @@ def main():
     mcmc = phase_mcmc(args.seed, card)
     lap(28)
     parallel = phase_parallel(args.seed, card)
-    lap(29)
+    lap("29-30")
     parallel_launches = {
         "fit_dp_nccl": parallel["nccl"]["launches"],
         "gloo_ranks": parallel["gloo"]["launches_29b"],
-        "sample_axis": parallel["gloo"]["launches_29c"]}
+        "sample_axis": parallel["gloo"]["launches_29c"],
+        "outdim_mnist": parallel["gloo"]["30"]["30a"]["launches"],
+        "pp_headline": parallel["gloo"]["30"]["30b"]["launches"]}
     mcmc_launches = {
         "sgpmc_headline": mcmc["sgpmc_headline"]["launches_main_path"],
         "closed_form_hmc": mcmc["closed_form"]["hmc"]["launches"],
@@ -6467,6 +6932,12 @@ def main():
         # phase 29: each sub-phase's main-path launches
         rec["parallel_launches"] = {label: c[name] for label, c in
                                     parallel_launches.items()}
+        if name in parallel["gloo"]["30"]["kernel_errs"]:
+            # phase 30: the worst errors on the ranks' operands
+            p_errs = parallel["gloo"]["30"]["kernel_errs"][name]
+            rec["parallel_max_rel_err"] = p_errs[1]
+            rec["parallel_max_rel_err_vs_f64"] = p_errs[2]
+            rec["parallel_plain_max_rel_err_vs_f64"] = p_errs[3]
         if name in mcmc["kernel_errs"]:
             mc_errs = mcmc["kernel_errs"][name]
             rec["mcmc_max_rel_err"] = mc_errs[1]

@@ -34,7 +34,11 @@ and data and sample parallelism over ``torch.distributed`` (``parallel``:
 meshes of ranks with the port's collectives, the data- and
 sample-parallel ELBO, its scanned steps and ``fit_dp``, predictions and
 evaluation over the ranks, the collapsed DGPs' bounds and steps with the
-rows split, and the MCMC chains split over ranks by ``mesh=``).
+rows split, and the MCMC chains split over ranks by ``mesh=``), and
+output-dimension and pipeline parallelism (``parallel.outdim``: every
+layer's latent dims split over a mesh axis, also composed with the data
+and sample axes; ``parallel.pp``: a homogeneous layer stack split over
+stages on a GPipe schedule).
 The fused staged
 conditional and the psi2 data sum run as hand-written CUDA kernels,
 forward and backward, the conditional also with a save-gram variant, and

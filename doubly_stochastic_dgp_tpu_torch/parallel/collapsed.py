@@ -43,7 +43,7 @@ import torch
 from torch import nn
 
 from ..ops.linalg import safe_cholesky, safe_cholesky_ladder, tri_solve
-from ..utils.params import log_prior
+from ..utils.params import log_prior, owner_of
 from .dp import dp_value_and_grads
 from .mesh import (all_gather, all_reduce, all_reduce_many, axis_index,
                    axis_size, rank_generator, replicate, shard_along)
@@ -89,24 +89,17 @@ def damianou_shard(model, mesh, axis: str = "data"):
     with torch.no_grad():
         for name, p in list(placed.named_parameters()):
             if _is_row_leaf(name, p):
-                owner, attr = _owner(placed, name)
+                owner, attr = owner_of(placed, name)
                 setattr(owner, attr, nn.Parameter(
                     shard_along(p.detach(), mesh, axis).clone(),
                     requires_grad=p.requires_grad))
         for name, b in list(placed.named_buffers()):
             if _is_row_leaf(name, b):
-                owner, attr = _owner(placed, name)
+                owner, attr = owner_of(placed, name)
                 owner.register_buffer(attr,
                                       shard_along(b, mesh, axis).clone())
     placed.row_shard = (axis, n)
     return placed
-
-
-def _owner(module, name):
-    *path, attr = name.split(".")
-    for part in path:
-        module = getattr(module, part)
-    return module, attr
 
 
 def collapsed_specs(model, axis: str = "data"):

@@ -41,7 +41,7 @@ from ..graphs import rand, randint, randn
 from ..training.loop import _Chunk, _chunk_capture, guarded_scan
 from ..training.natgrad import natural_leaves, natural_step
 from ..training.optim import value_and_grads
-from ..utils.params import log_prior
+from ..utils.params import Param, log_prior
 from .mesh import (all_reduce, all_reduce_many, all_reduce_sum_,
                    axis_index, axis_size, capturable, pad_to_multiple,
                    rank_generator, shard_along)
@@ -50,7 +50,8 @@ __all__ = ["dp_elbo", "make_dp_train_step", "make_dp_scan_train_step",
            "make_dp_natgrad_adam_step", "dp_predict_y",
            "dp_predict_density", "dp_evaluate_regression",
            "dp_evaluate_classification", "sp_elbo",
-           "make_dp_sp_scan_train_step", "dp_value_and_grads"]
+           "make_dp_sp_scan_train_step", "dp_value_and_grads",
+           "log_prior_sharded", "make_sharded_train_step"]
 
 
 def _kl_sum(model):
@@ -77,12 +78,14 @@ class SampleShard:
 
 
 def dp_value_and_grads(objective, params, mesh, axis: Optional[str] = None,
-                       local: Sequence = ()):
+                       local: Sequence = (), local_axes: Sequence = ()):
     """(value, gradients) of ``objective()`` (a replicated 0-dim tensor)
     in ``params`` under the gradient rule: this rank back-propagates
     value / n (n: the ranks of ``axis``, default the whole mesh), and one
     all-reduce over the same ranks sums the gradients of every parameter
-    but the row-sharded ``local`` ones, which keep their own rows'."""
+    but the sharded ``local`` ones (a rank's rows, columns or layers),
+    which are summed over ``local_axes`` only (the mesh axes they are
+    replicated over; none: they keep their own)."""
     n = mesh.size() if axis is None else axis_size(mesh, axis)
     local_ids = {id(p) for p in local}
     with torch.enable_grad():
@@ -92,7 +95,50 @@ def dp_value_and_grads(objective, params, mesh, axis: Optional[str] = None,
              for p, g in zip(params, grads)]
     all_reduce_sum_([g for p, g in zip(params, grads)
                      if id(p) not in local_ids], mesh, axis)
+    for ax in local_axes:
+        all_reduce_sum_([g for p, g in zip(params, grads)
+                         if id(p) in local_ids], mesh, ax)
     return value.detach(), grads
+
+
+def log_prior_sharded(model, local, mesh, axis: str):
+    """``log_prior(model)`` of a placed model whose ``local`` parameters
+    hold this rank's share along ``axis`` (columns, layers): the prior
+    terms of their Params summed over ``axis``, every other term counted
+    once (the JAX ``log_prior`` of the sharded model, one global value)."""
+    ids = {id(p) for p in local}
+    mine = [m for m in model.modules() if isinstance(m, Param)
+            and m.prior is not None and id(m.unconstrained) in ids]
+    total = log_prior(model)
+    if not mine:
+        return total
+    part = sum(log_prior(m) for m in mine)
+    return total - part + all_reduce(part, mesh, axis)
+
+
+def make_sharded_train_step(objective, local_params, optimizer, mesh,
+                            shard_axis: str, rest_axes: Sequence = ()):
+    """Step ``step(model, X, Y, seed=None, zs=None) -> loss``: one Adam
+    update of ``optimizer``'s parameters in place on -(log prior +
+    ``objective(model, X, Y, seed, zs)``) under the gradient rule, for a
+    model whose ``local_params(model)`` (none for a whole model) hold this
+    rank's share along ``shard_axis`` (columns, layers): those keep their
+    own gradients, summed over ``rest_axes`` only, and their own Adam
+    state; every other leaf takes the same update on every rank."""
+
+    @torch.no_grad()
+    def step(model, X, Y, seed=None, zs=None):
+        local = local_params(model)
+        loss, grads = dp_value_and_grads(
+            lambda: -(log_prior_sharded(model, local, mesh, shard_axis)
+                      + objective(model, X, Y, seed, zs)),
+            optimizer.params, mesh, local=local,
+            local_axes=rest_axes if local else ())
+        torch._foreach_add_(optimizer.params,
+                            optimizer.update(grads, optimizer.state))
+        return loss
+
+    return step
 
 
 def _z_rows(z, n_real, n, mesh, axis, like):

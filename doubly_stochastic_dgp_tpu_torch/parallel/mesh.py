@@ -36,6 +36,19 @@ ranks, this rank's block).  Gloo has no CUDA form of ``all_gather`` (the
 all-reduce of a zero-filled buffer that holds this rank's block: exact
 (x + 0 = x), at n times the bytes of a gather.
 
+Two more for the output-dimension and pipeline axes
+(``parallel/outdim.py``, ``parallel/pp.py``): :func:`all_gather_last`,
+the gather along the last axis (JAX's ``all_gather(x, axis, axis=-1,
+tiled=True)``), is :func:`all_gather` behind a ``movedim``; and
+:func:`shift`, JAX's ``ppermute(x, axis, [(i, i + 1)])``, hands each
+position its predecessor's ``x`` (zeros at position 0), and its backward
+hands the gradient one position back.  The shift is the gather of every
+position's ``x``, of which each rank keeps its predecessor's block: exact,
+at n times the bytes of a send (gloo has no CUDA ``send`` or ``recv``; a
+send/receive form for NCCL across cards has not been written).  Every
+rank issues the same collectives, rank 0 and the last rank included, so
+that every rank's forward and backward pair up.
+
 Random numbers: JAX folds the device index into the key; here a rank
 draws from :func:`rank_generator` (seed, index): index 0 takes ``seed``
 itself, so a one-rank mesh reproduces the single-process stream.
@@ -63,7 +76,8 @@ from ..serving import derive_seed
 __all__ = ["make_mesh", "replicate", "shard_along", "shard_chains",
            "pad_to_multiple", "initialize_distributed", "axis_size",
            "axis_index", "all_reduce", "all_reduce_many", "all_gather",
-           "all_reduce_sum_", "rank_generator", "capturable", "run_ranks"]
+           "all_gather_last", "shift", "all_reduce_sum_", "rank_generator",
+           "capturable", "run_ranks"]
 
 DEFAULT_TIMEOUT_S = 300.0
 
@@ -255,6 +269,26 @@ def all_gather(x, mesh, axis: str):
     zero = torch.zeros_like(x)
     return all_reduce(torch.cat([x if i == r else zero for i in range(n)]),
                       mesh, axis)
+
+
+def all_gather_last(x, mesh, axis: str):
+    """The ranks' ``x`` concatenated along the last dim in axis order (the
+    tiled ``jax.lax.all_gather`` along the last axis): :func:`all_gather`
+    of ``x`` with its last dim moved in front; differentiable."""
+    return all_gather(x.movedim(-1, 0), mesh, axis).movedim(0, -1)
+
+
+def shift(x, mesh, axis: str):
+    """The ``x`` of the previous position on ``axis`` (zeros at position
+    0): JAX's ``ppermute(x, axis, [(i, i + 1) for i in range(n - 1)])``;
+    differentiable, the gradient handed one position back.  The gather of
+    every position's ``x``, of which each rank keeps its predecessor's
+    block."""
+    r = axis_index(mesh, axis)
+    blocks = all_gather(x[None], mesh, axis)              # (n, *x.shape)
+    # block r - 1, or zeros at position 0: an index into the padded
+    # blocks, so that rank 0's backward runs the gather's collective too
+    return torch.cat([torch.zeros_like(blocks[:1]), blocks[:-1]])[r]
 
 
 @torch.no_grad()

@@ -11,17 +11,24 @@ value), summed by :func:`log_prior` — the counterpart of the JAX
 ``log_prior``.  Trainability is ``requires_grad``: the optimizer takes the
 parameters that require grad, as the JAX ``trainable_mask`` keeps frozen
 Params and buffers out of the update.
+
+:func:`module_view` is the counterpart of a JAX pytree rebuilt with other
+leaves (``tree_map`` over a layer, ``layer.replace(...)``): a shallow copy
+of a module tree whose parameters and buffers are tensors derived from
+the original's (a slice, a stacked layer's row), so gradients reach the
+original and nothing assigned to the view writes through to it.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
 from torch import nn
 
 __all__ = ["Param", "positive", "positive_inverse", "BIJECTORS",
-           "log_prior"]
+           "log_prior", "module_view", "owner_of"]
 
 _SOFTPLUS_LOWER = 1e-6  # keeps positive params bounded away from zero
 
@@ -103,3 +110,36 @@ def log_prior(module):
                 -0.5 * math.log(2 * math.pi * sigma ** 2)
                 - 0.5 * ((v - mu) / sigma) ** 2)
     return total
+
+
+def module_view(module, leaf, prefix: str = ""):
+    """A view of ``module`` for computing: a shallow copy of it and of
+    every submodule, each with parameter, buffer and submodule dicts of
+    its own, where each parameter and buffer ``t`` named ``name`` (as
+    ``named_parameters`` names it under ``prefix``) becomes the plain
+    tensor attribute ``leaf(name, t)``.  The view shares everything else
+    (its submodules' methods and static fields); assigning to it, or to
+    a submodule of it, leaves ``module`` as it was.  It holds no
+    parameters of its own, so it is not trained: gradients flow through
+    ``leaf``'s tensors to ``module``'s."""
+    view = copy.copy(module)
+    d = view.__dict__
+    d["_parameters"], d["_buffers"], d["_modules"] = {}, {}, {}
+    d["_non_persistent_buffers_set"] = set()
+    for store in (module._parameters, module._buffers):
+        for name, t in store.items():
+            if t is not None:
+                d[name] = leaf(prefix + name, t)
+    for name, sub in module._modules.items():
+        d["_modules"][name] = (None if sub is None else
+                               module_view(sub, leaf, f"{prefix}{name}."))
+    return view
+
+
+def owner_of(module, name):
+    """(the submodule that holds the parameter or buffer ``name``, its
+    attribute name there)."""
+    *path, attr = name.split(".")
+    for part in path:
+        module = getattr(module, part)
+    return module, attr

@@ -27,6 +27,8 @@ on a 2 x 2 mesh against the JAX package's ``shard_map`` functions, their
 gradients against its single-device gradients (a replicated term counted
 once), and the HMC and NUTS chains split over 2 ranks draw for draw."""
 
+import contextlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -1432,11 +1434,9 @@ def _check_parallel():
         f"shard_chains: {out['shard_chains 3']} vs JAX {jax_error}")
 
 
-def test_fused_conditional_plain_matches_jax():
-    for f in (fused_conditional, fused_conditional_saved):
-        f.launches = f.backward_launches = 0
-    tpsi2.psi2_core.launches = tpsi2.psi2_core.backward_launches = 0
-    tgram.rbf_gram.launches = 0
+def _check_forward_cases():
+    """The plain forward and the wrapper on the CPU against the JAX
+    reference and the interpret-mode Pallas kernel, case by case."""
     for name, kw in CASES:
         args = _inputs(**kw)
         jargs = [jnp.asarray(a) for a in args]
@@ -1462,6 +1462,35 @@ def test_fused_conditional_plain_matches_jax():
             v = ports["plain"][1].numpy()
             assert (v == 0).any() and (v > 0).any(), (
                 f"{name}: the variance clamp is not active")
+
+
+@contextlib.contextmanager
+def _fresh_jax_programs():
+    """JAX's persistent compile cache off (``tests/conftest.py`` points it
+    at ``~/.cache/jax_comp_cache``, which keeps programs compiled in
+    earlier runs, possibly for another CPU) and the in-memory caches
+    cleared, so that the oracles inside are compiled here, for this
+    machine; the setting is restored after, for the other files on the
+    same worker."""
+    from jax.experimental.compilation_cache import compilation_cache as cc
+    enabled = jax.config.jax_enable_compilation_cache
+    jax.config.update("jax_enable_compilation_cache", False)
+    cc.reset_cache()
+    jax.clear_caches()
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_compilation_cache", enabled)
+        cc.reset_cache()
+
+
+def test_fused_conditional_plain_matches_jax():
+    for f in (fused_conditional, fused_conditional_saved):
+        f.launches = f.backward_launches = 0
+    tpsi2.psi2_core.launches = tpsi2.psi2_core.backward_launches = 0
+    tgram.rbf_gram.launches = 0
+    with _fresh_jax_programs():
+        _check_forward_cases()
     _check_gradients()
     _check_plans()
     _check_psi2_limits()

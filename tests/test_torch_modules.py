@@ -18,7 +18,9 @@ optimizer, the fused Cholesky-and-inverse and the other linalg helpers,
 the single-layer baselines (SVGP, GPR on GPRLayer, SGPR, GPRFITC) with
 their caches; the collapsed DGPs' data-parallel bounds and steps on
 gloo ranks (``parallel/collapsed.py`` against the JAX package's, and the
-mesh helpers); plus the port's import and device rules.
+mesh helpers), and output-dimension and pipeline parallelism on gloo
+ranks (``parallel/outdim.py`` and ``parallel/pp.py`` against the JAX
+package's); plus the port's import and device rules.
 
 One test item that loops over its cases and names the failing case in
 every assertion message."""
@@ -1361,14 +1363,27 @@ def _jax_collapsed_bound(m, zs):
     return last.build_likelihood() - KL
 
 
-def _check_collapsed_dp(rng):
+def _check_parallel(rng):
     """dp_damianou_elbo and dp_collapsed_elbo (SGPR and GPR final layers)
     on 2 gloo ranks: values against the JAX package's on 2 devices (rtol
     1e-10), gradients against its single-device gradients (rtol 1e-8),
     each rank's q(H) rows with their own rows' gradients, the replicated
     algebra counted once; one step of each collapsed train step against
     the port's single-process Adam step on the same draws; the refusals
-    (DGPHeinonen, shapes that do not divide); the mesh helpers."""
+    (DGPHeinonen, shapes that do not divide); the mesh helpers.
+
+    Output-dimension and pipeline parallelism (``parallel/outdim.py``,
+    ``parallel/pp.py``) on the same 2 ranks and on 4: ``outdim_elbo``,
+    ``elbo_2d``, ``elbo_3d`` and ``pp_elbo`` within rtol 1e-10 of the JAX
+    functions on the same zs, their gradients within rtol 1e-8 of
+    ``jax.grad`` of JAX's single-device bound (MultiClass, input
+    propagation, split-final heads, remat, the shift),
+    seeded draws against a one-process emulation of the port's scheme,
+    one step of each factory against one process's Adam step, the
+    placements, specs, asserts, refusals and the bubble warning.  JAX's
+    own tests run 2 x 4, 4 x 2 and 2 x 2 x 2 meshes of 8 devices; here
+    they are 2 x 2, (2 x 1 x 2) and (1 x 2 x 2) on 4 ranks: 8 spawned
+    ranks beside the test workers would overload the host."""
     import pickle
     from concurrent.futures import ThreadPoolExecutor
     import test_torch_ranks as ranks
@@ -1382,10 +1397,15 @@ def _check_collapsed_dp(rng):
     zs = [rng.randn(1, N, 2), rng.randn(1, N, 1)]
     payload = {k: pickle.dumps(tm) for k, (_, tm) in pairs.items()}
     payload["zs"] = zs
+    od = _outdim_pp_setup()
+    payload["outdim_pp"] = od["payload"]
     # the ranks run while this process computes the JAX oracles
-    pool = ThreadPoolExecutor(1)
+    pool = ThreadPoolExecutor(2)
     run = pool.submit(run_ranks, ranks.modules_ranks, 2, (payload,),
                       threads=1, timeout_s=RANKS_TIMEOUT_S)
+    run4 = pool.submit(run_ranks, ranks.outdim_pp_mesh4_ranks, 4,
+                       (od["payload"],), threads=1,
+                       timeout_s=RANKS_TIMEOUT_S)
     pool.shutdown(wait=False)
     mesh2 = jmesh.make_mesh(num_devices=2)
     jzs = [jnp.asarray(z) for z in zs]
@@ -1398,10 +1418,13 @@ def _check_collapsed_dp(rng):
         m, mesh2, zs=z))(pairs[case][0], jzs)), _named(jax.jit(jax.grad(
             _jax_collapsed_bound))(pairs[case][0], jzs)))
         for case in ("sgpr", "gpr")}
+    od_oracles = _outdim_pp_oracles(od)
     res = run.result()
+    _outdim_pp_checks(od, od_oracles, [x["outdim_pp"] for x in res],
+                      run4.result())
     for key in res[0]:
         if key not in ("damianou placed", "damianou step", "shard_along",
-                       "gather"):
+                       "gather", "outdim_pp"):
             assert pickle.dumps(res[0][key]) == pickle.dumps(res[1][key]), (
                 f"collapsed dp {key}: the ranks disagree")
     out = res[0]
@@ -1491,6 +1514,514 @@ def _check_collapsed_dp(rng):
     assert out["make_mesh 3"][0] == "ValueError", "make_mesh(num_devices=3)"
 
 
+# ---------------------------------------------------------------------------
+# output-dimension and pipeline parallelism on gloo ranks against the JAX
+# package's parallel/outdim.py and parallel/pp.py
+# ---------------------------------------------------------------------------
+
+def _pair(jm, tm):
+    port.load_reference_state(tm, _state(jm))
+    return jm, tm
+
+
+def _od_pair(seed, N=12, D=4, M=5, S=3, D_Y=4):
+    """A Gaussian DGP of two D -> D -> D_Y layers (Identity, then Zero
+    mean), its q_mu moved off zero: (JAX model, port model)."""
+    rng = np.random.RandomState(seed)
+    X, Y, Z = rng.randn(N, D), rng.randn(N, D_Y), rng.randn(M, D)
+    jm = dsd.DGP.build(X, Y, Z, [dsd.RBF.make(D), dsd.RBF.make(D)],
+                       dsd.Gaussian.make(0.1), num_samples=S,
+                       num_outputs=D_Y)
+    jm = jm.replace(layers=[l.replace(q_mu=l.q_mu.with_value(
+        0.5 * rng.randn(*l.q_mu.value.shape))) for l in jm.layers])
+    tm = port.DGP.build(X, Y, Z, [port.RBF(D), port.RBF(D)],
+                        port.Gaussian(0.1), num_samples=S, num_outputs=D_Y,
+                        device="cpu")
+    return _pair(jm, tm)
+
+
+def _mc_pair(seed, N=16, D=784, H=12, K=10, M=8, S=2):
+    """The MNIST-shaped MultiClass DGP of ``tests/test_outdim.py`` (D ->
+    H with a Linear mean -> K latent GPs under robust-max)."""
+    rng = np.random.RandomState(seed)
+    X, Y = rng.randn(N, D), rng.randint(0, K, size=(N, 1))
+    Z = X[:M].copy()
+    jm = dsd.DGP.build(X, Y, Z, [dsd.RBF.make(D), dsd.RBF.make(H)],
+                       dsd.MultiClass.make(K), num_samples=S, num_outputs=K)
+    jm = jm.replace(layers=[l.replace(q_mu=l.q_mu.with_value(
+        0.5 * rng.randn(*l.q_mu.value.shape))) for l in jm.layers])
+    tm = port.DGP.build(X, Y, Z, [port.RBF(D), port.RBF(H)],
+                        port.MultiClass(K), num_samples=S, num_outputs=K,
+                        device="cpu")
+    return _pair(jm, tm)
+
+
+def _prop_pair(seed, N=10, D=2, M=5, S=2, D_Y=2):
+    """An input-propagation stack D -> (2 hidden + D propagated) ->
+    D_Y."""
+    rng = np.random.RandomState(seed)
+    X, Y, Z = rng.randn(N, D), rng.randn(N, D_Y), rng.randn(M, D)
+    jl = dsd.init_layers_input_prop(X, Y, Z, [dsd.RBF.make(D),
+                                              dsd.RBF.make(D + 2)],
+                                    num_outputs=D_Y)
+    jl = [l.replace(q_mu=l.q_mu.with_value(0.5 * rng.randn(
+        *l.q_mu.value.shape))) for l in jl]
+    jm = dsd.DGPBase.make(X, Y, dsd.Gaussian.make(0.1), jl,
+                                     num_samples=S)
+    tl = port.init_layers_input_prop(X, Y, Z, [port.RBF(D),
+                                               port.RBF(D + 2)],
+                                     num_outputs=D_Y)
+    tm = port.DGPBase.make(X, Y, port.Gaussian(0.1), tl, num_samples=S,
+                           device="cpu")
+    return _pair(jm, tm)
+
+
+def _pp_pair(seed, N=16, D=3, M=6, S=2, L=4):
+    """The homogeneous D -> D Identity-mean stack of ``tests/test_pp.py``,
+    each layer's kernel and q_mu its own."""
+    rng = np.random.RandomState(seed)
+    X, Y, Z = rng.randn(N, D), rng.randn(N, D), rng.randn(M, D)
+    jm = dsd.DGP.build(X, Y, Z, [dsd.RBF.make(D, variance=0.5 + 0.3 * l,
+                                              lengthscales=1.0 + 0.2 * l)
+                                 for l in range(L)],
+                       dsd.Gaussian.make(0.1), num_outputs=D,
+                       mean_function=dsd.Identity(), num_samples=S)
+    jm = jm.replace(layers=[l.replace(q_mu=l.q_mu.with_value(
+        0.3 * rng.randn(M, D))) for l in jm.layers])
+    tm = port.DGP.build(X, Y, Z, [port.RBF(D) for _ in range(L)],
+                        port.Gaussian(0.1), num_outputs=D,
+                        mean_function=port.Identity(), num_samples=S,
+                        device="cpu")
+    return _pair(jm, tm)
+
+
+def _flag_pair(seed, N=16, D=3, M=5, S=2, L=3):
+    """The paper's shape: RBF+White D -> D trunk layers under a distinct
+    RBF D -> 1 Zero-mean head."""
+    rng = np.random.RandomState(seed)
+    X, Y, Z = rng.randn(N, D), rng.randn(N, 1), rng.randn(M, D)
+    jm = dsd.DGP.build(X, Y, Z, [
+        dsd.RBF.make(D, lengthscales=1.0 + 0.2 * l)
+        + dsd.White.make(D, variance=2e-6, trainable=False)
+        for l in range(L - 1)] + [dsd.RBF.make(D)], dsd.Gaussian.make(0.1),
+        num_samples=S)
+    layers = list(jm.layers)
+    layers[:-1] = [l.replace(q_mu=l.q_mu.with_value(0.3 * rng.randn(M, D)))
+                   for l in layers[:-1]]
+    jm = jm.replace(layers=layers)
+    tm = port.DGP.build(X, Y, Z, [
+        port.RBF(D) + port.White(D, variance=2e-6, trainable=False)
+        for _ in range(L - 1)] + [port.RBF(D)], port.Gaussian(0.1),
+        num_samples=S, device="cpu")
+    return _pair(jm, tm)
+
+
+def _jax_single_elbo(m, zs):
+    """The single-device bound of ``tests/test_outdim.py`` at fixed zs."""
+    _, Fm, Fv = m.propagate(m.X_data, zs=zs, S=m.num_samples)
+    ve = m.likelihood.variational_expectations(Fm[-1], Fv[-1], m.Y_data)
+    KL = sum((l.KL() for l in m.layers), jnp.zeros((), dtype=ve.dtype))
+    return jnp.sum(jnp.mean(ve, 0)) - KL
+
+
+def _zs(rng, m, rows):
+    S = m.num_samples
+    return [rng.randn(S, rows, l.num_outputs) for l in m.layers]
+
+
+def _block(full, shape, r):
+    """Rank r's block of a whole leaf where its placed ``shape`` differs
+    (its columns, rows or layers)."""
+    full = np.asarray(full)
+    for d, (a, b) in enumerate(zip(full.shape, shape)):
+        if a != b:
+            return np.take(full, range(r * b, (r + 1) * b), axis=d)
+    return full
+
+
+def _check_grads(case, res, grads, r=0):
+    value, got = res
+    for name, g in got.items():
+        assert_allclose(g, _block(grads[name], g.shape, r), rtol=1e-8,
+                        atol=1e-10, err_msg=f"{case} rank {r}: gradient of "
+                                            f"{name}")
+    return value
+
+
+def _single_step(tm, zs):
+    """The port's single-process Adam step on -(elbo + log prior) at fixed
+    draws, on a copy: (loss, parameters)."""
+    import copy
+    m = copy.deepcopy(tm)
+    zs = [torch.as_tensor(z) for z in zs]
+    loss = toptim.make_train_step(
+        lambda m: -(m.elbo(zs=zs) + port.log_prior(m)),
+        toptim.masked_optimizer(m, 0.01))(m)
+    return float(loss), {n: p.detach().numpy()
+                         for n, p in m.named_parameters()}
+
+
+def _check_step(case, got, want, stacked=None):
+    """A rank's step (loss, parameters) against one process's; a placed
+    rank's blocks against the whole parameters' (``stacked``: the number
+    of trunk layers of a pp-stacked model)."""
+    (loss, params), r = got
+    assert_allclose(loss, want[0], rtol=1e-10, err_msg=f"{case}: loss")
+    for name, p in params.items():
+        if stacked is not None and name.startswith("layers.0."):
+            rest = name.split(".", 2)[2]
+            w = np.stack([want[1][f"layers.{i}.{rest}"]
+                          for i in range(stacked)])
+        elif stacked is not None and name.startswith("layers.1."):
+            w = want[1][f"layers.{stacked}.{name.split('.', 2)[2]}"]
+        else:
+            w = want[1][name]
+        assert_allclose(p, _block(w, p.shape, r), rtol=1e-9, atol=1e-12,
+                        err_msg=f"{case} rank {r}: {name}")
+
+
+def _specs_of(jspecs):
+    return {_torch_key(jax.tree_util.keystr(p)): tuple(s)
+            for p, s in jax.tree_util.tree_flatten_with_path(
+                jspecs, is_leaf=lambda x: isinstance(x, P))[0]}
+
+
+def _port_pp_model(seed, N=16, D=3, M=6, S=2, L=2):
+    """The port's side of :func:`_pp_pair` alone (cases with no JAX
+    oracle)."""
+    rng = np.random.RandomState(seed)
+    X, Y, Z = rng.randn(N, D), rng.randn(N, D), rng.randn(M, D)
+    tm = port.DGP.build(X, Y, Z, [port.RBF(D) for _ in range(L)],
+                        port.Gaussian(0.1), num_outputs=D,
+                        mean_function=port.Identity(), num_samples=S,
+                        device="cpu")
+    for layer in tm.layers:
+        layer.q_mu.set_value(0.3 * rng.randn(M, D))
+    return tm
+
+
+def _outdim_pp_setup():
+    """The output-dimension and pipeline cases' models (JAX and port
+    pairs; port models alone where no JAX oracle is compared), their
+    fixed draws and the ranks' payload."""
+    import pickle
+    odd = port.DGP.build(*np.random.RandomState(43).randn(3, 6, 3),
+                         [port.RBF(3), port.RBF(3)], port.Gaussian(0.1),
+                         num_outputs=3, device="cpu")
+    pairs = {"gauss4": _od_pair(44, N=16, S=4),
+             "mc": _mc_pair(41, N=8, D=12, H=4, K=4, M=4, S=2),
+             "prop": _prop_pair(42), "pp4": _pp_pair(49),
+             "flag": _flag_pair(52, N=8, S=1)}
+    alone = {"odd": odd, "keyed": _port_pp_model(50, N=12, S=3),
+             "pp3": _port_pp_model(54, L=3)}
+    # a prior on sharded leaves (q_mu), for the steps' MAP objective: a
+    # placed rank's share of it summed over the dim or stage axis
+    for k in ("gauss4", "flag"):
+        for layer in pairs[k][1].layers:
+            layer.q_mu.prior = ("gaussian", 0.0, 1.0)
+    zrng = np.random.RandomState(55)
+    zs = {k: _zs(zrng, pairs[k][1], 1) for k in ("gauss4", "mc", "prop")}
+    zs["pp4"] = np.stack(_zs(zrng, pairs["pp4"][1], 16))
+    # the trunk's draws; the head draws nothing (its moments are scored)
+    zs["flag"] = np.stack(_zs(zrng, pairs["flag"][1], 8)[:-1])
+    payload = {k: pickle.dumps(tm) for k, (_, tm) in pairs.items()}
+    payload.update({k: pickle.dumps(tm) for k, tm in alone.items()})
+    payload.update({f"zs {k}": z for k, z in zs.items()})
+    return {"pairs": pairs, "alone": alone, "zs": zs, "payload": payload}
+
+
+def _outdim_pp_oracles(od):
+    """The JAX package's values (its mesh functions, jitted: eager, each
+    shard_map and stack op compiles on its own), its single-device
+    gradients, specs and messages; the port's single-process steps and
+    the one-process emulations of its seeded draws."""
+    from jax.sharding import Mesh
+    from doubly_stochastic_dgp_tpu.parallel import mesh as jmesh
+    from doubly_stochastic_dgp_tpu.parallel import outdim as jod
+    from doubly_stochastic_dgp_tpu.parallel import pp as jpp
+    from doubly_stochastic_dgp_tpu_torch.graphs import randn
+    from doubly_stochastic_dgp_tpu_torch.parallel import pp as tpp
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import rank_generator
+
+    pairs, zs = od["pairs"], od["zs"]
+    devs = np.asarray(jax.devices()[:4])
+    meshes = {"dim2": jmesh.make_mesh(num_devices=2, axis="dim"),
+              "stage2": jmesh.make_mesh(num_devices=2, axis="stage"),
+              "dd": Mesh(devs.reshape(2, 2), ("data", "dim")),
+              "212": Mesh(devs.reshape(2, 1, 2), ("data", "sample", "dim")),
+              "122": Mesh(devs.reshape(1, 2, 2), ("data", "sample", "dim")),
+              "121": Mesh(devs[:2].reshape(1, 2, 1), ("data", "sample",
+                                                     "dim")),
+              "ds": Mesh(devs.reshape(2, 2), ("data", "stage"))}
+    jzs = {k: (jnp.asarray(z) if isinstance(z, np.ndarray)
+               else [jnp.asarray(a) for a in z]) for k, z in zs.items()}
+    def outdim(fn, mesh, **kw):
+        return lambda m, z: fn(m, m.X_data, m.Y_data, None, meshes[mesh],
+                               zs=z, **kw)
+
+    def pp(mesh, split=False, **kw):
+        return lambda m, z: jpp.pp_elbo(
+            jpp.pp_stack(m, split_final=split), m.X_data, m.Y_data, None,
+            meshes[mesh], zs=z, **kw)
+
+    def single(split=None):
+        """JAX's single-device bound and its gradients (stacked, for a
+        stacked (L, S, N, D) zs; the split-final head's draw is not used:
+        zeros in its place)."""
+        vg = jax.value_and_grad(_jax_single_elbo)
+        if split is None:
+            return vg
+        head = [jnp.zeros((1, 8, 1))] if split else []
+
+        def f(m, z):
+            value, g = vg(m, list(z) + head)
+            return value, jpp.pp_stack(g, split_final=split)
+
+        return f
+
+    # one jitted program a model and device set (eager, each shard_map
+    # and stack op compiles on its own): (model, {case: its value, or the
+    # single-device (value, gradients)}); each mesh function of JAX's
+    # runs once, the other port cases are held against the single-device
+    # bound, which those functions equal (tests/test_outdim.py and
+    # tests/test_pp.py)
+    programs = [
+        ("gauss4", {"gauss4": single(),
+                    "3d gauss4": outdim(jod.elbo_3d, "212")}),
+        ("mc", {"mc": single(), "2d mc": outdim(jod.elbo_2d, "dd")}),
+        ("prop", {"prop": single(),
+                  "outdim prop": outdim(jod.outdim_elbo, "dim2",
+                                        axis="dim")}),
+        ("pp4", {"pp4": single(False),
+                 "ppdp": pp("ds", n_micro=2, data_axis="data")}),
+        ("flag", {"flag": single(True),
+                  "pp flag": pp("stage2", split=True, n_micro=2)}),
+    ]
+    want, grads = {}, {}
+    for model, fns in programs:
+        outs = jax.jit(lambda m, z, fns=fns: {k: f(m, z) for k, f in
+                                              fns.items()})(
+            pairs[model][0], jzs[model])
+        for k, v in outs.items():
+            if isinstance(v, tuple):
+                v, grads[k] = v[0], _named(v[1])
+            want[k] = float(v)
+    jspecs = {"gauss4": _specs_of(jod.outdim_specs(pairs["gauss4"][0])),
+              "mc": _specs_of(jod.outdim_specs(pairs["mc"][0])),
+              "pp4": _specs_of(jpp.pp_specs(jax.eval_shape(
+                  jpp.pp_stack, pairs["pp4"][0]))),
+              "flag": _specs_of(jpp.pp_specs(jax.eval_shape(
+                  lambda m: jpp.pp_stack(m, split_final=True),
+                  pairs["flag"][0])))}
+    jf = pairs["flag"][0]
+    j3 = _error(lambda: jod.elbo_3d(jf, jf.X_data, jf.Y_data,
+                                    jax.random.PRNGKey(0), meshes["121"]))
+    _check_pp_refusals(jpp, tpp, pairs["pp4"])
+    # the port's single-process steps on the same draws
+    steps = {"gauss4": _single_step(pairs["gauss4"][1], zs["gauss4"]),
+             "flag": _single_step(pairs["flag"][1], list(zs["flag"]) + [
+                 np.zeros((1, 8, 1))]),
+             "pp4": _single_step(pairs["pp4"][1], list(zs["pp4"]))}
+    # the seeded draws, emulated in one process: outdim's rank k draws
+    # its columns of each layer from rank_generator(5, k); pp's layer gl
+    # on microbatch j from rank_generator(7, gl * n_micro + j)
+    tm = pairs["gauss4"][1]
+    per_rank = [[randn((4, 16, l.num_outputs // 2), g, torch.float64, "cpu")
+                 for l in tm.layers]
+                for g in (rank_generator(5, k, "cpu") for k in range(2))]
+    with torch.no_grad():
+        seeded = {"outdim": float(tm.elbo(zs=[torch.cat(
+            [d[i] for d in per_rank], dim=2) for i in range(2)]))}
+        tk = od["alone"]["keyed"]
+        S, b, nm = tk.num_samples, 4, 3
+        ve_sum = 0.0
+        for j in range(nm):
+            zj = [randn((S, b, 3), rank_generator(7, gl * nm + j, "cpu"),
+                        torch.float64, "cpu") for gl in range(2)]
+            Fm, Fv = tk._predict(tk.X_data[j * b:(j + 1) * b], S=S, zs=zj)
+            ve = tk.likelihood.variational_expectations(
+                Fm, Fv, tk.Y_data[j * b:(j + 1) * b])
+            ve_sum += float(torch.sum(torch.mean(ve, dim=0)))
+        seeded["pp"] = ve_sum - float(sum(l.KL() for l in tk.layers))
+    return {"want": want, "grads": grads, "specs": jspecs, "j3": j3,
+            "steps": steps, "seeded": seeded}
+
+
+def _outdim_pp_checks(od, oracles, res2, res4):
+    """The ranks' outdim and pp results against the oracles: values
+    within rtol 1e-10 of JAX's mesh functions, gradients (whole and
+    placed models, each rank's block) within rtol 1e-8 of JAX's
+    single-device ones, the steps, the seeded draws, the placements and
+    the messages."""
+    import pickle
+    pairs = od["pairs"]
+    want, grads, jspecs, steps = (oracles[k] for k in ("want", "grads",
+                                                       "specs", "steps"))
+    for res, what in ((res2, "2"), (res4, "4")):
+        for key in res[0]:
+            if "placed" in key or key.startswith(("coords", "shift")):
+                continue
+            assert pickle.dumps(res[0][key]) == pickle.dumps(
+                res[1][key]), f"outdim/pp {key} on {what} ranks: the ranks " \
+                              f"disagree"
+    out, out4 = res2[0], res4[0]
+    # each port value against JAX's mesh function where it ran, else its
+    # single-device bound
+    ref = {"prop": "outdim prop", "dim4": "gauss4", "2d gauss4": "gauss4",
+           "2d mc": "2d mc", "3d gauss4": "3d gauss4", "3d mc": "mc"}
+    for case in ("gauss4", "mc", "prop"):
+        for r, x in enumerate(res2):
+            for kind in ("", " placed"):
+                value = _check_grads(f"outdim_elbo {case}{kind}",
+                                     x[f"outdim {case}{kind}"], grads[case],
+                                     r)
+                for w in {case, ref.get(case, case)}:
+                    assert_allclose(value, want[w], rtol=1e-10,
+                                    err_msg=f"outdim_elbo {case}{kind} vs "
+                                            f"JAX's {w}")
+    for case in ("dim4", "2d gauss4", "2d mc", "3d gauss4", "3d mc"):
+        assert_allclose(out4[case], want[ref[case]], rtol=1e-10,
+                        err_msg=f"outdim {case} vs JAX's {ref[case]}")
+    assert_allclose(out["outdim seed"], oracles["seeded"]["outdim"],
+                    rtol=1e-10,
+                    err_msg="outdim_elbo seeded vs its one-process emulation")
+    for name in ("gauss4", "mc"):
+        got = out[f"outdim specs {name}"]
+        assert got == jspecs[name], f"outdim_specs {name}: {got} vs JAX " \
+                                    f"{jspecs[name]}"
+    for r, x in enumerate(res2):
+        _check_step("make_outdim_train_step (placed)",
+                    (x["outdim step placed"], r), steps["gauss4"])
+        _check_step("make_outdim_train_step (whole)",
+                    (x["outdim step whole"], 0), steps["gauss4"])
+        for name, shape in x["outdim placed shapes"].items():
+            full = pairs["gauss4"][1].get_parameter(name).shape
+            block = tuple(n // 2 if ax == "dim" else n
+                          for n, ax in zip(full, jspecs["gauss4"][name]))
+            assert shape == block, (
+                f"outdim_shard: {name} holds {shape}, its block is {block}")
+    assert out["outdim original unchanged"], (
+        "outdim: a step on the placed model changed the model it was placed "
+        "from")
+    assert out["outdim whole structure"] == [
+        (l.num_outputs_, type(l.mean_function).__name__,
+         tuple(l.q_mu.unconstrained.shape)) for l in pairs["gauss4"][1].layers
+    ], f"outdim: a step changed the layers {out['outdim whole structure']}"
+    assert out["outdim odd"] == ("AssertionError", "layer D_out=3 not "
+                                 "divisible by mesh axis size 2"), (
+        f"outdim_elbo on D_out=3 over 2 ranks: {out['outdim odd']}")
+    j3 = oracles["j3"]
+    assert j3[0] == "AssertionError" and out["elbo_3d S=1"] == j3, (
+        f"elbo_3d with S=1 over 2 sample ranks: {out['elbo_3d S=1']} vs "
+        f"JAX {j3}")
+    for r, x in enumerate(res4):
+        _check_step("make_2d_train_step (placed)", (x["2d step placed"],
+                                                   x["coords"][1]),
+                    steps["gauss4"])
+        _check_step("make_3d_train_step (whole)", (x["3d step whole"], 0),
+                    steps["gauss4"])
+        _check_step("make_pp_train_step data x stage (placed)",
+                    (x["pp data step placed"], r % 2), steps["pp4"],
+                    stacked=4)
+
+    assert_allclose(out["pp 2 a stage"], want["pp4"], rtol=1e-10,
+                    err_msg="pp_elbo 2 layers a stage, 8 microbatches vs "
+                            "JAX's single-device bound")
+    assert_allclose(out4["pp data"], want["ppdp"], rtol=1e-10,
+                    err_msg="pp_elbo on data x stage vs JAX")
+    assert_allclose(out["pp keyed"], oracles["seeded"]["pp"], rtol=1e-10,
+                    err_msg="pp_elbo seeded vs its one-process emulation")
+    for case in ("pp4", "flag"):
+        for r, x in enumerate(res2):
+            for kind in ("", " placed", " remat"):
+                value = _check_grads(f"pp_elbo {case}{kind}",
+                                     x[f"pp {case}{kind}"], grads[case], r)
+                for w in {case, "pp flag" if case == "flag" else case}:
+                    assert_allclose(value, want[w], rtol=1e-10,
+                                    err_msg=f"pp_elbo {case}{kind} vs JAX's "
+                                            f"{w}")
+            assert pickle.dumps(x[f"pp {case} remat"]) == pickle.dumps(
+                x[f"pp {case}"]), (
+                f"pp_elbo {case}: remat changed the value or a gradient")
+        assert out[f"pp {case} specs"] == jspecs[case], (
+            f"pp_specs {case}: {out[f'pp {case} specs']} vs JAX "
+            f"{jspecs[case]}")
+    for r, x in enumerate(res2):
+        for name, shape in x["pp placed shapes"].items():
+            if name.startswith("layers.0."):
+                assert shape[0] == 1, f"pp_shard: {name} holds {shape}"
+        _check_step("make_pp_train_step split_final (placed)",
+                    (x["pp step placed"], r), steps["flag"], stacked=2)
+    msgs, n_warned = out["pp bubble warnings"]
+    assert n_warned == 1 and len(msgs) == 1 and "bubbles" in msgs[0], (
+        f"pp_elbo bubble warning: {msgs}, {n_warned} at n_micro=2")
+    assert out["pp L=3"] == ("ValueError", "L=3 layers must divide over the "
+                             "'stage' axis (2 stages)"), out["pp L=3"]
+    # rank r holds x0 + 10 r: rank 1 receives rank 0's; the gradient of
+    # sum(y (1 + y)) reaches rank 0's x from rank 1, and none the last's
+    x0 = np.arange(6.0).reshape(3, 2)
+    for r, x in enumerate(res2):
+        y_want = np.zeros((3, 2)) if r == 0 else x0
+        g_want = 1 + 2 * x0 if r == 0 else np.zeros((3, 2))
+        y, g = x["shift"]
+        assert np.array_equal(y, y_want) and np.array_equal(g, g_want), (
+            f"shift rank {r}: {y}, {g}")
+
+
+def _check_pp_refusals(jpp, tpp, pair):
+    """pp_stack's and pp_elbo's refusals, with JAX's texts (``pair``: a
+    homogeneous stack, cut to its first 2 layers)."""
+    import copy
+    jm, tm = pair
+    jm = jm.replace(layers=jm.layers[:2])
+    tm = copy.deepcopy(tm)
+    tm.layers = torch.nn.ModuleList(list(tm.layers)[:2])
+    rng = np.random.RandomState(61)
+    X, Y, Z = rng.randn(10, 3), rng.randn(10, 1), rng.randn(4, 3)
+    jh = dsd.DGP.build(X, Y, Z, [dsd.RBF.make(3), dsd.RBF.make(3)],
+                       dsd.Gaussian.make(0.1))
+    th = port.DGP.build(X, Y, Z, [port.RBF(3), port.RBF(3)],
+                        port.Gaussian(0.1), device="cpu")
+    tprop = copy.deepcopy(tm)
+    for l in tprop.layers:
+        l.input_prop_dim = 3
+    tone = copy.deepcopy(tm)
+    tone.layers = torch.nn.ModuleList(list(tone.layers)[:1])
+    jq = dsd.DGPQuad.build(np.asarray(jm.X_data), np.asarray(jm.Y_data),
+                           jm.likelihood, jm.layers, H=3)
+    tq = port.DGPQuad.build(tm.X_data.numpy(), tm.Y_data.numpy(),
+                            tm.likelihood, list(copy.deepcopy(tm).layers),
+                            H=3, device="cpu")
+    cases = {
+        "heterogeneous": (lambda: jpp.pp_stack(jh),
+                          lambda: tpp.pp_stack(th)),
+        "input propagation": (
+            lambda: jpp.pp_stack(jm.replace(layers=[
+                l.replace(input_prop_dim=3) for l in jm.layers])),
+            lambda: tpp.pp_stack(tprop)),
+        "one layer": (lambda: jpp.pp_stack(jm.replace(layers=jm.layers[:1])),
+                      lambda: tpp.pp_stack(tone)),
+        "split_final of 2": (lambda: jpp.pp_stack(jm, split_final=True),
+                             lambda: tpp.pp_stack(tm, split_final=True)),
+        "quadrature": (lambda: jax.jit(lambda m: jpp.pp_elbo(
+            jpp.pp_stack(m), m.X_data, m.Y_data, None, None))(jq),
+                       lambda: tpp.pp_elbo(tpp.pp_stack(tq), tq.X_data,
+                                           tq.Y_data, None, None)),
+    }
+    for case, (jfn, tfn) in cases.items():
+        want, got = _error(jfn), _error(tfn)
+        assert want[0] == "ValueError" and got == want, (
+            f"pp refusal {case}: {got} vs JAX {want}")
+
+
+def _error(fn):
+    try:
+        fn()
+    except Exception as e:                              # noqa: BLE001
+        return type(e).__name__, str(e)
+    return None
+
+
 def _check_import_and_device_rules():
     code = ("import sys, doubly_stochastic_dgp_tpu_torch\n"
             "import doubly_stochastic_dgp_tpu_torch.ops.psi_stats\n"
@@ -1525,6 +2056,8 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.parallel.mesh\n"
             "import doubly_stochastic_dgp_tpu_torch.parallel.dp\n"
             "import doubly_stochastic_dgp_tpu_torch.parallel.collapsed\n"
+            "import doubly_stochastic_dgp_tpu_torch.parallel.outdim\n"
+            "import doubly_stochastic_dgp_tpu_torch.parallel.pp\n"
             "import test_torch_ranks\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
@@ -1626,6 +2159,6 @@ def test_modules_match_jax():
     _check_frozen_optimizer(np.random.RandomState(34))
     _check_linalg_helpers(np.random.RandomState(35))
     _check_single_layer(np.random.RandomState(36))
-    _check_collapsed_dp(np.random.RandomState(37))
+    _check_parallel(np.random.RandomState(37))
     assert psi2_core.launches == 0, "psi2_core launched for CPU tensors"
     _check_import_and_device_rules()

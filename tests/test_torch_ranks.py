@@ -25,6 +25,8 @@ from doubly_stochastic_dgp_tpu_torch.graphs import randint, randn
 from doubly_stochastic_dgp_tpu_torch.parallel import collapsed as pcoll
 from doubly_stochastic_dgp_tpu_torch.parallel import dp as pdp
 from doubly_stochastic_dgp_tpu_torch.parallel import mesh as pmesh
+from doubly_stochastic_dgp_tpu_torch.parallel import outdim as pod
+from doubly_stochastic_dgp_tpu_torch.parallel import pp as ppp
 from doubly_stochastic_dgp_tpu_torch.training import hmc as thmc
 from doubly_stochastic_dgp_tpu_torch.training import nuts as tnuts
 from doubly_stochastic_dgp_tpu_torch.training.optim import (
@@ -42,13 +44,13 @@ def named(model):
     return {n: np_(p) for n, p in model.named_parameters()}
 
 
-def grads_of(model, objective, mesh, axis=None, local=()):
+def grads_of(model, objective, mesh, axis=None, local=(), local_axes=()):
     """(value, {name: gradient}) of a replicated objective under the
     gradient rule."""
     params = [p for p in model.parameters() if p.requires_grad]
     names = [n for n, p in model.named_parameters() if p.requires_grad]
     value, grads = pdp.dp_value_and_grads(objective, params, mesh, axis,
-                                          local)
+                                          local, local_axes)
     return float(value), {n: np_(g) for n, g in zip(names, grads)}
 
 
@@ -168,7 +170,7 @@ def modules_ranks(rank, payload):
     one ``make_dp_damianou_train_step`` step; ``dp_collapsed_elbo`` with
     an SGPR and a GPR final layer (values and gradients) and one
     ``make_dp_collapsed_train_step`` step; the refusals; the mesh
-    helpers."""
+    helpers; then :func:`outdim_pp_ranks`."""
     mesh = pmesh.make_mesh()
     out = {}
     dam = pickle.loads(payload["damianou"])
@@ -209,6 +211,197 @@ def modules_ranks(rank, payload):
     out["gather"] = np_(pmesh.all_gather(torch.full((2, 1), float(rank)),
                                          mesh, "data"))
     out["make_mesh 3"] = error_of(lambda: pmesh.make_mesh(num_devices=3))
+    out["outdim_pp"] = outdim_pp_ranks(rank, payload["outdim_pp"])
+    return out
+
+
+# ---------------------------------------------------------------------------
+# test_torch_modules: output-dimension and pipeline parallelism
+# ---------------------------------------------------------------------------
+
+def _mesh(shape, names):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", shape, mesh_dim_names=names)
+
+
+def _one_step(model, factory, fn_kw, step_kw):
+    """One step of ``factory`` on ``model`` with its own Adam: (loss, the
+    parameters after it)."""
+    opt = masked_optimizer(model, 0.01)
+    loss = factory(opt, **fn_kw)(model, **step_kw)
+    return float(loss), named(model)
+
+
+def _outdim_cases(payload, mesh):
+    """The dim-axis cases of ``outdim_pp_ranks``."""
+    out = {}
+    for case in ("gauss4", "mc", "prop"):
+        m = pickle.loads(payload[case])
+        zs = payload[f"zs {case}"]
+        out[f"outdim {case}"] = grads_of(m, lambda: pod.outdim_elbo(
+            m, m.X_data, m.Y_data, None, mesh, zs=zs), mesh)
+        placed = pod.outdim_shard(m, mesh)
+        local = pod._dim_params(placed, "dim")
+        out[f"outdim {case} placed"] = grads_of(
+            placed, lambda: pod.outdim_elbo(placed, m.X_data, m.Y_data,
+                                            None, mesh, zs=zs),
+            mesh, local=local)
+    m = pickle.loads(payload["gauss4"])
+    out["outdim specs gauss4"] = pod.outdim_specs(m)
+    out["outdim specs mc"] = pod.outdim_specs(pickle.loads(payload["mc"]))
+    with torch.no_grad():
+        out["outdim seed"] = float(pod.outdim_elbo(m, m.X_data, m.Y_data, 5,
+                                                   mesh))
+    # one step on the placed model; the model it was placed from stays
+    # as it was, and a step on the whole model keeps its structure
+    zs = payload["zs gauss4"]
+    before = named(m)
+    placed = pod.outdim_shard(m, mesh)
+    out["outdim step placed"] = _one_step(
+        placed, pod.make_outdim_train_step, dict(mesh=mesh),
+        dict(X=m.X_data, Y=m.Y_data, zs=zs))
+    out["outdim placed shapes"] = {
+        n: tuple(p.shape) for n, p in placed.named_parameters()}
+    out["outdim original unchanged"] = all(
+        np.array_equal(v, before[n]) for n, v in named(m).items())
+    out["outdim step whole"] = _one_step(
+        m, pod.make_outdim_train_step, dict(mesh=mesh),
+        dict(X=m.X_data, Y=m.Y_data, zs=zs))
+    out["outdim whole structure"] = [
+        (layer.num_outputs_, type(layer.mean_function).__name__,
+         tuple(layer.q_mu.unconstrained.shape)) for layer in m.layers]
+    odd = pickle.loads(payload["odd"])
+    out["outdim odd"] = error_of(lambda: pod.outdim_elbo(
+        odd, odd.X_data, odd.Y_data, 0, mesh))
+    flag = pickle.loads(payload["flag"])
+    out["elbo_3d S=1"] = error_of(lambda: pod.elbo_3d(
+        flag, flag.X_data, flag.Y_data, 0,
+        _mesh((1, 2, 1), ("data", "sample", "dim"))))
+    return out
+
+
+def _pp_cases(payload, mesh):
+    """The stage-axis cases of ``outdim_pp_ranks``."""
+    out = {}
+    m4 = pickle.loads(payload["pp4"])
+    with torch.no_grad():
+        out["pp 2 a stage"] = float(ppp.pp_elbo(
+            ppp.pp_stack(m4), m4.X_data, m4.Y_data, None, mesh, n_micro=8,
+            zs=payload["zs pp4"]))
+        mk = pickle.loads(payload["keyed"])
+        out["pp keyed"] = float(ppp.pp_elbo(
+            ppp.pp_stack(mk), mk.X_data, mk.Y_data, 7, mesh, n_micro=3))
+    for case, split in (("pp4", False), ("flag", True)):
+        m = pickle.loads(payload[case])
+        zs = payload[f"zs {case}"]
+        ms = ppp.pp_stack(m, split_final=split)
+        out[f"pp {case}"] = grads_of(ms, lambda: ppp.pp_elbo(
+            ms, m.X_data, m.Y_data, None, mesh, n_micro=2, zs=zs), mesh)
+        placed = ppp.pp_shard(ms, mesh)
+        out[f"pp {case} placed"] = grads_of(
+            placed, lambda: ppp.pp_elbo(placed, m.X_data, m.Y_data, None,
+                                        mesh, n_micro=2, zs=zs),
+            mesh, local=ppp._stage_params(placed))
+        ms.remat = True
+        out[f"pp {case} remat"] = grads_of(ms, lambda: ppp.pp_elbo(
+            ms, m.X_data, m.Y_data, None, mesh, n_micro=2, zs=zs), mesh)
+        out[f"pp {case} specs"] = ppp.pp_specs(ms)
+    m = pickle.loads(payload["flag"])
+    placed = ppp.pp_shard(ppp.pp_stack(m, split_final=True), mesh)
+    out["pp placed shapes"] = {n: tuple(p.shape)
+                               for n, p in placed.named_parameters()}
+    out["pp step placed"] = _one_step(
+        placed, ppp.make_pp_train_step, dict(mesh=mesh, n_micro=2),
+        dict(X=m.X_data, Y=m.Y_data, zs=payload["zs flag"]))
+    m = pickle.loads(payload["pp4"])
+    ms = ppp.pp_stack(m)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with torch.no_grad():
+            ppp.pp_elbo(ms, m.X_data, m.Y_data, None, mesh, n_micro=2,
+                        zs=payload["zs pp4"])
+            n_warned = len(caught)
+            ppp.pp_elbo(ms, m.X_data, m.Y_data, None, mesh, n_micro=4,
+                        zs=payload["zs pp4"])
+    out["pp bubble warnings"] = ([str(w.message) for w in caught], n_warned)
+    m3 = pickle.loads(payload["pp3"])
+    out["pp L=3"] = error_of(lambda: ppp.pp_elbo(
+        ppp.pp_stack(m3), m3.X_data, m3.Y_data, None, mesh))
+    x = torch.arange(6.0).reshape(3, 2) + 10 * pmesh.axis_index(mesh,
+                                                                "stage")
+    x.requires_grad_()
+    y = pmesh.shift(x, mesh, "stage")
+    (g,) = torch.autograd.grad(torch.sum(y * (1 + y)), x)
+    out["shift"] = (np_(y), np_(g))
+    return out
+
+
+def outdim_pp_ranks(rank, payload):
+    """2 ranks: ``outdim_elbo`` (Gaussian, MultiClass, input propagation;
+    whole and placed models; values and gradients; seeded draws), specs,
+    a step on the placed and on the whole model, the asserts; on a stage
+    mesh ``pp_elbo`` (2 layers a stage, seeded draws, whole and placed,
+    plain and split-final, remat; values and
+    gradients), specs, a step on a placed model, the bubble warning and
+    the refusals, and :func:`shift` itself."""
+    with warnings.catch_warnings():
+        # pp_elbo's bubble warning at n_micro=2, checked where it is wanted
+        warnings.simplefilter("ignore", UserWarning)
+        out = _outdim_cases(payload, _mesh((2,), ("dim",)))
+        out.update(_pp_cases(payload, _mesh((2,), ("stage",))))
+    return out
+
+
+def outdim_pp_mesh4_ranks(rank, payload):
+    """4 ranks: ``outdim_elbo`` over a dim axis of 4; ``elbo_2d`` on
+    (data 2 x dim 2), Gaussian and MultiClass, and a step of
+    ``make_2d_train_step`` on the placed model; ``elbo_3d`` on (data 2 x
+    sample 1 x dim 2) and (1 x 2 x 2) and a ``make_3d_train_step`` step on
+    the whole model; ``pp_elbo`` and a ``make_pp_train_step`` step on a
+    placed model on (data 2 x stage 2)."""
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        return _mesh4_cases(payload)
+
+
+def _mesh4_cases(payload):
+    out = {}
+    m = pickle.loads(payload["gauss4"])
+    zs = payload["zs gauss4"]
+    dd = _mesh((2, 2), ("data", "dim"))
+    with torch.no_grad():
+        out["dim4"] = float(pod.outdim_elbo(
+            m, m.X_data, m.Y_data, None, _mesh((4,), ("dim",)), zs=zs))
+        for case in ("gauss4", "mc"):
+            mc = pickle.loads(payload[case])
+            out[f"2d {case}"] = float(pod.elbo_2d(
+                mc, mc.X_data, mc.Y_data, None, dd, zs=payload[f"zs {case}"]))
+    out["2d step placed"] = _one_step(
+        pod.outdim_shard(m, dd), pod.make_2d_train_step, dict(mesh=dd),
+        dict(X=m.X_data, Y=m.Y_data, zs=zs))
+    for case, shape in (("gauss4", (2, 1, 2)), ("mc", (1, 2, 2))):
+        mc = pickle.loads(payload[case])
+        mesh3 = _mesh(shape, ("data", "sample", "dim"))
+        with torch.no_grad():
+            out[f"3d {case}"] = float(pod.elbo_3d(
+                mc, mc.X_data, mc.Y_data, None, mesh3,
+                zs=payload[f"zs {case}"]))
+        if case == "gauss4":
+            out["3d step whole"] = _one_step(
+                mc, pod.make_3d_train_step, dict(mesh=mesh3),
+                dict(X=mc.X_data, Y=mc.Y_data, zs=zs))
+    ds = _mesh((2, 2), ("data", "stage"))
+    m = pickle.loads(payload["pp4"])
+    with torch.no_grad():
+        out["pp data"] = float(ppp.pp_elbo(
+            ppp.pp_stack(m), m.X_data, m.Y_data, None, ds, n_micro=2,
+            data_axis="data", zs=payload["zs pp4"]))
+    out["pp data step placed"] = _one_step(
+        ppp.pp_shard(ppp.pp_stack(m), ds), ppp.make_pp_train_step,
+        dict(mesh=ds, n_micro=2, data_axis="data"),
+        dict(X=m.X_data, Y=m.Y_data, zs=payload["zs pp4"]))
+    out["coords"] = (pmesh.axis_index(dd, "data"),
+                     pmesh.axis_index(dd, "dim"))
     return out
 
 
