@@ -205,10 +205,10 @@ Phases, each of which raises on a failed check:
    (the profiler's sum beside it), and whether its first rung keeps
    ``torch.linalg.cholesky``'s bits; then on
    four routes (the headline DGP with ``use_pallas=True`` and on the
-   solve route, damianou_large and collapsed_L2 with fit's guard) 100
+   solve route, damianou_large and collapsed_L2 with fit's guard) 50
    ``fit`` steps graphed and inside ``graphs.eager_on_card()`` from one
    seed (raises unless the parameters agree bit for bit or within 1e-4
-   of each tensor's scale), then 6 chunks of 10 steps of each in turns:
+   of each tensor's scale), then 4 chunks of 10 steps of each in turns:
    steps/s (median), every replay under
    ``torch.cuda.set_sync_debug_mode("error")`` (a host sync raises), a
    profiled chunk of each (device busy, device ops, idle share and each
@@ -377,7 +377,7 @@ Phases, each of which raises on a failed check:
    a replay's launches by the profiler (fit's; a one-rank in-place NCCL
    sum launches no kernel, so the collective's device work is printed,
    not checked), every replay under sync debug 'error'; steps/s of
-   fit_dp's and fit's chunks, 6 each in turns; and the NCCL gather
+   fit_dp's and fit's chunks, 4 each in turns; and the NCCL gather
    (``all_gather``: ``all_gather_into_tensor``, its backward a
    ``reduce_scatter_tensor``) on one rank, raising unless it returns its
    input and the gradient bit for bit.  29b: two gloo ranks sharing cuda:0, spawned by this script
@@ -431,6 +431,39 @@ Phases, each of which raises on a failed check:
    evaluation on each rank's own operands, sent back by the rank, under
    phase 1's gates as phase 26 holds its models' (Do=15 and Do=5 at
    Dx=784 and 30; B=2500).  Prints the phase's time.
+31. the torch demos (``demos_torch/``) and ``with_config``.  31a: each
+   demo in-process at its default device (the card), through its
+   ``run``, the launch counts at 0 just before and read just after:
+   ``run_regression kin8nm 5 0 --synthetic`` at the reference harness's
+   width (5 layers, M=100, S=1, minibatch 10000: the whole 7372-row
+   split) cut to 100 iterations, logged every 50; ``mnist --synthetic
+   --layers 2`` (784 -> 30 -> 10, M=100, minibatch 1000) for 200
+   iterations, and again with ``--data-parallel`` on a one-rank NCCL
+   group; ``damianou --n 1500 --dims 4 --inducing 50`` for 100
+   iterations (float32: the psi2 kernel route, in its collapsed SGPR
+   and its Damianou DGP); the other demos at
+   tests/test_demos.py's arguments (step_function 200 iterations and
+   natural_gradients 100, so that their logs show the loss fall), and
+   ``uci_benchmark --iterations 400 --max-layers 2 --num-inducing 50
+   --eval-samples 10`` and ``collapsed --iterations 50``.  Raises unless
+   each returns, every number in its summary is finite, the loss falls
+   where it trains, its launches equal the counts derived from the code
+   (``rbf_gram`` in every demo with an RBF kernel, the psi2 pair in
+   damianou; one or more where the count depends on the data: L-BFGS,
+   the samplers, torch.export; no fused launch in any demo), the serving
+   demo's reloaded program equals the model bit for bit (or within 1e-6
+   of scale), and collapsed's gamma = 1 identity holds within its own
+   bound (float64 on the card).  31b: ``with_config(m, use_pallas=True)``
+   of the trained run_regression model: a 1000-row S=100 request at
+   fixed draws through the copy and the original against the float64
+   CPU path (raises unless the copy is within 5e-3 and within 2x the
+   original's error, with 5 fused forwards on the copy and none on the
+   original), then 40 graphed ``fit`` steps of the copy and of
+   ``with_config(m, use_pallas='saved')`` (phase 6's launch rule by the
+   counters and a profiled replay); raises unless the original's
+   parameters and buffers, and its server's answer, are bit for bit as
+   before.  Prints each demo's launches and wall seconds, and the
+   ``summary`` table of the card model.
 
 It prints a ``{"kernels": [...]}`` line (seven records: forward, backward,
 save-gram forward, save-gram backward, psi2 forward, psi2 backward,
@@ -438,7 +471,9 @@ rbf_gram; the fused pair's and rbf_gram's also with phase 25's shapes and
 launches; every record with ``extra_launches``, each phase-26 model's
 main-path launches, ``natgrad_launches``, phase 27's by sub-phase, and
 ``mcmc_launches``, phase 28's, and ``parallel_launches``, phase 29's and
-30's (``outdim_mnist``, ``pp_headline``, the two ranks' sum); the fused
+30's (``outdim_mnist``, ``pp_headline``, the two ranks' sum), and
+``demo_launches``, each phase-31 demo's, and ``with_config_launches``,
+31b's; the fused
 pair's and rbf_gram's also with phase 27's, phase 28's and phase 30's
 worst errors),
 the card's name and power limit, and as its last line
@@ -630,13 +665,17 @@ def device_launches(prof):
 # printed; a CUDA graph replays the same kernels every time, so a launch
 # that the path really lacks or adds fails every try
 PROFILE_TRIES = 3
+# uncounted launches at a profile's start: with 8 of them, a whole run of
+# this script on an NVIDIA H100 80GB HBM3 still lost the first rbf_gram of
+# 27c's replayed SVGP chunk on all 3 tries (PERF.md, section 6)
+SHIELD_LAUNCHES = 64
 
 
 def shield_profile():
     """Uncounted device work at a profile's start: the profiler can drop a
-    profile's first device records (PERF.md §6), so give it a few to drop
+    profile's first device records (PERF.md §6), so give it some to drop
     before the profiled run, whose first kernel may be a counted one."""
-    for _ in range(8):
+    for _ in range(SHIELD_LAUNCHES):
         torch.ones(1, device="cuda").add_(1.0)
     torch.cuda.synchronize()
 
@@ -3074,9 +3113,13 @@ def phase_full_cov(model, data, seed, card):
 # checkpoints
 # ---------------------------------------------------------------------------
 
-GRAPH_STEPS = 100           # fit steps of the graphed-vs-eager comparison
+# fit steps of the graphed-vs-eager comparison (100 until phase 31 came:
+# cut to keep the script near 900 s; the gate is the same at 50)
+GRAPH_STEPS = 50
 GRAPH_CHUNK = 10            # fit's chunk: one replay
-GRAPH_ROUNDS = 6            # timed chunks a route and mode, in turns
+# timed chunks a route and mode, in turns (6 until phase 31 came: cut to
+# keep the script near 900 s; the steps/s medians it gives are not gated)
+GRAPH_ROUNDS = 4
 # graphed vs eager parameters after GRAPH_STEPS steps: bit for bit, or
 # else within this fraction of each parameter tensor's scale
 GRAPH_VS_EAGER_RTOL = 1e-4
@@ -3290,7 +3333,7 @@ def profile_chunk(run, steps, what, expect=None):
 
 
 def phase_graphs(seed, build_collapsed, card):
-    """Per route: 100 fit steps graphed and eager from one seed, their
+    """Per route: GRAPH_STEPS fit steps graphed and eager from one seed, their
     parameters compared; then chunks of 10 steps graphed and eager in
     turns (steps/s; the eager chunks' launches by the counters, which a
     replay must not tick), every replay under torch's sync debug mode at
@@ -5630,7 +5673,7 @@ for name, path, result in zip(*[iter(sys.argv[2:])] * 3):
     counts[name] = {}
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(8):
+            for _ in range(64):
                 torch.ones(1, device="cuda").add_(1.0)
             torch.cuda.synchronize()
             module(inputs["X"], *inputs["zs"])
@@ -5734,7 +5777,7 @@ def phase_mcmc(seed, card):
 # ---------------------------------------------------------------------------
 
 DP_STEPS = 100              # 29a: fit_dp against fit
-DP_ROUNDS = 6               # 29a: timed chunks of each, in turns
+DP_ROUNDS = 4               # 29a: timed chunks of each, in turns (was 6)
 DP_FIT_RTOL = 1e-5          # 29a: fit_dp vs fit, if not bit for bit
 DP_ROWS = 1001              # 29b: dp_elbo's batch (odd: padding runs)
 DP_RANK_STEPS = 20          # 29b: fit_dp steps on the two ranks
@@ -6631,6 +6674,287 @@ def check_sharded(seed, card, a, b, mnist, headline):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 31: the torch demos (demos_torch/) and with_config on the card
+# ---------------------------------------------------------------------------
+
+# rbf_gram launches a non-white SVGP layer a step on the solve and inverse
+# routes (Kuu, Kuf, the KL's Kuu), and a layer a prediction (Kuu, Kuf)
+DEMO_GRAMS_STEP, DEMO_GRAMS_PREDICT = 3, 2
+# 31b: the served request and the copy's graphed steps (40: room for the
+# profiler's retries on the chunks after the first two)
+WITH_CONFIG_ROWS, WITH_CONFIG_STEPS = 1000, 40
+
+
+def demo_runs(results):
+    """(label, demo module name, argv) of 31a, all on the card."""
+    return [
+        # the reference harness at full width: 5 layers, M=100, S=1,
+        # minibatch 10000 (the whole 7372-row training split); cut to 100
+        # iterations
+        ("run_regression", "run_regression",
+         ["kin8nm", "5", "0", "--synthetic", "--iterations", "100",
+          "--log-every", "50", "--results", results]),
+        # 784 -> 30 -> 10, M=100, minibatch 1000; 200 iterations, so that
+        # the history (a log every 100) shows the loss fall
+        ("mnist", "mnist", ["--synthetic", "--layers", "2",
+                            "--iterations", "200"]),
+        ("mnist --data-parallel", "mnist",
+         ["--synthetic", "--layers", "2", "--iterations", "200",
+          "--data-parallel"]),
+        ("damianou", "damianou", ["--n", "1500", "--dims", "4",
+                                  "--inducing", "50", "--iterations", "100"]),
+        # tests/test_demos.py's arguments, with the iterations raised where
+        # one log event would not show the loss fall
+        ("step_function", "step_function",
+         ["--iterations", "200", "--num-samples", "5"]),
+        ("priors", "priors", ["--frames", "2"]),
+        ("natural_gradients", "natural_gradients", ["--iterations", "100"]),
+        ("sgpmc", "sgpmc", ["--num-data", "30", "--num-inducing", "8",
+                            "--num-samples", "60", "--num-burn", "40"]),
+        ("sgpmc nuts", "sgpmc",
+         ["--sampler", "nuts", "--max-depth", "5", "--num-data", "30",
+          "--num-inducing", "8", "--num-samples", "60", "--num-burn", "40"]),
+        ("serving", "serving", ["--num-data", "60", "--iterations", "30",
+                                "--batch", "16", "--num-samples", "3"]),
+        # not in tests/test_demos.py: small sizes of their own
+        ("uci_benchmark", "uci_benchmark",
+         ["--iterations", "400", "--max-layers", "2", "--num-inducing",
+          "50", "--eval-samples", "10"]),
+        ("collapsed", "collapsed", ["--iterations", "50"]),
+    ]
+
+
+def demo_expected(label, args):
+    """The launches the code gives a demo's run, {record: count}, every
+    record not named 0; a record at None is gated at one launch or more
+    (a run whose count depends on the data: L-BFGS's evaluations, the
+    samplers' trees, torch.export's trace).  ``fit`` counts its warm-up
+    and capture chunks (FIT_CAPTURE_CHUNKS of min(10, log_every) steps);
+    an eager loop counts every step."""
+    step, pred = DEMO_GRAMS_STEP, DEMO_GRAMS_PREDICT
+    if label == "run_regression":
+        L = args.L
+        evals = args.iterations // args.log_every + 1   # callbacks, final
+        return {"rbf_gram": FIT_CAPTURE_CHUNKS * min(10, args.log_every)
+                * step * L + evals * pred * L}
+    if label.startswith("mnist"):       # one 1000-row batch at S=100
+        L = args.layers
+        return {"rbf_gram": FIT_CAPTURE_CHUNKS * 10 * step * L + pred * L}
+    if label == "step_function":        # predict_all_layers once
+        L = args.layers
+        return {"rbf_gram": FIT_CAPTURE_CHUNKS * 10 * step * L + pred * L}
+    if label == "natural_gradients":
+        # Adam alone, then NatGrad + Adam: two objective evaluations a step
+        return {"rbf_gram": FIT_CAPTURE_CHUNKS * 10 * step * 2
+                + FIT_CAPTURE_CHUNKS * 10 * 2 * step * 2}
+    if label == "priors":
+        # full covariances: Kuu, Kuf and K(X) a layer a frame
+        return {"rbf_gram": args.frames * 3 * args.layers}
+    if label == "damianou":
+        i = args.iterations
+        # an eager step each: the 1-layer collapsed SGPR bound (Kuu and
+        # the psi2 pair: a DGPCollapsed of one layer gives its layer
+        # Gaussian inputs of zero variance), the Damianou bound (layer 0:
+        # Kuu, Kuf; layer 1: Kuu and the psi2 pair), the 2-layer MC DGP
+        # (3 a layer); then one 166-row prediction each: the SGPR two (Kuu,
+        # K(Z, Xs)) and a psi2 forward, Damianou 5 and a psi2 forward,
+        # the MC DGP 2 a layer
+        return {"rbf_gram": (i + 2) + (3 * i + 5) + (2 * step * i
+                                                     + 2 * pred),
+                "psi2_core_forward": 2 * (i + 1),
+                "psi2_core_backward": 2 * i}
+    return {"rbf_gram": None}
+
+
+def demo_loss_runs(label, state):
+    """The loss sequences of a demo that trains, in the order logged."""
+    if label in ("priors", "sgpmc", "sgpmc nuts"):
+        return {}
+    if label == "natural_gradients":
+        return {f"fit {i}": [h["loss"] for h in hist]
+                for i, hist in enumerate(state["histories"])}
+    if label in ("damianou", "uci_benchmark"):
+        return dict(state["losses"])
+    if label == "collapsed":
+        return {"lbfgs": state["losses"]}
+    return {"fit": [h["loss"] for h in state["history"]]}
+
+
+def phase_demos(card):
+    """31a: every torch demo in-process on the card, the launch counts at 0
+    just before each run and read just after."""
+    import importlib
+
+    from demos_torch._common import numbers
+    out, trained = {}, None
+    mnist_data = None
+    with tempfile.TemporaryDirectory() as results:
+        for label, name, argv in demo_runs(results):
+            mod = importlib.import_module(f"demos_torch.{name}")
+            args = mod.parse_args(argv)
+            set_launch_counts({n: 0 for n in KERNEL_NAMES})
+            t0 = time.perf_counter()
+            if name == "mnist":
+                summary, state = mod.run(args, mnist_data)
+                mnist_data = state["data"]
+            else:
+                summary, state = mod.run(args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = launch_counts()
+            bad = [x for x in numbers(summary) if not np.isfinite(x)]
+            check(not bad, f"31a {label}: non-finite values in {summary}")
+            losses = demo_loss_runs(label, state)
+            for what, seq in losses.items():
+                check(len(seq) >= 2 and np.all(np.isfinite(seq))
+                      and seq[-1] < seq[0],
+                      f"31a {label} {what}: the loss did not fall {seq}")
+            want = demo_expected(label, args)
+            for n in KERNEL_NAMES:
+                w = want.get(n, 0)
+                check(counts[n] >= 1 if w is None else counts[n] == w,
+                      f"31a {label}: {n} launched {counts[n]} times, the "
+                      f"code gives {'one or more' if w is None else w}")
+            extra = ""
+            if label == "serving":
+                extra = (f"; the reloaded program against the model: bit "
+                         f"for bit {state['model_bitwise']}, "
+                         f"{state['model_rel_err']:.3e} of scale (gate "
+                         f"{EXPORT_RTOL})")
+                check(state["model_bitwise"]
+                      or state["model_rel_err"] <= EXPORT_RTOL,
+                      f"31a serving: the reloaded program differs from the "
+                      f"model by {state['model_rel_err']}")
+            if label == "collapsed":
+                l0, l1 = state["losses"]
+                bound = 0.05 * (l0 - l1)
+                extra = (f"; identity gap {summary['identity_gap']:.4e} < "
+                         f"{bound:.4e} = 0.05 (l0 - l1), float64 on the card")
+                check(summary["identity_gap"] < bound,
+                      f"31a collapsed: identity gap "
+                      f"{summary['identity_gap']} >= 0.05 (l0 - l1) = "
+                      f"{bound}")
+                check(next(state["model"].parameters()).dtype
+                      == torch.float64,
+                      "31a collapsed: the model is not float64")
+            print(f"31a demo {label} ({' '.join(argv)}): {wall:.1f} s wall; "
+                  f"launches {counts}, derived "
+                  f"{ {n: want.get(n, 0) for n in KERNEL_NAMES} } (None: "
+                  f"one or more); losses "
+                  f"{ {k: [round(v, 3) for v in (s[0], s[-1])] for k, s in losses.items()} }"
+                  f"{extra}; summary {json.dumps(summary)[:300]} [{card}]",
+                  flush=True)
+            out[label] = {"wall_s": wall, "launches": counts,
+                          "derived": want, "summary": summary}
+            if label == "run_regression":
+                trained = state["model"]
+    return out, trained
+
+
+def with_config_fit(label, model, seed, per_step, card):
+    hist, counts, replay = run_fit(model, WITH_CONFIG_STEPS, seed)
+    losses = [h["loss"] for h in hist]
+    print(f"31b {label}: fit {WITH_CONFIG_STEPS} graphed steps, batch "
+          f"{BATCH}: loss {losses[0]:.3f} -> {losses[-1]:.3f}; counters "
+          f"(the warm-up and capture chunks) {counts}; a replayed chunk "
+          f"(profiler) {replay} [{card}]", flush=True)
+    check(all(np.isfinite(losses)), f"31b {label}: loss not finite")
+    check_fit_launches(f"31b {label}", counts, replay, per_step)
+    return {"losses": [losses[0], losses[-1]], "launches": counts,
+            "replay": replay}
+
+
+def phase_with_config(model, seed, card):
+    """31b: with_config on 31a's trained 5-layer run_regression model
+    (float32, solve_mode='inverse', use_pallas=False)."""
+    from doubly_stochastic_dgp_tpu_torch import summary, with_config
+    before = {n: t.clone() for n, t in model.state_dict().items()}
+    data = SyntheticRegression(N=8192, D=8).get_data(split=0)
+    X = torch.as_tensor(data["X"][:WITH_CONFIG_ROWS], dtype=torch.float32,
+                        device="cuda")
+    served = make_server(model, S=S, precompute=False,
+                         warmup_batch=WITH_CONFIG_ROWS)
+    first = served(X, seed=5)
+    fused = with_config(model, use_pallas=True)
+    check(all(l.use_pallas is True for l in fused.layers)
+          and all(l.use_pallas is False for l in model.layers),
+          "31b: with_config did not set use_pallas on the copy alone")
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    zs = [torch.randn((S, WITH_CONFIG_ROWS, layer.num_outputs),
+                      generator=g, device="cuda") for layer in model.layers]
+    ref = copy.deepcopy(model).to(device="cpu", dtype=torch.float64)
+    with torch.no_grad():
+        want = ref.predict_y(X.cpu().double(), S=S,
+                             zs=[z.cpu().double() for z in zs])
+        errs, counts = {}, {}
+        for name, m in (("with_config(use_pallas=True)", fused),
+                        ("original", model)):
+            set_launch_counts({n: 0 for n in KERNEL_NAMES})
+            got = m.predict_y(X, S=S, zs=zs)
+            torch.cuda.synchronize()
+            counts[name] = launch_counts()
+            errs[name] = max((a.cpu().double() - b).abs().max().item()
+                             for a, b in zip(got, want))
+            print(f"31b request {WITH_CONFIG_ROWS} rows S={S} through "
+                  f"{name}, fixed draws: max |d| against the float64 CPU "
+                  f"path {errs[name]:.3e} (gate {F32_PATH_ATOL}); launches "
+                  f"{counts[name]} [{card}]", flush=True)
+    copy_err, orig_err = errs["with_config(use_pallas=True)"], errs[
+        "original"]
+    check(copy_err <= F32_PATH_ATOL,
+          f"31b: the copy's request is {copy_err} off float64")
+    check(copy_err <= 2.0 * orig_err,
+          f"31b: the copy's error {copy_err} is more than 2x the "
+          f"original's {orig_err}")
+    check(counts["with_config(use_pallas=True)"]["fused_conditional"]
+          == LAYERS, f"31b: the copy's request launched "
+          f"{counts['with_config(use_pallas=True)']} fused forwards, not "
+          f"{LAYERS}")
+    check(counts["original"]["fused_conditional"] == 0,
+          "31b: the original's request launched the fused forward")
+
+    fits = {"use_pallas=True": with_config_fit(
+        "with_config(use_pallas=True)", fused, seed,
+        {"fused_conditional": LAYERS, "fused_conditional_backward": LAYERS,
+         "rbf_gram": 2 * LAYERS}, card)}
+    saved = with_config(model, use_pallas="saved")
+    fits["use_pallas='saved'"] = with_config_fit(
+        "with_config(use_pallas='saved')", saved, seed,
+        {"fused_conditional_saved": LAYERS,
+         "fused_conditional_saved_backward": LAYERS,
+         "rbf_gram": 2 * LAYERS}, card)
+    same = all(torch.equal(t, before[n])
+               for n, t in model.state_dict().items())
+    again = served(X, seed=5)
+    route = all(torch.equal(a, b) for a, b in zip(first, again))
+    print(f"31b the original after its copies' steps: parameters and "
+          f"buffers bit for bit {same}; its server (made before the copies) "
+          f"repeats its answer bit for bit {route}", flush=True)
+    check(same, "31b: training a with_config copy changed the original")
+    check(route, "31b: the original's server changed its answer")
+    print("31b summary of the trained card model:\n" + summary(model),
+          flush=True)
+    launches = {n: sum(f["launches"][n] for f in fits.values())
+                + sum(c[n] for c in counts.values()) for n in KERNEL_NAMES}
+    return {"request_err_vs_f64": errs, "request_launches": counts,
+            "fits": fits, "original_unchanged": same,
+            "launches": launches}
+
+
+def phase_slice(seed, card):
+    """Phase 31: 31a and 31b."""
+    t0 = time.perf_counter()
+    demos, trained = phase_demos(card)
+    t1 = time.perf_counter()
+    wc = phase_with_config(trained, seed, card)
+    wall = time.perf_counter() - t0
+    print(f"demo phase wall time {wall:.1f} s (31a {t1 - t0:.1f} s, 31b "
+          f"{wall - (t1 - t0):.1f} s) [{card}]", flush=True)
+    return {"demos": demos, "with_config": wc, "wall_s": wall}
+
+
 def print_kernel_resources(name, out):
     """Registers, shared memory and spills of each kernel in one source,
     as ``nvcc -Xptxas -v`` reported them (one line a kernel); kept in
@@ -6857,6 +7181,8 @@ def main():
     lap(28)
     parallel = phase_parallel(args.seed, card)
     lap("29-30")
+    demos = phase_slice(args.seed, card)
+    lap(31)
     parallel_launches = {
         "fit_dp_nccl": parallel["nccl"]["launches"],
         "gloo_ranks": parallel["gloo"]["launches_29b"],
@@ -6932,6 +7258,10 @@ def main():
         # phase 29: each sub-phase's main-path launches
         rec["parallel_launches"] = {label: c[name] for label, c in
                                     parallel_launches.items()}
+        # phase 31: each demo's launches, and with_config's (31b)
+        rec["demo_launches"] = {label: d["launches"][name] for label, d in
+                                demos["demos"].items()}
+        rec["with_config_launches"] = demos["with_config"]["launches"][name]
         if name in parallel["gloo"]["30"]["kernel_errs"]:
             # phase 30: the worst errors on the ranks' operands
             p_errs = parallel["gloo"]["30"]["kernel_errs"][name]
@@ -6971,6 +7301,13 @@ def main():
                       "mnist": mnist, "extra_models": extra,
                       "natgrad_baselines": natgrad,
                       "mcmc": mcmc, "parallel": parallel,
+                      "demos": {label: {"wall_s": d["wall_s"],
+                                        "summary": d["summary"]}
+                                for label, d in demos["demos"].items()},
+                      "with_config": {k: v for k, v in
+                                      demos["with_config"].items()
+                                      if k != "launches"},
+                      "demo_phase_wall_s": demos["wall_s"],
                       "fused_forward_precision": precision,
                       "card": card}))
     print(json.dumps({"kernels": records}))

@@ -38,7 +38,8 @@ rows split, and the MCMC chains split over ranks by ``mesh=``), and
 output-dimension and pipeline parallelism (``parallel.outdim``: every
 layer's latent dims split over a mesh axis, also composed with the data
 and sample axes; ``parallel.pp``: a homogeneous layer stack split over
-stages on a GPipe schedule).
+stages on a GPipe schedule); the parameter table (``summary``) and
+numerics rewrites of a built model (``with_config``).
 The fused staged
 conditional and the psi2 data sum run as hand-written CUDA kernels,
 forward and backward, the conditional also with a save-gram variant, and
@@ -89,6 +90,7 @@ from .parallel import (collapsed_shard, damianou_shard, dp_collapsed_elbo,
                        sp_elbo)
 from .training.natgrad import NaturalGradient, natgrad_update
 from .training.optim import lbfgs_minimize, make_train_step
+from .utils.modules import summary, with_config
 from .utils.params import log_prior
 
 __all__ = [
@@ -115,5 +117,5 @@ __all__ = [
     "dp_predict_y", "make_dp_collapsed_train_step",
     "make_dp_damianou_train_step", "make_dp_sp_scan_train_step",
     "make_dp_train_step", "make_mesh", "pad_to_multiple", "replicate",
-    "shard_along", "sp_elbo",
+    "shard_along", "sp_elbo", "summary", "with_config",
 ]

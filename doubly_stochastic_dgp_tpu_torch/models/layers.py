@@ -157,6 +157,18 @@ def _fusable_rbf(kern):
     return None
 
 
+def _check_use_pallas(use_pallas):
+    """``Config`` admits False, True and 'saved' only; a value set past it
+    (``with_config(m, use_pallas='auto')``) is refused here, as the JAX
+    layer refuses 'auto' and 'auto_saved': nothing routes a path through
+    the fused kernel by a shape gate."""
+    if use_pallas not in (False, True, "saved"):
+        raise ValueError(
+            f"use_pallas={use_pallas!r} is not a layer setting: use "
+            f"use_pallas=True or 'saved' to opt in to the fused_conditional "
+            f"kernel explicitly, or False")
+
+
 def _host_gram(kern, Z):
     """Build-time gram in float64 on the host, never on the card: an f32
     gram there can leave the initial q_sqrt indefinite."""
@@ -208,8 +220,6 @@ class SVGPLayer(Layer):
                 f"Z has shape {Z.shape}")
         M = Z.shape[0]
         self.kern = kern
-        self.mean_function = (Zero(num_outputs) if mean_function is None
-                              else mean_function)
         self.num_outputs_ = int(num_outputs)
         self.white = bool(white)
         self.input_prop_dim = input_prop_dim
@@ -222,6 +232,10 @@ class SVGPLayer(Layer):
         self.q_sqrt = (Param(_init_q_sqrt(Z, kern, num_outputs, white,
                                           self.jitter), "triangular")
                        if self._has_q_sqrt else None)
+        # registered last, as the JAX field order (kern, Z, q_mu, q_sqrt,
+        # mean_function), which ``named_parameters`` and ``summary`` follow
+        self.mean_function = (Zero(num_outputs) if mean_function is None
+                              else mean_function)
 
     @property
     def num_outputs(self):
@@ -248,6 +262,7 @@ class SVGPLayer(Layer):
     def conditional_ND(self, X, full_cov=False):
         """Sparse conditional at X (B, D_in): mean (B, D_out), var (B,
         D_out), or (B, B, D_out) with ``full_cov``."""
+        _check_use_pallas(self.use_pallas)
         if (self.use_pallas and not full_cov
                 and _fusable_rbf(self.kern) is not None):
             return self._conditional_fused(X)
@@ -365,8 +380,6 @@ class GPMCLayer(Layer):
         super().__init__()
         X = np.asarray(X, dtype=np.float64)
         self.kern = kern
-        self.mean_function = (Zero(num_outputs) if mean_function is None
-                              else mean_function)
         self.num_outputs_ = int(num_outputs)
         self.input_prop_dim = input_prop_dim
         self.jitter = float(config.jitter)
@@ -376,6 +389,9 @@ class GPMCLayer(Layer):
         self.register_buffer("Lu", torch.as_tensor(Lu))
         self.q_mu = Param(np.zeros((X.shape[0], num_outputs)),
                           prior=("gaussian", 0.0, 1.0))
+        # after q_mu, as the JAX field order
+        self.mean_function = (Zero(num_outputs) if mean_function is None
+                              else mean_function)
 
     @property
     def num_outputs(self):

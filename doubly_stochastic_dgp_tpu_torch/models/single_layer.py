@@ -102,14 +102,14 @@ class DeterministicPredictions:
 
 
 class _SingleLayerGP(DeterministicPredictions, nn.Module):
-    """The shared shell of GPR, SGPR and GPRFITC: a Gaussian likelihood
-    and the training data as buffers."""
+    """The shared shell of GPR, SGPR and GPRFITC: the training data as
+    buffers (each subclass sets its fields, then its Gaussian
+    likelihood)."""
 
     full_batch_bound = True     # an exact or collapsed marginal
 
-    def __init__(self, likelihood, X, Y):
+    def __init__(self, X, Y):
         super().__init__()
-        self.likelihood = likelihood
         self.register_buffer("X_data", torch.as_tensor(X))
         self.register_buffer("Y_data", torch.as_tensor(Y))
 
@@ -124,8 +124,10 @@ class _CollapsedSingleLayer(_SingleLayerGP):
     """GPR and SGPR: a collapsed layer bound to the stored data."""
 
     def __init__(self, layer, likelihood, X, Y):
-        super().__init__(likelihood, X, Y)
+        super().__init__(X, Y)
         self.layer = layer
+        # the likelihood last, as the JAX field order (``summary``'s rows)
+        self.likelihood = likelihood
 
     def _bound_layer(self):
         return self.layer.set_data(self.X_data, None, self.Y_data,
@@ -179,10 +181,12 @@ class GPRFITC(_SingleLayerGP):
 
     def __init__(self, kern, Z, mean_function, likelihood, X, Y,
                  jitter=1e-6):
-        super().__init__(likelihood, X, Y)
+        super().__init__(X, Y)
         self.kern = kern
         self.Z = Param(np.asarray(Z, dtype=np.float64))
         self.mean_function = mean_function
+        # the likelihood last, as the JAX field order (``summary``'s rows)
+        self.likelihood = likelihood
         self.jitter = float(jitter)
 
     @classmethod

@@ -1434,6 +1434,270 @@ def _check_parallel():
         f"shard_chains: {out['shard_chains 3']} vs JAX {jax_error}")
 
 
+# summary and with_config (utils/modules.py) against the JAX functions
+
+def _printed_unit(s):
+    """The unit of the last printed digit of a number as the table prints
+    it ('0.2671' -> 1e-4, '2e-06' -> 1e-6)."""
+    mant, _, exp = s.lower().partition("e")
+    places = len(mant.split(".")[1]) if "." in mant else 0
+    return 10.0 ** (int(exp or 0) - places)
+
+
+def _same_table(case, got, want):
+    """``summary`` tables letter for letter, except that a number in the
+    value column may differ by one unit in its last printed digit (the
+    port applies each bijector in torch, the JAX package in XLA: the
+    constrained values can differ in their last bit, and a digest that
+    rounds there can print one unit apart)."""
+    import re
+    if got == want:
+        return
+    g_lines, w_lines = got.splitlines(), want.splitlines()
+    assert len(g_lines) == len(w_lines), f"summary {case}: rows\n{got}"
+    number = re.compile(r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?")
+    for g, w in zip(g_lines[2:], w_lines[2:]):
+        gf, wf = re.split(r"  +", g.strip()), re.split(r"  +", w.strip())
+        assert gf[:-1] == wf[:-1], f"summary {case}:\n{g}\nvs JAX\n{w}"
+        gn, wn = number.findall(gf[-1]), number.findall(wf[-1])
+        assert number.sub("#", gf[-1]) == number.sub("#", wf[-1]) and len(
+            gn) == len(wn), f"summary {case}:\n{g}\nvs JAX\n{w}"
+        for a, b in zip(gn, wn):
+            unit = max(_printed_unit(a), _printed_unit(b))
+            assert abs(float(a) - float(b)) <= 1.0001 * unit, (
+                f"summary {case}: {a} vs JAX {b} (more than one unit of "
+                f"the last printed digit)\n{g}\nvs JAX\n{w}")
+    assert re.split(r"  +", g_lines[0].strip()) == re.split(
+        r"  +", w_lines[0].strip()), f"summary {case}: header"
+
+
+def _summary_models(rng):
+    """(name, JAX model, port model) for the summary cases, the port's
+    carried over by ``load_reference_state``."""
+    from doubly_stochastic_dgp_tpu.models.layers import SGPRLayer as JSGPR
+    N, D, M = 24, 3, 6
+    X = rng.randn(N, D)
+    Y = np.sin(X[:, :1]) + 0.1 * rng.randn(N, 1)
+    Z = X[:M]
+    cfg = port.Config(jitter=1e-6)
+
+    def carried(jm, tm):
+        return port.load_reference_state(tm, _jax_state(jm))
+
+    def moved(jm):
+        layers = []
+        for layer in jm.layers:
+            Mi, Do = layer.q_mu.value.shape
+            q_sqrt = np.tril(rng.randn(Do, Mi, Mi) * 0.2) + 0.4 * np.eye(Mi)
+            layers.append(layer.replace(
+                q_mu=layer.q_mu.with_value(rng.randn(Mi, Do) * 0.5),
+                q_sqrt=layer.q_sqrt.with_value(q_sqrt)))
+        return jm.replace(layers=layers)
+
+    out = []
+    with temp_config(jitter=1e-6, solve_mode="solve", use_pallas=False):
+        jm = moved(dsd.DGP.build(
+            X, Y, Z, [dsd.RBF.make(D) + dsd.White.make(D, variance=2e-6,
+                                                     trainable=False),
+                      dsd.RBF.make(D, lengthscales=1.3)],
+            dsd.Gaussian.make(0.05), num_samples=2))
+        tm = carried(jm, port.DGP.build(
+            X, Y, Z, [port.RBF(D) + port.White(D, variance=2e-6,
+                                               trainable=False),
+                      port.RBF(D)], port.Gaussian(1.0), num_samples=2,
+            config=cfg, device="cpu"))
+        out += [("headline DGP", jm, tm),
+                ("precompute'd DGP", dsd.precompute(jm),
+                 port.precompute(tm))]
+        layers = dsd.init_layers_linear(X, Y, Z, [dsd.RBF.make(D),
+                                                  dsd.RBF.make(D)])
+        top = layers[-1]
+        jc = dsd.DGPCollapsed.make(X, Y, dsd.Gaussian.make(0.05), [
+            layers[0].replace(q_mu=layers[0].q_mu.with_value(
+                rng.randn(M, D) * 0.3)),
+            JSGPR.make(top.kern, np.asarray(top.Z.value), 1,
+                       top.mean_function)])
+        out.append(("DGPCollapsed", jc, carried(jc, port.DGPCollapsed.build(
+            X, Y, Z, [port.RBF(D), port.RBF(D)], port.Gaussian(1.0),
+            config=cfg, device="cpu"))))
+        jd = dsd.DGPDamianou.build(X, Y, Z, [dsd.RBF.make(D),
+                                             dsd.RBF.make(2)],
+                                   dsd.Gaussian.make(0.05))
+        jd = jd.replace(h_var=[p.with_value(np.exp(rng.randn(N, 2)) * 0.05)
+                               for p in jd.h_var])
+        out.append(("DGPDamianou", jd, carried(jd, port.DGPDamianou.build(
+            X, Y, Z, [port.RBF(D), port.RBF(2)], port.Gaussian(1.0),
+            config=cfg, device="cpu"))))
+        js = dsd.SGPR.build(X, Y, dsd.RBF.make(D, lengthscales=0.7), Z,
+                            noise_variance=0.1)
+        out.append(("SGPR", js, carried(js, port.SGPR.build(
+            X, Y, port.RBF(D), Z, config=cfg, device="cpu"))))
+    jm, tm, _, _ = _sgpmc_pair(rng)
+    out.append(("SGPMCLayer stack (Gaussian prior)", jm, tm))
+    return out
+
+
+def _check_summary():
+    """``summary`` of six models letter for letter against the JAX
+    ``summary`` (:func:`_same_table`); buffers left out."""
+    rng = np.random.RandomState(81)
+    for name, jm, tm in _summary_models(rng):
+        _same_table(name, port.summary(tm), dsd.summary(jm))
+        if name.startswith("SGPMC"):
+            assert "gaussian(0.0, 1.0)" in port.summary(tm), (
+                f"summary {name}: no prior column")
+
+
+def _fused_layer_model():
+    """tests/test_fused_layer.py's model (N=48, D=3, M=10, RBF + White,
+    RBF, S=3) in both packages, with its loss at zero draws."""
+    rng = np.random.RandomState(0)
+    N, D, M = 48, 3, 10
+    X = rng.rand(N, D)
+    Y = np.sin(X.sum(1, keepdims=True))
+    Z = X[:M].copy()
+    jm = dsd.DGP.build(X, Y, Z, [
+        dsd.RBF.make(D, lengthscales=0.6) + dsd.White.make(D,
+                                                           variance=2e-6),
+        dsd.RBF.make(D, lengthscales=0.6)], dsd.Gaussian.make(0.05),
+        num_samples=3)
+    tm = port.DGP.build(X, Y, Z, [port.RBF(D) + port.White(D),
+                                  port.RBF(D)], port.Gaussian(1.0),
+                        num_samples=3, config=port.Config(), device="cpu")
+    return jm, port.load_reference_state(tm, _jax_state(jm))
+
+
+def _jax_det_loss(m):
+    zs = [jnp.zeros((3, 1, l.num_outputs)) for l in m.layers]
+    _, Fm, Fv = m.propagate(m.X_data, zs=zs, S=3)
+    ve = m.likelihood.variational_expectations(Fm[-1], Fv[-1], m.Y_data)
+    KL = sum((l.KL() for l in m.layers), jnp.zeros((), ve.dtype))
+    return -(jnp.sum(jnp.mean(ve, 0)) - KL)
+
+
+def _port_det_loss(m):
+    zs = [torch.zeros((3, 1, l.num_outputs), dtype=torch.float64)
+          for l in m.layers]
+    _, Fm, Fv = m.propagate(m.X_data, zs=zs, S=3)
+    ve = m.likelihood.variational_expectations(Fm[-1], Fv[-1], m.Y_data)
+    KL = sum(l.KL() for l in m.layers)
+    return -(torch.sum(torch.mean(ve, 0)) - KL)
+
+
+def _port_value_and_grads(m, loss):
+    params = dict(m.named_parameters())
+    value = loss(m)
+    grads = torch.autograd.grad(value, list(params.values()),
+                                allow_unused=True)
+    return value.item(), {n: (torch.zeros_like(p) if g is None else g)
+                          for (n, p), g in zip(params.items(), grads)}
+
+
+def _check_with_config():
+    """``with_config``: the fused routes (``use_pallas`` True and 'saved'
+    with ``solve_mode='inverse'``) give the loss and gradients of JAX's
+    with-configured model at zero draws (tests/test_fused_layer.py:32-46's
+    tolerances); ``remat=True`` on a DGP and on a ``pp_stack``ed model gives
+    the same value and gradients (rtol 1e-12, as tests/test_pp.py:285-306);
+    'auto' raises naming fused_conditional; an unknown name is ignored;
+    a ``fit`` step on the copy leaves the original bit for bit; the
+    original keeps its own route."""
+    import tempfile
+
+    import torch.distributed as dist
+    from doubly_stochastic_dgp_tpu import with_config as jax_with_config
+    from doubly_stochastic_dgp_tpu_torch.parallel import mesh as pm
+    from doubly_stochastic_dgp_tpu_torch.parallel import pp as ppp
+
+    jm, tm = _fused_layer_model()
+    oracle = jax.jit(jax.value_and_grad(_jax_det_loss))
+    for route in (True, "saved"):
+        case = f"with_config solve_mode='inverse', use_pallas={route!r}"
+        jc = jax_with_config(jm, solve_mode="inverse", use_pallas=route)
+        tc_ = port.with_config(tm, solve_mode="inverse", use_pallas=route)
+        assert all(l.use_pallas == route and l.solve_mode == "inverse"
+                   for l in tc_.layers), f"{case}: fields not replaced"
+        assert all(l.use_pallas is False and l.solve_mode == "solve"
+                   for l in tm.layers), f"{case}: the original changed"
+        want, jgrads = oracle(jc)
+        n = fused_conditional_saved.launches if route == "saved" else 0
+        got, grads = _port_value_and_grads(tc_, _port_det_loss)
+        assert_allclose(got, float(want), rtol=1e-9, err_msg=case)
+        _close_grads(case, grads, jgrads, rtol=1e-6, atol=1e-10)
+        assert fused_conditional_saved.launches == n, case
+    base = _port_value_and_grads(tm, _port_det_loss)
+    for bad in ("auto", "auto_saved"):
+        try:
+            _port_det_loss(port.with_config(tm, use_pallas=bad))
+        except ValueError as e:
+            assert "fused_conditional" in str(e), (
+                f"with_config use_pallas={bad!r}: message {e}")
+        else:
+            raise AssertionError(f"with_config use_pallas={bad!r} did not "
+                                 f"raise at evaluation")
+    same = port.with_config(tm, no_such_field=1.0)
+    assert not any(hasattr(m, "no_such_field") for m in same.modules()), (
+        "with_config: an unknown name was set")
+    assert port.summary(same) == port.summary(tm), (
+        "with_config: an unknown name changed the model")
+
+    # remat: a DGP, and a pp_stack'ed one on a one-rank gloo stage mesh
+    remat = port.with_config(tm, remat=True)
+    assert remat.remat and not tm.remat, "with_config remat: flags"
+    got = _port_value_and_grads(remat, lambda m: -m.elbo(zs=[
+        torch.as_tensor(np.random.RandomState(3).randn(3, 48, d))
+        for d in (3, 1)]))
+    want = _port_value_and_grads(tm, lambda m: -m.elbo(zs=[
+        torch.as_tensor(np.random.RandomState(3).randn(3, 48, d))
+        for d in (3, 1)]))
+    _close_remat("with_config remat=True DGP", got, want)
+    with tempfile.TemporaryDirectory() as tmp:
+        pm.initialize_distributed(f"file://{tmp}/store", 1, 0,
+                                  backend="gloo", device="cpu")
+        try:
+            mesh = pm.make_mesh(axis="stage")
+            r = np.random.RandomState(4)
+            X1 = r.rand(16, 1)
+            m1 = port.DGP.build(X1, np.sin(3 * X1), X1[:4],
+                                [port.RBF(1), port.RBF(1), port.RBF(1)],
+                                port.Gaussian(0.1), num_samples=2,
+                                config=port.Config(), device="cpu")
+            zs = torch.as_tensor(r.randn(2, 2, 16, 1))    # the trunk's
+            ms = ppp.pp_stack(m1, split_final=True)
+            ms_r = port.with_config(ms, remat=True)
+            assert ms_r.remat and not ms.remat, "with_config pp remat: flags"
+
+            def pp_loss(m):
+                return -ppp.pp_elbo(m, m1.X_data, m1.Y_data, None, mesh,
+                                    n_micro=2, zs=zs)
+            _close_remat("with_config remat=True pp_stack",
+                         _port_value_and_grads(ms_r, pp_loss),
+                         _port_value_and_grads(ms, pp_loss))
+        finally:
+            dist.destroy_process_group()
+
+    # training the copy leaves the original as it was
+    before = {n: t.clone() for n, t in tm.state_dict().items()}
+    copy_ = port.with_config(tm, solve_mode="inverse", use_pallas=True)
+    port.fit(copy_, 2, learning_rate=0.05, log_every=1)
+    for n, t in tm.state_dict().items():
+        assert torch.equal(t, before[n]), (
+            f"with_config: training the copy changed the original's {n}")
+    assert not torch.equal(copy_.layers[0].Z.unconstrained,
+                           tm.layers[0].Z.unconstrained), (
+        "with_config: the copy did not train")
+    assert _port_value_and_grads(tm, _port_det_loss)[0] == base[0], (
+        "with_config: the original's route changed")
+
+
+def _close_remat(case, got, want):
+    assert_allclose(got[0], want[0], rtol=1e-12, err_msg=f"{case}: value")
+    assert got[1].keys() == want[1].keys(), f"{case}: parameter names"
+    for n in want[1]:
+        assert_allclose(got[1][n].numpy(), want[1][n].numpy(), rtol=1e-12,
+                        atol=1e-15, err_msg=f"{case}: gradient {n}")
+
+
 def _check_forward_cases():
     """The plain forward and the wrapper on the CPU against the JAX
     reference and the interpret-mode Pallas kernel, case by case."""
@@ -1505,6 +1769,8 @@ def test_fused_conditional_plain_matches_jax():
     _check_timing()
     _check_mcmc()
     _check_parallel()
+    _check_summary()
+    _check_with_config()
     assert _counts() == (0, 0, 0, 0, 0, 0, 0), (
         "the wrappers launched a CUDA kernel for CPU tensors")
 

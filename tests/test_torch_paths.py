@@ -1814,6 +1814,323 @@ def _close(case, got, want):
                     atol=ATOL, err_msg=case)
 
 
+# the torch demos (demos_torch/): each runs in-process on the CPU, and
+# each one's model before training gives the JAX demo's summary table
+
+# tests/test_demos.py:24-41's arguments; run_regression, uci_benchmark and
+# collapsed are not in that list and run at small sizes of their own
+DEMO_RUNS = [
+    ("step_function", ["--iterations", "40", "--num-samples", "5"]),
+    ("priors", ["--frames", "2"]),
+    ("natural_gradients", ["--iterations", "20"]),
+    ("mnist", ["--synthetic", "--iterations", "5", "--minibatch", "128"]),
+    ("damianou", ["--n", "120", "--iterations", "15", "--inducing", "12"]),
+    ("sgpmc", ["--num-data", "30", "--num-inducing", "8", "--num-samples",
+               "60", "--num-burn", "40"]),
+    ("sgpmc", ["--sampler", "nuts", "--max-depth", "5", "--num-data", "30",
+               "--num-inducing", "8", "--num-samples", "60", "--num-burn",
+               "40"]),
+    ("serving", ["--num-data", "60", "--iterations", "30", "--batch", "16",
+                 "--num-samples", "3"]),
+    ("run_regression", ["kin8nm", "2", "0", "--synthetic", "--iterations",
+                        "10", "--log-every", "10", "--minibatch", "1000"]),
+    ("uci_benchmark", ["--iterations", "10", "--max-layers", "2",
+                       "--num-inducing", "20", "--eval-samples", "5"]),
+    ("collapsed", ["--iterations", "30"]),
+]
+_EVAL = ["rmse", "nll", "loglik"]    # evaluate_regression's keys
+# the keys of the JSON each JAX demo prints, at its json.dumps line
+DEMO_KEYS = {
+    "step_function": ["final_loss", "layers"],          # :51-61
+    "priors": ["frames", "sample_range", "frame_to_frame_rms"],   # :63
+    "natural_gradients": ["adam_only_loss", "natgrad_adam_loss",
+                          "natgrad_better_by"],         # :44
+    "mnist": ["accuracy", "test_loglik", "layers", "final_loss"],  # :126
+    "damianou": _EVAL + ["label", "seconds", "final_loss"],  # :107, :138
+    "sgpmc": ["sampler", "accept_rate", "adapted_step_size", "ess_min",
+              "ess_median", "posterior_mean_rmse_vs_truth",
+              "truth_coverage_95"],                     # :100
+    "sgpmc nuts": ["sampler", "accept_rate", "adapted_step_size", "ess_min",
+                   "ess_median", "posterior_mean_rmse_vs_truth",
+                   "truth_coverage_95", "mean_tree_depth",
+                   "divergences"],                      # :100, :88-90
+    "serving": ["precomputed", "artifact_bytes", "batch", "S",
+                "served_shape", "server_matches_inprocess_bitwise",
+                "max_abs_diff",
+                "make_server_max_abs_diff_vs_artifact"],  # :139
+    "run_regression": ["dataset", "L", "split"] + _EVAL,  # :112
+    "uci_benchmark": ["dataset", "real_data", "results"],  # :128
+    "collapsed": ["collapsed_bound_init", "collapsed_bound_trained",
+                  "quad_bound_after_one_natgrad_step",
+                  "identity_gap"],                      # :79-85
+}
+STEP_LAYER_KEYS = ["layer", "sample_mean_range", "sample_std_max"]  # :54-57
+ACCELERATOR = dict(float_dtype="float32", jitter=1e-5, solve_mode="inverse",
+                   matmul_precision="highest")
+
+
+def _jax_demo(name):
+    """The JAX demo's module (demos/<name>.py), for its data functions."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(__file__), "..", "demos",
+                        f"{name}.py")
+    spec = importlib.util.spec_from_file_location(f"jax_demo_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _jax_q_sqrt_scaled(m, layers):
+    """The JAX demos' near-deterministic inner layers
+    (demos/run_regression.py:88-93, uci_benchmark.py:110-114)."""
+    ls = list(m.layers)
+    for i in layers:
+        ls[i] = ls[i].replace(q_sqrt=ls[i].q_sqrt.with_value(
+            ls[i].q_sqrt.value * 1e-5))
+    return m.replace(layers=ls)
+
+
+def _jax_stack(D, L):
+    """RBF(D) + White(D, 2e-6, frozen) inner kernels, RBF(D) last
+    (demos/run_regression.py:76-82)."""
+    kernels = []
+    for l in range(L):
+        k = dsd.RBF.make(D)
+        if l < L - 1:
+            k = k + dsd.White.make(D, variance=2e-6, trainable=False)
+        kernels.append(k)
+    return kernels
+
+
+def _jax_demo_models(name, args, data):
+    """[(label, JAX model)] built by the JAX demo's own lines (cited) from
+    the torch demo's data, under the JAX demo's numerics."""
+    X, Y, Z = data["X"], data["Y"], data["Z"]
+    D = X.shape[1]
+    if name == "run_regression":             # :51-57, :76-93
+        with temp_config(**ACCELERATOR):
+            m = dsd.DGP.build(X, Y, Z, _jax_stack(D, args.L),
+                              dsd.Gaussian.make(0.05), num_samples=1)
+            return [("", _jax_q_sqrt_scaled(m, range(args.L - 1)))]
+    if name == "step_function":              # :40-44
+        kernels = [dsd.RBF.make(1, lengthscales=0.2)
+                   for _ in range(args.layers)]
+        return [("", dsd.DGP.build(X, Y, Z, kernels, dsd.Gaussian.make(0.01),
+                                   num_samples=args.num_samples))]
+    if name == "natural_gradients":          # :33-37
+        kernels = [dsd.RBF.make(1, lengthscales=0.3),
+                   dsd.RBF.make(1, lengthscales=0.3)]
+        return [("", dsd.DGP.build(X, Y, Z, kernels, dsd.Gaussian.make(0.05),
+                                   num_samples=5))]
+    if name == "priors":                     # :36, :38-44
+        with temp_config(jitter=1e-4):
+            kernels = [dsd.RBF.make(1, lengthscales=0.3)
+                       for _ in range(args.layers)]
+            return [("", dsd.DGP.build(X, X, Z, kernels,
+                                       dsd.Gaussian.make(0.01),
+                                       num_samples=1))]
+    if name == "mnist":                      # :51-54, :71-79
+        with temp_config(**ACCELERATOR):
+            dims = [D] + [30] * (args.layers - 1)
+            kernels = [dsd.RBF.make(d, lengthscales=2.0, variance=2.0)
+                       for d in dims]
+            return [("", dsd.DGP.build(X, Y, Z, kernels,
+                                       dsd.MultiClass.make(10),
+                                       num_outputs=10, num_samples=1))]
+    if name == "uci_benchmark":              # :43-46, :83-117
+        with temp_config(**ACCELERATOR):
+            out = [("SGPR", dsd.SGPR.build(X, Y, dsd.RBF.make(D), Z.copy(),
+                                           noise_variance=0.01)),
+                   ("FITC", dsd.GPRFITC.build(X, Y, dsd.RBF.make(D),
+                                              Z.copy(), noise_variance=0.01)),
+                   ("SVGP", dsd.SVGP.build(X, Y, dsd.RBF.make(D),
+                                           dsd.Gaussian.make(0.01),
+                                           Z.copy()))]
+            for L in range(1, args.max_layers + 1):
+                m = dsd.DGP.build(X, Y, Z.copy(), _jax_stack(D, L),
+                                  dsd.Gaussian.make(0.05), num_samples=1)
+                out.append((f"DGP{L}", _jax_q_sqrt_scaled(m, range(L - 1))))
+            return out
+    if name == "collapsed":                  # :31-32, :45-50
+        with temp_config(float_dtype="float64", jitter=1e-10):
+            kerns = [dsd.RBF.make(D, lengthscales=0.4),
+                     dsd.RBF.make(D, lengthscales=0.4)]
+            layers = dsd.init_layers_linear(X, Y, Z, kerns)
+            last = JSGPRLayer.make(layers[-1].kern,
+                                   np.asarray(layers[-1].Z.value), 1,
+                                   layers[-1].mean_function)
+            return [("", dsd.DGPCollapsed.make(X, Y, dsd.Gaussian.make(0.05),
+                                               layers[:-1] + [last]))]
+    if name == "damianou":                   # :68-70 (off the accelerator)
+        with temp_config(float_dtype="float64", jitter=1e-8):
+            lay = JSGPRLayer.make(dsd.RBF.make(D), Z, Y.shape[1],
+                                  dsd.Zero(output_dim=Y.shape[1]))
+            m_sgpr = dsd.DGPCollapsed.make(X, Y, dsd.Gaussian.make(0.05),
+                                           [lay])      # :113-116
+            m_dam = dsd.DGPDamianou.build(X, Y, Z, [dsd.RBF.make(D),
+                                                    dsd.RBF.make(D)],
+                                          dsd.Gaussian.make(0.05))  # :119-121
+            m_dgp = dsd.DGP.build(X, Y, Z, _jax_stack(D, 2),
+                                  dsd.Gaussian.make(0.05),
+                                  num_samples=5)       # :124-136
+            return [("SGPR (collapsed, 1 layer)", m_sgpr),
+                    ("DGPDamianou (2 layers)", m_dam),
+                    ("DGP2 (doubly stochastic MC)",
+                     _jax_q_sqrt_scaled(m_dgp, [0]))]
+    if name == "sgpmc":                      # :61-64
+        layer = dsd.SGPMCLayer.make(dsd.RBF.make(1, lengthscales=0.4), Z, 1,
+                                    white=True)
+        return [("", dsd.DGPBase.make(X, Y, dsd.Gaussian.make(0.05), [layer],
+                                      num_samples=1))]
+    if name == "serving":                    # :82-85
+        return [("", dsd.DGP.build(X, Y, X[:20].copy(),
+                                   [dsd.RBF.make(D), dsd.RBF.make(D)],
+                                   dsd.Gaussian.make(0.05), num_samples=3))]
+    raise KeyError(name)
+
+
+def _demo_data(name, mod, args, mnist_data):
+    """The torch demo's data and config, with the data checked against
+    the JAX demo's own generator where it has one; ``mnist_data``: the
+    mnist demo's (its kmeans takes seconds)."""
+    if name == "mnist":
+        data = mnist_data
+        want = _jax_demo("mnist").synthetic_multiclass()
+        for got, w in zip((data["X"], data["Y"], data["Xs"], data["Ys"]),
+                          want):
+            assert np.array_equal(got, w.astype(got.dtype)), (
+                "demo mnist: data differ from demos/mnist.py's")
+        return data, mod.ACCELERATOR
+    if name == "step_function":
+        data = mod.make_data(args)
+        for got, w in zip((data["X"], data["Y"]),
+                          _jax_demo("step_function").make_step_data()):
+            assert np.array_equal(got, w), (
+                "demo step_function: data differ from demos/"
+                "step_function.py's")
+        return data, port.Config()
+    if name == "damianou":
+        cfg = mod.config_of(args, torch.device("cpu"))
+        return mod.make_data(args, cfg), cfg
+    if name in ("run_regression", "priors", "collapsed"):
+        return mod.make_data(args), mod.config_of(args)
+    if name == "uci_benchmark":
+        return mod.make_data(args), mod.ACCELERATOR
+    return mod.make_data(args), port.Config()
+
+
+def _check_demo_build(name, mod, args, mnist_data):
+    """summary(build) of the torch demo against summary of the model the
+    JAX demo's lines build from the same numpy data."""
+    from test_torch_conditional import _same_table
+
+    data, cfg = _demo_data(name, mod, args, mnist_data)
+    built = mod.build(args, data, cfg, torch.device("cpu"))
+    if not isinstance(built, list):
+        built = [("", built)]
+    want = _jax_demo_models(name, args, data)
+    assert [l for l, _ in built] == [l for l, _ in want], (
+        f"demo {name}: models {[l for l, _ in built]}")
+    for (label, tm), (_, jm) in zip(built, want):
+        _same_table(f"demo {name} {label}".strip(), port.summary(tm),
+                    dsd.summary(jm))
+
+
+def _check_demo_keys(case, got, keys):
+    from demos_torch._common import numbers
+    assert list(got) == keys, f"demo {case}: keys {list(got)}, not {keys}"
+    bad = [x for x in numbers(got) if not np.isfinite(x)]
+    assert not bad, f"demo {case}: non-finite values {got}"
+
+
+def _check_demos():
+    """Every torch demo in-process on the CPU: it returns the JAX demo's
+    keys with finite values, and its build gives the JAX demo's summary
+    table; mnist --data-parallel on two gloo ranks, whose results agree;
+    and without a card a demo raises unless given --device cpu."""
+    import importlib
+    from concurrent.futures import ThreadPoolExecutor
+    import test_torch_ranks as ranks
+    from doubly_stochastic_dgp_tpu_torch.parallel.mesh import run_ranks
+
+    mods = {name: importlib.import_module(f"demos_torch.{name}")
+            for name, _ in DEMO_RUNS}
+    mnist_argv = DEMO_RUNS[3][1] + ["--device", "cpu", "--data-parallel"]
+    mnist_data = mods["mnist"].make_data(mods["mnist"].parse_args(
+        mnist_argv))
+    payload = {"argv": mnist_argv, "data": mnist_data}
+    # one BLAS thread a rank (a spawned rank's numpy would start one a
+    # core, and two ranks' SVDs then take ten times as long), set before
+    # the ranks start and restored after they end
+    blas = mock.patch.dict(os.environ, {k: "1" for k in (
+        "OMP_NUM_THREADS", "OPENBLAS_NUM_THREADS", "MKL_NUM_THREADS")})
+    blas.start()
+    pool = ThreadPoolExecutor(1)
+    dp = pool.submit(run_ranks, ranks.mnist_demo_ranks, 2, (payload,),
+                     threads=1, timeout_s=240.0)
+    pool.shutdown(wait=False)
+    # two torch threads here: the demos' small ops spend more CPU waking
+    # threads than computing (on 8 cores: 51 s of wall and 103 s of CPU,
+    # against 60 s and 253 s at 8 threads), and the suite runs files side
+    # by side
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    try:
+        _run_demos(mods, mnist_data)
+    finally:
+        torch.set_num_threads(threads)
+        two = dp.result()
+        blas.stop()
+    assert two[0] == two[1], f"mnist --data-parallel: the ranks disagree {two}"
+    _check_demo_keys("mnist --data-parallel on 2 gloo ranks", two[0],
+                     DEMO_KEYS["mnist"])
+
+
+def _run_demos(mods, mnist_data):
+    """Each demo of DEMO_RUNS through its main on the CPU: its keys and
+    finite values, and its build against the JAX demo's; and a demo
+    without a card and without --device cpu raises."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, argv in DEMO_RUNS:
+            argv = argv + ["--device", "cpu"]
+            if name == "run_regression":
+                argv += ["--results", tmp]
+            case = f"{name} {' '.join(argv)}"
+            with contextlib.redirect_stdout(io.StringIO()):
+                # mnist takes the data made once above (its kmeans over
+                # 6000 x 784 rows takes seconds)
+                out = (mods[name].main(argv, mnist_data) if name == "mnist"
+                       else mods[name].main(argv))
+            key = "sgpmc nuts" if "nuts" in argv else name
+            if name == "damianou":
+                assert len(out) == 3, f"demo {case}: {len(out)} results"
+                for res in out:
+                    _check_demo_keys(case, res, DEMO_KEYS[key])
+            else:
+                _check_demo_keys(case, out, DEMO_KEYS[key])
+            if name == "step_function":
+                for layer in out["layers"]:
+                    assert list(layer) == STEP_LAYER_KEYS, f"demo {case}"
+            if name == "uci_benchmark":
+                assert list(out["results"]) == [
+                    "SGPR", "FITC", "SVGP", "DGP1", "DGP2"], f"demo {case}"
+                for res in out["results"].values():
+                    assert list(res) == ["loglik", "rmse"], f"demo {case}"
+            if name == "serving":
+                assert out["server_matches_inprocess_bitwise"], case
+            if "nuts" not in argv:
+                _check_demo_build(name, mods[name], mods[name].parse_args(
+                    argv), mnist_data)
+    if not torch.cuda.is_available():
+        try:
+            mods["priors"].main(["--frames", "1"])
+        except RuntimeError as e:
+            assert "device='cpu'" in str(e), f"demo priors without a card: {e}"
+        else:
+            raise AssertionError("demo priors ran without a card and "
+                                 "without --device cpu")
+
+
 def test_paths_match_jax():
     fused_conditional.launches = fused_conditional.backward_launches = 0
     rng = np.random.RandomState(0)
@@ -1903,6 +2220,7 @@ def test_paths_match_jax():
     _check_mcmc_models(np.random.RandomState(46), Xt)
     _check_dynamic_and_export(np.random.RandomState(47), model, Xt, Yt)
     _check_data_parallel(np.random.RandomState(48))
+    _check_demos()
     psi2_core.launches = 0
     _check_collapsed(rng, Xt, Yt)
     assert (fused_conditional.launches, fused_conditional.backward_launches,

@@ -520,3 +520,10 @@ def fit_one_rank(rank, payload):
         out[guard] = (named(m), [h["loss"] for h in hist])
     return out
 
+
+
+def mnist_demo_ranks(rank, payload):
+    """2 ranks: ``demos_torch/mnist.py --data-parallel`` in their group
+    (``fit_dp`` over both), from the data handed over; the summary."""
+    from demos_torch import mnist
+    return mnist.run(mnist.parse_args(payload["argv"]), payload["data"])[0]
