@@ -20,9 +20,10 @@ Phases, each of which raises on a failed check:
    forward and save-gram backward) against its plain PyTorch version at
    the serving path's per-layer shapes (B=100,000), the training path's
    (B=10,000, M=100, Dx=8, Do=8 and 1), a ragged multi-tile, a
-   clamp-active and an M=512 shape, and the edges of the tiling (B=1, one
+   clamp-active and an M=512 shape, the edges of the tiling (B=1, one
    row past a 40-row block and past a 16-row reduction slice, Do=13, M=1),
-   in float32, both
+   and wide inputs through the gram stage's 16-wide chunks (Dx=9, 30 and
+   784 at B=1, 41 and 1000, and Dx=785, one past a chunk), in float32, both
    also held against the plain version in float64 on the same inputs.
    Raises if a kernel fails to launch, gives a non-finite value, differs
    from the plain float32 version by more than 1e-4 of the output scale
@@ -168,13 +169,16 @@ Phases, each of which raises on a failed check:
    the card goes through, against its plain version and float64 at the
    cells' Kuf shapes (M=100 x B=10,000 and 100,000, M=256 x N=7372 at D=8
    and 2, M=100 x N=1500), ragged sizes and the square K(X, X) at M=100 and
-   B=200, in float32 and float64: raises if it differs from the plain
-   version by more than 1e-4 of scale, (float32) is more than 2x as far
+   B=200, and the wide kernel's (D > 8: D=9, 30, a ragged D=37, the MNIST
+   Kuu and Kuf at D=784, D=100 with a partial last chunk, the square gram
+   at D=30 and 784), in float32 and float64: raises if it differs from the
+   plain version by more than 1e-4 of scale, (float32) is more than 2x as far
    from float64 as the plain float32 version, changes bits on a repeat, if
    K(X, X) is not bitwise symmetric with its diagonal exactly var, or if
    the backward through the Function differs from autograd through the
    plain version by more than 1e-4 of scale per gradient tensor; its
-   refusals raise with no launch; CUDA-event and profiler times beside the
+   refusals raise with no launch, and its C entry point refuses a plan
+   other than launch_plan's; CUDA-event and profiler times beside the
    bound and the plain version's;
 17. the slice's main path, the DGP under the default numerics
    (solve_mode='solve', use_pallas=False): the headline model built with
@@ -608,7 +612,20 @@ EARLIER_DEVICE_MS = {
     ("psi2_core_backward", "damianou_large"): "0.9711-1.0036",
     ("psi2_core_backward", "collapsed_L2"): "0.1081-0.1115",
     ("rbf_gram", "Kuf_M100_B10000_D8 float32"): "0.0061-0.0064",
-    ("rbf_gram", "Kuf_M100_B100000_D8 float32"): "0.0481"}
+    ("rbf_gram", "Kuf_M100_B100000_D8 float32"): "0.0481",
+    # the wide gram before the staged, cluster-split kernel (one thread 4 x
+    # 4 outputs over every d from L1, Kahan per term) and the fused pair
+    # before the tiled gram stage (one thread a gram entry from L1): the
+    # MNIST shapes, CUDA-graph replays (PERF.md §6, rows 1, 3 and 5)
+    ("rbf_gram", "mnist Kuu_M100_D784"): "1.7105",
+    ("rbf_gram", "mnist Kuf_B1000_M100_D784"): "1.7212",
+    ("fused_conditional", "mnist layer0_Dx784_Do30"): "1.5202",
+    ("fused_conditional", "mnist hidden_Dx30_Do30"): "0.2801",
+    ("fused_conditional", "mnist last_Dx30_Do10"): "0.1166",
+    ("fused_conditional", "mnist serving_Dx784_Do30"): "48.5329",
+    ("fused_conditional_backward", "mnist layer0_Dx784_Do30"): "2.5740",
+    ("fused_conditional_backward", "mnist hidden_Dx30_Do30"): "0.4294",
+    ("fused_conditional_backward", "mnist last_Dx30_Do10"): "0.2183"}
 # kernel vs plain float32 on the same inputs: both are float32 with
 # different summation orders, so they may differ by float32 roundoff
 # amplified by the staged products; relative to the output scale
@@ -832,7 +849,28 @@ KERNEL_CASES = [("serving_Do8", 100000, M, 8, 8, False),
                 ("block40_plus_1", 41, M, 8, 8, False),
                 ("slice16_plus_1", 17, M, 8, 8, False),
                 ("Do13", 2000, M, 8, 13, False),
-                ("M1", 300, 1, 4, 2, False)]
+                ("M1", 300, 1, 4, 2, False),
+                # wide inputs, through the gram stage's 16-wide chunks of
+                # Dx: one partial chunk (9), two (30), 49 (784) at one row,
+                # one past a 40-row block and B=1000; 785, one past a chunk
+                # (operands with std Dx^-1/2: wide_spread)
+                ("Dx9_B1", 1, M, 9, 8, False),
+                ("Dx9_B41", 41, M, 9, 8, False),
+                ("Dx9_B1000", 1000, M, 9, 8, False),
+                ("Dx30_B1", 1, M, 30, 8, False),
+                ("Dx30_B41", 41, M, 30, 8, False),
+                ("Dx30_B1000", 1000, M, 30, 8, False),
+                ("Dx784_B1", 1, M, 784, 8, False),
+                ("Dx784_B41", 41, M, 784, 8, False),
+                ("Dx784_B1000", 1000, M, 784, 8, False),
+                ("Dx785_B1000", 1000, M, 785, 8, False)]
+
+
+def wide_spread(D):
+    """The std of wide operands: D^-1/2 (scaled distances O(1), where
+    unit rows at D=784 would put every gram entry at exp(-784) = 0); 1 at
+    D <= 8, as the other cases draw them."""
+    return 1.0 if D <= 8 else D ** -0.5
 # the forward's precision designs (fused_conditional.cu), all held against
 # float64 on phase 1's cases: the kernel's fp32 FFMA and the two 3xTF32
 # tensor-core designs it was chosen over
@@ -890,7 +928,8 @@ def phase_kernels(seed):
     precision = {}
     counts = launch_counts()
     for case, B, M_, Dx, Do, clamp in KERNEL_CASES:
-        args = conditional_inputs(B, M_, Dx, Do, seed, clamp)
+        args = conditional_inputs(B, M_, Dx, Do, seed, clamp,
+                                  wide_spread(Dx))
         a64 = [a.double() for a in args]
         gm, gv = cotangents(B, Do, seed)
         with torch.no_grad():
@@ -2604,7 +2643,11 @@ def phase_collapsed_step_profile(collapsed, seed, card):
 # rows against the batch (training B=10,000; serving 100,000;
 # damianou_large's 7372 rows at both widths; collapsed_L2's 1500), ragged
 # sizes (one with two 16-dim chunks), and the square K(X, X) at M=100 and
-# at the full-covariance batch (M None: X against itself)
+# at the full-covariance batch (M None: X against itself); then the wide
+# kernel's (D > 8, operands of std wide_spread(D)): one partial chunk (9),
+# two (30, also square: a cluster of 2), a ragged D=37 on ragged N and M,
+# the MNIST Kuu and Kuf at D=784 (clusters of 8), and D=100, a multiple of
+# the 16-byte copy with a partial last chunk
 GRAM_CASES = [("Kuf_M100_B10000_D8", 100, 10000, 8),
               ("Kuf_M100_B100000_D8", 100, 100000, 8),
               ("Kuf_M256_N7372_D8", 256, 7372, 8),
@@ -2613,7 +2656,16 @@ GRAM_CASES = [("Kuf_M100_B10000_D8", 100, 10000, 8),
               ("ragged_N77_M1301_D3", 77, 1301, 3),
               ("ragged_N1000_M33_D19", 1000, 33, 19),
               ("square_M100_D8", 100, None, 8),
-              ("square_B200_D8", 200, None, 8)]
+              ("square_B200_D8", 200, None, 8),
+              ("wide_N1000_M100_D9", 1000, 100, 9),
+              ("wide_N1000_M100_D30", 1000, 100, 30),
+              ("square_M100_D30", 100, None, 30),
+              ("ragged_N77_M1301_D37", 77, 1301, 37),
+              ("square_M100_D784", 100, None, 784),
+              ("Kuf_N1000_M100_D784", 1000, 100, 784),
+              ("partial_chunk_N300_M70_D100", 300, 70, 100)]
+# the cases before the wide ones draw unit rows, as they always have
+GRAM_WIDE_FROM = 9
 GRAM_TIMED = 5                      # the first five cases are timed
 GRAM_NAMES = ("dX", "dZ", "dls", "dvar")
 SOLVE_STEPS, SOLVE_F64_STEPS = 100, 20
@@ -2633,13 +2685,13 @@ FULL_COV_DIAG_RTOL = 1e-5
 FULL_COV_SYM_RTOL = 1e-4
 
 
-def gram_inputs(N, M_, D, seed):
-    """float64 (X, Z, lengthscales, variance) on the card: unit-normal
-    rows, ARD lengthscales in [0.8, 2], variance 1.3; Z is X when M_ is
-    None (the square gram)."""
+def gram_inputs(N, M_, D, seed, spread=1.0):
+    """float64 (X, Z, lengthscales, variance) on the card: normal rows of
+    std ``spread``, ARD lengthscales in [0.8, 2], variance 1.3; Z is X
+    when M_ is None (the square gram)."""
     rng = np.random.RandomState(seed)
-    X = rng.randn(N, D)
-    Z = X if M_ is None else rng.randn(M_, D)
+    X = rng.randn(N, D) * spread
+    Z = X if M_ is None else rng.randn(M_, D) * spread
     arrays = (X, Z, rng.uniform(0.8, 2.0, D), np.float64(1.3))
     out = [torch.tensor(a, dtype=torch.float64, device="cuda")
            for a in arrays]
@@ -2684,9 +2736,30 @@ def check_gram_refusals():
         check(raised is not None, f"rbf_gram on CUDA, {case}: did not raise "
                                   f"{err.__name__}")
     check(gram.rbf_gram.launches == n, "a refused rbf_gram call launched")
+    # the C entry point refuses a plan other than launch_plan's, before
+    # any launch: K keeps its NaNs
+    f32, _ = gram._fns()
+    Xw, Zw = torch.randn(64, 784, device="cuda"), torch.randn(40, 784,
+                                                               device="cuda")
+    K = torch.full((64, 40), float("nan"), device="cuda")
+    good = gram.launch_plan(64, 40, 784)
+    stream = torch.cuda.current_stream().cuda_stream
+    plans = {"3 splits": (Xw, Zw, 3), "16 splits": (Xw, Zw, 16),
+             "0 splits": (Xw, Zw, 0), "2 splits at D=3": (X, Z, 2),
+             "more splits than chunks at D=9": (Xw[:, :9].contiguous(),
+                                                Zw[:, :9].contiguous(), 2)}
+    for case, (a, b, splits) in plans.items():
+        err = f32(a.data_ptr(), b.data_ptr(), ls.data_ptr(), 0,
+                  v.data_ptr(), K.data_ptr(), a.shape[0], b.shape[0],
+                  a.shape[1], splits, 0, stream)
+        check(err != 0, f"rbf_gram C entry point: {case} was not refused")
+    torch.cuda.synchronize()
+    check(bool(torch.isnan(K).all()), "a refused rbf_gram plan wrote K")
     print("rbf_gram kernel on CUDA: raises on a non-contiguous operand, "
           "mixed dtypes, float16, a CPU operand, a two-element variance and "
-          "(the Function) float64 lengthscales on float32 inputs; no launch",
+          "(the Function) float64 lengthscales on float32 inputs; no launch; "
+          f"the C entry point refuses {', '.join(plans)} (launch_plan's at "
+          f"64 x 40 x 784: {good['splits']} splits)",
           flush=True)
 
 
@@ -2787,7 +2860,8 @@ def phase_gram_kernel(seed, card):
     worst, shapes = [0.0] * 4, []
     for i, (case, N, M_, D) in enumerate(GRAM_CASES):
         square = M_ is None
-        a64 = gram_inputs(N, M_, D, seed + i)
+        a64 = gram_inputs(N, M_, D, seed + i,
+                          wide_spread(D) if i >= GRAM_WIDE_FROM else 1.0)
         Mc = N if square else M_
         g64 = torch.tensor(np.random.RandomState(seed + 50 + i).randn(N, Mc),
                            dtype=torch.float64, device="cuda")
@@ -3830,8 +3904,10 @@ def phase_mnist_kernels(seed, trained, card):
                 row["gram_yardstick_ms"] = gemm_yardstick_ms(B, Dx, M)
                 row["graph_ms"] = mnist_graph_ms(kern, row["ms"])
                 row["timed_per_call_ms"], spread = mnist_call_ms(kern)
+                before = EARLIER_DEVICE_MS.get((name, f"mnist {case}"))
                 print(f"timing mnist {name} {case}: device ms a call by "
-                      f"CUDA-graph replays {row['graph_ms']:.4f}; "
+                      f"CUDA-graph replays {row['graph_ms']:.4f} (the "
+                      f"earlier design's {before}); "
                       f"timed_per_call_stats median {row['timed_per_call_ms']:.4f}"
                       f" (spread {spread:.1f}%); GEMM "
                       f"yardstick of the gram (torch.matmul ({B} x {Dx}) by "
@@ -3868,8 +3944,10 @@ def phase_mnist_kernels(seed, trained, card):
             "plain_ms": p_ms,
             "bound_ms": b_ms, "bound_by": b_by, "gemm_yardstick_ms": y_ms})
         d_txt = "not measured" if d_ms is None else f"{d_ms:.4f} ms"
+        before = EARLIER_DEVICE_MS.get(("rbf_gram", f"mnist {case}"))
         print(f"timing mnist rbf_gram {case}: kernel {k_ms:.4f} ms (device "
-              f"time {d_txt}; by CUDA-graph replays {g_ms:.4f} ms; "
+              f"time {d_txt}; by CUDA-graph replays {g_ms:.4f} ms, the "
+              f"earlier design's {before} ms; "
               f"timed_per_call_stats median {t_ms:.4f} ms), plain "
               f"{p_ms:.4f} ms, bound {b_ms:.4f} ms "
               f"({b_by}), GEMM yardstick (torch.matmul ({Nr} x {MNIST_D}) "
@@ -7002,6 +7080,17 @@ def print_occupancy():
     print("occupancy rbf_gram D=8: resident blocks an SM float32 "
           f"{lib.rbf_gram_occupancy(0, 8)}, float64 "
           f"{lib.rbf_gram_occupancy(1, 8)} (128 threads a block)", flush=True)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wide = {f"{n} x {m} D={d}": gram.launch_plan(n, m, d, sms)
+            for n, m, d in ((M, M, MNIST_D), (BATCH, M, MNIST_D),
+                            (M, M, 30), (BATCH, M, 30),
+                            (S * BATCH, M, MNIST_D))}
+    print("occupancy rbf_gram D=784: resident blocks an SM float32 "
+          f"{lib.rbf_gram_occupancy(0, 784)}, float64 "
+          f"{lib.rbf_gram_occupancy(1, 784)} (256 threads a block); plans "
+          + "; ".join(f"{k}: {p['tiles']} tiles x {p['splits']} splits = "
+                      f"{p['grid']} blocks"
+                      for k, p in wide.items()), flush=True)
     print_psi2_backward_plans()
     print_psi2_forward_plans()
 

@@ -18,28 +18,29 @@
 // (M x M) for G and (B x M)(M x Do M) for the variance, whose epilogue
 // takes each row's dot with G, so T = G W_d never leaves the registers.
 //
-// Design.  A block owns TB rows (40 at M = 100), each thread a 4 x 4
-// register tile of the (TB x M) products (fused_conditional.cuh).  K is
-// built in shared memory (one thread an entry), then LiT, W_0, ...,
-// W_{Do-1} stream through a 4-stage cp.async ring of 8-row k-slices (zero
-// past M) as one continuous stream, so the copies of the next matrix
-// overlap the products of this one and every operand is read once a
-// block.  G replaces K in shared memory and is the A operand of every W_d
-// product.  Each thread folds its tile of T into per-row partials, which
-// meet in shared memory and are added in column order, so the result is
-// deterministic.  The mean is G . alpha as four interleaved FFMA chains a
-// thread and output (one chain of M terms was 2x further from float64
-// than the plain version at M = 37).  The products are fp32 FFMA chains
-// in k order, as a plain fp32 GEMM: the 3xTF32 tensor-core designs (kept
-// below as fused_conditional_fwd_3xtf32 for the precision comparison that
-// chip_smoke.py prints) were up to 4x further from float64 than the plain
-// float32 version on the H100, past the contract's 2x (PERF.md §6);
-// plain TF32 is never used (the JAX kernel pins HIGHEST precision).  The
-// squared distance is the direct sum of squared differences.  Ragged
-// edges: M is padded with zeros in shared memory only; rows past B are
-// zeros and not stored.  The saved gram is
-// the value staged in shared memory, so the save-gram variant's mean and
-// var equal the plain variant's bit for bit.
+// Design.  A block owns TB rows (40 at M = 100), each thread a 4 x 4 register
+// tile of the (TB x M) products (fused_conditional.cuh).  K is built in shared
+// memory by the gram stage (gram_tiles: the same 4 x 4 tiles, Xs and Zs
+// staged in 16-wide chunks of Dx through a ring laid over the product ring's
+// space, so shared memory does not grow at M = 100), then LiT, W_0, ...,
+// W_{Do-1} stream through a 4-stage cp.async ring of 16-row k-slices (zero
+// past M) as one continuous stream, so the copies of the next matrix overlap
+// the products of this one and every operand is read once a block.  G replaces
+// K in shared memory and is the A operand of every W_d product.  Each thread
+// folds its tile of T into per-row partials, which meet in shared memory and
+// are added in column order, so the result is deterministic.  The mean is G .
+// alpha as four interleaved FFMA chains a thread and output (one chain of M
+// terms was 2x further from float64 than the plain version at M = 37).  The
+// products are fp32 FFMA chains in k order, a fresh chain each 16-row k-slice
+// added to the running sum (ffma_slice_blocked): the 3xTF32 tensor-core
+// designs (kept below as fused_conditional_fwd_3xtf32 for the precision
+// comparison that chip_smoke.py prints) were up to 4x further from float64
+// than the plain float32 version on the H100, past the contract's 2x (PERF.md
+// §6); plain TF32 is never used (the JAX kernel pins HIGHEST precision).  The
+// squared distance is the direct sum of squared differences.  Ragged edges: M
+// is padded with zeros in shared memory only; rows past B are zeros and not
+// stored.  The saved gram is the value staged in shared memory, so the
+// save-gram variant's mean and var equal the plain variant's bit for bit.
 
 #include "fused_conditional.cuh"
 
@@ -47,14 +48,21 @@ namespace {
 
 using namespace fc;
 
+// A (P x TB), then the product ring and the variance partials, over which
+// the gram stage's ring lies (whichever is larger)
 __host__ __device__ inline size_t smem_floats(int M) {
   const int TB = block_rows(M), CG = col_groups(M);
-  return (size_t)k_rows(M) * TB + (size_t)kStages * kKS * 4 * CG +
-         (size_t)2 * TB * CG;
+  const size_t products = (size_t)kStages * kKS * 4 * CG + (size_t)2 * TB * CG;
+  const size_t gram = (size_t)gram_stage_floats(TB, M);
+  return (size_t)k_rows(M) * TB + (products > gram ? products : gram);
 }
 
+// Two blocks an SM: 127 registers, no spill.  At three (80 registers, 12
+// bytes spilled) it ran 4-12% slower at B = 1000 and 10,000, the training
+// shapes, and 3-11% faster at B = 100,000 (tools/gram_stage_variants.py,
+// PERF.md §6).
 template <bool kSaveGram>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, 2)
 fused_conditional_fwd_kernel(const float* __restrict__ Xs,
                              const float* __restrict__ Zs,
                              const float* __restrict__ LiT,
@@ -87,14 +95,14 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
     loader.copy(ring + (size_t)(s % kStages) * SF, P4, Bm, M, ks * kKS, M,
                 M);
   };
+  // the gram (and the saved gram), staged through the ring's space; then
+  // the ring's first slices
+  gram_tiles(Xs, Zs, kvar, A, ring, TB, P, row0, B, M, Dx,
+             kSaveGram ? Kout : nullptr, M, M, tid, kThreads);
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total) issue(s);
     cp_async_commit();
   }
-
-  // the gram rows (and the saved gram), while the first slices arrive
-  gram_rows(Xs, Zs, kvar, A, TB, P, row0, B, M, Dx,
-            kSaveGram ? Kout : nullptr, M, M, tid, kThreads);
 
   // var_d = max(kdiag + the sum of row i's CG partials, 0): four
   // interleaved chains added pairwise, in column order
@@ -125,9 +133,9 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
     const int mat = s / nks, ks = s - mat * nks;
     if (ks == 0 && mat >= 2) finish_var(mat - 2);
     if (active)
-      ffma_slice(acc, A + (size_t)ks * kKS * TB + lr, TB,
-                 ring + (size_t)(s % kStages) * SF + lc, P4,
-                 min(kKS, M - ks * kKS));
+      ffma_slice_blocked(acc, A + (size_t)ks * kKS * TB + lr, TB,
+                         ring + (size_t)(s % kStages) * SF + lc, P4,
+                         min(kKS, M - ks * kKS));
     if (ks != nks - 1) continue;
     if (mat == 0) {
       // G = K LiT replaces K (every thread is done reading K)
@@ -233,8 +241,9 @@ __device__ __forceinline__ void mma3(float (&acc)[4], const uint32_t (&ah)[4],
 }
 
 __host__ __device__ inline size_t cmp_smem_floats(int M) {
-  return (size_t)p16(M) * kRows + (size_t)kStages * kKS * p16(M) +
-         2 * 8 * kRows;
+  const size_t products = (size_t)kStages * kKS * p16(M) + 2 * 8 * kRows;
+  const size_t gram = (size_t)gram_stage_floats(kRows, M);
+  return (size_t)p16(M) * kRows + (products > gram ? products : gram);
 }
 
 template <int kPrec>
@@ -270,12 +279,12 @@ fused_conditional_fwd_3xtf32(const float* __restrict__ Xs,
     const float* Bm = mat == 0 ? LiT : W + (size_t)(mat - 1) * M * M;
     loader.copy(ring + (size_t)(s % stages) * SF, P, Bm, M, ks * kKS, M, M);
   };
+  gram_tiles(Xs, Zs, kvar, Gs, ring, kRows, P, row0, B, M, Dx, nullptr, 0,
+             0, tid, kCmpThreads);
   for (int s = 0; s < stages - 1; ++s) {
     if (s < total) issue(s);
     cp_async_commit();
   }
-  gram_rows(Xs, Zs, kvar, Gs, kRows, P, row0, B, M, Dx, nullptr, 0, 0, tid,
-            kCmpThreads);
 
   auto finish_var = [&](int d) {
     for (int i = tid; i < kRows; i += kCmpThreads) {

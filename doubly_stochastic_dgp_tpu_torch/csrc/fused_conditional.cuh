@@ -1,8 +1,8 @@
 // Device helpers shared by the fused conditional's forward
 // (fused_conditional.cu) and backward (fused_conditional_bwd.cu) kernels:
 // the block geometry, the cp.async ring that streams the M x M operands
-// through shared memory in k-slices, the gram rows and the register-tiled
-// fp32 FFMA step.
+// through shared memory in k-slices, the gram stage (a tiled
+// direct-difference product) and the register-tiled fp32 FFMA step.
 //
 // Geometry of the row kernels.  A (rows x M) by (M x M) product is cut
 // into 4 x 4 register tiles: CG = ceil(M / 4) column groups and RG row
@@ -23,6 +23,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "gram_tile.cuh"
 
 namespace fc {
 
@@ -228,6 +230,28 @@ __device__ __forceinline__ void ffma_slice(float (&acc)[R][C], const float* a,
   }
 }
 
+// acc += the slice's products as a fresh FFMA chain: ffma_slice into a
+// zeroed partial, then one add an entry.  The row kernels' k sums run in
+// blocks of kKS, so an output's longest chain is kKS terms and
+// ceil(M / kKS) adds.  Where a wide input makes the gram O(1), one chain
+// over all M terms was up to 3.5x (forward) and 2.0x (backward) further
+// from float64 than the plain version at one row (cuBLAS sums a one-row
+// product as a tree), against 1.9x and 1.2x blocked, under phase 1's 2x
+// (tools/gram_stage_variants.py, PERF.md §6).
+template <int R, int C>
+__device__ __forceinline__ void ffma_slice_blocked(float (&acc)[R][C],
+                                                   const float* a, int sa,
+                                                   const float* b, int sb,
+                                                   int nk) {
+  float part[R][C];
+  zero(part);
+  ffma_slice(part, a, sa, b, sb, nk);
+#pragma unroll
+  for (int i = 0; i < R; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) acc[i][j] += part[i][j];
+}
+
 // sum_{n < len} x[n * sx] y[n * sy] as four interleaved FFMA chains added
 // pairwise (shorter chains: less rounding and less latency)
 __device__ __forceinline__ float dot4(const float* x, int sx, const float* y,
@@ -246,45 +270,85 @@ __device__ __forceinline__ float dot4(const float* x, int sx, const float* y,
 }
 
 // ----------------------------------------------------------------------------
-// gram rows
+// the gram stage
 // ----------------------------------------------------------------------------
 
-// The block's `rows` gram rows into Ks, k-major: Ks[m * rows + i] = kvar
-// exp(-0.5 ||x_r - z_m||^2), zero for m in [M, P) and for rows past
-// B, as the direct sum of squared differences (no cancellation, where the
-// expansion ||x||^2 + ||z||^2 - 2 x.z loses digits that exp amplifies),
-// d ascending, Kahan-compensated: at Dx = 784 a running fp32 sum is off
-// by ~1e-6 of d2 (about ten times the plain version's pairwise sum), and
-// exp turns that into the gram's relative error; the compensation's three
-// adds are free beside the loop's two loads a term.  With Kout (row
-// stride ldk), each computed entry is also
-// stored to global memory for m < ncols_out (zeros past M): exactly the
-// value staged here.
-__device__ __forceinline__ void gram_rows(
+// floats of the gram stage's two ring stages for TB rows and M columns
+__host__ __device__ __forceinline__ int gram_stage_floats(int TB, int M) {
+  return 2 * (TB + 4 * col_groups(M)) * gt::kRow<float>;
+}
+
+// The block's TB gram rows into Ks, k-major: Ks[m * TB + i] = kvar
+// exp(-0.5 ||x_{row0+i} - z_m||^2) for m < P, zero for m >= M and for rows
+// past B; with Kout (row stride ldk), each entry is also stored to global
+// memory for m < ncols_out (zeros past M): exactly the value staged.
+//
+// A tiled direct-difference product (gram_tile.cuh, the wide rbf_gram's
+// order too).  Thread t owns the 4 x 4 register tile of rows 4 (t / CG) .. + 3
+// and columns t % CG + CG j, j < 4 (CG = ceil(M / 4)); with more tiles than
+// threads (the 3xTF32 comparison designs at large M) the threads take them in
+// passes.  d is walked in chunks of 16: each chunk's Xs and Zs rows come in by
+// cp.async through a two-stage ring at `stage` (gram_stage_floats(TB, M)
+// floats: the forward lays it over its product ring, whose first slices it
+// issues after this returns; the backward over Ks and its other tile, as
+// `stage` may lie over Ks where the tiles take one pass, RG CG <= kThreads in
+// the row kernels), and each term goes into its output's total with Kahan's
+// compensation in d order; the distance is total - compensation.  A warp's Xs
+// rows are one or two broadcasts.  A running fp32 sum over Dx = 784 terms is
+// off by ~1e-6 of d2 (about ten times the plain version's pairwise sum), this
+// order by 6.5e-8.  Every output's terms are summed in one order whatever the
+// geometry, so the forward, its save-gram variant, the backward's recompute
+// and the comparison designs stage the same bits.  Every staged chunk is read
+// before Ks is written, and `stage` is free on return.
+__device__ __forceinline__ void gram_tiles(
     const float* __restrict__ Xs, const float* __restrict__ Zs, float kvar,
-    float* Ks, int rows, int P, int64_t row0, int64_t B, int M, int Dx,
-    float* __restrict__ Kout, int ldk, int ncols_out, int tid,
+    float* Ks, float* stage, int TB, int P, int64_t row0, int64_t B, int M,
+    int Dx, float* __restrict__ Kout, int ldk, int ncols_out, int tid,
     int nthreads) {
-  for (int e = tid; e < rows * P; e += nthreads) {
-    const int i = e / P, m = e - i * P;
-    const int64_t r = row0 + i;
-    float k = 0.f;
-    if (r < B && m < M) {
-      const float* x = Xs + r * Dx;
-      const float* z = Zs + (size_t)m * Dx;
-      float d2 = 0.f, c = 0.f;
-      for (int d = 0; d < Dx; ++d) {
-        const float u = __ldg(x + d) - __ldg(z + d);
-        const float y = fmaf(u, u, -c);
-        const float t = d2 + y;
-        c = (t - d2) - y;
-        d2 = t;
-      }
-      k = kvar * expf(-0.5f * d2);
+  constexpr int kRow = gt::kRow<float>;
+  const int CG = col_groups(M), P4 = 4 * CG, tiles = (TB / 4) * CG;
+  const int nch = (Dx + gt::kChunk - 1) / gt::kChunk, buf = (TB + P4) * kRow;
+  const bool vec = gt::stage_vec(Xs, Zs, Dx);
+  auto stage_chunk = [&](int c) {
+    gt::stage_chunk(stage + (c & 1) * buf, Xs, TB, row0, B, Zs, P4, 0,
+                    (int64_t)M, Dx, c * gt::kChunk, vec, tid, nthreads);
+  };
+  for (int t = tid; t - tid < tiles; t += nthreads) {
+    const bool active = t < tiles;
+    const int lr = active ? 4 * (t / CG) : 0, cg = active ? t % CG : 0;
+    float S[4][4], C[4][4];
+    zero(S);
+    zero(C);
+    stage_chunk(0);
+    for (int c = 0; c < nch; ++c) {
+      cp_async_wait_all();
+      __syncthreads();  // chunk c is in; chunk c - 1's stage is free
+      if (c + 1 < nch) stage_chunk(c + 1);
+      if (!active) continue;
+      const float* at = stage + (c & 1) * buf;
+      gt::tile_chunk(S, C, at + lr * kRow, at + (TB + cg) * kRow, CG * kRow,
+                     Dx - c * gt::kChunk);
     }
-    Ks[m * rows + i] = k;
-    if (Kout != nullptr && r < B && m < ncols_out) Kout[r * ldk + m] = k;
+    __syncthreads();  // every thread is done with the ring
+    if (!active) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = cg + CG * j;
+      float k[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t r = row0 + lr + i;
+        k[i] = (r < B && m < M) ? kvar * expf(-0.5f * (S[i][j] - C[i][j]))
+                                : 0.f;
+        if (Kout != nullptr && r < B && m < ncols_out)
+          Kout[r * ldk + m] = k[i];
+      }
+      *reinterpret_cast<float4*>(Ks + (size_t)m * TB + lr) =
+          make_float4(k[0], k[1], k[2], k[3]);
+    }
   }
+  // k rows past the column groups (P4 <= m < P): zero
+  for (int e = P4 * TB + tid; e < P * TB; e += nthreads) Ks[e] = 0.f;
 }
 
 // Lets a kernel use up to 227 KB of dynamic shared memory, with the SM's

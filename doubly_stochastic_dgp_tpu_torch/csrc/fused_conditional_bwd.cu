@@ -29,16 +29,18 @@
 // design was up to 4.5x further from float64 than the plain float32
 // version in dX here, PERF.md §6).
 //
-// Row pass (fused_conditional_bwd_rows_kernel).  A block owns TB rows in
-// 4 x 4 thread tiles, as the forward: K (built, or read back), then LiT,
-// W_0 .. W_{Do-1} and LiT^T stream through the forward's cp.async ring of
-// 8-row k-slices (LiT^T as column slices of LiT transposed on the way in:
-// no transposed copy).  Each thread keeps its tile of dG in registers and
-// adds 2 gv_d T_d to it at the end of each W_d; dG then takes gm alpha^T,
-// and dK's epilogue forms Gd = -0.5 dK K.  Two shared tiles serve: K then
-// dG, and G then Gd (the epilogue reads K back from global memory).  The
-// pass writes dX and the row panels the sums need, G, dG, Gd and (unless
-// saved) K, each (B, P) with P = M rounded up to 4 and zeros past M.
+// Row pass (fused_conditional_bwd_rows_kernel).  A block owns TB rows in 4 x 4
+// thread tiles, as the forward: K (built by the forward's gram stage, whose
+// ring lies over the tiles X and Y, or read back), then LiT, W_0 ..
+// W_{Do-1} and LiT^T stream through the forward's cp.async ring of 16-row
+// k-slices (LiT^T as column slices of LiT transposed on the way in: no
+// transposed copy), each product's k sum a fresh FFMA chain a slice added to
+// the running sum (ffma_slice_blocked).  Each thread keeps its tile of dG in
+// registers and adds 2 gv_d T_d to it at the end of each W_d; dG then takes
+// gm alpha^T, and dK's epilogue forms Gd = -0.5 dK K.  Two shared tiles serve:
+// K then dG, and G then Gd (the epilogue reads K back from global
+// memory).  The pass writes dX and the row panels the sums need, G, dG, Gd and
+// (unless saved) K, each (B, P) with P = M rounded up to 4 and zeros past M.
 //
 // Reduction pass (fused_conditional_bwd_reduce_kernel).  dW_d and dLiT
 // are products over the batch, G^T diag(gv_d) G and K^T dG, on square
@@ -59,10 +61,20 @@ namespace {
 
 using namespace fc;
 
+// the tiles X and Y, over which the gram stage's ring lies (whichever is
+// larger), so that the product ring's first slices arrive while the gram
+// is built
+__host__ __device__ inline size_t tiles_union_floats(int M) {
+  const int TB = block_rows(M);
+  const size_t tiles = (size_t)2 * k_rows(M) * TB;
+  const size_t gram = (size_t)gram_stage_floats(TB, M);
+  return tiles > gram ? tiles : gram;
+}
+
+// X and Y (tiles_union_floats), the product ring, then the cotangent rows
 __host__ __device__ inline size_t rows_smem_floats(int M, int Do) {
   const int TB = block_rows(M);
-  return (size_t)2 * k_rows(M) * TB +
-         (size_t)kStages * kKS * 4 * col_groups(M) +
+  return tiles_union_floats(M) + (size_t)kStages * kKS * 4 * col_groups(M) +
          (size_t)2 * TB * Do;
 }
 
@@ -86,7 +98,7 @@ fused_conditional_bwd_rows_kernel(
   const int P4 = 4 * CG, P = k_rows(M), SF = kKS * P4;
   float* X = smem;                            // P x TB: K, then dG
   float* Y = X + (size_t)P * TB;              // P x TB: G, then Gd
-  float* ring = Y + (size_t)P * TB;           // kStages x kKS x P4
+  float* ring = smem + tiles_union_floats(M); // kStages x kKS x P4
   float* gms = ring + (size_t)kStages * SF;   // TB x Do
   float* gvs = gms + (size_t)TB * Do;         // TB x Do
   const int tid = threadIdx.x;
@@ -120,7 +132,8 @@ fused_conditional_bwd_rows_kernel(
     gvs[e] = ok ? __ldg(gv + row0 * Do + e) : 0.f;
   }
   // the gram rows: read back, or recomputed as in the forward (and then
-  // written to the K panel for the reduction pass)
+  // written to the K panel for the reduction pass) through a ring laid
+  // over X and Y, while the product ring's first slices arrive
   if (kSaved) {
     for (int e = tid; e < TB * P; e += kThreads) {
       const int i = e / P, m = e - i * P;
@@ -128,8 +141,8 @@ fused_conditional_bwd_rows_kernel(
       X[m * TB + i] = (r < B && m < M) ? __ldg(Kin + r * M + m) : 0.f;
     }
   } else {
-    gram_rows(Xs, Zs, *kvar_p, X, TB, P, row0, B, M, Dx, Kp, P4, P4, tid,
-              kThreads);
+    gram_tiles(Xs, Zs, *kvar_p, X, X, TB, P, row0, B, M, Dx, Kp, P4, P4,
+               tid, kThreads);
   }
   // G's and Gd's k rows past the column groups (P4 <= k < P) stay 0 (the
   // epilogues write the first P4)
@@ -163,9 +176,9 @@ fused_conditional_bwd_rows_kernel(
     const int mat = s / nks, ks = s - mat * nks;
     // A: K (mat 0), G (the W_d), dG (LiT^T)
     const float* As = (mat == 0 || mat > Do) ? X : Y;
-    ffma_slice(acc, As + (size_t)ks * kKS * TB + lr, TB,
-               ring + (size_t)(s % kStages) * SF + lc, P4,
-               min(kKS, M - ks * kKS));
+    ffma_slice_blocked(acc, As + (size_t)ks * kKS * TB + lr, TB,
+                       ring + (size_t)(s % kStages) * SF + lc, P4,
+                       min(kKS, M - ks * kKS));
     if (ks != nks - 1) continue;
     if (mat == 0) {
       store(acc, Y, Gp);  // G = K LiT

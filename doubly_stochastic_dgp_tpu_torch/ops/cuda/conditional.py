@@ -198,8 +198,8 @@ SMEM_MAX = 232448              # bytes of shared memory a block may use
 SCRATCH_MAX_BYTES = 8_000_000  # the backward's slice partials, whatever B
 # fused_conditional.cuh / fused_conditional_bwd.cu: threads of a row-kernel
 # block, row groups a block at most, k rows of a streamed slice, slices in
-# the rings
-_THREADS, _MAX_RG, _KS, _STAGES = 256, 32, 16, 4
+# the rings, d of a staged chunk of the gram
+_THREADS, _MAX_RG, _KS, _STAGES, _GRAM_CHUNK = 256, 32, 16, 4, 16
 
 
 def _round_up(x, m):
@@ -216,12 +216,23 @@ def _row_geometry(M):
     return 4 * rg, cg, rg, _round_up(M, _KS)
 
 
+def gram_stage_floats(tb, M):
+    """Floats of the gram stage's two-stage ring (``fused_conditional.cuh``
+    gram_stage_floats): tb rows of Xs and 4 ceil(M / 4) rows of Zs, each a
+    16-wide chunk of Dx padded to 20 floats.  The forward lays it over
+    its product ring, the backward's row pass over its two tiles."""
+    return 2 * (tb + 4 * -(-M // 4)) * (_GRAM_CHUNK + 4)
+
+
 def forward_plan(B, M):
     """The forward kernel's launch: rows a block ``tb``, ``blocks``, busy
     threads of the 256 a block, and shared memory a block ``smem_bytes``
-    (``fused_conditional.cu``'s smem_floats)."""
+    (``fused_conditional.cu``'s smem_floats: the (P x tb) gram, then the
+    product ring and the variance partials or the gram stage's ring,
+    whichever is larger)."""
     tb, cg, rg, P = _row_geometry(M)
-    smem = 4 * (P * tb + _STAGES * _KS * 4 * cg + 2 * tb * cg)
+    products = _STAGES * _KS * 4 * cg + 2 * tb * cg
+    smem = 4 * (P * tb + max(products, gram_stage_floats(tb, M)))
     return {"tb": tb, "blocks": -(-B // tb), "busy_threads": rg * cg,
             "smem_bytes": smem}
 
@@ -229,7 +240,9 @@ def forward_plan(B, M):
 def backward_plan(B, M, Dx, Do, sms=132, saved=False):
     """The backward's launch plan.
 
-    Row pass: ``tb``, ``row_blocks``, ``smem_bytes`` as the forward's.  It
+    Row pass: ``tb``, ``row_blocks``, and ``smem_bytes`` (the tiles K and
+    G or the gram stage's ring, then the product ring and the cotangent
+    rows).  It
     writes the row panels G, dG, Gd and (unless ``saved``) K, each (B, P)
     with P = M rounded up to 4: ``panel_floats``.  Reduction: dW_d and
     dLiT on square output tiles of ``tile`` = min(M rounded up to 8, 128)
@@ -242,7 +255,8 @@ def backward_plan(B, M, Dx, Do, sms=132, saved=False):
     independent of B.  Slices: two output-tile blocks an SM, as far as the
     scratch allows."""
     tb, cg, _, P = _row_geometry(M)
-    smem = 4 * (2 * P * tb + _STAGES * _KS * 4 * cg + 2 * tb * Do)
+    tiles = max(2 * P * tb, gram_stage_floats(tb, M))
+    smem = 4 * (tiles + _STAGES * _KS * 4 * cg + 2 * tb * Do)
     if smem > SMEM_MAX:
         raise ValueError(f"fused_conditional backward: M={M}, Do={Do} needs "
                          f"{smem} bytes of shared memory a block, above "

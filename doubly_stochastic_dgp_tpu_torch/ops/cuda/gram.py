@@ -16,8 +16,12 @@ the distance is the direct sum of squared differences, so K(X, X) is
 bitwise symmetric with its diagonal exactly var.  The plain version keeps
 the JAX form ||x||^2 + ||z||^2 - 2 x.z clipped at 0 (:func:`square_dist`),
 which ``RBF.K`` computes on the CPU.
-What bounds the kernel on an H100: bytes, the (N, M) output (see
-:func:`bytes_moved`, :func:`flops`, :func:`exps`).  The backward is the
+What bounds the kernel on an H100: bytes, the (N, M) output, at D <= 8;
+operations at the MNIST DGP's D = 784 (see :func:`bytes_moved`,
+:func:`flops`, :func:`exps`).  Two kernels: the narrow one for D <= 8 and
+the wide one above, whose d sum a thread-block cluster splits
+(:func:`launch_plan`, the plain-Python plan the wrapper hands the C entry
+point).  The backward is the
 JAX ``_bwd`` closed form on the saved K, as torch ops on either device:
 it sits outside the Pallas kernel in JAX too.
 
@@ -39,7 +43,7 @@ import functools
 import torch
 
 __all__ = ["rbf_gram", "rbf_gram_kernel", "rbf_gram_plain", "square_dist",
-           "plain_on_card", "flops", "exps", "bytes_moved",
+           "plain_on_card", "launch_plan", "flops", "exps", "bytes_moved",
            "FAST_EXP", "F64_EXP_FLOPS"]
 
 # expf in the float32 kernel (__expf when True; see PERF.md for the choice)
@@ -88,6 +92,52 @@ def bytes_moved(N, M, D, itemsize):
     return itemsize * ((N + M + 1) * D + 1 + N * M)
 
 
+# csrc/rbf_gram.cu: the narrow kernel (D <= NARROW_MAX_D) tiles of 16 rows
+# x 128 columns; the wide kernel 64 x 64 tiles, d in chunks of 16,
+# clusters of at most 8 blocks a tile
+NARROW_MAX_D = 8
+_NARROW_ROWS, _NARROW_COLS = 16, 128
+_WIDE_TILE, _WIDE_CHUNK, _MAX_SPLITS = 64, 16, 8
+_MAX_GRID = 2 ** 31 - 1
+
+
+def launch_plan(N, M, D, sms=132):
+    """The kernel's launch for an (N, M) gram over D dims on a card of
+    ``sms`` SMs; the C entry point takes ``splits`` from it and refuses
+    any other.
+
+    D <= 8 (``path`` "narrow"): one block a tile of 16 rows x 128
+    columns, ``grid`` = ``tiles`` blocks, ``splits`` 1.  D > 8 ("wide"):
+    64 x 64 tiles, ``chunks`` = ceil(D / 16) chunks of d; a tile's chunks
+    are split over a thread-block cluster of ``splits`` blocks (each an
+    even share, in order), doubled from 1 while the grid is below one
+    block an SM, ``splits`` < 8 and each block keeps a chunk at least, so
+    ``grid`` = ``tiles`` x ``splits``.  The partial sums meet in
+    distributed shared memory: ``workspace_bytes`` is 0.  Raises
+    ValueError on sizes the kernel refuses (an empty dimension, a grid
+    past 2^31 - 1 blocks)."""
+    if min(N, M, D) < 1:
+        raise ValueError(f"rbf_gram: no launch for N={N}, M={M}, D={D}")
+    if D <= NARROW_MAX_D:
+        tiles = -(-M // _NARROW_COLS) * -(-N // _NARROW_ROWS)
+        plan = {"path": "narrow", "tiles": tiles, "chunks": 1, "splits": 1,
+                "grid": tiles}
+    else:
+        tiles = -(-N // _WIDE_TILE) * -(-M // _WIDE_TILE)
+        chunks = -(-D // _WIDE_CHUNK)
+        splits = 1
+        while (splits < _MAX_SPLITS and tiles * splits < sms
+               and 2 * splits <= chunks):
+            splits *= 2
+        plan = {"path": "wide", "tiles": tiles, "chunks": chunks,
+                "splits": splits, "grid": tiles * splits}
+    if plan["grid"] > _MAX_GRID:
+        raise ValueError(f"rbf_gram: N={N}, M={M} needs {plan['grid']} "
+                         f"blocks, past {_MAX_GRID}")
+    plan["workspace_bytes"] = 0
+    return plan
+
+
 @contextlib.contextmanager
 def plain_on_card():
     """CUDA tensors take the plain version while inside."""
@@ -104,11 +154,16 @@ def _fns():
     lib = load_library("rbf_gram")
     f32, f64 = lib.rbf_gram_f32, lib.rbf_gram_f64
     args = [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2 + [
-        ctypes.c_int64, ctypes.c_int64, ctypes.c_int]
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
     f32.argtypes = args + [ctypes.c_int, ctypes.c_void_p]
     f64.argtypes = args + [ctypes.c_void_p]
     f32.restype = f64.restype = ctypes.c_int
     return f32, f64
+
+
+@functools.cache
+def _sm_count(index):
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _kernel_args(X, Z, lengthscales):
@@ -129,8 +184,9 @@ def _launch(X, Z, lengthscales, variance, fast_exp):
         return K
     f32, f64 = _fns()
     index = X.device.index
+    plan = launch_plan(N, M, D, _sm_count(index))
     args = (X.data_ptr(), Z.data_ptr(), lengthscales.data_ptr(), ls_stride,
-            variance.data_ptr(), K.data_ptr(), N, M, D)
+            variance.data_ptr(), K.data_ptr(), N, M, D, plan["splits"])
 
     def launch():
         stream = torch._C._cuda_getCurrentRawStream(index)

@@ -8,11 +8,12 @@ float32, as the JAX gram tests).
 One test item that loops over its cases and names the failing case in
 every assertion message; it also checks the CUDA kernels' launch plans,
 which are plain Python (``forward_plan``, ``backward_plan``, the psi2
-forward's and backward's), and the psi2 forward kernel's base-2
-arithmetic, emulated in float64.  On the CPU the port's wrappers and autograd
-Functions take the plain versions (the CUDA kernels themselves are
-checked against them on the card by ``chip_smoke.py``), so no launch
-counter may move.
+forward's and backward's, rbf_gram's ``launch_plan``), the psi2 forward
+kernel's base-2 arithmetic, emulated in float64, and the wide grams'
+summation order, emulated in float32.  On the CPU the port's wrappers
+and autograd Functions take the plain versions (the CUDA kernels
+themselves are checked against them on the card by ``chip_smoke.py``),
+so no launch counter may move.
 
 It also holds the MCMC samplers against the JAX package draw for draw: a
 draw source replays the JAX key schedule (momenta, accept uniforms, the
@@ -249,6 +250,17 @@ def _check_plans():
             assert backward_plan(other, M, Dx, Do)["scratch_floats"] == bp[
                 "scratch_floats"], f"{case}: scratch depends on B ({other})"
         assert bp["panel_floats"] == 4 * B * P4, f"{case}: row panels"
+        # the gram stage's ring (two chunks of 16 d, rows padded to 20
+        # floats) lies over the product ring: at M=100 no byte is added
+        stage = 4 * 2 * (tb + P4) * 20
+        assert stage == 4 * tcond.gram_stage_floats(tb, M) and stage <= (
+            fp["smem_bytes"] - 4 * (-(-M // 16) * 16) * tb), (
+            f"{case}: the gram stage's ring does not fit the forward's")
+        if M == 100:
+            assert (fp["smem_bytes"], bp["smem_bytes"]) == (
+                51520, 4 * (2 * 112 * 40 + 6400 + 80 * Do)), (
+                f"{case}: shared memory {fp['smem_bytes']}, "
+                f"{bp['smem_bytes']}")
         assert backward_plan(B, M, Dx, Do, saved=True)["panel_floats"] == (
             3 * B * P4), f"{case}: saved variant's row panels"
     try:
@@ -791,6 +803,37 @@ def _gram_grads(fn, arrays, G, square=False):
     return [t.grad for i, t in enumerate(leaves) if not (square and i == 1)]
 
 
+def _kahan_d2_f32(x, z, splits):
+    """The squared distances of the float32 rows x (N, D) and z (M, D) in
+    the order of csrc/rbf_gram.cu's wide kernel (and, at ``splits`` 1, of
+    the fused conditional's gram stage), emulated in torch float32: every
+    term added to its output's total with Kahan's compensation in d order,
+    the square folded into one fmaf with the compensation (fmaf as the
+    float64 sum of the exact product, rounded); the 16-wide chunks of d in
+    even shares over ``splits`` blocks, whose totals less their
+    compensations are added in block order with compensation again."""
+    t = x[:, None, :] - z[None, :, :]
+    sq = t.double() ** 2
+    D, chunks = x.shape[1], -(-x.shape[1] // 16)
+    zero = torch.zeros(t.shape[:2], dtype=torch.float32)
+
+    def kahan(total, comp, y):
+        u = total + y
+        return u, (u - total) - y
+
+    parts = []
+    for r in range(splits):
+        S = C = zero
+        for d in range(16 * (r * chunks // splits),
+                       min(D, 16 * ((r + 1) * chunks // splits))):
+            S, C = kahan(S, C, (sq[..., d] - C.double()).float())
+        parts.append(S - C)
+    S = C = zero
+    for v in parts:
+        S, C = kahan(S, C, v - C)
+    return S - C
+
+
 def _check_rbf_gram():
     """The port's rbf_gram on CPU tensors against the interpret-mode Pallas
     rbf_gram (forward in float32; its jax.grad in float64, also with a
@@ -857,6 +900,38 @@ def _check_rbf_gram():
                         atol=GRAM_GRAD_ATOL,
                         err_msg=f"rbf_gram(X, X) gradient {name} vs "
                                 f"jax.grad of the JAX RBF.K(X)")
+    # the wide kernels' summation order at D=784 on pixel-like rows (MNIST
+    # pixels in [0, 1], ARD lengthscales about 2), emulated in float32 at
+    # the plan's splits (8 here) and unsplit (the fused gram stage): d2
+    # within 2^-23 (2 units of float32 roundoff) of the float64 sum of the
+    # same float32 differences, where a running fp32 sum is off by 25
+    # units; 1.4 units measured split, 1.0 unsplit.  The Kuu shape's plan
+    # splits too; K(Z, Z) comes out bitwise symmetric with d2 = 0 on the
+    # diagonal.
+    rng = np.random.RandomState(5)
+    pix = [torch.from_numpy(np.clip(0.5 + 0.15 * rng.randn(n, 784), 0, 1)
+                            .astype(np.float32)) for n in (48, 24)]
+    ls = torch.from_numpy(rng.uniform(1.5, 2.5, 784).astype(np.float32))
+    x, z = pix[0] / ls, pix[1] / ls
+    ref = ((x.double()[:, None] - z.double()[None]) ** 2).sum(-1)
+    plan = tgram.launch_plan(48, 24, 784)
+    assert plan["splits"] == 8, f"summation order: plan {plan}"
+    tol = 2.0 ** -23
+    for splits in (plan["splits"], 1):
+        err = ((_kahan_d2_f32(x, z, splits).double() - ref).abs()
+               / ref).max().item()
+        assert err <= tol, (f"summation order, {splits} splits: d2 off "
+                            f"float64 by {err:.3e} > {tol:.3e}")
+    running = torch.zeros(48, 24)
+    for d in range(784):
+        running = (running.double() + (x[:, None, d] - z[None, :, d])
+                   .double() ** 2).float()
+    assert ((running.double() - ref).abs() / ref).max().item() > 4 * tol, (
+        "summation order: the running sum is as close; the check cannot "
+        "tell the orders apart")
+    sq = _kahan_d2_f32(z, z, tgram.launch_plan(24, 24, 784)["splits"])
+    assert torch.equal(sq, sq.T) and (torch.diagonal(sq) == 0).all(), (
+        "summation order: K(Z, Z)'s distances not symmetric bit for bit")
 
 
 def _check_gram_args():
@@ -887,6 +962,56 @@ def _check_gram_args():
         assert_allclose(K, np.asarray(want), rtol=RTOL, atol=ATOL,
                         err_msg=f"rbf_gram args {name}: the kernel's "
                                 f"arithmetic vs the interpret-mode kernel")
+    # the launch plan handed to the C entry point: D <= 8 the narrow
+    # kernel's 16 x 128 tiles, one block each; above, 64 x 64 tiles whose
+    # chunks of 16 d a cluster of 1-8 blocks splits, each an even share,
+    # doubled while the grid is below one block an SM (on 132 SMs and on
+    # 114) and each block keeps a chunk; no workspace; and what the C entry
+    # point refuses raises here
+    for D in (1, 8, 9, 30, 37, 784):
+        for N, M in ((100, 100), (1000, 100), (77, 1301), (100, 100000),
+                     (100000, 100)):
+            for sms in (132, 114):
+                case = f"rbf_gram plan N={N} M={M} D={D} sms={sms}"
+                p = tgram.launch_plan(N, M, D, sms)
+                assert p["workspace_bytes"] == 0, case
+                if D <= 8:
+                    tiles = -(-M // 128) * -(-N // 16)
+                    assert (p["path"], p["splits"], p["grid"]) == (
+                        "narrow", 1, tiles), f"{case}: {p}"
+                    continue
+                tiles, chunks = -(-N // 64) * -(-M // 64), -(-D // 16)
+                sp = p["splits"]
+                assert p["path"] == "wide" and p["tiles"] == tiles and (
+                    p["chunks"] == chunks and p["grid"] == tiles * sp), (
+                    f"{case}: {p}")
+                assert sp in (1, 2, 4, 8) and sp <= chunks and (
+                    sp == 8 or tiles * sp >= sms or 2 * sp > chunks), (
+                    f"{case}: {sp} splits")
+                assert sp == 1 or tiles * sp // 2 < sms, (
+                    f"{case}: {sp} splits past one block an SM")
+                shares = [(r * chunks // sp, (r + 1) * chunks // sp)
+                          for r in range(sp)]
+                assert all(a < b for a, b in shares) and (
+                    shares[0][0] == 0 and shares[-1][1] == chunks) and all(
+                    shares[r][1] == shares[r + 1][0] for r in range(sp - 1)
+                ), f"{case}: shares {shares}"
+    # the MNIST DGP's grams: Kuu and Kuf at D=784 in clusters of 8; the
+    # serving Kuf (100,000 rows) fills the card with tiles alone
+    for (N, M, D), (sp, grid) in (((100, 100, 784), (8, 32)),
+                                  ((1000, 100, 784), (8, 256)),
+                                  ((100, 100, 30), (2, 8)),
+                                  ((100000, 100, 784), (1, 3126))):
+        p = tgram.launch_plan(N, M, D)
+        assert (p["splits"], p["grid"]) == (sp, grid), f"plan {N, M, D}: {p}"
+    for args in ((0, 5, 3), (5, 0, 3), (5, 5, 0), (2 ** 22, 2 ** 22, 784),
+                 (2 ** 22, 2 ** 22, 8)):
+        try:
+            tgram.launch_plan(*args)
+        except ValueError:
+            continue
+        raise AssertionError(f"rbf_gram plan {args}: refused by the C entry "
+                             f"point, not raised here")
 
 
 def _check_timing():

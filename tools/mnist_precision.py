@@ -5,19 +5,29 @@
     python3 tools/mnist_precision.py         # on one NVIDIA GPU
 
 ``--cpu``: the squared distance over 784 pixel-like dimensions summed in
-float32 as the kernels' gram loops sum it (one running fmaf sum, and with
-Kahan's compensation) and as torch sums it, each against float64: the
-largest relative error of d2 over 300 x 60 pairs.
+float32 in each order of :func:`orders` (the kernels' order, Kahan's
+compensation on every term, unsplit as the fused gram stage sums it and
+split over 8 blocks as ``rbf_gram`` sums it at the MNIST Kuu and Kuf; a
+running sum; the blocked order also tried) and as torch sums it, each
+against float64: the largest relative error of d2 over 300 x 60 pairs,
+and each one's largest relative distance from the unsplit Kahan order.
 
-On the card (imports ``chip_smoke.py``'s phase 25 helpers): trains the
-MNIST DGP2 and DGP3 as phase 25 does, then for four draw seeds prints the
-ELBO gradient's relative error per parameter tensor against the float64
-CPU path, through the fused kernels and through ``use_pallas=False``, and
-each layer's fused forward and backward errors against float64 on the
-trained model's operands, beside the plain float32 version's.
+On the card (imports ``chip_smoke.py``'s phase 25 helpers): the same orders on
+the card, against the gram the kernels return (``rbf_gram``'s and the fused
+forward's saved gram at pixel-like rows, 1000 x 100): each one's largest
+relative error against the float64 gram and its distance from the Kahan
+order's gram; then trains the MNIST DGP2 and DGP3 as phase 25 does, and for
+four draw seeds (``--seeds``) prints the ELBO gradient's relative error per
+parameter tensor against the float64 CPU path, through the fused kernels,
+through ``use_pallas=False`` (phase 25's gate: the first within 2x the second
+at draw seed 0), and through the fused route with its fused pair exact
+(float64, rounded: the route's error with exact kernels), and each layer's
+fused forward and backward errors against float64 on the trained model's
+operands, beside the plain float32 version's.
 """
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -27,39 +37,145 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-D = 784
+D, CHUNK = 784, 16
+
+
+def pixels(n, rng):
+    """n pixel-like rows in [0, 1] (mean 0.5, std 0.15), float32."""
+    return np.clip(0.5 + rng.randn(n, D) * 0.15, 0, 1).astype(np.float32)
+
+
+def kahan(total, comp, x):
+    """total += x with Kahan's compensation comp (tensors of one dtype)."""
+    y = x - comp
+    t = total + y
+    return t, (t - total) - y
+
+
+def orders(x, z):
+    """{order: d2 (N, M) float32} of the rows x (N, D) and z (M, D), float32
+    tensors on one device, summed in each order (fmaf emulated as the
+    float64 sum of the exact product, rounded to float32): a running fmaf
+    sum (the earliest design's); Kahan's compensation on every term, the
+    square folded into fmaf(u, u, -c) (the kernels' order), also with
+    the 16-wide chunks of d split over 8 blocks whose totals less their
+    compensations are added compensated (rbf_gram at the MNIST Kuu and
+    Kuf); and fmaf chains over 16 terms, each chunk's partial added
+    compensated (a blocked order also tried), unsplit."""
+    sq = (x[:, None, :] - z[None, :, :]).double() ** 2
+    zero = torch.zeros(sq.shape[:2], dtype=torch.float32, device=x.device)
+    chunks = -(-D // CHUNK)
+
+    def kahan_terms(d0, d1):
+        tot = comp = zero
+        for d in range(d0, d1):
+            y = (sq[..., d] - comp.double()).float()     # fmaf(u, u, -comp)
+            t = tot + y
+            tot, comp = t, (t - tot) - y
+        return tot - comp
+
+    def combine(parts):
+        S = C = zero
+        for v in parts:
+            S, C = kahan(S, C, v)
+        return S - C
+
+    run = zero
+    for d in range(D):
+        run = (run.double() + sq[..., d]).float()
+    blocked = []
+    for c in range(chunks):
+        p = zero
+        for d in range(CHUNK * c, min(D, CHUNK * c + CHUNK)):
+            p = (p.double() + sq[..., d]).float()
+        blocked.append(p)
+    return {"running fmaf sum (earliest design)": run,
+            "Kahan on every term (the kernels)": kahan_terms(0, D),
+            "Kahan on every term, 8 splits (rbf_gram)": combine(
+                [kahan_terms(CHUNK * (r * chunks // 8),
+                             min(D, CHUNK * ((r + 1) * chunks // 8)))
+                 for r in range(8)]),
+            "blocked (also tried)": combine(blocked)}
 
 
 def distance_sums(seed=0):
     rng = np.random.RandomState(seed)
-    X = (np.clip(0.5 + rng.randn(300, D) * 0.15, 0, 1) / 2).astype(
-        np.float32)
-    Z = (np.clip(0.5 + rng.randn(60, D) * 0.15, 0, 1) / 2).astype(np.float32)
-    ref = ((X.astype(np.float64)[:, None] - Z.astype(np.float64)[None])
-           ** 2).sum(-1)
-    U = (X[:, None] - Z[None]).astype(np.float32)
-    sq = U.astype(np.float64) ** 2          # fmaf: the product is exact
-    run = np.zeros(ref.shape, np.float32)
-    tot = np.zeros(ref.shape, np.float32)
-    comp = np.zeros(ref.shape, np.float32)
-    for d in range(D):
-        run = (run.astype(np.float64) + sq[..., d]).astype(np.float32)
-        y = (sq[..., d] - comp).astype(np.float32)
-        t = (tot + y).astype(np.float32)
-        comp = ((t - tot).astype(np.float32) - y).astype(np.float32)
-        tot = t
-    pairwise = torch.sum(torch.from_numpy(U) ** 2, -1).numpy()
-    for name, got in (("running fmaf sum", run), ("Kahan", tot),
-                      ("torch.sum", pairwise)):
-        err = np.abs(got.astype(np.float64) - ref) / ref
-        print(f"d2 over {D} dims (mean d2 {ref.mean():.3f}), {name}: max "
-              f"relative error {err.max():.3e}", flush=True)
+    X = torch.from_numpy(pixels(300, rng) / 2)
+    Z = torch.from_numpy(pixels(60, rng) / 2)
+    ref = ((X.double()[:, None] - Z.double()[None]) ** 2).sum(-1)
+    got = orders(X, Z)
+    got["torch.sum"] = torch.sum((X[:, None] - Z[None]) ** 2, -1)
+    kahan_d2 = got["Kahan on every term (the kernels)"].double()
+    for name, d2 in got.items():
+        err = ((d2.double() - ref).abs() / ref).max().item()
+        gap = ((d2.double() - kahan_d2).abs() / ref).max().item()
+        print(f"d2 over {D} dims (mean d2 {ref.mean().item():.3f}), {name}: "
+              f"max relative error {err:.3e}; from the Kahan order "
+              f"{gap:.3e}", flush=True)
 
 
-def on_card():
+def gram_orders_on_card(cs):
+    """The orders on the card beside the kernels' grams: K = 2 exp(-d2 / 2)
+    at lengthscale 2 over 1000 x 100 pixel-like rows, float32."""
+    rng = np.random.RandomState(1)
+    X = torch.from_numpy(pixels(1000, rng)).cuda()
+    Z = torch.from_numpy(pixels(100, rng)).cuda()
+    two = torch.tensor(2.0, device="cuda")
+    x, z = X / two, Z / two
+    ref = 2.0 * torch.exp(-0.5 * ((x.double()[:, None] - z.double()[None])
+                                  ** 2).sum(-1))
+    with torch.no_grad():
+        grams = {k: 2.0 * torch.exp(-0.5 * d2)
+                 for k, d2 in orders(x, z).items()}
+        grams["rbf_gram kernel"] = cs.gram.rbf_gram_kernel(X, Z, two, two)
+        M_, Do = Z.shape[0], 30
+        args = cs.conditional_inputs(X.shape[0], M_, D, Do, 0)
+        grams["fused forward, saved gram"] = cs.fused_conditional_forward(
+            x, z, *args[2:5], two, two + 2e-6, save_gram=True)[2]
+    old = grams["Kahan on every term (the kernels)"].double()
+    for name, K in grams.items():
+        err = ((K.double() - ref).abs() / ref).max().item()
+        gap = ((K.double() - old).abs() / ref).max().item()
+        print(f"gram on the card over {D} dims, {name}: max relative error "
+              f"{err:.3e}; from the Kahan order {gap:.3e} "
+              f"[{cs.card_line()}]", flush=True)
+
+
+@contextlib.contextmanager
+def exact_fused_pair():
+    """The kernel route with its fused forward and backward replaced by
+    their plain versions in float64, rounded to float32: what the route's
+    gradient error would be with exact fused kernels."""
+    from doubly_stochastic_dgp_tpu_torch.ops.cuda import conditional as C
+    fwd, bwd = C.fused_conditional_forward, C.fused_conditional_backward
+
+    def exact_fwd(Xs, Zs, LiT, alpha, W, kvar, kdiag, save_gram=False):
+        kv, kd = C._scalars(kvar, kdiag, Xs)
+        m, v, K = C.fused_conditional_saved_plain(
+            *(t.double() for t in (Xs, Zs, LiT, alpha, W, kv, kd)))
+        return m.float(), v.float(), K.float() if save_gram else None
+
+    def exact_bwd(Xs, Zs, LiT, alpha, W, kvar, kdiag, mean, var, gm, gv,
+                  K=None):
+        kv, kd = C._scalars(kvar, kdiag, Xs)
+        g = C.fused_conditional_backward_plain(
+            *(t.double() for t in (Xs, Zs, LiT, alpha, W, kv, kd, mean, var,
+                                   gm, gv)), None if K is None else K.double())
+        return tuple(t.float() for t in g)
+
+    C.fused_conditional_forward = exact_fwd
+    C.fused_conditional_backward = exact_bwd
+    try:
+        yield
+    finally:
+        C.fused_conditional_forward, C.fused_conditional_backward = fwd, bwd
+
+
+def on_card(seeds=4):
     import chip_smoke as cs
     print(f"card: {cs.card_line()}", flush=True)
     cs.build.build_all()
+    gram_orders_on_card(cs)
     data = cs.mnist_data(0)
     names = ["dXs", "dZs", "dLiT", "dalpha", "dW", "dkvar", "dkdiag"]
     for label, hidden in cs.MNIST_MODELS.items():
@@ -71,23 +187,32 @@ def on_card():
         ref = cs.mnist_model(data, hidden, 0, device="cpu",
                              dtype=torch.float64)
         ref.load_state_dict(state)
-        for seed in range(4):
+        for seed in range(seeds):
             rng = np.random.RandomState(seed + 3)
             idx = rng.randint(0, ref.X_data.shape[0], cs.BATCH)
             zs = [rng.randn(1, cs.BATCH, d) for d in hidden + (cs.MNIST_K,)]
             _, g64 = cs.loss_grads(ref, torch.as_tensor(idx), zs)
-            worst = {}
-            for name, m in (("kernel", model), ("plain", plain)):
-                _, g = cs.loss_grads(m, torch.as_tensor(idx, device="cuda"),
-                                     zs)
-                worst[name] = max(
-                    ((g[p] - g64[p]).abs().max()
-                     / g64[p].abs().max().clamp_min(1e-30)).item()
-                    for p in g)
+            worst, top = {}, {}
+            for name, m, ctx in (("kernel", model, contextlib.nullcontext()),
+                                 ("plain", plain, contextlib.nullcontext()),
+                                 ("exact", model, exact_fused_pair())):
+                with ctx:
+                    _, g = cs.loss_grads(
+                        m, torch.as_tensor(idx, device="cuda"), zs)
+                errs = {p: ((g[p] - g64[p]).abs().max()
+                            / g64[p].abs().max().clamp_min(1e-30)).item()
+                        for p in g}
+                worst[name] = max(errs.values())
+                top[name] = ", ".join(
+                    f"{p.replace('.unconstrained', '')} {e:.2e}" for p, e in
+                    sorted(errs.items(), key=lambda kv: -kv[1])[:2])
             print(f"{label} draw seed {seed}: worst relative gradient error "
-                  f"kernel {worst['kernel']:.3e}, plain {worst['plain']:.3e}"
-                  f" (ratio {worst['kernel'] / worst['plain']:.2f})",
-                  flush=True)
+                  f"kernel {worst['kernel']:.3e} ({top['kernel']}), plain "
+                  f"{worst['plain']:.3e} ({top['plain']}) (ratio "
+                  f"{worst['kernel'] / worst['plain']:.2f}); the kernel "
+                  f"route with the fused pair exact {worst['exact']:.3e} "
+                  f"({top['exact']}) (ratio "
+                  f"{worst['exact'] / worst['plain']:.2f})", flush=True)
         rng = np.random.RandomState(6)
         Xb = torch.as_tensor(data["X"][rng.randint(0, cs.MNIST_N, cs.BATCH)],
                              device="cuda")
@@ -116,6 +241,8 @@ def on_card():
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seeds", type=int, default=4,
+                        help="draw seeds of the gradient comparison")
     parser.add_argument("--cpu", action="store_true",
                         help="only the distance-sum emulation")
     args = parser.parse_args()
@@ -125,7 +252,7 @@ def main():
     if not torch.cuda.is_available():
         print("mnist_precision: CUDA is not available", file=sys.stderr)
         return 1
-    on_card()
+    on_card(args.seeds)
     return 0
 
 
