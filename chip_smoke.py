@@ -10,6 +10,9 @@ Phases, each of which raises on a failed check:
    every CUDA kernel from the sources in this checkout (one nvcc per
    source, all started together); raises if a build fails.  Prints each
    kernel's registers and spills (ptxas), resident blocks an SM, the
+   fused backward's reduction launch at the MNIST layers' shapes and the
+   headline's (dX's, dZ's, dalpha's and the products' tiles, threads,
+   shared memory, resident blocks an SM; raises if none fits), the
    psi2 backward's launch plan at both collapsed cells and at (2000, 512,
    2) (raises if its gZ scratch is above 32 MB at N or at 1000 N, or if
    fewer blocks fit an SM than the plan counts on), and the psi2
@@ -22,8 +25,9 @@ Phases, each of which raises on a failed check:
    (B=10,000, M=100, Dx=8, Do=8 and 1), a ragged multi-tile, a
    clamp-active and an M=512 shape, the edges of the tiling (B=1, one
    row past a 40-row block and past a 16-row reduction slice, Do=13, M=1),
-   and wide inputs through the gram stage's 16-wide chunks (Dx=9, 30 and
-   784 at B=1, 41 and 1000, and Dx=785, one past a chunk), in float32, both
+   wide inputs through the gram stage's 16-wide chunks (Dx=9, 30 and 784
+   at B=1, 41 and 1000, and Dx=785, one past a chunk) and through the
+   backward's dX and dZ tiles (Dx=784 at M=37, B=41), in float32, both
    also held against the plain version in float64 on the same inputs.
    Raises if a kernel fails to launch, gives a non-finite value, differs
    from the plain float32 version by more than 1e-4 of the output scale
@@ -614,18 +618,21 @@ EARLIER_DEVICE_MS = {
     ("rbf_gram", "Kuf_M100_B10000_D8 float32"): "0.0061-0.0064",
     ("rbf_gram", "Kuf_M100_B100000_D8 float32"): "0.0481",
     # the wide gram before the staged, cluster-split kernel (one thread 4 x
-    # 4 outputs over every d from L1, Kahan per term) and the fused pair
+    # 4 outputs over every d from L1, Kahan per term) and the fused forward
     # before the tiled gram stage (one thread a gram entry from L1): the
-    # MNIST shapes, CUDA-graph replays (PERF.md §6, rows 1, 3 and 5)
+    # MNIST shapes, CUDA-graph replays (PERF.md §6, rows 1 and 5)
     ("rbf_gram", "mnist Kuu_M100_D784"): "1.7105",
     ("rbf_gram", "mnist Kuf_B1000_M100_D784"): "1.7212",
     ("fused_conditional", "mnist layer0_Dx784_Do30"): "1.5202",
     ("fused_conditional", "mnist hidden_Dx30_Do30"): "0.2801",
     ("fused_conditional", "mnist last_Dx30_Do10"): "0.1166",
     ("fused_conditional", "mnist serving_Dx784_Do30"): "48.5329",
-    ("fused_conditional_backward", "mnist layer0_Dx784_Do30"): "2.5740",
-    ("fused_conditional_backward", "mnist hidden_Dx30_Do30"): "0.4294",
-    ("fused_conditional_backward", "mnist last_Dx30_Do10"): "0.2183"}
+    # the fused backward before its tiled dX and dZ passes (one thread an
+    # output: dX at the row pass's end, dZ a column a warp over each slice's
+    # rows), with the tiled gram stage: CUDA-graph replays (PERF.md §6, row 3)
+    ("fused_conditional_backward", "mnist layer0_Dx784_Do30"): "1.4485",
+    ("fused_conditional_backward", "mnist hidden_Dx30_Do30"): "0.4198",
+    ("fused_conditional_backward", "mnist last_Dx30_Do10"): "0.2083"}
 # kernel vs plain float32 on the same inputs: both are float32 with
 # different summation orders, so they may differ by float32 roundoff
 # amplified by the staged products; relative to the output scale
@@ -863,7 +870,10 @@ KERNEL_CASES = [("serving_Do8", 100000, M, 8, 8, False),
                 ("Dx784_B1", 1, M, 784, 8, False),
                 ("Dx784_B41", 41, M, 784, 8, False),
                 ("Dx784_B1000", 1000, M, 784, 8, False),
-                ("Dx785_B1000", 1000, M, 785, 8, False)]
+                ("Dx785_B1000", 1000, M, 785, 8, False),
+                # a ragged M (the tail of dX's four chains) and a dX tile
+                # one row past B
+                ("Dx784_M37_B41", 41, 37, 784, 8, False)]
 
 
 def wide_spread(D):
@@ -7069,12 +7079,14 @@ def print_occupancy():
                "backward rows saved": bwd.fused_conditional_bwd_occupancy(
                    1, M_, Do, 0, 0),
                "backward reduction": bwd.fused_conditional_bwd_occupancy(
-                   2, M_, Do, plan["tile"], plan["reduce_threads"])}
+                   2, M_, Do, plan["reduce_threads"],
+                   plan["reduce_smem_bytes"])}
         print(f"occupancy M={M_} Do={Do}: resident blocks an SM "
               + ", ".join(f"{k} {v}" for k, v in occ.items())
               + f" (row kernels {forward_plan(1, M_)['tb']} rows and 256 "
               f"threads a block; reduction {plan['reduce_threads']} "
               f"threads)", flush=True)
+    print_backward_passes(bwd)
     lib = build.load_library("rbf_gram")
     lib.rbf_gram_occupancy.argtypes = [ctypes.c_int] * 2
     print("occupancy rbf_gram D=8: resident blocks an SM float32 "
@@ -7093,6 +7105,45 @@ def print_occupancy():
                       for k, p in wide.items()), flush=True)
     print_psi2_backward_plans()
     print_psi2_forward_plans()
+
+
+# (B, M, Dx, Do) of the backward's reduction-launch printout: the MNIST
+# layers (0, hidden, last; layer 0 of the output-dimension rank) and the
+# headline's training layer
+BACKWARD_PASS_SHAPES = ((BATCH, M, 784, 30), (BATCH, M, 30, 30),
+                        (BATCH, M, 30, 10), (BATCH, M, 784, 15),
+                        (TRAIN_S * BATCH, M, 8, 8))
+
+
+def print_backward_passes(bwd):
+    """The backward's reduction launch at BACKWARD_PASS_SHAPES: its jobs
+    (dX's tiles, or dX in the row pass; dZ's and dalpha's column-sum tiles;
+    the product tiles), threads, shared memory and resident blocks an SM
+    (raises if none fits), beside the kernel's registers and spills
+    (ptxas)."""
+    res = next((v for k, v in PTXAS.items()
+                if "fused_conditional_bwd_reduce_kernel" in k), {})
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, M_, Dx, Do in BACKWARD_PASS_SHAPES:
+        p = backward_plan(B, M_, Dx, Do, sms)
+        occ = bwd.fused_conditional_bwd_occupancy(
+            2, M_, Do, p["reduce_threads"], p["reduce_smem_bytes"])
+        dx = ("in the row pass" if p["dx_in_rows"] else
+              f"{p['dx_blocks']} tiles of {4 * p['dx_row_groups']} x "
+              f"{4 * p['dx_col_groups']}")
+        cols = 4 * p["sum_groups"]
+        print(f"backward passes B={B} M={M_} Dx={Dx} Do={Do}: dX {dx}; dZ "
+              f"{p['dz_blocks']} tiles of {cols} x {4 * p['dz_groups']}, "
+              f"dalpha {p['dalpha_blocks']} of {cols} x "
+              f"{4 * p['dalpha_groups']} ({p['nslices']} slices of "
+              f"{p['rows_per_slice']} rows); product tiles "
+              f"{p['product_blocks']}; reduction launch {p['reduce_blocks']} "
+              f"blocks of {p['reduce_threads']} threads, "
+              f"{p['reduce_smem_bytes'] / 1024:.1f} KB, resident blocks an "
+              f"SM {occ}; ptxas {res.get('registers')} registers, "
+              f"{res.get('spill bytes')} B spilled", flush=True)
+        check(occ >= 1, f"backward reduction at B={B} M={M_} Dx={Dx} "
+                        f"Do={Do}: no block fits an SM")
 
 
 # registers and spills of each kernel, as ptxas reported them in the build

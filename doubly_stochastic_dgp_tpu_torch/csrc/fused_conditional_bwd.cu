@@ -39,17 +39,30 @@
 // registers and adds 2 gv_d T_d to it at the end of each W_d; dG then takes
 // gm alpha^T, and dK's epilogue forms Gd = -0.5 dK K.  Two shared tiles serve:
 // K then dG, and G then Gd (the epilogue reads K back from global
-// memory).  The pass writes dX and the row panels the sums need, G, dG, Gd and
-// (unless saved) K, each (B, P) with P = M rounded up to 4 and zeros past M.
+// memory).  The pass writes the row panels the sums need, G, dG, Gd and
+// (unless saved) K, each (B, P) with P = M rounded up to 4 and zeros past M,
+// and, at narrow Dx only (conditional.py::DX_IN_ROWS_MAX), dX, one thread
+// an output.
 //
-// Reduction pass (fused_conditional_bwd_reduce_kernel).  dW_d and dLiT
-// are products over the batch, G^T diag(gv_d) G and K^T dG, on square
-// output tiles sized to M (M rounded up to 8, at most 128: one 104 x 104
-// tile at M = 100), each block one tile over one of R fixed row slices,
-// streaming 8-row slices of the two panels through a cp.async ring (the
-// gv_d scale applied to the A slice in shared memory), an 8 x 8 tile a
-// thread.  dalpha and dZ are FFMA sums, one thread an output.  With R > 1
-// each slice writes its own partial outputs and a third kernel adds them
+// Reduction pass (fused_conditional_bwd_reduce_kernel), one launch of
+// independent jobs over the panels.  dW_d and dLiT are products over the
+// batch, G^T diag(gv_d) G and K^T dG, on square output tiles sized to M (M
+// rounded up to 8, at most 128: one 104 x 104 tile at M = 100), each block
+// one tile over one of R fixed row slices, streaming 8-row slices of the two
+// panels through a cp.async ring (the gv_d scale applied to the A slice in
+// shared memory), an 8 x 8 tile a thread.  dZ and dalpha are column sums
+// over the same slices (colsum_tile): a block a tile of inducing points by
+// columns, a 4 x 4 register tile a thread, the slice's panel rows (Gd or G)
+// and its Xs or gm rows streamed through a ring of 16-row slices, one FFMA
+// chain an output in row order.  dX, where the row pass does not form it,
+// is a grid of row tiles by column chunks (dx_tile): Gd's rows and Zs's
+// columns staged in 16-wide chunks of m, a 4 x 4 register tile a thread with
+// x in registers, four FFMA chains an output.  Both keep the order of the
+// one-thread-an-output passes they replace, so every gradient has the same
+// bits as they gave.  At the MNIST layer 0 (B = 1000, Dx = 784) those passes
+// ran on 25 and 20 blocks, one dependent chain with global loads a step;
+// the tiles give the launch 578 blocks of two instructions a term.  With R >
+// 1 each slice writes its own partial outputs and a third kernel adds them
 // in slice order; R is chosen by the wrapper's launch plan
 // (conditional.py::backward_plan): two output-tile blocks an SM, as far as
 // the partials stay within 8 MB, whatever B is.  Repeat launches give the
@@ -78,10 +91,6 @@ __host__ __device__ inline size_t rows_smem_floats(int M, int Do) {
          (size_t)2 * TB * Do;
 }
 
-__host__ __device__ inline size_t reduce_smem_floats(int T) {
-  return (size_t)kStages * (2 * kKS * T + kKS);
-}
-
 template <bool kSaved>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_conditional_bwd_rows_kernel(
@@ -91,7 +100,7 @@ fused_conditional_bwd_rows_kernel(
     const float* __restrict__ gm, const float* __restrict__ gv,
     const float* __restrict__ Kin, float* __restrict__ dX,
     float* __restrict__ Kp, float* __restrict__ Gp, float* __restrict__ dGp,
-    float* __restrict__ Gdp, int64_t B, int M, int Dx, int Do) {
+    float* __restrict__ Gdp, int64_t B, int M, int Dx, int Do, int dx_rows) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int CG = col_groups(M), RG = row_groups(M), TB = 4 * RG;
@@ -221,10 +230,11 @@ fused_conditional_bwd_rows_kernel(
     zero(acc);
   }
   cp_async_wait_all();
+  if (!dx_rows) return;
   __syncthreads();  // every thread's Gd is in
 
   // dX = 2 sum_m Gd_m (x - z_m), one thread an output, as four interleaved
-  // FFMA chains added pairwise
+  // FFMA chains (m mod 4, m ascending) added pairwise: dx_tile's order
   for (int e = tid; e < TB * Dx; e += kThreads) {
     const int i = e / Dx, j = e - i * Dx;
     const int64_t r = row0 + i;
@@ -246,56 +256,62 @@ fused_conditional_bwd_rows_kernel(
   }
 }
 
-// One block: one T x T output tile of dW_q (q < Do) or dLiT (q == Do)
-// over one row slice, or one 32-wide column chunk of dalpha and dZ over
-// it.  Writes to out + slice * E (E = 0: one slice, the outputs
-// themselves).  Thread t owns the 8 x 8 tile at rows (t % (T / 8)) * 8,
-// columns (t / (T / 8)) * 8 of the output tile.
-__global__ void __launch_bounds__(256)
-fused_conditional_bwd_reduce_kernel(
-    const float* __restrict__ Kg, int ldk, const float* __restrict__ Gp,
-    const float* __restrict__ dGp, const float* __restrict__ Gdp,
-    const float* __restrict__ gm, const float* __restrict__ gv,
-    const float* __restrict__ Xs, const float* __restrict__ Zs,
-    float* __restrict__ out, int64_t E, int64_t B, int M, int Dx, int Do,
-    int64_t rows_per_slice, int T) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int P = 4 * col_groups(M);  // the panels' row stride
-  const int nt = (M + T - 1) / T;
-  const int big = (Do + 1) * nt * nt;
-  const int jobs = big + (M + 31) / 32;
-  const int slice = blockIdx.x / jobs, job = blockIdx.x - slice * jobs;
-  const int64_t rs = (int64_t)slice * rows_per_slice;
-  const int64_t re = rs + rows_per_slice < B ? rs + rows_per_slice : B;
-  float* dst = out + (int64_t)slice * E;
-  const int64_t oL = (int64_t)Do * M * M, oA = oL + (int64_t)M * M;
-  const int64_t oZ = oA + (int64_t)M * Do;
-  const int tid = threadIdx.x, nthreads = blockDim.x;
+// The reduction launch's jobs (conditional.py::backward_plan): square
+// output tiles of `tile` columns for dW and dLiT; column-sum tiles of 4 cg
+// inducing points by 4 zjg (dZ) or 4 ajg (dalpha) columns; dX tiles of 4 xrg
+// rows by 4 xjg columns (xrg = 0: the row pass forms dX).
+struct ReducePlan {
+  int tile, cg, zjg, ajg, xrg, xjg;
+};
 
-  if (job >= big) {
-    // dalpha[m][d] = sum_r G[r][m] gm[r][d];
-    // dZ[m][j] = 2 sum_r Gd[r][m] (z[m][j] - x[r][j])
-    const int m = (job - big) * 32 + (tid & 31);
-    if (m >= M) return;
-    for (int c = tid >> 5; c < Do + Dx; c += nthreads >> 5) {
-      if (c < Do) {
-        float a = 0.f;
-        for (int64_t r = rs; r < re; ++r)
-          a = fmaf(__ldg(Gp + r * P + m), __ldg(gm + r * Do + c), a);
-        dst[oA + (int64_t)m * Do + c] = a;
-      } else {
-        const int j = c - Do;
-        const float z = __ldg(Zs + (size_t)m * Dx + j);
-        float a = 0.f;
-        for (int64_t r = rs; r < re; ++r)
-          a = fmaf(__ldg(Gdp + r * P + m), z - __ldg(Xs + r * Dx + j), a);
-        dst[oZ + (int64_t)m * Dx + j] = 2.f * a;
-      }
-    }
-    return;
+__host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) {
+  return (a + b - 1) / b;
+}
+
+// Jobs of the launch, in block order: the dW / dLiT tiles of every slice
+// (`big` a slice), then dZ's column-sum tiles of every slice (`nz` a slice),
+// dalpha's (`na`), then dX's tiles (`nx`).
+struct ReduceJobs {
+  int nt, big, nmt, nz, na;
+  int64_t nx, blocks;
+
+  __host__ __device__ ReduceJobs(const ReducePlan& p, int64_t B, int M,
+                                 int Dx, int Do, int nslices) {
+    nt = (int)cdiv(M, p.tile);
+    big = (Do + 1) * nt * nt;
+    nmt = (int)cdiv(M, 4 * p.cg);
+    nz = nmt * (int)cdiv(Dx, 4 * p.zjg);
+    na = nmt * (int)cdiv(Do, 4 * p.ajg);
+    nx = p.xrg > 0 ? cdiv(B, 4 * p.xrg) * cdiv(Dx, 4 * p.xjg) : 0;
+    blocks = (int64_t)nslices * (big + nz + na) + nx;
   }
+};
 
+// shared memory of the reduction launch: the largest of its jobs' rings
+__host__ inline size_t reduce_smem_floats(const ReducePlan& p) {
+  const size_t tiles = (size_t)kStages * (2 * kKS * p.tile + kKS);
+  const int jg = p.zjg > p.ajg ? p.zjg : p.ajg;
+  const size_t sums = (size_t)kStages * kKS * 4 * (p.cg + jg);
+  const size_t dx =
+      (size_t)kStages * (4 * p.xrg * gt::kRow<float> + kKS * 4 * p.xjg);
+  size_t n = tiles > sums ? tiles : sums;
+  return n > dx ? n : dx;
+}
+
+__host__ __device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// One T x T output tile of dW_q (q < Do) or dLiT (q == Do) over the rows rs
+// .. re - 1 of one slice, into o (the slice's outputs).  Thread t owns the
+// 8 x 8 tile at rows (t % (T / 8)) * 8, columns (t / (T / 8)) * 8 of it.
+__device__ __forceinline__ void product_tile(
+    float* smem, const float* __restrict__ Kg, int ldk,
+    const float* __restrict__ Gp, const float* __restrict__ dGp,
+    const float* __restrict__ gv, float* __restrict__ o, int64_t rs,
+    int64_t re, int M, int Do, int P, int T, int job, int tid,
+    int nthreads) {
+  const int nt = (M + T - 1) / T;
   const int q = job / (nt * nt), tile = job - q * (nt * nt);
   const int m0 = (tile / nt) * T, n0 = (tile % nt) * T;
   const bool scaled = q < Do;
@@ -347,7 +363,7 @@ fused_conditional_bwd_reduce_kernel(
   }
   cp_async_wait_all();
   if (!active) return;
-  float* o = dst + (scaled ? (int64_t)q * M * M : oL);
+  o += scaled ? (int64_t)q * M * M : (int64_t)Do * M * M;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int m = m0 + lr + i;
@@ -356,6 +372,232 @@ fused_conditional_bwd_reduce_kernel(
       const int n = n0 + lc + j;
       if (m < M && n < M) o[(int64_t)m * M + n] = acc[i][j];
     }
+  }
+}
+
+// One column-sum tile over the rows rs .. re - 1 of one slice: o[m][c] (an
+// M x W output) for the 4 cg inducing points from m0 and the 4 jg columns
+// from c0, one FFMA chain an output in row order,
+//   kDiff (dZ):  2 sum_r Gd[r][m] (z[m][c] - x[r][c])    (Pn = Gd, V = Xs)
+//   dalpha:        sum_r  G[r][m] gm[r][c]                (Pn = G,  V = gm)
+// The panel's rows (columns m0 ..) and V's (columns c0 ..) stream through a
+// ring of kKS-row slices; thread t owns the 4 x 4 register tile at m-group
+// t % cg and column group t / cg, with kDiff z[m][c] in registers.
+template <bool kDiff>
+__device__ __forceinline__ void colsum_tile(
+    float* smem, const float* __restrict__ Pn, int P,
+    const float* __restrict__ V, int W, const float* __restrict__ Zs,
+    float* __restrict__ o, int64_t rs, int64_t re, int M, int m0, int c0,
+    int cg, int jg, int tid, int nthreads) {
+  const int MT = 4 * cg, CT = 4 * jg, SF = kKS * (MT + CT);
+  const bool active = tid < cg * jg;
+  const int lm = (tid % cg) * 4, lc = (tid / cg) * 4;
+  const SliceLoader lp(MT, true, tid, nthreads);
+  const SliceLoader lv(CT, (W & 3) == 0 && aligned16(V), tid, nthreads);
+  const int nsteps = re > rs ? (int)((re - rs + kKS - 1) / kKS) : 0;
+  auto issue = [&](int s) {
+    float* st = smem + (size_t)(s % kStages) * SF;
+    const int64_t r0 = rs + (int64_t)s * kKS;
+    lp.copy(st, MT, Pn + m0, P, r0, re, P - m0);
+    lv.copy(st + kKS * MT, CT, V + c0, W, r0, re, W - c0);
+  };
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nsteps) issue(s);
+    cp_async_commit();
+  }
+
+  float z[4][4], a[4][4];
+  zero(a);
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + lm + i, c = c0 + lc + j;
+      z[i][j] = (kDiff && active && m < M && c < W)
+                    ? __ldg(Zs + (int64_t)m * W + c) : 0.f;
+    }
+  for (int s = 0; s < nsteps; ++s) {
+    cp_async_wait_ring();
+    __syncthreads();  // slice s is in; slice s - 1's buffer is free
+    if (s + kStages - 1 < nsteps) issue(s + kStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const float* ps = smem + (size_t)(s % kStages) * SF + lm;
+    const float* vs = smem + (size_t)(s % kStages) * SF + kKS * MT + lc;
+    const int64_t left = re - rs - (int64_t)s * kKS;  // rows in the slice
+    const int n = left < kKS ? (int)left : kKS;
+    for (int k = 0; k < n; ++k) {
+      float p[4], v[4];
+      gt::load16(ps + k * MT, p);
+      gt::load16(vs + k * CT, v);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          a[i][j] = fmaf(p[i], kDiff ? z[i][j] - v[j] : v[j], a[i][j]);
+    }
+  }
+  cp_async_wait_all();
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + lm + i, c = c0 + lc + j;
+      if (m < M && c < W)
+        o[(int64_t)m * W + c] = kDiff ? 2.f * a[i][j] : a[i][j];
+    }
+}
+
+// One dX tile: the 4 rg rows from r0 and the 4 jg columns from j0 of dX =
+// 2 sum_m Gd[r][m] (x[r][j] - z[m][j]), each output as four interleaved FFMA
+// chains (m mod 4, m ascending) added pairwise, the row pass's order.  Gd's
+// rows (16-wide chunks of m, rows of gt::kRow floats) and Zs's rows (the
+// chunk's m, columns j0 ..) stream through a ring; thread t owns the 4 x 4
+// register tile at row group t / jg and column group t % jg, x in
+// registers.
+__device__ __forceinline__ void dx_tile(
+    float* smem, const float* __restrict__ Gdp, int P,
+    const float* __restrict__ Xs, const float* __restrict__ Zs,
+    float* __restrict__ dX, int64_t B, int M, int Dx, int64_t r0, int j0,
+    int rg, int jg, int tid, int nthreads) {
+  constexpr int kRow = gt::kRow<float>;
+  const int RT = 4 * rg, JT = 4 * jg, SF = RT * kRow + kKS * JT;
+  const bool active = tid < rg * jg;
+  const int lr = (tid / jg) * 4, lc = (tid % jg) * 4;
+  const SliceLoader lz(JT, (Dx & 3) == 0 && aligned16(Zs), tid, nthreads);
+  const int nch = (M + kKS - 1) / kKS;
+  auto issue = [&](int c) {
+    float* st = smem + (size_t)(c % kStages) * SF;
+    const int m0 = c * kKS;
+    for (int e = tid; e < RT * (kKS / 4); e += nthreads) {
+      const int i = e / (kKS / 4), q = (e % (kKS / 4)) * 4;
+      const int64_t r = r0 + i;
+      const bool ok = r < B && m0 + q < P;  // P is a multiple of 4
+      cp_async16(st + i * kRow + q, ok ? Gdp + r * P + m0 + q : Gdp, ok);
+    }
+    lz.copy(st + RT * kRow, JT, Zs + j0, Dx, m0, M, Dx - j0);
+  };
+  for (int c = 0; c < kStages - 1; ++c) {
+    if (c < nch) issue(c);
+    cp_async_commit();
+  }
+
+  float x[4][4], t[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t r = r0 + lr + i;
+      const int col = j0 + lc + j;
+      x[i][j] = (active && r < B && col < Dx) ? __ldg(Xs + r * Dx + col)
+                                              : 0.f;
+    }
+#pragma unroll
+  for (int u = 0; u < 4; ++u) zero(t[u]);
+  for (int c = 0; c < nch; ++c) {
+    cp_async_wait_ring();
+    __syncthreads();  // chunk c is in; chunk c - 1's buffer is free
+    if (c + kStages - 1 < nch) issue(c + kStages - 1);
+    cp_async_commit();
+    if (!active) continue;
+    const float* g = smem + (size_t)(c % kStages) * SF + lr * kRow;
+    const float* zs = smem + (size_t)(c % kStages) * SF + RT * kRow + lc;
+    const int n = M - c * kKS < kKS ? M - c * kKS : kKS;  // m in the chunk
+#pragma unroll
+    for (int q = 0; q < kKS; q += 4) {
+      if (q >= n) break;
+      float gd[4][4];  // gd[i][u] = Gd[row i][m q + u]
+#pragma unroll
+      for (int i = 0; i < 4; ++i) gt::load16(g + i * kRow + q, gd[i]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (q + u >= n) break;  // the ragged tail: chains u < M mod 4
+        float z[4];
+        gt::load16(zs + (q + u) * JT, z);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            t[u][i][j] = fmaf(gd[i][u], x[i][j] - z[j], t[u][i][j]);
+      }
+    }
+  }
+  cp_async_wait_all();
+  if (!active) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int64_t r = r0 + lr + i;
+      const int col = j0 + lc + j;
+      if (r < B && col < Dx)
+        dX[r * Dx + col] = 2.f * ((t[0][i][j] + t[1][i][j]) +
+                                  (t[2][i][j] + t[3][i][j]));
+    }
+}
+
+// One block a job (ReduceJobs).  A slice's jobs write to out + slice * E
+// (E = 0: one slice, the outputs themselves); dX's to dX.  At most 168
+// registers a thread, so that two blocks of 192 threads (the launch at M =
+// 100) fit an SM's 65,536: left to itself ptxas takes 173 and fits one,
+// which made the headline backward 14% slower; capped it takes 159 and
+// spills nothing.
+__global__ void __maxnreg__(168)
+fused_conditional_bwd_reduce_kernel(
+    const float* __restrict__ Kg, int ldk, const float* __restrict__ Gp,
+    const float* __restrict__ dGp, const float* __restrict__ Gdp,
+    const float* __restrict__ gm, const float* __restrict__ gv,
+    const float* __restrict__ Xs, const float* __restrict__ Zs,
+    float* __restrict__ out, float* __restrict__ dX, int64_t E, int64_t B,
+    int M, int Dx, int Do, int nslices, int64_t rows_per_slice,
+    ReducePlan pl) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int P = 4 * col_groups(M);  // the panels' row stride
+  const ReduceJobs jobs(pl, B, M, Dx, Do, nslices);
+  const int tid = threadIdx.x, nthreads = blockDim.x;
+  int64_t b = blockIdx.x;
+  const int64_t nbig = (int64_t)nslices * jobs.big;
+  const int64_t nz = (int64_t)nslices * jobs.nz;
+  const int64_t na = (int64_t)nslices * jobs.na;
+  if (b >= nbig + nz + na) {
+    b -= nbig + nz + na;
+    const int JT = 4 * pl.xjg, ncol = (int)cdiv(Dx, JT);
+    dx_tile(smem, Gdp, P, Xs, Zs, dX, B, M, Dx,
+            (b / ncol) * 4 * pl.xrg, (int)(b % ncol) * JT, pl.xrg, pl.xjg,
+            tid, nthreads);
+    return;
+  }
+  // a slice's job: kind 0 a product tile, 1 dZ, 2 dalpha
+  int kind = 0, per = jobs.big;
+  if (b >= nbig + nz) {
+    kind = 2;
+    b -= nbig + nz;
+    per = jobs.na;
+  } else if (b >= nbig) {
+    kind = 1;
+    b -= nbig;
+    per = jobs.nz;
+  }
+  const int slice = (int)(b / per), job = (int)(b % per);
+  const int64_t rs = (int64_t)slice * rows_per_slice;
+  const int64_t re = rs + rows_per_slice < B ? rs + rows_per_slice : B;
+  float* dst = out + (int64_t)slice * E;
+  const int64_t oA = (int64_t)(Do + 1) * M * M, oZ = oA + (int64_t)M * Do;
+  if (kind == 0) {
+    product_tile(smem, Kg, ldk, Gp, dGp, gv, dst, rs, re, M, Do, P,
+                 pl.tile, job, tid, nthreads);
+  } else {
+    const int mt = job % jobs.nmt, ct = job / jobs.nmt;
+    if (kind == 1)
+      colsum_tile<true>(smem, Gdp, P, Xs, Dx, Zs, dst + oZ, rs, re, M,
+                        mt * 4 * pl.cg, ct * 4 * pl.zjg, pl.cg, pl.zjg, tid,
+                        nthreads);
+    else
+      colsum_tile<false>(smem, Gp, P, gm, Do, nullptr, dst + oA, rs, re, M,
+                         mt * 4 * pl.cg, ct * 4 * pl.ajg, pl.cg, pl.ajg,
+                         tid, nthreads);
   }
 }
 
@@ -379,7 +621,7 @@ cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
                         const float* kvar, const float* gm, const float* gv,
                         const float* Kin, float* dX, float* Kp, float* Gp,
                         float* dGp, float* Gdp, int64_t B, int M, int Dx,
-                        int Do, cudaStream_t stream) {
+                        int Do, int dx_rows, cudaStream_t stream) {
   auto* kernel = fused_conditional_bwd_rows_kernel<kSaved>;
   cudaError_t err = allow_smem(kernel, g_smem_set[kSaved ? 1 : 0]);
   if (err != cudaSuccess) return err;
@@ -388,7 +630,7 @@ cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
   kernel<<<(unsigned)blocks, kThreads,
            rows_smem_floats(M, Do) * sizeof(float), stream>>>(
       Xs, Zs, LiT, alpha, W, kvar, gm, gv, Kin, dX, Kp, Gp, dGp, Gdp, B, M,
-      Dx, Do);
+      Dx, Do, dx_rows);
   return cudaGetLastError();
 }
 
@@ -399,10 +641,13 @@ cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
 // on the device), the cotangents gm, gv (B, Do), Kin the saved (B, M) gram
 // or null (then K is recomputed), dX (B, Dx), out the E = Do*M*M + M*M +
 // M*Do + M*Dx floats of (dW, dLiT, dalpha, dZ), panels the (3 or, without
-// Kin, 4) x B x P floats of the row panels (P = M rounded up to 4), and
-// part the nslices x E floats of slice partials (null when nslices == 1).
-// The reduction's plan (nslices slices of rows_per_slice rows; square
-// output tiles of `tile` columns; `threads` a block) comes from
+// Kin, 4) x B x P floats of the row panels (P = M rounded up to 4; 16-byte
+// aligned), and part the nslices x E floats of slice partials (null when
+// nslices == 1).  The reduction's plan (nslices slices of rows_per_slice
+// rows; square output tiles of `tile` columns; column-sum tiles of 4 cg
+// inducing points by 4 zjg or 4 ajg columns; dX tiles of 4 xrg rows by 4
+// xjg columns, or xrg = 0 for dX in the row pass; `threads` a block and
+// `smem_bytes` of shared memory, at least what the jobs need) comes from
 // conditional.py::backward_plan.  Launches the row pass, the reduction and
 // (nslices > 1) the fixed-order sum on `stream`.  Returns a cudaError_t
 // code (0 = launched).
@@ -411,45 +656,51 @@ extern "C" int fused_conditional_bwd(
     const float* W, const float* kvar, const float* gm, const float* gv,
     const float* Kin, float* dX, float* out, float* panels, float* part,
     int64_t B, int M, int Dx, int Do, int nslices, int64_t rows_per_slice,
-    int tile, int threads, void* stream) {
+    int tile, int threads, int cg, int zjg, int ajg, int xrg, int xjg,
+    int smem_bytes, void* stream) {
   if (B <= 0 || M <= 0 || M > kMaxM || Dx <= 0 || Do <= 0 ||
-      rows_smem_floats(M, Do) * sizeof(float) > 232448)
+      rows_smem_floats(M, Do) * sizeof(float) > 232448 ||
+      !aligned16(panels))
     return (int)cudaErrorInvalidValue;
-  const int P = 4 * col_groups(M);  // the panels' row stride
+  const ReducePlan pl{tile, cg, zjg, ajg, xrg, xjg};
   if (nslices < 1 || rows_per_slice < 1 ||
       (int64_t)nslices * rows_per_slice < B || (nslices > 1 && !part) ||
       tile % 8 || tile < 8 || tile > 128 || tile > round_up(M, 8) ||
-      threads % 32 || threads > 256 || threads < (tile / 8) * (tile / 8))
+      threads % 32 || threads > 256 || threads < (tile / 8) * (tile / 8) ||
+      cg < 1 || zjg < 1 || ajg < 1 || cg * zjg > threads ||
+      cg * ajg > threads || xrg < 0 || xjg < 0 ||
+      (xrg > 0 && (xjg < 1 || xrg * xjg > threads)) ||
+      (size_t)smem_bytes < reduce_smem_floats(pl) * sizeof(float) ||
+      smem_bytes > 232448)
     return (int)cudaErrorInvalidValue;
+  const ReduceJobs jobs(pl, B, M, Dx, Do, nslices);
+  if (jobs.blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int P = 4 * col_groups(M);  // the panels' row stride
   const int64_t BP = B * P;
   float* Gp = panels;
   float* dGp = Gp + BP;
   float* Gdp = dGp + BP;
   float* Kp = Kin != nullptr ? nullptr : Gdp + BP;
+  const int dx_rows = xrg == 0;
   cudaError_t err =
       Kin != nullptr
           ? launch_rows<true>(Xs, Zs, LiT, alpha, W, kvar, gm, gv, Kin, dX,
-                              nullptr, Gp, dGp, Gdp, B, M, Dx, Do, s)
+                              nullptr, Gp, dGp, Gdp, B, M, Dx, Do, dx_rows, s)
           : launch_rows<false>(Xs, Zs, LiT, alpha, W, kvar, gm, gv, nullptr,
-                               dX, Kp, Gp, dGp, Gdp, B, M, Dx, Do, s);
+                               dX, Kp, Gp, dGp, Gdp, B, M, Dx, Do, dx_rows,
+                               s);
   if (err != cudaSuccess) return (int)err;
 
   err = allow_smem(fused_conditional_bwd_reduce_kernel, g_smem_set[2]);
   if (err != cudaSuccess) return (int)err;
   const int64_t E = (int64_t)Do * M * M + (int64_t)M * M +
                     (int64_t)M * Do + (int64_t)M * Dx;
-  const int nt = (M + tile - 1) / tile;
-  const int64_t blocks =
-      ((int64_t)(Do + 1) * nt * nt + (M + 31) / 32) * nslices;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  fused_conditional_bwd_reduce_kernel<<<(unsigned)blocks, threads,
-                                        reduce_smem_floats(tile) *
-                                            sizeof(float),
-                                        s>>>(
+  fused_conditional_bwd_reduce_kernel<<<(unsigned)jobs.blocks, threads,
+                                        smem_bytes, s>>>(
       Kin != nullptr ? Kin : Kp, Kin != nullptr ? M : P, Gp, dGp, Gdp, gm,
-      gv, Xs, Zs, nslices > 1 ? part : out, nslices > 1 ? E : 0, B, M, Dx,
-      Do, rows_per_slice, tile);
+      gv, Xs, Zs, nslices > 1 ? part : out, dX, nslices > 1 ? E : 0, B, M,
+      Dx, Do, nslices, rows_per_slice, pl);
   err = cudaGetLastError();
   if (err != cudaSuccess || nslices == 1) return (int)err;
   int64_t sblocks = (E + 255) / 256;
@@ -458,11 +709,11 @@ extern "C" int fused_conditional_bwd(
   return (int)cudaGetLastError();
 }
 
-// Resident blocks an SM of the row pass (which 0, saved 1) or the
-// reduction (which 2: `threads` threads, square tiles of `tile`) at this
-// shape, or -1 on an error.
+// Resident blocks an SM of the row pass (which 0, saved 1) at M and Do, or
+// of the reduction (which 2) at `threads` threads and `smem_bytes` of
+// shared memory a block; -1 on an error.
 extern "C" int fused_conditional_bwd_occupancy(int which, int M, int Do,
-                                               int tile, int threads) {
+                                               int threads, int smem_bytes) {
   if (M <= 0 || M > kMaxM || Do <= 0 || which < 0 || which > 2) return -1;
   int n = 0;
   cudaError_t err;
@@ -471,8 +722,7 @@ extern "C" int fused_conditional_bwd_occupancy(int which, int M, int Do,
     err = allow_smem(fused_conditional_bwd_reduce_kernel, g_smem_set[2]);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, fused_conditional_bwd_reduce_kernel, threads,
-          reduce_smem_floats(tile) * sizeof(float));
+          &n, fused_conditional_bwd_reduce_kernel, threads, smem_bytes);
   } else if (which == 1) {
     err = allow_smem(fused_conditional_bwd_rows_kernel<true>, g_smem_set[1]);
     if (err == cudaSuccess)

@@ -24,11 +24,12 @@ products, which both run as register-tiled fp32 FFMA (fp32-accurate: the
 never used), streaming LiT and W_d through shared memory.  The forward
 also exposes those 3xTF32 designs (``design``) for the precision
 comparison that ``chip_smoke.py`` prints.  The backward is two passes: a
-row pass (dX and the row panels G, dG, Gd, K) and a reduction over fixed
-row slices (dW, dLiT, dalpha, dZ) whose partials are added in slice
-order, so it is deterministic and its scratch is bounded independently of
-B (:func:`backward_plan`).  dkvar and dkdiag come from the saved forward
-outputs (``_scalar_grads``, as in the JAX package).
+row pass (the row panels G, dG, Gd, K, and dX at Dx <= 4) and a
+reduction over fixed row slices (dW, dLiT, dalpha, dZ, and dX on tiles at
+Dx > 4) whose partials are added in slice order, so it is deterministic
+and its scratch is bounded independently of B (:func:`backward_plan`).
+dkvar and dkdiag come from the saved forward outputs (``_scalar_grads``,
+as in the JAX package).
 
 Routing: a CPU tensor takes the plain versions (forward and backward); a
 CUDA tensor launches the kernels or raises — there is no fallback.  The
@@ -200,6 +201,13 @@ SCRATCH_MAX_BYTES = 8_000_000  # the backward's slice partials, whatever B
 # block, row groups a block at most, k rows of a streamed slice, slices in
 # the rings, d of a staged chunk of the gram
 _THREADS, _MAX_RG, _KS, _STAGES, _GRAM_CHUNK = 256, 32, 16, 4, 16
+# widest Dx whose dX the backward's row pass forms (one thread an output);
+# wider, the reduction launch forms it on tiles.  Both give the same bits;
+# by CUDA-graph replays on an H100 the whole backward with dX in the row
+# pass was 0.6% faster at Dx = 1 (B = 100,000), level at 2 and 4, 0.8-1.7%
+# slower at 8 and 16 (B = 10,000) and 1.55x slower at 784 (B = 1000)
+# (tools/backward_bitwise.py, PERF.md §6)
+DX_IN_ROWS_MAX = 4
 
 
 def _round_up(x, m):
@@ -242,18 +250,24 @@ def backward_plan(B, M, Dx, Do, sms=132, saved=False):
 
     Row pass: ``tb``, ``row_blocks``, and ``smem_bytes`` (the tiles K and
     G or the gram stage's ring, then the product ring and the cotangent
-    rows).  It
-    writes the row panels G, dG, Gd and (unless ``saved``) K, each (B, P)
-    with P = M rounded up to 4: ``panel_floats``.  Reduction: dW_d and
-    dLiT on square output tiles of ``tile`` = min(M rounded up to 8, 128)
-    columns, one block a tile and row slice (``reduce_threads``: an 8 x 8
-    register tile a thread), plus ceil(M / 32) blocks a slice for dalpha
-    and dZ; ``nslices`` slices of ``rows_per_slice`` rows.  With more than
-    one slice, each writes its partial outputs (``out_floats`` E) to the
-    scratch and a last kernel adds them in slice order: ``scratch_floats``
-    = nslices x E (0 for one slice), at most SCRATCH_MAX_BYTES and
-    independent of B.  Slices: two output-tile blocks an SM, as far as the
-    scratch allows."""
+    rows).  It writes the row panels G, dG, Gd and (unless ``saved``) K,
+    each (B, P) with P = M rounded up to 4: ``panel_floats``; and dX where
+    ``dx_in_rows`` (Dx <= DX_IN_ROWS_MAX).  Reduction, one launch of
+    ``reduce_blocks`` jobs (``reduce_threads`` threads a block,
+    ``reduce_smem_bytes``: the largest job's ring) over ``nslices`` slices
+    of ``rows_per_slice`` rows: dW_d and dLiT on square output tiles of
+    ``tile`` = min(M rounded up to 8, 128) columns, one block a tile and
+    slice (an 8 x 8 register tile a thread; ``product_blocks``); dZ and
+    dalpha as column-sum tiles of 4 ``sum_groups`` inducing points by 4
+    ``dz_groups`` or 4 ``dalpha_groups`` columns a slice (a 4 x 4 register
+    tile a thread; ``dz_blocks``, ``dalpha_blocks``); and, unless
+    ``dx_in_rows``, dX on tiles of 4 ``dx_row_groups`` rows by 4
+    ``dx_col_groups`` columns (``dx_blocks``; 0 and 0 otherwise).  With
+    more than one slice, each writes its partial outputs (``out_floats`` E)
+    to the scratch and a last kernel adds them in slice order:
+    ``scratch_floats`` = nslices x E (0 for one slice), at most
+    SCRATCH_MAX_BYTES and independent of B.  Slices: two output-tile
+    blocks an SM, as far as the scratch allows."""
     tb, cg, _, P = _row_geometry(M)
     tiles = max(2 * P * tb, gram_stage_floats(tb, M))
     smem = 4 * (tiles + _STAGES * _KS * 4 * cg + 2 * tb * Do)
@@ -267,11 +281,34 @@ def backward_plan(B, M, Dx, Do, sms=132, saved=False):
     E = Do * M * M + M * M + M * Do + M * Dx
     nslices = max(1, min(2 * sms // tiles, SCRATCH_MAX_BYTES // (4 * E)))
     rows_per_slice = _round_up(max(-(-B // nslices), 1), _KS)
+    # the column sums: up to 32 groups of 4 inducing points a tile, as many
+    # groups of 4 columns as the threads allow, no more than the columns
+    sg = min(cg, 32)
+    zg = max(1, min(rthreads // sg, -(-Dx // 4)))
+    ag = max(1, min(rthreads // sg, -(-Do // 4)))
+    m_tiles = -(-M // (4 * sg))
+    dx_in_rows = Dx <= DX_IN_ROWS_MAX
+    # dX: up to 16 groups of 4 columns a tile, up to 16 groups of 4 rows
+    xjg = 0 if dx_in_rows else min(16, -(-Dx // 4))
+    xrg = 0 if dx_in_rows else min(rthreads // xjg, 16)
+    dx_blocks = 0 if dx_in_rows else (-(-B // (4 * xrg))
+                                      * -(-Dx // (4 * xjg)))
+    dz_blocks = nslices * m_tiles * -(-Dx // (4 * zg))
+    dalpha_blocks = nslices * m_tiles * -(-Do // (4 * ag))
+    reduce_smem = 4 * _STAGES * max(
+        2 * _KS * tile + _KS, _KS * 4 * (sg + max(zg, ag)),
+        4 * xrg * (_GRAM_CHUNK + 4) + _KS * 4 * xjg)
     return {"tb": tb, "row_blocks": -(-B // tb), "smem_bytes": smem,
             "tile": tile, "reduce_threads": rthreads,
-            "reduce_smem_bytes": 4 * _STAGES * (2 * _KS * tile + _KS),
+            "reduce_smem_bytes": reduce_smem,
             "nslices": nslices, "rows_per_slice": rows_per_slice,
-            "reduce_blocks": nslices * (tiles + -(-M // 32)),
+            "product_blocks": nslices * tiles, "sum_groups": sg,
+            "dz_groups": zg, "dalpha_groups": ag, "dz_blocks": dz_blocks,
+            "dalpha_blocks": dalpha_blocks, "dx_in_rows": dx_in_rows,
+            "dx_row_groups": xrg, "dx_col_groups": xjg,
+            "dx_blocks": dx_blocks,
+            "reduce_blocks": (nslices * tiles + dz_blocks + dalpha_blocks
+                              + dx_blocks),
             "out_floats": E,
             "scratch_floats": nslices * E if nslices > 1 else 0,
             "panel_floats": (3 if saved else 4) * B * 4 * cg}
@@ -296,16 +333,21 @@ def _fwd_fn():
     return fn
 
 
-@functools.cache
-def _bwd_fn():
-    from .build import load_library
-    fn = load_library("fused_conditional_bwd").fused_conditional_bwd
+def _bind_bwd(lib):
+    """The backward's C entry point of a loaded library, with its types."""
+    fn = lib.fused_conditional_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 8 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _bwd_fn():
+    from .build import load_library
+    return _bind_bwd(load_library("fused_conditional_bwd"))
 
 
 @functools.cache
@@ -424,7 +466,10 @@ def _backward_kernel(Xs, Zs, LiT, alpha, W, kvar, gm, gv_eff, K):
                 out.data_ptr(), panels.data_ptr(),
                 None if part is None else part.data_ptr(), B, M, Dx, Do,
                 plan["nslices"], plan["rows_per_slice"], plan["tile"],
-                plan["reduce_threads"], stream)
+                plan["reduce_threads"], plan["sum_groups"],
+                plan["dz_groups"], plan["dalpha_groups"],
+                plan["dx_row_groups"], plan["dx_col_groups"],
+                plan["reduce_smem_bytes"], stream)
         _raise_on(err, "fused_conditional backward")
         (fused_conditional if K is None else fused_conditional_saved
          ).backward_launches += 1

@@ -29,6 +29,7 @@ gradients against its single-device gradients (a replicated term counted
 once), and the HMC and NUTS chains split over 2 ranks draw for draw."""
 
 import contextlib
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -167,10 +168,26 @@ PLAN_SHAPES = [(10000, 100, 8, 8), (100000, 100, 8, 8), (10000, 100, 8, 1),
                (1300, 37, 8, 3), (2000, 100, 8, 13), (1, 100, 8, 8),
                (41, 100, 8, 8), (17, 100, 8, 8),
                # the MNIST DGP's layers (minibatch 1000, S=1) and its
-               # serving shape (1000 rows, S=100) at layer 0
+               # serving shape (1000 rows, S=100) at layer 0; layer 0 of
+               # its output-dimension rank (Do=15); a ragged M with one
+               # row past a 40-row block and Dx one past a chunk; one row
                (1000, 100, 784, 30), (1000, 100, 30, 30),
-               (1000, 100, 30, 10), (100000, 100, 784, 30)]
+               (1000, 100, 30, 10), (100000, 100, 784, 30),
+               (1000, 100, 784, 15), (41, 37, 785, 3), (1, 100, 784, 8)]
 SCRATCH_MAX = 8_000_000   # bytes of the backward's slice partials
+# (nslices, rows_per_slice) of the backward's reduction at each plan shape,
+# as the kernels were built with them when dZ and dX were one thread an
+# output: they fix the order of dW's, dLiT's, dalpha's and dZ's sums (one
+# chain a slice, the slices added in order), so they may not drift
+SLICES = {(10000, 100, 8, 8): (21, 480), (100000, 100, 8, 8): (21, 4768),
+          (10000, 100, 8, 1): (95, 112), (513, 512, 3, 2): (2, 272),
+          (513, 512, 3, 8): (1, 528), (300, 1, 4, 2): (88, 16),
+          (1300, 37, 8, 3): (66, 32), (2000, 100, 8, 13): (14, 144),
+          (1, 100, 8, 8): (21, 16), (41, 100, 8, 8): (21, 16),
+          (17, 100, 8, 8): (21, 16), (1000, 100, 784, 30): (5, 208),
+          (1000, 100, 30, 30): (6, 176), (1000, 100, 30, 10): (17, 64),
+          (100000, 100, 784, 30): (5, 20000), (1000, 100, 784, 15): (8, 128),
+          (41, 37, 785, 3): (57, 16), (1, 100, 784, 8): (11, 16)}
 
 
 def _covered_once(n, starts, width):
@@ -182,14 +199,108 @@ def _covered_once(n, starts, width):
     return bool((hits == 1).all())
 
 
+def _tiles_once(case, what, origins, tile, extent, groups, fast, threads):
+    """A tiled pass writes each of its outputs once: the blocks' tile
+    origins ((blocks, 2) array, per slice) are distinct and cover the
+    (rows, cols) ``extent`` with tiles of ``tile`` (no empty tile), and the
+    active threads of a block (t < groups[0] x groups[1], a 4 x 4 tile at
+    group (t // g1, t % g1), or (t % g0, t // g0) when ``fast`` == 0) cover
+    a tile once; the kernel writes an entry only below the extent."""
+    th, tw = tile
+    assert th == 4 * groups[0] and tw == 4 * groups[1], f"{case}: {what}"
+    assert groups[0] * groups[1] <= threads, (
+        f"{case}: {what}: {groups} groups for {threads} threads")
+    grid = (-(-extent[0] // th), -(-extent[1] // tw))
+    assert len(origins) == grid[0] * grid[1], (
+        f"{case}: {what}: {len(origins)} blocks for a {grid} grid")
+    o = np.asarray(origins)
+    assert (o[:, 0] % th == 0).all() and (o[:, 1] % tw == 0).all() and (
+        o[:, 0] < extent[0]).all() and (o[:, 1] < extent[1]).all(), (
+        f"{case}: {what}: a tile origin off the grid")
+    cells = np.zeros(grid, dtype=int)
+    np.add.at(cells, (o[:, 0] // th, o[:, 1] // tw), 1)
+    assert (cells == 1).all(), f"{case}: {what}: a tile not written once"
+    hits = np.zeros(tile, dtype=int)
+    g0, g1 = groups
+    for t in range(threads):
+        if t >= g0 * g1:
+            continue
+        r, c = ((t // g1, t % g1) if fast else (t % g0, t // g0))
+        hits[4 * r:4 * r + 4, 4 * c:4 * c + 4] += 1
+    assert (hits == 1).all(), f"{case}: {what}: threads overlap in a tile"
+
+
+def _check_reduction_jobs(case, bp, B, M, Dx, Do):
+    """The reduction launch's jobs, by the kernel's decoding of its block
+    index (``ReduceJobs`` and ``fused_conditional_bwd_reduce_kernel``),
+    replayed: the product tiles of every slice, then dZ's and dalpha's
+    column-sum tiles of every slice, then dX's tiles.  Every entry of dW,
+    dLiT, dalpha and dZ written once a slice, by one block and one thread
+    tile of it; every dX entry once (or, ``dx_in_rows``, by the row pass);
+    the grid within 2^31 - 1 blocks."""
+    ns_, T, nthreads = bp["nslices"], bp["tile"], bp["reduce_threads"]
+    nt = -(-M // T)
+    big = (Do + 1) * nt * nt
+    sg, zg, ag = bp["sum_groups"], bp["dz_groups"], bp["dalpha_groups"]
+    nmt = -(-M // (4 * sg))
+    nz, na = nmt * -(-Dx // (4 * zg)), nmt * -(-Do // (4 * ag))
+    xrg, xjg = bp["dx_row_groups"], bp["dx_col_groups"]
+    assert bp["dx_in_rows"] == (xrg == 0) and (xrg == 0) == (xjg == 0), (
+        f"{case}: dX groups {xrg}, {xjg}")
+    nx = -(-B // (4 * xrg)) * -(-Dx // (4 * xjg)) if xrg else 0
+    blocks = ns_ * (big + nz + na) + nx
+    assert bp["reduce_blocks"] == blocks and blocks <= 2 ** 31 - 1, (
+        f"{case}: reduce blocks {bp['reduce_blocks']}, replayed {blocks}")
+    assert (bp["product_blocks"], bp["dz_blocks"], bp["dalpha_blocks"],
+            bp["dx_blocks"]) == (ns_ * big, ns_ * nz, ns_ * na, nx), (
+        f"{case}: job counts")
+    b = np.arange(blocks, dtype=np.int64)
+    kind = np.select([b < ns_ * big, b < ns_ * (big + nz),
+                      b < ns_ * (big + nz + na)], [0, 1, 2], 3)
+    # product tiles: per slice, (Do + 1) tiles of ceil(M / T)^2; in a tile,
+    # thread t owns rows (t % (T / 8)) * 8 and columns (t // (T / 8)) * 8
+    hits = np.zeros((Do + 1, nt * T, nt * T), dtype=int)
+    tg = T // 8
+    for job in range(big):
+        q, tile = divmod(job, nt * nt)
+        m0, n0 = (tile // nt) * T, (tile % nt) * T
+        for t in range(tg * tg):
+            r0, c0 = m0 + (t % tg) * 8, n0 + (t // tg) * 8
+            hits[q, r0:r0 + 8, c0:c0 + 8] += 1
+    slices = b[kind == 0] // big
+    assert (hits[:, :M, :M] == 1).all() and (
+        np.bincount(slices, minlength=ns_) == big).all(), (
+        f"{case}: a dW or dLiT entry not written once a slice")
+    # column sums: per slice, job = m-tile + nmt x column tile, 4 sg
+    # inducing points by 4 g columns; thread t at (t % sg, t // sg)
+    for k, (what, g, W, n) in enumerate((("dZ", zg, Dx, nz),
+                                         ("dalpha", ag, Do, na)), 1):
+        rel = b[kind == k] - ns_ * (big + (nz if k == 2 else 0))
+        sl, job = rel // n, rel % n
+        for s_ in range(ns_):
+            j_ = job[sl == s_]
+            origins = np.stack([(j_ % nmt) * 4 * sg, (j_ // nmt) * 4 * g], 1)
+            _tiles_once(f"{case} slice {s_}", what, origins,
+                        (4 * sg, 4 * g), (M, W), (sg, g), 0, nthreads)
+    if xrg:
+        rel = b[kind == 3] - ns_ * (big + nz + na)
+        ncol = -(-Dx // (4 * xjg))
+        origins = np.stack([(rel // ncol) * 4 * xrg, (rel % ncol) * 4 * xjg],
+                           1)
+        _tiles_once(case, "dX", origins, (4 * xrg, 4 * xjg), (B, Dx),
+                    (xrg, xjg), 1, nthreads)
+
+
 def _check_plans():
     """The launch plans of the forward and backward kernels (plain Python,
     handed to the kernels): every row in one row-pass block and one
-    reduction slice; every output entry of dW, dLiT, dalpha and dZ written
-    once a slice, by one reduction block and one 8 x 8 thread tile of it
-    (the kernel's decoding of its block and thread indices, replayed);
-    shared memory within a block's 227 KB; the backward's slice-partial
-    scratch within 8 MB and independent of B."""
+    reduction slice; every output entry of dW, dLiT, dalpha, dZ and dX
+    written once (a slice), by one reduction block and one thread tile of
+    it (the kernel's decoding of its block and thread indices, replayed),
+    with dX formed by the row pass at narrow Dx and by the reduction's
+    tiles above it, both plans replayed at every shape; the slices as they
+    were (SLICES); shared memory within a block's 227 KB; the backward's
+    slice-partial scratch within 8 MB and independent of B."""
     for B, M, Dx, Do in PLAN_SHAPES:
         case = f"plan B={B} M={M} Dx={Dx} Do={Do}"
         fp = forward_plan(B, M)
@@ -201,6 +312,21 @@ def _check_plans():
         assert tb == bp["tb"] and tb % 4 == 0 and (
             fp["busy_threads"] == (tb // 4) * (P4 // 4) <= 256), (
             f"{case}: {tb} rows, {fp['busy_threads']} threads")
+        assert (bp["nslices"], bp["rows_per_slice"]) == SLICES[
+            (B, M, Dx, Do)], (f"{case}: slices {bp['nslices']} of "
+                              f"{bp['rows_per_slice']} rows")
+        assert bp["dx_in_rows"] == (Dx <= tcond.DX_IN_ROWS_MAX), (
+            f"{case}: dX in the row pass {bp['dx_in_rows']}")
+        for limit in (Dx, Dx - 1):   # dX in the row pass, then on tiles
+            with mock.patch.object(tcond, "DX_IN_ROWS_MAX", limit):
+                plan = backward_plan(B, M, Dx, Do)
+            assert all(plan[k] == bp[k] for k in bp if not k.startswith(
+                ("dx_", "reduce_"))), f"{case}: dX's form moved another job"
+            _check_reduction_jobs(
+                f"{case} dx_in_rows={plan['dx_in_rows']}", plan, B, M, Dx,
+                Do)
+            assert plan["reduce_smem_bytes"] <= tcond.SMEM_MAX, (
+                f"{case}: reduction smem {plan['reduce_smem_bytes']}")
         for name, smem in (("forward", fp["smem_bytes"]),
                            ("backward row pass", bp["smem_bytes"]),
                            ("reduction", bp["reduce_smem_bytes"])):
@@ -219,27 +345,6 @@ def _check_plans():
         assert rthreads % 32 == 0 and (
             rthreads - 32 < (T // 8) ** 2 <= rthreads <= 256), (
             f"{case}: {rthreads} threads for {(T // 8) ** 2} tiles")
-        # the reduction kernel's decoding: per slice, (Do + 1) tiles of
-        # ceil(M / T)^2, then ceil(M / 32) column chunks; in a tile,
-        # thread t owns rows (t % (T / 8)) * 8 and columns (t // (T / 8)) * 8
-        nt = -(-M // T)
-        jobs = (Do + 1) * nt * nt + -(-M // 32)
-        assert bp["reduce_blocks"] == ns_ * jobs, f"{case}: reduce blocks"
-        hits = np.zeros((Do + 1, nt * T, nt * T), dtype=int)
-        small = np.zeros(M, dtype=int)
-        tg = T // 8
-        for job in range(jobs):
-            if job >= (Do + 1) * nt * nt:
-                m0 = (job - (Do + 1) * nt * nt) * 32
-                small[m0:m0 + 32] += 1
-                continue
-            q, tile = divmod(job, nt * nt)
-            m0, n0 = (tile // nt) * T, (tile % nt) * T
-            for t in range(tg * tg):
-                r0, c0 = m0 + (t % tg) * 8, n0 + (t // tg) * 8
-                hits[q, r0:r0 + 8, c0:c0 + 8] += 1
-        assert (hits[:, :M, :M] == 1).all() and (small == 1).all(), (
-            f"{case}: an output entry not written once a slice")
         E = Do * M * M + M * M + M * Do + M * Dx
         assert bp["out_floats"] == E, f"{case}: output floats"
         assert bp["scratch_floats"] == (ns_ * E if ns_ > 1 else 0), (
@@ -261,6 +366,10 @@ def _check_plans():
                 51520, 4 * (2 * 112 * 40 + 6400 + 80 * Do)), (
                 f"{case}: shared memory {fp['smem_bytes']}, "
                 f"{bp['smem_bytes']}")
+            # the column sums' and dX's rings (plan: dX on tiles) fit the
+            # product tiles' (53.5 KB): the reduction keeps its blocks an SM
+            assert plan["reduce_smem_bytes"] == 4 * 4 * (2 * 16 * 104 + 16), (
+                f"{case}: reduction smem")
         assert backward_plan(B, M, Dx, Do, saved=True)["panel_floats"] == (
             3 * B * P4), f"{case}: saved variant's row panels"
     try:

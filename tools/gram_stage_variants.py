@@ -5,7 +5,9 @@ products' k sums in blocks of 16), the forward at three blocks an SM
 (``__launch_bounds__(256, 3)``, 80 registers), the k sums as one FFMA
 chain in both row kernels, and both; and as the sources of each other
 checkout named by ``--against`` build them (a parent unpacked by ``git
-archive``, say).
+archive``, say; its backward's C entry point must take this tree's
+arguments: tools/backward_bitwise.py holds an older one against this
+tree).
 
     python3 tools/gram_stage_variants.py [--against CHECKOUT ...]
 
@@ -52,7 +54,7 @@ def issue_floor_ms(terms, per_term):
     return 1e3 * terms * per_term / (cs.FP32_PEAK / 2)
 
 
-def build_variants(cs, build, against):
+def build_variants(cs, build, conditional, against):
     """Compile every variant, and the row kernels of each checkout in
     ``against`` (all nvcc processes at once); returns {variant: (forward
     entry point, backward entry point, resident forward blocks an SM at
@@ -93,13 +95,8 @@ def build_variants(cs, build, against):
         fw.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [
             ctypes.c_int] * 4 + [ctypes.c_void_p]
         fw.restype = ctypes.c_int
-        bl = ctypes.CDLL(os.path.join(d, "fused_conditional_bwd.so"))
-        bw = bl.fused_conditional_bwd
-        bw.argtypes = [ctypes.c_void_p] * 13 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_void_p]
-        bw.restype = ctypes.c_int
+        bw = conditional._bind_bwd(ctypes.CDLL(
+            os.path.join(d, "fused_conditional_bwd.so")))
         occ = fl.fused_conditional_fwd_occupancy
         occ.argtypes = [ctypes.c_int] * 2
         libs[name] = (fw, bw, occ(100, 0))
@@ -122,7 +119,7 @@ def main(argv=None):
     print(f"card: {card}", flush=True)
     t0 = time.perf_counter()
     build.build_all()
-    libs = build_variants(cs, build, args_.against)
+    libs = build_variants(cs, build, conditional, args_.against)
     print(f"variants built in {time.perf_counter() - t0:.1f} s; resident "
           "forward blocks an SM at M=100: " + ", ".join(
               f"{v} {libs[v][2]}" for v in libs), flush=True)
