@@ -594,11 +594,11 @@ DEVICE_KERNELS = {
 # the device kernel that one launch of each record's wrapper runs once, as
 # torch.profiler names it: what a graph replay's launches are counted by
 LAUNCH_MARKER = {
-    "fused_conditional": "fused_conditional_fwd_kernel<false>",
-    "fused_conditional_saved": "fused_conditional_fwd_kernel<true>",
-    "fused_conditional_backward": "fused_conditional_bwd_rows_kernel<false>",
+    "fused_conditional": "fused_conditional_fwd_kernel<false,",
+    "fused_conditional_saved": "fused_conditional_fwd_kernel<true,",
+    "fused_conditional_backward": "fused_conditional_bwd_rows_kernel<false,",
     "fused_conditional_saved_backward":
-        "fused_conditional_bwd_rows_kernel<true>",
+        "fused_conditional_bwd_rows_kernel<true,",
     "psi2_core_forward": "psi2_fwd_kernel",
     "psi2_core_backward": "psi2_bwd_kernel",
     "rbf_gram": "rbf_gram_kernel",
@@ -623,16 +623,22 @@ EARLIER_DEVICE_MS = {
     # MNIST shapes, CUDA-graph replays (PERF.md §6, rows 1 and 5)
     ("rbf_gram", "mnist Kuu_M100_D784"): "1.7105",
     ("rbf_gram", "mnist Kuf_B1000_M100_D784"): "1.7212",
-    ("fused_conditional", "mnist layer0_Dx784_Do30"): "1.5202",
-    ("fused_conditional", "mnist hidden_Dx30_Do30"): "0.2801",
-    ("fused_conditional", "mnist last_Dx30_Do10"): "0.1166",
-    ("fused_conditional", "mnist serving_Dx784_Do30"): "48.5329",
-    # the fused backward before its tiled dX and dZ passes (one thread an
-    # output: dX at the row pass's end, dZ a column a warp over each slice's
-    # rows), with the tiled gram stage: CUDA-graph replays (PERF.md §6, row 3)
-    ("fused_conditional_backward", "mnist layer0_Dx784_Do30"): "1.4485",
-    ("fused_conditional_backward", "mnist hidden_Dx30_Do30"): "0.4198",
-    ("fused_conditional_backward", "mnist last_Dx30_Do10"): "0.2083"}
+    # the fused pair's row kernels before their cluster plan at small B
+    # (one block of 40 rows a row block: 25 blocks at B = 1000), by
+    # CUDA-graph replays in turns with this tree's in one call
+    # (tools/backward_bitwise.py; PERF.md §6, rows 1 and 3)
+    ("fused_conditional", "mnist layer0_Dx784_Do30"): "0.3415-0.3420",
+    ("fused_conditional", "mnist hidden_Dx30_Do30"): "0.2477-0.2480",
+    ("fused_conditional", "mnist last_Dx30_Do10"): "0.0936",
+    # the MNIST serving forward (B = 100,000: no cluster, so the same code
+    # in both designs): this script's own reading in an earlier run of it
+    # (PERF.md §6, row 1), by CUDA-graph replays but not in turns
+    ("fused_conditional", "mnist serving_Dx784_Do30"): "5.1551",
+    ("fused_conditional_backward", "mnist layer0_Dx784_Do30"):
+        "0.5220-0.5244",
+    ("fused_conditional_backward", "mnist hidden_Dx30_Do30"):
+        "0.4049-0.4052",
+    ("fused_conditional_backward", "mnist last_Dx30_Do10"): "0.1997-0.1998"}
 # kernel vs plain float32 on the same inputs: both are float32 with
 # different summation orders, so they may differ by float32 roundoff
 # amplified by the staged products; relative to the output scale
@@ -873,7 +879,19 @@ KERNEL_CASES = [("serving_Do8", 100000, M, 8, 8, False),
                 ("Dx785_B1000", 1000, M, 785, 8, False),
                 # a ragged M (the tail of dX's four chains) and a dX tile
                 # one row past B
-                ("Dx784_M37_B41", 41, 37, 784, 8, False)]
+                ("Dx784_M37_B41", 41, 37, 784, 8, False),
+                # the row kernels' cluster plan (conditional.forward_plan):
+                # the last B with clusters (2 a row block at M=100) and the
+                # first without; rows past B in a cluster's row block (8
+                # blocks); Do not a multiple of the cluster (13 over 4: a
+                # last round with idle blocks); Do=1 (no cluster at B=1000);
+                # M=37 at B=1000 (clusters of 8 over 10 column groups)
+                ("cluster_last_B5280", 5280, M, 8, 8, False),
+                ("cluster_none_B5281", 5281, M, 8, 8, False),
+                ("cluster_B1001_Dx30_Do30", 1001, M, 30, 30, False),
+                ("cluster_Do13_B1000", 1000, M, 30, 13, False),
+                ("Do1_B1000", 1000, M, 30, 1, False),
+                ("cluster_M37_B1000", 1000, 37, 30, 30, False)]
 
 
 def wide_spread(D):
@@ -918,7 +936,8 @@ def print_backward_plans():
                                 0).multi_processor_count)
         mb = 4 * plan["scratch_floats"] / 1e6
         print(f"backward plan B={B} M={M_} Dx={Dx} Do={Do}: row pass "
-              f"{plan['row_blocks']} blocks of {plan['tb']} rows; reduction "
+              f"{plan['row_blocks']} blocks of {plan['tb']} rows (clusters "
+              f"of {plan['cluster']}); reduction "
               f"{plan['nslices']} slices of {plan['rows_per_slice']} rows, "
               f"tiles {plan['tile']} x {plan['tile']}, "
               f"{plan['reduce_blocks']} blocks; scratch {mb:.3f} MB (at "
@@ -6180,7 +6199,8 @@ def phase_parallel_gloo(seed, card, mnist):
     from doubly_stochastic_dgp_tpu_torch.training.optim import (
         value_and_grads)
     t0 = time.perf_counter()
-    res = run_ranks(dp_rank, 2, (seed,), backend="gloo", device="cuda",
+    # run_ranks places its ranks on the card by default
+    res = run_ranks(dp_rank, 2, (seed,), backend="gloo",
                     timeout_s=DP_TIMEOUT_S)
     print(f"29b-c: two gloo ranks on cuda:0 done in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -7067,25 +7087,28 @@ def print_occupancy():
     the launches at M=100 (the cells) and M=512 (the cap); then the psi2
     backward's and rbf_gram's (see print_psi2_backward_plans)."""
     fwd = build.load_library("fused_conditional")
-    fwd.fused_conditional_fwd_occupancy.argtypes = [ctypes.c_int] * 2
+    fwd.fused_conditional_fwd_occupancy.argtypes = [ctypes.c_int] * 3
     bwd = build.load_library("fused_conditional_bwd")
-    bwd.fused_conditional_bwd_occupancy.argtypes = [ctypes.c_int] * 5
+    bwd.fused_conditional_bwd_occupancy.argtypes = [ctypes.c_int] * 6
     for M_, Do in ((M, 8), (512, 2)):
         plan = backward_plan(TRAIN_S * BATCH, M_, 8, Do)
-        occ = {"forward": fwd.fused_conditional_fwd_occupancy(M_, 0),
-               "forward saved": fwd.fused_conditional_fwd_occupancy(M_, 1),
+        tb = plan["tb"]
+        occ = {"forward": fwd.fused_conditional_fwd_occupancy(M_, 0, 1),
+               "forward saved": fwd.fused_conditional_fwd_occupancy(
+                   M_, 1, 1),
                "backward rows": bwd.fused_conditional_bwd_occupancy(
-                   0, M_, Do, 0, 0),
+                   0, M_, Do, 0, 0, 1),
                "backward rows saved": bwd.fused_conditional_bwd_occupancy(
-                   1, M_, Do, 0, 0),
+                   1, M_, Do, 0, 0, 1),
                "backward reduction": bwd.fused_conditional_bwd_occupancy(
                    2, M_, Do, plan["reduce_threads"],
-                   plan["reduce_smem_bytes"])}
+                   plan["reduce_smem_bytes"], 1)}
         print(f"occupancy M={M_} Do={Do}: resident blocks an SM "
               + ", ".join(f"{k} {v}" for k, v in occ.items())
-              + f" (row kernels {forward_plan(1, M_)['tb']} rows and 256 "
-              f"threads a block; reduction {plan['reduce_threads']} "
-              f"threads)", flush=True)
+              + f" (row kernels {tb} rows and 256 threads a block, no "
+              f"cluster; reduction {plan['reduce_threads']} threads)",
+              flush=True)
+    print_row_plans(fwd, bwd)
     print_backward_passes(bwd)
     lib = build.load_library("rbf_gram")
     lib.rbf_gram_occupancy.argtypes = [ctypes.c_int] * 2
@@ -7115,6 +7138,49 @@ BACKWARD_PASS_SHAPES = ((BATCH, M, 784, 30), (BATCH, M, 30, 30),
                         (TRAIN_S * BATCH, M, 8, 8))
 
 
+def ptxas_of(kernel, template):
+    """ptxas's (registers, spill bytes) of a row kernel's instantiation
+    (``template`` as its mangled name spells it, ILb0ELb1E for <false,
+    true>), as print_kernel_resources kept them."""
+    res = next((v for k, v in PTXAS.items()
+                if kernel in k and template in k), {})
+    return res.get("registers"), res.get("spill bytes")
+
+
+def print_row_plans(fwd, bwd):
+    """The row kernels' launch plans (conditional.forward_plan and
+    backward_plan) at BACKWARD_PASS_SHAPES: rows a block, blocks of a
+    cluster, blocks, the gram's tile rows, shared memory, resident blocks
+    an SM of the instantiation the plan launches, and its ptxas registers
+    and spills (raises if no block fits)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for B, M_, Dx, Do in BACKWARD_PASS_SHAPES:
+        for name, saved in (("forward", False), ("forward saved", True),
+                            ("backward rows", False),
+                            ("backward rows saved", True)):
+            if name.startswith("forward"):
+                p = forward_plan(B, M_, Dx, Do, sms)
+                occ = fwd.fused_conditional_fwd_occupancy(
+                    M_, int(saved), p["cluster"])
+                kernel = "fused_conditional_fwd_kernel"
+            else:
+                p = backward_plan(B, M_, Dx, Do, sms, saved=saved)
+                occ = bwd.fused_conditional_bwd_occupancy(
+                    int(saved), M_, Do, 0, 0, p["cluster"])
+                kernel = "fused_conditional_bwd_rows_kernel"
+            template = (f"ILb{int(saved)}ELb{int(p['cluster'] > 1)}E")
+            regs, spill = ptxas_of(kernel, template)
+            blocks = p["blocks"] if "blocks" in p else p["row_blocks"]
+            print(f"row plan {name} B={B} M={M_} Dx={Dx} Do={Do}: "
+                  f"{p['tb']} rows a block, clusters of {p['cluster']}, "
+                  f"{blocks} blocks, gram tiles {p['gram_rows']} x 4, "
+                  f"{p['smem_bytes'] / 1024:.1f} KB, resident blocks an SM "
+                  f"{occ}; ptxas {regs} registers, {spill} B spilled",
+                  flush=True)
+            check(occ >= 1, f"{name} at B={B} M={M_} Dx={Dx} Do={Do}: no "
+                            f"block fits an SM")
+
+
 def print_backward_passes(bwd):
     """The backward's reduction launch at BACKWARD_PASS_SHAPES: its jobs
     (dX's tiles, or dX in the row pass; dZ's and dalpha's column-sum tiles;
@@ -7127,7 +7193,8 @@ def print_backward_passes(bwd):
     for B, M_, Dx, Do in BACKWARD_PASS_SHAPES:
         p = backward_plan(B, M_, Dx, Do, sms)
         occ = bwd.fused_conditional_bwd_occupancy(
-            2, M_, Do, p["reduce_threads"], p["reduce_smem_bytes"])
+            2, M_, Do, p["reduce_threads"], p["reduce_smem_bytes"],
+            p["cluster"])
         dx = ("in the row pass" if p["dx_in_rows"] else
               f"{p['dx_blocks']} tiles of {4 * p['dx_row_groups']} x "
               f"{4 * p['dx_col_groups']}")

@@ -20,13 +20,13 @@
 //
 // Design.  A block owns TB rows (40 at M = 100), each thread a 4 x 4 register
 // tile of the (TB x M) products (fused_conditional.cuh).  K is built in shared
-// memory by the gram stage (gram_tiles: the same 4 x 4 tiles, Xs and Zs
-// staged in 16-wide chunks of Dx through a ring laid over the product ring's
-// space, so shared memory does not grow at M = 100), then LiT, W_0, ...,
-// W_{Do-1} stream through a 4-stage cp.async ring of 16-row k-slices (zero
-// past M) as one continuous stream, so the copies of the next matrix overlap
-// the products of this one and every operand is read once a block.  G replaces
-// K in shared memory and is the A operand of every W_d product.  Each thread
+// memory by the gram stage (gram_tiles: the same tiles, Xs and Zs staged in
+// 16-wide chunks of Dx through a ring laid over the product ring's space, so
+// shared memory does not grow at M = 100), then LiT, W_0, ..., W_{Do-1}
+// stream through a 4-stage cp.async ring of 16-row k-slices (zero past M) as
+// one continuous stream, so the copies of the next matrix overlap the
+// products of this one and every operand is read once a block.  G replaces K
+// in shared memory and is the A operand of every W_d product.  Each thread
 // folds its tile of T into per-row partials, which meet in shared memory and
 // are added in column order, so the result is deterministic.  The mean is G .
 // alpha as four interleaved FFMA chains a thread and output (one chain of M
@@ -41,6 +41,14 @@
 // is padded with zeros in shared memory only; rows past B are zeros and not
 // stored.  The saved gram is the value staged in shared memory, so the
 // save-gram variant's mean and var equal the plain variant's bit for bit.
+//
+// At small B (kCluster) a cluster of cs blocks shares a row block: block q
+// builds the gram and G at its column groups (the gram's tiles then R x 4,
+// R = gram_tile_rows, so that its few columns still spread over the
+// threads), stores them into every block of the cluster, and streams only
+// W_q, W_{q+cs}, ... to form those var_d and mean_d.  At B = 1000, M = 100
+// and Do = 30 that is 25 x 8 blocks where one block a row block left 107 of
+// 132 SMs idle and streamed Do + 1 matrices one after another.
 
 #include "fused_conditional.cuh"
 
@@ -61,7 +69,7 @@ __host__ __device__ inline size_t smem_floats(int M) {
 // bytes spilled) it ran 4-12% slower at B = 1000 and 10,000, the training
 // shapes, and 3-11% faster at B = 100,000 (tools/gram_stage_variants.py,
 // PERF.md §6).
-template <bool kSaveGram>
+template <bool kSaveGram, bool kCluster>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_conditional_fwd_kernel(const float* __restrict__ Xs,
                              const float* __restrict__ Zs,
@@ -82,32 +90,46 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
   float* ring = A + (size_t)P * TB;             // kStages x kKS x P4
   float* vpart = ring + (size_t)kStages * SF;   // [2][TB][CG]
   const int tid = threadIdx.x;
-  const bool active = tid < RG * CG;
-  const int lr = (tid / CG) * 4, lc = (tid % CG) * 4;  // tile's row, column
-  const int64_t row0 = (int64_t)blockIdx.x * TB;
-  const int nks = P / kKS, total = (Do + 1) * nks;
+  const Split sp = split_of<kCluster>(CG);
+  const int64_t row0 = (int64_t)(blockIdx.x / sp.cs) * TB;
+  // this block's d: q, q + cs, ...: its W_d, alpha, var and mean columns
+  // from W_q, alpha[:, q], var[:, q], mean[:, q] with a step of cs (read
+  // again at each use)
+  const int nd = (Do - sp.q + sp.cs - 1) / sp.cs;
+  const int nks = P / kKS, total = (nd + 1) * nks;
   const float kvar = *kvar_p, kdiag = *kdiag_p;
   const SliceLoader loader(P4, (M & 3) == 0, tid, kThreads);
+  W += (size_t)sp.q * M * M;
+  alpha += sp.q;
+  var += sp.q;
+  mean += sp.q;
+  auto step = [&]() { return kCluster ? cluster_blocks() : 1; };
 
   auto issue = [&](int s) {
     const int mat = s / nks, ks = s - mat * nks;
-    const float* Bm = mat == 0 ? LiT : W + (size_t)(mat - 1) * M * M;
+    const float* Bm =
+        mat == 0 ? LiT : W + (size_t)(step() * (mat - 1)) * M * M;
     loader.copy(ring + (size_t)(s % kStages) * SF, P4, Bm, M, ks * kKS, M,
                 M);
   };
   // the gram (and the saved gram), staged through the ring's space; then
   // the ring's first slices
-  gram_tiles(Xs, Zs, kvar, A, ring, TB, P, row0, B, M, Dx,
-             kSaveGram ? Kout : nullptr, M, M, tid, kThreads);
+  if constexpr (kCluster) cluster_sync();  // every block of it has started
+  gram_stage<kCluster>(sp.cs, Xs, Zs, kvar, A, ring, TB, P, row0, B, M, Dx,
+                       kSaveGram ? Kout : nullptr, M, M, sp.g0, sp.g1, tid,
+                       kThreads);
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total) issue(s);
     cp_async_commit();
   }
+  if constexpr (kCluster) cluster_sync();  // K whole in every block
 
   // var_d = max(kdiag + the sum of row i's CG partials, 0): four
-  // interleaved chains added pairwise, in column order
-  auto finish_var = [&](int d) {
-    const float* vp = vpart + (size_t)(d & 1) * TB * CG;
+  // interleaved chains added pairwise, in column order (d: the block's
+  // dl-th, counted from q)
+  auto finish_var = [&](int dl) {
+    const float* vp = vpart + (size_t)(dl & 1) * TB * CG;
+    const int d = step() * dl;
     for (int i = tid; i < TB; i += kThreads) {
       const int64_t r = row0 + i;
       float q[4] = {0.f, 0.f, 0.f, 0.f};
@@ -125,7 +147,37 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
 
   float acc[4][4];
   zero(acc);
-  for (int s = 0; s < total; ++s) {
+  if constexpr (kCluster) {
+    // G = K LiT at the block's column groups, their tiles packed into the
+    // first threads (a loop of its own, so that the W_d products below
+    // keep the registers they have outside a cluster), then into every
+    // block of the cluster
+    const int ng = sp.g1 - sp.g0;
+    const bool gactive = tid < RG * ng;
+    const int glr = (tid / ng) * 4, glc = (sp.g0 + tid % ng) * 4;
+    for (int s = 0; s < nks; ++s) {
+      cp_async_wait_ring();
+      __syncthreads();  // slice s is in; slice s - 1's buffer is free
+      if (s + kStages - 1 < total) issue(s + kStages - 1);
+      cp_async_commit();
+      if (gactive)
+        ffma_slice_blocked(acc, A + (size_t)s * kKS * TB + glr, TB,
+                           ring + (size_t)(s % kStages) * SF + glc, P4,
+                           min(kKS, M - s * kKS));
+    }
+    cluster_sync();  // every thread of every block is done reading K
+    if (gactive)
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        put<true>(reinterpret_cast<float4*>(A + (size_t)(glc + j) * TB + glr),
+                  make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]));
+    cluster_sync();  // G whole in every block
+    zero(acc);
+  }
+  // the thread's tile of the W_d products (and outside a cluster of G)
+  const bool active = tid < RG * CG;
+  const int lr = (tid / CG) * 4, lc = (tid % CG) * 4;
+  for (int s = kCluster ? nks : 0; s < total; ++s) {
     cp_async_wait_ring();
     __syncthreads();  // slice s is in; slice s - 1's buffer is free
     if (s + kStages - 1 < total) issue(s + kStages - 1);
@@ -165,11 +217,11 @@ fused_conditional_fwd_kernel(const float* __restrict__ Xs,
   }
   cp_async_wait_all();
   __syncthreads();
-  finish_var(Do - 1);
+  finish_var(nd - 1);
 
   // mean_d = G . alpha[:, d], one thread an output
-  for (int e = tid; e < TB * Do; e += kThreads) {
-    const int i = e / Do, d = e - i * Do;
+  for (int e = tid; e < TB * nd; e += kThreads) {
+    const int i = e / nd, d = step() * (e - i * nd);
     const int64_t r = row0 + i;
     if (r < B) mean[r * Do + d] = dot4(A + i, TB, alpha + d, Do, M);
   }
@@ -279,8 +331,8 @@ fused_conditional_fwd_3xtf32(const float* __restrict__ Xs,
     const float* Bm = mat == 0 ? LiT : W + (size_t)(mat - 1) * M * M;
     loader.copy(ring + (size_t)(s % stages) * SF, P, Bm, M, ks * kKS, M, M);
   };
-  gram_tiles(Xs, Zs, kvar, Gs, ring, kRows, P, row0, B, M, Dx, nullptr, 0,
-             0, tid, kCmpThreads);
+  gram_tiles<4, false>(Xs, Zs, kvar, Gs, ring, kRows, P, row0, B, M, Dx,
+                       nullptr, 0, 0, 0, col_groups(M), tid, kCmpThreads);
   for (int s = 0; s < stages - 1; ++s) {
     if (s < total) issue(s);
     cp_async_commit();
@@ -371,23 +423,38 @@ fused_conditional_fwd_3xtf32(const float* __restrict__ Xs,
   }
 }
 
-unsigned long long g_smem_set[4] = {0, 0, 0, 0};
+unsigned long long g_smem_set[6] = {0, 0, 0, 0, 0, 0};
+
+template <bool kSaveGram, bool kCluster>
+cudaError_t smem_ready() {
+  return allow_smem(fused_conditional_fwd_kernel<kSaveGram, kCluster>,
+                    g_smem_set[2 * (int)kSaveGram + (int)kCluster]);
+}
 
 template <bool kSaveGram>
 cudaError_t launch_fwd(const float* Xs, const float* Zs, const float* LiT,
                        const float* alpha, const float* W, const float* kvar,
                        const float* kdiag, float* mean, float* var,
-                       float* Kout, int64_t B, int M, int Dx, int Do,
+                       float* Kout, int64_t B, int M, int Dx, int Do, int cs,
                        cudaStream_t stream) {
-  auto* kernel = fused_conditional_fwd_kernel<kSaveGram>;
-  cudaError_t err = allow_smem(kernel, g_smem_set[kSaveGram ? 1 : 0]);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = (B + block_rows(M) - 1) / block_rows(M);
+  const int64_t blocks = (B + block_rows(M) - 1) / block_rows(M) * cs;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, kThreads, smem_floats(M) * sizeof(float),
-           stream>>>(Xs, Zs, LiT, alpha, W, kvar, kdiag, mean, var, Kout, B,
-                     M, Dx, Do);
-  return cudaGetLastError();
+  const size_t smem = smem_floats(M) * sizeof(float);
+  if (cs == 1) {
+    cudaError_t err = smem_ready<kSaveGram, false>();
+    if (err != cudaSuccess) return err;
+    fused_conditional_fwd_kernel<kSaveGram, false>
+        <<<(unsigned)blocks, kThreads, smem, stream>>>(
+            Xs, Zs, LiT, alpha, W, kvar, kdiag, mean, var, Kout, B, M, Dx,
+            Do);
+    return cudaGetLastError();
+  }
+  cudaError_t err = smem_ready<kSaveGram, true>();
+  if (err != cudaSuccess) return err;
+  return gt::launch_clusters(fused_conditional_fwd_kernel<kSaveGram, true>,
+                             blocks, kThreads, cs, smem, stream, Xs, Zs, LiT,
+                             alpha, W, kvar, kdiag, mean, var, Kout, B, M, Dx,
+                             Do);
 }
 
 template <int kPrec>
@@ -396,7 +463,7 @@ cudaError_t launch_cmp(const float* Xs, const float* Zs, const float* LiT,
                        const float* kdiag, float* mean, float* var, int64_t B,
                        int M, int Dx, int Do, cudaStream_t stream) {
   auto* kernel = fused_conditional_fwd_3xtf32<kPrec>;
-  cudaError_t err = allow_smem(kernel, g_smem_set[2 + kPrec]);
+  cudaError_t err = allow_smem(kernel, g_smem_set[4 + kPrec]);
   if (err != cudaSuccess) return err;
   const int64_t blocks = (B + kRows - 1) / kRows;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
@@ -411,25 +478,30 @@ cudaError_t launch_cmp(const float* Xs, const float* Zs, const float* LiT,
 // Plain C entry point (bound with ctypes).  Pointers are device pointers
 // to contiguous float32 tensors; kvar and kdiag are 0-dim tensors on the
 // device.  Kout is null, or the (B, M) gram to write (the save-gram
-// variant).  design 0 is the kernel (fp32 FFMA); 1 and 2 are the 3xTF32
-// comparison designs (per-k-step fp32 sums, chained sums; no saved gram).
-// Returns a cudaError_t code (0 = launched).
+// variant).  design 0 is the kernel (fp32 FFMA), launched with the plan of
+// ops/cuda/conditional.py::forward_plan: clusters of cs blocks (cs = 1:
+// none; any cs that plan_ok refuses is refused before any launch); 1 and 2 are the 3xTF32
+// comparison designs (per-k-step fp32 sums, chained sums; no saved gram,
+// their own geometry).  Returns a cudaError_t code (0 = launched).
 extern "C" int fused_conditional_fwd(const float* Xs, const float* Zs,
                                      const float* LiT, const float* alpha,
                                      const float* W, const float* kvar,
                                      const float* kdiag, float* mean,
                                      float* var, float* Kout, int64_t B,
                                      int M, int Dx, int Do, int design,
-                                     void* stream) {
+                                     int cs, void* stream) {
   if (B <= 0 || M <= 0 || M > kMaxM || Dx <= 0 || Do <= 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (design == 0)
+  if (design == 0) {
+    if (!plan_ok(M, Do, cs)) return (int)cudaErrorInvalidValue;
     return Kout != nullptr
                ? (int)launch_fwd<true>(Xs, Zs, LiT, alpha, W, kvar, kdiag,
-                                       mean, var, Kout, B, M, Dx, Do, s)
+                                       mean, var, Kout, B, M, Dx, Do, cs, s)
                : (int)launch_fwd<false>(Xs, Zs, LiT, alpha, W, kvar, kdiag,
-                                        mean, var, nullptr, B, M, Dx, Do, s);
+                                        mean, var, nullptr, B, M, Dx, Do, cs,
+                                        s);
+  }
   if (Kout != nullptr || cmp_smem_floats(M) * sizeof(float) > 232448)
     return (int)cudaErrorInvalidValue;
   if (design == 1)
@@ -441,23 +513,23 @@ extern "C" int fused_conditional_fwd(const float* Xs, const float* Zs,
   return (int)cudaErrorInvalidValue;
 }
 
-// Resident blocks an SM of the forward kernel at this M (the occupancy
-// its launches get), or -1 on an error.
-extern "C" int fused_conditional_fwd_occupancy(int M, int save_gram) {
-  if (M <= 0 || M > kMaxM) return -1;
+template <bool kSaveGram, bool kCluster>
+int occupancy(size_t smem) {
   int n = 0;
-  const size_t smem = smem_floats(M) * sizeof(float);
-  cudaError_t err;
-  if (save_gram) {
-    err = allow_smem(fused_conditional_fwd_kernel<true>, g_smem_set[1]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, fused_conditional_fwd_kernel<true>, kThreads, smem);
-  } else {
-    err = allow_smem(fused_conditional_fwd_kernel<false>, g_smem_set[0]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, fused_conditional_fwd_kernel<false>, kThreads, smem);
-  }
+  cudaError_t err = smem_ready<kSaveGram, kCluster>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, fused_conditional_fwd_kernel<kSaveGram, kCluster>, kThreads,
+        smem);
   return err == cudaSuccess ? n : -1;
+}
+
+// Resident blocks an SM of the forward kernel at M, in clusters (cs > 1) or
+// not (the occupancy its launches get), or -1 on an error.
+extern "C" int fused_conditional_fwd_occupancy(int M, int save_gram, int cs) {
+  if (M <= 0 || M > kMaxM) return -1;
+  const size_t smem = smem_floats(M) * sizeof(float);
+  if (save_gram)
+    return cs > 1 ? occupancy<true, true>(smem) : occupancy<true, false>(smem);
+  return cs > 1 ? occupancy<false, true>(smem) : occupancy<false, false>(smem);
 }

@@ -2,7 +2,8 @@
 // (fused_conditional.cu) and backward (fused_conditional_bwd.cu) kernels:
 // the block geometry, the cp.async ring that streams the M x M operands
 // through shared memory in k-slices, the gram stage (a tiled
-// direct-difference product) and the register-tiled fp32 FFMA step.
+// direct-difference product), the register-tiled fp32 FFMA step, and the
+// thread-block cluster that shares a row block at small batches.
 //
 // Geometry of the row kernels.  A (rows x M) by (M x M) product is cut
 // into 4 x 4 register tiles: CG = ceil(M / 4) column groups and RG row
@@ -18,9 +19,20 @@
 // at one k as one float4; the B slices are row-major, B[k][n] (row stride
 // P4 = 4 CG), one float4 per thread and k.  k rows are padded to whole
 // 16-row slices, columns to P4, with zeros.
-
+//
+// At small batches (the MNIST minibatch, B = 1000: 25 row blocks on 132
+// SMs) a thread-block cluster of cs blocks shares each row block
+// (ops/cuda/conditional.py's plans choose cs, which the C entry points
+// check).  Block q of a cluster builds K, G (and in the backward dG's
+// running sum and dK) at its run of whole column groups g0 .. g1 - 1 and
+// stores them into every block of the cluster through distributed shared
+// memory, so that each block holds them whole; the Do products, independent
+// of each other given G, are split over the blocks by d (block q takes d =
+// q, q + cs, ...).  Every output is still one thread's sum in the order it
+// had in one block, so the bits do not depend on the plan.
 #pragma once
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -28,11 +40,14 @@
 
 namespace fc {
 
+namespace cg = cooperative_groups;
+
 constexpr int kMaxM = 512;
 constexpr int kThreads = 256;   // threads of a row-kernel block
 constexpr int kKS = 16;         // k rows of a streamed slice
 constexpr int kStages = 4;      // slices in flight in the ring
 constexpr int kMaxRG = 32;      // row groups a block at most
+constexpr int kMaxCluster = 8;  // blocks of a cluster at most (portable)
 
 __host__ __device__ __forceinline__ int round_up(int x, int m) {
   return (x + m - 1) / m * m;
@@ -51,6 +66,77 @@ __host__ __device__ __forceinline__ int block_rows(int M) {
 // k rows of the A tiles: M rounded up to whole slices
 __host__ __device__ __forceinline__ int k_rows(int M) {
   return round_up(M, kKS);
+}
+// rows of a cluster's gram-stage tiles: the fewest (1, 2 or 4) at which
+// the TB rows by ncg column groups of a block's gram take one pass of its
+// threads, so that a block's few columns still spread over them
+__host__ __device__ __forceinline__ int gram_tile_rows(int TB, int ncg) {
+  for (int r = 1; r < 4; r *= 2)
+    if ((TB / r) * ncg <= kThreads) return r;
+  return 4;
+}
+// Whether the C entry points take a plan of clusters of cs blocks
+// (ops/cuda/conditional.py's plans): cs <= 8, at most one block a d and a
+// column group
+__host__ __forceinline__ bool plan_ok(int M, int Do, int cs) {
+  return cs >= 1 && cs <= kMaxCluster && cs <= Do && cs <= col_groups(M);
+}
+
+// ----------------------------------------------------------------------------
+// the cluster a row block's blocks form (one block, outside a cluster)
+// ----------------------------------------------------------------------------
+
+// cs blocks; this one is q and owns the column groups g0 .. g1 - 1
+struct Split {
+  int cs, q, g0, g1;
+};
+
+template <bool kCluster>
+__device__ __forceinline__ Split split_of(int CG) {
+  if constexpr (kCluster) {
+    cg::cluster_group cl = cg::this_cluster();
+    const int cs = (int)cl.num_blocks(), q = (int)cl.block_rank();
+    return {cs, q, q * CG / cs, (q + 1) * CG / cs};
+  } else {
+    return {1, 0, 0, CG};
+  }
+}
+
+// blocks of this cluster, read from the special register at each use (so
+// that a loop does not hold it in a register of its own)
+__device__ __forceinline__ int cluster_blocks() {
+  unsigned n;
+  asm volatile("mov.u32 %0, %%cluster_nctarank;" : "=r"(n));
+  return (int)n;
+}
+
+// barrier of every thread of the cluster; it orders their shared-memory
+// writes (distributed ones too) before the reads after it
+__device__ __forceinline__ void cluster_sync() { cg::this_cluster().sync(); }
+
+// v to *p in this block, or (kCluster) to the same address in every block of
+// the cluster
+template <bool kCluster, typename V>
+__device__ __forceinline__ void put(V* p, V v) {
+  if constexpr (kCluster) {
+    cg::cluster_group cl = cg::this_cluster();
+    const unsigned n = cl.num_blocks();
+    for (unsigned r = 0; r < n; ++r) *cl.map_shared_rank(p, r) = v;
+  } else {
+    *p = v;
+  }
+}
+
+// R (1, 2 or 4) consecutive floats at p (aligned to R floats), by put
+template <int R, bool kCluster>
+__device__ __forceinline__ void put_rows(float* p, const float (&k)[R]) {
+  if constexpr (R == 4)
+    put<kCluster>(reinterpret_cast<float4*>(p),
+                  make_float4(k[0], k[1], k[2], k[3]));
+  else if constexpr (R == 2)
+    put<kCluster>(reinterpret_cast<float2*>(p), make_float2(k[0], k[1]));
+  else
+    put<kCluster>(p, k[0]);
 }
 
 // ----------------------------------------------------------------------------
@@ -278,45 +364,56 @@ __host__ __device__ __forceinline__ int gram_stage_floats(int TB, int M) {
   return 2 * (TB + 4 * col_groups(M)) * gt::kRow<float>;
 }
 
-// The block's TB gram rows into Ks, k-major: Ks[m * TB + i] = kvar
-// exp(-0.5 ||x_{row0+i} - z_m||^2) for m < P, zero for m >= M and for rows
-// past B; with Kout (row stride ldk), each entry is also stored to global
-// memory for m < ncols_out (zeros past M): exactly the value staged.
+// The block's TB gram rows at the columns of its column groups g0 .. g1 - 1
+// (m = 4 g0 .. 4 g1 - 1; all of them, g0 = 0 and g1 = CG, outside a
+// cluster) into Ks, k-major: Ks[m * TB + i] = kvar exp(-0.5 ||x_{row0+i} -
+// z_m||^2), zero for m >= M and for rows past B, and zero for the k rows
+// P4 <= m < P; with kCluster each entry also goes to the same place in every
+// block of the cluster.  With Kout (row stride ldk), each entry is also
+// stored to global memory for m < ncols_out (zeros past M): exactly the
+// value staged.
 //
 // A tiled direct-difference product (gram_tile.cuh, the wide rbf_gram's
-// order too).  Thread t owns the 4 x 4 register tile of rows 4 (t / CG) .. + 3
-// and columns t % CG + CG j, j < 4 (CG = ceil(M / 4)); with more tiles than
-// threads (the 3xTF32 comparison designs at large M) the threads take them in
-// passes.  d is walked in chunks of 16: each chunk's Xs and Zs rows come in by
-// cp.async through a two-stage ring at `stage` (gram_stage_floats(TB, M)
-// floats: the forward lays it over its product ring, whose first slices it
-// issues after this returns; the backward over Ks and its other tile, as
-// `stage` may lie over Ks where the tiles take one pass, RG CG <= kThreads in
-// the row kernels), and each term goes into its output's total with Kahan's
-// compensation in d order; the distance is total - compensation.  A warp's Xs
-// rows are one or two broadcasts.  A running fp32 sum over Dx = 784 terms is
-// off by ~1e-6 of d2 (about ten times the plain version's pairwise sum), this
-// order by 6.5e-8.  Every output's terms are summed in one order whatever the
-// geometry, so the forward, its save-gram variant, the backward's recompute
-// and the comparison designs stage the same bits.  Every staged chunk is read
-// before Ks is written, and `stage` is free on return.
+// order too).  With n = g1 - g0 column groups, thread t owns the R x 4
+// register tile (R: gram_tile_rows) of rows R (t / n) .. + R - 1 and columns
+// 4 g0 + t % n + n j, j < 4; with more tiles than threads (the 3xTF32
+// comparison designs at large M) the threads take them in passes.  d is
+// walked in chunks of 16: each chunk's Xs rows and the Zs rows of the block's
+// columns come in by cp.async through a two-stage ring at `stage`
+// (gram_stage_floats(TB, M) floats: the forward lays it over its product
+// ring, whose first slices it issues after this returns; the backward over
+// Ks and its other tile, as `stage` may lie over Ks where the tiles take one
+// pass, or in a cluster, whose blocks write into Ks meanwhile, over its
+// other tile), and each term goes into its output's total with Kahan's
+// compensation in d order; the distance is total - compensation.  A warp's
+// Xs rows are one or two broadcasts.  A running fp32 sum over Dx = 784 terms
+// is off by ~1e-6 of d2 (about ten times the plain version's pairwise sum),
+// this order by 6.5e-8.  Every output's terms are summed in one order
+// whatever the geometry, so the forward, its save-gram variant, the
+// backward's recompute, every plan and the comparison designs stage the same
+// bits.  Every staged chunk is read before Ks is written, and `stage` is
+// free on return.
+template <int R, bool kCluster>
 __device__ __forceinline__ void gram_tiles(
     const float* __restrict__ Xs, const float* __restrict__ Zs, float kvar,
     float* Ks, float* stage, int TB, int P, int64_t row0, int64_t B, int M,
-    int Dx, float* __restrict__ Kout, int ldk, int ncols_out, int tid,
-    int nthreads) {
+    int Dx, float* __restrict__ Kout, int ldk, int ncols_out, int g0, int g1,
+    int tid, int nthreads) {
   constexpr int kRow = gt::kRow<float>;
-  const int CG = col_groups(M), P4 = 4 * CG, tiles = (TB / 4) * CG;
-  const int nch = (Dx + gt::kChunk - 1) / gt::kChunk, buf = (TB + P4) * kRow;
+  const int P4 = 4 * col_groups(M), n = g1 - g0, m0 = 4 * g0;
+  const int tiles = (TB / R) * n;
+  const int nch = (Dx + gt::kChunk - 1) / gt::kChunk;
+  const int buf = (TB + 4 * n) * kRow;
   const bool vec = gt::stage_vec(Xs, Zs, Dx);
   auto stage_chunk = [&](int c) {
-    gt::stage_chunk(stage + (c & 1) * buf, Xs, TB, row0, B, Zs, P4, 0,
-                    (int64_t)M, Dx, c * gt::kChunk, vec, tid, nthreads);
+    gt::stage_chunk(stage + (c & 1) * buf, Xs, TB, row0, B, Zs, 4 * n,
+                    (int64_t)m0, (int64_t)M, Dx, c * gt::kChunk, vec, tid,
+                    nthreads);
   };
   for (int t = tid; t - tid < tiles; t += nthreads) {
     const bool active = t < tiles;
-    const int lr = active ? 4 * (t / CG) : 0, cg = active ? t % CG : 0;
-    float S[4][4], C[4][4];
+    const int lr = active ? R * (t / n) : 0, cn = active ? t % n : 0;
+    float S[R][4], C[R][4];
     zero(S);
     zero(C);
     stage_chunk(0);
@@ -326,29 +423,58 @@ __device__ __forceinline__ void gram_tiles(
       if (c + 1 < nch) stage_chunk(c + 1);
       if (!active) continue;
       const float* at = stage + (c & 1) * buf;
-      gt::tile_chunk(S, C, at + lr * kRow, at + (TB + cg) * kRow, CG * kRow,
+      gt::tile_chunk(S, C, at + lr * kRow, at + (TB + cn) * kRow, n * kRow,
                      Dx - c * gt::kChunk);
     }
     __syncthreads();  // every thread is done with the ring
     if (!active) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      const int m = cg + CG * j;
-      float k[4];
+      const int m = m0 + cn + n * j;
+      float k[R];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
+      for (int i = 0; i < R; ++i) {
         const int64_t r = row0 + lr + i;
         k[i] = (r < B && m < M) ? kvar * expf(-0.5f * (S[i][j] - C[i][j]))
                                 : 0.f;
         if (Kout != nullptr && r < B && m < ncols_out)
           Kout[r * ldk + m] = k[i];
       }
-      *reinterpret_cast<float4*>(Ks + (size_t)m * TB + lr) =
-          make_float4(k[0], k[1], k[2], k[3]);
+      put_rows<R, kCluster>(Ks + (size_t)m * TB + lr, k);
     }
   }
   // k rows past the column groups (P4 <= m < P): zero
   for (int e = P4 * TB + tid; e < P * TB; e += nthreads) Ks[e] = 0.f;
+}
+
+// gram_tiles: outside a cluster in 4 x 4 tiles (TB rows by CG column
+// groups fill the threads); in a cluster of cs blocks with R =
+// gram_tile_rows(TB, ceil(CG / cs))
+template <bool kCluster>
+__device__ __forceinline__ void gram_stage(
+    int cs, const float* __restrict__ Xs, const float* __restrict__ Zs,
+    float kvar, float* Ks, float* stage, int TB, int P, int64_t row0,
+    int64_t B, int M, int Dx, float* __restrict__ Kout, int ldk,
+    int ncols_out, int g0, int g1, int tid, int nthreads) {
+  const int CG = col_groups(M);
+  if constexpr (!kCluster) {
+    gram_tiles<4, false>(Xs, Zs, kvar, Ks, stage, TB, P, row0, B, M, Dx,
+                         Kout, ldk, ncols_out, g0, g1, tid, nthreads);
+    return;
+  }
+  switch (gram_tile_rows(TB, (CG + cs - 1) / cs)) {
+    case 1:
+      gram_tiles<1, kCluster>(Xs, Zs, kvar, Ks, stage, TB, P, row0, B, M, Dx,
+                              Kout, ldk, ncols_out, g0, g1, tid, nthreads);
+      break;
+    case 2:
+      gram_tiles<2, kCluster>(Xs, Zs, kvar, Ks, stage, TB, P, row0, B, M, Dx,
+                              Kout, ldk, ncols_out, g0, g1, tid, nthreads);
+      break;
+    default:
+      gram_tiles<4, kCluster>(Xs, Zs, kvar, Ks, stage, TB, P, row0, B, M, Dx,
+                              Kout, ldk, ncols_out, g0, g1, tid, nthreads);
+  }
 }
 
 // Lets a kernel use up to 227 KB of dynamic shared memory, with the SM's

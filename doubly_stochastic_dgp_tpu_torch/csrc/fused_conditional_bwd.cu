@@ -44,6 +44,17 @@
 // and, at narrow Dx only (conditional.py::DX_IN_ROWS_MAX), dX, one thread
 // an output.
 //
+// At small B (kCluster) a cluster of cs blocks shares a row block
+// (fused_conditional.cuh): block q builds K (or reads it back whole), G, dG
+// and dK at its column groups and stores K, G and dG into every block of the
+// cluster.  The W_d products go in rounds: in round j block q forms T_d for d
+// = j cs + q (past Do a product whose T is not used) and leaves it in one of
+// two shared buffers; after a cluster barrier each block folds the round's
+// T_d, d ascending, read from their blocks' buffers, into dG's columns it
+// owns, held in X: the instructions of one block's dG, in its order.  So at
+// B = 1000 (Do = 30) the pass runs on 25 x 8 blocks, where one block a row
+// block streamed Do + 2 matrices one after another on 25 SMs.
+//
 // Reduction pass (fused_conditional_bwd_reduce_kernel), one launch of
 // independent jobs over the panels.  dW_d and dLiT are products over the
 // batch, G^T diag(gv_d) G and K^T dG, on square output tiles sized to M (M
@@ -76,22 +87,26 @@ using namespace fc;
 
 // the tiles X and Y, over which the gram stage's ring lies (whichever is
 // larger), so that the product ring's first slices arrive while the gram
-// is built
-__host__ __device__ inline size_t tiles_union_floats(int M) {
+// is built.  In a cluster also the two T buffers after Y, and the ring lies
+// over Y and them, as the cluster's blocks store K into X meanwhile.
+__host__ __device__ inline size_t tiles_union_floats(int M, bool cluster) {
   const int TB = block_rows(M);
-  const size_t tiles = (size_t)2 * k_rows(M) * TB;
-  const size_t gram = (size_t)gram_stage_floats(TB, M);
+  const size_t PT = (size_t)k_rows(M) * TB;
+  const size_t gram = (size_t)gram_stage_floats(TB, M) + (cluster ? PT : 0);
+  const size_t tiles =
+      2 * PT + (cluster ? (size_t)2 * TB * 4 * col_groups(M) : 0);
   return tiles > gram ? tiles : gram;
 }
 
 // X and Y (tiles_union_floats), the product ring, then the cotangent rows
-__host__ __device__ inline size_t rows_smem_floats(int M, int Do) {
-  const int TB = block_rows(M);
-  return tiles_union_floats(M) + (size_t)kStages * kKS * 4 * col_groups(M) +
-         (size_t)2 * TB * Do;
+__host__ __device__ inline size_t rows_smem_floats(int M, int Do,
+                                                   bool cluster) {
+  return tiles_union_floats(M, cluster) +
+         (size_t)kStages * kKS * 4 * col_groups(M) +
+         (size_t)2 * block_rows(M) * Do;
 }
 
-template <bool kSaved>
+template <bool kSaved, bool kCluster>
 __global__ void __launch_bounds__(kThreads, 2)
 fused_conditional_bwd_rows_kernel(
     const float* __restrict__ Xs, const float* __restrict__ Zs,
@@ -107,14 +122,23 @@ fused_conditional_bwd_rows_kernel(
   const int P4 = 4 * CG, P = k_rows(M), SF = kKS * P4;
   float* X = smem;                            // P x TB: K, then dG
   float* Y = X + (size_t)P * TB;              // P x TB: G, then Gd
-  float* ring = smem + tiles_union_floats(M); // kStages x kKS x P4
+  float* Tb = Y + (size_t)P * TB;             // a cluster's 2 x TB x P4: T_d
+  float* ring = smem + tiles_union_floats(M, kCluster);
   float* gms = ring + (size_t)kStages * SF;   // TB x Do
   float* gvs = gms + (size_t)TB * Do;         // TB x Do
   const int tid = threadIdx.x;
+  const Split sp = split_of<kCluster>(CG);
+  const int64_t row0 = (int64_t)(blockIdx.x / sp.cs) * TB;
+  // the tiles of the W_d products (all columns), and of G and dK (in a
+  // cluster the block's column groups, packed into the first threads)
   const bool active = tid < RG * CG;
-  const int lr = (tid / CG) * 4, lc = (tid % CG) * 4;  // tile's row, column
-  const int64_t row0 = (int64_t)blockIdx.x * TB;
-  const int nks = P / kKS, total = (Do + 2) * nks;
+  const int lr = (tid / CG) * 4, lc = (tid % CG) * 4;
+  const int ng = sp.g1 - sp.g0;
+  const bool gactive = tid < RG * ng;
+  const int glr = (tid / ng) * 4, glc = (sp.g0 + tid % ng) * 4;
+  // rounds of the W_d products: block q's T_d at d = j cs + q in round j
+  const int R = (Do + sp.cs - 1) / sp.cs;
+  const int nks = P / kKS, total = (R + 2) * nks;
   const SliceLoader loader(P4, (M & 3) == 0, tid, kThreads);
   // the gram as the Gd epilogue reads it back
   const float* Kg = kSaved ? Kin : Kp;
@@ -123,11 +147,15 @@ fused_conditional_bwd_rows_kernel(
   auto issue = [&](int s) {
     const int mat = s / nks, ks = s - mat * nks;
     float* dst = ring + (size_t)(s % kStages) * SF;
-    if (mat == Do + 1)
+    if (mat == R + 1) {
       load_slice_t(dst, LiT, M, ks * kKS, P4, tid, kThreads);
-    else
-      loader.copy(dst, P4, mat == 0 ? LiT : W + (size_t)(mat - 1) * M * M,
-                  M, ks * kKS, M, M);
+    } else {
+      // in a cluster past Do: W_{Do-1} again, a product whose T is not used
+      const int d = kCluster ? min(sp.cs * (mat - 1) + sp.q, Do - 1)
+                             : mat - 1;
+      loader.copy(dst, P4, mat == 0 ? LiT : W + (size_t)d * M * M, M,
+                  ks * kKS, M, M);
+    }
   };
   for (int s = 0; s < kStages - 1; ++s) {
     if (s < total) issue(s);
@@ -142,7 +170,9 @@ fused_conditional_bwd_rows_kernel(
   }
   // the gram rows: read back, or recomputed as in the forward (and then
   // written to the K panel for the reduction pass) through a ring laid
-  // over X and Y, while the product ring's first slices arrive
+  // over X and Y (in a cluster over Y and the T buffers), while the
+  // product ring's first slices arrive
+  if constexpr (kCluster) cluster_sync();  // every block of it has started
   if (kSaved) {
     for (int e = tid; e < TB * P; e += kThreads) {
       const int i = e / P, m = e - i * P;
@@ -150,92 +180,221 @@ fused_conditional_bwd_rows_kernel(
       X[m * TB + i] = (r < B && m < M) ? __ldg(Kin + r * M + m) : 0.f;
     }
   } else {
-    gram_tiles(Xs, Zs, *kvar_p, X, X, TB, P, row0, B, M, Dx, Kp, P4, P4,
-               tid, kThreads);
+    gram_stage<kCluster>(sp.cs, Xs, Zs, *kvar_p, X, kCluster ? Y : X, TB, P,
+                         row0, B, M, Dx, Kp, P4, P4, sp.g0, sp.g1, tid,
+                         kThreads);
   }
   // G's and Gd's k rows past the column groups (P4 <= k < P) stay 0 (the
   // epilogues write the first P4)
   for (int e = P4 * TB + tid; e < P * TB; e += kThreads) Y[e] = 0.f;
+  if constexpr (kCluster) cluster_sync();  // K whole in every block
 
-  float acc[4][4], dg[4][4];
+  float acc[4][4];
   zero(acc);
-  zero(dg);
 
-  // a thread's tile v to a k-major shared tile and to a row panel
-  auto store = [&](float (&v)[4][4], float* tile, float* panel) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(tile + (size_t)(lc + j) * TB + lr) =
-          make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int64_t r = row0 + lr + i;
-      if (r < B)
-        *reinterpret_cast<float4*>(panel + r * P4 + lc) =
-            make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
-    }
-  };
+  if constexpr (!kCluster) {
+    float dg[4][4];
+    zero(dg);
 
-  for (int s = 0; s < total; ++s) {
-    cp_async_wait_ring();
-    __syncthreads();  // slice s is in; slice s - 1's buffer is free
-    if (s + kStages - 1 < total) issue(s + kStages - 1);
-    cp_async_commit();
-    if (!active) continue;
-    const int mat = s / nks, ks = s - mat * nks;
-    // A: K (mat 0), G (the W_d), dG (LiT^T)
-    const float* As = (mat == 0 || mat > Do) ? X : Y;
-    ffma_slice_blocked(acc, As + (size_t)ks * kKS * TB + lr, TB,
-                       ring + (size_t)(s % kStages) * SF + lc, P4,
-                       min(kKS, M - ks * kKS));
-    if (ks != nks - 1) continue;
-    if (mat == 0) {
-      store(acc, Y, Gp);  // G = K LiT
-    } else if (mat <= Do) {
-      // dG += 2 gv_d T_d
+    // a thread's tile v to a k-major shared tile and to a row panel
+    auto store = [&](float (&v)[4][4], float* tile, float* panel) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float sc = 2.f * gvs[(lr + i) * Do + mat - 1];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) dg[i][j] = fmaf(sc, acc[i][j], dg[i][j]);
-      }
-      if (mat == Do) {
-        // dG += gm alpha^T (zero past column M); dG replaces K, which was
-        // last read by the products of mat 0
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          if (lc + j >= M) continue;
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            dg[i][j] += dot4(gms + (lr + i) * Do, 1,
-                             alpha + (size_t)(lc + j) * Do, 1, Do);
-        }
-        store(dg, X, dGp);
-      }
-    } else {
-      // Gd = -0.5 dK K (K read back from global memory, with plain loads:
-      // the K panel was written by this kernel) replaces G, which was last
-      // read by the products of mat Do
+      for (int j = 0; j < 4; ++j)
+        *reinterpret_cast<float4*>(tile + (size_t)(lc + j) * TB + lr) =
+            make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int64_t r = row0 + lr + i;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float k = (r < B && lc + j < M) ? Kg[r * ldk + lc + j] : 0.f;
-          acc[i][j] = -0.5f * acc[i][j] * k;
-        }
+        if (r < B)
+          *reinterpret_cast<float4*>(panel + r * P4 + lc) =
+              make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
       }
-      store(acc, Y, Gdp);
+    };
+
+    for (int s = 0; s < total; ++s) {
+      cp_async_wait_ring();
+      __syncthreads();  // slice s is in; slice s - 1's buffer is free
+      if (s + kStages - 1 < total) issue(s + kStages - 1);
+      cp_async_commit();
+      if (!active) continue;
+      const int mat = s / nks, ks = s - mat * nks;
+      // A: K (mat 0), G (the W_d), dG (LiT^T)
+      const float* As = (mat == 0 || mat > Do) ? X : Y;
+      ffma_slice_blocked(acc, As + (size_t)ks * kKS * TB + lr, TB,
+                         ring + (size_t)(s % kStages) * SF + lc, P4,
+                         min(kKS, M - ks * kKS));
+      if (ks != nks - 1) continue;
+      if (mat == 0) {
+        store(acc, Y, Gp);  // G = K LiT
+      } else if (mat <= Do) {
+        // dG += 2 gv_d T_d
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float sc = 2.f * gvs[(lr + i) * Do + mat - 1];
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            dg[i][j] = fmaf(sc, acc[i][j], dg[i][j]);
+        }
+        if (mat == Do) {
+          // dG += gm alpha^T (zero past column M); dG replaces K, which
+          // was last read by the products of mat 0
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            if (lc + j >= M) continue;
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              dg[i][j] += dot4(gms + (lr + i) * Do, 1,
+                               alpha + (size_t)(lc + j) * Do, 1, Do);
+          }
+          store(dg, X, dGp);
+        }
+      } else {
+        // Gd = -0.5 dK K (K read back from global memory, with plain
+        // loads: the K panel was written by this kernel) replaces G, which
+        // was last read by the products of mat Do
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int64_t r = row0 + lr + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float k =
+                (r < B && lc + j < M) ? Kg[r * ldk + lc + j] : 0.f;
+            acc[i][j] = -0.5f * acc[i][j] * k;
+          }
+        }
+        store(acc, Y, Gdp);
+      }
+      zero(acc);
     }
-    zero(acc);
+  } else {
+    // a thread's tile v (rows tr, columns tc) to the k-major shared tile
+    // of this block (or, with `all`, of every block of the cluster) and to
+    // a row panel
+    auto store = [&](float (&v)[4][4], int tr, int tc, float* tile,
+                     float* panel, bool all) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float4* p =
+            reinterpret_cast<float4*>(tile + (size_t)(tc + j) * TB + tr);
+        const float4 val = make_float4(v[0][j], v[1][j], v[2][j], v[3][j]);
+        if (all)
+          put<true>(p, val);
+        else
+          *p = val;
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int64_t r = row0 + tr + i;
+        if (r < B)
+          *reinterpret_cast<float4*>(panel + r * P4 + tc) =
+              make_float4(v[i][0], v[i][1], v[i][2], v[i][3]);
+      }
+    };
+
+    // after round j's barrier: the round's T_d, d = j cs .. (j + 1) cs - 1
+    // below Do, folded in d order into the columns of dG this block owns
+    // (4 rows of a column a step), in X; after the last round dG takes gm
+    // alpha^T and goes to the panel and to every block's X
+    auto fold = [&](int j) {
+      const int w = 4 * ng, c0 = 4 * sp.g0;
+      const float* tb = Tb + (size_t)(j & 1) * TB * P4;
+      cg::cluster_group cl = cg::this_cluster();
+      for (int e = tid; e < RG * w; e += kThreads) {
+        const int i0 = 4 * (e / w), c = c0 + e % w;
+        float4* xp = reinterpret_cast<float4*>(X + (size_t)c * TB + i0);
+        float v[4] = {0.f, 0.f, 0.f, 0.f};
+        if (j > 0) {
+          const float4 x = *xp;
+          v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+        }
+        for (int r = 0; r < sp.cs; ++r) {
+          const int d = j * sp.cs + r;
+          if (d >= Do) break;
+          const float4 t = *cl.map_shared_rank(
+              reinterpret_cast<const float4*>(tb + (size_t)c * TB + i0), r);
+          const float tv[4] = {t.x, t.y, t.z, t.w};
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            v[i] = fmaf(2.f * gvs[(i0 + i) * Do + d], tv[i], v[i]);
+        }
+        if (j < R - 1) {
+          *xp = make_float4(v[0], v[1], v[2], v[3]);
+          continue;
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          if (c < M)
+            v[i] +=
+                dot4(gms + (i0 + i) * Do, 1, alpha + (size_t)c * Do, 1, Do);
+          const int64_t r = row0 + i0 + i;
+          if (r < B) dGp[r * P4 + c] = v[i];
+        }
+        put<true>(xp, make_float4(v[0], v[1], v[2], v[3]));
+      }
+    };
+
+    for (int s = 0; s < total; ++s) {
+      cp_async_wait_ring();
+      __syncthreads();  // slice s is in; slice s - 1's buffer is free
+      if (s + kStages - 1 < total) issue(s + kStages - 1);
+      cp_async_commit();
+      const int mat = s / nks, ks = s - mat * nks;
+      // A: K (mat 0), G (the W_d), dG (LiT^T); G and dK at the block's
+      // column groups
+      const bool part = mat == 0 || mat == R + 1;
+      const bool on = part ? gactive : active;
+      const int tr = part ? glr : lr, tc = part ? glc : lc;
+      const float* As = part ? X : Y;
+      if (on)
+        ffma_slice_blocked(acc, As + (size_t)ks * kKS * TB + tr, TB,
+                           ring + (size_t)(s % kStages) * SF + tc, P4,
+                           min(kKS, M - ks * kKS));
+      if (ks != nks - 1) continue;
+      if (mat == 0) {
+        if (on) store(acc, tr, tc, Y, Gp, true);  // G = K LiT
+        cluster_sync();  // G whole in every block
+      } else if (mat <= R) {
+        // round mat - 1: this block's T_d to its buffer, then the fold
+        const int d = sp.cs * (mat - 1) + sp.q;
+        float* tb = Tb + (size_t)((mat - 1) & 1) * TB * P4;
+        if (active && d < Do)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<float4*>(tb + (size_t)(lc + j) * TB + lr) =
+                make_float4(acc[0][j], acc[1][j], acc[2][j], acc[3][j]);
+        cluster_sync();  // the round's T_d in their buffers
+        fold(mat - 1);
+        if (mat == R) cluster_sync();  // dG whole in every block
+      } else if (on) {
+        // Gd = -0.5 dK K, as outside a cluster, to every block's Y only
+        // where the row pass forms dX
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int64_t r = row0 + tr + i;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const float k =
+                (r < B && tc + j < M) ? Kg[r * ldk + tc + j] : 0.f;
+            acc[i][j] = -0.5f * acc[i][j] * k;
+          }
+        }
+        store(acc, tr, tc, Y, Gdp, dx_rows != 0);
+      }
+      zero(acc);
+    }
   }
   cp_async_wait_all();
   if (!dx_rows) return;
-  __syncthreads();  // every thread's Gd is in
+  // every thread's Gd is in (in every block of a cluster)
+  if constexpr (kCluster)
+    cluster_sync();
+  else
+    __syncthreads();
 
-  // dX = 2 sum_m Gd_m (x - z_m), one thread an output, as four interleaved
-  // FFMA chains (m mod 4, m ascending) added pairwise: dx_tile's order
-  for (int e = tid; e < TB * Dx; e += kThreads) {
+  // dX = 2 sum_m Gd_m (x - z_m), one thread an output (a cluster's blocks
+  // take turns), as four interleaved FFMA chains (m mod 4, m ascending)
+  // added pairwise: dx_tile's order
+  for (int e = sp.q * kThreads + tid; e < TB * Dx; e += sp.cs * kThreads) {
     const int i = e / Dx, j = e - i * Dx;
     const int64_t r = row0 + i;
     if (r >= B) continue;
@@ -613,7 +772,13 @@ __global__ void sum_slices_kernel(const float* __restrict__ part,
   }
 }
 
-unsigned long long g_smem_set[3] = {0, 0, 0};
+unsigned long long g_smem_set[5] = {0, 0, 0, 0, 0};
+
+template <bool kSaved, bool kCluster>
+cudaError_t rows_smem_ready() {
+  return allow_smem(fused_conditional_bwd_rows_kernel<kSaved, kCluster>,
+                    g_smem_set[2 * (int)kSaved + (int)kCluster]);
+}
 
 template <bool kSaved>
 cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
@@ -621,17 +786,25 @@ cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
                         const float* kvar, const float* gm, const float* gv,
                         const float* Kin, float* dX, float* Kp, float* Gp,
                         float* dGp, float* Gdp, int64_t B, int M, int Dx,
-                        int Do, int dx_rows, cudaStream_t stream) {
-  auto* kernel = fused_conditional_bwd_rows_kernel<kSaved>;
-  cudaError_t err = allow_smem(kernel, g_smem_set[kSaved ? 1 : 0]);
-  if (err != cudaSuccess) return err;
-  const int64_t blocks = (B + block_rows(M) - 1) / block_rows(M);
+                        int Do, int dx_rows, int cs, cudaStream_t stream) {
+  const int64_t blocks = (B + block_rows(M) - 1) / block_rows(M) * cs;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, kThreads,
-           rows_smem_floats(M, Do) * sizeof(float), stream>>>(
-      Xs, Zs, LiT, alpha, W, kvar, gm, gv, Kin, dX, Kp, Gp, dGp, Gdp, B, M,
-      Dx, Do, dx_rows);
-  return cudaGetLastError();
+  const size_t smem = rows_smem_floats(M, Do, cs > 1) * sizeof(float);
+  if (cs == 1) {
+    cudaError_t err = rows_smem_ready<kSaved, false>();
+    if (err != cudaSuccess) return err;
+    fused_conditional_bwd_rows_kernel<kSaved, false>
+        <<<(unsigned)blocks, kThreads, smem, stream>>>(
+            Xs, Zs, LiT, alpha, W, kvar, gm, gv, Kin, dX, Kp, Gp, dGp, Gdp,
+            B, M, Dx, Do, dx_rows);
+    return cudaGetLastError();
+  }
+  cudaError_t err = rows_smem_ready<kSaved, true>();
+  if (err != cudaSuccess) return err;
+  return gt::launch_clusters(fused_conditional_bwd_rows_kernel<kSaved, true>,
+                             blocks, kThreads, cs, smem, stream, Xs, Zs, LiT,
+                             alpha, W, kvar, gm, gv, Kin, dX, Kp, Gp, dGp,
+                             Gdp, B, M, Dx, Do, dx_rows);
 }
 
 }  // namespace
@@ -647,19 +820,22 @@ cudaError_t launch_rows(const float* Xs, const float* Zs, const float* LiT,
 // rows; square output tiles of `tile` columns; column-sum tiles of 4 cg
 // inducing points by 4 zjg or 4 ajg columns; dX tiles of 4 xrg rows by 4
 // xjg columns, or xrg = 0 for dX in the row pass; `threads` a block and
-// `smem_bytes` of shared memory, at least what the jobs need) comes from
-// conditional.py::backward_plan.  Launches the row pass, the reduction and
-// (nslices > 1) the fixed-order sum on `stream`.  Returns a cudaError_t
-// code (0 = launched).
+// `smem_bytes` of shared memory, at least what the jobs need) and the row
+// pass's (clusters of cs blocks, cs = 1 for none: any cs that plan_ok
+// refuses, or whose row pass needs more shared memory than a block may
+// use, is refused) come from conditional.py::backward_plan.  Launches the row pass,
+// the reduction and (nslices > 1) the fixed-order sum on `stream`.  Returns
+// a cudaError_t code (0 = launched).
 extern "C" int fused_conditional_bwd(
     const float* Xs, const float* Zs, const float* LiT, const float* alpha,
     const float* W, const float* kvar, const float* gm, const float* gv,
     const float* Kin, float* dX, float* out, float* panels, float* part,
     int64_t B, int M, int Dx, int Do, int nslices, int64_t rows_per_slice,
     int tile, int threads, int cg, int zjg, int ajg, int xrg, int xjg,
-    int smem_bytes, void* stream) {
+    int smem_bytes, int cs, void* stream) {
   if (B <= 0 || M <= 0 || M > kMaxM || Dx <= 0 || Do <= 0 ||
-      rows_smem_floats(M, Do) * sizeof(float) > 232448 ||
+      !plan_ok(M, Do, cs) ||
+      rows_smem_floats(M, Do, cs > 1) * sizeof(float) > 232448 ||
       !aligned16(panels))
     return (int)cudaErrorInvalidValue;
   const ReducePlan pl{tile, cg, zjg, ajg, xrg, xjg};
@@ -686,13 +862,14 @@ extern "C" int fused_conditional_bwd(
   cudaError_t err =
       Kin != nullptr
           ? launch_rows<true>(Xs, Zs, LiT, alpha, W, kvar, gm, gv, Kin, dX,
-                              nullptr, Gp, dGp, Gdp, B, M, Dx, Do, dx_rows, s)
+                              nullptr, Gp, dGp, Gdp, B, M, Dx, Do, dx_rows,
+                              cs, s)
           : launch_rows<false>(Xs, Zs, LiT, alpha, W, kvar, gm, gv, nullptr,
                                dX, Kp, Gp, dGp, Gdp, B, M, Dx, Do, dx_rows,
-                               s);
+                               cs, s);
   if (err != cudaSuccess) return (int)err;
 
-  err = allow_smem(fused_conditional_bwd_reduce_kernel, g_smem_set[2]);
+  err = allow_smem(fused_conditional_bwd_reduce_kernel, g_smem_set[4]);
   if (err != cudaSuccess) return (int)err;
   const int64_t E = (int64_t)Do * M * M + (int64_t)M * M +
                     (int64_t)M * Do + (int64_t)M * Dx;
@@ -709,31 +886,37 @@ extern "C" int fused_conditional_bwd(
   return (int)cudaGetLastError();
 }
 
-// Resident blocks an SM of the row pass (which 0, saved 1) at M and Do, or
-// of the reduction (which 2) at `threads` threads and `smem_bytes` of
-// shared memory a block; -1 on an error.
-extern "C" int fused_conditional_bwd_occupancy(int which, int M, int Do,
-                                               int threads, int smem_bytes) {
-  if (M <= 0 || M > kMaxM || Do <= 0 || which < 0 || which > 2) return -1;
+template <bool kSaved, bool kCluster>
+int rows_occupancy(size_t smem) {
   int n = 0;
-  cudaError_t err;
-  const size_t smem = rows_smem_floats(M, Do) * sizeof(float);
+  cudaError_t err = rows_smem_ready<kSaved, kCluster>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &n, fused_conditional_bwd_rows_kernel<kSaved, kCluster>, kThreads,
+        smem);
+  return err == cudaSuccess ? n : -1;
+}
+
+// Resident blocks an SM of the row pass (which 0, saved 1) at M and Do, in
+// clusters (cs > 1) or not, or of the reduction (which 2) at `threads`
+// threads and `smem_bytes` of shared memory a block; -1 on an error.
+extern "C" int fused_conditional_bwd_occupancy(int which, int M, int Do,
+                                               int threads, int smem_bytes,
+                                               int cs) {
+  if (M <= 0 || M > kMaxM || Do <= 0 || which < 0 || which > 2) return -1;
   if (which == 2) {
-    err = allow_smem(fused_conditional_bwd_reduce_kernel, g_smem_set[2]);
+    int n = 0;
+    cudaError_t err =
+        allow_smem(fused_conditional_bwd_reduce_kernel, g_smem_set[4]);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
           &n, fused_conditional_bwd_reduce_kernel, threads, smem_bytes);
-  } else if (which == 1) {
-    err = allow_smem(fused_conditional_bwd_rows_kernel<true>, g_smem_set[1]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, fused_conditional_bwd_rows_kernel<true>, kThreads, smem);
-  } else {
-    err = allow_smem(fused_conditional_bwd_rows_kernel<false>,
-                     g_smem_set[0]);
-    if (err == cudaSuccess)
-      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &n, fused_conditional_bwd_rows_kernel<false>, kThreads, smem);
+    return err == cudaSuccess ? n : -1;
   }
-  return err == cudaSuccess ? n : -1;
+  const size_t smem = rows_smem_floats(M, Do, cs > 1) * sizeof(float);
+  if (which == 1)
+    return cs > 1 ? rows_occupancy<true, true>(smem)
+                  : rows_occupancy<true, false>(smem);
+  return cs > 1 ? rows_occupancy<false, true>(smem)
+                : rows_occupancy<false, false>(smem);
 }

@@ -16,6 +16,8 @@
 // exp amplifies; a running fp32 sum over 784 terms is off by ~1e-6 of d2,
 // this order by 6.5e-8, the least of the orders measured
 // (tools/mnist_precision.py --cpu; PERF.md §6).  No TF32, no tensor cores.
+// Both kernels that use it split their work over thread-block clusters,
+// launched by launch_clusters.
 
 #pragma once
 
@@ -113,10 +115,12 @@ __device__ __forceinline__ void kahan_sq(T& s, T& c, T u) {
 
 // One staged chunk into a thread's tile: S[i][j] += sum_d (x_i[d] -
 // z_j[d])^2 with compensation C[i][j], d ascending, for the X rows at xs +
-// i kRow (i < 4) and the Z rows at zs + j zstep (j < 4).  nd is the chunk's
-// d below D; whole groups of kQ past it hold zeros and are skipped.
-template <typename T>
-__device__ __forceinline__ void tile_chunk(T (&S)[4][4], T (&C)[4][4],
+// i kRow (i < R: 4, or fewer where a block has few rows a thread) and the
+// Z rows at zs + j zstep (j < 4).  nd is the chunk's d below D; whole
+// groups of kQ past it hold zeros and are skipped.  Each output's terms
+// take the same instructions in the same order whatever R is.
+template <typename T, int R>
+__device__ __forceinline__ void tile_chunk(T (&S)[R][4], T (&C)[R][4],
                                            const T* xs, const T* zs,
                                            int zstep, int nd) {
 #pragma unroll
@@ -126,7 +130,7 @@ __device__ __forceinline__ void tile_chunk(T (&S)[4][4], T (&C)[4][4],
 #pragma unroll
     for (int j = 0; j < 4; ++j) load16(zs + j * zstep + d, z[j]);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+    for (int i = 0; i < R; ++i) {
       T x[kQ<T>];
       load16(xs + i * kRow<T> + d, x);
 #pragma unroll
@@ -136,6 +140,31 @@ __device__ __forceinline__ void tile_chunk(T (&S)[4][4], T (&C)[4][4],
           kahan_sq(S[i][j], C[i][j], x[u] - z[j][u]);
     }
   }
+}
+
+// Launches `kernel` on `blocks` blocks of `threads` threads, in clusters of
+// cs blocks, with `smem` bytes of dynamic shared memory
+template <typename... KArgs, typename... Args>
+__host__ inline cudaError_t launch_clusters(void (*kernel)(KArgs...),
+                                            int64_t blocks, int threads,
+                                            int cs, size_t smem,
+                                            cudaStream_t stream,
+                                            Args... args) {
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err =
+      cudaLaunchKernelEx(&cfg, kernel, static_cast<KArgs>(args)...);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
 }  // namespace gt

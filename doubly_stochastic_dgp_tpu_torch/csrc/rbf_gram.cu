@@ -348,22 +348,10 @@ int launch(const T* X, const T* Z, const T* ls, int ls_stride, const T* var,
   const int64_t blocks = tiles_m * ((N + kWTile - 1) / kWTile) * splits;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const bool vec = gt::stage_vec(X, Z, D);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = (unsigned)splits;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((unsigned)blocks);
-  cfg.blockDim = dim3(kWThreads);
-  cfg.dynamicSmemBytes = wide_smem_bytes<T>();
-  cfg.stream = s;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(
-      &cfg, rbf_gram_kernel_wide<T, kFastExp>, X, Z, ls, ls_stride, var, K,
-      N, M, D, tiles_m, vec);
-  return err != cudaSuccess ? (int)err : (int)cudaGetLastError();
+  return (int)gt::launch_clusters(rbf_gram_kernel_wide<T, kFastExp>, blocks,
+                                  kWThreads, splits, wide_smem_bytes<T>(), s,
+                                  X, Z, ls, ls_stride, var, K, N, M, D,
+                                  tiles_m, vec);
 }
 
 }  // namespace

@@ -53,7 +53,7 @@ __all__ = ["fused_conditional", "fused_conditional_saved",
            "fused_conditional_forward", "fused_conditional_backward",
            "fused_conditional_plain", "fused_conditional_saved_plain",
            "fused_conditional_backward_plain", "forward_plan",
-           "backward_plan", "flops", "flops_bwd", "MAX_M"]
+           "backward_plan", "gram_tile_rows", "flops", "flops_bwd", "MAX_M"]
 
 MAX_M = 512   # the JAX kernel's cap (conditional.py pallas_profitable)
 
@@ -196,6 +196,7 @@ def flops_bwd(B, M, Dx, Do, saved=False):
 # ---------------------------------------------------------------------------
 
 SMEM_MAX = 232448              # bytes of shared memory a block may use
+MAX_CLUSTER = 8                # blocks of a thread-block cluster (portable)
 SCRATCH_MAX_BYTES = 8_000_000  # the backward's slice partials, whatever B
 # fused_conditional.cuh / fused_conditional_bwd.cu: threads of a row-kernel
 # block, row groups a block at most, k rows of a streamed slice, slices in
@@ -228,31 +229,103 @@ def gram_stage_floats(tb, M):
     """Floats of the gram stage's two-stage ring (``fused_conditional.cuh``
     gram_stage_floats): tb rows of Xs and 4 ceil(M / 4) rows of Zs, each a
     16-wide chunk of Dx padded to 20 floats.  The forward lays it over
-    its product ring, the backward's row pass over its two tiles."""
+    its product ring, the backward's row pass over its two tiles (in a
+    cluster over its second tile and the T buffers)."""
     return 2 * (tb + 4 * -(-M // 4)) * (_GRAM_CHUNK + 4)
 
 
-def forward_plan(B, M):
-    """The forward kernel's launch: rows a block ``tb``, ``blocks``, busy
-    threads of the 256 a block, and shared memory a block ``smem_bytes``
-    (``fused_conditional.cu``'s smem_floats: the (P x tb) gram, then the
-    product ring and the variance partials or the gram stage's ring,
-    whichever is larger)."""
-    tb, cg, rg, P = _row_geometry(M)
+def gram_tile_rows(tb, ncg, cluster):
+    """Rows of a gram-stage register tile (``fused_conditional.cuh``
+    gram_stage): 4 outside a cluster; in one, the fewest of 1, 2 and 4 at
+    which a block's tb rows by ncg column groups take one pass of its 256
+    threads (gram_tile_rows)."""
+    if cluster > 1:
+        for r in (1, 2):
+            if (tb // r) * ncg <= _THREADS:
+                return r
+    return 4
+
+
+def _forward_smem(M):
+    """The forward's shared memory a block (``fused_conditional.cu``
+    smem_floats): the (P x tb) gram, then the product ring and the
+    variance partials or the gram stage's ring, whichever is larger."""
+    tb, cg, _, P = _row_geometry(M)
     products = _STAGES * _KS * 4 * cg + 2 * tb * cg
-    smem = 4 * (P * tb + max(products, gram_stage_floats(tb, M)))
-    return {"tb": tb, "blocks": -(-B // tb), "busy_threads": rg * cg,
-            "smem_bytes": smem}
+    return 4 * (P * tb + max(products, gram_stage_floats(tb, M)))
+
+
+def _rows_smem(M, Do, cluster):
+    """The backward row pass's shared memory a block
+    (``fused_conditional_bwd.cu`` rows_smem_floats): the tiles K and G (in a
+    cluster also the two T buffers) or the gram stage's ring, then the
+    product ring and the cotangent rows."""
+    tb, cg, _, P = _row_geometry(M)
+    pt = P * tb
+    if cluster > 1:
+        tiles = max(2 * pt + 2 * tb * 4 * cg, pt + gram_stage_floats(tb, M))
+    else:
+        tiles = max(2 * pt, gram_stage_floats(tb, M))
+    return 4 * (tiles + _STAGES * _KS * 4 * cg + 2 * tb * Do)
+
+
+def _cluster_size(B, M, Dx, Do, sms, fits):
+    """Blocks of a cluster of the row kernels, whose blocks take as many
+    rows as the 4 x 4 tiles of 256 threads take (``_row_geometry``).  At a
+    batch whose row blocks leave SMs idle, a thread-block cluster shares
+    each row block: the most blocks, a power of two (clusters then pack
+    the SMs of a GPC), that keep two blocks an SM or fewer, at most
+    MAX_CLUSTER, Do (a d a block at least) and the column groups (one a
+    block at least), and that ``fits(cluster)`` (shared memory) lets;
+    then halved while the blocks are more than the SMs and a block's work
+    is under 3 products (its ceil(Do / cluster) W_d, the gram counted as
+    Dx / 64 of them, split cluster ways).  Fitted to CUDA-graph replays on
+    an H100 (tools/backward_bitwise.py --plans; PERF.md §6): at M = 100 it
+    takes 8 at B = 1000 with Do = 30, and with Dx = 784, Do = 15; 4 with
+    Dx = 30, Do = 10; 2 at B = 2640 and 5280 with Dx = Do = 8 (at each the
+    fastest of clusters of 1-6 and 8), and none from B = 5281 up."""
+    tb, cg, _, _ = _row_geometry(M)
+    blocks, cluster = -(-B // tb), 1
+    while (2 * cluster <= min(MAX_CLUSTER, Do, cg)
+           and blocks * 2 * cluster <= 2 * sms and fits(2 * cluster)):
+        cluster *= 2
+    while (cluster > 1 and blocks * cluster > sms
+           and -(-Do // cluster) + Dx / (64 * cluster) < 3):
+        cluster //= 2
+    return cluster
+
+
+def forward_plan(B, M, Dx, Do, sms=132):
+    """The forward kernel's launch: rows a block ``tb`` (``row_blocks`` of
+    them), blocks of a cluster ``cluster`` (1: none; in a cluster, block q
+    builds the gram and G at its column groups, ``col_groups`` of them at
+    most, and forms var and mean at d = q, q + cluster, ...), ``blocks`` =
+    row_blocks x cluster, the rows of a gram tile ``gram_rows``, busy
+    threads of the 256 a block in the W_d products, and shared memory a
+    block ``smem_bytes``."""
+    cs = _cluster_size(B, M, Dx, Do, sms, lambda c: True)
+    tb, cg, _, _ = _row_geometry(M)
+    ncg = -(-cg // cs)
+    rows = -(-B // tb)
+    return {"tb": tb, "cluster": cs, "row_blocks": rows,
+            "blocks": rows * cs, "col_groups": ncg,
+            "gram_rows": gram_tile_rows(tb, ncg, cs),
+            "busy_threads": (tb // 4) * cg, "smem_bytes": _forward_smem(M)}
 
 
 def backward_plan(B, M, Dx, Do, sms=132, saved=False):
     """The backward's launch plan.
 
-    Row pass: ``tb``, ``row_blocks``, and ``smem_bytes`` (the tiles K and
-    G or the gram stage's ring, then the product ring and the cotangent
-    rows).  It writes the row panels G, dG, Gd and (unless ``saved``) K,
-    each (B, P) with P = M rounded up to 4: ``panel_floats``; and dX where
-    ``dx_in_rows`` (Dx <= DX_IN_ROWS_MAX).  Reduction, one launch of
+    Row pass: ``tb`` rows a block, blocks of a cluster ``cluster`` (as the
+    forward's, :func:`forward_plan`; in a cluster block q builds K, G, dG
+    and dK at its column groups, ``col_groups`` at most, and forms T_d at d
+    = q, q + cluster, ... in ``rounds`` rounds), ``row_blocks`` blocks in
+    all, ``gram_rows``, and ``smem_bytes`` (the tiles K and G, in a cluster
+    also two T buffers, or the gram stage's ring, then the product ring and
+    the cotangent rows).  It writes the row panels G, dG, Gd and (unless
+    ``saved``) K, each (B, P) with P = M rounded up to 4: ``panel_floats``;
+    and dX where ``dx_in_rows`` (Dx <= DX_IN_ROWS_MAX).  Reduction, one
+    launch of
     ``reduce_blocks`` jobs (``reduce_threads`` threads a block,
     ``reduce_smem_bytes``: the largest job's ring) over ``nslices`` slices
     of ``rows_per_slice`` rows: dW_d and dLiT on square output tiles of
@@ -268,9 +341,11 @@ def backward_plan(B, M, Dx, Do, sms=132, saved=False):
     ``scratch_floats`` = nslices x E (0 for one slice), at most
     SCRATCH_MAX_BYTES and independent of B.  Slices: two output-tile
     blocks an SM, as far as the scratch allows."""
+    cs = _cluster_size(B, M, Dx, Do, sms,
+                       lambda c: _rows_smem(M, Do, c) <= SMEM_MAX)
     tb, cg, _, P = _row_geometry(M)
-    tiles = max(2 * P * tb, gram_stage_floats(tb, M))
-    smem = 4 * (tiles + _STAGES * _KS * 4 * cg + 2 * tb * Do)
+    ncg = -(-cg // cs)
+    smem = _rows_smem(M, Do, cs)
     if smem > SMEM_MAX:
         raise ValueError(f"fused_conditional backward: M={M}, Do={Do} needs "
                          f"{smem} bytes of shared memory a block, above "
@@ -298,8 +373,10 @@ def backward_plan(B, M, Dx, Do, sms=132, saved=False):
     reduce_smem = 4 * _STAGES * max(
         2 * _KS * tile + _KS, _KS * 4 * (sg + max(zg, ag)),
         4 * xrg * (_GRAM_CHUNK + 4) + _KS * 4 * xjg)
-    return {"tb": tb, "row_blocks": -(-B // tb), "smem_bytes": smem,
-            "tile": tile, "reduce_threads": rthreads,
+    return {"tb": tb, "cluster": cs, "row_blocks": -(-B // tb) * cs,
+            "col_groups": ncg, "gram_rows": gram_tile_rows(tb, ncg, cs),
+            "rounds": -(-Do // cs), "smem_bytes": smem, "tile": tile,
+            "reduce_threads": rthreads,
             "reduce_smem_bytes": reduce_smem,
             "nslices": nslices, "rows_per_slice": rows_per_slice,
             "product_blocks": nslices * tiles, "sum_groups": sg,
@@ -326,9 +403,14 @@ DESIGN_FFMA, DESIGN_3XTF32, DESIGN_3XTF32_CHAINED = 0, 1, 2
 @functools.cache
 def _fwd_fn():
     from .build import load_library
-    fn = load_library("fused_conditional").fused_conditional_fwd
+    return _bind_fwd(load_library("fused_conditional"))
+
+
+def _bind_fwd(lib):
+    """The forward's C entry point of a loaded library, with its types."""
+    fn = lib.fused_conditional_fwd
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [
-        ctypes.c_int] * 4 + [ctypes.c_void_p]
+        ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -338,7 +420,7 @@ def _bind_bwd(lib):
     fn = lib.fused_conditional_bwd
     fn.argtypes = [ctypes.c_void_p] * 13 + [
         ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 8 + [
+        ctypes.c_int, ctypes.c_int64] + [ctypes.c_int] * 9 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -424,13 +506,14 @@ def _forward_kernel(Xs, Zs, LiT, alpha, W, kvar, kdiag, save_gram,
     K = new(B, M) if save_gram else None
     if B == 0:
         return mean, var, K
+    plan = forward_plan(B, M, Dx, Do, _sm_count(Xs.device))
     with torch.cuda.device(Xs.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = _fwd_fn()(Xs.data_ptr(), Zs.data_ptr(), LiT.data_ptr(),
                         alpha.data_ptr(), W.data_ptr(), kvar.data_ptr(),
                         kdiag.data_ptr(), mean.data_ptr(), var.data_ptr(),
                         None if K is None else K.data_ptr(), B, M, Dx, Do,
-                        design, stream)
+                        design, plan["cluster"], stream)
     _raise_on(err, "fused_conditional forward")
     (fused_conditional_saved if save_gram else fused_conditional
      ).launches += 1
@@ -469,7 +552,7 @@ def _backward_kernel(Xs, Zs, LiT, alpha, W, kvar, gm, gv_eff, K):
                 plan["reduce_threads"], plan["sum_groups"],
                 plan["dz_groups"], plan["dalpha_groups"],
                 plan["dx_row_groups"], plan["dx_col_groups"],
-                plan["reduce_smem_bytes"], stream)
+                plan["reduce_smem_bytes"], plan["cluster"], stream)
         _raise_on(err, "fused_conditional backward")
         (fused_conditional if K is None else fused_conditional_saved
          ).backward_launches += 1

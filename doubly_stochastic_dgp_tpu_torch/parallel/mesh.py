@@ -379,12 +379,14 @@ def _rank_main(rank, world, address, backend, device, threads, timeout_s,
 
 
 def run_ranks(fn, nprocs: int, args=(), backend: str = "gloo",
-              device="cpu", timeout_s: float = 600.0, threads=None):
+              device="cuda", timeout_s: float = 600.0, threads=None):
     """Run ``fn(rank, *args)`` on ``nprocs`` local ranks, each a fresh
     process (the 'spawn' start method: it imports ``fn``'s module, and
     nothing of the caller's) in a process group of ``backend`` on
     ``device``, joined through a file store in a temporary directory;
-    returns the ranks' return values (picklable) in rank order.
+    returns the ranks' return values (picklable) in rank order.  The ranks
+    run on the card unless ``device="cpu"`` asks for the CPU (gloo takes
+    CUDA tensors, so its ranks may share one card).
 
     Every collective and the whole run are bounded by ``timeout_s``: a
     rank that raises or a run that does not end in time terminates every

@@ -173,7 +173,15 @@ PLAN_SHAPES = [(10000, 100, 8, 8), (100000, 100, 8, 8), (10000, 100, 8, 1),
                # row past a 40-row block and Dx one past a chunk; one row
                (1000, 100, 784, 30), (1000, 100, 30, 30),
                (1000, 100, 30, 10), (100000, 100, 784, 30),
-               (1000, 100, 784, 15), (41, 37, 785, 3), (1, 100, 784, 8)]
+               (1000, 100, 784, 15), (41, 37, 785, 3), (1, 100, 784, 8),
+               # the row kernels' cluster plan: the last B with clusters of
+               # 4 at M=100 and the first with 2; the last with clusters
+               # and the first without; rows past B in a cluster's row
+               # block; Do not a multiple of the cluster; Do=1 (no
+               # cluster); M=37 (clusters of 8 over 10 column groups)
+               (2640, 100, 8, 8), (2641, 100, 8, 8), (5280, 100, 8, 8),
+               (5281, 100, 8, 8), (1001, 100, 30, 30), (1000, 100, 30, 13),
+               (1000, 100, 30, 1), (1000, 37, 30, 30)]
 SCRATCH_MAX = 8_000_000   # bytes of the backward's slice partials
 # (nslices, rows_per_slice) of the backward's reduction at each plan shape,
 # as the kernels were built with them when dZ and dX were one thread an
@@ -187,7 +195,16 @@ SLICES = {(10000, 100, 8, 8): (21, 480), (100000, 100, 8, 8): (21, 4768),
           (17, 100, 8, 8): (21, 16), (1000, 100, 784, 30): (5, 208),
           (1000, 100, 30, 30): (6, 176), (1000, 100, 30, 10): (17, 64),
           (100000, 100, 784, 30): (5, 20000), (1000, 100, 784, 15): (8, 128),
-          (41, 37, 785, 3): (57, 16), (1, 100, 784, 8): (11, 16)}
+          (41, 37, 785, 3): (57, 16), (1, 100, 784, 8): (11, 16),
+          (2640, 100, 8, 8): (21, 128), (2641, 100, 8, 8): (21, 128),
+          (5280, 100, 8, 8): (21, 256), (5281, 100, 8, 8): (21, 256),
+          (1001, 100, 30, 30): (6, 176), (1000, 100, 30, 13): (13, 80),
+          (1000, 100, 30, 1): (86, 16), (1000, 37, 30, 30): (8, 128)}
+# (B, M, Do): the row kernels' plans that stay one block of 40 rows a row
+# block, no cluster, as before clusters: the headline's training layer and
+# its serving shape, Do=1, and the MNIST DGP's serving shape at layer 0
+ROW_PLANS_KEPT = [(10000, 100, 8), (100000, 100, 8), (10000, 100, 1),
+                  (100000, 100, 30)]
 
 
 def _covered_once(n, starts, width):
@@ -291,6 +308,80 @@ def _check_reduction_jobs(case, bp, B, M, Dx, Do):
                     (xrg, xjg), 1, nthreads)
 
 
+def _check_row_plan(case, plan, B, M, Do, backward):
+    """A row kernel's plan, by the kernel's decoding of its block and
+    thread indices (``split_of``, ``gram_tiles``, the products' tiles and,
+    in the backward, the rounds and the fold), replayed: every row in one
+    cluster (or block); every (row, d) of the variance products formed by
+    one block; every column of K, G, dG and dK by one block of its cluster
+    and one thread tile of it (the gram's R x 4 tiles in one pass of 256
+    threads); in the backward, the rounds' T_d made once each and folded in
+    d order 0 .. Do - 1."""
+    tb, cs, R = plan["tb"], plan["cluster"], plan["gram_rows"]
+    cg = -(-M // 4)
+    rows = -(-B // tb)
+    blocks = plan["row_blocks"] if backward else plan["blocks"]
+    assert blocks == rows * cs and blocks <= 2 ** 31 - 1, (
+        f"{case}: {blocks} blocks for {rows} row blocks of {cs}")
+    assert 1 <= cs <= tcond.MAX_CLUSTER and cs <= min(Do, cg) and (
+        tb == _row_rows(M)), f"{case}: plan {plan}"
+    assert _covered_once(B, range(0, rows * tb, tb), tb) and (
+        (rows - 1) * tb < B), f"{case}: a row not in exactly one cluster"
+    bounds = [(q * cg // cs, (q + 1) * cg // cs) for q in range(cs)]
+    ncg = max(g1 - g0 for g0, g1 in bounds)
+    assert plan["col_groups"] == ncg == -(-cg // cs) and all(
+        g1 > g0 for g0, g1 in bounds), f"{case}: column groups {bounds}"
+    fewest = min([r for r in (1, 2) if (tb // r) * ncg <= 256] or [4])
+    assert R == (fewest if cs > 1 else 4) and (tb // R) * ncg <= 256, (
+        f"{case}: gram tile rows {R}, one pass takes {fewest}")
+    cols = np.zeros(4 * cg, dtype=int)
+    for g0, g1 in bounds:
+        n = g1 - g0
+        cols[4 * g0:4 * g1] += 1
+        # the gram: R x 4 tiles, rows R (t // n), columns 4 g0 + t % n + n j
+        gram = np.zeros((tb, 4 * n), dtype=int)
+        for t in range((tb // R) * n):
+            for j in range(4):
+                gram[R * (t // n):R * (t // n) + R, t % n + n * j] += 1
+        # G and dK: 4 x 4 tiles packed into the first threads, row group
+        # t // n, columns 4 (g0 + t % n) ..
+        prod = np.zeros((tb, 4 * n), dtype=int)
+        for t in range((tb // 4) * n):
+            prod[4 * (t // n):4 * (t // n) + 4,
+                 4 * (t % n):4 * (t % n) + 4] += 1
+        # the backward's fold: 4 rows of one column a step
+        fold = np.zeros((tb, 4 * n), dtype=int)
+        for e in range((tb // 4) * 4 * n):
+            fold[4 * (e // (4 * n)):4 * (e // (4 * n)) + 4, e % (4 * n)] += 1
+        assert (gram == 1).all() and (prod == 1).all() and (fold == 1).all(), (
+            f"{case}: a column of K, G, dG or dK not written once by one "
+            f"thread tile of the block owning columns {4 * g0}..")
+    assert (cols == 1).all(), f"{case}: a column not owned by one block"
+    # the variance products: block q at d = q, q + cs, ...; every (row, d)
+    # of a row block once
+    hits = np.zeros(Do, dtype=int)
+    for q in range(cs):
+        nd = -(-(Do - q) // cs)
+        assert nd >= 1, f"{case}: block {q} has no d"
+        hits[[q + cs * k for k in range(nd)]] += 1
+    assert (hits == 1).all(), f"{case}: a variance product not formed once"
+    if backward:
+        rounds = plan["rounds"]
+        assert rounds == -(-Do // cs), f"{case}: {rounds} rounds"
+        made = [j * cs + q for j in range(rounds) for q in range(cs)
+                if j * cs + q < Do]
+        folded = [j * cs + r for j in range(rounds) for r in range(cs)
+                  if j * cs + r < Do]
+        assert made == sorted(made) and folded == list(range(Do)), (
+            f"{case}: the rounds' T_d {made}, folded in the order {folded}")
+
+
+def _row_rows(M):
+    """Rows a block of the row kernels without a cluster (256 threads of
+    4 x 4 tiles, at most 32 row groups)."""
+    return 4 * min(256 // -(-M // 4), 32)
+
+
 def _check_plans():
     """The launch plans of the forward and backward kernels (plain Python,
     handed to the kernels): every row in one row-pass block and one
@@ -301,17 +392,47 @@ def _check_plans():
     tiles above it, both plans replayed at every shape; the slices as they
     were (SLICES); shared memory within a block's 227 KB; the backward's
     slice-partial scratch within 8 MB and independent of B."""
+    for B, M, Do in ROW_PLANS_KEPT:
+        fp = forward_plan(B, M, 8, Do)
+        assert (fp["tb"], fp["cluster"], fp["blocks"]) == (40, 1, B // 40), (
+            f"forward plan B={B} M={M} Do={Do}: {fp}")
+        for saved in (False, True):
+            bp = backward_plan(B, M, 8, Do, saved=saved)
+            assert (bp["tb"], bp["cluster"], bp["row_blocks"]) == (
+                40, 1, B // 40), f"backward plan B={B} M={M} Do={Do}: {bp}"
     for B, M, Dx, Do in PLAN_SHAPES:
         case = f"plan B={B} M={M} Dx={Dx} Do={Do}"
-        fp = forward_plan(B, M)
+        fp = forward_plan(B, M, Dx, Do)
         bp = backward_plan(B, M, Dx, Do)
         P, P4 = -(-M // 8) * 8, -(-M // 4) * 4
         tb = fp["tb"]
         # 4 x 4 register tiles: tb / 4 row groups x P4 / 4 column groups,
         # one a thread of 256
-        assert tb == bp["tb"] and tb % 4 == 0 and (
+        assert tb == bp["tb"] == _row_rows(M) and (
             fp["busy_threads"] == (tb // 4) * (P4 // 4) <= 256), (
             f"{case}: {tb} rows, {fp['busy_threads']} threads")
+        # a cluster where one block a row block leaves SMs idle: the most
+        # blocks, a power of two, that keep two blocks an SM of 132 or
+        # fewer, at most 8, Do and the column groups; the backward's the
+        # same where its shared memory fits (the rule's own replay)
+        rows = -(-B // tb)
+        want = max([1] + [c for c in (2, 4, 8)
+                          if c <= min(Do, P4 // 4) and rows * c <= 264])
+        # then halved while a block past one an SM has under 3 products
+        while want > 1 and rows * want > 132 and (
+                -(-Do // want) + Dx / (64 * want) < 3):
+            want //= 2
+        assert fp["cluster"] == want and bp["cluster"] in (
+            want, 1), f"{case}: clusters {fp['cluster']}, " \
+            f"{bp['cluster']} (rule {want})"
+        if bp["cluster"] < want:
+            assert tcond._rows_smem(M, Do, 2) > tcond.SMEM_MAX, (
+                f"{case}: a cluster fits")
+        _check_row_plan(case + " forward", fp, B, M, Do, False)
+        for saved in (False, True):
+            _check_row_plan(case + f" backward saved={saved}",
+                            backward_plan(B, M, Dx, Do, saved=saved), B, M,
+                            Do, True)
         assert (bp["nslices"], bp["rows_per_slice"]) == SLICES[
             (B, M, Dx, Do)], (f"{case}: slices {bp['nslices']} of "
                               f"{bp['rows_per_slice']} rows")
@@ -331,11 +452,6 @@ def _check_plans():
                            ("backward row pass", bp["smem_bytes"]),
                            ("reduction", bp["reduce_smem_bytes"])):
             assert smem <= tcond.SMEM_MAX, f"{case}: {name} smem {smem}"
-        for name, blocks in (("forward", fp["blocks"]),
-                             ("backward row pass", bp["row_blocks"])):
-            assert _covered_once(B, range(0, blocks * tb, tb), tb), (
-                f"{case}: {name}: a row not in exactly one block")
-            assert (blocks - 1) * tb < B, f"{case}: {name}: empty block"
         rps, ns_ = bp["rows_per_slice"], bp["nslices"]
         assert rps % 16 == 0 and _covered_once(
             B, range(0, ns_ * rps, rps), rps), (
@@ -362,10 +478,15 @@ def _check_plans():
             fp["smem_bytes"] - 4 * (-(-M // 16) * 16) * tb), (
             f"{case}: the gram stage's ring does not fit the forward's")
         if M == 100:
+            # a cluster adds the row pass's two T buffers (2 x 40 x 100)
             assert (fp["smem_bytes"], bp["smem_bytes"]) == (
-                51520, 4 * (2 * 112 * 40 + 6400 + 80 * Do)), (
+                51520, 4 * (2 * 112 * 40 + 6400 + 80 * Do + (
+                    8000 if bp["cluster"] > 1 else 0))), (
                 f"{case}: shared memory {fp['smem_bytes']}, "
                 f"{bp['smem_bytes']}")
+            # two blocks an SM (228 KB, 1 KB of each reserved)
+            assert 2 * (max(fp["smem_bytes"], bp["smem_bytes"]) + 1024) <= (
+                233472), f"{case}: two blocks an SM do not fit"
             # the column sums' and dX's rings (plan: dX on tiles) fit the
             # product tiles' (53.5 KB): the reduction keeps its blocks an SM
             assert plan["reduce_smem_bytes"] == 4 * 4 * (2 * 16 * 104 + 16), (
@@ -1599,8 +1720,8 @@ def _check_parallel():
                "zs_rows1": zs_rows1, "zs_full": zs_full}
     # the ranks run while this process computes the JAX oracles
     pool = ThreadPoolExecutor(2)
-    runs = [pool.submit(run_ranks, fn, n, (payload,), threads=1,
-                        timeout_s=RANKS_TIMEOUT_S)
+    runs = [pool.submit(run_ranks, fn, n, (payload,), device="cpu",
+                        threads=1, timeout_s=RANKS_TIMEOUT_S)
             for fn, n in ((ranks.conditional_ranks, 2),
                           (ranks.mesh2x2_ranks, 4))]
     pool.shutdown(wait=False)

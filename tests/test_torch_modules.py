@@ -25,6 +25,7 @@ package's); plus the port's import and device rules.
 One test item that loops over its cases and names the failing case in
 every assertion message."""
 
+import inspect
 import os
 import re
 import subprocess
@@ -1402,9 +1403,9 @@ def _check_parallel(rng):
     # the ranks run while this process computes the JAX oracles
     pool = ThreadPoolExecutor(2)
     run = pool.submit(run_ranks, ranks.modules_ranks, 2, (payload,),
-                      threads=1, timeout_s=RANKS_TIMEOUT_S)
+                      device="cpu", threads=1, timeout_s=RANKS_TIMEOUT_S)
     run4 = pool.submit(run_ranks, ranks.outdim_pp_mesh4_ranks, 4,
-                       (od["payload"],), threads=1,
+                       (od["payload"],), device="cpu", threads=1,
                        timeout_s=RANKS_TIMEOUT_S)
     pool.shutdown(wait=False)
     mesh2 = jmesh.make_mesh(num_devices=2)
@@ -2110,6 +2111,11 @@ def _check_import_and_device_rules():
     init = port.parallel.mesh.initialize_distributed
     builders["initialize_distributed"] = lambda config=None: init(
         "127.0.0.1:1", 1, 0)
+    # local ranks: on the card unless the caller asks for the CPU
+    ranks_device = inspect.signature(
+        port.parallel.mesh.run_ranks).parameters["device"].default
+    assert ranks_device == "cuda", (
+        f"device rule: run_ranks places its ranks on {ranks_device}")
     if not torch.cuda.is_available():
         try:
             init("127.0.0.1:1", 1, 0, backend="nccl", device="cpu")

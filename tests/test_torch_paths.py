@@ -1677,8 +1677,8 @@ def _check_data_parallel(rng):
         "s3": pickle.dumps(_dp_model(rng, num_samples=3))}
     # the two groups at once
     pool = ThreadPoolExecutor(2)
-    runs = [pool.submit(run_ranks, fn, n, (payload,), threads=1,
-                        timeout_s=RANKS_TIMEOUT_S)
+    runs = [pool.submit(run_ranks, fn, n, (payload,), device="cpu",
+                        threads=1, timeout_s=RANKS_TIMEOUT_S)
             for fn, n in ((ranks.paths_ranks, 2), (ranks.fit_one_rank, 1))]
     pool.shutdown(wait=False)
     try:
@@ -2067,7 +2067,7 @@ def _check_demos():
     blas.start()
     pool = ThreadPoolExecutor(1)
     dp = pool.submit(run_ranks, ranks.mnist_demo_ranks, 2, (payload,),
-                     threads=1, timeout_s=240.0)
+                     device="cpu", threads=1, timeout_s=240.0)
     pool.shutdown(wait=False)
     # two torch threads here: the demos' small ops spend more CPU waking
     # threads than computing (on 8 cores: 51 s of wall and 103 s of CPU,

@@ -5,9 +5,8 @@ products' k sums in blocks of 16), the forward at three blocks an SM
 (``__launch_bounds__(256, 3)``, 80 registers), the k sums as one FFMA
 chain in both row kernels, and both; and as the sources of each other
 checkout named by ``--against`` build them (a parent unpacked by ``git
-archive``, say; its backward's C entry point must take this tree's
-arguments: tools/backward_bitwise.py holds an older one against this
-tree).
+archive``, say; its C entry points must take this tree's arguments:
+tools/backward_bitwise.py holds an older one against this tree).
 
     python3 tools/gram_stage_variants.py [--against CHECKOUT ...]
 
@@ -91,15 +90,12 @@ def build_variants(cs, build, conditional, against):
     for i, name in enumerate(variants):
         d = os.path.join(out_dir, str(i))
         fl = ctypes.CDLL(os.path.join(d, "fused_conditional.so"))
-        fw = fl.fused_conditional_fwd
-        fw.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int64] + [
-            ctypes.c_int] * 4 + [ctypes.c_void_p]
-        fw.restype = ctypes.c_int
+        fw = conditional._bind_fwd(fl)
         bw = conditional._bind_bwd(ctypes.CDLL(
             os.path.join(d, "fused_conditional_bwd.so")))
         occ = fl.fused_conditional_fwd_occupancy
-        occ.argtypes = [ctypes.c_int] * 2
-        libs[name] = (fw, bw, occ(100, 0))
+        occ.argtypes = [ctypes.c_int] * 3
+        libs[name] = (fw, bw, occ(100, 0, 1))
     return libs
 
 
