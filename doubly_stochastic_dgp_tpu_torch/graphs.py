@@ -23,17 +23,23 @@ and leaves the generator in the same state.
 The kernels' launch counters (``fused_conditional.launches`` and the
 rest) tick only where a wrapper launches its kernel: in the eager warm-up
 a capture runs, and in the capture, whose launches go into the graph.  A
-replay runs no wrapper and ticks no counter; a profiler
-(``torch.profiler``) sees the kernels a replay runs.
+replay runs no wrapper and ticks no launch counter; ``graph.replays``
+counts the replays, and ``graph.captures`` and ``graph.capture_s`` the
+captures and their seconds (``tracing.counters()`` reads them all in one
+snapshot).  A profiler (``torch.profiler``) sees the kernels a replay
+runs.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import time
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+from . import tracing
 
 
 __all__ = ["eager_on_card", "graphs_enabled", "DrawTape", "randn", "rand",
@@ -195,6 +201,7 @@ class CapturedCall:
     :meth:`pool_bytes` is the size of the graph's memory pool."""
 
     def __init__(self, body, warmup, what, pool=None):
+        t = time.perf_counter()
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
@@ -217,6 +224,8 @@ class CapturedCall:
                                f"{last.last}: {e}") from e
         finally:
             gc.enable()
+        tracing.count("graph.captures")
+        tracing.count("graph.capture_s", time.perf_counter() - t)
 
     def pool_bytes(self):
         pool = tuple(self.graph.pool())
@@ -224,5 +233,6 @@ class CapturedCall:
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def replay(self):
+        tracing.count("graph.replays")
         self.graph.replay()
         return self.outputs

@@ -39,7 +39,10 @@ an exported program, which then runs the kernel on the card.
 Launch counters: ``fused_conditional.launches`` and
 ``fused_conditional.backward_launches`` count the plain variant's forward
 and backward kernel launches, ``fused_conditional_saved.launches`` and
-``fused_conditional_saved.backward_launches`` the save-gram pair's.
+``fused_conditional_saved.backward_launches`` the save-gram pair's.  They
+tick where the wrapper runs, so not in a CUDA-graph replay
+(``graphs.py``): ``graph.replays`` counts the replays, and
+``tracing.counters()`` reads both in one snapshot.
 """
 
 from __future__ import annotations

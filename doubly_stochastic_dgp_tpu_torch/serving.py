@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from .graphs import CapturedCall, DrawTape, graphs_enabled
+from .tracing import count, span
 
 __all__ = ["make_server", "derive_seed", "GraphedRequests", "export_fn",
            "load_exported", "export_predict_y"]
@@ -98,16 +99,22 @@ class GraphedRequests:
 
     def __call__(self, Xb, Yb, generator):
         if not graphs_enabled(self.device):
-            return self.fn(Xb, Yb, generator)
+            with span("serve.eager"):
+                return self.fn(Xb, Yb, generator)
         key = (tuple(Xb.shape), None if Yb is None else tuple(Yb.shape))
         if key not in self.captured:
-            self._capture(key, Xb, Yb)
+            with span("serve.capture"):
+                self._capture(key, Xb, Yb)
         sX, sY, tape, call = self.captured[key]
-        sX.copy_(Xb)
-        if sY is not None:
-            sY.copy_(Yb)
-        tape.fill(generator)
-        return _map(torch.clone, call.replay())
+        with span("serve.draws"):
+            tape.fill(generator)
+        with span("serve.replay"):
+            sX.copy_(Xb)
+            if sY is not None:
+                sY.copy_(Yb)
+            out = call.replay()
+        with span("serve.output"):
+            return _map(torch.clone, out)
 
 
 def make_server(model, S: int, *, method: str = "predict_y",
@@ -130,7 +137,16 @@ def make_server(model, S: int, *, method: str = "predict_y",
     ``CapturedCall``).  The graphs share one memory pool, which holds the
     largest captured request's intermediates and every captured shape's
     outputs; each shape also keeps its static inputs and normals
-    (:class:`GraphedRequests`)."""
+    (:class:`GraphedRequests`).
+
+    Each call is a ``serve.request`` span (``tracing.py``), its trace id
+    the call's index (the warm-up's first), with children ``serve.input``
+    (the host rows to the device), ``serve.seed`` (the seed and the
+    request's generator), ``serve.pad`` and ``serve.concat`` (buckets),
+    and on the card ``serve.capture``, ``serve.draws``, ``serve.replay``
+    (the static inputs' copies and the replay) and ``serve.output`` (the
+    outputs' clones), elsewhere ``serve.eager``; and adds to the counters
+    ``serve.requests``, ``serve.rows`` and ``serve.padded_rows``."""
     if method not in ("predict_y", "predict_density"):
         raise ValueError(f"method must be 'predict_y' or 'predict_density'; "
                          f"got {method!r}")
@@ -153,47 +169,63 @@ def make_server(model, S: int, *, method: str = "predict_y",
         return bound(Xb, S=S, generator=g)
 
     requests = GraphedRequests(_eager, device, method)
+    calls = itertools.count()
 
-    def _call(Xb, Yb, s):
-        g = torch.Generator(device=device)
-        g.manual_seed(s)
-        return requests(Xb, Yb, g)
-
-    def _next_seed():
-        return derive_seed(base_seed, next(counter))
+    def _generator(seed, chunk=None):
+        # the seed as given (for a chunk of a split request, derived from
+        # it and the chunk's index), else the server's next
+        with span("serve.seed"):
+            if seed is None:
+                seed = derive_seed(base_seed, next(counter))
+            elif chunk is not None:
+                seed = derive_seed(seed, chunk)
+            g = torch.Generator(device=device)
+            g.manual_seed(seed)
+        return g
 
     def _pad_rows(A, pad):
         return torch.nn.functional.pad(A, (0, 0, 0, pad))
 
+    def _cut(out, n):
+        return _map(lambda t: _rows(t, n), out)
+
     @torch.no_grad()
     def serve(X, Y=None, seed=None):
-        X = torch.as_tensor(X, dtype=dtype, device=device)
-        if needs_y:
-            if Y is None:
-                raise ValueError("predict_density requests need Y")
-            Y = torch.as_tensor(Y, dtype=dtype, device=device)
-        if buckets is None:
-            return _call(X, Y, seed if seed is not None else _next_seed())
+        with span("serve.request", trace=next(calls)):
+            return _serve(X, Y, seed)
+
+    def _serve(X, Y, seed):
+        with span("serve.input"):
+            X = torch.as_tensor(X, dtype=dtype, device=device)
+            if needs_y:
+                if Y is None:
+                    raise ValueError("predict_density requests need Y")
+                Y = torch.as_tensor(Y, dtype=dtype, device=device)
         B = X.shape[0]
+        count("serve.requests")
+        count("serve.rows", B)
+        if buckets is None:
+            return requests(X, Y, _generator(seed))
         top = buckets[-1]
-        chunks = []
+        outs = []
         for chunk_idx, start in enumerate(range(0, B, top)):
             n = min(top, B - start)
             bb = next(b for b in buckets if n <= b)
-            Xb = _pad_rows(X[start:start + n], bb - n)
-            Yb = _pad_rows(Y[start:start + n], bb - n) if needs_y else None
-            if seed is not None:
-                s = seed if B <= top else derive_seed(seed, chunk_idx)
-            else:
-                s = _next_seed()
-            out = _call(Xb, Yb, s)
-            chunks.append(_map(lambda t: _rows(t, n), out))
-        if len(chunks) == 1:
-            return chunks[0]
-        if isinstance(chunks[0], tuple):
-            return tuple(torch.cat(parts, dim=-2 if parts[0].ndim >= 2 else 0)
-                         for parts in zip(*chunks))
-        return torch.cat(chunks, dim=-2 if chunks[0].ndim >= 2 else 0)
+            with span("serve.pad"):
+                Xb = _pad_rows(X[start:start + n], bb - n)
+                Yb = _pad_rows(Y[start:start + n], bb - n) if needs_y else None
+            count("serve.padded_rows", bb - n)
+            g = _generator(seed, chunk_idx if B > top else None)
+            outs.append((requests(Xb, Yb, g), n))
+        with span("serve.concat"):
+            chunks = [_cut(out, n) for out, n in outs]
+            if len(chunks) == 1:
+                return chunks[0]
+            if isinstance(chunks[0], tuple):
+                return tuple(torch.cat(parts,
+                                       dim=-2 if parts[0].ndim >= 2 else 0)
+                             for parts in zip(*chunks))
+            return torch.cat(chunks, dim=-2 if chunks[0].ndim >= 2 else 0)
 
     for b in (buckets or (warmup_batch,)):
         if not b:

@@ -38,6 +38,7 @@ import torch
 
 from ..graphs import CapturedCall, DrawTape, graphs_enabled, randint
 from ..serving import derive_seed
+from ..tracing import span
 from ..utils.params import log_prior
 from .natgrad import natural_step
 from .optim import (copy_state, freeze_q_params, make_train_step,
@@ -342,7 +343,12 @@ class _Chunk:
     (and inside ``graphs.eager_on_card()``, or when not ``graphable``),
     else the captured graph of its model, captured at the first call.
     ``graph`` is (model, tape, ``CapturedCall``) once captured;
-    ``dispatch`` is 'graph' or 'eager', the way the last call went."""
+    ``dispatch`` is 'graph' or 'eager', the way the last call went.
+
+    Each call is a ``fit.chunk`` span (``tracing.py``), its trace id the
+    call's index, with children ``fit.capture`` (the first call on the
+    card), ``fit.draws`` (the tape's draws), ``fit.replay`` and
+    ``fit.output`` (the loss's clone), or ``fit.eager``."""
 
     def __init__(self, body, capture, rejected, graphable=True):
         self._body, self._capture = body, capture
@@ -350,19 +356,67 @@ class _Chunk:
         self.graphable = graphable
         self.graph = None
         self.dispatch = None
+        self.calls = 0
 
     def __call__(self, model, generator=None):
+        self.calls += 1
+        with span("fit.chunk", trace=self.calls - 1):
+            return self._call(model, generator)
+
+    def _call(self, model, generator):
         if not (self.graphable and graphs_enabled(model.X_data.device)):
             self.dispatch = "eager"
-            return self._body(model, generator)
+            with span("fit.eager"):
+                return self._body(model, generator)
         if generator is None:
             raise ValueError("a graphed chunk needs a generator")
         if self.graph is None or self.graph[0] is not model:
-            self.graph = (model,) + self._capture(model, generator)
+            with span("fit.capture"):
+                self.graph = (model,) + self._capture(model, generator)
         _, tape, graph = self.graph
-        tape.fill(generator)
+        with span("fit.draws"):
+            tape.fill(generator)
         self.dispatch = "graph"
-        return graph.replay().clone()
+        with span("fit.replay"):
+            loss = graph.replay()
+        with span("fit.output"):
+            return loss.clone()
+
+
+class _Log:
+    """The log events of :func:`fit` and :func:`fit_dp`: each a
+    ``fit.log`` span (its trace id the chunk's index) holding
+    ``fit.sync`` (the host's reads of the loss and, when ``guarded``, of
+    the rejected count: its wait for the device) and ``fit.callbacks``;
+    ``history`` holds each event's stats, with the chunk's dispatch when
+    ``dispatch``."""
+
+    def __init__(self, run_chunk, callbacks, done, guarded, dispatch=False):
+        self.run_chunk, self.callbacks = run_chunk, callbacks
+        self.guarded, self.dispatch = bool(guarded), dispatch
+        self.history = []
+        self.t0 = self.last_t = time.perf_counter()
+        self.last_i = done
+
+    def __call__(self, model, loss, done):
+        with span("fit.log", trace=self.run_chunk.calls - 1):
+            with span("fit.sync"):
+                loss = float(loss)
+                rejected = (int(self.run_chunk.rejected) if self.guarded
+                            else None)
+            now = time.perf_counter()
+            rate = (done - self.last_i) / max(now - self.last_t, 1e-9)
+            self.last_t, self.last_i = now, done
+            stats = {"iter": done, "loss": loss, "iters_per_sec": rate,
+                     "elapsed": now - self.t0}
+            if self.dispatch:
+                stats["dispatch"] = self.run_chunk.dispatch
+            if rejected is not None:
+                stats["rejected"] = rejected
+            self.history.append(stats)
+            with span("fit.callbacks"):
+                for cb in self.callbacks:
+                    cb(done, model, loss, stats)
 
 
 def fit(model, iterations: int, learning_rate: float = 0.01,
@@ -383,6 +437,10 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
     "iters_per_sec", "elapsed"} and ``callbacks`` are called as
     cb(step, model, loss, stats).  The minibatches and samples come from
     one ``torch.Generator`` on the model's device seeded with ``seed``.
+    Spans (``tracing.py``): ``fit.chunk`` for each chunk, ``fit.log`` at
+    each log event, with ``fit.sync`` (the host's wait for the loss) and
+    ``fit.callbacks``, and ``fit.checkpoint``; their trace id is the
+    chunk's index in this call.
 
     ``reject_nonfinite`` bounds the trajectory with the rollback and
     trust-scale guard (:func:`make_scan_train_step`); the history then
@@ -446,30 +504,21 @@ def fit(model, iterations: int, learning_rate: float = 0.01,
             done = int(resumed)
     ckpt_every = ckpt_every or log_every
 
-    history = []
-    t0 = time.perf_counter()
-    last_t, last_i = t0, done
+    log = _Log(run_chunk, callbacks, done,
+               reject_nonfinite or natgrad_gamma is not None)
     while done < iterations:
         loss = run_chunk(model, generator=generator)
         done += chunk
         if ckpt_dir is not None and (done % ckpt_every < chunk
                                      or done >= iterations):
             from .checkpoint import save_checkpoint
-            save_checkpoint(ckpt_dir, (model, optimizer.state, generator,
-                                       run_chunk.rejected), done)
+            with span("fit.checkpoint", trace=run_chunk.calls - 1):
+                save_checkpoint(ckpt_dir, (model, optimizer.state,
+                                           generator, run_chunk.rejected),
+                                done)
         if done % log_every < chunk or done >= iterations:
-            loss = float(loss)
-            now = time.perf_counter()
-            rate = (done - last_i) / max(now - last_t, 1e-9)
-            last_t, last_i = now, done
-            stats = {"iter": done, "loss": loss, "iters_per_sec": rate,
-                     "elapsed": now - t0}
-            if reject_nonfinite or natgrad_gamma is not None:
-                stats["rejected"] = int(run_chunk.rejected)
-            history.append(stats)
-            for cb in callbacks:
-                cb(done, model, loss, stats)
-    return model, history
+            log(model, loss, done)
+    return model, log.history
 
 
 def fit_dp(model, mesh, iterations: int, learning_rate: float = 0.01,
@@ -491,8 +540,8 @@ def fit_dp(model, mesh, iterations: int, learning_rate: float = 0.01,
     Rank d of the data axis draws from ``rank_generator(seed, d)`` for the
     whole run (a chunk's draws follow from the seed, the rank and the
     chunk's index, as the JAX key folds them): on a one-rank mesh that is
-    ``fit``'s generator, and ``fit_dp`` takes ``fit``'s steps.  Chunks, logging, callbacks (called on every rank)
-    and the guard are ``fit``'s; the guard is off by default
+    ``fit``'s generator, and ``fit_dp`` takes ``fit``'s steps.  Chunks, logging, callbacks (called on every rank),
+    spans and the guard are ``fit``'s; the guard is off by default
     (``reject_nonfinite=None`` means False here) and not applied to the
     data x sample step.  History entries add "dispatch": 'graph' (NCCL
     on the card: one captured CUDA graph a chunk, its all-reduces
@@ -580,32 +629,22 @@ def fit_dp(model, mesh, iterations: int, learning_rate: float = 0.01,
             generator.set_state(states[rank].clone())
     ckpt_every = ckpt_every or log_every
 
-    history = []
-    t0 = time.perf_counter()
-    last_t, last_i = t0, done
+    log = _Log(run_chunk, callbacks, done, reject_nonfinite, dispatch=True)
     while done < iterations:
         loss = run_chunk(model, generator=generator)
         done += chunk
         if ckpt_dir is not None and (done % ckpt_every < chunk
                                      or done >= iterations):
-            states = generator_states()
-            if rank == 0:
-                from .checkpoint import save_checkpoint
-                save_checkpoint(ckpt_dir, (model, optimizer.state, states,
-                                           run_chunk.rejected), done)
+            with span("fit.checkpoint", trace=run_chunk.calls - 1):
+                states = generator_states()
+                if rank == 0:
+                    from .checkpoint import save_checkpoint
+                    save_checkpoint(ckpt_dir, (model, optimizer.state,
+                                               states, run_chunk.rejected),
+                                    done)
         if done % log_every < chunk or done >= iterations:
-            loss = float(loss)
-            now = time.perf_counter()
-            rate = (done - last_i) / max(now - last_t, 1e-9)
-            last_t, last_i = now, done
-            stats = {"iter": done, "loss": loss, "iters_per_sec": rate,
-                     "elapsed": now - t0, "dispatch": run_chunk.dispatch}
-            if reject_nonfinite:
-                stats["rejected"] = int(run_chunk.rejected)
-            history.append(stats)
-            for cb in callbacks:
-                cb(done, model, loss, stats)
-    return model, history
+            log(model, loss, done)
+    return model, log.history
 
 
 def _chunk_draws(model, seed, mb, batch_size, zs):

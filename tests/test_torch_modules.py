@@ -20,7 +20,8 @@ their caches; the collapsed DGPs' data-parallel bounds and steps on
 gloo ranks (``parallel/collapsed.py`` against the JAX package's, and the
 mesh helpers), and output-dimension and pipeline parallelism on gloo
 ranks (``parallel/outdim.py`` and ``parallel/pp.py`` against the JAX
-package's); plus the port's import and device rules.
+package's); plus the port's import and device rules, and the port's
+spans and counters (``tests/test_torch_tracing.py``).
 
 One test item that loops over its cases and names the failing case in
 every assertion message."""
@@ -2053,6 +2054,7 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.training.hmc\n"
             "import doubly_stochastic_dgp_tpu_torch.training.nuts\n"
             "import doubly_stochastic_dgp_tpu_torch.serving\n"
+            "import doubly_stochastic_dgp_tpu_torch.tracing\n"
             "import doubly_stochastic_dgp_tpu_torch.parallel\n"
             "import doubly_stochastic_dgp_tpu_torch.parallel.mesh\n"
             "import doubly_stochastic_dgp_tpu_torch.parallel.dp\n"
@@ -2060,13 +2062,15 @@ def _check_import_and_device_rules():
             "import doubly_stochastic_dgp_tpu_torch.parallel.outdim\n"
             "import doubly_stochastic_dgp_tpu_torch.parallel.pp\n"
             "import test_torch_ranks\n"
+            "import test_torch_tracing\n"
             "bad = [m for m in ('jax', 'doubly_stochastic_dgp_tpu') "
             "if m in sys.modules]\n"
             "bad += [m for m in sys.modules if m.startswith(('jax.', "
             "'doubly_stochastic_dgp_tpu.'))]\n"
             "print(repr(bad))\n")
     # the ranks' side of the parallel cases (tests/test_torch_ranks.py)
-    # too: a spawned rank imports it and must not import JAX
+    # too: a spawned rank imports it and must not import JAX; and the
+    # tracing cases (tests/test_torch_tracing.py), which run on a card
     code = (f"sys_path = {str(Path(__file__).resolve().parent)!r}\n"
             "import sys; sys.path.insert(0, sys_path)\n" + code)
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -2168,3 +2172,6 @@ def test_modules_match_jax():
     _check_parallel(np.random.RandomState(37))
     assert psi2_core.launches == 0, "psi2_core launched for CPU tensors"
     _check_import_and_device_rules()
+    # the spans and counters of tracing.py (tests/test_torch_tracing.py)
+    import test_torch_tracing
+    test_torch_tracing.check_tracing()
